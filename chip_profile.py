@@ -1,11 +1,14 @@
-"""Device-time breakdown of horovod_tpu_torch's serving path on one card.
+"""Device-time breakdown of horovod_tpu_torch's serving and training
+paths on one card.
 
     python3 chip_profile.py
 
 Builds the full-width flagship transformer of chip_smoke.py (random
-weights from seed 0), warms one prefill of 8 x 512 prompt tokens and two
-decode steps, then records one prefill and 8 decode steps under
-``torch.profiler`` and prints, for each: the wall time, the device time
+weights from seed 0). Serving: warms one prefill of 8 x 512 prompt
+tokens and two decode steps, then records one prefill and 8 decode
+steps. Training: ``hvd.init()``, ``DistributedOptimizer(AdamW)`` and the
+batch of chip_smoke.py (4 x 4096, loss_chunk 512); warms one step, then
+records one. For each record it prints the wall time, the device time
 summed over kernels, the device's busy share (kernel time over wall
 time), and the kernel time grouped by kind. Needs a CUDA card; fails
 when the profiler records no kernel time.
@@ -20,13 +23,18 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import FLAGSHIP, N_REQUESTS, NEW_TOKENS, PAGE_SIZE, prompts
+from chip_smoke import (ADAMW, FLAGSHIP, LOSS_CHUNK, N_REQUESTS, NEW_TOKENS,
+                        PAGE_SIZE, TRAIN_BATCH, TRAIN_SEQ, prompts)
 
 DECODE_STEPS = 8
 
 # Kernel-name fragments -> group, first match wins.
 GROUPS = (
     ("flash_fwd", "flash_fwd (hand kernel)"),
+    ("flash_bwd_dq", "flash_bwd_dq (hand kernel)"),
+    ("flash_bwd_dkv", "flash_bwd_dkv (hand kernel)"),
+    ("nccl", "all-reduce (NCCL)"),
+    ("multi_tensor", "optimizer (AdamW foreach)"),
     ("gemm", "matmul (cuBLAS)"),
     ("gemv", "matmul (cuBLAS)"),
     ("xmma", "matmul (cuBLAS)"),
@@ -128,7 +136,45 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     report(f"decode {DECODE_STEPS} steps x 8 rows", prof, wall, where)
+    del eng, params
+    torch.cuda.empty_cache()
+    profile_train(card, where)
     return 0
+
+
+def profile_train(card, where):
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import transformer as tfm
+
+    hvd.init(device=card)
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
+                                loss_chunk=LOSS_CHUNK, **FLAGSHIP)
+    lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
+                           device=card)
+    hvd.broadcast_parameters(lm.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(lm.parameters(), **ADAMW),
+        named_parameters=lm.named_parameters())
+    tokens = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+    targets = torch.from_numpy(np.roll(tokens, -1, axis=1)).to(card)
+    tokens = torch.from_numpy(tokens).to(card)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        lm.loss(tokens, targets).backward()
+        opt.step()
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report(f"train step {TRAIN_BATCH} x {TRAIN_SEQ}", prof, wall, where)
+    hvd.shutdown()
 
 
 if __name__ == "__main__":

@@ -9,28 +9,43 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 2. build: every CUDA source of the port is compiled from the checkout
    (one nvcc per source, all at once) into build/horovod_tpu_torch/;
 3. kernels: each kernel's wrapper against its plain PyTorch version on
-   the same tensors on the card, at the serving prefill shape and at
-   ragged, windowed, non-causal and f32 shapes, with stated tolerances;
-   the kernel, the plain version and one PyTorch library call computing
-   the same function are timed at the prefill shape;
+   the same tensors on the card, with stated tolerances. ``flash_fwd``
+   at the serving prefill shape and at ragged, windowed, non-causal and
+   f32 shapes; ``flash_bwd_dq`` and ``flash_bwd_dkv`` at the training
+   head shape (B 1, S 4096), ragged causal, windowed, non-causal MHA and
+   f32 shapes. Each kernel, its plain version and one PyTorch library
+   call computing the same function are timed at the shape its main path
+   gives it (the plain backward at B 1: at B 4 it would materialize
+   4.3 GB score matrices);
 4. parity: the serve engine's prefill logits through the flash kernel
    against the same prompts through ``attention_impl="dense"`` at full
    width, and a small f32 model's prefill + decode against its forward;
-5. serve: the flagship transformer of bench_transformer.py at full width
-   (8 layers, the bench's own depth; d_model 2048, 16 query / 4 KV heads,
-   d_ff 8192, vocab 32768, rope, bf16 activations, f32 parameters,
-   random weights from seed 0) serves 8 greedy requests of 512 prompt
-   tokens and 64 new tokens through ``serve.Engine``, with the kernel
-   launch counts zeroed just before and read just after.
+   then ``loss_fn``'s loss and every parameter gradient through flash
+   against dense, at full width (B 1, S 1024) and on a small f32 model;
+5. serve (main path 1): the flagship transformer of bench_transformer.py
+   at full width (8 layers, the bench's own depth; d_model 2048, 16 query
+   / 4 KV heads, d_ff 8192, vocab 32768, rope, bf16 activations, f32
+   parameters, random weights from seed 0) serves 8 greedy requests of
+   512 prompt tokens and 64 new tokens through ``serve.Engine``;
+6. train (main path 2): the same model, as bench_transformer.py trains
+   it (batch 4 x seq 4096, loss_chunk 512, AdamW 3e-4 with weight decay
+   1e-4), through ``hvd.init()`` (NCCL, one rank),
+   ``broadcast_parameters`` and ``DistributedOptimizer``: one warm-up
+   step and 4 timed steps on one batch. The loss must fall, and the
+   launches and exchanges must be as many as the steps say.
 
-The first line is the card's name and power limit as ``nvidia-smi``
-gives them. The last two lines are ``{"kernels": [...]}``, one entry per
-kernel of the path, and the result, ``{"ok": true, "device": {...}}``.
+Each main path runs with the kernel launch counts zeroed just before it
+and read just after. The first line is the card's name and power limit
+as ``nvidia-smi`` gives them. The last two lines are
+``{"kernels": [...]}``, one entry per kernel, and the result,
+``{"ok": true, "device": {...}}``.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -44,6 +59,11 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 FLAGSHIP = dict(vocab_size=32768, d_model=2048, n_heads=16, n_kv_heads=4,
                 n_layers=8, d_ff=8192, max_seq=4096, positional="rope")
 N_REQUESTS, PROMPT_LEN, NEW_TOKENS, PAGE_SIZE = 8, 512, 64, 16
+# bench_transformer.py's training defaults: batch per chip, sequence,
+# loss chunk, optax.adamw(3e-4) (weight decay 1e-4, betas, eps).
+TRAIN_BATCH, TRAIN_SEQ, LOSS_CHUNK = 4, 4096, 512
+ADAMW = dict(lr=3e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+WARMUP_STEPS, TIMED_STEPS = 1, 4
 
 # Kernel vs plain version: f32 outputs differ by summation order only;
 # a bf16 output by at most one rounding of a value below 4 (2^-6); lse
@@ -56,6 +76,22 @@ F32_ATOL, BF16_ATOL, LSE_ATOL = 2e-5, 2e-2, 1e-4
 LOGITS_ATOL = 0.15
 # A small f32 model: serve prefill + decode against its own forward.
 SMALL_ATOL = 1e-4
+# Backward kernels vs plain versions: f32 gradients are sums over a
+# whole row or column of the score matrix, in another order (1e-4, the
+# reference's gradient band); a bf16 gradient may differ by one bf16
+# rounding (2^-7 relative) of its largest magnitude.
+GRAD_F32_ATOL, GRAD_BF16_REL = 1e-4, 2.0 ** -7
+# Training parity, flash vs dense: the loss, and each parameter gradient
+# by relative L2 difference; a small f32 model to the reference's 1e-4.
+# Dense rounds p to bf16 before p.v, and the transpose of that cast
+# rounds dP to bf16 before dS = P * (dP - delta), which cancels; the
+# kernels keep both in f32. That puts single leaves at 0.02 (0.0203 at
+# layers.7.wq on an H100), so the band is 3e-2. The f32 dense model is
+# the yardstick of both bf16 paths: flash may be no farther from it than
+# YARDSTICK_RATIO times the dense path is (worst leaf against worst
+# leaf; 0.0221 against 0.0191 on an H100).
+TRAIN_LOSS_ATOL, TRAIN_GRAD_REL, SMALL_GRAD_ATOL = 1e-2, 3e-2, 1e-4
+YARDSTICK_RATIO = 1.5
 
 
 def check(cond, msg):
@@ -261,6 +297,333 @@ def phase_serve(fa, serve, metrics, lm, card, where):
     return launches
 
 
+def causal_pairs(s, causal, window):
+    """(query, key) pairs the mask keeps in one (b, h) row."""
+    if not causal:
+        return s * s
+    w = s if window is None else min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def bound(nbytes, flops, dtype):
+    """(bound_ms, bound_by): the larger of bytes over HBM rate and
+    operations over the peak rate of ``dtype``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+
+
+def backward_work(b, s, h, h_kv, d, dtype, causal, window):
+    """{kernel: (bytes, flops)} of the two backward kernels on these
+    shapes. dq reads q, dO, k, v, lse and delta and writes dq, 6*D FLOPs
+    per live pair (s, dp, dS.K); dkv reads the same and writes dk and
+    dv, 8*D FLOPs per live pair (s, dp, P^T.dO, dS^T.Q)."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    q_side = b * s * h * d * item
+    kv_side = b * s * h_kv * d * item
+    vectors = 2 * 4 * b * h * s
+    pairs = causal_pairs(s, causal, window) * b * h
+    return {
+        "flash_bwd_dq": (3 * q_side + 2 * kv_side + vectors, 6 * d * pairs),
+        "flash_bwd_dkv": (2 * q_side + 4 * kv_side + vectors, 8 * d * pairs),
+    }
+
+
+def bwd_inputs(fa, card, gen, b, s, h, h_kv, d, dtype, causal, window):
+    """q, k, v, dO in ``dtype`` and the forward's lse and delta."""
+    q = torch.randn(b, s, h, d, generator=gen, device=card).to(dtype)
+    k = torch.randn(b, s, h_kv, d, generator=gen, device=card).to(dtype)
+    v = torch.randn(b, s, h_kv, d, generator=gen, device=card).to(dtype)
+    do = torch.randn(b, s, h, d, generator=gen, device=card).to(dtype)
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal, window)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta
+
+
+def phase_backward_kernels(fa, card, gen):
+    """flash_bwd_dq and flash_bwd_dkv against their plain versions at
+    every listed shape; the kernels and SDPA's backward timed at the
+    training shape, the plain versions at B 1. Returns the two entries
+    of the kernels line (launches filled in by the main paths)."""
+    cases = [  # (B, S, H, H_kv, D, dtype, causal, window)
+        (1, TRAIN_SEQ, 16, 4, 128, torch.bfloat16, True, None),  # training
+        (1, 1000, 16, 4, 128, torch.bfloat16, True, None),       # ragged
+        (1, 1000, 16, 4, 128, torch.bfloat16, True, 256),        # window
+        (1, 700, 8, 8, 64, torch.bfloat16, False, None),         # non-causal
+        (2, 130, 4, 2, 8, torch.float32, True, None),            # small f32
+    ]
+    worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    plain_ms = {}
+    for i, (b, s, h, h_kv, d, dtype, causal, window) in enumerate(cases):
+        args = bwd_inputs(fa, card, gen, b, s, h, h_kv, d, dtype, causal,
+                          window)
+        got = {"flash_bwd_dq": (fa.flash_bwd_dq(*args, causal, window),),
+               "flash_bwd_dkv": fa.flash_bwd_dkv(*args, causal, window)}
+        torch.cuda.synchronize()
+        want = {"flash_bwd_dq": (fa.flash_bwd_dq_reference(
+                    *args, causal, window),),
+                "flash_bwd_dkv": fa.flash_bwd_dkv_reference(
+                    *args, causal, window)}
+        line = []
+        for name, outs in (("flash_bwd_dq", "dq"), ("flash_bwd_dkv", "dkdv")):
+            for out, g, w in zip((outs[:2], outs[2:]), got[name],
+                                 want[name]):
+                err = (g.float() - w.float()).abs().max().item()
+                tol = GRAD_F32_ATOL if dtype == torch.float32 else \
+                    GRAD_BF16_REL * w.float().abs().max().item()
+                line.append(f"{out} max|d|={err:.3g} (tol {tol:.3g})")
+                check(err <= tol, f"{name} disagrees with its plain version "
+                                  f"at {(b, s, h, h_kv, d, dtype, causal)}")
+                worst[name] = max(worst[name], err)
+        print(f"kernel backward B={b} S={s} H={h} H_kv={h_kv} D={d} "
+              f"{str(dtype)[6:]} causal={causal} window={window}: "
+              + "; ".join(line), flush=True)
+        if i == 0:
+            plain_ms = {
+                "flash_bwd_dq": time_ms(
+                    lambda: fa.flash_bwd_dq_reference(*args, True, None), 3),
+                "flash_bwd_dkv": time_ms(
+                    lambda: fa.flash_bwd_dkv_reference(*args, True, None), 3),
+            }
+        del args, got, want
+        torch.cuda.empty_cache()
+
+    # The training shape: B 4, S 4096, as the main path gives it.
+    shape = (TRAIN_BATCH, TRAIN_SEQ, 16, 4, 128, torch.bfloat16, True, None)
+    args = bwd_inputs(fa, card, gen, *shape)
+    ms = {"flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq(*args), 5),
+          "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv(*args), 5)}
+    fwd_ms = time_ms(lambda: fa.flash_attention(*args[:3]), 10)
+    q, k, v = (x.transpose(1, 2).detach().requires_grad_()
+               for x in args[:3])
+    g = args[3].transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_fwd = time_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                    enable_gqa=True), 10)
+    sdpa_both = time_ms(lambda: torch.autograd.grad(
+        sdpa(q, k, v, is_causal=True, enable_gqa=True), (q, k, v), g), 10)
+    library_ms = sdpa_both - sdpa_fwd
+    fwd_bytes, fwd_flops = attention_work(*shape)
+    print(f"kernel flash_fwd timing at the training shape (B 4, S 4096): "
+          f"{fwd_ms:.4f} ms, SDPA forward {sdpa_fwd:.4f} ms, bound "
+          f"{bound(fwd_bytes, fwd_flops, torch.bfloat16)[0]:.4f} ms "
+          f"({fwd_flops / fwd_ms / 1e9:.1f} TFLOP/s)", flush=True)
+    work = backward_work(*shape)
+    entries = {}
+    for name, replaces in (("flash_bwd_dq", 125), ("flash_bwd_dkv", 169)):
+        bound_ms, bound_by = bound(*work[name], torch.bfloat16)
+        entries[name] = {
+            "name": name, "route": "cuda",
+            "source": "horovod_tpu_torch/ops/csrc/flash_bwd.cu",
+            "replaces": f"horovod_tpu/ops/flash_attention.py:{replaces}",
+            "ms": ms[name], "plain_ms": plain_ms[name],
+            "plain_shape": "B 1, S 4096 (the kernel's ms is at B 4)",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "library": "scaled_dot_product_attention backward (forward + "
+                       "backward less forward), dq, dk and dv together",
+            "max_abs_err": worst[name],
+        }
+        print(f"kernel {name} timing at the training shape: {ms[name]:.4f} "
+              f"ms, plain (B 1) {plain_ms[name]:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}; "
+              f"{work[name][1] / ms[name] / 1e9:.1f} TFLOP/s)", flush=True)
+    print(f"kernel backward pair at the training shape: "
+          f"{ms['flash_bwd_dq'] + ms['flash_bwd_dkv']:.4f} ms; SDPA backward "
+          f"{library_ms:.4f} ms (forward + backward {sdpa_both:.4f} ms)",
+          flush=True)
+    train_fwd = {"ms": fwd_ms, "library_ms": sdpa_fwd,
+                 "bound_ms": bound(fwd_bytes, fwd_flops, torch.bfloat16)[0]}
+    return entries, train_fwd
+
+
+def _flat_grads(params):
+    out = {k: v.grad for k, v in params.items() if k != "layers"}
+    for i, layer in enumerate(params["layers"]):
+        out.update({f"layers.{i}.{k}": v.grad for k, v in layer.items()})
+    return out
+
+
+def _loss_and_grads(tfm, params, cfg, tokens, targets):
+    for t in [v for k, v in params.items() if k != "layers"] + \
+            [v for layer in params["layers"] for v in layer.values()]:
+        t.grad = None
+        t.requires_grad_()
+    loss = tfm.loss_fn(params, tokens, targets, cfg)
+    loss.backward()
+    return loss.item(), _flat_grads(params)
+
+
+def _rel_l2(a, b):
+    """{leaf: |a - b| / |b|} over two gradient dicts."""
+    return {k: ((a[k] - b[k]).norm() / b[k].norm().clamp_min(1e-30)).item()
+            for k in b}
+
+
+def phase_train_parity(tfm, card):
+    """loss_fn and every parameter gradient through flash against dense:
+    full width at B 1, S 1024 (bf16, with the f32 dense model as the
+    yardstick of both), and a small f32 model."""
+    rng = np.random.default_rng(2)
+    small = dict(vocab_size=256, d_model=128, n_heads=4, n_kv_heads=2,
+                 n_layers=2, d_ff=256, max_seq=128, positional="rope")
+    for label, kw, seq, dtype in (
+            ("full width B 1 x 1024", FLAGSHIP, 1024, torch.bfloat16),
+            ("small f32", small, 128, torch.float32)):
+        tokens = torch.from_numpy(rng.integers(0, kw["vocab_size"],
+                                               (1, seq))).to(card)
+        targets = torch.roll(tokens, -1, dims=1)
+        runs = [("flash", "flash", dtype), ("dense", "dense", dtype)]
+        if dtype != torch.float32:
+            runs.append(("f32 dense", "dense", torch.float32))
+        params = None
+        loss, grads = {}, {}
+        for name, impl, dt in runs:
+            cfg = tfm.TransformerConfig(dtype=dt, attention_impl=impl,
+                                        loss_chunk=min(LOSS_CHUNK, seq), **kw)
+            if params is None:
+                params = tfm.init_params(cfg, torch.Generator().manual_seed(3),
+                                         card)
+            loss[name], g = _loss_and_grads(tfm, params, cfg, tokens,
+                                            targets)
+            grads[name] = {k: v.float().clone() for k, v in g.items()}
+        dl = abs(loss["flash"] - loss["dense"])
+        if dtype == torch.float32:
+            err = max((grads["flash"][k] - grads["dense"][k]).abs().max()
+                      .item() for k in grads["dense"])
+            print(f"parity train {label}: loss {loss['flash']:.6f} vs "
+                  f"{loss['dense']:.6f}; max|dgrad|={err:.3g} (tol "
+                  f"{SMALL_GRAD_ATOL:g})", flush=True)
+            check(err <= SMALL_GRAD_ATOL and dl <= SMALL_GRAD_ATOL,
+                  "small f32 model: flash and dense gradients disagree")
+            continue
+        rel = {pair: _rel_l2(grads[pair[0]], grads[pair[1]])
+               for pair in (("flash", "dense"), ("flash", "f32 dense"),
+                            ("dense", "f32 dense"))}
+        print(f"parity train {label}: loss flash {loss['flash']:.6f}, dense "
+              f"{loss['dense']:.6f} (|d|={dl:.3g}, tol {TRAIN_LOSS_ATOL:g}), "
+              f"f32 dense {loss['f32 dense']:.6f}", flush=True)
+        for (a, b), r in rel.items():
+            worst = max(r, key=r.get)
+            print(f"parity train {label}: gradient relative L2 {a} vs {b}: "
+                  f"worst {r[worst]:.4g} at {worst}, median "
+                  f"{float(np.median(list(r.values()))):.4g}", flush=True)
+        check(dl <= TRAIN_LOSS_ATOL, "flash and dense losses disagree")
+        worst = {pair: max(r.values()) for pair, r in rel.items()}
+        check(worst[("flash", "dense")] <= TRAIN_GRAD_REL,
+              "flash and dense gradients disagree")
+        check(worst[("flash", "f32 dense")]
+              <= YARDSTICK_RATIO * worst[("dense", "f32 dense")],
+              "flash gradients are farther from the f32 model than the "
+              "dense path's")
+        del params, grads
+        torch.cuda.empty_cache()
+
+
+def flops_per_token(params, cfg):
+    """bench_transformer.py's convention: 6 x the matrix-product
+    parameters (q/k/v, o, the MLP, the LM head; not the embedding or the
+    norms) plus 6 x n_layers x seq x d_model of causal attention."""
+    p_mm = sum(v.numel() for layer in params["layers"]
+               for k, v in layer.items()
+               if k.startswith(("wq", "wk", "wo", "w1", "w2")))
+    p_mm += params["lm_head"].numel()
+    return 6 * p_mm + 6 * cfg.n_layers * TRAIN_SEQ * cfg.d_model
+
+
+def phase_train(hvd, fa, tfm, card, where):
+    """Main path 2: init -> broadcast_parameters -> DistributedOptimizer
+    -> loss_fn, warm-up plus timed steps on one batch, counts zeroed
+    around it. Returns {kernel: launches}."""
+    dump = os.path.join(tempfile.mkdtemp(), "profiler.txt")
+    os.environ["HOROVOD_PROFILER_PATH"] = dump
+    os.environ.pop("HOROVOD_PROFILER_DISABLE", None)
+    hvd.init(device=card)
+    check(hvd.size() == 1 and hvd.runtime.device().type == card.type,
+          f"init: {hvd.size()} ranks on {hvd.runtime.device()}")
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
+                                loss_chunk=LOSS_CHUNK, **FLAGSHIP)
+    lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
+                           device=card)
+    hvd.broadcast_parameters(lm.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(lm.parameters(), **ADAMW),
+        named_parameters=lm.named_parameters())
+    n_buckets = len(opt.exchange_buckets)
+    grad_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    tokens = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+    targets = torch.from_numpy(np.roll(tokens, -1, axis=1)).to(card)
+    tokens = torch.from_numpy(tokens).to(card)
+    stats = hvd.runtime.live_state().stats
+    calls0 = stats.counter("allreduce")
+    time0 = stats.total_time_us("allreduce")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    steps = WARMUP_STEPS + TIMED_STEPS
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    events, losses = [], []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        opt.zero_grad(set_to_none=True)
+        loss = lm.loss(tokens, targets)
+        loss.backward()
+        opt.step()
+        end.record()
+        events.append((start, end))
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    launches = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
+                "flash_bwd_dkv": fa.dkv_launches}
+
+    losses = [x.item() for x in losses]
+    step_ms = [a.elapsed_time(b) for a, b in events[WARMUP_STEPS:]]
+    peak = torch.cuda.max_memory_allocated()
+    calls = stats.counter("allreduce") - calls0
+    exchange_ms = (stats.total_time_us("allreduce") - time0) / 1e3 / steps
+    hist = stats.histogram("allreduce")
+    check(all(np.isfinite(losses)), f"losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    for name, n in launches.items():
+        check(n == steps * cfg.n_layers,
+              f"{name} launched {n} times in {steps} steps of "
+              f"{cfg.n_layers} layers")
+    check(calls == steps * n_buckets,
+          f"{calls} all-reduces in {steps} steps of {n_buckets} buckets")
+    check(hist.get(grad_bytes, (0, 0))[0] == steps,
+          f"all-reduce sizes {hist} do not cover {grad_bytes} gradient "
+          f"bytes once a step")
+    median = float(np.median(step_ms))
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (median / 1e3)
+    fpt = flops_per_token(lm.params, cfg)
+    n_params = sum(p.numel() for p in lm.parameters())
+    print(f"train losses: {' '.join(f'{x:.4f}' for x in losses)}",
+          flush=True)
+    print(f"train {TRAIN_BATCH} x {TRAIN_SEQ} tokens, {n_params / 1e6:.1f} M "
+          f"parameters [{where}]: step {median:.1f} ms (median of "
+          f"{TIMED_STEPS}; {' '.join(f'{t:.1f}' for t in step_ms)}); "
+          f"{tok_s:.1f} tokens/s; {fpt / 1e9:.3f} GFLOP/token; MFU "
+          f"{fpt * tok_s / PEAK_FLOPS[torch.bfloat16]:.4f} against 989 "
+          f"TFLOP/s bf16 (the port's products run in f32); exchange "
+          f"{exchange_ms:.3f} ms/step over {calls // steps} bucket(s) of "
+          f"{grad_bytes / 1e9:.3f} GB; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB", flush=True)
+    print(f"train launches in {steps} steps: {launches}", flush=True)
+    del opt, lm
+    hvd.shutdown()
+    with open(dump) as f:
+        counter = next((line for line in f if
+                        line.startswith("Counter allreduce,")), None)
+    check(counter is not None and int(counter.split(",")[1]) >= calls,
+          f"profiler dump {dump}: {counter!r}")
+    print(f"train shutdown: profiler dump {counter.strip()}", flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -269,6 +632,7 @@ def main():
     print(where, flush=True)
     card = torch.device("cuda")
 
+    import horovod_tpu_torch as hvd
     from horovod_tpu_torch import metrics, serve
     from horovod_tpu_torch.models import transformer as tfm
     from horovod_tpu_torch.ops import _build
@@ -286,6 +650,8 @@ def main():
 
     gen = torch.Generator(device=card).manual_seed(0)
     entry = phase_kernels(fa, card, gen)
+    bwd_entries, train_fwd = phase_backward_kernels(fa, card, gen)
+    entry["train_shape"] = train_fwd
 
     cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
                                 **FLAGSHIP)
@@ -295,9 +661,27 @@ def main():
     print(f"model: {n_params / 1e6:.1f} M parameters (f32), "
           f"{cfg.n_layers} layers, d_model {cfg.d_model}", flush=True)
     phase_parity(tfm, ServeEngine, lm.params, card)
-    entry["launches"] = phase_serve(fa, serve, metrics, lm, card, where)
+    phase_train_parity(tfm, card)
 
-    print(json.dumps({"kernels": [entry]}))
+    fa.dq_launches = fa.dkv_launches = 0
+    serve_launches = {"flash_fwd": phase_serve(fa, serve, metrics, lm, card,
+                                               where),
+                      "flash_bwd_dq": fa.dq_launches,
+                      "flash_bwd_dkv": fa.dkv_launches}
+    check(serve_launches["flash_bwd_dq"] == serve_launches["flash_bwd_dkv"]
+          == 0, f"serving launched backward kernels: {serve_launches}")
+    del lm
+    torch.cuda.empty_cache()
+    train_launches = phase_train(hvd, fa, tfm, card, where)
+
+    entries = [entry, bwd_entries["flash_bwd_dq"],
+               bwd_entries["flash_bwd_dkv"]]
+    for e in entries:
+        by_path = {"serve": serve_launches[e["name"]],
+                   "train": train_launches[e["name"]]}
+        e["launches"] = sum(by_path.values())
+        e["launches_by_path"] = by_path
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,12 @@
 """Environment-variable configuration of the port.
 
-Counterpart of horovod_tpu/config.py, carrying what the serving slice
-reads: the five ``HOROVOD_SERVE_*`` knobs, the elastic policy directory
-the SLO signal is dropped into, and :func:`next_power_of_two` (the shape
-bins). Names, defaults and clamps are the JAX package's.
+Counterpart of horovod_tpu/config.py, carrying what the serving and
+training slices read: the five ``HOROVOD_SERVE_*`` knobs, the elastic
+policy directory the SLO signal is dropped into, the ZeRO stage, the
+exchange bucket count, the profiler dump, the knobs of subsystems the
+port does not have yet (``init()`` refuses them), and
+:func:`next_power_of_two` (the shape bins). Names, defaults and clamps
+are the JAX package's.
 """
 
 import dataclasses
@@ -18,6 +21,10 @@ def _env_int(name, default):
         return int(v)
     except ValueError:
         return default
+
+
+def _env_flag(name):
+    return os.environ.get(name, "") not in ("", "0", "false", "False")
 
 
 def _env_float(name, default):
@@ -43,6 +50,25 @@ class Config:
     serve_slo_p99_seconds: float = 0.5
     # Where the serve engine drops its SLO signal file ('' disables).
     elastic_policy_dir: str = ""
+    # ZeRO sharding stage DistributedOptimizer uses when the call site
+    # passes none (0 = replicated allreduce; 1-3 are not ported yet).
+    zero_stage: int = 0
+    # Gradient-exchange buckets of DistributedOptimizer: byte-balanced,
+    # reverse-layer groups, each one fused all-reduce launched from the
+    # backward as soon as its gradients are ready (1 = one exchange).
+    exchange_buckets: int = 1
+    # Per-collective stats dump written by rank 0 at shutdown
+    # (profiler.txt, the fork's layout).
+    profiler_path: str = "profiler.txt"
+    profiler_disable: bool = False
+    # Knobs of subsystems the port does not have yet; init() refuses a
+    # set one rather than ignore it.
+    timeline: str = ""
+    guard: bool = False
+    autotune: bool = False
+    metrics_dir: str = ""
+    metrics_port: int = -1
+    dcn_compression: str = ""
 
     @classmethod
     def from_env(cls):
@@ -59,6 +85,20 @@ class Config:
             "HOROVOD_SERVE_SLO_P99_SECONDS", c.serve_slo_p99_seconds), 0.0)
         c.elastic_policy_dir = os.environ.get("HOROVOD_ELASTIC_POLICY_DIR",
                                               c.elastic_policy_dir)
+        c.zero_stage = min(max(_env_int("HOROVOD_ZERO_STAGE",
+                                        c.zero_stage), 0), 3)
+        c.exchange_buckets = max(_env_int("HOROVOD_EXCHANGE_BUCKETS",
+                                          c.exchange_buckets), 1)
+        c.profiler_path = os.environ.get("HOROVOD_PROFILER_PATH",
+                                         c.profiler_path)
+        c.profiler_disable = _env_flag("HOROVOD_PROFILER_DISABLE")
+        c.timeline = os.environ.get("HOROVOD_TIMELINE", "")
+        c.guard = _env_flag("HOROVOD_GUARD")
+        c.autotune = _env_flag("HOROVOD_AUTOTUNE")
+        c.metrics_dir = os.environ.get("HOROVOD_METRICS_DIR", "")
+        c.metrics_port = _env_int("HOROVOD_METRICS_PORT", c.metrics_port)
+        c.dcn_compression = os.environ.get("HOROVOD_DCN_COMPRESSION",
+                                           c.dcn_compression)
         return c
 
 

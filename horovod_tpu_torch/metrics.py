@@ -1,13 +1,19 @@
 """Process-wide metrics registry: labeled counters, gauges, histograms.
 
-Counterpart of horovod_tpu/metrics.py, carrying the registry core and
-the serving families under the JAX package's names (``hvd_serve_*``).
-The program-cache and fallback families and the exporters (JSONL, Prometheus,
-timeline counters) come with the CUDA-graph and observability slices
-(ROADMAP.md, Queue 1).
+Counterpart of horovod_tpu/metrics.py, carrying the registry core with
+its collect hooks, the serving families (``hvd_serve_*``), the runtime
+lifecycle families, the per-collective mirror of stats.py and the ZeRO
+stage gauge, under the JAX package's names. The program-cache and
+fallback families and the exporters (JSONL, Prometheus, timeline
+counters) come with the CUDA-graph and observability slices (ROADMAP.md,
+Queue 1).
 """
 
 import threading
+
+from .utils.logging import get_logger
+
+_logger = get_logger("horovod_tpu_torch.metrics")
 
 # Latency histogram bounds, seconds.
 LATENCY_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
@@ -184,6 +190,7 @@ class MetricsRegistry:
     def __init__(self):
         self._lock = threading.RLock()
         self._families = {}       # name -> _Family, insertion-ordered
+        self._collect_hooks = {}  # owner key -> callable()
 
     def _register(self, cls, name, help, labelnames, **kw):
         with self._lock:
@@ -208,10 +215,28 @@ class MetricsRegistry:
         return self._register(Histogram, name, help, labelnames,
                               buckets=buckets)
 
+    def set_collect_hook(self, owner, fn):
+        """Register or replace a callback run before every snapshot, keyed
+        by owner so a re-init replaces its predecessor's hook."""
+        with self._lock:
+            self._collect_hooks[owner] = fn
+
+    def remove_collect_hook(self, owner):
+        with self._lock:
+            self._collect_hooks.pop(owner, None)
+
     def snapshot(self):
         """``{name: {"type", "help", "values"}}``; values map a label key
         (empty for unlabeled) to a float or a histogram's
-        ``{count, sum, buckets}``."""
+        ``{count, sum, buckets}``. Runs the collect hooks first."""
+        with self._lock:
+            hooks = list(self._collect_hooks.items())
+        for owner, fn in hooks:
+            try:
+                fn()
+            except Exception:  # noqa: BLE001 — telemetry must not kill work
+                _logger.debug("metrics collect hook %r failed", owner,
+                              exc_info=True)
         with self._lock:
             return {name: {"type": fam.kind, "help": fam.help,
                            "values": fam.collect()}
@@ -288,3 +313,29 @@ SERVE_EVICTIONS = _registry.counter(
     "finished (token budget), eos (stop token), cancelled (client "
     "gone); every eviction returns its pages to the free list.",
     labelnames=("reason",))
+
+# Runtime lifecycle (runtime.py)
+RUNTIME_INITS = _registry.counter(
+    "hvd_init_total", "hvd.init() calls completed.")
+RUNTIME_SHUTDOWNS = _registry.counter(
+    "hvd_shutdown_total", "hvd.shutdown() calls completed.")
+RUNTIME_UP = _registry.gauge(
+    "hvd_up", "1 while the runtime is initialized, else 0.")
+RUNTIME_RANKS = _registry.gauge(
+    "hvd_ranks", "Total ranks (chips) in the current job.")
+
+# Per-collective mirror of stats.py (fork parity registry; values reset
+# with each session's stats object, hence gauges).
+COLLECTIVE_CALLS = _registry.gauge(
+    "hvd_collective_calls", "Collective calls recorded by the fork-parity "
+    "stats registry (profiler.txt counters).", labelnames=("op",))
+COLLECTIVE_TIME_US = _registry.gauge(
+    "hvd_collective_time_us", "Cumulative wall time per collective, "
+    "microseconds (profiler.txt Time rows).", labelnames=("op",))
+
+# ZeRO sharding (optimizers.py)
+ZERO_STAGE = _registry.gauge(
+    "hvd_zero_stage",
+    "ZeRO sharding stage of the most recently constructed "
+    "DistributedOptimizer (0 = replicated, 1 = optimizer state, "
+    "2 = +gradients, 3 = +parameters).")

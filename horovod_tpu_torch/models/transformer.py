@@ -1,4 +1,5 @@
-"""Transformer LM — the flagship model, single device, forward only.
+"""Transformer LM — the flagship model on one device: forward, loss and
+gradients.
 
 Counterpart of horovod_tpu/models/transformer.py. The functions keep
 the JAX names and parameter layouts — ``wqkv (d, 3, h, hd)``,
@@ -20,9 +21,18 @@ Numerics follow JAX's type promotion, op for op:
   ``preferred_element_type=jnp.float32`` does;
 - GELU is the tanh approximation, ``jax.nn.gelu``'s default.
 
+Gradients come from autograd through the same ops, so they take the
+JAX transposes' roundings too: the transpose of ``p.astype(bf16)`` rounds
+each weight's f32 gradient to bf16, and the ``.to(dtype)`` /
+``.float()`` pair around every product does the same here. Do not drop
+a cast as redundant. ``remat`` checkpoints each layer
+(``torch.utils.checkpoint``, as ``jax.checkpoint``), and ``loss_chunk``
+runs the head and the cross entropy per sequence chunk under a
+checkpoint of its own, as the JAX package does.
+
 What this slice does not carry raises ``NotImplementedError`` naming the
 ROADMAP.md item that adds it: sharded axes (tensor, sequence, data
-parallel), MoE layers, and training (loss, gradients, remat).
+parallel inside the model) and MoE layers.
 """
 
 import dataclasses
@@ -33,33 +43,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention
 from ..parallel.ring_attention import dense_attention
+from ..utils.devices import resolve_device
 
-TRAINING = "training (ROADMAP.md, Queue 1 item 5)"
 TENSOR_PARALLEL = "tensor parallelism (ROADMAP.md, Queue 1 item 6)"
 MOE = "MoE layers (ROADMAP.md, Queue 1 item 7)"
 SEQUENCE_PARALLEL = "sequence parallelism (ROADMAP.md, Queue 1 item 12)"
-
-
-def resolve_device(device):
-    """``torch.device(device)``, checked: a CUDA device needs a card, and
-    on a card f32 matrix products stay exact f32 (TF32 keeps about three
-    decimal digits; the JAX package's f32 products keep all of them)."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "horovod_tpu_torch runs on a CUDA card by default and none "
-                "is available; pass device='cpu' to run the plain versions "
-                "of its kernels on the CPU")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-    elif device.type != "cpu":
-        raise ValueError(f"unsupported device {device}")
-    return device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,7 +76,9 @@ class TransformerConfig:
     # Sliding-window attention: each query attends the previous
     # `attention_window` positions.
     attention_window: int = None
-    # Training options: only their defaults are carried.
+    # Head + cross entropy per sequence chunk of this many positions
+    # (None: the whole sequence at once), each chunk under a checkpoint.
+    # remat: each layer under a checkpoint (recomputed in the backward).
     loss_chunk: int = None
     remat: bool = False
     moe_layers: tuple = ()
@@ -119,9 +113,6 @@ class TransformerConfig:
                 f"rope needs an even head_dim, got {self.head_dim}")
         if self.moe_layers:
             raise NotImplementedError(f"moe_layers come with {MOE}")
-        if self.loss_chunk is not None or self.remat:
-            raise NotImplementedError(
-                f"loss_chunk and remat come with {TRAINING}")
 
     @property
     def head_dim(self):
@@ -211,6 +202,18 @@ def params_from_jax(tree, cfg, device="cuda"):
         keys_match(f"layers[{i}]", layer, want)
         out["layers"].append({k: leaf(f"layers[{i}][{k}]", layer[k], s)
                               for k, s in want.items()})
+    return out
+
+
+def params_to_numpy(params):
+    """The inverse of :func:`params_from_jax`: the parameter tree with
+    every leaf a numpy array (a copy on the host), key for key."""
+    def leaf(t):
+        return t.detach().to("cpu", copy=True).numpy()
+
+    out = {k: leaf(v) for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: leaf(v) for k, v in layer.items()}
+                     for layer in params["layers"]]
     return out
 
 
@@ -331,23 +334,100 @@ def _head(params, x, cfg):
     return _einsum_f32("bsd,dv->bsv", x, params["lm_head"].to(cfg.dtype))
 
 
-def forward(params, tokens, cfg, axes=None):
-    """f32 logits (B, S, V) of int tokens (B, S)."""
+MOE_AUX_COEF = 0.01  # the JAX package's Switch load-balance coefficient
+
+
+def _one_layer(p, x, cfg):
+    x, _, _ = _attention_block_kv(p, x, cfg)
+    return _mlp_block(p, x, cfg)
+
+
+def trunk_with_aux(params, tokens, cfg, axes=None):
+    """Pre-head activations (B, S, d) and the total MoE aux loss (0: no
+    MoE layers in this slice). With ``cfg.remat`` each layer runs under
+    a checkpoint, so its activations are recomputed in the backward."""
     x = embed_tokens(params, tokens, cfg, axes)
     for p in params["layers"]:
-        x, _, _ = _attention_block_kv(p, x, cfg)
-        x = _mlp_block(p, x, cfg)
-    return _head(params, x, cfg)
+        if cfg.remat:
+            x = checkpoint(_one_layer, p, x, cfg, use_reentrant=False)
+        else:
+            x = _one_layer(p, x, cfg)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward_with_aux(params, tokens, cfg, axes=None):
+    """(f32 logits (B, S, V), total MoE aux loss)."""
+    x, aux = trunk_with_aux(params, tokens, cfg, axes)
+    return _head(params, x, cfg), aux
+
+
+def forward(params, tokens, cfg, axes=None):
+    """f32 logits (B, S, V) of int tokens (B, S)."""
+    return forward_with_aux(params, tokens, cfg, axes)[0]
+
+
+def _nll(logits, targets):
+    """Per-token negative log likelihood (B, S) of f32 logits. The max is
+    a stability shift only, so no gradient flows through it (the JAX
+    package's ``stop_gradient``); targets outside the vocabulary give a
+    zero target logit."""
+    vocab = logits.shape[-1]
+    m = logits.amax(dim=-1).detach()
+    z = torch.exp(logits - m[..., None]).sum(dim=-1)
+    valid = (targets >= 0) & (targets < vocab)
+    tgt = torch.gather(logits, -1,
+                       targets.clamp(0, vocab - 1)[..., None])[..., 0]
+    tgt = torch.where(valid, tgt, torch.zeros((), dtype=tgt.dtype,
+                                              device=tgt.device))
+    return torch.log(z) + m - tgt
+
+
+def _cross_entropy(logits, targets):
+    return torch.mean(_nll(logits, targets))
+
+
+def _chunk_nll_sum(params, xk, tk, cfg):
+    return torch.sum(_nll(_head(params, xk, cfg), tk))
+
+
+def _chunked_cross_entropy(params, x, targets, cfg):
+    """Mean cross entropy with the head applied per sequence chunk under
+    a checkpoint: the logits of one (B, chunk, V) chunk exist at a time
+    in both directions. Chunk sums accumulate into an f32 carry, divided
+    by B*S once at the end, as the JAX package's scan does."""
+    chunk = cfg.loss_chunk
+    b, s, _ = x.shape
+    if s % chunk != 0:
+        raise ValueError(
+            f"loss_chunk ({chunk}) must divide the per-shard sequence "
+            f"length ({s}); pick a divisor (e.g. {math.gcd(s, chunk)})")
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(s // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        total = total + checkpoint(_chunk_nll_sum, params, x[:, sl],
+                                   targets[:, sl], cfg, use_reentrant=False)
+    return total / (b * s)
 
 
 def loss_fn(params, tokens, targets, cfg, axes=None):
-    raise NotImplementedError(f"the loss comes with {TRAINING}")
+    """Mean causal-LM cross entropy (+ the MoE aux term, 0 here). With
+    ``cfg.loss_chunk`` set, the head and the cross entropy run per
+    sequence chunk and full logits never materialize."""
+    _check_axes(axes)
+    if cfg.loss_chunk:
+        x, aux = trunk_with_aux(params, tokens, cfg)
+        nll = _chunked_cross_entropy(params, x, targets, cfg)
+    else:
+        logits, aux = forward_with_aux(params, tokens, cfg)
+        nll = _cross_entropy(logits, targets)
+    return nll + MOE_AUX_COEF * aux
 
 
 class TransformerLM(nn.Module):
-    """Holds the parameters (frozen: this slice serves) and runs
-    :func:`forward`. ``params`` defaults to :func:`init_params` drawn
-    from ``generator``."""
+    """Holds the parameters (trainable ``nn.Parameter``s) and runs
+    :func:`forward` and :func:`loss_fn` on them. ``params`` defaults to
+    :func:`init_params` drawn from ``generator``. Serving runs it under
+    ``torch.inference_mode()``, where no graph is kept."""
 
     def __init__(self, cfg=TransformerConfig(), params=None, *,
                  generator=None, device="cuda"):
@@ -356,13 +436,13 @@ class TransformerLM(nn.Module):
         if params is None:
             params = init_params(cfg, generator, device)
 
-        def frozen(group):
-            return nn.ParameterDict({
-                k: nn.Parameter(v, requires_grad=False)
-                for k, v in group.items() if k != "layers"})
+        def group(tree):
+            return nn.ParameterDict({k: nn.Parameter(v)
+                                     for k, v in tree.items()
+                                     if k != "layers"})
 
-        self.top = frozen(params)
-        self.layers = nn.ModuleList(frozen(p) for p in params["layers"])
+        self.top = group(params)
+        self.layers = nn.ModuleList(group(p) for p in params["layers"])
 
     @property
     def params(self):

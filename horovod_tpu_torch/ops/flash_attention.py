@@ -1,21 +1,28 @@
-"""Fused attention forward on Hopper, and paged decode attention.
+"""Fused attention on Hopper, forward and backward, and paged decode
+attention.
 
-Counterpart of horovod_tpu/ops/flash_attention.py. The TPU kernel
-``_fwd_kernel`` (Pallas) becomes a CUDA C++ kernel for sm_90a,
-``ops/csrc/flash_fwd.cu``, built at first use (ops/_build.py) and called
+Counterpart of horovod_tpu/ops/flash_attention.py. The TPU kernels
+``_fwd_kernel``, ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (Pallas)
+become CUDA C++ kernels for sm_90a, ``ops/csrc/flash_fwd.cu`` and
+``ops/csrc/flash_bwd.cu``, built at first use (ops/_build.py) and called
 through a plain C interface. Same contract as the JAX package: q
 (B, S, H, D), k/v (B, S, H_kv, D) with H % H_kv == 0, causal by default,
 optional sliding ``window`` (requires causal).
 
-On a CUDA tensor the wrappers launch the kernel or raise; on a CPU
-tensor they compute :func:`flash_attention_reference`, the plain
-version of the same arithmetic. Ragged lengths need no special path on
-the card: the kernel masks the edge itself, where the TPU kernel padded
-causal lengths to a multiple of 128 and ran non-causal ones dense.
+:func:`flash_attention` and :func:`flash_attention_with_lse` are
+``torch.autograd.Function``s, as the JAX functions are custom VJPs. The
+forward saves q, k, v, out and lse; the backward computes
+``delta = rowsum(dO * O)`` in f32 in plain torch (the JAX package runs it
+outside Pallas too), subtracts the lse cotangent from it, and calls
+:func:`flash_bwd_dq` and :func:`flash_bwd_dkv`.
 
-The backward kernels (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``) come
-with the training slice (ROADMAP.md, Queue 1 item 5); until then a call
-that needs gradients raises.
+On a CUDA tensor every wrapper launches its kernel or raises; on a CPU
+tensor it computes the kernel's plain version
+(:func:`flash_attention_reference`, :func:`flash_bwd_dq_reference`,
+:func:`flash_bwd_dkv_reference`). Ragged lengths need no special path on
+the card: the kernels mask the edge themselves, where the TPU kernels
+padded causal lengths to a multiple of 128 and ran non-causal ones
+dense.
 
 :func:`paged_attention_decode` is plain torch, as the JAX package runs
 it as plain XLA with no Pallas kernel.
@@ -28,27 +35,48 @@ import torch
 from ..parallel.ring_attention import NEG_INF, f32_scale, gqa_group
 from . import _build
 
-# Launches of the CUDA kernel (one per wrapper call on the card). The
-# plain version on the CPU does not count.
-launches = 0
+# Launches of each CUDA kernel (one per wrapper call on the card). The
+# plain versions on the CPU do not count.
+launches = 0        # flash_fwd
+dq_launches = 0     # flash_bwd_dq
+dkv_launches = 0    # flash_bwd_dkv
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_lib = None
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_TAIL = [ctypes.c_float, _I, _I, _P]  # scale, causal, window, stream
+# C entry points per source: pointers, dtype and sizes, strides, tail.
+_SIGNATURES = {
+    "flash_fwd": {"hvd_flash_fwd": [_P] * 5 + [_I] * 6 + [_L] * 9 + _TAIL},
+    "flash_bwd": {
+        "hvd_flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_L] * 12 + _TAIL,
+        "hvd_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_L] * 12 + _TAIL,
+    },
+}
+_libs = {}
 
 
-def _kernel_lib():
-    global _lib
-    if _lib is None:
-        lib = _build.load("flash_fwd")
-        lib.hvd_flash_fwd.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-            + [ctypes.c_longlong] * 9
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        lib.hvd_flash_fwd.restype = ctypes.c_int
+def _kernel_lib(name):
+    lib = _libs.get(name)
+    if lib is None:
+        lib = _build.load(name)
+        for fn, argtypes in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
         lib.hvd_cuda_error_string.argtypes = [ctypes.c_int]
         lib.hvd_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return lib
+
+
+def _call(source, fn, *args):
+    """Call C entry point ``fn`` of ``source``; raise on a failed
+    launch (the function returns ``cudaGetLastError()``)."""
+    lib = _kernel_lib(source)
+    err = getattr(lib, fn)(*args)
+    if err != 0:
+        raise RuntimeError(
+            f"{fn[len('hvd_'):]} kernel launch failed: "
+            f"{lib.hvd_cuda_error_string(err).decode()}")
 
 
 def _scale(d):
@@ -82,6 +110,44 @@ def _check(q, k, v, causal, window):
     return group
 
 
+def _check_bwd(q, k, v, do, lse, delta, causal, window):
+    """:func:`_check` plus the backward's own operands: dO shaped and
+    typed as q, lse and delta (B, H, S) f32 on q's device."""
+    _check(q, k, v, causal, window)
+    b, s, h, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(
+            f"dO must match q: got {tuple(do.shape)} {do.dtype} on "
+            f"{do.device}, q {tuple(q.shape)} {q.dtype} on {q.device}")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.shape != (b, h, s) or x.dtype != torch.float32 \
+                or x.device != q.device:
+            raise ValueError(
+                f"{name} must be (B, H, S) = {(b, h, s)} float32 on "
+                f"{q.device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
+
+
+def _expand_kv(q, k, v):
+    """f32 (q * scale, k, v) with k/v repeated over each GQA group."""
+    group = q.shape[2] // k.shape[2]
+    qf = q.float() * _scale(q.shape[3])
+    return (qf, k.float().repeat_interleave(group, dim=2),
+            v.float().repeat_interleave(group, dim=2))
+
+
+def _scores(qf, kf, causal, window):
+    """(B, H, S, S) f32 scores ``(q*scale).k^T`` with masked entries at
+    ``NEG_INF``."""
+    sc = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    if causal:
+        pos = torch.arange(qf.shape[1], device=qf.device)
+        keep = pos[:, None] >= pos[None, :]
+        if window is not None:
+            keep = keep & (pos[:, None] - pos[None, :] < window)
+        sc = torch.where(keep, sc, NEG_INF)
+    return sc
+
+
 def flash_attention_reference(q, k, v, causal=True, window=None):
     """Plain version of the kernel: ``(out (B, S, H, D) in q's dtype,
     lse (B, H, S) f32)``, with ``_fwd_kernel``'s f32 arithmetic — q
@@ -89,18 +155,8 @@ def flash_attention_reference(q, k, v, causal=True, window=None):
     masked scores filled with ``NEG_INF``, ``l`` clamped at 1e-30 — taken
     over the whole row at once instead of tile by tile."""
     _check(q, k, v, causal, window)
-    b, s, h, d = q.shape
-    group = h // k.shape[2]
-    qf = q.float() * _scale(d)
-    kf = k.float().repeat_interleave(group, dim=2)
-    vf = v.float().repeat_interleave(group, dim=2)
-    sc = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
-    if causal:
-        pos = torch.arange(s, device=q.device)
-        keep = pos[:, None] >= pos[None, :]
-        if window is not None:
-            keep = keep & (pos[:, None] - pos[None, :] < window)
-        sc = torch.where(keep, sc, NEG_INF)
+    qf, kf, vf = _expand_kv(q, k, v)
+    sc = _scores(qf, kf, causal, window)
     m = sc.amax(dim=-1)
     p = torch.exp(sc - m[..., None])
     l = torch.clamp(p.sum(dim=-1), min=1e-30)
@@ -108,62 +164,184 @@ def flash_attention_reference(q, k, v, causal=True, window=None):
     return out.to(q.dtype), m + torch.log(l)
 
 
-def _launch(q, k, v, causal, window):
-    global launches
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "flash attention has no backward kernel yet; the training "
-            "slice (ROADMAP.md, Queue 1 item 5) ports _bwd_dq_kernel and "
-            "_bwd_dkv_kernel")
+def _bwd_common(q, k, v, do, lse, delta, causal, window):
+    """f32 ``(q*scale, p, dS)`` of the whole rows, k/v expanded."""
+    _check_bwd(q, k, v, do, lse, delta, causal, window)
+    qf, kf, vf = _expand_kv(q, k, v)
+    p = torch.exp(_scores(qf, kf, causal, window) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vf)
+    return qf, kf, p, p * (dp - delta[..., None])
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal=True,
+                           window=None):
+    """Plain version of ``flash_bwd_dq``: dQ (B, S, H, D) in q's dtype,
+    ``scale * dS.K`` with ``_bwd_dq_kernel``'s f32 arithmetic —
+    ``p = exp(s - lse)``, ``dS = p * (dO.V^T - delta)`` — over the whole
+    row at once."""
+    _, kf, _, ds = _bwd_common(q, k, v, do, lse, delta, causal, window)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * _scale(q.shape[3])
+    return dq.to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal=True,
+                            window=None):
+    """Plain version of ``flash_bwd_dkv``: (dK, dV), each (B, S, H_kv, D)
+    in k's dtype — ``dV = P^T.dO`` and ``dK = dS^T.(q*scale)`` per query
+    head, as ``_bwd_dkv_kernel`` computes them, summed in f32 over each
+    GQA group before the cast."""
+    qf, _, p, ds = _bwd_common(q, k, v, do, lse, delta, causal, window)
+    b, s, h_kv, d = k.shape
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    dk = dk.reshape(b, s, h_kv, -1, d).sum(dim=3)
+    dv = dv.reshape(b, s, h_kv, -1, d).sum(dim=3)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _kernel_args(q, k, v, causal, window):
+    """What every launch checks and passes: sizes, (batch, sequence,
+    head) strides of q, k, v, the scale, the mask."""
     b, s, h, d = q.shape
-    h_kv = k.shape[2]
     if not 1 <= d <= 128:
-        raise ValueError(f"the kernel takes head_dim 1..128, got {d}")
+        raise ValueError(f"the kernels take head_dim 1..128, got {d}")
     if b * h > 65535:
-        raise ValueError(f"B*H = {b * h} exceeds the kernel's grid (65535)")
+        raise ValueError(f"B*H = {b * h} exceeds the kernels' grid (65535)")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(3) != 1:
             raise ValueError(f"{name} must have a contiguous head dim")
+    # A window of S or more masks nothing more than causality does.
+    win = 0 if window is None else int(min(window, max(s, 1)))
+    strides = [x.stride(i) for x in (q, k, v) for i in range(3)]
+    return (b, s, h, k.shape[2], d), strides, (_scale(d), int(causal), win)
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launch(q, k, v, causal, window):
+    global launches
+    sizes, strides, tail = _kernel_args(q, k, v, causal, window)
+    b, s, h, _, d = sizes
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if b * s * h == 0:
         return out, lse
-    lib = _kernel_lib()
-    err = lib.hvd_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), _DTYPES[q.dtype], b, s, h, h_kv, d,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        _scale(d), int(causal), 0 if window is None else int(window),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            "flash_fwd kernel launch failed: "
-            f"{lib.hvd_cuda_error_string(err).decode()}")
+    _call("flash_fwd", "hvd_flash_fwd", q.data_ptr(), k.data_ptr(),
+          v.data_ptr(), out.data_ptr(), lse.data_ptr(), _DTYPES[q.dtype],
+          *sizes, *strides, *tail, _stream(q))
     launches += 1
     return out, lse
 
 
+def _bwd_args(q, k, v, do, lse, delta, causal, window):
+    sizes, strides, tail = _kernel_args(q, k, v, causal, window)
+    if do.stride(3) != 1:
+        raise ValueError("dO must have a contiguous head dim")
+    strides += [do.stride(i) for i in range(3)]
+    lse, delta = lse.contiguous(), delta.contiguous()
+    ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta)]
+    return ptrs, sizes, strides, tail
+
+
+def _device_of(q):
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no flash attention for device {q.device}")
+    return q.device.type
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, window=None):
+    """dQ (B, S, H, D) in q's dtype from the forward's inputs, the output
+    cotangent ``do``, the saved ``lse`` and ``delta`` (both (B, H, S)
+    f32): the ``flash_bwd_dq`` kernel on a CUDA tensor, its plain version
+    on a CPU one."""
+    global dq_launches
+    if _device_of(q) == "cpu":
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, window)
+    _check_bwd(q, k, v, do, lse, delta, causal, window)
+    ptrs, sizes, strides, tail = _bwd_args(q, k, v, do, lse, delta, causal,
+                                           window)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq
+    _call("flash_bwd", "hvd_flash_bwd_dq", *ptrs, dq.data_ptr(),
+          _DTYPES[q.dtype], *sizes, *strides, *tail, _stream(q))
+    dq_launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, window=None):
+    """(dK, dV), each (B, S, H_kv, D) in k's dtype and summed over each
+    GQA group: the ``flash_bwd_dkv`` kernel on a CUDA tensor, its plain
+    version on a CPU one. Arguments as :func:`flash_bwd_dq`."""
+    global dkv_launches
+    if _device_of(q) == "cpu":
+        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal,
+                                       window)
+    _check_bwd(q, k, v, do, lse, delta, causal, window)
+    ptrs, sizes, strides, tail = _bwd_args(q, k, v, do, lse, delta, causal,
+                                           window)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if dk.numel() == 0:
+        return dk, dv
+    _call("flash_bwd", "hvd_flash_bwd_dkv", *ptrs, dk.data_ptr(),
+          dv.data_ptr(), _DTYPES[q.dtype], *sizes, *strides, *tail,
+          _stream(q))
+    dkv_launches += 1
+    return dk, dv
+
+
 def _forward(q, k, v, causal, window):
     _check(q, k, v, causal, window)
-    if q.device.type == "cpu":
+    if _device_of(q) == "cpu":
         return flash_attention_reference(q, k, v, causal, window)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash attention for device {q.device}")
     return _launch(q, k, v, causal, window)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """(out, lse) with the flash backward: the custom VJP of the JAX
+    package's ``flash_attention_with_lse``; ``flash_attention`` uses the
+    same function and leaves the lse cotangent undefined."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = _forward(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if g_out is None:
+            g_out = torch.zeros_like(out)
+        g_out = g_out.contiguous()
+        # delta = rowsum(dO * O) in f32 from the stored values; the lse
+        # cotangent enters dS in delta's slot with the opposite sign.
+        delta = (g_out.float() * out.float()).sum(dim=-1).transpose(1, 2)
+        if g_lse is not None:
+            delta = delta - g_lse.float()
+        delta = delta.contiguous()
+        dq = flash_bwd_dq(q, k, v, g_out, lse, delta, ctx.causal, ctx.window)
+        dk, dv = flash_bwd_dkv(q, k, v, g_out, lse, delta, ctx.causal,
+                               ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, causal=True, window=None):
-    """Fused attention forward: (B, S, H, D) in q's dtype."""
-    return _forward(q, k, v, causal, window)[0]
+    """Fused attention: (B, S, H, D) in q's dtype, differentiable in q, k
+    and v."""
+    return _FlashAttention.apply(q, k, v, causal, window)[0]
 
 
 def flash_attention_with_lse(q, k, v, causal=True, window=None):
     """Like :func:`flash_attention`, also returning the per-row
-    log-sum-exp shaped (B, H, S), f32."""
-    return _forward(q, k, v, causal, window)
+    log-sum-exp shaped (B, H, S), f32; both outputs are
+    differentiable."""
+    return _FlashAttention.apply(q, k, v, causal, window)
 
 
 def paged_attention_decode(q, k_pages, v_pages, page_table, lengths):

@@ -31,6 +31,7 @@ from .. import metrics
 from ..config import next_power_of_two
 from ..models import transformer as tfm
 from ..ops.flash_attention import paged_attention_decode
+from ..utils.devices import resolve_device
 from .kv_cache import PagedKVCache
 
 # Knob defaults (config.py: HOROVOD_SERVE_*).
@@ -118,7 +119,7 @@ class ServeEngine:
             raise NotImplementedError(
                 f"mesh/tp_axis serving comes with {tfm.TENSOR_PARALLEL}")
         self.cfg = cfg
-        self.device = tfm.resolve_device(device)
+        self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params lie on {params['embed'].device}, the "
                              f"engine on {self.device}")

@@ -9,6 +9,11 @@ has only PyTorch; there, skip tests/conftest.py (which sets up JAX):
 Tolerances: f32 outputs differ from the plain version by summation
 order only (atol 2e-5); a bf16 output by at most one bf16 rounding of a
 value below 4 (atol 2e-2); lse is f32 on both sides (atol 1e-4).
+Gradients are sums over a whole row or column of the score matrix, so
+f32 gradients hold to 1e-4 and bf16 ones to one bf16 rounding (ulp) of
+their largest magnitude (2^-7 of it, relative): both sides round an f32
+value once, and values that straddle a rounding boundary land one ulp
+apart.
 """
 
 import numpy as np
@@ -19,6 +24,7 @@ from horovod_tpu_torch.ops import flash_attention as fa
 
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LSE_ATOL = 1e-4
+GRAD_ATOL = 1e-4
 
 
 @pytest.fixture
@@ -59,3 +65,93 @@ def test_flash_fwd_rejects_a_strided_head_dim(card):
     q = torch.zeros(1, 16, 2, 16, device=card)[..., ::2]
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q, q, q)
+
+
+def _bwd_inputs(card, dtype, b, s, h, h_kv, d, causal, window, seed):
+    """q, k, v, dO in ``dtype`` and the forward's lse and delta."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+                   .to(card, dtype) for shape in ((b, s, h, d), (b, s, h_kv, d),
+                                                  (b, s, h_kv, d), (b, s, h, d)))
+    out, lse = fa.flash_attention_reference(q, k, v, causal, window)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta
+
+
+def _assert_grad_close(got, want, dtype):
+    if dtype == torch.float32:
+        atol = GRAD_ATOL
+    else:
+        atol = 2.0 ** -7 * max(want.float().abs().max().item(), 1e-6)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,h_kv,d,causal,window", [
+    (1, 256, 4, 1, 8, True, None),       # GQA 4, several tiles
+    (1, 200, 4, 2, 16, False, None),     # ragged, non-causal
+    (1, 200, 4, 1, 8, True, 50),         # ragged, window
+    (1, 130, 4, 4, 40, True, None),      # MHA, D not a power of two
+    (2, 128, 16, 4, 128, True, None),    # the flagship head width
+])
+def test_flash_bwd_matches_plain_version(card, dtype, b, s, h, h_kv, d,
+                                         causal, window):
+    td = getattr(torch, dtype)
+    args = _bwd_inputs(card, td, b, s, h, h_kv, d, causal, window, s + d)
+    dq0, dkv0 = fa.dq_launches, fa.dkv_launches
+    dq = fa.flash_bwd_dq(*args, causal, window)
+    dk, dv = fa.flash_bwd_dkv(*args, causal, window)
+    torch.cuda.synchronize()
+    assert (fa.dq_launches, fa.dkv_launches) == (dq0 + 1, dkv0 + 1)
+    assert dq.dtype == dk.dtype == dv.dtype == td
+    want_dk, want_dv = fa.flash_bwd_dkv_reference(*args, causal, window)
+    _assert_grad_close(dq, fa.flash_bwd_dq_reference(*args, causal, window),
+                       td)
+    _assert_grad_close(dk, want_dk, td)
+    _assert_grad_close(dv, want_dv, td)
+
+
+@pytest.mark.cuda
+def test_flash_autograd_runs_the_kernels_end_to_end(card):
+    """The autograd Function on the card: forward kernel, delta with an
+    lse cotangent, both backward kernels, against autograd through the
+    plain forward."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               .to(card).requires_grad_()
+               for shape in ((2, 150, 4, 32), (2, 150, 2, 32), (2, 150, 2, 32)))
+    go = torch.from_numpy(rng.standard_normal((2, 150, 4, 32), np.float32))
+    gl = torch.from_numpy(rng.standard_normal((2, 4, 150), np.float32))
+    go, gl = go.to(card), gl.to(card)
+    launches = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    out, lse = fa.flash_attention_with_lse(q, k, v, True, None)
+    got = torch.autograd.grad((out * go).sum() + (lse * gl).sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.dq_launches, fa.dkv_launches) == tuple(
+        n + 1 for n in launches)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, True, None)
+    want = torch.autograd.grad((ref_out * go).sum() + (ref_lse * gl).sum(),
+                               (q, k, v))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=GRAD_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_raises_on_a_head_dim_the_kernel_does_not_take(card):
+    args = _bwd_inputs(card, torch.float32, 1, 64, 2, 2, 256, True, None, 0)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_bwd_dq(*args)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_bwd_dkv(*args)
+    # Past the Python check, the C entry point refuses the launch and the
+    # wrapper's error path raises with CUDA's message.
+    q, k, v, do = args[:4]
+    dq = torch.empty_like(q)
+    strides = [x.stride(i) for x in (q, k, v, do) for i in range(3)]
+    with pytest.raises(RuntimeError, match="flash_bwd_dq kernel launch "
+                                           "failed"):
+        fa._call("flash_bwd", "hvd_flash_bwd_dq",
+                 *[x.data_ptr() for x in args], dq.data_ptr(), 0,
+                 1, 64, 2, 2, 256, *strides, fa._scale(256), 1, 0,
+                 fa._stream(q))

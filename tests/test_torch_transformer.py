@@ -126,7 +126,7 @@ def test_transformer_lm_holds_params_and_runs_forward():
         == shapes["layers"][1]
     torch.testing.assert_close(lm.params["embed"], again["embed"], rtol=0,
                                atol=0)
-    assert not any(p.requires_grad for p in lm.parameters())
+    assert all(p.requires_grad for p in lm.parameters())
     tokens = torch.from_numpy(_tokens())
     torch.testing.assert_close(lm(tokens), tfm.forward(again, tokens, tcfg),
                                rtol=0, atol=0)
@@ -135,20 +135,23 @@ def test_transformer_lm_holds_params_and_runs_forward():
 @pytest.mark.parametrize("what", ["moe", "ulysses", "loss_chunk", "remat",
                                   "axes", "loss"])
 def test_rejects_what_this_slice_does_not_carry(what):
-    if what in ("moe", "ulysses", "loss_chunk", "remat"):
-        kw = {"moe": dict(moe_layers=(1,)), "ulysses": dict(sp_impl="ulysses"),
-              "loss_chunk": dict(loss_chunk=8), "remat": dict(remat=True)}[what]
+    """MoE, Ulysses and sharded axes raise. The loss, ``loss_chunk`` and
+    ``remat`` are carried now; over sharded axes they raise too."""
+    if what in ("moe", "ulysses"):
+        kw = {"moe": dict(moe_layers=(1,)),
+              "ulysses": dict(sp_impl="ulysses")}[what]
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             _cfgs(**kw)
         return
-    _, tcfg = _cfgs()
+    kw = {"loss_chunk": dict(loss_chunk=8), "remat": dict(remat=True)}
+    _, tcfg = _cfgs(**kw.get(what, {}))
     params = tfm.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
     tokens = torch.from_numpy(_tokens())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         if what == "axes":
             tfm.forward(params, tokens, tcfg, axes=object())
         else:
-            tfm.loss_fn(params, tokens, tokens, tcfg)
+            tfm.loss_fn(params, tokens, tokens, tcfg, axes=object())
 
 
 def test_default_device_is_the_card():
