@@ -8,12 +8,18 @@ weights from seed 0). Serving: warms one prefill of 8 x 512 prompt
 tokens and two decode steps, then records one prefill and 8 decode
 steps. Training: ``hvd.init()``, ``DistributedOptimizer(AdamW)`` and the
 batch of chip_smoke.py (4 x 4096, loss_chunk 512); warms one step, then
-records one. For each record it prints the wall time, the device time
-summed over kernels, the device's busy share (kernel time over wall
-time), and the kernel time grouped by kind. Needs a CUDA card; fails
+records one. The sequence-parallel step likewise: chip_smoke.py's SP
+model (window 4096, a local ring of 4) at batch 2 x 8192. The band
+tiles' forward runs the same kernel as the static one (``flash_fwd``
+at an offset), so the profile counts them together; the band backward
+kernels write f32 and show as their own instantiations. For each
+record it prints the wall time, the device time summed over kernels,
+the device's busy share (kernel time over wall time), and the kernel
+time grouped by kind. Needs a CUDA card; fails
 when the profiler records no kernel time.
 """
 
+import gc
 import subprocess
 import sys
 import time
@@ -24,13 +30,17 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (ADAMW, FLAGSHIP, LOSS_CHUNK, N_REQUESTS, NEW_TOKENS,
-                        PAGE_SIZE, TRAIN_BATCH, TRAIN_SEQ, prompts)
+                        PAGE_SIZE, SP_BATCH, SP_MODEL, SP_RING, SP_SEQ,
+                        TRAIN_BATCH, TRAIN_SEQ, prompts)
 
 DECODE_STEPS = 8
 
 # Kernel-name fragments -> group, first match wins.
 GROUPS = (
-    ("flash_fwd", "flash_fwd (hand kernel)"),
+    ("flash_fwd", "flash_fwd (hand kernel; static and band tiles)"),
+    ("flash_bwd_dq_kernel<__nv_bfloat16, float", "flash_band_dq (hand kernel)"),
+    ("flash_bwd_dkv_kernel<__nv_bfloat16, float",
+     "flash_band_dkv (hand kernel)"),
     ("flash_bwd_dq", "flash_bwd_dq (hand kernel)"),
     ("flash_bwd_dkv", "flash_bwd_dkv (hand kernel)"),
     ("nccl", "all-reduce (NCCL)"),
@@ -139,24 +149,30 @@ def main():
     del eng, params
     torch.cuda.empty_cache()
     profile_train(card, where)
+    profile_train(card, where, sp=True)
     return 0
 
 
-def profile_train(card, where):
+def profile_train(card, where, sp=False):
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.parallel.ring_attention import RingAxis
 
     hvd.init(device=card)
+    model, batch, seq, axes = FLAGSHIP, TRAIN_BATCH, TRAIN_SEQ, None
+    if sp:
+        model, batch, seq = SP_MODEL, SP_BATCH, SP_SEQ
+        axes = tfm.ShardAxes(sp=RingAxis.local(SP_RING))
     cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
-                                loss_chunk=LOSS_CHUNK, **FLAGSHIP)
+                                loss_chunk=LOSS_CHUNK, **model)
     lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
-                           device=card)
+                           device=card, axes=axes)
     hvd.broadcast_parameters(lm.state_dict(), root_rank=0)
     opt = hvd.DistributedOptimizer(
         torch.optim.AdamW(lm.parameters(), **ADAMW),
         named_parameters=lm.named_parameters())
-    tokens = np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                               (batch, seq))
     targets = torch.from_numpy(np.roll(tokens, -1, axis=1)).to(card)
     tokens = torch.from_numpy(tokens).to(card)
 
@@ -173,8 +189,12 @@ def profile_train(card, where):
         step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    report(f"train step {TRAIN_BATCH} x {TRAIN_SEQ}", prof, wall, where)
+    label = f"{'sp ' if sp else ''}train step {batch} x {seq}"
+    report(label, prof, wall, where)
+    del opt, lm
+    gc.collect()
     hvd.shutdown()
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -32,7 +32,22 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    1e-4), through ``hvd.init()`` (NCCL, one rank),
    ``broadcast_parameters`` and ``DistributedOptimizer``: one warm-up
    step and 4 timed steps on one batch. The loss must fall, and the
-   launches and exchanges must be as many as the steps say.
+   launches and exchanges must be as many as the steps say;
+7. band kernels: ``flash_band_fwd``, ``flash_band_dq`` and
+   ``flash_band_dkv`` against their plain versions at the ring's shapes
+   (B 2, S 2048, H 16, H_kv 4, D 128, bf16, offsets 2048 and 4096, window
+   4096) and at small ragged f32 shapes with rows that see no key; each
+   kernel, its plain version and SDPA with an explicit band mask timed at
+   both offsets;
+8. sequence-parallel parity: one step's loss and gradients of the
+   flagship at max_seq 8192 and Mistral-7B's sliding window 4096 over a
+   local ring of 4 against the same model without sequence parallelism
+   (``flash_attention`` at the same window) on one batch of 2 x 8192, and
+   a small f32 model's ring against dense attention;
+9. SP train (main path 3): that model, through ``ShardAxes(sp=
+   RingAxis.local(4))``, trained as in 6 at batch 2 x 8192 (2048 tokens
+   a shard): 40 launches of each band kernel and 32 of each static kernel
+   a step, checked exactly.
 
 Each main path runs with the kernel launch counts zeroed just before it
 and read just after. The first line is the card's name and power limit
@@ -41,6 +56,7 @@ as ``nvidia-smi`` gives them. The last two lines are
 ``{"ok": true, "device": {...}}``.
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -64,6 +80,17 @@ N_REQUESTS, PROMPT_LEN, NEW_TOKENS, PAGE_SIZE = 8, 512, 64, 16
 TRAIN_BATCH, TRAIN_SEQ, LOSS_CHUNK = 4, 4096, 512
 ADAMW = dict(lr=3e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
 WARMUP_STEPS, TIMED_STEPS = 1, 4
+# Sequence parallelism: a local ring of 4 on one card, Mistral-7B's
+# sliding window, 2 x 8192 tokens a step (the 16,384 of the step above).
+SP_RING, SP_BATCH, SP_SEQ, SP_WINDOW = 4, 2, 8192, 4096
+SP_SHARD = SP_SEQ // SP_RING
+# The ring's steps, 1 + ceil((window - 1) / shard), and its band tiles a
+# layer: at step t the shards t..3 hold a live visiting tile at offset
+# t * shard (the rest wrap into the future and launch nothing).
+SP_STEPS = min(SP_RING, 1 + -(-(SP_WINDOW - 1) // SP_SHARD))
+SP_BAND_OFFSETS = [t * SP_SHARD for t in range(1, SP_STEPS)
+                   for _ in range(t, SP_RING)]
+SP_MODEL = dict(FLAGSHIP, max_seq=SP_SEQ, attention_window=SP_WINDOW)
 
 # Kernel vs plain version: f32 outputs differ by summation order only;
 # a bf16 output by at most one rounding of a value below 4 (2^-6); lse
@@ -297,12 +324,15 @@ def phase_serve(fa, serve, metrics, lm, card, where):
     return launches
 
 
-def causal_pairs(s, causal, window):
-    """(query, key) pairs the mask keeps in one (b, h) row."""
+def causal_pairs(s, causal, window, off=0):
+    """(query, key) pairs the mask keeps in one (b, h) row of a tile whose
+    query row i sits at position off + i (0 <= off + i - j < window)."""
     if not causal:
         return s * s
-    w = s if window is None else min(window, s)
-    return w * (w + 1) // 2 + (s - w) * w
+    r = np.arange(s, dtype=np.int64)
+    hi = np.minimum(s - 1, off + r)
+    lo = np.maximum(0, off + r - (window if window else off + s) + 1)
+    return int(np.maximum(0, hi - lo + 1).sum())
 
 
 def bound(nbytes, flops, dtype):
@@ -437,6 +467,280 @@ def phase_backward_kernels(fa, card, gen):
     return entries, train_fwd
 
 
+def band_work(b, s, h, h_kv, d, dtype, off, window):
+    """{kernel: (bytes, flops)} of the three band kernels on these shapes:
+    each input read once, each output written once (out in ``dtype``,
+    lse and the gradients f32), 4, 6 and 8 x D FLOPs per live pair."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    q_side, kv_side = b * s * h * d, b * s * h_kv * d
+    vec = 4 * b * h * s
+    pairs = causal_pairs(s, True, window, off) * b * h
+    return {
+        "flash_band_fwd": ((2 * q_side + 2 * kv_side) * item + vec,
+                           4 * d * pairs),
+        "flash_band_dq": ((2 * q_side + 2 * kv_side) * item + 2 * vec
+                          + 4 * q_side, 6 * d * pairs),
+        "flash_band_dkv": ((2 * q_side + 2 * kv_side) * item + 2 * vec
+                           + 2 * 4 * kv_side, 8 * d * pairs),
+    }
+
+
+def live_rows(s, off, window):
+    """Rows of a band tile at offset ``off`` with at least one live key."""
+    r = np.arange(s)
+    lo = np.maximum(0, off + r - (window if window else off + s) + 1)
+    return torch.from_numpy(lo <= np.minimum(s - 1, off + r))
+
+
+def top_kernel(fn):
+    """Name of the CUDA kernel with the most device time in one call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(getattr(r, "self_device_time_total", 0), r.key)
+            for r in prof.key_averages() if r.device_type == DeviceType.CUDA]
+    return max(rows)[1][:90] if rows else "not measured"
+
+
+def band_inputs(fa, card, gen, b, s, h, h_kv, d, dtype, off, window):
+    """q, k, v, dO in ``dtype``; a finite global lse (the band tile's
+    merged with a diagonal tile's, as the ring merges them) and
+    delta = rowsum(dO * out) of the band tile's out."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=card).to(dtype)
+    q, do = randn(b, s, h, d), randn(b, s, h, d)
+    k, v, k2, v2 = (randn(b, s, h_kv, d) for _ in range(4))
+    out, lse_band = fa.flash_band_fwd_reference(q, k, v, off, window)
+    _, lse_diag = fa.flash_attention_reference(q, k2, v2, True, window)
+    lse = torch.logaddexp(lse_band, lse_diag)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta
+
+
+def phase_band_kernels(fa, card, gen):
+    """The three band kernels against their plain versions at every
+    listed shape; each timed with its plain version and SDPA (explicit
+    band mask) at the ring's two offsets. Returns their entries of the
+    kernels line: times are means per launch over the path's mix of
+    offsets (SP_BAND_OFFSETS)."""
+    path = (SP_BATCH, SP_SHARD, 16, 4, 128, torch.bfloat16)
+    cases = [  # (B, S, H, H_kv, D, dtype, off, window)
+        path + (SP_SHARD, SP_WINDOW),       # fully visible tile
+        path + (2 * SP_SHARD, SP_WINDOW),   # half band, its last row dead
+        (2, 130, 4, 2, 8, torch.float32, 130, 100),     # ragged, dead rows
+        (1, 1000, 8, 8, 64, torch.float32, 2000, 1500),  # off 2S, dead rows
+        (1, 700, 16, 4, 128, torch.bfloat16, 700, 1000),  # ragged, window > S
+    ]
+    names = ("flash_band_fwd", "flash_band_dq", "flash_band_dkv")
+    worst = dict.fromkeys(names, 0.0)
+    timed = {}
+    for b, s, h, h_kv, d, dtype, off, window in cases:
+        q, k, v, do, lse, delta = band_inputs(fa, card, gen, b, s, h, h_kv,
+                                              d, dtype, off, window)
+        out, lse_t = fa.flash_band_fwd(q, k, v, off, window)
+        dq = fa.flash_band_dq(q, k, v, do, lse, delta, off, window)
+        dk, dv = fa.flash_band_dkv(q, k, v, do, lse, delta, off, window)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_band_fwd_reference(q, k, v, off, window)
+        live = live_rows(s, off, window).to(card)
+        check(torch.isfinite(out).all() and torch.isfinite(lse_t).all(),
+              "flash_band_fwd gave a NaN or an infinity")
+        check((lse_t[:, :, ~live] <= -1e29).all(),
+              "flash_band_fwd: a row with no live key kept weight")
+        tol = F32_ATOL if dtype == torch.float32 else BF16_ATOL
+        err_o = (out[:, live].float() - ref_out[:, live].float()).abs().max()
+        err_lse = (lse_t[:, :, live] - ref_lse[:, :, live]).abs().max()
+        want = (fa.flash_band_dq_reference(q, k, v, do, lse, delta, off,
+                                           window),
+                *fa.flash_band_dkv_reference(q, k, v, do, lse, delta, off,
+                                             window))
+        errs = [(g - w).abs().max().item() for g, w in zip((dq, dk, dv),
+                                                           want)]
+        print(f"kernel band B={b} S={s} H={h} H_kv={h_kv} D={d} "
+              f"{str(dtype)[6:]} off={off} window={window} "
+              f"({int((~live).sum())} rows with no key): out max|d|="
+              f"{err_o.item():.3g} (tol {tol:g}), lse {err_lse.item():.3g} "
+              f"(tol {LSE_ATOL:g}); dq {errs[0]:.3g}, dk {errs[1]:.3g}, dv "
+              f"{errs[2]:.3g} (f32, tol {GRAD_F32_ATOL:g})", flush=True)
+        check(err_o.item() <= tol and err_lse.item() <= LSE_ATOL,
+              f"flash_band_fwd disagrees with its plain version at "
+              f"{(b, s, h, off, window)}")
+        check(max(errs) <= GRAD_F32_ATOL,
+              f"band backward disagrees with its plain version at "
+              f"{(b, s, h, off, window)}")
+        worst["flash_band_fwd"] = max(worst["flash_band_fwd"], err_o.item())
+        worst["flash_band_dq"] = max(worst["flash_band_dq"], errs[0])
+        worst["flash_band_dkv"] = max(worst["flash_band_dkv"], *errs[1:])
+        if (b, s, h, h_kv, d, dtype) == path:
+            timed[off] = band_timings(fa, (q, k, v, do, lse, delta), off,
+                                      window, band_work(*path, off, window))
+        del q, k, v, do, lse, delta, out, dq, dk, dv, want, ref_out
+        torch.cuda.empty_cache()
+
+    entries = []
+    mix = SP_BAND_OFFSETS
+    for name, replaces in zip(names, (242, 283, 317)):
+        def mean(key):
+            return sum(timed[o][name][key] for o in mix) / len(mix)
+        by = {timed[o][name]["bound_by"] for o in mix}
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "horovod_tpu_torch/ops/csrc/" + (
+                "flash_fwd.cu" if name == "flash_band_fwd" else
+                "flash_bwd.cu"),
+            "replaces": f"horovod_tpu/ops/flash_attention.py:{replaces}",
+            "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+            "bound_ms": mean("bound_ms"),
+            "bound_by": by.pop() if len(by) == 1 else "operations",
+            "library_ms": mean("library_ms"),
+            "library": timed[mix[0]][name]["library"],
+            "by_offset": {o: timed[o][name] for o in sorted(timed)},
+            "shape": "B 2, S 2048, H 16, H_kv 4, D 128, bf16, window 4096; "
+                     "times are means per launch over the path's offsets "
+                     f"{mix}",
+            "max_abs_err": worst[name],
+        })
+    return entries
+
+
+def band_timings(fa, args, off, window, work):
+    """{kernel: ms, plain_ms, bound_ms, bound_by, library_ms, library} at
+    one offset of the path's shape. The library call is SDPA with the
+    tile's band as an explicit boolean ``attn_mask`` (the flash backend
+    takes no arbitrary mask), k and v expanded to the query heads before
+    the timed calls; its backward is forward + backward less forward, dq,
+    dk and dv together."""
+    q, k, v, do, lse, delta = args
+    s = q.shape[1]
+    ms = {
+        "flash_band_fwd": time_ms(lambda: fa.flash_band_fwd(q, k, v, off,
+                                                            window), 20),
+        "flash_band_dq": time_ms(lambda: fa.flash_band_dq(*args, off,
+                                                          window), 10),
+        "flash_band_dkv": time_ms(lambda: fa.flash_band_dkv(*args, off,
+                                                            window), 10),
+    }
+    plain = {
+        "flash_band_fwd": time_ms(lambda: fa.flash_band_fwd_reference(
+            q, k, v, off, window), 3),
+        "flash_band_dq": time_ms(lambda: fa.flash_band_dq_reference(
+            *args, off, window), 3),
+        "flash_band_dkv": time_ms(lambda: fa.flash_band_dkv_reference(
+            *args, off, window), 3),
+    }
+    group = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (x.repeat_interleave(group, dim=2).transpose(1, 2).detach()
+              .requires_grad_() for x in (k, v))
+    g = do.transpose(1, 2)
+    pos = torch.arange(s, device=q.device)
+    dist = off + pos[:, None] - pos[None, :]
+    mask = (dist >= 0) & (dist < window)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def fwd():
+        return sdpa(qt, kt, vt, attn_mask=mask)
+
+    def both():
+        return torch.autograd.grad(fwd(), (qt, kt, vt), g)
+
+    lib_fwd, lib_both = time_ms(fwd, 10), time_ms(both, 10)
+    kernel_fwd, kernel_both = top_kernel(fwd), top_kernel(both)
+    library = {
+        "flash_band_fwd": (lib_fwd, f"scaled_dot_product_attention with a "
+                                    f"band attn_mask (kernel {kernel_fwd})"),
+        "flash_band_dq": (lib_both - lib_fwd,
+                          f"scaled_dot_product_attention backward with a "
+                          f"band attn_mask, dq, dk and dv together (kernel "
+                          f"{kernel_both})"),
+    }
+    library["flash_band_dkv"] = library["flash_band_dq"]
+    out = {}
+    for name in ms:
+        nbytes, flops = work[name]
+        bound_ms, bound_by = bound(nbytes, flops, torch.bfloat16)
+        out[name] = {"ms": ms[name], "plain_ms": plain[name],
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": library[name][0],
+                     "library": library[name][1]}
+        print(f"kernel {name} timing at off {off}: {ms[name]:.4f} ms, plain "
+              f"{plain[name]:.4f} ms, SDPA {library[name][0]:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}; {flops / ms[name] / 1e9:.1f} "
+              f"TFLOP/s)", flush=True)
+    print(f"kernel band SDPA at off {off}: forward {kernel_fwd}; backward "
+          f"{kernel_both}", flush=True)
+    return out
+
+
+def phase_sp_parity(tfm, RingAxis, card):
+    """One step's loss and gradients through the sp-4 ring against the
+    model without SP at the same window, full width on one batch of
+    2 x 8192, with each run's peak memory; and a small f32 model's ring
+    (flash tiles, band tiles with rows that see no key, a pruned ring)
+    against dense attention."""
+    rng = np.random.default_rng(4)
+    small = dict(vocab_size=256, d_model=128, n_heads=4, n_kv_heads=2,
+                 n_layers=2, d_ff=256, max_seq=256, positional="rope",
+                 attention_window=100)
+    runs = (("full width 2 x 8192", SP_MODEL, SP_BATCH, SP_SEQ,
+             torch.bfloat16, (("ring", "flash", True), ("flash", "flash",
+                                                        False))),
+            ("small f32", small, 2, 256, torch.float32,
+             (("ring", "flash", True), ("dense", "dense", False))))
+    for label, kw, batch, seq, dtype, pair in runs:
+        tokens = torch.from_numpy(rng.integers(0, kw["vocab_size"],
+                                               (batch, seq))).to(card)
+        targets = torch.roll(tokens, -1, dims=1)
+        params, loss, grads, peak = None, {}, {}, {}
+        for name, impl, ring in pair:
+            cfg = tfm.TransformerConfig(dtype=dtype, attention_impl=impl,
+                                        loss_chunk=min(LOSS_CHUNK, seq), **kw)
+            if params is None:
+                params = tfm.init_params(cfg, torch.Generator().manual_seed(5),
+                                         card)
+            axes = tfm.ShardAxes(sp=RingAxis.local(SP_RING)) if ring else None
+            for t in _leaves(params):
+                t.grad = None
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loss[name], g = _loss_and_grads(tfm, params, cfg, tokens, targets,
+                                            axes)
+            peak[name] = torch.cuda.max_memory_allocated() - base
+            grads[name] = {k: v.float().clone() for k, v in g.items()}
+            del g
+        a, b = (p[0] for p in pair)
+        dl = abs(loss[a] - loss[b])
+        if dtype == torch.float32:
+            err = max((grads[a][k] - grads[b][k]).abs().max().item()
+                      for k in grads[b])
+            print(f"parity sp {label}: loss {a} {loss[a]:.6f}, {b} "
+                  f"{loss[b]:.6f}; max|dgrad|={err:.3g} (tol "
+                  f"{SMALL_GRAD_ATOL:g})", flush=True)
+            check(err <= SMALL_GRAD_ATOL and dl <= SMALL_GRAD_ATOL,
+                  "small f32 model: ring and dense gradients disagree")
+        else:
+            rel = _rel_l2(grads[a], grads[b])
+            worst = max(rel, key=rel.get)
+            print(f"parity sp {label}: loss {a} {loss[a]:.6f}, {b} "
+                  f"{loss[b]:.6f} (|d|={dl:.3g}, tol {TRAIN_LOSS_ATOL:g}); "
+                  f"gradient relative L2 worst {rel[worst]:.4g} at {worst} "
+                  f"(tol {TRAIN_GRAD_REL:g}), median "
+                  f"{float(np.median(list(rel.values()))):.4g}; peak memory "
+                  f"of loss and backward above what was allocated before "
+                  f"(the new gradients included): {a} "
+                  f"{peak[a] / 2 ** 30:.2f} GiB, {b} "
+                  f"{peak[b] / 2 ** 30:.2f} GiB", flush=True)
+            check(dl <= TRAIN_LOSS_ATOL, "ring and flash losses disagree")
+            check(rel[worst] <= TRAIN_GRAD_REL,
+                  "ring and flash gradients disagree")
+        del params, grads
+        torch.cuda.empty_cache()
+
+
 def _flat_grads(params):
     out = {k: v.grad for k, v in params.items() if k != "layers"}
     for i, layer in enumerate(params["layers"]):
@@ -444,12 +748,16 @@ def _flat_grads(params):
     return out
 
 
-def _loss_and_grads(tfm, params, cfg, tokens, targets):
-    for t in [v for k, v in params.items() if k != "layers"] + \
-            [v for layer in params["layers"] for v in layer.values()]:
+def _leaves(params):
+    return [v for k, v in params.items() if k != "layers"] + \
+        [v for layer in params["layers"] for v in layer.values()]
+
+
+def _loss_and_grads(tfm, params, cfg, tokens, targets, axes=None):
+    for t in _leaves(params):
         t.grad = None
         t.requires_grad_()
-    loss = tfm.loss_fn(params, tokens, targets, cfg)
+    loss = tfm.loss_fn(params, tokens, targets, cfg, axes)
     loss.backward()
     return loss.item(), _flat_grads(params)
 
@@ -520,39 +828,63 @@ def phase_train_parity(tfm, card):
         torch.cuda.empty_cache()
 
 
-def flops_per_token(params, cfg):
+def flops_per_token(params, cfg, seq):
     """bench_transformer.py's convention: 6 x the matrix-product
     parameters (q/k/v, o, the MLP, the LM head; not the embedding or the
-    norms) plus 6 x n_layers x seq x d_model of causal attention."""
+    norms) plus 6 x n_layers x seq x d_model of causal attention (no
+    discount for a window)."""
     p_mm = sum(v.numel() for layer in params["layers"]
                for k, v in layer.items()
                if k.startswith(("wq", "wk", "wo", "w1", "w2")))
     p_mm += params["lm_head"].numel()
-    return 6 * p_mm + 6 * cfg.n_layers * TRAIN_SEQ * cfg.d_model
+    return 6 * p_mm + 6 * cfg.n_layers * seq * cfg.d_model
 
 
-def phase_train(hvd, fa, tfm, card, where):
-    """Main path 2: init -> broadcast_parameters -> DistributedOptimizer
-    -> loss_fn, warm-up plus timed steps on one batch, counts zeroed
-    around it. Returns {kernel: launches}."""
+LAUNCH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                "flash_band_fwd", "flash_band_dq", "flash_band_dkv")
+COUNTERS = ("launches", "dq_launches", "dkv_launches", "band_launches",
+            "band_dq_launches", "band_dkv_launches")
+
+
+def read_launches(fa):
+    return {n: getattr(fa, c) for n, c in zip(LAUNCH_NAMES, COUNTERS)}
+
+
+def zero_launches(fa):
+    for c in COUNTERS:
+        setattr(fa, c, 0)
+
+
+def phase_train(hvd, fa, tfm, card, where, ring=None):
+    """Main path 2 (``ring`` None: batch 4 x 4096) or 3 (``ring`` a
+    RingAxis: the SP model at batch 2 x 8192): init ->
+    broadcast_parameters -> DistributedOptimizer -> loss_fn, warm-up plus
+    timed steps on one batch, counts zeroed around it. Returns {kernel:
+    launches}."""
     dump = os.path.join(tempfile.mkdtemp(), "profiler.txt")
     os.environ["HOROVOD_PROFILER_PATH"] = dump
     os.environ.pop("HOROVOD_PROFILER_DISABLE", None)
     hvd.init(device=card)
     check(hvd.size() == 1 and hvd.runtime.device().type == card.type,
           f"init: {hvd.size()} ranks on {hvd.runtime.device()}")
+    if ring is None:
+        label, batch, seq, model, axes = ("train", TRAIN_BATCH, TRAIN_SEQ,
+                                          FLAGSHIP, None)
+    else:
+        label, batch, seq, model = "sp train", SP_BATCH, SP_SEQ, SP_MODEL
+        axes = tfm.ShardAxes(sp=ring)
     cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
-                                loss_chunk=LOSS_CHUNK, **FLAGSHIP)
+                                loss_chunk=LOSS_CHUNK, **model)
     lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
-                           device=card)
+                           device=card, axes=axes)
     hvd.broadcast_parameters(lm.state_dict(), root_rank=0)
     opt = hvd.DistributedOptimizer(
         torch.optim.AdamW(lm.parameters(), **ADAMW),
         named_parameters=lm.named_parameters())
     n_buckets = len(opt.exchange_buckets)
     grad_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
-    tokens = np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                               (batch, seq))
     targets = torch.from_numpy(np.roll(tokens, -1, axis=1)).to(card)
     tokens = torch.from_numpy(tokens).to(card)
     stats = hvd.runtime.live_state().stats
@@ -562,7 +894,7 @@ def phase_train(hvd, fa, tfm, card, where):
     torch.cuda.reset_peak_memory_stats()
 
     steps = WARMUP_STEPS + TIMED_STEPS
-    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    zero_launches(fa)
     events, losses = [], []
     for _ in range(steps):
         start = torch.cuda.Event(enable_timing=True)
@@ -576,8 +908,7 @@ def phase_train(hvd, fa, tfm, card, where):
         events.append((start, end))
         losses.append(loss.detach())
     torch.cuda.synchronize()
-    launches = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
-                "flash_bwd_dkv": fa.dkv_launches}
+    launches = read_launches(fa)
 
     losses = [x.item() for x in losses]
     step_ms = [a.elapsed_time(b) for a, b in events[WARMUP_STEPS:]]
@@ -587,22 +918,30 @@ def phase_train(hvd, fa, tfm, card, where):
     hist = stats.histogram("allreduce")
     check(all(np.isfinite(losses)), f"losses {losses}")
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    # a step's launches per layer: one of each static kernel per local
+    # shard (the diagonal tiles), one of each band kernel per live
+    # visiting tile
+    shards = 1 if ring is None else len(ring.shards)
+    bands = 0 if ring is None else len(SP_BAND_OFFSETS)
     for name, n in launches.items():
-        check(n == steps * cfg.n_layers,
+        per_layer = bands if name.startswith("flash_band") else shards
+        check(n == steps * cfg.n_layers * per_layer,
               f"{name} launched {n} times in {steps} steps of "
-              f"{cfg.n_layers} layers")
+              f"{cfg.n_layers} layers, {per_layer} a layer expected")
     check(calls == steps * n_buckets,
           f"{calls} all-reduces in {steps} steps of {n_buckets} buckets")
     check(hist.get(grad_bytes, (0, 0))[0] == steps,
           f"all-reduce sizes {hist} do not cover {grad_bytes} gradient "
           f"bytes once a step")
     median = float(np.median(step_ms))
-    tok_s = TRAIN_BATCH * TRAIN_SEQ / (median / 1e3)
-    fpt = flops_per_token(lm.params, cfg)
+    tok_s = batch * seq / (median / 1e3)
+    fpt = flops_per_token(lm.params, cfg, seq)
     n_params = sum(p.numel() for p in lm.parameters())
-    print(f"train losses: {' '.join(f'{x:.4f}' for x in losses)}",
+    print(f"{label} losses: {' '.join(f'{x:.4f}' for x in losses)}",
           flush=True)
-    print(f"train {TRAIN_BATCH} x {TRAIN_SEQ} tokens, {n_params / 1e6:.1f} M "
+    print(f"{label} {batch} x {seq} tokens"
+          f"{'' if ring is None else f' over {ring}, window {SP_WINDOW}'}, "
+          f"{n_params / 1e6:.1f} M "
           f"parameters [{where}]: step {median:.1f} ms (median of "
           f"{TIMED_STEPS}; {' '.join(f'{t:.1f}' for t in step_ms)}); "
           f"{tok_s:.1f} tokens/s; {fpt / 1e9:.3f} GFLOP/token; MFU "
@@ -611,15 +950,16 @@ def phase_train(hvd, fa, tfm, card, where):
           f"{exchange_ms:.3f} ms/step over {calls // steps} bucket(s) of "
           f"{grad_bytes / 1e9:.3f} GB; peak memory "
           f"{peak / 2 ** 30:.2f} GiB", flush=True)
-    print(f"train launches in {steps} steps: {launches}", flush=True)
+    print(f"{label} launches in {steps} steps: {launches}", flush=True)
     del opt, lm
+    gc.collect()
     hvd.shutdown()
     with open(dump) as f:
         counter = next((line for line in f if
                         line.startswith("Counter allreduce,")), None)
     check(counter is not None and int(counter.split(",")[1]) >= calls,
           f"profiler dump {dump}: {counter!r}")
-    print(f"train shutdown: profiler dump {counter.strip()}", flush=True)
+    print(f"{label} shutdown: profiler dump {counter.strip()}", flush=True)
     torch.cuda.empty_cache()
     return launches
 
@@ -637,6 +977,7 @@ def main():
     from horovod_tpu_torch.models import transformer as tfm
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel.ring_attention import RingAxis
     from horovod_tpu_torch.serve.engine import ServeEngine
 
     t0 = time.perf_counter()
@@ -652,6 +993,7 @@ def main():
     entry = phase_kernels(fa, card, gen)
     bwd_entries, train_fwd = phase_backward_kernels(fa, card, gen)
     entry["train_shape"] = train_fwd
+    band_entries = phase_band_kernels(fa, card, gen)
 
     cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
                                 **FLAGSHIP)
@@ -663,24 +1005,27 @@ def main():
     phase_parity(tfm, ServeEngine, lm.params, card)
     phase_train_parity(tfm, card)
 
-    fa.dq_launches = fa.dkv_launches = 0
-    serve_launches = {"flash_fwd": phase_serve(fa, serve, metrics, lm, card,
-                                               where),
-                      "flash_bwd_dq": fa.dq_launches,
-                      "flash_bwd_dkv": fa.dkv_launches}
-    check(serve_launches["flash_bwd_dq"] == serve_launches["flash_bwd_dkv"]
-          == 0, f"serving launched backward kernels: {serve_launches}")
+    zero_launches(fa)
+    phase_serve(fa, serve, metrics, lm, card, where)
+    serve_launches = read_launches(fa)
+    check(sum(serve_launches.values()) == serve_launches["flash_fwd"],
+          f"serving launched other kernels than flash_fwd: {serve_launches}")
     del lm
     torch.cuda.empty_cache()
     train_launches = phase_train(hvd, fa, tfm, card, where)
+    phase_sp_parity(tfm, RingAxis, card)
+    sp_launches = phase_train(hvd, fa, tfm, card, where,
+                              RingAxis.local(SP_RING))
 
     entries = [entry, bwd_entries["flash_bwd_dq"],
-               bwd_entries["flash_bwd_dkv"]]
+               bwd_entries["flash_bwd_dkv"], *band_entries]
     for e in entries:
         by_path = {"serve": serve_launches[e["name"]],
-                   "train": train_launches[e["name"]]}
+                   "train": train_launches[e["name"]],
+                   "sp_train": sp_launches[e["name"]]}
         e["launches"] = sum(by_path.values())
         e["launches_by_path"] = by_path
+        check(e["launches"] > 0, f"{e['name']} never ran on a main path")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

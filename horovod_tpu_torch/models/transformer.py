@@ -30,9 +30,13 @@ a cast as redundant. ``remat`` checkpoints each layer
 runs the head and the cross entropy per sequence chunk under a
 checkpoint of its own, as the JAX package does.
 
-What this slice does not carry raises ``NotImplementedError`` naming the
-ROADMAP.md item that adds it: sharded axes (tensor, sequence, data
-parallel inside the model) and MoE layers.
+Sequence parallelism is ring attention over ``ShardAxes(sp=RingAxis)``
+(parallel/ring_attention.py). On one process with a local ring the
+position-wise layers run over the whole local sequence at once and only
+attention splits it into shards; over a process group each rank holds
+one shard. What this slice does not carry raises ``NotImplementedError``
+naming the ROADMAP.md item that adds it: tensor and expert parallelism,
+data parallelism inside the model, Ulysses, and MoE layers.
 """
 
 import dataclasses
@@ -41,17 +45,18 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention
-from ..parallel.ring_attention import dense_attention
+from ..parallel.ring_attention import RingAxis, dense_attention, ring_attention
 from ..utils.devices import resolve_device
 
 TENSOR_PARALLEL = "tensor parallelism (ROADMAP.md, Queue 1 item 6)"
 MOE = "MoE layers (ROADMAP.md, Queue 1 item 7)"
-SEQUENCE_PARALLEL = "sequence parallelism (ROADMAP.md, Queue 1 item 12)"
+ULYSSES = "Ulysses sequence parallelism (ROADMAP.md, Queue 1 item 12)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,7 +74,7 @@ class TransformerConfig:
     # "dense" (ring_attention.dense_attention) | "flash" (the Hopper
     # kernel, ops/flash_attention.py).
     attention_impl: str = "dense"
-    # Only "ring" (the default, unused on one device) is carried.
+    # Sequence parallelism over ShardAxes.sp: only "ring" is carried.
     sp_impl: str = "ring"
     # "learned" (absolute table) | "rope" (rotary on q/k).
     positional: str = "learned"
@@ -94,7 +99,7 @@ class TransformerConfig:
                 "expected 'ring' or 'ulysses'")
         if self.sp_impl == "ulysses":
             raise NotImplementedError(
-                f"sp_impl='ulysses' comes with {SEQUENCE_PARALLEL}")
+                f"sp_impl='ulysses' comes with {ULYSSES}")
         if self.n_kv_heads is not None \
                 and self.n_heads % self.n_kv_heads != 0:
             raise ValueError(
@@ -119,11 +124,45 @@ class TransformerConfig:
         return self.d_model // self.n_heads
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardAxes:
+    """The axes the model runs over; None elides each. ``sp`` is a
+    :class:`~horovod_tpu_torch.parallel.ring_attention.RingAxis`, where
+    the JAX package names a mesh axis. ``dp``, ``tp`` and ``ep`` are not
+    carried: data parallelism runs in ``DistributedOptimizer``, outside
+    the model."""
+    dp: Any = None
+    sp: Any = None
+    tp: Any = None
+    ep: Any = None
+
+
 def _check_axes(axes):
-    if axes is not None:
+    """``axes`` or the unsharded default, checked."""
+    if axes is None:
+        return ShardAxes()
+    if not isinstance(axes, ShardAxes):
+        raise TypeError(f"axes must be a ShardAxes, got {type(axes).__name__}")
+    if axes.tp is not None:
+        raise NotImplementedError(f"axes.tp comes with {TENSOR_PARALLEL}")
+    if axes.ep is not None:
+        raise NotImplementedError(f"axes.ep comes with {MOE}")
+    if axes.dp is not None:
         raise NotImplementedError(
-            f"sharded axes come with {TENSOR_PARALLEL} and "
-            f"{SEQUENCE_PARALLEL}; this slice runs on one device")
+            "axes.dp: the port averages over data-parallel ranks in "
+            "DistributedOptimizer; pass dp=None")
+    if axes.sp is not None and not isinstance(axes.sp, RingAxis):
+        raise TypeError(
+            f"axes.sp must be a RingAxis, got {type(axes.sp).__name__}")
+    return axes
+
+
+def _sp_start(axes, s):
+    """Global position of the first of ``s`` local positions: this
+    process's first shard times the shard length."""
+    if axes.sp is None:
+        return 0
+    return axes.sp.shards[0] * (s // len(axes.sp.shards))
 
 
 def param_shapes(cfg):
@@ -275,13 +314,16 @@ def _embed_rows(params, tokens):
 
 
 def embed_tokens(params, tokens, cfg, axes=None):
-    """Embedding lookup plus learned positions starting at 0, cast to
-    ``cfg.dtype`` (rope rotates q/k instead)."""
-    _check_axes(axes)
+    """Embedding lookup plus learned positions starting at this process's
+    first sequence position, cast to ``cfg.dtype`` (rope rotates q/k
+    instead)."""
+    axes = _check_axes(axes)
     x = _embed_rows(params, tokens)
     if cfg.positional != "learned":
         return x.to(cfg.dtype)
-    return (x + params["pos"][:tokens.shape[1]][None]).to(cfg.dtype)
+    start = _sp_start(axes, tokens.shape[1])
+    pos = params["pos"][start:start + tokens.shape[1]]
+    return (x + pos[None]).to(cfg.dtype)
 
 
 def _qkv_proj(p, h, cfg):
@@ -298,18 +340,27 @@ def _qkv_proj(p, h, cfg):
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
-def _attention_block_kv(p, x, cfg):
+def _attention_block_kv(p, x, cfg, axes=None):
     """Attention sub-block with its residual, also returning the
     post-rope K/V (the serve prefill scatters them into the paged
-    pool)."""
+    pool). Over ``axes.sp`` attention is ring attention, and rope
+    positions start at this process's first sequence position."""
+    axes = _check_axes(axes)
     h = _rmsnorm(x, p["ln1"])
     q, k, v = _qkv_proj(p, h, cfg)
     if cfg.positional == "rope":
-        positions = torch.arange(x.shape[1], device=x.device)
+        start = _sp_start(axes, x.shape[1])
+        positions = start + torch.arange(x.shape[1], device=x.device)
         q = _rope(q, positions)
         k = _rope(k, positions)
     win = cfg.attention_window
-    if cfg.attention_impl == "flash":
+    if axes.sp is not None:
+        # ring x flash: the static kernels for each diagonal tile, the band
+        # kernels for the visiting tiles under a window; partials merge
+        # by log-sum-exp.
+        attn = ring_attention(q, k, v, axes.sp, causal=True,
+                              impl=cfg.attention_impl, window=win)
+    elif cfg.attention_impl == "flash":
         attn = flash_attention(q, k, v, True, window=win)
     else:
         attn = dense_attention(q, k, v, causal=True, window=win)
@@ -337,8 +388,8 @@ def _head(params, x, cfg):
 MOE_AUX_COEF = 0.01  # the JAX package's Switch load-balance coefficient
 
 
-def _one_layer(p, x, cfg):
-    x, _, _ = _attention_block_kv(p, x, cfg)
+def _one_layer(p, x, cfg, axes):
+    x, _, _ = _attention_block_kv(p, x, cfg, axes)
     return _mlp_block(p, x, cfg)
 
 
@@ -346,12 +397,13 @@ def trunk_with_aux(params, tokens, cfg, axes=None):
     """Pre-head activations (B, S, d) and the total MoE aux loss (0: no
     MoE layers in this slice). With ``cfg.remat`` each layer runs under
     a checkpoint, so its activations are recomputed in the backward."""
+    axes = _check_axes(axes)
     x = embed_tokens(params, tokens, cfg, axes)
     for p in params["layers"]:
         if cfg.remat:
-            x = checkpoint(_one_layer, p, x, cfg, use_reentrant=False)
+            x = checkpoint(_one_layer, p, x, cfg, axes, use_reentrant=False)
         else:
-            x = _one_layer(p, x, cfg)
+            x = _one_layer(p, x, cfg, axes)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -409,30 +461,60 @@ def _chunked_cross_entropy(params, x, targets, cfg):
     return total / (b * s)
 
 
+class _MeanOverRanks(torch.autograd.Function):
+    """The value averaged over ``group``; the gradient passes through."""
+
+    @staticmethod
+    def forward(ctx, loss, group):
+        out = loss.detach().clone()
+        dist.all_reduce(out, group=group)
+        return out / dist.get_world_size(group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def loss_fn(params, tokens, targets, cfg, axes=None):
-    """Mean causal-LM cross entropy (+ the MoE aux term, 0 here). With
-    ``cfg.loss_chunk`` set, the head and the cross entropy run per
-    sequence chunk and full logits never materialize."""
-    _check_axes(axes)
+    """Mean causal-LM cross entropy over all tokens of the sequence (+ the
+    MoE aux term, 0 here). With ``cfg.loss_chunk`` set, the head and the
+    cross entropy run per sequence chunk and full logits never
+    materialize.
+
+    Over ``axes.sp``: a local ring holds the whole sequence, so the mean
+    is taken here. Over a process group each rank's loss is its shard's
+    mean, and the value returned is that mean averaged over the ranks
+    (the JAX package's ``pmean`` over ``sp``), while the gradient flowing
+    back is the shard's own. The ring's backward sends each rank the
+    dK/dV of the other ranks' queries, so the world average of the
+    ranks' gradients, which ``DistributedOptimizer`` already takes, is
+    the gradient of the averaged loss."""
+    axes = _check_axes(axes)
     if cfg.loss_chunk:
-        x, aux = trunk_with_aux(params, tokens, cfg)
+        x, aux = trunk_with_aux(params, tokens, cfg, axes)
         nll = _chunked_cross_entropy(params, x, targets, cfg)
     else:
-        logits, aux = forward_with_aux(params, tokens, cfg)
+        logits, aux = forward_with_aux(params, tokens, cfg, axes)
         nll = _cross_entropy(logits, targets)
-    return nll + MOE_AUX_COEF * aux
+    loss = nll + MOE_AUX_COEF * aux
+    if axes.sp is not None and axes.sp.distributed:
+        loss = _MeanOverRanks.apply(loss, axes.sp.group)
+    return loss
 
 
 class TransformerLM(nn.Module):
     """Holds the parameters (trainable ``nn.Parameter``s) and runs
-    :func:`forward` and :func:`loss_fn` on them. ``params`` defaults to
+    :func:`forward` and :func:`loss_fn` on them over ``axes`` (a
+    :class:`ShardAxes`; ``ShardAxes(sp=RingAxis.local(4))`` trains with
+    sequence parallelism on one card). ``params`` defaults to
     :func:`init_params` drawn from ``generator``. Serving runs it under
     ``torch.inference_mode()``, where no graph is kept."""
 
     def __init__(self, cfg=TransformerConfig(), params=None, *,
-                 generator=None, device="cuda"):
+                 generator=None, device="cuda", axes=None):
         super().__init__()
         self.cfg = cfg
+        self.axes = _check_axes(axes)
         if params is None:
             params = init_params(cfg, generator, device)
 
@@ -452,7 +534,7 @@ class TransformerLM(nn.Module):
         return out
 
     def forward(self, tokens):
-        return forward(self.params, tokens, self.cfg)
+        return forward(self.params, tokens, self.cfg, self.axes)
 
     def loss(self, tokens, targets):
-        return loss_fn(self.params, tokens, targets, self.cfg)
+        return loss_fn(self.params, tokens, targets, self.cfg, self.axes)

@@ -1,11 +1,20 @@
 // Flash-attention backward for Hopper (sm_90a), f32 math on bf16 or f32 inputs.
 //
-// Replaces the two Pallas TPU kernels that horovod_tpu/ops/flash_attention.py
-// launches from _flash_bwd_impl:
+// Replaces four Pallas TPU kernels of horovod_tpu/ops/flash_attention.py:
 //
-//   flash_bwd_dq  <- _bwd_dq_kernel   dQ = scale * sum_j dS_ij K_j
-//   flash_bwd_dkv <- _bwd_dkv_kernel  dV = sum_i P_ij^T dO_i,
-//                                     dK = sum_i dS_ij^T (Q_i * scale)
+//   flash_bwd_dq   <- _bwd_dq_kernel    (_flash_bwd_impl)  dQ = scale * sum_j dS_ij K_j
+//   flash_bwd_dkv  <- _bwd_dkv_kernel   (_flash_bwd_impl)  dV = sum_i P_ij^T dO_i,
+//                                                          dK = sum_i dS_ij^T (Q_i * scale)
+//   flash_band_dq  <- _band_dq_kernel   (_band_tile_bwd)   the same, for a band tile
+//   flash_band_dkv <- _band_dkv_kernel  (_band_tile_bwd)
+//
+// A band tile is ring attention's tile of a visiting K/V shard: its query rows
+// sit `off` global positions after the K/V origin (query row i at position
+// off + i for the causal and window masks), and lse and delta are the ring's
+// global ones. The static kernels are the band kernels at off = 0: both run
+// the same tile loops, the TPU's SMEM scalar becoming an int argument. The
+// static kernels write gradients in the input type; the band kernels write
+// f32, as _band_tile_bwd does, since the ring sums them across tiles.
 //
 // with, for every live (query i, key j) pair,
 //
@@ -32,14 +41,15 @@
 //
 // - flash_bwd_dq: one CTA per (b*h, 64-row q tile). It holds the tile's scaled
 //   q, dO, lse and delta in shared memory and loops over 64-row kv tiles, with
-//   the causal and window skips as the loop's bounds. The highest q tiles
+//   the causal and window skips (for a band tile, _band_live at the tile's
+//   offset) as the loop's bounds. The highest q tiles
 //   launch first: under a causal mask they have the most kv tiles.
 // - flash_bwd_dkv: one CTA per (b*h_kv, 64-row k tile). It holds K and V and
 //   loops over the `group` query heads that share the kv head and, inside
 //   that, over the live q tiles. dK and dV accumulate in f32 registers across
 //   the whole group, so the GQA group sum that the TPU path runs outside the
-//   kernel over f32 per-q-head partials (:688-692) happens here, and the
-//   partial buffers do not exist. The lowest k tiles launch first: under a
+//   kernel over f32 per-q-head partials (:688-692 and :797-801) happens here,
+//   and the partial buffers do not exist. The lowest k tiles launch first: under a
 //   causal mask they have the most q tiles.
 //
 // Ragged lengths are masked per element: a key at or past S gets -1e30, a
@@ -57,7 +67,10 @@
 // and 8*D for dkv (s, dp, P^T.dO, dS^T.Q), against 989 TFLOP/s bf16. At the
 // training shape (B 4, S 4096, H 16, H_kv 4, D 128, bf16, causal) that is
 // 412 GFLOP (0.42 ms) and 550 GFLOP (0.56 ms); each moves about 0.24 GB
-// (0.07 ms at 3.35 TB/s), so operations bound both. This first design is for
+// (0.07 ms at 3.35 TB/s), so operations bound both, and the band kernels at
+// the ring's shapes too. A band tile's row that is dead in the tile gets
+// p = exp(-1e30 - lse) = 0 from the finite global lse, so it adds nothing.
+// This first design is for
 // correctness: the products run on the CUDA cores in f32, not on the tensor
 // cores. wgmma, TMA and warp specialisation come later.
 
@@ -115,10 +128,12 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
   }
 }
 
-__device__ __forceinline__ bool live(int qp, int kp, int S, int causal,
-                                     int window) {
-  bool keep = qp < S && kp < S;
+// Query row qi (at position off + qi) and key kp of one (b, h) row.
+__device__ __forceinline__ bool live(int qi, int kp, int S, int off,
+                                     int causal, int window) {
+  bool keep = qi < S && kp < S;
   if (causal) {
+    const int qp = off + qi;
     keep = keep && qp >= kp;
     if (window > 0) keep = keep && qp - kp < window;
   }
@@ -134,15 +149,15 @@ __host__ __device__ constexpr int dkv_smem_floats() {
   return 2 * BK * (DMAX + 1) + 2 * BQ * (DMAX + 1) + 2 * BK * LDS;
 }
 
-template <typename T, int DMAX>
+template <typename T, typename TO, int DMAX>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, int S, int H,
+    const float* __restrict__ delta, TO* __restrict__ dq, int S, int H,
     int group, int D, long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh, long long vsb, long long vss,
     long long vsh, long long dsb, long long dss, long long dsh, float scale,
-    int causal, int window) {
+    int causal, int window, int off) {
   constexpr int LD = DMAX + 1;
   constexpr int OCPT = DMAX / TX;    // accumulator columns per thread
   extern __shared__ float smem[];
@@ -174,11 +189,12 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
 #pragma unroll
     for (int c = 0; c < OCPT; ++c) acc[i][c] = 0.f;
 
-  // kv rows [kv_lo, kv_hi) can be live for some row of this q tile.
+  // kv rows [kv_lo, kv_hi) can be live for some row of this q tile, whose
+  // rows sit at positions off + q0 .. off + q0 + BQ - 1.
   int kv_lo = 0, kv_hi = S;
   if (causal) {
-    kv_hi = min(S, q0 + BQ);
-    if (window > 0) kv_lo = max(0, q0 - window + 1);
+    kv_hi = max(0, min(S, off + q0 + BQ));
+    if (window > 0) kv_lo = max(0, off + q0 - window + 1);
   }
   const int t_hi = (kv_hi + BK - 1) / BK;
 
@@ -221,8 +237,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
         const int c = tx + TX * j;
-        const float sv = live(q0 + r, k0 + c, S, causal, window) ? s[i][j]
-                                                                 : NEG_INF;
+        const float sv =
+            live(q0 + r, k0 + c, S, off, causal, window) ? s[i][j] : NEG_INF;
         const float p = expf(sv - lse_s[r]);
         dst[r * LDS + c] = p * (dp[i][j] - delta_s[r]);
       }
@@ -246,7 +262,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
   for (int i = 0; i < RPT; ++i) {
     const int qp = q0 + ty + TY * i;
     if (qp >= S) continue;
-    T* row = dq + ((static_cast<long long>(b) * S + qp) * H + h) * D;
+    TO* row = dq + ((static_cast<long long>(b) * S + qp) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < OCPT; ++c) {
       const int d = tx + TX * c;
@@ -255,15 +271,15 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
   }
 }
 
-template <typename T, int DMAX>
+template <typename T, typename TO, int DMAX>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    const float* __restrict__ delta, TO* __restrict__ dk, TO* __restrict__ dv,
     int S, int H, int group, int D, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, long long dsb, long long dss, long long dsh,
-    float scale, int causal, int window) {
+    float scale, int causal, int window, int off) {
   constexpr int LD = DMAX + 1;
   constexpr int OCPT = DMAX / TX;
   extern __shared__ float smem[];
@@ -292,11 +308,16 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
 #pragma unroll
     for (int c = 0; c < OCPT; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
 
-  // q tiles [t_lo, t_hi) hold a query that can see some key of this tile.
+  // q tiles [t_lo, t_hi) hold a query that can see some key of this tile:
+  // query row i (position off + i) sees key k0 from i = k0 - off on, and,
+  // under a window, key k0 + BK - 1 up to i = k0 + BK - 2 + window - off.
   int t_lo = 0, t_hi = (S + BQ - 1) / BQ;
   if (causal) {
-    t_lo = k0 / BQ;
-    if (window > 0) t_hi = min(t_hi, (k0 + BK - 1 + window - 1) / BQ + 1);
+    t_lo = max(0, k0 - off) / BQ;
+    if (window > 0) {
+      const int last = k0 + BK - 2 + window - off;
+      t_hi = last < 0 ? 0 : min(t_hi, last / BQ + 1);
+    }
   }
 
   for (int g = 0; g < group; ++g) {
@@ -345,8 +366,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
 #pragma unroll
         for (int j = 0; j < CPT; ++j) {
           const int c = tx + TX * j;
-          const float sv = live(q0 + c, k0 + r, S, causal, window) ? s[i][j]
-                                                                   : NEG_INF;
+          const float sv =
+              live(q0 + c, k0 + r, S, off, causal, window) ? s[i][j] : NEG_INF;
           const float p = expf(sv - lse_s[c]);
           pt[r * LDS + c] = p;
           dst[r * LDS + c] = p * (dp[i][j] - delta_s[c]);
@@ -381,13 +402,13 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
   for (int i = 0; i < RPT; ++i) {
     const int kp = k0 + ty + TY * i;
     if (kp >= S) continue;
-    const long long off = ((static_cast<long long>(b) * S + kp) * h_kv + hk) * D;
+    const long long at = ((static_cast<long long>(b) * S + kp) * h_kv + hk) * D;
 #pragma unroll
     for (int c = 0; c < OCPT; ++c) {
       const int d = tx + TX * c;
       if (d < D) {
-        store(dk + off + d, acc_k[i][c]);
-        store(dv + off + d, acc_v[i][c]);
+        store(dk + at + d, acc_k[i][c]);
+        store(dv + at + d, acc_v[i][c]);
       }
     }
   }
@@ -400,13 +421,13 @@ struct Args {
   int B, S, H, Hkv, D;
   long long st[12];   // (batch, sequence, head) strides of q, k, v, dO
   float scale;
-  int causal, window;
+  int causal, window, off;
 };
 
-template <typename T, int DMAX>
+template <typename T, typename TO, int DMAX>
 cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
   constexpr int smem = dq_smem_floats<DMAX>() * static_cast<int>(sizeof(float));
-  auto kernel = flash_bwd_dq_kernel<T, DMAX>;
+  auto kernel = flash_bwd_dq_kernel<T, TO, DMAX>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -415,16 +436,16 @@ cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.out0), a.S, a.H, a.H / a.Hkv, a.D, a.st[0], a.st[1],
+      static_cast<TO*>(a.out0), a.S, a.H, a.H / a.Hkv, a.D, a.st[0], a.st[1],
       a.st[2], a.st[3], a.st[4], a.st[5], a.st[6], a.st[7], a.st[8], a.st[9],
-      a.st[10], a.st[11], a.scale, a.causal, a.window);
+      a.st[10], a.st[11], a.scale, a.causal, a.window, a.off);
   return cudaGetLastError();
 }
 
-template <typename T, int DMAX>
+template <typename T, typename TO, int DMAX>
 cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
   constexpr int smem = dkv_smem_floats<DMAX>() * static_cast<int>(sizeof(float));
-  auto kernel = flash_bwd_dkv_kernel<T, DMAX>;
+  auto kernel = flash_bwd_dkv_kernel<T, TO, DMAX>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -433,28 +454,36 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.S, a.H,
+      static_cast<TO*>(a.out0), static_cast<TO*>(a.out1), a.S, a.H,
       a.H / a.Hkv, a.D, a.st[0], a.st[1], a.st[2], a.st[3], a.st[4], a.st[5],
       a.st[6], a.st[7], a.st[8], a.st[9], a.st[10], a.st[11], a.scale,
-      a.causal, a.window);
+      a.causal, a.window, a.off);
   return cudaGetLastError();
 }
 
-template <typename T, bool DQ>
+template <typename T, typename TO, bool DQ>
 cudaError_t dispatch_d(const Args& a, cudaStream_t s) {
-  if (a.D <= 32) return DQ ? launch_dq<T, 32>(a, s) : launch_dkv<T, 32>(a, s);
-  if (a.D <= 64) return DQ ? launch_dq<T, 64>(a, s) : launch_dkv<T, 64>(a, s);
-  return DQ ? launch_dq<T, 128>(a, s) : launch_dkv<T, 128>(a, s);
+  if (a.D <= 32)
+    return DQ ? launch_dq<T, TO, 32>(a, s) : launch_dkv<T, TO, 32>(a, s);
+  if (a.D <= 64)
+    return DQ ? launch_dq<T, TO, 64>(a, s) : launch_dkv<T, TO, 64>(a, s);
+  return DQ ? launch_dq<T, TO, 128>(a, s) : launch_dkv<T, TO, 128>(a, s);
 }
 
+// f32_out: gradients in f32 (the band kernels) rather than the input type.
 template <bool DQ>
-int run(const Args& a, int dtype, void* stream) {
+int run(const Args& a, int dtype, bool f32_out, void* stream) {
   if (a.D < 1 || a.D > 128 || a.Hkv < 1 || a.H % a.Hkv != 0 ||
       (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dtype == 0 ? dispatch_d<float, DQ>(a, s)
-                                     : dispatch_d<__nv_bfloat16, DQ>(a, s);
+  cudaError_t err;
+  if (dtype == 0)
+    err = dispatch_d<float, float, DQ>(a, s);
+  else if (f32_out)
+    err = dispatch_d<__nv_bfloat16, float, DQ>(a, s);
+  else
+    err = dispatch_d<__nv_bfloat16, __nv_bfloat16, DQ>(a, s);
   return static_cast<int>(err);
 }
 
@@ -472,8 +501,8 @@ extern "C" int hvd_flash_bwd_dq(
     int causal, int window, void* stream) {
   const Args a{q, k, v, dout, lse, delta, dq, nullptr, B, S, H, Hkv, D,
                {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh},
-               scale, causal, window};
-  return run<true>(a, dtype, stream);
+               scale, causal, window, 0};
+  return run<true>(a, dtype, false, stream);
 }
 
 extern "C" int hvd_flash_bwd_dkv(
@@ -485,8 +514,36 @@ extern "C" int hvd_flash_bwd_dkv(
     int causal, int window, void* stream) {
   const Args a{q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, D,
                {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh},
-               scale, causal, window};
-  return run<false>(a, dtype, stream);
+               scale, causal, window, 0};
+  return run<false>(a, dtype, false, stream);
+}
+
+// The band tiles: causal at offset `off` (query row i at position off + i),
+// gradients in f32. dk and dv are summed over each GQA group.
+extern "C" int hvd_flash_band_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, int dtype, int B, int S,
+    int H, int Hkv, int D, long long qsb, long long qss, long long qsh,
+    long long ksb, long long kss, long long ksh, long long vsb, long long vss,
+    long long vsh, long long dsb, long long dss, long long dsh, float scale,
+    int off, int window, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, dq, nullptr, B, S, H, Hkv, D,
+               {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh},
+               scale, 1, window, off};
+  return run<true>(a, dtype, true, stream);
+}
+
+extern "C" int hvd_flash_band_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, int dtype, int B,
+    int S, int H, int Hkv, int D, long long qsb, long long qss, long long qsh,
+    long long ksb, long long kss, long long ksh, long long vsb, long long vss,
+    long long vsh, long long dsb, long long dss, long long dsh, float scale,
+    int off, int window, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, D,
+               {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh},
+               scale, 1, window, off};
+  return run<false>(a, dtype, true, stream);
 }
 
 extern "C" const char* hvd_cuda_error_string(int err) {

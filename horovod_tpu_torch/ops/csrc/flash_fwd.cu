@@ -1,7 +1,16 @@
 // Flash-attention forward for Hopper (sm_90a), f32 math on bf16 or f32 inputs.
 //
-// Replaces horovod_tpu/ops/flash_attention.py:_fwd_kernel (the Pallas TPU
-// kernel launched by _flash_fwd_impl). It computes, for every query row,
+// Replaces two Pallas TPU kernels of horovod_tpu/ops/flash_attention.py:
+//
+//   hvd_flash_fwd       <- _fwd_kernel       (launched by _flash_fwd_impl)
+//   hvd_flash_band_fwd  <- _band_fwd_kernel  (launched by _band_tile_fwd)
+//
+// A band tile is ring attention's tile of a visiting K/V shard: its query rows
+// sit `off` global positions after the K/V origin, so query row i is at
+// position off + i for the causal and window masks. The static kernel is the
+// band kernel at off = 0, and both run the same tile loop. The TPU passed off
+// as an SMEM scalar; here it is an int argument. It computes, for every query
+// row,
 //
 //     s   = (q * scale) . k^T            in f32, scale = 1/sqrt(D)
 //     s   = -1e30 where masked            (causal, sliding window, ragged edge)
@@ -20,7 +29,8 @@
 // Design. The TPU kernel carries (m, l, acc) across a sequential kv grid axis.
 // Blocks on Hopper run in no order, so one CTA owns one (b*h, 64-row q tile)
 // and loops over 64-row kv tiles itself. The causal and window tile skips of
-// the TPU kernel become that loop's bounds; the in-tile masks and the ragged
+// the TPU kernels (pl.when, and _band_live for a band tile) become that loop's
+// bounds, computed at the tile's offset; the in-tile masks and the ragged
 // edge (S not a multiple of 64) are masked per element, so the card needs
 // neither the reference's pad-to-128 path nor its dense fallback. Each kv tile
 // is converted to f32 in shared memory; 128 threads each own 4 query rows x 8
@@ -33,6 +43,12 @@
 // TFLOP/s bf16, bytes ~ (2*B*H*S*D + 2*B*H_kv*S*D) * dtype size (Q and O, K and
 // V) against 3.35 TB/s. At the serving prefill shape (B 8, S 512, H 16, H_kv 4,
 // D 128, bf16) the bytes bound is the larger one, 0.0126 ms against 0.0087 ms.
+// A band tile has fewer live pairs: at the ring's shapes (S 2048, window 4096)
+// the tile at off 2048 is fully visible and the one at off 4096 half masked,
+// and operations bound both. A row with no live key anywhere in its tile (a
+// band tile's rows past the window) ends with every score at -1e30, so its
+// lse is -1e30 (to f32 precision) and its out a finite mean of the visited V
+// rows, or 0 when no tile was visited: the ring's lse merge gives it weight 0.
 // This first design is for correctness: the products run on the CUDA cores in
 // f32, not on the tensor cores. wgmma, TMA and warp specialisation come later.
 
@@ -87,7 +103,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     T* __restrict__ o, float* __restrict__ lse, int S, int H, int group, int D,
     long long qsb, long long qss, long long qsh, long long ksb, long long kss,
     long long ksh, long long vsb, long long vss, long long vsh, float scale,
-    int causal, int window) {
+    int causal, int window, int off) {
   constexpr int LDQ = DMAX + 1;
   constexpr int LDK = DMAX + 1;
   constexpr int LDV = DMAX;
@@ -126,11 +142,12 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     for (int c = 0; c < OCPT; ++c) acc[i][c] = 0.f;
   }
 
-  // kv rows [kv_lo, kv_hi) can be live for some row of this q tile.
+  // kv rows [kv_lo, kv_hi) can be live for some row of this q tile, whose
+  // rows sit at positions off + q0 .. off + q0 + BQ - 1.
   int kv_lo = 0, kv_hi = S;
   if (causal) {
-    kv_hi = min(S, q0 + BQ);
-    if (window > 0) kv_lo = max(0, q0 - window + 1);
+    kv_hi = max(0, min(S, off + q0 + BQ));
+    if (window > 0) kv_lo = max(0, off + q0 - window + 1);
   }
   const int t_hi = (kv_hi + BK - 1) / BK;
 
@@ -164,7 +181,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
 
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
-      const int qp = q0 + ty + TY * i;
+      const int qp = off + q0 + ty + TY * i;  // the row's position
       float bm = NEG_INF;
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
@@ -233,7 +250,7 @@ template <typename T, int DMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse,
                    int B, int S, int H, int Hkv, int D, const long long* qst,
                    const long long* kst, const long long* vst, float scale,
-                   int causal, int window, cudaStream_t stream) {
+                   int causal, int window, int off, cudaStream_t stream) {
   constexpr int smem = smem_floats<DMAX>() * static_cast<int>(sizeof(float));
   auto kernel = flash_fwd_kernel<T, DMAX>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -244,7 +261,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), static_cast<float*>(lse), S, H, H / Hkv, D, qst[0],
       qst[1], qst[2], kst[0], kst[1], kst[2], vst[0], vst[1], vst[2], scale,
-      causal, window);
+      causal, window, off);
   return cudaGetLastError();
 }
 
@@ -253,28 +270,22 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
                        void* lse, int B, int S, int H, int Hkv, int D,
                        const long long* qst, const long long* kst,
                        const long long* vst, float scale, int causal, int window,
-                       cudaStream_t stream) {
+                       int off, cudaStream_t stream) {
   if (D <= 32)
     return launch<T, 32>(q, k, v, o, lse, B, S, H, Hkv, D, qst, kst, vst, scale,
-                         causal, window, stream);
+                         causal, window, off, stream);
   if (D <= 64)
     return launch<T, 64>(q, k, v, o, lse, B, S, H, Hkv, D, qst, kst, vst, scale,
-                         causal, window, stream);
+                         causal, window, off, stream);
   return launch<T, 128>(q, k, v, o, lse, B, S, H, Hkv, D, qst, kst, vst, scale,
-                        causal, window, stream);
+                        causal, window, off, stream);
 }
 
-}  // namespace
-
-// Plain C interface for ctypes. dtype: 0 = float32, 1 = bfloat16. Strides are
-// in elements, (batch, sequence, head) for each of q, k, v. window <= 0 means
-// no window. Returns the cudaError_t of the launch (0 = success).
-extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v, void* o,
-                             void* lse, int dtype, int B, int S, int H, int Hkv,
-                             int D, long long qsb, long long qss, long long qsh,
-                             long long ksb, long long kss, long long ksh,
-                             long long vsb, long long vss, long long vsh,
-                             float scale, int causal, int window, void* stream) {
+int run(const void* q, const void* k, const void* v, void* o, void* lse,
+        int dtype, int B, int S, int H, int Hkv, int D, long long qsb,
+        long long qss, long long qsh, long long ksb, long long kss,
+        long long ksh, long long vsb, long long vss, long long vsh, float scale,
+        int causal, int window, int off, void* stream) {
   if (D < 1 || D > 128 || Hkv < 1 || H % Hkv != 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long qst[3] = {qsb, qss, qsh};
@@ -283,10 +294,39 @@ extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v, void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       dtype == 0 ? dispatch_d<float>(q, k, v, o, lse, B, S, H, Hkv, D, qst, kst,
-                                     vst, scale, causal, window, s)
-                 : dispatch_d<__nv_bfloat16>(q, k, v, o, lse, B, S, H, Hkv, D, qst,
-                                             kst, vst, scale, causal, window, s);
+                                     vst, scale, causal, window, off, s)
+                 : dispatch_d<__nv_bfloat16>(q, k, v, o, lse, B, S, H, Hkv, D,
+                                             qst, kst, vst, scale, causal,
+                                             window, off, s);
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// Plain C interface for ctypes. dtype: 0 = float32, 1 = bfloat16. Strides are
+// in elements, (batch, sequence, head) for each of q, k, v. window <= 0 means
+// no window. Each returns the cudaError_t of its launch (0 = success).
+extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v, void* o,
+                             void* lse, int dtype, int B, int S, int H, int Hkv,
+                             int D, long long qsb, long long qss, long long qsh,
+                             long long ksb, long long kss, long long ksh,
+                             long long vsb, long long vss, long long vsh,
+                             float scale, int causal, int window, void* stream) {
+  return run(q, k, v, o, lse, dtype, B, S, H, Hkv, D, qsb, qss, qsh, ksb, kss,
+             ksh, vsb, vss, vsh, scale, causal, window, 0, stream);
+}
+
+// The band tile: causal at offset `off` (query row i at position off + i),
+// out in the input type and lse f32, as _band_fwd_kernel writes them.
+extern "C" int hvd_flash_band_fwd(const void* q, const void* k, const void* v,
+                                  void* o, void* lse, int dtype, int B, int S,
+                                  int H, int Hkv, int D, long long qsb,
+                                  long long qss, long long qsh, long long ksb,
+                                  long long kss, long long ksh, long long vsb,
+                                  long long vss, long long vsh, float scale,
+                                  int off, int window, void* stream) {
+  return run(q, k, v, o, lse, dtype, B, S, H, Hkv, D, qsb, qss, qsh, ksb, kss,
+             ksh, vsb, vss, vsh, scale, 1, window, off, stream);
 }
 
 extern "C" const char* hvd_cuda_error_string(int err) {

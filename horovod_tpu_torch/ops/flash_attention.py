@@ -1,5 +1,5 @@
-"""Fused attention on Hopper, forward and backward, and paged decode
-attention.
+"""Fused attention on Hopper, forward and backward, ring attention's
+band tiles, and paged decode attention.
 
 Counterpart of horovod_tpu/ops/flash_attention.py. The TPU kernels
 ``_fwd_kernel``, ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (Pallas)
@@ -8,6 +8,18 @@ become CUDA C++ kernels for sm_90a, ``ops/csrc/flash_fwd.cu`` and
 through a plain C interface. Same contract as the JAX package: q
 (B, S, H, D), k/v (B, S, H_kv, D) with H % H_kv == 0, causal by default,
 optional sliding ``window`` (requires causal).
+
+The band kernels ``_band_fwd_kernel``, ``_band_dq_kernel`` and
+``_band_dkv_kernel`` compute ring attention's tile of a visiting K/V
+shard, whose query rows sit ``off`` global positions after the K/V
+origin (causal, and windowed, at that offset): :func:`flash_band_fwd`,
+:func:`flash_band_dq` and :func:`flash_band_dkv`. They run the same
+CUDA tile loops as the static kernels, which are the band kernels at
+offset 0, and take ``off`` as an int argument where the TPU kernels took
+an SMEM scalar. Their gradients come out in f32, and dK/dV are summed
+over each GQA group inside the kernel. :func:`_tile_lse` and
+:func:`_tile_bwd_dispatch` are the per-tile entry points that
+parallel/ring_attention.py calls.
 
 :func:`flash_attention` and :func:`flash_attention_with_lse` are
 ``torch.autograd.Function``s, as the JAX functions are custom VJPs. The
@@ -19,7 +31,8 @@ outside Pallas too), subtracts the lse cotangent from it, and calls
 On a CUDA tensor every wrapper launches its kernel or raises; on a CPU
 tensor it computes the kernel's plain version
 (:func:`flash_attention_reference`, :func:`flash_bwd_dq_reference`,
-:func:`flash_bwd_dkv_reference`). Ragged lengths need no special path on
+:func:`flash_bwd_dkv_reference` and the ``flash_band_*_reference``
+functions). Ragged lengths need no special path on
 the card: the kernels mask the edge themselves, where the TPU kernels
 padded causal lengths to a multiple of 128 and ran non-causal ones
 dense.
@@ -37,20 +50,25 @@ from . import _build
 
 # Launches of each CUDA kernel (one per wrapper call on the card). The
 # plain versions on the CPU do not count.
-launches = 0        # flash_fwd
-dq_launches = 0     # flash_bwd_dq
-dkv_launches = 0    # flash_bwd_dkv
+launches = 0           # flash_fwd
+dq_launches = 0        # flash_bwd_dq
+dkv_launches = 0       # flash_bwd_dkv
+band_launches = 0      # flash_band_fwd
+band_dq_launches = 0   # flash_band_dq
+band_dkv_launches = 0  # flash_band_dkv
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_TAIL = [ctypes.c_float, _I, _I, _P]  # scale, causal, window, stream
+# scale, then causal (static kernels) or off (band kernels), window, stream
+_TAIL = [ctypes.c_float, _I, _I, _P]
+_FWD = [_P] * 5 + [_I] * 6 + [_L] * 9 + _TAIL
+_DQ = [_P] * 7 + [_I] * 6 + [_L] * 12 + _TAIL
+_DKV = [_P] * 8 + [_I] * 6 + [_L] * 12 + _TAIL
 # C entry points per source: pointers, dtype and sizes, strides, tail.
 _SIGNATURES = {
-    "flash_fwd": {"hvd_flash_fwd": [_P] * 5 + [_I] * 6 + [_L] * 9 + _TAIL},
-    "flash_bwd": {
-        "hvd_flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_L] * 12 + _TAIL,
-        "hvd_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_L] * 12 + _TAIL,
-    },
+    "flash_fwd": {"hvd_flash_fwd": _FWD, "hvd_flash_band_fwd": _FWD},
+    "flash_bwd": {"hvd_flash_bwd_dq": _DQ, "hvd_flash_bwd_dkv": _DKV,
+                  "hvd_flash_band_dq": _DQ, "hvd_flash_band_dkv": _DKV},
 }
 _libs = {}
 
@@ -135,17 +153,31 @@ def _expand_kv(q, k, v):
             v.float().repeat_interleave(group, dim=2))
 
 
-def _scores(qf, kf, causal, window):
+def _scores(qf, kf, causal, window, off=0):
     """(B, H, S, S) f32 scores ``(q*scale).k^T`` with masked entries at
-    ``NEG_INF``."""
+    ``NEG_INF``; query row i sits at position ``off + i``."""
     sc = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
     if causal:
         pos = torch.arange(qf.shape[1], device=qf.device)
-        keep = pos[:, None] >= pos[None, :]
+        dist = off + pos[:, None] - pos[None, :]
+        keep = dist >= 0
         if window is not None:
-            keep = keep & (pos[:, None] - pos[None, :] < window)
+            keep = keep & (dist < window)
         sc = torch.where(keep, sc, NEG_INF)
     return sc
+
+
+def _fwd_math(q, k, v, causal, window, off=0):
+    """(out in q's dtype, lse f32) of the whole rows: the forward kernels'
+    f32 arithmetic at query offset ``off``."""
+    _check(q, k, v, causal, window)
+    qf, kf, vf = _expand_kv(q, k, v)
+    sc = _scores(qf, kf, causal, window, off)
+    m = sc.amax(dim=-1)
+    p = torch.exp(sc - m[..., None])
+    l = torch.clamp(p.sum(dim=-1), min=1e-30)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vf) / l.transpose(1, 2)[..., None]
+    return out.to(q.dtype), m + torch.log(l)
 
 
 def flash_attention_reference(q, k, v, causal=True, window=None):
@@ -154,23 +186,41 @@ def flash_attention_reference(q, k, v, causal=True, window=None):
     converted to f32 and scaled by ``1/sqrt(D)`` before the product,
     masked scores filled with ``NEG_INF``, ``l`` clamped at 1e-30 — taken
     over the whole row at once instead of tile by tile."""
-    _check(q, k, v, causal, window)
-    qf, kf, vf = _expand_kv(q, k, v)
-    sc = _scores(qf, kf, causal, window)
-    m = sc.amax(dim=-1)
-    p = torch.exp(sc - m[..., None])
-    l = torch.clamp(p.sum(dim=-1), min=1e-30)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, vf) / l.transpose(1, 2)[..., None]
-    return out.to(q.dtype), m + torch.log(l)
+    return _fwd_math(q, k, v, causal, window)
 
 
-def _bwd_common(q, k, v, do, lse, delta, causal, window):
+def flash_band_fwd_reference(q, k, v, off, window=None):
+    """Plain version of ``flash_band_fwd``: ``_band_fwd_kernel``'s f32
+    arithmetic (as :func:`flash_attention_reference`, p kept in f32)
+    for a causal tile whose query row i sits at position ``off + i``.
+    A row with no live key gets lse ``NEG_INF`` (to f32 precision) and a
+    finite out, the mean of V, which the ring's lse merge weights by 0."""
+    return _fwd_math(q, k, v, True, window, off)
+
+
+def _bwd_common(q, k, v, do, lse, delta, causal, window, off=0):
     """f32 ``(q*scale, p, dS)`` of the whole rows, k/v expanded."""
     _check_bwd(q, k, v, do, lse, delta, causal, window)
     qf, kf, vf = _expand_kv(q, k, v)
-    p = torch.exp(_scores(qf, kf, causal, window) - lse[..., None])
+    p = torch.exp(_scores(qf, kf, causal, window, off) - lse[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vf)
     return qf, kf, p, p * (dp - delta[..., None])
+
+
+def _dq_math(q, k, v, do, lse, delta, causal, window, off=0):
+    """f32 ``scale * dS.K`` of the whole rows."""
+    _, kf, _, ds = _bwd_common(q, k, v, do, lse, delta, causal, window, off)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, kf) * _scale(q.shape[3])
+
+
+def _dkv_math(q, k, v, do, lse, delta, causal, window, off=0):
+    """f32 ``(dS^T.(q*scale), P^T.dO)``, summed over each GQA group."""
+    qf, _, p, ds = _bwd_common(q, k, v, do, lse, delta, causal, window, off)
+    b, s, h_kv, d = k.shape
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    return (dk.reshape(b, s, h_kv, -1, d).sum(dim=3),
+            dv.reshape(b, s, h_kv, -1, d).sum(dim=3))
 
 
 def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal=True,
@@ -179,9 +229,7 @@ def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal=True,
     ``scale * dS.K`` with ``_bwd_dq_kernel``'s f32 arithmetic —
     ``p = exp(s - lse)``, ``dS = p * (dO.V^T - delta)`` — over the whole
     row at once."""
-    _, kf, _, ds = _bwd_common(q, k, v, do, lse, delta, causal, window)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * _scale(q.shape[3])
-    return dq.to(q.dtype)
+    return _dq_math(q, k, v, do, lse, delta, causal, window).to(q.dtype)
 
 
 def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal=True,
@@ -190,18 +238,28 @@ def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal=True,
     in k's dtype — ``dV = P^T.dO`` and ``dK = dS^T.(q*scale)`` per query
     head, as ``_bwd_dkv_kernel`` computes them, summed in f32 over each
     GQA group before the cast."""
-    qf, _, p, ds = _bwd_common(q, k, v, do, lse, delta, causal, window)
-    b, s, h_kv, d = k.shape
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
-    dk = dk.reshape(b, s, h_kv, -1, d).sum(dim=3)
-    dv = dv.reshape(b, s, h_kv, -1, d).sum(dim=3)
+    dk, dv = _dkv_math(q, k, v, do, lse, delta, causal, window)
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _kernel_args(q, k, v, causal, window):
+def flash_band_dq_reference(q, k, v, do, lse, delta, off, window=None):
+    """Plain version of ``flash_band_dq``: ``_band_dq_kernel``'s
+    arithmetic for the band tile at offset ``off``, from the ring's
+    global ``lse`` and ``delta``; dQ (B, S, H, D) in f32."""
+    return _dq_math(q, k, v, do, lse, delta, True, window, off)
+
+
+def flash_band_dkv_reference(q, k, v, do, lse, delta, off, window=None):
+    """Plain version of ``flash_band_dkv``: (dK, dV), each
+    (B, S, H_kv, D) in f32, ``_band_dkv_kernel``'s per-head arithmetic
+    summed over each GQA group."""
+    return _dkv_math(q, k, v, do, lse, delta, True, window, off)
+
+
+def _kernel_args(q, k, v, causal, window, off=None):
     """What every launch checks and passes: sizes, (batch, sequence,
-    head) strides of q, k, v, the scale, the mask."""
+    head) strides of q, k, v, and the tail: the scale, then ``causal``
+    for a static kernel or the band offset ``off``, then the window."""
     b, s, h, d = q.shape
     if not 1 <= d <= 128:
         raise ValueError(f"the kernels take head_dim 1..128, got {d}")
@@ -210,10 +268,14 @@ def _kernel_args(q, k, v, causal, window):
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(3) != 1:
             raise ValueError(f"{name} must have a contiguous head dim")
-    # A window of S or more masks nothing more than causality does.
-    win = 0 if window is None else int(min(window, max(s, 1)))
+    # The pairs of a tile are at most (off + S - 1) apart, so a window of
+    # off + S or more masks nothing more than causality does; the clamp
+    # keeps the C int in range.
+    reach = s if off is None else s + int(off)
+    win = 0 if window is None else int(min(window, max(reach, 1)))
     strides = [x.stride(i) for x in (q, k, v) for i in range(3)]
-    return (b, s, h, k.shape[2], d), strides, (_scale(d), int(causal), win)
+    mode = int(causal) if off is None else int(off)
+    return (b, s, h, k.shape[2], d), strides, (_scale(d), mode, win)
 
 
 def _stream(x):
@@ -235,8 +297,8 @@ def _launch(q, k, v, causal, window):
     return out, lse
 
 
-def _bwd_args(q, k, v, do, lse, delta, causal, window):
-    sizes, strides, tail = _kernel_args(q, k, v, causal, window)
+def _bwd_args(q, k, v, do, lse, delta, causal, window, off=None):
+    sizes, strides, tail = _kernel_args(q, k, v, causal, window, off)
     if do.stride(3) != 1:
         raise ValueError("dO must have a contiguous head dim")
     strides += [do.stride(i) for i in range(3)]
@@ -298,6 +360,99 @@ def _forward(q, k, v, causal, window):
     if _device_of(q) == "cpu":
         return flash_attention_reference(q, k, v, causal, window)
     return _launch(q, k, v, causal, window)
+
+
+def flash_band_fwd(q, k, v, off, window=None):
+    """(out (B, S, H, D) in q's dtype, lse (B, H, S) f32) of ring
+    attention's band tile: q's row i sits at position ``off + i`` after
+    the origin of the visiting k/v, causal and windowed at that offset.
+    The ``flash_band_fwd`` kernel on a CUDA tensor, its plain version on
+    a CPU one. Not differentiable: ring attention's backward calls
+    :func:`flash_band_dq` and :func:`flash_band_dkv` itself."""
+    global band_launches
+    _check(q, k, v, True, window)
+    if _device_of(q) == "cpu":
+        return flash_band_fwd_reference(q, k, v, off, window)
+    sizes, strides, tail = _kernel_args(q, k, v, True, window, off)
+    b, s, h, _, d = sizes
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    if b * s * h == 0:
+        return out, lse
+    _call("flash_fwd", "hvd_flash_band_fwd", q.data_ptr(), k.data_ptr(),
+          v.data_ptr(), out.data_ptr(), lse.data_ptr(), _DTYPES[q.dtype],
+          *sizes, *strides, *tail, _stream(q))
+    band_launches += 1
+    return out, lse
+
+
+def flash_band_dq(q, k, v, do, lse, delta, off, window=None):
+    """f32 dQ (B, S, H, D) of the band tile at offset ``off`` from the
+    ring's global ``lse`` and ``delta`` (both (B, H, S) f32, lse finite
+    for every row): the ``flash_band_dq`` kernel on a CUDA tensor, its
+    plain version on a CPU one."""
+    global band_dq_launches
+    if _device_of(q) == "cpu":
+        return flash_band_dq_reference(q, k, v, do, lse, delta, off, window)
+    _check_bwd(q, k, v, do, lse, delta, True, window)
+    ptrs, sizes, strides, tail = _bwd_args(q, k, v, do, lse, delta, True,
+                                           window, off)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    if dq.numel() == 0:
+        return dq
+    _call("flash_bwd", "hvd_flash_band_dq", *ptrs, dq.data_ptr(),
+          _DTYPES[q.dtype], *sizes, *strides, *tail, _stream(q))
+    band_dq_launches += 1
+    return dq
+
+
+def flash_band_dkv(q, k, v, do, lse, delta, off, window=None):
+    """f32 (dK, dV), each (B, S, H_kv, D) and summed over each GQA group,
+    of the band tile at offset ``off``: the ``flash_band_dkv`` kernel on a
+    CUDA tensor, its plain version on a CPU one. Arguments as
+    :func:`flash_band_dq`."""
+    global band_dkv_launches
+    if _device_of(q) == "cpu":
+        return flash_band_dkv_reference(q, k, v, do, lse, delta, off, window)
+    _check_bwd(q, k, v, do, lse, delta, True, window)
+    ptrs, sizes, strides, tail = _bwd_args(q, k, v, do, lse, delta, True,
+                                           window, off)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+    if dk.numel() == 0:
+        return dk, dv
+    _call("flash_bwd", "hvd_flash_band_dkv", *ptrs, dk.data_ptr(),
+          dv.data_ptr(), _DTYPES[q.dtype], *sizes, *strides, *tail,
+          _stream(q))
+    band_dkv_launches += 1
+    return dk, dv
+
+
+def _tile_lse(q, k, v, causal, window):
+    """(out in q's dtype, lse (B, H, S) f32) of a static-offset ring tile:
+    the diagonal (causal, window) or a fully visible one (non-causal).
+    The JAX package's ``_tile_lse`` takes a dense path on ragged lengths;
+    the kernel masks the edge itself."""
+    return _forward(q, k, v, causal, window)
+
+
+def _tile_bwd_dispatch(q, k, v, g, lse, delta, off, causal, window):
+    """f32 (dq, dk, dv) of one ring tile from the ring's global ``lse``
+    and ``delta`` (B, H, S), dk/dv at the K/V head count: the static
+    kernels for the diagonal (``off`` None, offset 0) and fully visible
+    (``causal`` False) tiles, whose gradients come out in q's dtype and
+    only then become f32, as in the JAX package; the band kernels for a
+    tile at offset ``off``. The band kernels need ``lse`` finite for every
+    row; the ring guarantees it, since each row's diagonal tile holds its
+    own key."""
+    if off is not None:
+        dq = flash_band_dq(q, k, v, g, lse, delta, off, window)
+        dk, dv = flash_band_dkv(q, k, v, g, lse, delta, off, window)
+        return dq, dk, dv
+    window = window if causal else None
+    dq = flash_bwd_dq(q, k, v, g, lse, delta, causal, window)
+    dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, causal, window)
+    return dq.float(), dk.float(), dv.float()
 
 
 class _FlashAttention(torch.autograd.Function):

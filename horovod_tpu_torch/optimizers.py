@@ -28,6 +28,7 @@ raise ``NotImplementedError``.
 """
 
 import warnings
+import weakref
 
 import torch
 
@@ -78,7 +79,19 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._ready = [0] * len(self._buckets)
         self._inflight = {}  # bucket -> (exchange, [(indices, flat)], ctxs)
         self._synchronized = False
-        self._hook_handles = [p.register_post_accumulate_grad_hook(self._hook)
+        # The hooks hold the optimizer weakly. A bound method would tie
+        # each parameter to the optimizer in a cycle that the garbage
+        # collector does not free (it runs through the parameter's hook
+        # table), so a deleted model and optimizer, with their gradients
+        # and state, would stay on the card for the process's life.
+        ref = weakref.ref(self)
+
+        def hook(p):
+            opt = ref()
+            if opt is not None:
+                opt._hook(p)
+
+        self._hook_handles = [p.register_post_accumulate_grad_hook(hook)
                               for p in params]
 
     @property

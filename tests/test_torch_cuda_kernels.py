@@ -8,12 +8,16 @@ has only PyTorch; there, skip tests/conftest.py (which sets up JAX):
 
 Tolerances: f32 outputs differ from the plain version by summation
 order only (atol 2e-5); a bf16 output by at most one bf16 rounding of a
-value below 4 (atol 2e-2); lse is f32 on both sides (atol 1e-4).
+value below 4 (atol 2e-2); lse is f32 on both sides (atol 1e-4). A band
+tile's row with no live key is compared by its contract (finite out,
+lse <= -1e29), not by value: its out is a mean over the V rows each side
+happened to visit.
 Gradients are sums over a whole row or column of the score matrix, so
 f32 gradients hold to 1e-4 and bf16 ones to one bf16 rounding (ulp) of
 their largest magnitude (2^-7 of it, relative): both sides round an f32
 value once, and values that straddle a rounding boundary land one ulp
-apart.
+apart. The band kernels' gradients are f32 for either input type, so
+they hold to 1e-4.
 """
 
 import numpy as np
@@ -155,3 +159,108 @@ def test_flash_bwd_raises_on_a_head_dim_the_kernel_does_not_take(card):
                  *[x.data_ptr() for x in args], dq.data_ptr(), 0,
                  1, 64, 2, 2, 256, *strides, fa._scale(256), 1, 0,
                  fa._stream(q))
+
+
+def _live_rows(s, off, window):
+    """Rows of a band tile at offset ``off`` with at least one live key."""
+    r = np.arange(s)
+    lo = np.maximum(0, off + r - (window if window else off + s) + 1)
+    hi = np.minimum(s - 1, off + r)
+    return torch.from_numpy(lo <= hi)
+
+
+def _band_inputs(card, dtype, b, s, h, h_kv, d, off, window, seed):
+    """q, k, v, dO in ``dtype``; a finite global lse (the band tile's
+    merged with a diagonal tile's, as the ring merges them) and a delta."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do, k2, v2 = (
+        torch.from_numpy(rng.standard_normal(shape, np.float32)).to(card, dtype)
+        for shape in ((b, s, h, d), (b, s, h_kv, d), (b, s, h_kv, d),
+                      (b, s, h, d), (b, s, h_kv, d), (b, s, h_kv, d)))
+    _, lse_band = fa.flash_band_fwd_reference(q, k, v, off, window)
+    _, lse_diag = fa.flash_attention_reference(q, k2, v2, True, window)
+    lse = torch.logaddexp(lse_band, lse_diag)
+    delta = torch.from_numpy(rng.standard_normal((b, h, s), np.float32))
+    delta = delta.to(card)
+    return q, k, v, do, lse, delta
+
+
+BAND_CASES = [  # (b, s, h, h_kv, d, off, window)
+    (1, 130, 4, 2, 8, 130, 100),       # ragged, dead rows past the window
+    (1, 200, 4, 1, 16, 400, 300),      # off 2S, GQA 4, dead rows
+    (1, 128, 4, 4, 40, 128, None),     # fully visible, MHA, odd D
+    (2, 256, 16, 4, 128, 256, 384),    # the flagship head width, half band
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,h_kv,d,off,window", BAND_CASES)
+def test_flash_band_fwd_matches_plain_version(card, dtype, b, s, h, h_kv, d,
+                                              off, window):
+    """Live rows match the plain version; a row with no live key ends
+    with a finite out and lse <= -1e29 on both sides."""
+    td = getattr(torch, dtype)
+    q, k, v = _band_inputs(card, td, b, s, h, h_kv, d, off, window, s)[:3]
+    before = fa.band_launches
+    out, lse = fa.flash_band_fwd(q, k, v, off, window)
+    torch.cuda.synchronize()
+    assert fa.band_launches == before + 1
+    assert out.dtype == td and lse.dtype == torch.float32
+    ref_out, ref_lse = fa.flash_band_fwd_reference(q, k, v, off, window)
+    live = _live_rows(s, off, window).to(card)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(out[:, live].float(), ref_out[:, live].float(),
+                               atol=ATOL[dtype], rtol=0)
+    torch.testing.assert_close(lse[:, :, live], ref_lse[:, :, live],
+                               atol=LSE_ATOL, rtol=0)
+    assert (lse[:, :, ~live] <= -1e29).all()
+    assert (ref_lse[:, :, ~live] <= -1e29).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,h_kv,d,off,window", BAND_CASES)
+def test_flash_band_bwd_matches_plain_version(card, dtype, b, s, h, h_kv, d,
+                                              off, window):
+    """f32 gradients, dk/dv summed over each GQA group in the kernel."""
+    td = getattr(torch, dtype)
+    args = _band_inputs(card, td, b, s, h, h_kv, d, off, window, s + 1)
+    n0 = (fa.band_dq_launches, fa.band_dkv_launches)
+    dq = fa.flash_band_dq(*args, off, window)
+    dk, dv = fa.flash_band_dkv(*args, off, window)
+    torch.cuda.synchronize()
+    assert (fa.band_dq_launches, fa.band_dkv_launches) == (n0[0] + 1,
+                                                           n0[1] + 1)
+    assert dq.dtype == dk.dtype == dv.dtype == torch.float32
+    want_dk, want_dv = fa.flash_band_dkv_reference(*args, off, window)
+    for got, want in ((dq, fa.flash_band_dq_reference(*args, off, window)),
+                      (dk, want_dk), (dv, want_dv)):
+        torch.testing.assert_close(got, want, atol=GRAD_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_ring_attention_on_the_card_runs_the_band_kernels(card):
+    """A local ring of 4 on the card with a window: forward and gradients
+    through the static and band kernels, against dense attention."""
+    from horovod_tpu_torch.parallel.ring_attention import (RingAxis,
+                                                            dense_attention,
+                                                            ring_attention)
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               .to(card).requires_grad_()
+               for shape in ((1, 256, 4, 16), (1, 256, 2, 16), (1, 256, 2, 16)))
+    g = torch.from_numpy(rng.standard_normal((1, 256, 4, 16), np.float32))
+    g = g.to(card)
+    counts = (fa.band_launches, fa.band_dq_launches, fa.band_dkv_launches)
+    out = ring_attention(q, k, v, RingAxis.local(4), impl="flash", window=100)
+    got = torch.autograd.grad((out * g).sum(), (q, k, v))
+    torch.cuda.synchronize()
+    # steps = 2 + 98 // 64 = 3: shards 1-3 at step 1, 2-3 at step 2
+    assert (fa.band_launches, fa.band_dq_launches, fa.band_dkv_launches) == \
+        tuple(n + 5 for n in counts)
+    ref = dense_attention(q, k, v, window=100)
+    want = torch.autograd.grad((ref * g).sum(), (q, k, v))
+    torch.testing.assert_close(out, ref, atol=ATOL["float32"], rtol=0)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=GRAD_ATOL, rtol=0)

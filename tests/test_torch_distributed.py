@@ -13,7 +13,10 @@ buckets, ``backward_passes_per_step=2`` and fp16 compression, and three
 steps of the small transformer, each rank on half the batch, against
 ``hvd.DistributedOptimizer(optax.adamw(...))`` of the JAX package inside
 ``jax.shard_map`` over 2 of the conftest's virtual devices (the pattern
-of ``bench_transformer.build_step``).
+of ``bench_transformer.build_step``). The same run holds ring attention
+over the process group (one shard a rank, ``batch_isend_irecv`` over
+gloo) and the sequence-parallel transformer over it to the local ring of
+2 in this process.
 
 Tolerances: collectives of f32 values are exact up to the order of a
 two-term sum (atol 1e-6); fp16 compression rounds each gradient to fp16
@@ -24,7 +27,11 @@ their start. Not elementwise: AdamW's first steps move each element by
 about ``lr * g / (|g| + eps)``, so an element whose gradient cancels to
 ~5e-8 moves by an amount that the f32 summation order of its gradient
 changes by several percent (1.4e-5 against 1e-3 for a typical element;
-observed relative gap 3e-4).
+observed relative gap 3e-4). The ring over ranks runs the same tile
+calls in the same order as the local ring, and gloo moves the tensors
+exactly, so its outputs and gradients hold to 1e-6; the SP transformer's
+gradients, averaged over the ranks, to 1e-6 too (each rank's loss is its
+shard's mean, summed in another order than the whole sequence's).
 """
 
 import os
@@ -49,6 +56,7 @@ from horovod_tpu.ops.collectives import (
 from horovod_tpu.stats import CollectiveStats as JaxCollectiveStats
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.models import transformer as tfm
+from horovod_tpu_torch.parallel.ring_attention import RingAxis, ring_attention
 from horovod_tpu_torch.stats import CollectiveStats
 
 REPO = Path(__file__).resolve().parents[1]
@@ -61,6 +69,7 @@ ADAM_REL = 1e-3
 CFG = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=2, d_ff=64,
            max_seq=16, n_kv_heads=2, positional="rope",
            attention_impl="flash", loss_chunk=8)
+RING_WINDOW = 6
 # (name, exchange_buckets, backward_passes_per_step, compression)
 OPT_CASES = (("one-bucket", 1, 1, "none"), ("three-buckets", 3, 1, "none"),
              ("two-passes", 1, 2, "none"), ("fp16", 2, 1, "fp16"))
@@ -172,6 +181,38 @@ for step in range(3):
             res[f"e2e{step}:layers.{i}.{k}"] = v
 text["e2e_allreduce_calls"] = (
     hvd.runtime._state.stats.counter("allreduce") - calls0)
+
+# Ring attention over the process group: this rank holds shard r.
+from horovod_tpu_torch.parallel.ring_attention import RingAxis, ring_attention
+axis = RingAxis.over()
+text["ring_axis"] = [axis.size, list(axis.shards)]
+s_loc = inp["ring_q"].shape[1] // n
+sl = slice(r * s_loc, (r + 1) * s_loc)
+qkv = [torch.from_numpy(inp[f"ring_{x}"][:, sl]).requires_grad_()
+       for x in "qkv"]
+out = ring_attention(*qkv, axis, impl="flash",
+                     window=int(inp["ring_window"]))
+grads = torch.autograd.grad(
+    (out * torch.from_numpy(inp["ring_g"][:, sl])).sum(), qkv)
+res["ring_out"] = out.detach().numpy()
+for x, g in zip("qkv", grads):
+    res[f"ring_d{x}"] = g.numpy()
+
+# The SP transformer over the process group: half the sequence a rank.
+import dataclasses
+sp_cfg = dataclasses.replace(cfg, attention_window=int(inp["ring_window"]))
+sp_lm = tfm.TransformerLM(sp_cfg, tfm.params_from_jax(tree, cfg,
+                                                      device="cpu"),
+                          device="cpu",
+                          axes=tfm.ShardAxes(sp=RingAxis.over()))
+t_loc = inp["tokens"].shape[1] // n
+cols = slice(r * t_loc, (r + 1) * t_loc)
+loss = sp_lm.loss(torch.from_numpy(inp["tokens"][:, cols]),
+                  torch.from_numpy(inp["targets"][:, cols]))
+loss.backward()
+res["sp_loss"] = loss.detach().numpy()
+for k, v in sp_lm.named_parameters():
+    res[f"sp_grad:{k}"] = v.grad.numpy()
 hvd.shutdown()
 np.savez(f"{out_dir}/rank{r}.npz", **res)
 with open(f"{out_dir}/rank{r}.json", "w") as f:
@@ -212,6 +253,11 @@ def _inputs():
         "sgd_lr": np.float32(SGD_LR), "lr": np.float32(LR),
         "wd": np.float32(WD),
         "tokens": tokens, "targets": np.roll(tokens, -1, axis=1),
+        "ring_q": rng.standard_normal((1, 16, 4, 8)).astype(np.float32),
+        "ring_k": rng.standard_normal((1, 16, 2, 8)).astype(np.float32),
+        "ring_v": rng.standard_normal((1, 16, 2, 8)).astype(np.float32),
+        "ring_g": rng.standard_normal((1, 16, 4, 8)).astype(np.float32),
+        "ring_window": np.int64(RING_WINDOW),
     }
     inp.update({f"p:{k}": v for k, v in _flat_tree(params).items()})
     return inp, jcfg, params
@@ -383,6 +429,49 @@ def test_two_ranks_track_the_jax_distributed_optimizer(run):
                 assert err <= ADAM_REL * moved, (r, step, k, err / moved)
 
 
+def test_ring_over_ranks_matches_the_local_ring(run):
+    """Ring attention over 2 gloo ranks (flash tiles, window 6 over
+    shards of 8: the second step's band tile) against the local ring of
+    2 on the whole sequence."""
+    arrays, values, inp, *_ = run
+    qkv = [torch.from_numpy(inp[f"ring_{x}"]).requires_grad_() for x in "qkv"]
+    out = ring_attention(*qkv, RingAxis.local(RANKS), impl="flash",
+                         window=RING_WINDOW)
+    grads = torch.autograd.grad((out * torch.from_numpy(inp["ring_g"])).sum(),
+                                qkv)
+    want = {"ring_out": out.detach().numpy()}
+    want.update({f"ring_d{x}": g.numpy() for x, g in zip("qkv", grads)})
+    s_loc = out.shape[1] // RANKS
+    for r in range(RANKS):
+        assert values[r]["ring_axis"] == [RANKS, [r]]
+        for name, w in want.items():
+            np.testing.assert_allclose(
+                arrays[r][name], w[:, r * s_loc:(r + 1) * s_loc], atol=ATOL,
+                rtol=0, err_msg=f"rank {r} {name}")
+
+
+def test_sp_transformer_over_ranks_matches_the_local_ring(run):
+    """Each rank's loss is the mean over all tokens, and the ranks'
+    gradients average to the local ring's: what DistributedOptimizer's
+    world average takes."""
+    arrays, _, inp, _, params, _ = run
+    cfg = tfm.TransformerConfig(dtype=torch.float32, **dict(
+        CFG, attention_window=RING_WINDOW))
+    lm = tfm.TransformerLM(cfg, tfm.params_from_jax(params, cfg, "cpu"),
+                           device="cpu",
+                           axes=tfm.ShardAxes(sp=RingAxis.local(RANKS)))
+    loss = lm.loss(torch.from_numpy(inp["tokens"]),
+                   torch.from_numpy(inp["targets"]))
+    loss.backward()
+    for r in range(RANKS):
+        np.testing.assert_allclose(arrays[r]["sp_loss"], loss.item(),
+                                   atol=ATOL, rtol=0)
+    for k, v in lm.named_parameters():
+        mean = sum(arrays[r][f"sp_grad:{k}"] for r in range(RANKS)) / RANKS
+        np.testing.assert_allclose(mean, v.grad.numpy(), atol=ATOL, rtol=0,
+                                   err_msg=k)
+
+
 def test_profiler_dump_written_by_rank_zero(run):
     *_, dump = run
     text = dump.read_text().splitlines()
@@ -463,6 +552,29 @@ def test_one_rank_session_restarts_and_checks_its_arguments(monkeypatch,
     assert "Counter allreduce,1\n" in (tmp_path / "prof.txt").read_text()
     with pytest.raises(hvd.ShutDownError):
         hvd.allreduce(torch.ones(2))
+
+
+def test_deleted_optimizer_and_model_are_freed(monkeypatch):
+    """The gradient hooks hold the optimizer weakly: once the caller drops
+    the model and its DistributedOptimizer, a collection frees both, with
+    their gradients and state. (Hooks bound to the optimizer made a cycle
+    through each parameter's hook table that the collector never freed.)"""
+    import gc
+    import weakref
+    monkeypatch.delenv("HOROVOD_TPU_COORDINATOR", raising=False)
+    hvd.init(device="cpu")
+    try:
+        lin = torch.nn.Linear(4, 3)
+        opt = hvd.DistributedOptimizer(torch.optim.AdamW(lin.parameters()),
+                                       named_parameters=lin.named_parameters())
+        lin(torch.ones(2, 4)).sum().backward()
+        opt.step()
+        refs = [weakref.ref(lin.weight), weakref.ref(opt)]
+        del lin, opt
+        gc.collect()
+        assert [r() for r in refs] == [None, None]
+    finally:
+        hvd.shutdown()
 
 
 @pytest.mark.parametrize("knob,value,item", [

@@ -135,8 +135,9 @@ def test_transformer_lm_holds_params_and_runs_forward():
 @pytest.mark.parametrize("what", ["moe", "ulysses", "loss_chunk", "remat",
                                   "axes", "loss"])
 def test_rejects_what_this_slice_does_not_carry(what):
-    """MoE, Ulysses and sharded axes raise. The loss, ``loss_chunk`` and
-    ``remat`` are carried now; over sharded axes they raise too."""
+    """MoE, Ulysses and tensor/expert axes raise. The loss, ``loss_chunk``
+    and ``remat`` are carried now; over those axes they raise too
+    (sequence parallelism is carried: tests/test_torch_ring_attention.py)."""
     if what in ("moe", "ulysses"):
         kw = {"moe": dict(moe_layers=(1,)),
               "ulysses": dict(sp_impl="ulysses")}[what]
@@ -149,9 +150,10 @@ def test_rejects_what_this_slice_does_not_carry(what):
     tokens = torch.from_numpy(_tokens())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         if what == "axes":
-            tfm.forward(params, tokens, tcfg, axes=object())
+            tfm.forward(params, tokens, tcfg, axes=tfm.ShardAxes(tp="tp"))
         else:
-            tfm.loss_fn(params, tokens, tokens, tcfg, axes=object())
+            tfm.loss_fn(params, tokens, tokens, tcfg,
+                        axes=tfm.ShardAxes(ep="ep"))
 
 
 def test_default_device_is_the_card():
