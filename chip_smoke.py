@@ -10,10 +10,12 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    (one nvcc per source, all at once) into build/horovod_tpu_torch/;
 3. kernels: each kernel's wrapper against its plain PyTorch version on
    the same tensors on the card, with stated tolerances. ``flash_fwd``
-   at the serving prefill shape and at ragged, windowed, non-causal and
-   f32 shapes; ``flash_bwd_dq`` and ``flash_bwd_dkv`` at the training
-   head shape (B 1, S 4096), ragged causal, windowed, non-causal MHA and
-   f32 shapes. Each kernel, its plain version and one PyTorch library
+   at the serving prefill shape, the SP path's diagonal tile (B 2,
+   S 2048, window 4096) and ragged, windowed, non-causal and f32 shapes;
+   ``flash_bwd_dq`` and ``flash_bwd_dkv`` at the training head shape
+   (B 1, S 4096), the SP diagonal tile with lse and delta strided as the
+   ring's chunks are, and ragged causal, windowed, non-causal MHA and f32
+   shapes. Each kernel, its plain version and one PyTorch library
    call computing the same function are timed at the shape its main path
    gives it (the plain backward at B 1: at B 4 it would materialize
    4.3 GB score matrices);
@@ -36,7 +38,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 7. band kernels: ``flash_band_fwd``, ``flash_band_dq`` and
    ``flash_band_dkv`` against their plain versions at the ring's shapes
    (B 2, S 2048, H 16, H_kv 4, D 128, bf16, offsets 2048 and 4096, window
-   4096) and at small ragged f32 shapes with rows that see no key; each
+   4096; lse and delta strided as the ring's chunks are) and at small
+   ragged f32 shapes with rows that see no key; each
    kernel, its plain version and SDPA with an explicit band mask timed at
    both offsets;
 8. sequence-parallel parity: one step's loss and gradients of the
@@ -167,6 +170,8 @@ def phase_kernels(fa, card, gen):
     prefill shape. Returns the kernel's entry for the kernels line."""
     cases = [  # (B, S, H, H_kv, D, dtype, causal, window)
         (8, PROMPT_LEN, 16, 4, 128, torch.bfloat16, True, None),  # prefill
+        (SP_BATCH, SP_SHARD, 16, 4, 128, torch.bfloat16, True,
+         SP_WINDOW),                                    # SP diagonal tile
         (2, 1000, 16, 4, 128, torch.bfloat16, True, None),        # ragged
         (2, 1000, 16, 4, 128, torch.bfloat16, True, 256),         # window
         (2, 700, 8, 8, 64, torch.bfloat16, False, None),          # non-causal
@@ -329,10 +334,9 @@ def causal_pairs(s, causal, window, off=0):
     query row i sits at position off + i (0 <= off + i - j < window)."""
     if not causal:
         return s * s
-    r = np.arange(s, dtype=np.int64)
-    hi = np.minimum(s - 1, off + r)
-    lo = np.maximum(0, off + r - (window if window else off + s) + 1)
-    return int(np.maximum(0, hi - lo + 1).sum())
+    from horovod_tpu_torch.ops.flash_attention import band_key_span
+    lo, hi = band_key_span(s, off, window)
+    return int((hi - lo + 1).clamp(min=0).sum())
 
 
 def bound(nbytes, flops, dtype):
@@ -359,15 +363,32 @@ def backward_work(b, s, h, h_kv, d, dtype, causal, window):
     }
 
 
-def bwd_inputs(fa, card, gen, b, s, h, h_kv, d, dtype, causal, window):
-    """q, k, v, dO in ``dtype`` and the forward's lse and delta."""
+def bwd_inputs(fa, card, gen, b, s, h, h_kv, d, dtype, causal, window,
+               shard=None):
+    """q, k, v, dO in ``dtype`` and the forward's lse and delta. With
+    ``shard`` i, lse and delta are the strided views of shard i of a
+    (B, H, SP_RING * S) pair, as a chunk of the ring's lse is."""
     q = torch.randn(b, s, h, d, generator=gen, device=card).to(dtype)
     k = torch.randn(b, s, h_kv, d, generator=gen, device=card).to(dtype)
     v = torch.randn(b, s, h_kv, d, generator=gen, device=card).to(dtype)
     do = torch.randn(b, s, h, d, generator=gen, device=card).to(dtype)
     out, lse = fa.flash_attention_with_lse(q, k, v, causal, window)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    if shard is not None:
+        lse, delta = ring_view(lse, shard, gen), ring_view(delta, shard, gen)
     return q, k, v, do, lse, delta
+
+
+def ring_view(x, shard, gen):
+    """``x`` (B, H, S) as shard ``shard`` of a (B, H, SP_RING * S) tensor
+    of random rows: the strided view that ``lse.chunk(SP_RING, dim=2)``
+    gives ring attention's backward."""
+    b, h, s = x.shape
+    wide = torch.randn(b, h, SP_RING * s, generator=gen, device=x.device)
+    wide[..., shard * s:(shard + 1) * s] = x
+    view = wide.chunk(SP_RING, dim=2)[shard]
+    check(not view.is_contiguous(), "a ring view is contiguous")
+    return view
 
 
 def phase_backward_kernels(fa, card, gen):
@@ -377,6 +398,8 @@ def phase_backward_kernels(fa, card, gen):
     of the kernels line (launches filled in by the main paths)."""
     cases = [  # (B, S, H, H_kv, D, dtype, causal, window)
         (1, TRAIN_SEQ, 16, 4, 128, torch.bfloat16, True, None),  # training
+        # the SP path's diagonal tile, lse and delta strided as the ring's
+        (SP_BATCH, SP_SHARD, 16, 4, 128, torch.bfloat16, True, SP_WINDOW),
         (1, 1000, 16, 4, 128, torch.bfloat16, True, None),       # ragged
         (1, 1000, 16, 4, 128, torch.bfloat16, True, 256),        # window
         (1, 700, 8, 8, 64, torch.bfloat16, False, None),         # non-causal
@@ -386,7 +409,7 @@ def phase_backward_kernels(fa, card, gen):
     plain_ms = {}
     for i, (b, s, h, h_kv, d, dtype, causal, window) in enumerate(cases):
         args = bwd_inputs(fa, card, gen, b, s, h, h_kv, d, dtype, causal,
-                          window)
+                          window, shard=1 if s == SP_SHARD else None)
         got = {"flash_bwd_dq": (fa.flash_bwd_dq(*args, causal, window),),
                "flash_bwd_dkv": fa.flash_bwd_dkv(*args, causal, window)}
         torch.cuda.synchronize()
@@ -485,11 +508,10 @@ def band_work(b, s, h, h_kv, d, dtype, off, window):
     }
 
 
-def live_rows(s, off, window):
+def live_rows(fa, s, off, window):
     """Rows of a band tile at offset ``off`` with at least one live key."""
-    r = np.arange(s)
-    lo = np.maximum(0, off + r - (window if window else off + s) + 1)
-    return torch.from_numpy(lo <= np.minimum(s - 1, off + r))
+    lo, hi = fa.band_key_span(s, off, window)
+    return lo <= hi
 
 
 def top_kernel(fn):
@@ -508,7 +530,8 @@ def top_kernel(fn):
 def band_inputs(fa, card, gen, b, s, h, h_kv, d, dtype, off, window):
     """q, k, v, dO in ``dtype``; a finite global lse (the band tile's
     merged with a diagonal tile's, as the ring merges them) and
-    delta = rowsum(dO * out) of the band tile's out."""
+    delta = rowsum(dO * out) of the band tile's out. At the path's shard
+    length, lse and delta are strided views, as the ring's chunks are."""
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=card).to(dtype)
     q, do = randn(b, s, h, d), randn(b, s, h, d)
@@ -517,6 +540,9 @@ def band_inputs(fa, card, gen, b, s, h, h_kv, d, dtype, off, window):
     _, lse_diag = fa.flash_attention_reference(q, k2, v2, True, window)
     lse = torch.logaddexp(lse_band, lse_diag)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    if s == SP_SHARD:
+        shard = off // s
+        lse, delta = ring_view(lse, shard, gen), ring_view(delta, shard, gen)
     return q, k, v, do, lse, delta
 
 
@@ -545,7 +571,7 @@ def phase_band_kernels(fa, card, gen):
         dk, dv = fa.flash_band_dkv(q, k, v, do, lse, delta, off, window)
         torch.cuda.synchronize()
         ref_out, ref_lse = fa.flash_band_fwd_reference(q, k, v, off, window)
-        live = live_rows(s, off, window).to(card)
+        live = live_rows(fa, s, off, window).to(card)
         check(torch.isfinite(out).all() and torch.isfinite(lse_t).all(),
               "flash_band_fwd gave a NaN or an infinity")
         check((lse_t[:, :, ~live] <= -1e29).all(),
@@ -575,8 +601,10 @@ def phase_band_kernels(fa, card, gen):
         worst["flash_band_dq"] = max(worst["flash_band_dq"], errs[0])
         worst["flash_band_dkv"] = max(worst["flash_band_dkv"], *errs[1:])
         if (b, s, h, h_kv, d, dtype) == path:
-            timed[off] = band_timings(fa, (q, k, v, do, lse, delta), off,
-                                      window, band_work(*path, off, window))
+            # timed on dense lse and delta, as the ring passes them
+            timed[off] = band_timings(
+                fa, (q, k, v, do, lse.contiguous(), delta.contiguous()), off,
+                window, band_work(*path, off, window))
         del q, k, v, do, lse, delta, out, dq, dk, dv, want, ref_out
         torch.cuda.empty_cache()
 

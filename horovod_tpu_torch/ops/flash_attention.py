@@ -256,6 +256,19 @@ def flash_band_dkv_reference(q, k, v, do, lse, delta, off, window=None):
     return _dkv_math(q, k, v, do, lse, delta, True, window, off)
 
 
+def band_key_span(s, off=0, window=None):
+    """(lo, hi), int64 (s,): the first and last of ``s`` keys that query
+    row i of a causal tile at offset ``off`` sees (row i sits at position
+    off + i; key j is live if 0 <= off + i - j < window). A row with
+    lo > hi sees no key. The per-row form of the JAX package's
+    ``_band_live``, for the tests' and the smoke run's masks and counts."""
+    r = torch.arange(s, dtype=torch.int64)
+    hi = torch.clamp(off + r, max=s - 1)
+    if window is None:
+        return torch.zeros_like(r), hi
+    return torch.clamp(off + r - window + 1, min=0), hi
+
+
 def _kernel_args(q, k, v, causal, window, off=None):
     """What every launch checks and passes: sizes, (batch, sequence,
     head) strides of q, k, v, and the tail: the scale, then ``causal``
@@ -298,13 +311,21 @@ def _launch(q, k, v, causal, window):
 
 
 def _bwd_args(q, k, v, do, lse, delta, causal, window, off=None):
+    """A backward launch's operands (q, k, v, dO, lse, delta; the kernels
+    read lse and delta as dense (B, H, S), so a strided one is copied),
+    sizes, strides and tail. The caller holds the operands until the
+    launch is enqueued: a copy freed before it would return its block to
+    the allocator, which may hand it to the outputs the kernel writes."""
     sizes, strides, tail = _kernel_args(q, k, v, causal, window, off)
     if do.stride(3) != 1:
         raise ValueError("dO must have a contiguous head dim")
     strides += [do.stride(i) for i in range(3)]
-    lse, delta = lse.contiguous(), delta.contiguous()
-    ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta)]
-    return ptrs, sizes, strides, tail
+    ops = (q, k, v, do, lse.contiguous(), delta.contiguous())
+    return ops, sizes, strides, tail
+
+
+def _ptrs(tensors):
+    return [x.data_ptr() for x in tensors]
 
 
 def _device_of(q):
@@ -322,12 +343,12 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, window=None):
     if _device_of(q) == "cpu":
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, window)
     _check_bwd(q, k, v, do, lse, delta, causal, window)
-    ptrs, sizes, strides, tail = _bwd_args(q, k, v, do, lse, delta, causal,
-                                           window)
+    ops, sizes, strides, tail = _bwd_args(q, k, v, do, lse, delta, causal,
+                                          window)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
         return dq
-    _call("flash_bwd", "hvd_flash_bwd_dq", *ptrs, dq.data_ptr(),
+    _call("flash_bwd", "hvd_flash_bwd_dq", *_ptrs(ops), dq.data_ptr(),
           _DTYPES[q.dtype], *sizes, *strides, *tail, _stream(q))
     dq_launches += 1
     return dq
@@ -342,20 +363,26 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, window=None):
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal,
                                        window)
     _check_bwd(q, k, v, do, lse, delta, causal, window)
-    ptrs, sizes, strides, tail = _bwd_args(q, k, v, do, lse, delta, causal,
-                                           window)
+    ops, sizes, strides, tail = _bwd_args(q, k, v, do, lse, delta, causal,
+                                          window)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if dk.numel() == 0:
         return dk, dv
-    _call("flash_bwd", "hvd_flash_bwd_dkv", *ptrs, dk.data_ptr(),
+    _call("flash_bwd", "hvd_flash_bwd_dkv", *_ptrs(ops), dk.data_ptr(),
           dv.data_ptr(), _DTYPES[q.dtype], *sizes, *strides, *tail,
           _stream(q))
     dkv_launches += 1
     return dk, dv
 
 
-def _forward(q, k, v, causal, window):
+def _tile_lse(q, k, v, causal, window):
+    """(out in q's dtype, lse (B, H, S) f32) of a static-offset tile: the
+    whole sequence for :func:`flash_attention`, the diagonal (causal,
+    window) or a fully visible (non-causal) tile for the ring. The
+    ``flash_fwd`` kernel on a CUDA tensor, its plain version on a CPU
+    one. The JAX package's ``_tile_lse`` takes a dense path on ragged
+    lengths; the kernel masks the edge itself."""
     _check(q, k, v, causal, window)
     if _device_of(q) == "cpu":
         return flash_attention_reference(q, k, v, causal, window)
@@ -395,12 +422,12 @@ def flash_band_dq(q, k, v, do, lse, delta, off, window=None):
     if _device_of(q) == "cpu":
         return flash_band_dq_reference(q, k, v, do, lse, delta, off, window)
     _check_bwd(q, k, v, do, lse, delta, True, window)
-    ptrs, sizes, strides, tail = _bwd_args(q, k, v, do, lse, delta, True,
-                                           window, off)
+    ops, sizes, strides, tail = _bwd_args(q, k, v, do, lse, delta, True,
+                                          window, off)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if dq.numel() == 0:
         return dq
-    _call("flash_bwd", "hvd_flash_band_dq", *ptrs, dq.data_ptr(),
+    _call("flash_bwd", "hvd_flash_band_dq", *_ptrs(ops), dq.data_ptr(),
           _DTYPES[q.dtype], *sizes, *strides, *tail, _stream(q))
     band_dq_launches += 1
     return dq
@@ -415,25 +442,17 @@ def flash_band_dkv(q, k, v, do, lse, delta, off, window=None):
     if _device_of(q) == "cpu":
         return flash_band_dkv_reference(q, k, v, do, lse, delta, off, window)
     _check_bwd(q, k, v, do, lse, delta, True, window)
-    ptrs, sizes, strides, tail = _bwd_args(q, k, v, do, lse, delta, True,
-                                           window, off)
+    ops, sizes, strides, tail = _bwd_args(q, k, v, do, lse, delta, True,
+                                          window, off)
     dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
     if dk.numel() == 0:
         return dk, dv
-    _call("flash_bwd", "hvd_flash_band_dkv", *ptrs, dk.data_ptr(),
+    _call("flash_bwd", "hvd_flash_band_dkv", *_ptrs(ops), dk.data_ptr(),
           dv.data_ptr(), _DTYPES[q.dtype], *sizes, *strides, *tail,
           _stream(q))
     band_dkv_launches += 1
     return dk, dv
-
-
-def _tile_lse(q, k, v, causal, window):
-    """(out in q's dtype, lse (B, H, S) f32) of a static-offset ring tile:
-    the diagonal (causal, window) or a fully visible one (non-causal).
-    The JAX package's ``_tile_lse`` takes a dense path on ragged lengths;
-    the kernel masks the edge itself."""
-    return _forward(q, k, v, causal, window)
 
 
 def _tile_bwd_dispatch(q, k, v, g, lse, delta, off, causal, window):
@@ -462,7 +481,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        out, lse = _forward(q, k, v, causal, window)
+        out, lse = _tile_lse(q, k, v, causal, window)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         ctx.set_materialize_grads(False)

@@ -428,9 +428,12 @@ class _RingCore(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
         axis = ctx.args[0]
+        # each shard's lse once as the dense (B, H, S_local) the kernels
+        # read, not a strided chunk every tile would copy again
+        lses = [x.contiguous() for x in lse.chunk(len(axis.shards), dim=2)]
         dq, dk, dv = _ring_backward(
             _split(q, axis), _split(k, axis), _split(v, axis),
-            _split(out, axis), list(lse.chunk(len(axis.shards), dim=2)),
-            _split(g.contiguous(), axis), *ctx.args)
+            _split(out, axis), lses, _split(g.contiguous(), axis),
+            *ctx.args)
         return (torch.cat(dq, dim=1), torch.cat(dk, dim=1),
                 torch.cat(dv, dim=1), None, None, None, None, None)

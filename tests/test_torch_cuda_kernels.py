@@ -163,10 +163,8 @@ def test_flash_bwd_raises_on_a_head_dim_the_kernel_does_not_take(card):
 
 def _live_rows(s, off, window):
     """Rows of a band tile at offset ``off`` with at least one live key."""
-    r = np.arange(s)
-    lo = np.maximum(0, off + r - (window if window else off + s) + 1)
-    hi = np.minimum(s - 1, off + r)
-    return torch.from_numpy(lo <= hi)
+    lo, hi = fa.band_key_span(s, off, window)
+    return lo <= hi
 
 
 def _band_inputs(card, dtype, b, s, h, h_kv, d, off, window, seed):
@@ -264,3 +262,54 @@ def test_ring_attention_on_the_card_runs_the_band_kernels(card):
     torch.testing.assert_close(out, ref, atol=ATOL["float32"], rtol=0)
     for a, w in zip(got, want):
         torch.testing.assert_close(a, w, atol=GRAD_ATOL, rtol=0)
+
+
+def _ring_view(x, shard, n, seed):
+    """``x`` (B, H, S) as the strided shard ``shard`` of a (B, H, n * S)
+    tensor of random rows, as a chunk of the ring's lse is."""
+    b, h, s = x.shape
+    wide = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (b, h, n * s), np.float32)).to(x.device)
+    wide[..., shard * s:(shard + 1) * s] = x
+    view = wide.chunk(n, dim=2)[shard]
+    assert not view.is_contiguous()
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv",
+                                    "flash_band_dq", "flash_band_dkv"])
+@pytest.mark.parametrize("b,s,h,h_kv,d", [
+    (2, 2048, 32, 32, 2),   # dq and dk/dv (bf16) the size of lse's copy
+    (1, 512, 32, 8, 8),     # GQA 4, several waves of small CTAs
+])
+def test_backward_kernels_take_a_strided_lse(card, kernel, b, s, h, h_kv, d):
+    """An lse and delta that are strided chunks of the ring's (B, H, n*S)
+    give the same bits as dense copies. The wrapper copies them to dense
+    and must hold the copy until the launch is enqueued: freed earlier,
+    its block may go to the outputs, whose writes then overwrite lse rows
+    that CTAs of a later wave have not yet read."""
+    band = kernel.startswith("flash_band")
+    off, window = (s, 3 * s // 2) if band else (None, None)
+    args = _bwd_inputs(card, torch.bfloat16, b, s, h, h_kv, d, True, window,
+                       s + d)
+    q, k, v, do, lse, delta = args
+    if band:
+        _, lse_band = fa.flash_band_fwd_reference(q, k, v, off, window)
+        lse = torch.logaddexp(lse, lse_band)
+    strided = (_ring_view(lse, 1, 4, 1), _ring_view(delta, 1, 4, 2))
+    extra = (off, window) if band else (True, None)
+    fn = getattr(fa, kernel)
+    got = fn(q, k, v, do, *strided, *extra)
+    torch.cuda.synchronize()
+    want = fn(q, k, v, do, lse, delta, *extra)
+    plain = getattr(fa, kernel + "_reference")(q, k, v, do, lse, delta,
+                                               *extra)
+    got, want, plain = ((x,) if torch.is_tensor(x) else x
+                        for x in (got, want, plain))
+    for g, w, p in zip(got, want, plain):
+        assert torch.equal(g, w)
+        if band:
+            torch.testing.assert_close(g, p, atol=GRAD_ATOL, rtol=0)
+        else:
+            _assert_grad_close(g, p, torch.bfloat16)

@@ -41,6 +41,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 import horovod_tpu.models.transformer as jtfm
 from horovod_tpu.ops.flash_attention import _band_tile_bwd, _band_tile_fwd
+from horovod_tpu.parallel.ring_attention import _tile_masks as jax_tile_masks
 from horovod_tpu.parallel.ring_attention import ring_attention as jax_ring
 from horovod_tpu_torch.models import transformer as tfm
 from horovod_tpu_torch.ops import flash_attention as fa
@@ -74,9 +75,25 @@ def _band_inputs(case, seed):
 
 def _live_rows(s, off, window):
     """Rows of a band tile at offset ``off`` with at least one live key."""
-    r = np.arange(s)
-    lo = np.maximum(0, off + r - (window if window else off + s) + 1)
-    return lo <= np.minimum(s - 1, off + r)
+    lo, hi = fa.band_key_span(s, off, window)
+    return (lo <= hi).numpy()
+
+
+@pytest.mark.parametrize("s,off,window", [(8, 0, None), (8, 0, 3),
+                                          (8, 8, 5), (8, 16, 12),
+                                          (6, 12, 4)])
+def test_band_key_span_is_the_jax_tile_mask(s, off, window):
+    """Each row's first and last live key are those of the JAX package's
+    ``_tile_masks``; a row it masks whole has lo > hi."""
+    keep = np.asarray(jax_tile_masks(s, s, off, True, window))
+    lo, hi = fa.band_key_span(s, off, window)
+    for i, row in enumerate(keep):
+        if row.any():
+            cols = np.flatnonzero(row)
+            assert (lo[i].item(), hi[i].item()) == (cols[0], cols[-1])
+            assert row[cols[0]:cols[-1] + 1].all()
+        else:
+            assert lo[i].item() > hi[i].item()
 
 
 @pytest.mark.parametrize("case", BAND_CASES)
@@ -149,6 +166,47 @@ def test_band_window_clamp_reaches_off_plus_s():
     # the cut the parent made (window -> S) changes the answer here
     cut, _ = fa.flash_band_fwd_reference(q, k, v, off, s)
     assert (cut - out).abs().max().item() > 1e-2
+
+
+def test_bwd_args_hold_the_dense_lse_they_point_to():
+    """A strided lse or delta is copied to the dense (B, H, S) the kernels
+    read, and the copy is among the operands returned, so the caller holds
+    it until the launch is enqueued and its block cannot go to an output
+    first."""
+    q, k, v, do = (torch.zeros(2, 64, 4, 8) for _ in range(4))
+    wide = torch.randn(2, 4, 4 * 64)
+    lse, delta = wide.chunk(4, dim=2)[1], wide.chunk(4, dim=2)[2]
+    assert not lse.is_contiguous()
+    ops, sizes, _, tail = fa._bwd_args(q, k, v, do, lse, delta, True, None,
+                                       64)
+    assert sizes == (2, 64, 4, 4, 8) and tail[1] == 64
+    for got, want in zip(ops[4:], (lse, delta)):
+        assert got.is_contiguous() and torch.equal(got, want)
+    assert fa._ptrs(ops) == [x.data_ptr() for x in ops]
+    assert ops[0] is q and ops[3] is do
+
+
+@pytest.mark.parametrize("window", [None, 12], ids=["no-window", "window12"])
+def test_ring_backward_passes_each_tile_a_dense_lse(monkeypatch, window):
+    """The ring hands every tile's backward its shard's lse as a dense
+    tensor, so no launch copies a strided chunk."""
+    seen = []
+    dispatch = fa._tile_bwd_dispatch
+
+    def record(q, k, v, g, lse, delta, *rest):
+        seen.append((lse.is_contiguous(), delta.is_contiguous()))
+        return dispatch(q, k, v, g, lse, delta, *rest)
+
+    monkeypatch.setattr(fa, "_tile_bwd_dispatch", record)
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in
+               _arrays(8, (1, 32, 4, 8), (1, 32, 2, 8), (1, 32, 2, 8)))
+    out = ring_attention(q, k, v, RingAxis.local(4), impl="flash",
+                         window=window)
+    out.sum().backward()
+    # the diagonal tiles, then the live visiting tiles (3 + 2 + 1 without
+    # a window, 3 + 2 with window 12 over 3 ring steps)
+    assert len(seen) == 4 + (6 if window is None else 5)
+    assert all(a and b for a, b in seen)
 
 
 @functools.lru_cache(maxsize=None)
