@@ -12,7 +12,8 @@ records one. The sequence-parallel step likewise: chip_smoke.py's SP
 model (window 4096, a local ring of 4) at batch 2 x 8192. The band
 tiles' forward runs the same kernel as the static one (``flash_fwd``
 at an offset), so the profile counts them together; the band backward
-kernels write f32 and show as their own instantiations. For each
+kernels write f32 and show as their own instantiations, on the
+tensor-core route (``*_wgmma_kernel``) as on the loop. For each
 record it prints the wall time, the device time summed over kernels,
 the device's busy share (kernel time over wall time), and the kernel
 time grouped by kind. Needs a CUDA card; fails
@@ -35,14 +36,22 @@ from chip_smoke import (ADAMW, FLAGSHIP, LOSS_CHUNK, N_REQUESTS, NEW_TOKENS,
 
 DECODE_STEPS = 8
 
-# Kernel-name fragments -> group, first match wins.
+# Kernel-name fragments -> group, first match wins. The backward kernels'
+# templates name their output type first on the tensor-core route
+# (float: the band kernels) and second on the loop (<input, output, D>).
 GROUPS = (
     ("flash_fwd", "flash_fwd (hand kernel; static and band tiles)"),
-    ("flash_bwd_dq_kernel<__nv_bfloat16, float", "flash_band_dq (hand kernel)"),
+    ("flash_bwd_dq_wgmma_kernel<float", "flash_band_dq (hand kernel, wgmma)"),
+    ("flash_bwd_dkv_wgmma_kernel<float",
+     "flash_band_dkv (hand kernel, wgmma)"),
+    ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq (hand kernel, wgmma)"),
+    ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv (hand kernel, wgmma)"),
+    ("flash_bwd_dq_kernel<__nv_bfloat16, float",
+     "flash_band_dq (hand kernel, loop)"),
     ("flash_bwd_dkv_kernel<__nv_bfloat16, float",
-     "flash_band_dkv (hand kernel)"),
-    ("flash_bwd_dq", "flash_bwd_dq (hand kernel)"),
-    ("flash_bwd_dkv", "flash_bwd_dkv (hand kernel)"),
+     "flash_band_dkv (hand kernel, loop)"),
+    ("flash_bwd_dq", "flash_bwd_dq (hand kernel, loop)"),
+    ("flash_bwd_dkv", "flash_bwd_dkv (hand kernel, loop)"),
     ("nccl", "all-reduce (NCCL)"),
     ("multi_tensor", "optimizer (AdamW foreach)"),
     ("gemm", "matmul (cuBLAS)"),

@@ -8,6 +8,10 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    printed as ``nvidia-smi`` reports them;
 2. build: every CUDA source of the port is compiled from the checkout
    (one nvcc per source, all at once) into build/horovod_tpu_torch/;
+   each backward kernel's registers, spills and shared memory (nvcc's
+   -Xptxas -v) and the count of HGMMA (wgmma) instructions in its SASS
+   (cuobjdump -sass, where the toolkit has it; a tensor-core kernel
+   without one fails the run) are printed;
 3. kernels: each kernel's wrapper against its plain PyTorch version on
    the same tensors on the card, with stated tolerances. ``flash_fwd``
    at the serving prefill shape, the SP path's diagonal tile (B 2,
@@ -15,10 +19,13 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    ``flash_bwd_dq`` and ``flash_bwd_dkv`` at the training head shape
    (B 1, S 4096), the SP diagonal tile with lse and delta strided as the
    ring's chunks are, and ragged causal, windowed, non-causal MHA and f32
-   shapes. Each kernel, its plain version and one PyTorch library
-   call computing the same function are timed at the shape its main path
-   gives it (the plain backward at B 1: at B 4 it would materialize
-   4.3 GB score matrices);
+   shapes. The backward kernels take the tensor-core route on bf16 at
+   D 64 or 128 and the CUDA-core loop elsewhere (the f32 shapes), as
+   ``tensor_core_route`` says, and each shape checks that it took the
+   route the rule gives. Each kernel, its plain version and one PyTorch
+   library call computing the same function are timed at the shape its
+   main path gives it (the plain backward at B 1: at B 4 it would
+   materialize 4.3 GB score matrices);
 4. parity: the serve engine's prefill logits through the flash kernel
    against the same prompts through ``attention_impl="dense"`` at full
    width, and a small f32 model's prefill + decode against its forward;
@@ -52,6 +59,11 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    a shard): 40 launches of each band kernel and 32 of each static kernel
    a step, checked exactly.
 
+On the training and SP paths every backward launch takes the tensor-core
+route: the loop's counters stay at 0 there, and the route's counters
+are exact (8 of each static kernel a data-parallel step; 32 static and
+40 band of each an SP step).
+
 Each main path runs with the kernel launch counts zeroed just before it
 and read just after. The first line is the card's name and power limit
 as ``nvidia-smi`` gives them. The last two lines are
@@ -62,6 +74,8 @@ as ``nvidia-smi`` gives them. The last two lines are
 import gc
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -111,6 +125,19 @@ SMALL_ATOL = 1e-4
 # reference's gradient band); a bf16 gradient may differ by one bf16
 # rounding (2^-7 relative) of its largest magnitude.
 GRAD_F32_ATOL, GRAD_BF16_REL = 1e-4, 2.0 ** -7
+# The tensor-core route rounds P and dS to bf16 before the second
+# products, and is held to the plain version that rounds them likewise
+# (``operand_dtype=torch.bfloat16``): the static kernels at
+# GRAD_BF16_REL, and the band kernels' f32 gradients, which the loop
+# held to GRAD_F32_ATOL, at BAND_BF16_REL of their largest magnitude: a
+# P or dS value whose f32 sum came in another order can round to the
+# neighbouring bf16 value, moving its terms by one bf16 ulp (2^-7).
+# Against the f32 plain version each route's gradient holds within
+# ``bf16_rounding_bound`` (P and dS each moved by at most 2^-8 of
+# itself: 2^-8 of the same sums over absolute values) plus the band
+# above: GRAD_BF16_REL of the largest magnitude for a bf16 gradient,
+# GRAD_F32_ATOL for an f32 one.
+BAND_BF16_REL = 2.0 ** -7
 # Training parity, flash vs dense: the loss, and each parameter gradient
 # by relative L2 difference; a small f32 model to the reference's 1e-4.
 # Dense rounds p to bf16 before p.v, and the transpose of that cast
@@ -127,6 +154,73 @@ YARDSTICK_RATIO = 1.5
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def _demangle(names):
+    """{mangled: readable} through c++filt where the machine has it."""
+    tool = shutil.which("c++filt") or shutil.which("cu++filt")
+    if tool is None or not names:
+        return {n: n for n in names}
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return dict(zip(names, out.splitlines()))
+
+
+def backward_kernel_usage(fa, _build, log):
+    """Print each flash_bwd kernel's registers, spills and shared memory
+    from nvcc's -Xptxas -v ``log``, and the HGMMA (wgmma) instructions in
+    its SASS (cuobjdump -sass, where the toolkit has it). A tensor-core
+    kernel without HGMMA fails the run."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\w+)", line)
+        if m:
+            name = m.group(1)
+            usage.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            usage[name].update(stack=int(m[1]), spill_stores=int(m[2]),
+                               spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[name]["registers"] = int(m[1])
+            smem = re.search(r"(\d+) bytes smem", line)
+            usage[name]["static_smem"] = int(smem[1]) if smem else 0
+    hgmma = None
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if os.path.exists(tool):
+        sass = subprocess.run([tool, "-sass",
+                               str(_build.library_path("flash_bwd"))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        hgmma = {}
+        for part in sass.split("Function : ")[1:]:
+            hgmma[part.split()[0]] = part.count("HGMMA")
+    readable = _demangle(sorted(usage))
+    for mangled in sorted(usage, key=lambda n: readable[n]):
+        u, text = usage[mangled], readable[mangled]
+        wgmma = "wgmma_kernel" in text
+        d = 128 if re.search(r", 128>|Li128E", text) else 64
+        dyn = fa.wgmma_smem_bytes(
+            "flash_bwd_dkv" if "dkv" in text else "flash_bwd_dq", d) \
+            if wgmma else None
+        n = None if hgmma is None else hgmma.get(mangled, 0)
+        short = re.search(r"flash_bwd_\w+(<[^>]*>)?", text)
+        print(f"build flash_bwd kernel {short[0] if short else text}: "
+              f"{u.get('registers')} registers, {u.get('spill_stores')} "
+              f"bytes spill stores, {u.get('spill_loads')} bytes spill "
+              f"loads, {u.get('stack')} bytes stack, static smem "
+              f"{u.get('static_smem')} bytes"
+              + (f", dynamic smem {dyn} bytes" if wgmma else "")
+              + ("; SASS not read (no cuobjdump)" if n is None
+                 else f"; {n} HGMMA in its SASS"), flush=True)
+        check(not wgmma or n is None or n > 0,
+              f"{text}: a tensor-core kernel without HGMMA")
 
 
 def card_line():
@@ -391,6 +485,49 @@ def ring_view(x, shard, gen):
     return view
 
 
+def _tuple(x):
+    return (x,) if torch.is_tensor(x) else tuple(x)
+
+
+def hold_backward(fa, name, got, args, extra, bound_args):
+    """Hold one backward kernel's gradients ``got`` to the plain version
+    of the route it took, and on the tensor-core route also to the f32
+    plain version, at the bands of the header. ``extra`` follows the
+    operands in the plain version's call, ``bound_args`` in
+    ``bf16_rounding_bound``'s. Returns (worst error against the route's
+    plain version, worst against the f32 one, route, report)."""
+    tc = fa.tensor_core_route(*args[:4])
+    ref = getattr(fa, name + "_reference")
+    want = _tuple(ref(*args, *extra,
+                      operand_dtype=torch.bfloat16 if tc else None))
+    exact = _tuple(ref(*args, *extra)) if tc else want
+    bound = fa.bf16_rounding_bound(*args, *bound_args) if tc else None
+    outs = ("dq",) if name.endswith("dq") else ("dk", "dv")
+    worst, worst32, text = 0.0, 0.0, []
+    for out, g, w, x in zip(outs, got, want, exact):
+        f32_out = g.dtype == torch.float32
+        top = w.float().abs().max().item()
+        if tc:
+            tol = (BAND_BF16_REL if f32_out else GRAD_BF16_REL) * top
+        else:
+            tol = GRAD_F32_ATOL if f32_out else GRAD_BF16_REL * top
+        err = (g.float() - w.float()).abs().max().item()
+        text.append(f"{out} max|d|={err:.3g} (tol {tol:.3g})")
+        check(err <= tol, f"{name} disagrees with its plain version")
+        worst = max(worst, err)
+        if tc:
+            tol32 = bound["dq dk dv".split().index(out)] + (
+                GRAD_F32_ATOL if f32_out else
+                GRAD_BF16_REL * x.float().abs().max().item())
+            err32 = (g.float() - x.float()).abs().max().item()
+            text[-1] += f", f32 plain {err32:.3g} (tol {tol32:.3g})"
+            check(err32 <= tol32,
+                  f"{name} is farther from the f32 plain version than "
+                  f"the bf16 rounding of P and dS allows")
+            worst32 = max(worst32, err32)
+    return worst, worst32, tc, "; ".join(text)
+
+
 def phase_backward_kernels(fa, card, gen):
     """flash_bwd_dq and flash_bwd_dkv against their plain versions at
     every listed shape; the kernels and SDPA's backward timed at the
@@ -405,7 +542,9 @@ def phase_backward_kernels(fa, card, gen):
         (1, 700, 8, 8, 64, torch.bfloat16, False, None),         # non-causal
         (2, 130, 4, 2, 8, torch.float32, True, None),            # small f32
     ]
-    worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    names = ("flash_bwd_dq", "flash_bwd_dkv")
+    worst = dict.fromkeys(names, 0.0)
+    worst32 = dict.fromkeys(names, 0.0)
     plain_ms = {}
     for i, (b, s, h, h_kv, d, dtype, causal, window) in enumerate(cases):
         args = bwd_inputs(fa, card, gen, b, s, h, h_kv, d, dtype, causal,
@@ -413,32 +552,31 @@ def phase_backward_kernels(fa, card, gen):
         got = {"flash_bwd_dq": (fa.flash_bwd_dq(*args, causal, window),),
                "flash_bwd_dkv": fa.flash_bwd_dkv(*args, causal, window)}
         torch.cuda.synchronize()
-        want = {"flash_bwd_dq": (fa.flash_bwd_dq_reference(
-                    *args, causal, window),),
-                "flash_bwd_dkv": fa.flash_bwd_dkv_reference(
-                    *args, causal, window)}
         line = []
-        for name, outs in (("flash_bwd_dq", "dq"), ("flash_bwd_dkv", "dkdv")):
-            for out, g, w in zip((outs[:2], outs[2:]), got[name],
-                                 want[name]):
-                err = (g.float() - w.float()).abs().max().item()
-                tol = GRAD_F32_ATOL if dtype == torch.float32 else \
-                    GRAD_BF16_REL * w.float().abs().max().item()
-                line.append(f"{out} max|d|={err:.3g} (tol {tol:.3g})")
-                check(err <= tol, f"{name} disagrees with its plain version "
-                                  f"at {(b, s, h, h_kv, d, dtype, causal)}")
-                worst[name] = max(worst[name], err)
+        for name in names:
+            err, err32, tc, text = hold_backward(
+                fa, name, got[name], args, (causal, window),
+                (causal, window))
+            check(tc == (dtype == torch.bfloat16 and d in (64, 128)),
+                  f"{name} took the wrong route at {(b, s, h, d, dtype)}")
+            line.append(text)
+            worst[name] = max(worst[name], err)
+            worst32[name] = max(worst32[name], err32)
         print(f"kernel backward B={b} S={s} H={h} H_kv={h_kv} D={d} "
-              f"{str(dtype)[6:]} causal={causal} window={window}: "
-              + "; ".join(line), flush=True)
+              f"{str(dtype)[6:]} causal={causal} window={window} "
+              f"[{'tensor cores' if tc else 'loop'}]: " + "; ".join(line),
+              flush=True)
         if i == 0:
+            # the plain version of the route the training shape takes
             plain_ms = {
                 "flash_bwd_dq": time_ms(
-                    lambda: fa.flash_bwd_dq_reference(*args, True, None), 3),
+                    lambda: fa.flash_bwd_dq_reference(
+                        *args, True, None, operand_dtype=torch.bfloat16), 3),
                 "flash_bwd_dkv": time_ms(
-                    lambda: fa.flash_bwd_dkv_reference(*args, True, None), 3),
+                    lambda: fa.flash_bwd_dkv_reference(
+                        *args, True, None, operand_dtype=torch.bfloat16), 3),
             }
-        del args, got, want
+        del args, got
         torch.cuda.empty_cache()
 
     # The training shape: B 4, S 4096, as the main path gives it.
@@ -476,6 +614,7 @@ def phase_backward_kernels(fa, card, gen):
             "library": "scaled_dot_product_attention backward (forward + "
                        "backward less forward), dq, dk and dv together",
             "max_abs_err": worst[name],
+            "max_abs_err_f32_plain": worst32[name],
         }
         print(f"kernel {name} timing at the training shape: {ms[name]:.4f} "
               f"ms, plain (B 1) {plain_ms[name]:.4f} ms, bound "
@@ -562,6 +701,7 @@ def phase_band_kernels(fa, card, gen):
     ]
     names = ("flash_band_fwd", "flash_band_dq", "flash_band_dkv")
     worst = dict.fromkeys(names, 0.0)
+    worst32 = dict.fromkeys(names[1:], 0.0)
     timed = {}
     for b, s, h, h_kv, d, dtype, off, window in cases:
         q, k, v, do, lse, delta = band_inputs(fa, card, gen, b, s, h, h_kv,
@@ -579,33 +719,34 @@ def phase_band_kernels(fa, card, gen):
         tol = F32_ATOL if dtype == torch.float32 else BF16_ATOL
         err_o = (out[:, live].float() - ref_out[:, live].float()).abs().max()
         err_lse = (lse_t[:, :, live] - ref_lse[:, :, live]).abs().max()
-        want = (fa.flash_band_dq_reference(q, k, v, do, lse, delta, off,
-                                           window),
-                *fa.flash_band_dkv_reference(q, k, v, do, lse, delta, off,
-                                             window))
-        errs = [(g - w).abs().max().item() for g, w in zip((dq, dk, dv),
-                                                           want)]
+        args = (q, k, v, do, lse, delta)
+        grads = []
+        for name, got in (("flash_band_dq", (dq,)),
+                          ("flash_band_dkv", (dk, dv))):
+            err, err32, tc, text = hold_backward(
+                fa, name, got, args, (off, window), (True, window, off))
+            check(tc == (dtype == torch.bfloat16 and d in (64, 128)),
+                  f"{name} took the wrong route at {(b, s, h, d, dtype)}")
+            grads.append(text)
+            worst[name] = max(worst[name], err)
+            worst32[name] = max(worst32[name], err32)
         print(f"kernel band B={b} S={s} H={h} H_kv={h_kv} D={d} "
               f"{str(dtype)[6:]} off={off} window={window} "
-              f"({int((~live).sum())} rows with no key): out max|d|="
+              f"({int((~live).sum())} rows with no key) "
+              f"[{'tensor cores' if tc else 'loop'}]: out max|d|="
               f"{err_o.item():.3g} (tol {tol:g}), lse {err_lse.item():.3g} "
-              f"(tol {LSE_ATOL:g}); dq {errs[0]:.3g}, dk {errs[1]:.3g}, dv "
-              f"{errs[2]:.3g} (f32, tol {GRAD_F32_ATOL:g})", flush=True)
+              f"(tol {LSE_ATOL:g}); f32 gradients " + "; ".join(grads),
+              flush=True)
         check(err_o.item() <= tol and err_lse.item() <= LSE_ATOL,
               f"flash_band_fwd disagrees with its plain version at "
               f"{(b, s, h, off, window)}")
-        check(max(errs) <= GRAD_F32_ATOL,
-              f"band backward disagrees with its plain version at "
-              f"{(b, s, h, off, window)}")
         worst["flash_band_fwd"] = max(worst["flash_band_fwd"], err_o.item())
-        worst["flash_band_dq"] = max(worst["flash_band_dq"], errs[0])
-        worst["flash_band_dkv"] = max(worst["flash_band_dkv"], *errs[1:])
         if (b, s, h, h_kv, d, dtype) == path:
             # timed on dense lse and delta, as the ring passes them
             timed[off] = band_timings(
                 fa, (q, k, v, do, lse.contiguous(), delta.contiguous()), off,
                 window, band_work(*path, off, window))
-        del q, k, v, do, lse, delta, out, dq, dk, dv, want, ref_out
+        del q, k, v, do, lse, delta, out, dq, dk, dv, args, ref_out
         torch.cuda.empty_cache()
 
     entries = []
@@ -631,6 +772,8 @@ def phase_band_kernels(fa, card, gen):
                      f"{mix}",
             "max_abs_err": worst[name],
         })
+        if name in worst32:
+            entries[-1]["max_abs_err_f32_plain"] = worst32[name]
     return entries
 
 
@@ -651,13 +794,14 @@ def band_timings(fa, args, off, window, work):
         "flash_band_dkv": time_ms(lambda: fa.flash_band_dkv(*args, off,
                                                             window), 10),
     }
+    bf16 = torch.bfloat16  # the tensor-core route's plain versions
     plain = {
         "flash_band_fwd": time_ms(lambda: fa.flash_band_fwd_reference(
             q, k, v, off, window), 3),
         "flash_band_dq": time_ms(lambda: fa.flash_band_dq_reference(
-            *args, off, window), 3),
+            *args, off, window, operand_dtype=bf16), 3),
         "flash_band_dkv": time_ms(lambda: fa.flash_band_dkv_reference(
-            *args, off, window), 3),
+            *args, off, window, operand_dtype=bf16), 3),
     }
     group = q.shape[2] // k.shape[2]
     qt = q.transpose(1, 2).detach().requires_grad_()
@@ -871,11 +1015,19 @@ def flops_per_token(params, cfg, seq):
 LAUNCH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                 "flash_band_fwd", "flash_band_dq", "flash_band_dkv")
 COUNTERS = ("launches", "dq_launches", "dkv_launches", "band_launches",
-            "band_dq_launches", "band_dkv_launches")
+            "band_dq_launches", "band_dkv_launches",
+            "dq_wgmma_launches", "dkv_wgmma_launches",
+            "band_dq_wgmma_launches", "band_dkv_wgmma_launches")
+# the backward kernels' tensor-core route, counted apart from their loop
+WGMMA = {n: n + "_wgmma" for n in ("flash_bwd_dq", "flash_bwd_dkv",
+                                    "flash_band_dq", "flash_band_dkv")}
+ROUTE_NAMES = LAUNCH_NAMES + tuple(WGMMA.values())
 
 
 def read_launches(fa):
-    return {n: getattr(fa, c) for n, c in zip(LAUNCH_NAMES, COUNTERS)}
+    """{kernel (a backward kernel's tensor-core route as <name>_wgmma):
+    launches}."""
+    return {n: getattr(fa, c) for n, c in zip(ROUTE_NAMES, COUNTERS)}
 
 
 def zero_launches(fa):
@@ -948,11 +1100,14 @@ def phase_train(hvd, fa, tfm, card, where, ring=None):
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
     # a step's launches per layer: one of each static kernel per local
     # shard (the diagonal tiles), one of each band kernel per live
-    # visiting tile
+    # visiting tile; every backward launch on the tensor-core route, none
+    # on the loop
     shards = 1 if ring is None else len(ring.shards)
     bands = 0 if ring is None else len(SP_BAND_OFFSETS)
     for name, n in launches.items():
         per_layer = bands if name.startswith("flash_band") else shards
+        if name in WGMMA:
+            per_layer = 0
         check(n == steps * cfg.n_layers * per_layer,
               f"{name} launched {n} times in {steps} steps of "
               f"{cfg.n_layers} layers, {per_layer} a layer expected")
@@ -1013,6 +1168,9 @@ def main():
     print(f"build: {sorted(logs) or 'up to date'} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
+        if name == "flash_bwd":
+            backward_kernel_usage(fa, _build, log)
+            continue
         usage = [line for line in log.splitlines()
                  if "registers" in line or "spill" in line]
         print(f"build {name}: " + " | ".join(usage), flush=True)
@@ -1047,12 +1205,17 @@ def main():
 
     entries = [entry, bwd_entries["flash_bwd_dq"],
                bwd_entries["flash_bwd_dkv"], *band_entries]
+    paths = {"serve": serve_launches, "train": train_launches,
+             "sp_train": sp_launches}
     for e in entries:
-        by_path = {"serve": serve_launches[e["name"]],
-                   "train": train_launches[e["name"]],
-                   "sp_train": sp_launches[e["name"]]}
+        # a backward kernel's launches are its tensor-core route's: the
+        # main paths launch its loop never (checked in phase_train)
+        counted = WGMMA.get(e["name"], e["name"])
+        by_path = {p: n[counted] for p, n in paths.items()}
         e["launches"] = sum(by_path.values())
         e["launches_by_path"] = by_path
+        if counted != e["name"]:
+            e["route_on_main_paths"] = "tensor cores (wgmma)"
         check(e["launches"] > 0, f"{e['name']} never ran on a main path")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

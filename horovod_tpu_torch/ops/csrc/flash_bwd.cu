@@ -1,4 +1,4 @@
-// Flash-attention backward for Hopper (sm_90a), f32 math on bf16 or f32 inputs.
+// Flash-attention backward for Hopper (sm_90a) on bf16 or f32 inputs.
 //
 // Replaces four Pallas TPU kernels of horovod_tpu/ops/flash_attention.py:
 //
@@ -18,50 +18,43 @@
 //
 // with, for every live (query i, key j) pair,
 //
-//     s  = (q * scale) . k^T        in f32, scale = 1/sqrt(D)
+//     s  = q . k^T * scale          scale = 1/sqrt(D)
 //     s  = -1e30 where masked        (causal, sliding window, ragged edge)
 //     p  = exp(s - lse)              lse saved by the forward
 //     dp = dO . v^T
 //     dS = p * (dp - delta)          delta = rowsum(dO * O) - g_lse, computed
 //                                    outside the kernel as on the TPU
 //
-// in the reference's order of operations: q is converted to f32 and scaled
-// before the product, masked scores are -1e30 (so p is exactly 0 there), dQ is
-// accumulated from unscaled K and scaled once at the end, and dK is accumulated
-// from the scaled q.
+// Two routes, chosen by the wrapper (ops/flash_attention.py,
+// tensor_core_route) and checked again here:
+//
+// - The tensor-core route (the *_wgmma_kernel templates, entries
+//   hvd_*_wgmma): bf16 inputs, D 64 or 128, 16-byte-aligned base pointers
+//   and (batch, sequence, head) strides. The training and sequence-parallel
+//   paths run it.
+// - The CUDA-core loop (flash_bwd_dq_kernel, flash_bwd_dkv_kernel): every
+//   other shape, f32 inputs among them, whose products it keeps exact, as
+//   the reference's f32 products are (TF32 stays off).
 //
 // Layout: q and dO (B, S, H, D), k/v (B, S, H_kv, D) with the head dim
 // contiguous and any strides on B, S and H; lse and delta (B, H, S) contiguous
-// f32; dq (B, S, H, D) and dk/dv (B, S, H_kv, D) contiguous in the input type.
+// f32; dq (B, S, H, D) and dk/dv (B, S, H_kv, D) contiguous.
 //
-// Design. The TPU kernels carry their accumulators in VMEM scratch across a
-// sequential inner grid axis. Blocks on Hopper run in no order, so each kernel
-// owns its output tile and loops over the other side itself; nothing crosses
-// blocks, there are no atomics, and every run gives the same bits.
-//
-// - flash_bwd_dq: one CTA per (b*h, 64-row q tile). It holds the tile's scaled
-//   q, dO, lse and delta in shared memory and loops over 64-row kv tiles, with
-//   the causal and window skips (for a band tile, _band_live at the tile's
-//   offset) as the loop's bounds. The highest q tiles
-//   launch first: under a causal mask they have the most kv tiles.
-// - flash_bwd_dkv: one CTA per (b*h_kv, 64-row k tile). It holds K and V and
-//   loops over the `group` query heads that share the kv head and, inside
-//   that, over the live q tiles. dK and dV accumulate in f32 registers across
-//   the whole group, so the GQA group sum that the TPU path runs outside the
-//   kernel over f32 per-q-head partials (:688-692 and :797-801) happens here,
-//   and the partial buffers do not exist. The lowest k tiles launch first: under a
-//   causal mask they have the most q tiles.
-//
-// Ragged lengths are masked per element: a key at or past S gets -1e30, a
-// query row at or past S is read as zeros, masked, and never written. So the
-// card needs neither the reference's pad-to-128 backward nor its dense VJP.
-//
-// 256 threads; each owns 2 rows x 8 columns of a 64 x 64 score tile (the row
-// sums reduce nowhere: every product here contracts over D or over the tile)
-// and 2 rows x D/8 columns of each accumulator. Tiles are staged in shared
-// memory as f32 with padded row strides (D + 1, 64 + 1), so the inner loops
-// read without bank conflicts. At D = 128 the dq CTA takes 145 KB of shared
-// memory and the dkv CTA 162 KB, one CTA per SM.
+// Both routes own their output tiles. The TPU kernels carry their
+// accumulators in VMEM scratch across a sequential inner grid axis; blocks on
+// Hopper run in no order, so each CTA loops over the other side itself.
+// Nothing crosses blocks, there are no atomics, and every run gives the same
+// bits. The loop's dq CTAs launch highest query tiles first and its dkv CTAs
+// lowest key tiles first: under a causal mask those have the most tiles to
+// visit. The tensor-core kernels launch whichever end of their grid has more,
+// as the host works out per launch (a band tile past its window has the most
+// at the other end). The
+// skips are the loops' bounds (for a band tile, _band_live at the offset); the
+// per-element mask live() covers the ragged edge, so the card needs neither the
+// reference's pad-to-128 backward nor its dense VJP. dK and dV accumulate over
+// the whole GQA group in the CTA, so the group sum that the TPU path runs
+// outside the kernel over f32 per-q-head partials (:688-692 and :797-801)
+// happens here, and the partial buffers do not exist.
 //
 // Bound on this card (H100 SXM): 6*D FLOPs per live pair for dq (s, dp, dS.K)
 // and 8*D for dkv (s, dp, P^T.dO, dS^T.Q), against 989 TFLOP/s bf16. At the
@@ -70,13 +63,57 @@
 // (0.07 ms at 3.35 TB/s), so operations bound both, and the band kernels at
 // the ring's shapes too. A band tile's row that is dead in the tile gets
 // p = exp(-1e30 - lse) = 0 from the finite global lse, so it adds nothing.
-// This first design is for
-// correctness: the products run on the CUDA cores in f32, not on the tensor
-// cores. wgmma, TMA and warp specialisation come later.
+//
+// The tensor-core route. 384 threads: consumer warpgroups 0 and 1 (240
+// registers each by setmaxnreg) and a producer warpgroup (24) of which one
+// warp works. The producer streams tiles with TMA (4-D tensor maps over
+// (D, heads, S, B), 64-column boxes, 128-byte swizzle, zeros past S) through
+// a ring of shared-memory stages guarded by full/empty mbarriers; the
+// consumers run wgmma (bf16 operands, f32 accumulators) on the tiles that
+// have arrived.
+//
+// - flash_bwd_dq: one CTA per (b*h, 128-row query tile); each consumer
+//   warpgroup owns 64 rows. Q and dO stay in shared memory; K and V stream in
+//   64-row tiles through 3 stages. Per tile: S = Q.K^T and dP = dO.V^T
+//   (m64n64k16, both operands in shared memory, K-major); p and dS in f32
+//   registers; dS converted in registers to the bf16 A fragment of
+//   dQ += dS.K (m64nDk16, K read MN-major through the transpose flag). dS
+//   never touches shared memory. dQ takes the scale once at the end.
+// - flash_bwd_dkv: one CTA per (b*h_kv, 64-row key tile); K and V stay in
+//   shared memory. The producer streams (Q, dO, lse, delta) of the live query
+//   tiles of all `group` query heads through 4 stages, alternating between
+//   the two warpgroups. S^T = K.Q^T and dP^T = V.dO^T leave P^T and dS^T in
+//   the accumulator layout with keys as rows; as bf16 register fragments they
+//   feed dV += P^T.dO and dK += dS^T.Q (B MN-major). At the end warpgroup 1
+//   hands its dK/dV to warpgroup 0 through shared memory, which adds them
+//   (always in that order), scales dK and writes both.
+//
+// Rounding against the f32 reference: S and dP are sums of exact products of
+// bf16 values in f32, as in the loop up to summation order; the scale
+// multiplies q.k^T instead of q (about one f32 rounding); exp runs as exp2 of
+// (s * scale - lse) * log2(e). P and dS are rounded to bf16 before the second
+// products, as SDPA rounds them, each by at most 2^-8 of itself; so a
+// gradient differs from the f32 plain version by at most 2^-8 of the same sum
+// taken over absolute values (ops/flash_attention.py,
+// bf16_rounding_bound), and from the plain version run with
+// operand_dtype=torch.bfloat16 by summation order and rare one-ulp flips of
+// those roundings.
+//
+// The loop: 256 threads; each owns 2 rows x 8 columns of a 64 x 64 score
+// tile and 2 rows x D/8 columns of each accumulator, tiles staged in shared
+// memory as f32 with padded row strides (D + 1, 64 + 1). It takes the
+// reference's order of operations: q is converted to f32 and scaled before
+// the product, dQ is accumulated from unscaled K and scaled once at the end,
+// and dK is accumulated from the scaled q. At D = 128 the dq CTA takes 145 KB
+// of shared memory and the dkv CTA 162 KB, one CTA per SM.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <initializer_list>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -414,7 +451,672 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
   }
 }
 
-// Arguments shared by both kernels, as the C interface receives them.
+// ---------------------------------------------------------------------------
+// The tensor-core route.
+
+namespace tc {
+
+constexpr int BQ = 128;        // dq: query rows a CTA, 64 per consumer warpgroup
+constexpr int BT = 64;         // rows of a streamed tile and of a dkv key tile
+constexpr int THREADS = 384;   // warpgroups 0 and 1 consume, 2 produces
+constexpr int DQ_STAGES = 3;
+constexpr int DKV_STAGES = 4;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared memory in bytes from a 1024-byte-aligned base. A tile of R rows and
+// D columns is D / 64 halves of R x 128 bytes, each as TMA writes a 64-column
+// box with the 128-byte swizzle (8-row atoms of 1024 bytes).
+template <int D>
+struct DqSmem {
+  static constexpr int HQ = BQ * 128;        // a half of the q or dO tile
+  static constexpr int HK = BT * 128;        // a half of a k or v tile
+  static constexpr int TQ = HQ * (D / 64);
+  static constexpr int TK = HK * (D / 64);
+  static constexpr int Q = 0, DO = TQ, STAGES = 2 * TQ;
+  static constexpr int STAGE = 2 * TK;       // k, then v
+  static constexpr int BARS = STAGES + DQ_STAGES * STAGE;
+  static constexpr int BYTES = BARS + 8 * (1 + 2 * DQ_STAGES) + 1024;
+};
+
+template <int D>
+struct DkvSmem {
+  static constexpr int HT = BT * 128;
+  static constexpr int TT = HT * (D / 64);
+  static constexpr int K = 0, V = TT, STAGES = 2 * TT;
+  // q, dO, then lse * log2(e) and delta (BT f32 each), padded so that every
+  // tile stays 1024-byte aligned
+  static constexpr int STAGE = 2 * TT + 1024;
+  static constexpr int BARS = STAGES + DKV_STAGES * STAGE;
+  static constexpr int BYTES = BARS + 8 * (1 + 2 * DKV_STAGES) + 1024;
+  static_assert(128 * D * 4 <= DKV_STAGES * STAGE,
+                "the group sum's buffer reuses the stages");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Arrive, and expect `bytes` more from TMA before the phase completes.
+__device__ __forceinline__ void bar_arrive_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Wait for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map at coordinates (d, head, row, batch) into
+// shared memory, counted on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int d, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(d),
+      "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// The wgmma descriptor of a 128-byte-swizzled operand: start address,
+// leading and stride byte offsets.
+__device__ __forceinline__ uint64_t sw128(uint32_t addr, uint32_t lbo,
+                                          uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+// K-major operand (rows x K, K contiguous), k-step kk of 16 columns: the
+// column half, then 32 bytes a step inside the swizzled 128-byte row.
+__device__ __forceinline__ uint64_t k_major(uint32_t tile, int half_bytes,
+                                            int kk) {
+  return sw128(tile + (kk / 4) * half_bytes + (kk % 4) * 32, 16, 1024);
+}
+
+// MN-major operand (K rows x N, N contiguous), k-step kk of 16 rows: 2048
+// bytes a step; the next 64 columns lie a half further on.
+__device__ __forceinline__ uint64_t mn_major(uint32_t tile, int half_bytes,
+                                             int kk) {
+  return sw128(tile + kk * 2048, half_bytes, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep registers that wgmma reads or writes asynchronously in place until
+// the wait that follows.
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void hold(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ void sync_consumers() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// D[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, A and B in shared memory with
+// K contiguous; accumulate 0 overwrites D.
+__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a, uint64_t b,
+                                          int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] . B[16 x 64], A in registers, B in shared memory
+// with N contiguous (the transpose flag).
+__device__ __forceinline__ void mma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] . B[16 x 128], A in registers, B in shared memory
+// with N contiguous (the transpose flag).
+__device__ __forceinline__ void mma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void mma_rs(float (&d)[D / 2], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  if constexpr (D == 128)
+    mma_rs_n128(d, a, b);
+  else
+    mma_rs_n64(d, a, b);
+}
+
+// Accumulator fragment of m64nNk16 for thread `lane` of warp `warp` in its
+// warpgroup: element e sits at row 16*warp + lane/4 + 8*((e/2) % 2) and
+// column 8*(e/4) + 2*(lane%4) + e%2. Elements 8kk .. 8kk+7 of a 64-column
+// fragment are, in this order, the A fragment of k-step kk (columns
+// 16kk .. 16kk+15) of the next product, so P and dS never leave registers.
+
+// [lo, hi) of the BT-row key tiles that query rows [r0, r0 + n) ∩ [0, S) of
+// a tile at offset `off` can see; lo == hi when they see none.
+__host__ __device__ inline void key_tiles(int r0, int n, int S, int off,
+                                          int causal, int window, int& lo,
+                                          int& hi) {
+  const int end = r0 + n < S ? r0 + n : S;  // one past the last row
+  int first = 0, stop = S;                  // keys [first, stop)
+  if (causal) {
+    stop = off + end < S ? off + end : S;
+    if (window > 0 && off + r0 - window + 1 > 0) first = off + r0 - window + 1;
+  }
+  if (end <= r0 || stop <= first) {
+    lo = hi = 0;
+    return;
+  }
+  lo = first / BT;
+  hi = (stop + BT - 1) / BT;
+}
+
+// [lo, hi) of the BT-row query tiles with a row that can see a key of the key
+// tile [k0, k0 + BT) ∩ [0, S) of a tile at offset `off`; lo == hi when none.
+__host__ __device__ inline void query_tiles(int k0, int S, int off, int causal,
+                                            int window, int& lo, int& hi) {
+  lo = 0;
+  hi = (S + BT - 1) / BT;
+  if (!causal) return;
+  const int first = k0 > off ? k0 - off : 0;  // the first row that sees k0
+  lo = first / BT;
+  if (first >= S) {
+    hi = lo;
+  } else if (window > 0) {
+    // the last row that sees the tile's last key
+    const int top = (k0 + BT < S ? k0 + BT : S) - 1 + window - 1 - off;
+    if (top < 0)
+      hi = 0;
+    else if (top / BT + 1 < hi)
+      hi = top / BT + 1;
+  }
+  if (hi < lo) hi = lo;
+}
+
+// Whether a grid of n tiles should launch its last tile first: the end with
+// more tiles to visit goes first (the last query tiles and the first key
+// tiles under a causal mask; the reverse for a band tile past its window).
+inline int last_tile_first(bool dq, int n, int S, int off, int causal,
+                           int window) {
+  int lo0, hi0, lo1, hi1;
+  if (dq) {
+    key_tiles(0, BQ, S, off, causal, window, lo0, hi0);
+    key_tiles((n - 1) * BQ, BQ, S, off, causal, window, lo1, hi1);
+    return hi1 - lo1 >= hi0 - lo0;
+  }
+  query_tiles(0, S, off, causal, window, lo0, hi0);
+  query_tiles((n - 1) * BT, S, off, causal, window, lo1, hi1);
+  return hi1 - lo1 > hi0 - lo0;
+}
+
+template <typename TO, int D>
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+    const float* __restrict__ delta, TO* __restrict__ dq, int S, int H,
+    int group, float scale, int causal, int window, int off, int last_first) {
+  using L = DqSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* full = qfull + 1;
+  uint64_t* empty = full + DQ_STAGES;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = (last_first ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BQ;
+  // each warpgroup's key tiles, and their union, which the producer streams
+  int lo[2], hi[2];
+  key_tiles(q0, 64, S, off, causal, window, lo[0], hi[0]);
+  key_tiles(q0 + 64, 64, S, off, causal, window, lo[1], hi[1]);
+  const int t_lo = lo[0] < hi[0] ? lo[0] : lo[1];
+  const int n_tiles = max(0, max(hi[0], hi[1]) - t_lo);
+
+  if (threadIdx.x == 0) {
+    bar_init(qfull, 1);
+    for (int i = 0; i < DQ_STAGES; ++i) {
+      bar_init(&full[i], 1);
+      bar_init(&empty[i], 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256 && n_tiles > 0) {
+      const int hk = h / group;
+      bar_arrive_expect(qfull, 2 * L::TQ);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load(smem + L::Q + c * L::HQ, &tq, qfull, 64 * c, h, q0, b);
+        tma_load(smem + L::DO + c * L::HQ, &tdo, qfull, 64 * c, h, q0, b);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % DQ_STAGES;
+        bar_wait(&empty[st], ((i / DQ_STAGES) & 1) ^ 1);
+        uint8_t* kv = smem + L::STAGES + st * L::STAGE;
+        const int k0 = (t_lo + i) * BT;
+        bar_arrive_expect(&full[st], 2 * L::TK);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(kv + c * L::HK, &tk, &full[st], 64 * c, hk, k0, b);
+          tma_load(kv + L::TK + c * L::HK, &tv, &full[st], 64 * c, hk, k0, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    const int row0 = q0 + 64 * wg;  // this warpgroup's first row
+    const int ra = row0 + 16 * warp + lane / 4;  // the thread's two rows
+    const int rb = ra + 8;
+    const int cq = 2 * (lane % 4);  // its first column of each 8
+    const int my_lo = wg ? lo[1] : lo[0];
+    const int my_hi = wg ? hi[1] : hi[0];
+    const long long vb = static_cast<long long>(bh) * S;
+    const float lse_a = ra < S ? lse[vb + ra] * LOG2E : 0.f;
+    const float lse_b = rb < S ? lse[vb + rb] * LOG2E : 0.f;
+    const float dl_a = ra < S ? delta[vb + ra] : 0.f;
+    const float dl_b = rb < S ? delta[vb + rb] : 0.f;
+    const float sl2 = scale * LOG2E;
+    const uint32_t q_s = smem_u32(smem + L::Q) + wg * 64 * 128;
+    const uint32_t do_s = smem_u32(smem + L::DO) + wg * 64 * 128;
+
+    float acc[D / 2], s[32], dp[32];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
+
+    if (n_tiles > 0) bar_wait(qfull, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % DQ_STAGES;
+      const int t = t_lo + i;
+      bar_wait(&full[st], (i / DQ_STAGES) & 1);
+      if (t >= my_lo && t < my_hi) {
+        const uint32_t k_s = smem_u32(smem + L::STAGES + st * L::STAGE);
+        const uint32_t v_s = k_s + L::TK;
+        hold(s);
+        hold(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          mma_ss_n64(s, k_major(q_s, L::HQ, kk), k_major(k_s, L::HK, kk), kk);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          mma_ss_n64(dp, k_major(do_s, L::HQ, kk), k_major(v_s, L::HK, kk),
+                     kk);
+        wgmma_commit();
+        wgmma_wait_all();
+        hold(s);
+        hold(dp);
+
+        const int k0 = t * BT;
+        const bool whole =
+            row0 + 63 < S && k0 + BT - 1 < S &&
+            (!causal || (off + row0 >= k0 + BT - 1 &&
+                         (window <= 0 || off + row0 + 63 - k0 < window)));
+        uint32_t a[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            float ds[2];
+#pragma unroll
+            for (int y = 0; y < 2; ++y) {
+              const int e = 8 * kk + 2 * x + y;
+              const bool lower = (e & 2) != 0;  // row rb
+              const int col = k0 + 8 * (e / 4) + cq + (e & 1);
+              const bool keep =
+                  whole ||
+                  live(lower ? rb : ra, col, S, off, causal, window);
+              const float p = exp2f(
+                  fmaf(keep ? s[e] : NEG_INF, sl2, lower ? -lse_b : -lse_a));
+              ds[y] = p * (dp[e] - (lower ? dl_b : dl_a));
+            }
+            a[kk][x] = pack_bf16(ds[0], ds[1]);
+          }
+
+        hold(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          mma_rs<D>(acc, a[kk], mn_major(k_s, L::HK, kk));
+        wgmma_commit();
+        wgmma_wait_all();
+        hold(acc);
+        hold(a);
+      }
+      bar_arrive(&empty[st]);
+    }
+
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int row = u ? rb : ra;
+        if (row < S)
+          store2(dq + ((static_cast<long long>(b) * S + row) * H + h) * D +
+                     8 * j + cq,
+                 acc[4 * j + 2 * u] * scale, acc[4 * j + 2 * u + 1] * scale);
+      }
+  }
+}
+
+template <typename TO, int D>
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+    const float* __restrict__ delta, TO* __restrict__ dk, TO* __restrict__ dv,
+    int S, int H, int group, float scale, int causal, int window, int off,
+    int last_first) {
+  using L = DkvSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint64_t* kvfull = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* full = kvfull + 1;
+  uint64_t* empty = full + DKV_STAGES;
+
+  const int h_kv = H / group;
+  const int b = blockIdx.x / h_kv;
+  const int hk = blockIdx.x % h_kv;
+  const int k0 = (last_first ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BT;
+  // the work items: (query head g of the group, query tile t), item
+  // i = g * nt + (t - t_lo); warpgroup w takes items w, w + 2, ...
+  int t_lo, t_hi;
+  query_tiles(k0, S, off, causal, window, t_lo, t_hi);
+  const int nt = t_hi - t_lo;
+  const int n_items = group * nt;
+
+  if (threadIdx.x == 0) {
+    bar_init(kvfull, 1);
+    for (int i = 0; i < DKV_STAGES; ++i) {
+      bar_init(&full[i], 32);
+      bar_init(&empty[i], 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x < 256 + 32 && n_items > 0) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        bar_arrive_expect(kvfull, 2 * L::TT);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(smem + L::K + c * L::HT, &tk, kvfull, 64 * c, hk, k0, b);
+          tma_load(smem + L::V + c * L::HT, &tv, kvfull, 64 * c, hk, k0, b);
+        }
+      }
+      for (int i = 0; i < n_items; ++i) {
+        const int st = i % DKV_STAGES;
+        const int hq = hk * group + i / nt;
+        const int q0 = (t_lo + i % nt) * BT;
+        bar_wait(&empty[st], ((i / DKV_STAGES) & 1) ^ 1);
+        uint8_t* tile = smem + L::STAGES + st * L::STAGE;
+        float* rows = reinterpret_cast<float*>(tile + 2 * L::TT);
+        const long long vb = (static_cast<long long>(b) * H + hq) * S;
+        for (int r = lane; r < BT; r += 32) {
+          const bool ok = q0 + r < S;
+          rows[r] = ok ? lse[vb + q0 + r] * LOG2E : 0.f;
+          rows[BT + r] = ok ? delta[vb + q0 + r] : 0.f;
+        }
+        if (lane == 0) {
+          bar_arrive_expect(&full[st], 2 * L::TT);
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load(tile + c * L::HT, &tq, &full[st], 64 * c, hq, q0, b);
+            tma_load(tile + L::TT + c * L::HT, &tdo, &full[st], 64 * c, hq, q0,
+                     b);
+          }
+        } else {
+          bar_arrive(&full[st]);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int ka = k0 + 16 * warp + lane / 4;  // the thread's two keys
+    const int kb = ka + 8;
+    const int cq = 2 * (lane % 4);
+    const float sl2 = scale * LOG2E;
+    const uint32_t k_s = smem_u32(smem + L::K);
+    const uint32_t v_s = smem_u32(smem + L::V);
+
+    float dk_acc[D / 2], dv_acc[D / 2], s[32], dp[32];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) dk_acc[e] = dv_acc[e] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
+
+    if (n_items > 0) bar_wait(kvfull, 0);
+    for (int i = wg; i < n_items; i += 2) {
+      const int st = i % DKV_STAGES;
+      const int q0 = (t_lo + i % nt) * BT;
+      bar_wait(&full[st], (i / DKV_STAGES) & 1);
+      const uint32_t q_s = smem_u32(smem + L::STAGES + st * L::STAGE);
+      const uint32_t do_s = q_s + L::TT;
+      const float* rows = reinterpret_cast<const float*>(
+          smem + L::STAGES + st * L::STAGE + 2 * L::TT);
+      hold(s);
+      hold(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_ss_n64(s, k_major(k_s, L::HT, kk), k_major(q_s, L::HT, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_ss_n64(dp, k_major(v_s, L::HT, kk), k_major(do_s, L::HT, kk), kk);
+      wgmma_commit();
+      wgmma_wait_all();
+      hold(s);
+      hold(dp);
+
+      // rows are keys, columns queries
+      const bool whole =
+          k0 + BT - 1 < S && q0 + BT - 1 < S &&
+          (!causal || (off + q0 >= k0 + BT - 1 &&
+                       (window <= 0 || off + q0 + BT - 1 - k0 < window)));
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          float p2[2], ds[2];
+#pragma unroll
+          for (int y = 0; y < 2; ++y) {
+            const int e = 8 * kk + 2 * x + y;
+            const int c = 8 * (e / 4) + cq + (e & 1);
+            const bool keep =
+                whole || live(q0 + c, (e & 2) ? kb : ka, S, off, causal,
+                              window);
+            p2[y] = exp2f(fmaf(keep ? s[e] : NEG_INF, sl2, -rows[c]));
+            ds[y] = p2[y] * (dp[e] - rows[BT + c]);
+          }
+          pa[kk][x] = pack_bf16(p2[0], p2[1]);
+          da[kk][x] = pack_bf16(ds[0], ds[1]);
+        }
+
+      hold(dk_acc);
+      hold(dv_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma_rs<D>(dv_acc, pa[kk], mn_major(do_s, L::HT, kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma_rs<D>(dk_acc, da[kk], mn_major(q_s, L::HT, kk));
+      wgmma_commit();
+      wgmma_wait_all();
+      hold(dk_acc);
+      hold(dv_acc);
+      hold(pa);
+      hold(da);
+      bar_arrive(&empty[st]);
+    }
+
+    // The group sum of the two warpgroups, in a fixed order: warpgroup 1's
+    // partials go through the (now idle) stages to warpgroup 0, whose
+    // fragment layout is the same.
+    sync_consumers();
+    float* red = reinterpret_cast<float*>(smem + L::STAGES);
+    if (wg == 1) {
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) {
+        red[e * 128 + tid] = dk_acc[e];
+        red[(D / 2 + e) * 128 + tid] = dv_acc[e];
+      }
+    }
+    sync_consumers();
+    if (wg == 0) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int key = u ? kb : ka;
+          if (key >= S) continue;
+          const int e = 4 * j + 2 * u;
+          const long long at =
+              ((static_cast<long long>(b) * S + key) * h_kv + hk) * D + 8 * j +
+              cq;
+          store2(dk + at, (dk_acc[e] + red[e * 128 + tid]) * scale,
+                 (dk_acc[e + 1] + red[(e + 1) * 128 + tid]) * scale);
+          store2(dv + at, dv_acc[e] + red[(D / 2 + e) * 128 + tid],
+                 dv_acc[e + 1] + red[(D / 2 + e + 1) * 128 + tid]);
+        }
+    }
+  }
+}
+
+}  // namespace tc
+
+// Arguments shared by all kernels, as the C interface receives them.
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *out0, *out1;  // dq; or dk and dv
@@ -487,6 +1189,115 @@ int run(const Args& a, int dtype, bool f32_out, void* stream) {
   return static_cast<int>(err);
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled belongs to the driver API: it is taken from the
+// driver library the process has loaded, so the build needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return lib ? reinterpret_cast<EncodeTiled>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a (B, S, heads, D) bf16 tensor with (batch, sequence, head)
+// strides `st` in elements: boxes of 64 columns by `rows` rows of one
+// (batch, head), 128-byte swizzle, zeros past the edges.
+bool tensor_map(CUtensorMap* map, const void* base, int B, int S, int heads,
+                int D, const long long* st, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
+                                 static_cast<cuuint64_t>(st[1]) * 2,
+                                 static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename TO, int D, bool DQ>
+cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
+  const int q_rows = DQ ? tc::BQ : tc::BT;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tensor_map(&tq, a.q, a.B, a.S, a.H, D, a.st, q_rows) ||
+      !tensor_map(&tk, a.k, a.B, a.S, a.Hkv, D, a.st + 3, tc::BT) ||
+      !tensor_map(&tv, a.v, a.B, a.S, a.Hkv, D, a.st + 6, tc::BT) ||
+      !tensor_map(&tdo, a.dout, a.B, a.S, a.H, D, a.st + 9, q_rows))
+    return cudaErrorInvalidValue;
+  const float* lse = static_cast<const float*>(a.lse);
+  const float* delta = static_cast<const float*>(a.delta);
+  const int group = a.H / a.Hkv;
+  cudaError_t err;
+  if constexpr (DQ) {
+    constexpr int smem = tc::DqSmem<D>::BYTES;
+    auto kernel = tc::flash_bwd_dq_wgmma_kernel<TO, D>;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    const int n = (a.S + tc::BQ - 1) / tc::BQ;
+    const dim3 grid(a.B * a.H, n);
+    kernel<<<grid, tc::THREADS, smem, stream>>>(
+        tq, tk, tv, tdo, lse, delta, static_cast<TO*>(a.out0), a.S, a.H, group,
+        a.scale, a.causal, a.window, a.off,
+        tc::last_tile_first(true, n, a.S, a.off, a.causal, a.window));
+  } else {
+    constexpr int smem = tc::DkvSmem<D>::BYTES;
+    auto kernel = tc::flash_bwd_dkv_wgmma_kernel<TO, D>;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    const int n = (a.S + tc::BT - 1) / tc::BT;
+    const dim3 grid(a.B * a.Hkv, n);
+    kernel<<<grid, tc::THREADS, smem, stream>>>(
+        tq, tk, tv, tdo, lse, delta, static_cast<TO*>(a.out0),
+        static_cast<TO*>(a.out1), a.S, a.H, group, a.scale, a.causal,
+        a.window, a.off,
+        tc::last_tile_first(false, n, a.S, a.off, a.causal, a.window));
+  }
+  return cudaGetLastError();
+}
+
+// The tensor-core route takes bf16, D 64 or 128, 16-byte-aligned q, k, v and
+// dO, and (batch, sequence, head) strides that are positive multiples of 8
+// elements (TMA's 16 bytes); anything else is refused, never rerouted.
+template <bool DQ>
+int run_wgmma(const Args& a, int dtype, bool f32_out, void* stream) {
+  bool ok = dtype == 1 && (a.D == 64 || a.D == 128) && a.Hkv >= 1 &&
+            a.H % a.Hkv == 0;
+  for (const void* p : {a.q, a.k, a.v, a.dout})
+    ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  for (long long x : a.st) ok = ok && x > 0 && x % 8 == 0;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (encode_tiled() == nullptr)
+    return static_cast<int>(cudaErrorSharedObjectInitFailed);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (f32_out)
+    err = a.D == 64 ? launch_wgmma<float, 64, DQ>(a, s)
+                    : launch_wgmma<float, 128, DQ>(a, s);
+  else
+    err = a.D == 64 ? launch_wgmma<__nv_bfloat16, 64, DQ>(a, s)
+                    : launch_wgmma<__nv_bfloat16, 128, DQ>(a, s);
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 // Plain C interface for ctypes. dtype: 0 = float32, 1 = bfloat16. Strides are
@@ -544,6 +1355,68 @@ extern "C" int hvd_flash_band_dkv(
                {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh},
                scale, 1, window, off};
   return run<false>(a, dtype, true, stream);
+}
+
+// The same four entry points on the tensor-core route (see run_wgmma for
+// what it takes).
+extern "C" int hvd_flash_bwd_dq_wgmma(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, int dtype, int B, int S,
+    int H, int Hkv, int D, long long qsb, long long qss, long long qsh,
+    long long ksb, long long kss, long long ksh, long long vsb, long long vss,
+    long long vsh, long long dsb, long long dss, long long dsh, float scale,
+    int causal, int window, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, dq, nullptr, B, S, H, Hkv, D,
+               {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh},
+               scale, causal, window, 0};
+  return run_wgmma<true>(a, dtype, false, stream);
+}
+
+extern "C" int hvd_flash_bwd_dkv_wgmma(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, int dtype, int B,
+    int S, int H, int Hkv, int D, long long qsb, long long qss, long long qsh,
+    long long ksb, long long kss, long long ksh, long long vsb, long long vss,
+    long long vsh, long long dsb, long long dss, long long dsh, float scale,
+    int causal, int window, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, D,
+               {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh},
+               scale, causal, window, 0};
+  return run_wgmma<false>(a, dtype, false, stream);
+}
+
+extern "C" int hvd_flash_band_dq_wgmma(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, int dtype, int B, int S,
+    int H, int Hkv, int D, long long qsb, long long qss, long long qsh,
+    long long ksb, long long kss, long long ksh, long long vsb, long long vss,
+    long long vsh, long long dsb, long long dss, long long dsh, float scale,
+    int off, int window, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, dq, nullptr, B, S, H, Hkv, D,
+               {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh},
+               scale, 1, window, off};
+  return run_wgmma<true>(a, dtype, true, stream);
+}
+
+extern "C" int hvd_flash_band_dkv_wgmma(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, int dtype, int B,
+    int S, int H, int Hkv, int D, long long qsb, long long qss, long long qsh,
+    long long ksb, long long kss, long long ksh, long long vsb, long long vss,
+    long long vsh, long long dsb, long long dss, long long dsh, float scale,
+    int off, int window, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, D,
+               {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh},
+               scale, 1, window, off};
+  return run_wgmma<false>(a, dtype, true, stream);
+}
+
+// Dynamic shared memory of a tensor-core kernel in bytes (dkv 0: the dq
+// kernel), for reports; 0 for a head dim the route does not take.
+extern "C" int hvd_flash_bwd_wgmma_smem(int dkv, int d) {
+  if (d == 64) return dkv ? tc::DkvSmem<64>::BYTES : tc::DqSmem<64>::BYTES;
+  if (d == 128) return dkv ? tc::DkvSmem<128>::BYTES : tc::DqSmem<128>::BYTES;
+  return 0;
 }
 
 extern "C" const char* hvd_cuda_error_string(int err) {

@@ -28,14 +28,23 @@ forward saves q, k, v, out and lse; the backward computes
 outside Pallas too), subtracts the lse cotangent from it, and calls
 :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`.
 
+The four backward wrappers take one of two routes, by the rule
+:func:`tensor_core_route`: bf16 operands with D 64 or 128 and
+16-byte-aligned pointers and strides go to the tensor-core kernels
+(``*_wgmma``: TMA, wgmma, warp specialisation; P and dS rounded to
+bf16 before the second products), everything else, f32 among it, to
+the CUDA-core loop with exact f32 products. Each route counts its own
+launches.
+
 On a CUDA tensor every wrapper launches its kernel or raises; on a CPU
 tensor it computes the kernel's plain version
 (:func:`flash_attention_reference`, :func:`flash_bwd_dq_reference`,
 :func:`flash_bwd_dkv_reference` and the ``flash_band_*_reference``
-functions). Ragged lengths need no special path on
-the card: the kernels mask the edge themselves, where the TPU kernels
-padded causal lengths to a multiple of 128 and ran non-causal ones
-dense.
+functions; the backward ones take ``operand_dtype=torch.bfloat16`` for
+the tensor-core route's arithmetic). Ragged lengths need no special
+path on the card: the kernels mask the edge themselves, where the TPU
+kernels padded causal lengths to a multiple of 128 and ran non-causal
+ones dense.
 
 :func:`paged_attention_decode` is plain torch, as the JAX package runs
 it as plain XLA with no Pallas kernel.
@@ -49,13 +58,18 @@ from ..parallel.ring_attention import NEG_INF, f32_scale, gqa_group
 from . import _build
 
 # Launches of each CUDA kernel (one per wrapper call on the card). The
-# plain versions on the CPU do not count.
-launches = 0           # flash_fwd
-dq_launches = 0        # flash_bwd_dq
-dkv_launches = 0       # flash_bwd_dkv
-band_launches = 0      # flash_band_fwd
-band_dq_launches = 0   # flash_band_dq
-band_dkv_launches = 0  # flash_band_dkv
+# plain versions on the CPU do not count. The backward wrappers count the
+# CUDA-core loop and the tensor-core route apart.
+launches = 0                 # flash_fwd
+dq_launches = 0              # flash_bwd_dq, loop
+dkv_launches = 0             # flash_bwd_dkv, loop
+band_launches = 0            # flash_band_fwd
+band_dq_launches = 0         # flash_band_dq, loop
+band_dkv_launches = 0        # flash_band_dkv, loop
+dq_wgmma_launches = 0        # flash_bwd_dq, tensor cores
+dkv_wgmma_launches = 0       # flash_bwd_dkv, tensor cores
+band_dq_wgmma_launches = 0   # flash_band_dq, tensor cores
+band_dkv_wgmma_launches = 0  # flash_band_dkv, tensor cores
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -67,9 +81,19 @@ _DKV = [_P] * 8 + [_I] * 6 + [_L] * 12 + _TAIL
 # C entry points per source: pointers, dtype and sizes, strides, tail.
 _SIGNATURES = {
     "flash_fwd": {"hvd_flash_fwd": _FWD, "hvd_flash_band_fwd": _FWD},
-    "flash_bwd": {"hvd_flash_bwd_dq": _DQ, "hvd_flash_bwd_dkv": _DKV,
-                  "hvd_flash_band_dq": _DQ, "hvd_flash_band_dkv": _DKV},
+    "flash_bwd": {f"hvd_{name}{route}": sig
+                  for name, sig in (("flash_bwd_dq", _DQ),
+                                    ("flash_bwd_dkv", _DKV),
+                                    ("flash_band_dq", _DQ),
+                                    ("flash_band_dkv", _DKV))
+                  for route in ("", "_wgmma")},
 }
+# The counter of each backward kernel, by route (tensor cores or not).
+_BWD_COUNTERS = {
+    name: {False: f"{counter}_launches", True: f"{counter}_wgmma_launches"}
+    for name, counter in (("flash_bwd_dq", "dq"), ("flash_bwd_dkv", "dkv"),
+                          ("flash_band_dq", "band_dq"),
+                          ("flash_band_dkv", "band_dkv"))}
 _libs = {}
 
 
@@ -145,18 +169,22 @@ def _check_bwd(q, k, v, do, lse, delta, causal, window):
                 f"{q.device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
 
 
-def _expand_kv(q, k, v):
-    """f32 (q * scale, k, v) with k/v repeated over each GQA group."""
+def _expand_kv(q, k, v, prescale=True):
+    """f32 (q * scale, or q with ``prescale`` False, k, v) with k/v
+    repeated over each GQA group."""
     group = q.shape[2] // k.shape[2]
-    qf = q.float() * _scale(q.shape[3])
+    qf = q.float() * _scale(q.shape[3]) if prescale else q.float()
     return (qf, k.float().repeat_interleave(group, dim=2),
             v.float().repeat_interleave(group, dim=2))
 
 
-def _scores(qf, kf, causal, window, off=0):
-    """(B, H, S, S) f32 scores ``(q*scale).k^T`` with masked entries at
-    ``NEG_INF``; query row i sits at position ``off + i``."""
+def _scores(qf, kf, causal, window, off=0, scale=None):
+    """(B, H, S, S) f32 scores ``qf.k^T`` (times ``scale`` if given) with
+    masked entries at ``NEG_INF``; query row i sits at position
+    ``off + i``."""
     sc = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    if scale is not None:
+        sc = sc * scale
     if causal:
         pos = torch.arange(qf.shape[1], device=qf.device)
         dist = off + pos[:, None] - pos[None, :]
@@ -198,62 +226,120 @@ def flash_band_fwd_reference(q, k, v, off, window=None):
     return _fwd_math(q, k, v, True, window, off)
 
 
-def _bwd_common(q, k, v, do, lse, delta, causal, window, off=0):
-    """f32 ``(q*scale, p, dS)`` of the whole rows, k/v expanded."""
+def _bwd_common(q, k, v, do, lse, delta, causal, window, off=0,
+                operand_dtype=None):
+    """f32 ``(q side, k, p, dS)`` of the whole rows, k/v expanded. With
+    ``operand_dtype`` None the loop's arithmetic: scores ``(q*scale).k^T``
+    and the q side ``q*scale``. Otherwise the tensor-core route's: scores
+    ``(q.k^T)*scale`` and the q side unscaled (dK takes the scale once at
+    the end)."""
     _check_bwd(q, k, v, do, lse, delta, causal, window)
-    qf, kf, vf = _expand_kv(q, k, v)
-    p = torch.exp(_scores(qf, kf, causal, window, off) - lse[..., None])
+    exact = operand_dtype is None
+    qf, kf, vf = _expand_kv(q, k, v, prescale=exact)
+    scale = None if exact else _scale(q.shape[3])
+    p = torch.exp(_scores(qf, kf, causal, window, off, scale)
+                  - lse[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vf)
     return qf, kf, p, p * (dp - delta[..., None])
 
 
-def _dq_math(q, k, v, do, lse, delta, causal, window, off=0):
+def _operand(x, operand_dtype):
+    """``x`` rounded to ``operand_dtype`` (and back to f32), or as it
+    is for None: P and dS as the second products take them."""
+    return x if operand_dtype is None else x.to(operand_dtype).float()
+
+
+def _dq_math(q, k, v, do, lse, delta, causal, window, off=0,
+             operand_dtype=None):
     """f32 ``scale * dS.K`` of the whole rows."""
-    _, kf, _, ds = _bwd_common(q, k, v, do, lse, delta, causal, window, off)
+    _, kf, _, ds = _bwd_common(q, k, v, do, lse, delta, causal, window, off,
+                               operand_dtype)
+    ds = _operand(ds, operand_dtype)
     return torch.einsum("bhqk,bkhd->bqhd", ds, kf) * _scale(q.shape[3])
 
 
-def _dkv_math(q, k, v, do, lse, delta, causal, window, off=0):
-    """f32 ``(dS^T.(q*scale), P^T.dO)``, summed over each GQA group."""
-    qf, _, p, ds = _bwd_common(q, k, v, do, lse, delta, causal, window, off)
+def _dkv_math(q, k, v, do, lse, delta, causal, window, off=0,
+              operand_dtype=None):
+    """f32 ``(dS^T.(q*scale), P^T.dO)``, summed over each GQA group; with
+    an ``operand_dtype``, ``dS^T.q`` summed and then scaled."""
+    qf, _, p, ds = _bwd_common(q, k, v, do, lse, delta, causal, window, off,
+                               operand_dtype)
     b, s, h_kv, d = k.shape
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
-    return (dk.reshape(b, s, h_kv, -1, d).sum(dim=3),
-            dv.reshape(b, s, h_kv, -1, d).sum(dim=3))
+    dk = torch.einsum("bhqk,bqhd->bkhd", _operand(ds, operand_dtype), qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", _operand(p, operand_dtype),
+                      do.float())
+    dk = dk.reshape(b, s, h_kv, -1, d).sum(dim=3)
+    if operand_dtype is not None:
+        dk = dk * _scale(d)
+    return dk, dv.reshape(b, s, h_kv, -1, d).sum(dim=3)
 
 
 def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal=True,
-                           window=None):
+                           window=None, operand_dtype=None):
     """Plain version of ``flash_bwd_dq``: dQ (B, S, H, D) in q's dtype,
     ``scale * dS.K`` with ``_bwd_dq_kernel``'s f32 arithmetic —
     ``p = exp(s - lse)``, ``dS = p * (dO.V^T - delta)`` — over the whole
-    row at once."""
-    return _dq_math(q, k, v, do, lse, delta, causal, window).to(q.dtype)
+    row at once. ``operand_dtype=torch.bfloat16`` gives the tensor-core
+    route's arithmetic instead: ``s = (q.k^T)*scale``, dS rounded to bf16
+    before ``dS.K``."""
+    return _dq_math(q, k, v, do, lse, delta, causal, window, 0,
+                    operand_dtype).to(q.dtype)
 
 
 def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal=True,
-                            window=None):
+                            window=None, operand_dtype=None):
     """Plain version of ``flash_bwd_dkv``: (dK, dV), each (B, S, H_kv, D)
     in k's dtype — ``dV = P^T.dO`` and ``dK = dS^T.(q*scale)`` per query
     head, as ``_bwd_dkv_kernel`` computes them, summed in f32 over each
-    GQA group before the cast."""
-    dk, dv = _dkv_math(q, k, v, do, lse, delta, causal, window)
+    GQA group before the cast. ``operand_dtype=torch.bfloat16`` gives the
+    tensor-core route's arithmetic: P and dS rounded to bf16 before the
+    products, ``dK = scale * dS^T.q``."""
+    dk, dv = _dkv_math(q, k, v, do, lse, delta, causal, window, 0,
+                       operand_dtype)
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_band_dq_reference(q, k, v, do, lse, delta, off, window=None):
+def flash_band_dq_reference(q, k, v, do, lse, delta, off, window=None,
+                            operand_dtype=None):
     """Plain version of ``flash_band_dq``: ``_band_dq_kernel``'s
     arithmetic for the band tile at offset ``off``, from the ring's
-    global ``lse`` and ``delta``; dQ (B, S, H, D) in f32."""
-    return _dq_math(q, k, v, do, lse, delta, True, window, off)
+    global ``lse`` and ``delta``; dQ (B, S, H, D) in f32.
+    ``operand_dtype`` as for :func:`flash_bwd_dq_reference`."""
+    return _dq_math(q, k, v, do, lse, delta, True, window, off,
+                    operand_dtype)
 
 
-def flash_band_dkv_reference(q, k, v, do, lse, delta, off, window=None):
+def flash_band_dkv_reference(q, k, v, do, lse, delta, off, window=None,
+                             operand_dtype=None):
     """Plain version of ``flash_band_dkv``: (dK, dV), each
     (B, S, H_kv, D) in f32, ``_band_dkv_kernel``'s per-head arithmetic
-    summed over each GQA group."""
-    return _dkv_math(q, k, v, do, lse, delta, True, window, off)
+    summed over each GQA group. ``operand_dtype`` as for
+    :func:`flash_bwd_dkv_reference`."""
+    return _dkv_math(q, k, v, do, lse, delta, True, window, off,
+                     operand_dtype)
+
+
+def bf16_rounding_bound(q, k, v, do, lse, delta, causal=True, window=None,
+                        off=0):
+    """(dq, dk, dv): how far the tensor-core route's gradients may lie
+    from the f32 plain versions because P and dS are rounded to bf16
+    before the second products. Each rounding moves a term by at most
+    2^-8 of itself, so an output element moves by at most 2^-8 of the
+    same sum over absolute values: the largest element of
+    ``2^-8 * scale * |dS|.|K|``, ``2^-8 * scale * |dS^T|.|Q|`` and
+    ``2^-8 * |P^T|.|dO|`` (summed over each GQA group). The rounding of a
+    bf16 output and f32 summation order come on top."""
+    qf, kf, p, ds = _bwd_common(q, k, v, do, lse, delta, causal, window, off,
+                                torch.bfloat16)
+    b, s, h_kv, d = k.shape
+    unit, scale = 2.0 ** -8, _scale(d)
+    ds, p = ds.abs(), p.abs()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf.abs())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf.abs())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float().abs())
+    dk, dv = (x.reshape(b, s, h_kv, -1, d).sum(dim=3) for x in (dk, dv))
+    return (unit * scale * dq.max().item(), unit * scale * dk.max().item(),
+            unit * dv.max().item())
 
 
 def band_key_span(s, off=0, window=None):
@@ -267,6 +353,55 @@ def band_key_span(s, off=0, window=None):
     if window is None:
         return torch.zeros_like(r), hi
     return torch.clamp(off + r - window + 1, min=0), hi
+
+
+def dq_key_tiles(r0, n, s, off=0, causal=True, window=None, tile=64):
+    """[lo, hi) of the ``tile``-row key tiles that query rows
+    [r0, r0 + n) of an ``s``-row tile at offset ``off`` can see (rows at
+    or past ``s`` do not exist); lo == hi when they see none. The Python
+    mirror of ``key_tiles`` in ops/csrc/flash_bwd.cu: the tensor-core dq
+    kernel's loop bounds for each 64-row warpgroup."""
+    end = min(r0 + n, s)
+    first, stop = 0, s
+    if causal:
+        stop = min(s, off + end)
+        if window is not None:
+            first = max(0, off + r0 - window + 1)
+    if end <= r0 or stop <= first:
+        return 0, 0
+    return first // tile, -(-stop // tile)
+
+
+def dkv_query_tiles(k0, s, off=0, causal=True, window=None, tile=64):
+    """[lo, hi) of the ``tile``-row query tiles with a row that can see a
+    key of the key tile [k0, k0 + tile) of an ``s``-row tile at offset
+    ``off``; lo == hi when none can. The Python mirror of ``query_tiles``
+    in ops/csrc/flash_bwd.cu: the tensor-core dkv kernel's bounds."""
+    lo, hi = 0, -(-s // tile)
+    if not causal:
+        return lo, hi
+    first = max(0, k0 - off)
+    lo = first // tile
+    if first >= s:
+        hi = lo
+    elif window is not None:
+        top = min(k0 + tile, s) - 1 + window - 1 - off
+        hi = 0 if top < 0 else min(hi, top // tile + 1)
+    return lo, max(lo, hi)
+
+
+def tensor_core_route(q, k, v, do):
+    """True when the backward kernels' tensor-core route takes these
+    operands: bf16, head dim 64 or 128, every base pointer 16-byte
+    aligned and every (batch, sequence, head) stride a positive multiple
+    of 8 elements (TMA's 16 bytes). Everything else takes the CUDA-core
+    loop. A rule on the operands alone, so the CPU tests check it."""
+    if q.dtype != torch.bfloat16 or q.shape[3] not in (64, 128):
+        return False
+    return all(x.data_ptr() % 16 == 0
+               and all(x.stride(i) > 0 and x.stride(i) % 8 == 0
+                       for i in range(3))
+               for x in (q, k, v, do))
 
 
 def _kernel_args(q, k, v, causal, window, off=None):
@@ -328,6 +463,29 @@ def _ptrs(tensors):
     return [x.data_ptr() for x in tensors]
 
 
+def wgmma_smem_bytes(name, d):
+    """Dynamic shared memory, in bytes, of the tensor-core kernel of
+    ``name`` ("flash_bwd_dq" or "flash_bwd_dkv"; the band kernels share
+    them) at head dim ``d``; 0 where the route does not take ``d``."""
+    fn = _kernel_lib("flash_bwd").hvd_flash_bwd_wgmma_smem
+    fn.argtypes, fn.restype = [_I, _I], ctypes.c_int
+    return fn(int(name == "flash_bwd_dkv"), d)
+
+
+def _launch_bwd(name, ops, outs, sizes, strides, tail):
+    """Launch backward kernel ``name`` on the route
+    :func:`tensor_core_route` picks, and count it on that route. ``ops``
+    (held by the caller through the launch) as :func:`_bwd_args` returns
+    them, ``outs`` the gradients to write."""
+    tc = tensor_core_route(*ops[:4])
+    q = ops[0]
+    _call("flash_bwd", f"hvd_{name}{'_wgmma' if tc else ''}", *_ptrs(ops),
+          *_ptrs(outs), _DTYPES[q.dtype], *sizes, *strides, *tail,
+          _stream(q))
+    counter = _BWD_COUNTERS[name][tc]
+    globals()[counter] += 1
+
+
 def _device_of(q):
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no flash attention for device {q.device}")
@@ -339,7 +497,6 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, window=None):
     cotangent ``do``, the saved ``lse`` and ``delta`` (both (B, H, S)
     f32): the ``flash_bwd_dq`` kernel on a CUDA tensor, its plain version
     on a CPU one."""
-    global dq_launches
     if _device_of(q) == "cpu":
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, window)
     _check_bwd(q, k, v, do, lse, delta, causal, window)
@@ -348,9 +505,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, window=None):
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
         return dq
-    _call("flash_bwd", "hvd_flash_bwd_dq", *_ptrs(ops), dq.data_ptr(),
-          _DTYPES[q.dtype], *sizes, *strides, *tail, _stream(q))
-    dq_launches += 1
+    _launch_bwd("flash_bwd_dq", ops, (dq,), sizes, strides, tail)
     return dq
 
 
@@ -358,7 +513,6 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, window=None):
     """(dK, dV), each (B, S, H_kv, D) in k's dtype and summed over each
     GQA group: the ``flash_bwd_dkv`` kernel on a CUDA tensor, its plain
     version on a CPU one. Arguments as :func:`flash_bwd_dq`."""
-    global dkv_launches
     if _device_of(q) == "cpu":
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal,
                                        window)
@@ -369,10 +523,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, window=None):
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if dk.numel() == 0:
         return dk, dv
-    _call("flash_bwd", "hvd_flash_bwd_dkv", *_ptrs(ops), dk.data_ptr(),
-          dv.data_ptr(), _DTYPES[q.dtype], *sizes, *strides, *tail,
-          _stream(q))
-    dkv_launches += 1
+    _launch_bwd("flash_bwd_dkv", ops, (dk, dv), sizes, strides, tail)
     return dk, dv
 
 
@@ -418,7 +569,6 @@ def flash_band_dq(q, k, v, do, lse, delta, off, window=None):
     ring's global ``lse`` and ``delta`` (both (B, H, S) f32, lse finite
     for every row): the ``flash_band_dq`` kernel on a CUDA tensor, its
     plain version on a CPU one."""
-    global band_dq_launches
     if _device_of(q) == "cpu":
         return flash_band_dq_reference(q, k, v, do, lse, delta, off, window)
     _check_bwd(q, k, v, do, lse, delta, True, window)
@@ -427,9 +577,7 @@ def flash_band_dq(q, k, v, do, lse, delta, off, window=None):
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if dq.numel() == 0:
         return dq
-    _call("flash_bwd", "hvd_flash_band_dq", *_ptrs(ops), dq.data_ptr(),
-          _DTYPES[q.dtype], *sizes, *strides, *tail, _stream(q))
-    band_dq_launches += 1
+    _launch_bwd("flash_band_dq", ops, (dq,), sizes, strides, tail)
     return dq
 
 
@@ -438,7 +586,6 @@ def flash_band_dkv(q, k, v, do, lse, delta, off, window=None):
     of the band tile at offset ``off``: the ``flash_band_dkv`` kernel on a
     CUDA tensor, its plain version on a CPU one. Arguments as
     :func:`flash_band_dq`."""
-    global band_dkv_launches
     if _device_of(q) == "cpu":
         return flash_band_dkv_reference(q, k, v, do, lse, delta, off, window)
     _check_bwd(q, k, v, do, lse, delta, True, window)
@@ -448,10 +595,7 @@ def flash_band_dkv(q, k, v, do, lse, delta, off, window=None):
     dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
     if dk.numel() == 0:
         return dk, dv
-    _call("flash_bwd", "hvd_flash_band_dkv", *_ptrs(ops), dk.data_ptr(),
-          dv.data_ptr(), _DTYPES[q.dtype], *sizes, *strides, *tail,
-          _stream(q))
-    band_dkv_launches += 1
+    _launch_bwd("flash_band_dkv", ops, (dk, dv), sizes, strides, tail)
     return dk, dv
 
 

@@ -17,7 +17,17 @@ f32 gradients hold to 1e-4 and bf16 ones to one bf16 rounding (ulp) of
 their largest magnitude (2^-7 of it, relative): both sides round an f32
 value once, and values that straddle a rounding boundary land one ulp
 apart. The band kernels' gradients are f32 for either input type, so
-they hold to 1e-4.
+on the CUDA-core loop they hold to 1e-4.
+
+The tensor-core route (bf16, D 64 or 128: ``fa.tensor_core_route``)
+rounds P and dS to bf16 before the second products. Its gradients are
+held to the plain version run with ``operand_dtype=torch.bfloat16``, which
+rounds them likewise: one bf16 ulp (2^-7) of the largest magnitude, for
+the band kernels' f32 gradients too, since a P or dS value that
+straddles a rounding boundary after an f32 summation in another order
+moves its terms by an ulp. And to the f32 plain version within
+``fa.bf16_rounding_bound`` (2^-8 of the sum over absolute values) plus
+that ulp for a bf16 gradient, or 1e-4 for an f32 one.
 """
 
 import numpy as np
@@ -29,6 +39,14 @@ from horovod_tpu_torch.ops import flash_attention as fa
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LSE_ATOL = 1e-4
 GRAD_ATOL = 1e-4
+BF16_ULP = 2.0 ** -7
+# each backward kernel's launch counter on the loop and on the tensor cores
+ROUTE_COUNTERS = {
+    "flash_bwd_dq": ("dq_launches", "dq_wgmma_launches"),
+    "flash_bwd_dkv": ("dkv_launches", "dkv_wgmma_launches"),
+    "flash_band_dq": ("band_dq_launches", "band_dq_wgmma_launches"),
+    "flash_band_dkv": ("band_dkv_launches", "band_dkv_wgmma_launches"),
+}
 
 
 @pytest.fixture
@@ -86,8 +104,42 @@ def _assert_grad_close(got, want, dtype):
     if dtype == torch.float32:
         atol = GRAD_ATOL
     else:
-        atol = 2.0 ** -7 * max(want.float().abs().max().item(), 1e-6)
+        atol = BF16_ULP * max(want.float().abs().max().item(), 1e-6)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+def _counts(names):
+    return [getattr(fa, ROUTE_COUNTERS[n][tc]) for n, tc in names]
+
+
+def _assert_route_close(got, args, extra, refs, tc, bound_args):
+    """Hold gradients to their route's plain versions (module docstring):
+    ``refs`` the plain functions, ``bound_args`` the arguments of
+    ``bf16_rounding_bound`` after the operands."""
+    band = got[0].dtype == torch.float32 and args[0].dtype == torch.bfloat16
+    operand = torch.bfloat16 if tc else None
+    want = [w for ref in refs for w in _tuple(ref(*args, *extra,
+                                                  operand_dtype=operand))]
+    for g, w in zip(got, want):
+        if tc and band:
+            atol = BF16_ULP * max(w.abs().max().item(), 1e-6)
+            torch.testing.assert_close(g, w, atol=atol, rtol=0)
+        else:
+            _assert_grad_close(g, w, args[0].dtype if not band else
+                               torch.float32)
+    if not tc:
+        return
+    exact = [w for ref in refs for w in _tuple(ref(*args, *extra))]
+    bound = fa.bf16_rounding_bound(*args, *bound_args)
+    for g, w, tol in zip(got, exact, bound):
+        extra_tol = GRAD_ATOL if g.dtype == torch.float32 else \
+            BF16_ULP * w.float().abs().max().item()
+        torch.testing.assert_close(g.float(), w.float(), atol=tol + extra_tol,
+                                   rtol=0)
+
+
+def _tuple(x):
+    return (x,) if torch.is_tensor(x) else tuple(x)
 
 
 @pytest.mark.cuda
@@ -98,22 +150,30 @@ def _assert_grad_close(got, want, dtype):
     (1, 200, 4, 1, 8, True, 50),         # ragged, window
     (1, 130, 4, 4, 40, True, None),      # MHA, D not a power of two
     (2, 128, 16, 4, 128, True, None),    # the flagship head width
+    # bf16 here takes the tensor cores
+    (1, 1000, 8, 1, 64, True, None),     # ragged, GQA 8, D 64
+    (1, 1000, 4, 2, 128, True, 256),     # ragged, window, GQA 2
+    (2, 300, 4, 4, 128, False, None),    # non-causal, MHA
+    (1, 512, 16, 4, 64, True, 100),      # window, GQA 4, D 64
+    (1, 10, 4, 2, 128, True, None),      # shorter than one tile
+    (2, 70, 2, 2, 64, False, None),      # one tile and a ragged edge
 ])
 def test_flash_bwd_matches_plain_version(card, dtype, b, s, h, h_kv, d,
                                          causal, window):
     td = getattr(torch, dtype)
     args = _bwd_inputs(card, td, b, s, h, h_kv, d, causal, window, s + d)
-    dq0, dkv0 = fa.dq_launches, fa.dkv_launches
+    tc = fa.tensor_core_route(*args[:4])
+    assert tc == (td == torch.bfloat16 and d in (64, 128))
+    names = [("flash_bwd_dq", tc), ("flash_bwd_dkv", tc)]
+    n0 = _counts(names)
     dq = fa.flash_bwd_dq(*args, causal, window)
     dk, dv = fa.flash_bwd_dkv(*args, causal, window)
     torch.cuda.synchronize()
-    assert (fa.dq_launches, fa.dkv_launches) == (dq0 + 1, dkv0 + 1)
+    assert _counts(names) == [n + 1 for n in n0]
     assert dq.dtype == dk.dtype == dv.dtype == td
-    want_dk, want_dv = fa.flash_bwd_dkv_reference(*args, causal, window)
-    _assert_grad_close(dq, fa.flash_bwd_dq_reference(*args, causal, window),
-                       td)
-    _assert_grad_close(dk, want_dk, td)
-    _assert_grad_close(dv, want_dv, td)
+    _assert_route_close((dq, dk, dv), args, (causal, window),
+                        (fa.flash_bwd_dq_reference,
+                         fa.flash_bwd_dkv_reference), tc, (causal, window))
 
 
 @pytest.mark.cuda
@@ -188,6 +248,11 @@ BAND_CASES = [  # (b, s, h, h_kv, d, off, window)
     (1, 200, 4, 1, 16, 400, 300),      # off 2S, GQA 4, dead rows
     (1, 128, 4, 4, 40, 128, None),     # fully visible, MHA, odd D
     (2, 256, 16, 4, 128, 256, 384),    # the flagship head width, half band
+    # bf16 here takes the tensor cores
+    (1, 1000, 8, 1, 128, 1000, 700),   # off S, ragged, GQA 8, dead rows
+    (1, 512, 4, 2, 64, 1024, 800),     # off 2S, GQA 2, dead rows
+    (1, 300, 4, 4, 128, 300, None),    # fully visible, ragged, MHA
+    (1, 50, 4, 1, 128, 50, 30),        # shorter than one tile, dead rows
 ]
 
 
@@ -224,17 +289,18 @@ def test_flash_band_bwd_matches_plain_version(card, dtype, b, s, h, h_kv, d,
     """f32 gradients, dk/dv summed over each GQA group in the kernel."""
     td = getattr(torch, dtype)
     args = _band_inputs(card, td, b, s, h, h_kv, d, off, window, s + 1)
-    n0 = (fa.band_dq_launches, fa.band_dkv_launches)
+    tc = fa.tensor_core_route(*args[:4])
+    assert tc == (td == torch.bfloat16 and d in (64, 128))
+    names = [("flash_band_dq", tc), ("flash_band_dkv", tc)]
+    n0 = _counts(names)
     dq = fa.flash_band_dq(*args, off, window)
     dk, dv = fa.flash_band_dkv(*args, off, window)
     torch.cuda.synchronize()
-    assert (fa.band_dq_launches, fa.band_dkv_launches) == (n0[0] + 1,
-                                                           n0[1] + 1)
+    assert _counts(names) == [n + 1 for n in n0]
     assert dq.dtype == dk.dtype == dv.dtype == torch.float32
-    want_dk, want_dv = fa.flash_band_dkv_reference(*args, off, window)
-    for got, want in ((dq, fa.flash_band_dq_reference(*args, off, window)),
-                      (dk, want_dk), (dv, want_dv)):
-        torch.testing.assert_close(got, want, atol=GRAD_ATOL, rtol=0)
+    _assert_route_close((dq, dk, dv), args, (off, window),
+                        (fa.flash_band_dq_reference,
+                         fa.flash_band_dkv_reference), tc, (True, window, off))
 
 
 @pytest.mark.cuda
@@ -282,6 +348,7 @@ def _ring_view(x, shard, n, seed):
 @pytest.mark.parametrize("b,s,h,h_kv,d", [
     (2, 2048, 32, 32, 2),   # dq and dk/dv (bf16) the size of lse's copy
     (1, 512, 32, 8, 8),     # GQA 4, several waves of small CTAs
+    (1, 512, 16, 4, 128),   # the tensor-core route
 ])
 def test_backward_kernels_take_a_strided_lse(card, kernel, b, s, h, h_kv, d):
     """An lse and delta that are strided chunks of the ring's (B, H, n*S)
@@ -303,13 +370,58 @@ def test_backward_kernels_take_a_strided_lse(card, kernel, b, s, h, h_kv, d):
     got = fn(q, k, v, do, *strided, *extra)
     torch.cuda.synchronize()
     want = fn(q, k, v, do, lse, delta, *extra)
-    plain = getattr(fa, kernel + "_reference")(q, k, v, do, lse, delta,
-                                               *extra)
-    got, want, plain = ((x,) if torch.is_tensor(x) else x
-                        for x in (got, want, plain))
+    tc = fa.tensor_core_route(q, k, v, do)
+    assert tc == (d == 128)
+    plain = getattr(fa, kernel + "_reference")(
+        q, k, v, do, lse, delta, *extra,
+        operand_dtype=torch.bfloat16 if tc else None)
+    got, want, plain = (_tuple(x) for x in (got, want, plain))
     for g, w, p in zip(got, want, plain):
         assert torch.equal(g, w)
-        if band:
+        if band and not tc:
             torch.testing.assert_close(g, p, atol=GRAD_ATOL, rtol=0)
         else:
             _assert_grad_close(g, p, torch.bfloat16)
+
+
+def _all_backward(args, band, off, window):
+    """dq, dk, dv of the static kernels on ``args`` and of the band
+    kernels on ``band`` at ``off``."""
+    return (fa.flash_bwd_dq(*args, True, window),
+            *fa.flash_bwd_dkv(*args, True, window),
+            fa.flash_band_dq(*band, off, window),
+            *fa.flash_band_dkv(*band, off, window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_kernels_are_deterministic(card, dtype):
+    """Two runs of every backward kernel on the same inputs give the same
+    bits, on either route: each CTA owns its output tile and sums in a
+    fixed order (the dkv warpgroups' partials too), with no atomics."""
+    td = getattr(torch, dtype)
+    args = _bwd_inputs(card, td, 2, 700, 8, 2, 128, True, 300, 3)
+    band = _band_inputs(card, td, 1, 512, 8, 2, 128, 512, 700, 4)
+    first = _all_backward(args, band, 512, 700)
+    second = _all_backward(args, band, 512, 700)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tc", [("bfloat16", True),
+                                      ("float32", False)])
+def test_backward_route_follows_the_rule(card, dtype, tc):
+    """A bf16 call at D 128 launches the tensor-core kernels and an f32
+    one the CUDA-core loop, each counted on its own route only."""
+    td = getattr(torch, dtype)
+    args = _bwd_inputs(card, td, 1, 256, 4, 2, 128, True, None, 9)
+    band = _band_inputs(card, td, 1, 256, 4, 2, 128, 256, 384, 10)
+    assert fa.tensor_core_route(*args[:4]) is tc
+    names = [(n, route) for n in ROUTE_COUNTERS for route in (False, True)]
+    n0 = _counts(names)
+    _all_backward(args, band, 256, 384)
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(n0, _counts(names))] == \
+        [int(route == tc) for _, route in names]
