@@ -11,7 +11,8 @@ batch of chip_smoke.py (4 x 4096, loss_chunk 512); warms one step, then
 records one. The sequence-parallel step likewise: chip_smoke.py's SP
 model (window 4096, a local ring of 4) at batch 2 x 8192. The band
 tiles' forward runs the same kernel as the static one (``flash_fwd``
-at an offset), so the profile counts them together; the band backward
+at an offset), on the tensor-core route (``flash_fwd_wgmma_kernel``)
+as on the loop, so the profile counts them together; the band backward
 kernels write f32 and show as their own instantiations, on the
 tensor-core route (``*_wgmma_kernel``) as on the loop. For each
 record it prints the wall time, the device time summed over kernels,
@@ -40,7 +41,9 @@ DECODE_STEPS = 8
 # templates name their output type first on the tensor-core route
 # (float: the band kernels) and second on the loop (<input, output, D>).
 GROUPS = (
-    ("flash_fwd", "flash_fwd (hand kernel; static and band tiles)"),
+    ("flash_fwd_wgmma_kernel",
+     "flash_fwd (hand kernel, wgmma; static and band tiles)"),
+    ("flash_fwd", "flash_fwd (hand kernel, loop; static and band tiles)"),
     ("flash_bwd_dq_wgmma_kernel<float", "flash_band_dq (hand kernel, wgmma)"),
     ("flash_bwd_dkv_wgmma_kernel<float",
      "flash_band_dkv (hand kernel, wgmma)"),

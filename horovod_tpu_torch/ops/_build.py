@@ -3,8 +3,9 @@
 Each source compiles with ``nvcc`` into its own shared library with a
 plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds). Libraries land in ``build/horovod_tpu_torch/`` at the
-repo root, named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads as it is. :func:`build`
+repo root, named by a hash of the source, the shared headers
+(``ops/csrc/*.cuh``) and the flags, so an edited source or header
+rebuilds and an unchanged one loads as it is. :func:`build`
 starts one ``nvcc`` per stale source, all at once. A failed build
 raises; nothing falls back to another implementation.
 """
@@ -45,11 +46,14 @@ def _nvcc():
 
 
 def library_path(name):
-    """Where the library for ``name`` lives for the current source."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where the library for ``name`` lives for the current source, the
+    headers in ``csrc`` (every ``*.cuh``, which any source may include)
+    and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=None):

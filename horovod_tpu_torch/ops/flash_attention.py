@@ -14,9 +14,9 @@ The band kernels ``_band_fwd_kernel``, ``_band_dq_kernel`` and
 shard, whose query rows sit ``off`` global positions after the K/V
 origin (causal, and windowed, at that offset): :func:`flash_band_fwd`,
 :func:`flash_band_dq` and :func:`flash_band_dkv`. They run the same
-CUDA tile loops as the static kernels, which are the band kernels at
-offset 0, and take ``off`` as an int argument where the TPU kernels took
-an SMEM scalar. Their gradients come out in f32, and dK/dV are summed
+CUDA kernels as the static ones, which are the band kernels at offset
+0, and take ``off`` as an int argument where the TPU kernels took an
+SMEM scalar. Their gradients come out in f32, and dK/dV are summed
 over each GQA group inside the kernel. :func:`_tile_lse` and
 :func:`_tile_bwd_dispatch` are the per-tile entry points that
 parallel/ring_attention.py calls.
@@ -28,20 +28,28 @@ forward saves q, k, v, out and lse; the backward computes
 outside Pallas too), subtracts the lse cotangent from it, and calls
 :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`.
 
-The four backward wrappers take one of two routes, by the rule
-:func:`tensor_core_route`: bf16 operands with D 64 or 128 and
-16-byte-aligned pointers and strides go to the tensor-core kernels
-(``*_wgmma``: TMA, wgmma, warp specialisation; P and dS rounded to
-bf16 before the second products), everything else, f32 among it, to
-the CUDA-core loop with exact f32 products. Each route counts its own
-launches.
+Every kernel wrapper, forward and backward, static and band, takes one
+of two routes by the rule :func:`tensor_core_route`: bf16 operands with
+D 64 or 128 and 16-byte-aligned pointers and strides go to the
+tensor-core kernels (``*_wgmma``: TMA, wgmma, warp specialisation),
+everything else, f32 among it, to the CUDA-core loop with exact f32
+products and the reference's order of operations. Each route counts its
+own launches (``launches`` and ``wgmma_launches`` for ``flash_fwd``,
+and so on). The tensor-core route computes the scores as
+``(q.k^T) * scale`` from the unscaled bf16 q and rounds P to bf16
+before ``P.V`` (P and dS before the backward's second products), as
+SDPA does; the forward's ``l`` sums the f32 p. Both routes keep the
+masked scores at ``NEG_INF`` (-1e30) in natural-log units, so a row with
+no live key ends with lse <= -1e29, as the ring's merge needs.
 
 On a CUDA tensor every wrapper launches its kernel or raises; on a CPU
 tensor it computes the kernel's plain version
 (:func:`flash_attention_reference`, :func:`flash_bwd_dq_reference`,
 :func:`flash_bwd_dkv_reference` and the ``flash_band_*_reference``
-functions; the backward ones take ``operand_dtype=torch.bfloat16`` for
-the tensor-core route's arithmetic). Ragged lengths need no special
+functions, in the reference's f32 arithmetic; each takes
+``operand_dtype=torch.bfloat16`` for the tensor-core route's, and
+:func:`fwd_bf16_rounding_bound` and :func:`bf16_rounding_bound` say how
+far that may lie from the f32 one). Ragged lengths need no special
 path on the card: the kernels mask the edge themselves, where the TPU
 kernels padded causal lengths to a multiple of 128 and ran non-causal
 ones dense.
@@ -58,14 +66,16 @@ from ..parallel.ring_attention import NEG_INF, f32_scale, gqa_group
 from . import _build
 
 # Launches of each CUDA kernel (one per wrapper call on the card). The
-# plain versions on the CPU do not count. The backward wrappers count the
+# plain versions on the CPU do not count. Every wrapper counts the
 # CUDA-core loop and the tensor-core route apart.
-launches = 0                 # flash_fwd
+launches = 0                 # flash_fwd, loop
 dq_launches = 0              # flash_bwd_dq, loop
 dkv_launches = 0             # flash_bwd_dkv, loop
-band_launches = 0            # flash_band_fwd
+band_launches = 0            # flash_band_fwd, loop
 band_dq_launches = 0         # flash_band_dq, loop
 band_dkv_launches = 0        # flash_band_dkv, loop
+wgmma_launches = 0           # flash_fwd, tensor cores
+band_wgmma_launches = 0      # flash_band_fwd, tensor cores
 dq_wgmma_launches = 0        # flash_bwd_dq, tensor cores
 dkv_wgmma_launches = 0       # flash_bwd_dkv, tensor cores
 band_dq_wgmma_launches = 0   # flash_band_dq, tensor cores
@@ -78,22 +88,29 @@ _TAIL = [ctypes.c_float, _I, _I, _P]
 _FWD = [_P] * 5 + [_I] * 6 + [_L] * 9 + _TAIL
 _DQ = [_P] * 7 + [_I] * 6 + [_L] * 12 + _TAIL
 _DKV = [_P] * 8 + [_I] * 6 + [_L] * 12 + _TAIL
-# C entry points per source: pointers, dtype and sizes, strides, tail.
-_SIGNATURES = {
-    "flash_fwd": {"hvd_flash_fwd": _FWD, "hvd_flash_band_fwd": _FWD},
-    "flash_bwd": {f"hvd_{name}{route}": sig
-                  for name, sig in (("flash_bwd_dq", _DQ),
-                                    ("flash_bwd_dkv", _DKV),
-                                    ("flash_band_dq", _DQ),
-                                    ("flash_band_dkv", _DKV))
-                  for route in ("", "_wgmma")},
+# Each kernel: its source, the C signature of its entry points (pointers,
+# dtype and sizes, strides, tail) and the prefix of its counters.
+_KERNELS = {
+    "flash_fwd": ("flash_fwd", _FWD, ""),
+    "flash_band_fwd": ("flash_fwd", _FWD, "band_"),
+    "flash_bwd_dq": ("flash_bwd", _DQ, "dq_"),
+    "flash_bwd_dkv": ("flash_bwd", _DKV, "dkv_"),
+    "flash_band_dq": ("flash_bwd", _DQ, "band_dq_"),
+    "flash_band_dkv": ("flash_bwd", _DKV, "band_dkv_"),
 }
-# The counter of each backward kernel, by route (tensor cores or not).
-_BWD_COUNTERS = {
-    name: {False: f"{counter}_launches", True: f"{counter}_wgmma_launches"}
-    for name, counter in (("flash_bwd_dq", "dq"), ("flash_bwd_dkv", "dkv"),
-                          ("flash_band_dq", "band_dq"),
-                          ("flash_band_dkv", "band_dkv"))}
+# C entry points per source: each kernel on both routes, and the
+# tensor-core kernels' shared-memory report.
+_SIGNATURES = {
+    source: {f"hvd_{name}{route}": sig
+             for name, (src, sig, _) in _KERNELS.items() if src == source
+             for route in ("", "_wgmma")}
+    for source in ("flash_fwd", "flash_bwd")}
+_SIGNATURES["flash_fwd"]["hvd_flash_fwd_wgmma_smem"] = [_I]
+_SIGNATURES["flash_bwd"]["hvd_flash_bwd_wgmma_smem"] = [_I, _I]
+# The counter of each kernel, by route (tensor cores or not).
+_COUNTERS = {name: {False: f"{prefix}launches",
+                    True: f"{prefix}wgmma_launches"}
+             for name, (_, _, prefix) in _KERNELS.items()}
 _libs = {}
 
 
@@ -195,35 +212,67 @@ def _scores(qf, kf, causal, window, off=0, scale=None):
     return sc
 
 
-def _fwd_math(q, k, v, causal, window, off=0):
-    """(out in q's dtype, lse f32) of the whole rows: the forward kernels'
-    f32 arithmetic at query offset ``off``."""
+def _fwd_probs(q, k, v, causal, window, off=0, operand_dtype=None):
+    """f32 ``(p, l, v expanded)`` of the whole rows, ``p`` against the
+    row max and ``l`` its clamped sum; ``m`` and ``l`` give the lse. With
+    ``operand_dtype`` None the scores are ``(q*scale).k^T``, the
+    reference's; otherwise ``(q.k^T)*scale``, the tensor-core route's."""
     _check(q, k, v, causal, window)
-    qf, kf, vf = _expand_kv(q, k, v)
-    sc = _scores(qf, kf, causal, window, off)
+    exact = operand_dtype is None
+    qf, kf, vf = _expand_kv(q, k, v, prescale=exact)
+    sc = _scores(qf, kf, causal, window, off,
+                 None if exact else _scale(q.shape[3]))
     m = sc.amax(dim=-1)
     p = torch.exp(sc - m[..., None])
-    l = torch.clamp(p.sum(dim=-1), min=1e-30)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, vf) / l.transpose(1, 2)[..., None]
+    return p, m, torch.clamp(p.sum(dim=-1), min=1e-30), vf
+
+
+def _fwd_math(q, k, v, causal, window, off=0, operand_dtype=None):
+    """(out in q's dtype, lse f32) of the whole rows at query offset
+    ``off``: the loop's f32 arithmetic, or with ``operand_dtype`` the
+    tensor-core route's, p rounded to it before ``p.v`` and l summed from
+    the f32 p."""
+    p, m, l, vf = _fwd_probs(q, k, v, causal, window, off, operand_dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", _operand(p, operand_dtype), vf) \
+        / l.transpose(1, 2)[..., None]
     return out.to(q.dtype), m + torch.log(l)
 
 
-def flash_attention_reference(q, k, v, causal=True, window=None):
+def flash_attention_reference(q, k, v, causal=True, window=None,
+                              operand_dtype=None):
     """Plain version of the kernel: ``(out (B, S, H, D) in q's dtype,
     lse (B, H, S) f32)``, with ``_fwd_kernel``'s f32 arithmetic — q
     converted to f32 and scaled by ``1/sqrt(D)`` before the product,
     masked scores filled with ``NEG_INF``, ``l`` clamped at 1e-30 — taken
-    over the whole row at once instead of tile by tile."""
-    return _fwd_math(q, k, v, causal, window)
+    over the whole row at once instead of tile by tile.
+    ``operand_dtype=torch.bfloat16`` gives the tensor-core route's
+    arithmetic instead: scores ``(q.k^T)*scale``, p rounded to bf16
+    before ``p.v``, l summed from the f32 p."""
+    return _fwd_math(q, k, v, causal, window, 0, operand_dtype)
 
 
-def flash_band_fwd_reference(q, k, v, off, window=None):
+def flash_band_fwd_reference(q, k, v, off, window=None, operand_dtype=None):
     """Plain version of ``flash_band_fwd``: ``_band_fwd_kernel``'s f32
     arithmetic (as :func:`flash_attention_reference`, p kept in f32)
     for a causal tile whose query row i sits at position ``off + i``.
     A row with no live key gets lse ``NEG_INF`` (to f32 precision) and a
-    finite out, the mean of V, which the ring's lse merge weights by 0."""
-    return _fwd_math(q, k, v, True, window, off)
+    finite out, the mean of V, which the ring's lse merge weights by 0.
+    ``operand_dtype`` as for :func:`flash_attention_reference`."""
+    return _fwd_math(q, k, v, True, window, off, operand_dtype)
+
+
+def fwd_bf16_rounding_bound(q, k, v, causal=True, window=None, off=0):
+    """How far the tensor-core route's forward out may lie from the f32
+    plain version because p is rounded to bf16 before ``p.v``: each
+    rounding moves a term by at most 2^-8 of itself and l is summed from
+    the f32 p, so an out element moves by at most 2^-8 of
+    ``(sum_j p_j |v_j|) / l`` over its row. Returns the largest such
+    value. The rounding of the bf16 output and f32 summation order come
+    on top; lse does not move."""
+    p, _, l, vf = _fwd_probs(q, k, v, causal, window, off, torch.bfloat16)
+    mag = torch.einsum("bhqk,bkhd->bqhd", p, vf.abs()) \
+        / l.transpose(1, 2)[..., None]
+    return 2.0 ** -8 * mag.max().item()
 
 
 def _bwd_common(q, k, v, do, lse, delta, causal, window, off=0,
@@ -390,18 +439,20 @@ def dkv_query_tiles(k0, s, off=0, causal=True, window=None, tile=64):
     return lo, max(lo, hi)
 
 
-def tensor_core_route(q, k, v, do):
-    """True when the backward kernels' tensor-core route takes these
-    operands: bf16, head dim 64 or 128, every base pointer 16-byte
-    aligned and every (batch, sequence, head) stride a positive multiple
-    of 8 elements (TMA's 16 bytes). Everything else takes the CUDA-core
-    loop. A rule on the operands alone, so the CPU tests check it."""
+def tensor_core_route(q, k, v, do=None):
+    """True when the kernels' tensor-core route takes these operands (q,
+    k, v, and for the backward dO): bf16, head dim 64 or 128, every base
+    pointer 16-byte aligned and every (batch, sequence, head) stride a
+    positive multiple of 8 elements (TMA's 16 bytes). Everything else
+    takes the CUDA-core loop. A rule on the operands alone, so the CPU
+    tests check it."""
     if q.dtype != torch.bfloat16 or q.shape[3] not in (64, 128):
         return False
+    ops = (q, k, v) if do is None else (q, k, v, do)
     return all(x.data_ptr() % 16 == 0
                and all(x.stride(i) > 0 and x.stride(i) % 8 == 0
                        for i in range(3))
-               for x in (q, k, v, do))
+               for x in ops)
 
 
 def _kernel_args(q, k, v, causal, window, off=None):
@@ -430,18 +481,16 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _launch(q, k, v, causal, window):
-    global launches
-    sizes, strides, tail = _kernel_args(q, k, v, causal, window)
+def _launch_fwd(name, q, k, v, causal, window, off=None):
+    """(out, lse) of forward kernel ``name`` (static, or band at ``off``)
+    on the route :func:`tensor_core_route` picks."""
+    sizes, strides, tail = _kernel_args(q, k, v, causal, window, off)
     b, s, h, _, d = sizes
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if b * s * h == 0:
         return out, lse
-    _call("flash_fwd", "hvd_flash_fwd", q.data_ptr(), k.data_ptr(),
-          v.data_ptr(), out.data_ptr(), lse.data_ptr(), _DTYPES[q.dtype],
-          *sizes, *strides, *tail, _stream(q))
-    launches += 1
+    _launch(name, (q, k, v), (out, lse), sizes, strides, tail)
     return out, lse
 
 
@@ -465,25 +514,27 @@ def _ptrs(tensors):
 
 def wgmma_smem_bytes(name, d):
     """Dynamic shared memory, in bytes, of the tensor-core kernel of
-    ``name`` ("flash_bwd_dq" or "flash_bwd_dkv"; the band kernels share
-    them) at head dim ``d``; 0 where the route does not take ``d``."""
-    fn = _kernel_lib("flash_bwd").hvd_flash_bwd_wgmma_smem
-    fn.argtypes, fn.restype = [_I, _I], ctypes.c_int
-    return fn(int(name == "flash_bwd_dkv"), d)
+    ``name`` ("flash_fwd", "flash_bwd_dq" or "flash_bwd_dkv"; the band
+    kernels share them) at head dim ``d``; 0 where the route does not
+    take ``d``."""
+    if name == "flash_fwd":
+        return _kernel_lib("flash_fwd").hvd_flash_fwd_wgmma_smem(d)
+    return _kernel_lib("flash_bwd").hvd_flash_bwd_wgmma_smem(
+        int(name == "flash_bwd_dkv"), d)
 
 
-def _launch_bwd(name, ops, outs, sizes, strides, tail):
-    """Launch backward kernel ``name`` on the route
-    :func:`tensor_core_route` picks, and count it on that route. ``ops``
-    (held by the caller through the launch) as :func:`_bwd_args` returns
-    them, ``outs`` the gradients to write."""
+def _launch(name, ops, outs, sizes, strides, tail):
+    """Launch kernel ``name`` on the route :func:`tensor_core_route`
+    picks for its operands, and count it on that route. ``ops`` (q, k,
+    v, and for the backward dO, lse and delta as :func:`_bwd_args`
+    returns them; held by the caller through the launch), ``outs`` the
+    tensors it writes."""
     tc = tensor_core_route(*ops[:4])
     q = ops[0]
-    _call("flash_bwd", f"hvd_{name}{'_wgmma' if tc else ''}", *_ptrs(ops),
-          *_ptrs(outs), _DTYPES[q.dtype], *sizes, *strides, *tail,
-          _stream(q))
-    counter = _BWD_COUNTERS[name][tc]
-    globals()[counter] += 1
+    _call(_KERNELS[name][0], f"hvd_{name}{'_wgmma' if tc else ''}",
+          *_ptrs(ops), *_ptrs(outs), _DTYPES[q.dtype], *sizes, *strides,
+          *tail, _stream(q))
+    globals()[_COUNTERS[name][tc]] += 1
 
 
 def _device_of(q):
@@ -505,7 +556,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, window=None):
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
         return dq
-    _launch_bwd("flash_bwd_dq", ops, (dq,), sizes, strides, tail)
+    _launch("flash_bwd_dq", ops, (dq,), sizes, strides, tail)
     return dq
 
 
@@ -523,7 +574,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, window=None):
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if dk.numel() == 0:
         return dk, dv
-    _launch_bwd("flash_bwd_dkv", ops, (dk, dv), sizes, strides, tail)
+    _launch("flash_bwd_dkv", ops, (dk, dv), sizes, strides, tail)
     return dk, dv
 
 
@@ -537,7 +588,7 @@ def _tile_lse(q, k, v, causal, window):
     _check(q, k, v, causal, window)
     if _device_of(q) == "cpu":
         return flash_attention_reference(q, k, v, causal, window)
-    return _launch(q, k, v, causal, window)
+    return _launch_fwd("flash_fwd", q, k, v, causal, window)
 
 
 def flash_band_fwd(q, k, v, off, window=None):
@@ -547,21 +598,10 @@ def flash_band_fwd(q, k, v, off, window=None):
     The ``flash_band_fwd`` kernel on a CUDA tensor, its plain version on
     a CPU one. Not differentiable: ring attention's backward calls
     :func:`flash_band_dq` and :func:`flash_band_dkv` itself."""
-    global band_launches
     _check(q, k, v, True, window)
     if _device_of(q) == "cpu":
         return flash_band_fwd_reference(q, k, v, off, window)
-    sizes, strides, tail = _kernel_args(q, k, v, True, window, off)
-    b, s, h, _, d = sizes
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    if b * s * h == 0:
-        return out, lse
-    _call("flash_fwd", "hvd_flash_band_fwd", q.data_ptr(), k.data_ptr(),
-          v.data_ptr(), out.data_ptr(), lse.data_ptr(), _DTYPES[q.dtype],
-          *sizes, *strides, *tail, _stream(q))
-    band_launches += 1
-    return out, lse
+    return _launch_fwd("flash_band_fwd", q, k, v, True, window, off)
 
 
 def flash_band_dq(q, k, v, do, lse, delta, off, window=None):
@@ -577,7 +617,7 @@ def flash_band_dq(q, k, v, do, lse, delta, off, window=None):
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if dq.numel() == 0:
         return dq
-    _launch_bwd("flash_band_dq", ops, (dq,), sizes, strides, tail)
+    _launch("flash_band_dq", ops, (dq,), sizes, strides, tail)
     return dq
 
 
@@ -595,7 +635,7 @@ def flash_band_dkv(q, k, v, do, lse, delta, off, window=None):
     dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
     if dk.numel() == 0:
         return dk, dv
-    _launch_bwd("flash_band_dkv", ops, (dk, dv), sizes, strides, tail)
+    _launch("flash_band_dkv", ops, (dk, dv), sizes, strides, tail)
     return dk, dv
 
 

@@ -2,8 +2,9 @@
 
 The CPU tests run without nvcc, so a stand-in compiler (a shell script
 that logs its call and writes the output file, or fails) shows what the
-build does around nvcc: a library is keyed by the hash of its source
-and flags, an unchanged source is not compiled again, an edited one is,
+build does around nvcc: a library is keyed by the hash of its source,
+the shared headers and the flags, an unchanged source is not compiled
+again, an edited one (or an edited header) is,
 every stale source gets its own compiler process, and a failed or
 impossible build raises instead of leaving the wrappers another path.
 """
@@ -70,6 +71,23 @@ def test_builds_each_stale_source_once_and_again_when_edited(tree,
     assert _build.library_path("a") != old
     assert sorted(_build.build()) == ["a"]
     assert len(_calls(tree)) == 3
+
+
+def test_an_edited_header_rebuilds_every_source(tree, monkeypatch):
+    """A shared header (``*.cuh``) is part of every source's hash: editing
+    it rebuilds both sources; a new header counts as an edit too."""
+    _fake_nvcc(tree, monkeypatch, OK_NVCC)
+    (tree / "csrc" / "common.cuh").write_text("// shared\n")
+    assert sorted(_build.build()) == ["a", "b"]
+    assert _build.build() == {}
+    old = {n: _build.library_path(n) for n in "ab"}
+    (tree / "csrc" / "common.cuh").write_text("// shared, edited\n")
+    assert all(_build.library_path(n) != old[n] for n in "ab")
+    assert sorted(_build.build()) == ["a", "b"]
+    (tree / "csrc" / "more.cuh").write_text("// another\n")
+    assert sorted(_build.build()) == ["a", "b"]
+    assert len(_calls(tree)) == 6
+    assert _build.sources() == ["a", "b"]     # a header is not a source
 
 
 def test_a_failed_compile_raises_with_the_compiler_output(tree,

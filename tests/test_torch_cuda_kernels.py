@@ -20,7 +20,13 @@ apart. The band kernels' gradients are f32 for either input type, so
 on the CUDA-core loop they hold to 1e-4.
 
 The tensor-core route (bf16, D 64 or 128: ``fa.tensor_core_route``)
-rounds P and dS to bf16 before the second products. Its gradients are
+rounds P to bf16 before ``P.V`` in the forward. Its out is held to the
+plain version run with ``operand_dtype=torch.bfloat16`` at the same
+bands as above (2e-2 out, 1e-4 lse), and to the f32 plain version within
+``fa.fwd_bf16_rounding_bound`` (2^-8 of ``sum p |v| / l``) plus one bf16
+ulp (2^-7) of the largest output for the output's own rounding. In the
+backward it rounds P and dS to bf16 before the second products. Its
+gradients are
 held to the plain version run with ``operand_dtype=torch.bfloat16``, which
 rounds them likewise: one bf16 ulp (2^-7) of the largest magnitude, for
 the band kernels' f32 gradients too, since a P or dS value that
@@ -40,8 +46,10 @@ ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LSE_ATOL = 1e-4
 GRAD_ATOL = 1e-4
 BF16_ULP = 2.0 ** -7
-# each backward kernel's launch counter on the loop and on the tensor cores
+# each kernel's launch counter on the loop and on the tensor cores
 ROUTE_COUNTERS = {
+    "flash_fwd": ("launches", "wgmma_launches"),
+    "flash_band_fwd": ("band_launches", "band_wgmma_launches"),
     "flash_bwd_dq": ("dq_launches", "dq_wgmma_launches"),
     "flash_bwd_dkv": ("dkv_launches", "dkv_wgmma_launches"),
     "flash_band_dq": ("band_dq_launches", "band_dq_wgmma_launches"),
@@ -57,6 +65,34 @@ def card():
     return torch.device("cuda")
 
 
+def _fwd_inputs(card, dtype, b, s, h, h_kv, d, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, np.float32))
+            .to(card, dtype)
+            for shape in ((b, s, h, d), (b, s, h_kv, d), (b, s, h_kv, d))]
+
+
+def _assert_fwd_route_close(out, lse, args, extra, ref, tc, bound_args,
+                            rows=None):
+    """Hold a forward kernel's (out, lse) to its route's plain version
+    (module docstring), on ``rows`` of the sequence (None: all)."""
+    rows = slice(None) if rows is None else rows
+    dtype = str(args[0].dtype)[len("torch."):]
+    want, want_lse = ref(*args, *extra,
+                         operand_dtype=torch.bfloat16 if tc else None)
+    torch.testing.assert_close(out[:, rows].float(), want[:, rows].float(),
+                               atol=ATOL[dtype], rtol=0)
+    torch.testing.assert_close(lse[:, :, rows], want_lse[:, :, rows],
+                               atol=LSE_ATOL, rtol=0)
+    if not tc:
+        return
+    exact, _ = ref(*args, *extra)
+    exact = exact[:, rows].float()
+    tol = fa.fwd_bf16_rounding_bound(*args, *bound_args) \
+        + BF16_ULP * exact.abs().max().item()
+    torch.testing.assert_close(out[:, rows].float(), exact, atol=tol, rtol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,s,h,h_kv,d,causal,window", [
@@ -64,22 +100,63 @@ def card():
     (1, 200, 4, 2, 16, False, None),     # ragged, non-causal
     (1, 200, 4, 1, 8, True, 50),         # ragged, window
     (2, 64, 16, 4, 128, True, None),     # the flagship head width
+    # bf16 here takes the tensor cores
+    (1, 1000, 8, 1, 64, True, None),     # ragged, GQA 8, D 64
+    (1, 1000, 4, 2, 128, True, 256),     # ragged, window, GQA 2
+    (2, 300, 4, 4, 128, False, None),    # non-causal, MHA
+    (1, 512, 16, 4, 64, True, 100),      # window, GQA 4, D 64
+    (1, 10, 4, 2, 128, True, None),      # shorter than one tile
+    (2, 70, 2, 2, 64, False, None),      # one tile and a ragged edge
+    (1, 200, 4, 2, 128, True, 1),        # window 1: each row its own key
 ])
 def test_flash_fwd_matches_plain_version(card, dtype, b, s, h, h_kv, d,
                                          causal, window):
-    rng = np.random.default_rng(s + d)
     td = getattr(torch, dtype)
-    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
-               .to(card, td)
-               for shape in ((b, s, h, d), (b, s, h_kv, d), (b, s, h_kv, d)))
-    before = fa.launches
+    q, k, v = _fwd_inputs(card, td, b, s, h, h_kv, d, s + d)
+    tc = fa.tensor_core_route(q, k, v)
+    assert tc == (td == torch.bfloat16 and d in (64, 128))
+    names = [("flash_fwd", False), ("flash_fwd", True)]
+    n0 = _counts(names)
     out, lse = fa.flash_attention_with_lse(q, k, v, causal, window)
     torch.cuda.synchronize()
-    assert fa.launches == before + 1
-    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal, window)
-    torch.testing.assert_close(out.float(), ref_out.float(),
-                               atol=ATOL[dtype], rtol=0)
-    torch.testing.assert_close(lse, ref_lse, atol=LSE_ATOL, rtol=0)
+    assert _counts(names) == [n0[0] + (not tc), n0[1] + tc]
+    assert out.dtype == td and lse.dtype == torch.float32
+    _assert_fwd_route_close(out, lse, (q, k, v), (causal, window),
+                            fa.flash_attention_reference, tc,
+                            (causal, window))
+
+
+@pytest.mark.cuda
+def test_flash_fwd_takes_the_models_and_the_rings_views(card):
+    """The model passes v as the view ``kv[:, :, 1]`` (S stride
+    2*H_kv*D) and the ring passes ``chunk(dim=1)`` views: the tensor-core
+    route reads them through their real strides, and gives what the same
+    values made dense give."""
+    rng = np.random.default_rng(21)
+    b, s, h, h_kv, d = 2, 4 * 192, 8, 2, 128
+    q = torch.from_numpy(rng.standard_normal((b, s, h, d), np.float32)) \
+        .to(card, torch.bfloat16)
+    kv = torch.from_numpy(rng.standard_normal((b, s, 2, h_kv, d),
+                                              np.float32)) \
+        .to(card, torch.bfloat16)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    for args in ((q, k, v), [x.chunk(4, dim=1)[2] for x in (q, k, v)]):
+        assert not args[2].is_contiguous()
+        assert fa.tensor_core_route(*args)
+        before = fa.wgmma_launches
+        out, lse = fa.flash_attention_with_lse(*args, True, 300)
+        band_out, band_lse = fa.flash_band_fwd(*args, 192, 300)
+        dense = [x.contiguous() for x in args]
+        want, want_lse = fa.flash_attention_with_lse(*dense, True, 300)
+        band_want, band_want_lse = fa.flash_band_fwd(*dense, 192, 300)
+        torch.cuda.synchronize()
+        assert fa.wgmma_launches == before + 2
+        assert torch.equal(out, want) and torch.equal(lse, want_lse)
+        assert torch.equal(band_out, band_want)
+        assert torch.equal(band_lse, band_want_lse)
+        _assert_fwd_route_close(out, lse, args, (True, 300),
+                                fa.flash_attention_reference, True,
+                                (True, 300))
 
 
 @pytest.mark.cuda
@@ -265,18 +342,20 @@ def test_flash_band_fwd_matches_plain_version(card, dtype, b, s, h, h_kv, d,
     with a finite out and lse <= -1e29 on both sides."""
     td = getattr(torch, dtype)
     q, k, v = _band_inputs(card, td, b, s, h, h_kv, d, off, window, s)[:3]
-    before = fa.band_launches
+    tc = fa.tensor_core_route(q, k, v)
+    assert tc == (td == torch.bfloat16 and d in (64, 128))
+    names = [("flash_band_fwd", False), ("flash_band_fwd", True)]
+    n0 = _counts(names)
     out, lse = fa.flash_band_fwd(q, k, v, off, window)
     torch.cuda.synchronize()
-    assert fa.band_launches == before + 1
+    assert _counts(names) == [n0[0] + (not tc), n0[1] + tc]
     assert out.dtype == td and lse.dtype == torch.float32
-    ref_out, ref_lse = fa.flash_band_fwd_reference(q, k, v, off, window)
     live = _live_rows(s, off, window).to(card)
     assert torch.isfinite(out).all() and torch.isfinite(lse).all()
-    torch.testing.assert_close(out[:, live].float(), ref_out[:, live].float(),
-                               atol=ATOL[dtype], rtol=0)
-    torch.testing.assert_close(lse[:, :, live], ref_lse[:, :, live],
-                               atol=LSE_ATOL, rtol=0)
+    _assert_fwd_route_close(out, lse, (q, k, v), (off, window),
+                            fa.flash_band_fwd_reference, tc,
+                            (True, window, off), rows=live)
+    _, ref_lse = fa.flash_band_fwd_reference(q, k, v, off, window)
     assert (lse[:, :, ~live] <= -1e29).all()
     assert (ref_lse[:, :, ~live] <= -1e29).all()
 
@@ -410,6 +489,45 @@ def test_backward_kernels_are_deterministic(card, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_kernels_are_deterministic(card, dtype):
+    """Two runs of each forward kernel on the same inputs give the same
+    bits, on either route: each CTA owns its rows, with no atomics."""
+    td = getattr(torch, dtype)
+    q, k, v = _fwd_inputs(card, td, 2, 700, 8, 2, 128, 5)
+    runs = [(*fa.flash_attention_with_lse(q, k, v, True, 300),
+             *fa.flash_band_fwd(q, k, v, 700, 900)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tc", [("bfloat16", True),
+                                      ("float32", False)])
+def test_forward_route_follows_the_rule(card, dtype, tc):
+    """A bf16 call at D 128 launches the tensor-core forward kernels and
+    an f32 one the CUDA-core loop, each counted on its own route only; a
+    bf16 call at D 96 takes the loop."""
+    td = getattr(torch, dtype)
+    q, k, v = _fwd_inputs(card, td, 1, 256, 4, 2, 128, 13)
+    assert fa.tensor_core_route(q, k, v) is tc
+    names = [(n, route) for n in ("flash_fwd", "flash_band_fwd")
+             for route in (False, True)]
+    n0 = _counts(names)
+    fa.flash_attention_with_lse(q, k, v, True, None)
+    fa.flash_band_fwd(q, k, v, 256, 384)
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(n0, _counts(names))] == \
+        [int(route == tc) for _, route in names]
+    q, k, v = _fwd_inputs(card, torch.bfloat16, 1, 64, 2, 2, 96, 14)
+    assert not fa.tensor_core_route(q, k, v)
+    n0 = _counts(names)
+    fa.flash_attention_with_lse(q, k, v, True, None)
+    assert [b - a for a, b in zip(n0, _counts(names))] == [1, 0, 0, 0]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tc", [("bfloat16", True),
                                       ("float32", False)])
 def test_backward_route_follows_the_rule(card, dtype, tc):
@@ -419,7 +537,8 @@ def test_backward_route_follows_the_rule(card, dtype, tc):
     args = _bwd_inputs(card, td, 1, 256, 4, 2, 128, True, None, 9)
     band = _band_inputs(card, td, 1, 256, 4, 2, 128, 256, 384, 10)
     assert fa.tensor_core_route(*args[:4]) is tc
-    names = [(n, route) for n in ROUTE_COUNTERS for route in (False, True)]
+    names = [(n, route) for n in ROUTE_COUNTERS if "fwd" not in n
+             for route in (False, True)]
     n0 = _counts(names)
     _all_backward(args, band, 256, 384)
     torch.cuda.synchronize()

@@ -15,7 +15,18 @@ for its kernel against dense attention (tests/test_flash_attention.py);
 both sides compute in f32 and differ only in summation order. A bf16
 output may differ by one bf16 rounding of a value below 2 (2^-7), so
 bf16 O holds to atol 1e-2; its lse is f32 and keeps 2e-5.
+
+The tensor-core route's side, also on the CPU: the plain version with
+``operand_dtype=torch.bfloat16`` (scores ``(q.k^T)*scale``, p rounded to
+bf16 before ``p.v``, l from the f32 p) stays within
+``fwd_bf16_rounding_bound`` of the f32 plain version and of the JAX
+kernel (plus 2e-5, or one bf16 ulp of the output for bf16 inputs), and
+with ``operand_dtype=None`` is the reference's arithmetic bit for bit;
+the route rule ``tensor_core_route`` without dO takes the model's
+``kv[:, :, 1]`` views.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +35,7 @@ import torch
 
 from horovod_tpu.ops.flash_attention import (
     _flash_fwd_impl, paged_attention_decode as jax_paged_decode)
+from horovod_tpu_torch.models import transformer as tfm
 from horovod_tpu_torch.ops import flash_attention as fa
 
 F32_ATOL = 2e-5
@@ -160,3 +172,144 @@ def test_paged_decode_matches_jax(dtype, h_kv):
     np.testing.assert_allclose(
         got.float().numpy(), np.asarray(want.astype(jnp.float32)),
         atol=F32_ATOL if dtype == "float32" else BF16_ATOL, rtol=0)
+
+
+# the tensor-core route's rounding against the f32 reference and the JAX
+# kernel: causal, windowed, non-causal, GQA 1/2/4 and ragged cases
+OPERAND_CASES = ["one-block-causal-mha", "multi-block-causal-gqa4",
+                 "multi-block-noncausal-gqa2", "ragged-causal-pad-gqa2",
+                 "ragged-noncausal-dense-gqa2", "window-multi-block-gqa2",
+                 "window-ragged-pad-gqa4"]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fwd(case, dtype):
+    """(inputs, JAX kernel out as f32 numpy) of ``case`` in ``dtype``."""
+    b, s, h, h_kv, d, causal, window, block = CASES[case]
+    q, k, v = _qkv((b, s, h, d), h_kv, seed=len(case) + 100)
+    jd = getattr(jnp, dtype)
+    out, _ = _flash_fwd_impl(_jax(q, jd), _jax(k, jd), _jax(v, jd), causal,
+                             block, True, window)
+    return (q, k, v), np.asarray(out.astype(jnp.float32))
+
+
+def _old_fwd_math(q, k, v, causal, window):
+    """The plain forward as the parent tree computed it, written out:
+    f32 ``(q*scale).k^T``, the -1e30 fill, p in f32, l clamped."""
+    group = q.shape[2] // k.shape[2]
+    qf = q.float() * fa._scale(q.shape[3])
+    kf, vf = (x.float().repeat_interleave(group, dim=2) for x in (k, v))
+    sc = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    if causal:
+        pos = torch.arange(q.shape[1])
+        dist = pos[:, None] - pos[None, :]
+        keep = dist >= 0
+        if window is not None:
+            keep = keep & (dist < window)
+        sc = torch.where(keep, sc, -1e30)
+    m = sc.amax(dim=-1)
+    p = torch.exp(sc - m[..., None])
+    l = torch.clamp(p.sum(dim=-1), min=1e-30)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vf) / l.transpose(1, 2)[..., None]
+    return out.to(q.dtype), m + torch.log(l)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["multi-block-causal-gqa4",
+                                  "window-ragged-pad-gqa4",
+                                  "ragged-noncausal-dense-gqa2"])
+def test_operand_dtype_none_is_the_reference_arithmetic(case, dtype):
+    """``operand_dtype=None`` (the default, and what every wrapper's CPU
+    path runs) gives the parent's plain outputs bit for bit."""
+    b, s, h, h_kv, d, causal, window, _ = CASES[case]
+    td = getattr(torch, dtype)
+    q, k, v = (_torch(x, td) for x in _qkv((b, s, h, d), h_kv, seed=9))
+    got = fa.flash_attention_reference(q, k, v, causal, window,
+                                       operand_dtype=None)
+    default = fa.flash_attention_reference(q, k, v, causal, window)
+    old = _old_fwd_math(q, k, v, causal, window)
+    for x, y, z in zip(got, default, old):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+@pytest.mark.parametrize("case", OPERAND_CASES)
+def test_bf16_operands_stay_within_the_fwd_rounding_bound(case):
+    """p rounded to bf16 moves out by no more than
+    ``fwd_bf16_rounding_bound`` from the f32 plain version (plus f32
+    summation noise, 1e-6) and from the JAX kernel in interpret mode
+    (plus its own 2e-5 band), and does move it; lse does not move."""
+    b, s, h, h_kv, d, causal, window, _ = CASES[case]
+    (q, k, v), want = _jax_fwd(case, "float32")
+    q, k, v = (_torch(x, torch.float32) for x in (q, k, v))
+    exact, exact_lse = fa.flash_attention_reference(q, k, v, causal, window)
+    out, lse = fa.flash_attention_reference(q, k, v, causal, window,
+                                            operand_dtype=torch.bfloat16)
+    bound = fa.fwd_bf16_rounding_bound(q, k, v, causal, window)
+    err = (out - exact).abs().max().item()
+    assert 0 < err <= bound + 1e-6, (err, bound)
+    assert (out.numpy() - want).__abs__().max() <= bound + F32_ATOL
+    np.testing.assert_allclose(lse.numpy(), exact_lse.numpy(),
+                               atol=F32_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["multi-block-causal-gqa4",
+                                  "window-multi-block-gqa2"])
+def test_bf16_operands_on_bf16_inputs_stay_near_the_jax_kernel(case):
+    """bf16 inputs, as the route takes them: the bf16-operand plain
+    version's bf16 out lies within the bound plus one bf16 ulp of the
+    largest output (each side rounds its output once) of the JAX bf16
+    kernel's."""
+    b, s, h, h_kv, d, causal, window, _ = CASES[case]
+    (q, k, v), want = _jax_fwd(case, "bfloat16")
+    q, k, v = (_torch(x, torch.bfloat16) for x in (q, k, v))
+    out, _ = fa.flash_attention_reference(q, k, v, causal, window,
+                                          operand_dtype=torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    bound = fa.fwd_bf16_rounding_bound(q, k, v, causal, window)
+    tol = bound + 2.0 ** -7 * np.abs(want).max()
+    assert np.abs(out.float().numpy() - want).max() <= tol
+
+
+def _misaligned(*shape):
+    """A bf16 tensor whose base pointer sits 2 bytes past a 16-byte
+    boundary."""
+    flat = torch.zeros(int(np.prod(shape)) + 8, dtype=torch.bfloat16)
+    start = (16 - flat.data_ptr() % 16) % 16 // 2 + 1
+    return flat[start:start + int(np.prod(shape))].view(shape)
+
+
+@pytest.mark.parametrize("head_dim,dtype,expected", [
+    (128, torch.bfloat16, True), (64, torch.bfloat16, True),
+    (64, torch.float32, False), (32, torch.bfloat16, False),
+    (96, torch.bfloat16, False)])
+def test_forward_route_takes_the_models_kv_views(head_dim, dtype, expected):
+    """The model's q, k and v as ``_qkv_proj`` makes them (k and v the
+    views ``kv[:, :, 0]`` and ``kv[:, :, 1]``, S stride 2*H_kv*D): bf16
+    at D 64 or 128 takes the tensor cores, f32 and other head dims the
+    loop."""
+    cfg = tfm.TransformerConfig(vocab_size=64, d_model=4 * head_dim,
+                                n_heads=4, n_kv_heads=2, n_layers=1,
+                                d_ff=64, max_seq=32, dtype=dtype)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    h = torch.randn(2, 24, cfg.d_model)
+    q, k, v = tfm._qkv_proj(params["layers"][0], h, cfg)
+    assert v.stride(1) == 2 * 2 * head_dim and not v.is_contiguous()
+    assert fa.tensor_core_route(q, k, v) is expected
+
+
+@pytest.mark.parametrize("bad", ["misaligned-v", "head-stride-132",
+                                 "odd-seq-stride"])
+def test_forward_route_rejects_what_tma_cannot_read(bad):
+    """A base pointer off 16 bytes or a stride off 8 elements takes the
+    loop, for the forward (no dO) as for the backward."""
+    q, k, v = (torch.zeros(1, 64, 2, 128, dtype=torch.bfloat16)
+               for _ in range(3))
+    assert fa.tensor_core_route(q, k, v)
+    if bad == "misaligned-v":
+        v = _misaligned(1, 64, 2, 128)
+    elif bad == "head-stride-132":
+        k = torch.zeros(1, 64, 2, 132, dtype=torch.bfloat16)[..., :128]
+    else:
+        q = torch.zeros(64 * 260, dtype=torch.bfloat16).as_strided(
+            (1, 64, 2, 128), (64 * 260, 260, 128, 1))
+    assert not fa.tensor_core_route(q, k, v)

@@ -21,6 +21,13 @@ The JAX gradient is taken outside ``jit(shard_map)``:
 tests/test_models.py:795-800 records that the other nesting aborts XLA
 on the CPU.
 
+The band forward's tensor-core arithmetic, on the CPU: the plain version
+with ``operand_dtype=torch.bfloat16`` (p rounded to bf16 before ``p.v``)
+stays within ``fwd_bf16_rounding_bound`` of the f32 one and of
+``_band_fwd_kernel`` on live rows, keeps dead rows at lse <= -1e29, and
+with ``operand_dtype=None`` is the reference's arithmetic; the forward's
+route rule takes the ring's ``chunk(dim=1)`` shard views.
+
 Tolerances are the reference's (tests/test_ring_attention.py,
 tests/test_models.py): out 2e-5 and lse 1e-4 on rows with a live key,
 ``lse <= -1e29`` on rows without one; tile and ring gradients 1e-4; the
@@ -46,7 +53,7 @@ from horovod_tpu.parallel.ring_attention import ring_attention as jax_ring
 from horovod_tpu_torch.models import transformer as tfm
 from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.parallel.ring_attention import (
-    RingAxis, _ring_steps, dense_attention, ring_attention)
+    RingAxis, _ring_steps, _split, dense_attention, ring_attention)
 
 OUT_ATOL, LSE_ATOL, GRAD_ATOL, MODEL_ATOL = 2e-5, 1e-4, 1e-4, 5e-5
 
@@ -118,6 +125,51 @@ def test_band_fwd_plain_version_matches_jax_kernel(case):
     assert (want_lse[..., ~live] <= -1e29).all()
     if "dead-rows" in case:
         assert not live.all()
+
+
+@pytest.mark.parametrize("case", BAND_CASES)
+def test_band_fwd_bf16_operands_stay_within_the_rounding_bound(case):
+    """Live rows: p rounded to bf16 moves out by at most
+    ``fwd_bf16_rounding_bound`` from the f32 plain version (plus 1e-6 of
+    f32 summation noise) and from ``_band_fwd_kernel`` (plus its 2e-5),
+    and lse not at all; rows with no live key keep lse <= -1e29 and a
+    finite out. ``operand_dtype=None`` is the default's arithmetic."""
+    b, s, h, h_kv, d, off, window, block = BAND_CASES[case]
+    q, k, v = _band_inputs(case, 3)[:3]
+    want_out, _ = _band_tile_fwd(*map(jnp.asarray, (q, k, v)), off, window,
+                                 block, True)
+    qt, kt, vt = map(torch.from_numpy, (q, k, v))
+    exact = fa.flash_band_fwd_reference(qt, kt, vt, off, window)
+    none = fa.flash_band_fwd_reference(qt, kt, vt, off, window,
+                                       operand_dtype=None)
+    assert all(torch.equal(x, y) for x, y in zip(exact, none))
+    out, lse = fa.flash_band_fwd_reference(qt, kt, vt, off, window,
+                                           operand_dtype=torch.bfloat16)
+    bound = fa.fwd_bf16_rounding_bound(qt, kt, vt, True, window, off)
+    live = _live_rows(s, off, window)
+    err = np.abs(out.numpy()[:, live] - exact[0].numpy()[:, live]).max()
+    assert 0 < err <= bound + 1e-6, (err, bound)
+    assert np.abs(out.numpy()[:, live]
+                  - np.asarray(want_out)[:, live]).max() <= bound + OUT_ATOL
+    np.testing.assert_allclose(lse.numpy()[..., live],
+                               exact[1].numpy()[..., live], atol=OUT_ATOL,
+                               rtol=0)
+    assert np.isfinite(out.numpy()).all()
+    assert (lse.numpy()[..., ~live] <= -1e29).all()
+
+
+@pytest.mark.parametrize("d,expected", [(128, True), (64, True),
+                                        (32, False)])
+def test_forward_route_takes_the_rings_shard_views(d, expected):
+    """The ring hands each tile q, k and v as ``chunk(dim=1)`` views of
+    the whole sequence (strided, offset by whole shards): bf16 at D 64 or
+    128 stays on the forward's tensor-core route, for every shard."""
+    full = [torch.zeros(2, 4 * 96, h, d, dtype=torch.bfloat16)
+            for h in (4, 2, 2)]
+    shards = [_split(x, RingAxis.local(4)) for x in full]
+    for q, k, v in zip(*shards):
+        assert not q.is_contiguous()
+        assert fa.tensor_core_route(q, k, v) is expected
 
 
 @pytest.mark.parametrize("case", BAND_CASES)
