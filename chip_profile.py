@@ -9,7 +9,10 @@ tokens and two decode steps, then records one prefill and 8 decode
 steps. Training: ``hvd.init()``, ``DistributedOptimizer(AdamW)`` and the
 batch of chip_smoke.py (4 x 4096, loss_chunk 512); warms one step, then
 records one. The sequence-parallel step likewise: chip_smoke.py's SP
-model (window 4096, a local ring of 4) at batch 2 x 8192. The band
+model (window 4096, a local ring of 4) at batch 2 x 8192. ResNet-50 as
+chip_smoke.py's phase_resnet trains it (bf16, channels_last, batch 256
+x 224^2, SGD(0.01) under ``DistributedOptimizer``); warms one step, then
+records one. The band
 tiles' forward runs the same kernel as the static one (``flash_fwd``
 at an offset), on the tensor-core route (``flash_fwd_wgmma_kernel``)
 as on the loop, so the profile counts them together; the band backward
@@ -32,8 +35,9 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (ADAMW, FLAGSHIP, LOSS_CHUNK, N_REQUESTS, NEW_TOKENS,
-                        PAGE_SIZE, SP_BATCH, SP_MODEL, SP_RING, SP_SEQ,
-                        TRAIN_BATCH, TRAIN_SEQ, prompts)
+                        PAGE_SIZE, RESNET_BATCH, RESNET_SIZE, SP_BATCH,
+                        SP_MODEL, SP_RING, SP_SEQ, TRAIN_BATCH, TRAIN_SEQ,
+                        prompts)
 
 DECODE_STEPS = 8
 
@@ -56,6 +60,12 @@ GROUPS = (
     ("flash_bwd_dq", "flash_bwd_dq (hand kernel, loop)"),
     ("flash_bwd_dkv", "flash_bwd_dkv (hand kernel, loop)"),
     ("nccl", "all-reduce (NCCL)"),
+    # cuDNN's convolution kernels (forward, data and weight gradients)
+    ("fprop", "convolution (cuDNN)"),
+    ("dgrad", "convolution (cuDNN)"),
+    ("wgrad", "convolution (cuDNN)"),
+    ("conv", "convolution (cuDNN)"),
+    ("pool", "pooling"),
     ("multi_tensor", "optimizer (AdamW foreach)"),
     ("gemm", "matmul (cuBLAS)"),
     ("gemv", "matmul (cuBLAS)"),
@@ -162,7 +172,47 @@ def main():
     torch.cuda.empty_cache()
     profile_train(card, where)
     profile_train(card, where, sp=True)
+    profile_resnet(card, where)
     return 0
+
+
+def profile_resnet(card, where):
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import ResNet50
+
+    hvd.init(device=card)
+    model = ResNet50(generator=torch.Generator().manual_seed(0),
+                     device=card).to(memory_format=torch.channels_last)
+    model.train()
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.01),
+        named_parameters=model.named_parameters())
+    rng = np.random.default_rng(2)
+    images = torch.from_numpy(rng.standard_normal(
+        (RESNET_BATCH, 3, RESNET_SIZE, RESNET_SIZE), dtype=np.float32)).to(
+        card, torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    labels = torch.from_numpy(rng.integers(0, 1000, RESNET_BATCH)).to(card)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        torch.nn.functional.cross_entropy(model(images), labels).backward()
+        opt.step()
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report(f"resnet50 train step {RESNET_BATCH} x {RESNET_SIZE}^2", prof,
+           wall, where)
+    del opt, model, images
+    gc.collect()
+    hvd.shutdown()
+    torch.cuda.empty_cache()
 
 
 def profile_train(card, where, sp=False):

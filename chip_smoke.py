@@ -57,7 +57,24 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 9. SP train (main path 3): that model, through ``ShardAxes(sp=
    RingAxis.local(4))``, trained as in 6 at batch 2 x 8192 (2048 tokens
    a shard): 40 launches of each band kernel and 32 of each static kernel
-   a step, checked exactly.
+   a step, checked exactly;
+10. resnet (main path 4): ResNet-50 as bench.py trains it. Its f32
+   forward at batch 2 on the card (TF32 off for cuDNN) against the same
+   weights on the CPU; then the bf16 model, channels_last, at batch 256
+   x 224^2 through ``hvd.init()``, ``broadcast_parameters`` and
+   ``DistributedOptimizer(SGD(0.01))``: the batch-norm running statistics
+   after one step against Flax's rule (biased variance, momentum 0.9)
+   computed from each layer's input, 5 more steps with a falling loss,
+   one all-reduce per bucket a step, img/s and MFU. Its convolutions run
+   on cuDNN (the reference has none of its own), so it launches none of
+   the kernels above;
+11. bench: ``python -m horovod_tpu_torch.bench.resnet`` in its
+   ``HOROVOD_BENCH_SMOKE=1`` shrink and ``python -m
+   horovod_tpu_torch.bench.transformer --iters 2``, each line checked for
+   its metric, a positive value and a numeric MFU.
+
+The kernels phases also run the CUDA-core loop at head dim 256 against
+the plain versions and time it (off every main path).
 
 On every main path each kernel launch takes the tensor-core route: the
 loop's counters stay at 0 there, and the route's counters are exact (8
@@ -66,7 +83,8 @@ loop's counters stay at 0 there, and the route's counters are exact (8
 
 Each main path runs with the kernel launch counts zeroed just before it
 and read just after. The first line is the card's name and power limit
-as ``nvidia-smi`` gives them. The last two lines are
+as ``nvidia-smi`` gives them; the run's wall time is printed before the
+last two lines, which are
 ``{"kernels": [...]}``, one entry per kernel, and the result,
 ``{"ok": true, "device": {...}}``.
 """
@@ -335,6 +353,8 @@ def phase_kernels(fa, card, gen):
         (2, 1000, 16, 4, 128, torch.bfloat16, True, 256),         # window
         (2, 700, 8, 8, 64, torch.bfloat16, False, None),          # non-causal
         (2, 130, 4, 2, 8, torch.float32, True, None),             # small f32
+        (2, 300, 4, 2, 256, torch.bfloat16, True, None),          # D 256
+        (1, 200, 4, 1, 256, torch.float32, True, 50),     # D 256, window
     ]
     worst = worst32 = 0.0
     entry = None
@@ -623,6 +643,8 @@ def phase_backward_kernels(fa, card, gen):
         (1, 1000, 16, 4, 128, torch.bfloat16, True, 256),        # window
         (1, 700, 8, 8, 64, torch.bfloat16, False, None),         # non-causal
         (2, 130, 4, 2, 8, torch.float32, True, None),            # small f32
+        (2, 300, 4, 2, 256, torch.bfloat16, True, None),         # D 256
+        (1, 200, 4, 1, 256, torch.float32, True, 50),    # D 256, window
     ]
     names = ("flash_bwd_dq", "flash_bwd_dkv")
     worst = dict.fromkeys(names, 0.0)
@@ -708,7 +730,39 @@ def phase_backward_kernels(fa, card, gen):
           flush=True)
     train_fwd = {"ms": fwd_ms, "library_ms": sdpa_fwd,
                  "bound_ms": bound(fwd_bytes, fwd_flops, torch.bfloat16)[0]}
+    del args, q, k, v, g
+    torch.cuda.empty_cache()
+    d256 = loop_d256_timings(fa, card, gen)
+    train_fwd["loop_d256_ms"] = d256["flash_fwd"]
+    for name in names:
+        entries[name]["loop_d256_ms"] = d256[name]
     return entries, train_fwd
+
+
+# Head dim 256 runs the CUDA-core loop only (off every main path): its
+# times at B 1 x S 4096, H 8 / H_kv 2, bf16, causal.
+D256_SHAPE = (1, TRAIN_SEQ, 8, 2, 256, torch.bfloat16, True, None)
+
+
+def loop_d256_timings(fa, card, gen):
+    """{kernel: ms} of the three static kernels at D256_SHAPE, each with
+    its bound (operations, at the f32 rate: the loop multiplies on the
+    CUDA cores)."""
+    args = bwd_inputs(fa, card, gen, *D256_SHAPE)
+    check(not fa.tensor_core_route(*args[:4]), "D 256 took the tensor cores")
+    ms = {"flash_fwd": time_ms(lambda: fa.flash_attention(*args[:3]), 3),
+          "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq(*args), 3),
+          "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv(*args), 3)}
+    work = backward_work(*D256_SHAPE)
+    work["flash_fwd"] = attention_work(*D256_SHAPE)
+    for name, t in ms.items():
+        b_ms, by = bound(*work[name], torch.float32)
+        print(f"kernel {name} on the loop at D 256 (B 1, S 4096, H 8/2, "
+              f"bf16, causal): {t:.4f} ms, bound {b_ms:.4f} ms ({by}, f32 "
+              f"rate; {work[name][1] / t / 1e9:.1f} TFLOP/s)", flush=True)
+    del args
+    torch.cuda.empty_cache()
+    return ms
 
 
 def band_work(b, s, h, h_kv, d, dtype, off, window):
@@ -1230,7 +1284,194 @@ def phase_train(hvd, fa, tfm, card, where, ring=None):
     return launches
 
 
+# bench.py's ResNet-50: 224 x 224, bf16, the per-chip batch its sweep
+# picks on this card (256), SGD(0.01); one warm-up and RESNET_STEPS timed
+# steps on one batch (numpy seed 2).
+RESNET_BATCH, RESNET_SIZE, RESNET_STEPS = 256, 224, 5
+# bench.py's MFU constant: 3 x 4.09 G multiply-adds per image (x2 for
+# FLOPs), over the bf16 peak.
+RESNET_TRAIN_MACS_PER_IMAGE = 3 * 4.09e9
+# The f32 forward at batch 2 (train mode) on the card against the same
+# weights on the CPU: both exact f32 (TF32 off for cuDNN and matmuls), in
+# other summation orders through 53 convolutions and batch norms; held
+# to 1e-3 of the largest |logit|.
+RESNET_F32_REL = 1e-3
+# Running statistics after one bf16 train step against Flax's rule
+# computed here in f64 from each batch norm's input: the port sums in
+# f32 over up to 3.2 M values a channel.
+BN_STATS_ATOL, BN_STATS_RTOL = 1e-5, 1e-4
+# Batch norms whose statistics are checked: the stem's, a zero-scale
+# third one, the one after a stride-2 3x3 (SAME pads it (0, 1)), a
+# projection's and the last.
+BN_CHECKED = ("bn_init", "BottleneckBlock_0.BatchNorm_2",
+              "BottleneckBlock_3.BatchNorm_1", "BottleneckBlock_3.proj_bn",
+              "BottleneckBlock_15.BatchNorm_2")
+
+
+def phase_resnet(hvd, card, where):
+    """ResNet-50 as bench.py trains it: the f32 forward against the CPU,
+    then the bf16 channels_last model at batch RESNET_BATCH through
+    init -> broadcast_parameters -> DistributedOptimizer(SGD(0.01)): the
+    batch-norm statistics after one step against Flax's rule, a falling
+    loss over RESNET_STEPS more, the bucket all-reduces counted, img/s and
+    MFU printed. The convolutions run on cuDNN: the reference has no hand
+    kernel for them, so this path launches none of the kernels above."""
+    from horovod_tpu_torch import hardware
+    from horovod_tpu_torch.models import ResNet50
+    from horovod_tpu_torch.models._flax_ops import BatchNorm
+
+    # The f32 forward, card against CPU, on the same weights; the batch
+    # norms' scales and biases drawn so that no block passes through.
+    gen = torch.Generator().manual_seed(0)
+    cpu = ResNet50(dtype=torch.float32, generator=gen, device="cpu")
+    with torch.no_grad():
+        for m in cpu.modules():
+            if isinstance(m, BatchNorm):
+                m.scale.normal_(1.0, 0.2, generator=gen)
+                m.bias.normal_(0.0, 0.2, generator=gen)
+    on_card = ResNet50(dtype=torch.float32, device=card)
+    on_card.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 3, RESNET_SIZE, RESNET_SIZE, generator=gen)
+    with torch.no_grad():
+        want = cpu(x)
+        got = on_card(x.to(card)).cpu()
+    err = (got - want).abs().max().item()
+    top = want.abs().max().item()
+    print(f"resnet f32 forward B 2 x {RESNET_SIZE}^2, card against CPU: "
+          f"max|d| {err:.3g} of max|logit| {top:.3g} (tol "
+          f"{RESNET_F32_REL:g} of it); TF32 for cuDNN "
+          f"{torch.backends.cudnn.allow_tf32}", flush=True)
+    check(not torch.backends.cudnn.allow_tf32, "cuDNN TF32 is on")
+    check(err <= RESNET_F32_REL * top, "f32 ResNet-50 card != CPU")
+    del cpu, on_card
+
+    hvd.init(device=card)
+    model = ResNet50(generator=torch.Generator().manual_seed(0),
+                     device=card).to(memory_format=torch.channels_last)
+    model.train()
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.01),
+        named_parameters=model.named_parameters())
+    n_buckets = len(opt.exchange_buckets)
+    rng = np.random.default_rng(2)
+    images = torch.from_numpy(rng.standard_normal(
+        (RESNET_BATCH, 3, RESNET_SIZE, RESNET_SIZE), dtype=np.float32)).to(
+        card, torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    labels = torch.from_numpy(rng.integers(0, 1000, RESNET_BATCH)).to(card)
+    stats = hvd.runtime.live_state().stats
+    calls0 = stats.counter("allreduce")
+    bns = dict(model.named_modules())
+    before = {n: (bns[n].mean.clone(), bns[n].var.clone())
+              for n in BN_CHECKED}
+    seen = {}
+    hooks = [bns[n].register_forward_pre_hook(
+        lambda mod, inp, n=n: seen.__setitem__(n, inp[0].detach()))
+        for n in BN_CHECKED]
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = torch.nn.functional.cross_entropy(model(images), labels)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step()]
+    for h in hooks:
+        h.remove()
+    worst = 0.0
+    for n in BN_CHECKED:
+        x = seen.pop(n).double()
+        mean = x.mean(dim=(0, 2, 3))
+        var = (x * x).mean(dim=(0, 2, 3)) - mean * mean
+        for got_s, old, batch in ((bns[n].mean, before[n][0], mean),
+                                  (bns[n].var, before[n][1], var)):
+            want_s = 0.9 * old.double() + 0.1 * batch
+            err = (got_s.double() - want_s).abs()
+            check(bool((err <= BN_STATS_ATOL
+                        + BN_STATS_RTOL * want_s.abs()).all()),
+                  f"{n}: running statistics off Flax's rule by "
+                  f"{err.max().item():.3g}")
+            worst = max(worst, (err / (want_s.abs() + 1e-3)).max().item())
+        del x
+    print(f"resnet batch-norm statistics after one step, {len(BN_CHECKED)} "
+          f"layers against Flax's rule in f64: worst relative "
+          f"{worst:.3g} (tol {BN_STATS_ATOL:g} + {BN_STATS_RTOL:g} "
+          f"relative)", flush=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(RESNET_STEPS):
+        losses.append(step())
+    end.record()
+    torch.cuda.synchronize()
+    losses = [x.item() for x in losses]
+    ms = start.elapsed_time(end) / RESNET_STEPS
+    calls = stats.counter("allreduce") - calls0
+    check(all(np.isfinite(losses)), f"resnet losses {losses}")
+    check(losses[-1] < losses[0], f"resnet loss did not fall: {losses}")
+    check(calls == (1 + RESNET_STEPS) * n_buckets,
+          f"{calls} all-reduces in {1 + RESNET_STEPS} steps of "
+          f"{n_buckets} buckets")
+    img_s = RESNET_BATCH / (ms / 1e3)
+    peak = hardware.peak_flops_per_chip(None, card)
+    mfu = RESNET_TRAIN_MACS_PER_IMAGE * img_s / peak if peak else None
+    print(f"resnet losses: {' '.join(f'{x:.4f}' for x in losses)}",
+          flush=True)
+    print(f"resnet50 train B {RESNET_BATCH} x {RESNET_SIZE}^2 bf16 "
+          f"channels_last [{where}]: step {ms:.1f} ms (mean of "
+          f"{RESNET_STEPS}), {img_s:.1f} img/s, MFU "
+          f"{'n/a' if mfu is None else f'{mfu:.4f}'} (bench.py's constant: "
+          f"multiply-adds, x2 for FLOPs) against {peak / 1e12:.0f} TFLOP/s "
+          f"bf16; {calls // (1 + RESNET_STEPS)} all-reduce(s) a step; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    del opt, model, images
+    gc.collect()
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+
+
+def _bench_line(args, env, timeout):
+    """Run a bench module; its one JSON line (the last of its output)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", *args], env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    check(out.returncode == 0,
+          f"{' '.join(args)} exited {out.returncode}: {out.stderr[-3000:]}")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    print(f"bench {' '.join(args)} in {time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps(line)[:1500]}", flush=True)
+    return line
+
+
+def phase_bench(where):
+    """Both bench modules as a user runs them: bench.resnet in its
+    HOROVOD_BENCH_SMOKE shrink (with the flagship's row at 1 iteration),
+    bench.transformer at --iters 2. Each line must name its metric, with
+    a positive value and a numeric MFU on this card."""
+    env = {**os.environ, "HOROVOD_BENCH_SMOKE": "1"}
+    res = _bench_line(["horovod_tpu_torch.bench.resnet"], env, 600)
+    env.pop("HOROVOD_BENCH_SMOKE")
+    tfm = _bench_line(["horovod_tpu_torch.bench.transformer", "--iters",
+                       "2"], env, 600)
+    for line, metric in ((res, "resnet50_img_sec_per_chip"),
+                         (res["transformer"],
+                          "transformer_tokens_per_sec_per_chip"),
+                         (tfm, "transformer_tokens_per_sec_per_chip")):
+        check(line.get("metric") == metric and line["value"] > 0
+              and isinstance(line["mfu_pct"], (int, float)),
+              f"bench line {line}")
+    check(tfm["attention"] == "flash", f"bench attention {tfm['attention']}")
+    print(f"bench [{where}]: resnet smoke {res['value']} img/s (MFU "
+          f"{res['mfu_pct']}%, multiply-adds); transformer "
+          f"{tfm['value']} tokens/s (MFU {tfm['mfu_pct']}%)", flush=True)
+
+
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 2
@@ -1276,6 +1517,11 @@ def main():
     phase_sp_parity(tfm, RingAxis, card)
     sp_launches = phase_train(hvd, fa, tfm, card, where,
                               RingAxis.local(SP_RING))
+    t0 = time.perf_counter()
+    phase_resnet(hvd, card, where)
+    phase_bench(where)
+    print(f"resnet and bench phases: {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     entries = [entry, bwd_entries["flash_bwd_dq"],
                bwd_entries["flash_bwd_dkv"], *band_entries]
@@ -1290,6 +1536,8 @@ def main():
         e["launches_by_path"] = by_path
         e["route_on_main_paths"] = "tensor cores (wgmma)"
         check(e["launches"] > 0, f"{e['name']} never ran on a main path")
+    print(f"chip_smoke: wall time {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

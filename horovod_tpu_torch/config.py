@@ -3,7 +3,7 @@
 Counterpart of horovod_tpu/config.py, carrying what the serving and
 training slices read: the five ``HOROVOD_SERVE_*`` knobs, the elastic
 policy directory the SLO signal is dropped into, the ZeRO stage, the
-exchange bucket count, the profiler dump, the knobs of subsystems the
+exchange bucket count, the profiler dump, the MFU peak, the knobs of subsystems the
 port does not have yet (``init()`` refuses them), and
 :func:`next_power_of_two` (the shape bins). Names, defaults and clamps
 are the JAX package's.
@@ -69,6 +69,8 @@ class Config:
     metrics_dir: str = ""
     metrics_port: int = -1
     dcn_compression: str = ""
+    # Per-chip peak FLOP/s for MFU (0 = look the card up in hardware.py).
+    peak_flops: float = 0.0
 
     @classmethod
     def from_env(cls):
@@ -99,6 +101,8 @@ class Config:
         c.metrics_port = _env_int("HOROVOD_METRICS_PORT", c.metrics_port)
         c.dcn_compression = os.environ.get("HOROVOD_DCN_COMPRESSION",
                                            c.dcn_compression)
+        c.peak_flops = max(_env_float("HOROVOD_PEAK_FLOPS", c.peak_flops),
+                           0.0)
         return c
 
 

@@ -106,7 +106,9 @@
 // reference's order of operations: q is converted to f32 and scaled before
 // the product, dQ is accumulated from unscaled K and scaled once at the end,
 // and dK is accumulated from the scaled q. At D = 128 the dq CTA takes 145 KB
-// of shared memory and the dkv CTA 162 KB, one CTA per SM.
+// of shared memory and the dkv CTA 162 KB, one CTA per SM. Head dims up to 256
+// take 32-row tiles (tile_rows), each thread then 1 row x 4 columns of a score
+// tile: the dq CTA takes 133 KB and the dkv CTA 137 KB.
 
 #include <math.h>
 
@@ -114,17 +116,18 @@
 
 namespace {
 
-constexpr int BQ = 64;               // query rows per tile
-constexpr int BK = 64;               // key rows per tile
 constexpr int THREADS = 256;
 constexpr int TX = 8;                // threads across one tile row
 constexpr int TY = THREADS / TX;     // 32 row groups
-constexpr int RPT = BQ / TY;         // tile rows per thread: 2
-constexpr int CPT = BK / TX;         // score columns per thread: 8
-constexpr int LDS = BK + 1;          // row stride of a 64 x 64 score tile
 constexpr float NEG_INF = -1e30f;
 
-static_assert(BQ == BK, "the dkv kernel transposes the score tile");
+// Rows of the loop's query and key tiles (equal: the dkv kernel transposes
+// the score tile) at head dims up to DMAX: 64, and 32 at DMAX 256, where four
+// 64-row f32 tiles of 257 columns (257 KB) would not fit in a block's 227 KB.
+template <int DMAX>
+__host__ __device__ constexpr int tile_rows() {
+  return DMAX > 128 ? 32 : 64;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -135,14 +138,14 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-// Rows [r0, r0 + 64) of one head, converted to f32 and multiplied by `mul`,
-// into a 64 x DMAX shared tile of row stride DMAX + 1. Rows at or past S and
-// columns at or past D read as zero.
+// Rows [r0, r0 + tile_rows) of one head, converted to f32 and multiplied by
+// `mul`, into a tile_rows x DMAX shared tile of row stride DMAX + 1. Rows at
+// or past S and columns at or past D read as zero.
 template <typename T, int DMAX>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           long long row_stride, int r0, int S,
                                           int D, float mul) {
-  for (int i = threadIdx.x; i < 64 * DMAX; i += THREADS) {
+  for (int i = threadIdx.x; i < tile_rows<DMAX>() * DMAX; i += THREADS) {
     const int r = i / DMAX, d = i % DMAX;
     float x = 0.f;
     if (r0 + r < S && d < D) x = to_f32(src[(r0 + r) * row_stride + d]) * mul;
@@ -150,25 +153,30 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
   }
 }
 
-// lse and delta of rows [r0, r0 + 64) of one (b, h) row of the (B, H, S)
+// lse and delta of rows [r0, r0 + n) of one (b, h) row of the (B, H, S)
 // vectors; rows at or past S read as zero (they are masked everywhere).
 __device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
                                           const float* lse, const float* delta,
-                                          long long base, int r0, int S) {
-  for (int r = threadIdx.x; r < BQ; r += THREADS) {
+                                          long long base, int r0, int n,
+                                          int S) {
+  for (int r = threadIdx.x; r < n; r += THREADS) {
     const bool ok = r0 + r < S;
     lse_s[r] = ok ? lse[base + r0 + r] : 0.f;
     delta_s[r] = ok ? delta[base + r0 + r] : 0.f;
   }
 }
 
+// Shared memory in floats: at DMAX 256 (32-row tiles) the dq CTA takes
+// 135,808 bytes and the dkv CTA 140,032.
 template <int DMAX>
 __host__ __device__ constexpr int dq_smem_floats() {
-  return 2 * BQ * (DMAX + 1) + 2 * BK * (DMAX + 1) + BQ * LDS;
+  constexpr int n = tile_rows<DMAX>();
+  return 4 * n * (DMAX + 1) + n * (n + 1);
 }
 template <int DMAX>
 __host__ __device__ constexpr int dkv_smem_floats() {
-  return 2 * BK * (DMAX + 1) + 2 * BQ * (DMAX + 1) + 2 * BK * LDS;
+  constexpr int n = tile_rows<DMAX>();
+  return 4 * n * (DMAX + 1) + 2 * n * (n + 1);
 }
 
 template <typename T, typename TO, int DMAX>
@@ -180,6 +188,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
     long long ksb, long long kss, long long ksh, long long vsb, long long vss,
     long long vsh, long long dsb, long long dss, long long dsh, float scale,
     int causal, int window, int off) {
+  constexpr int BQ = tile_rows<DMAX>(), BK = BQ;
+  constexpr int RPT = BQ / TY;       // tile rows per thread: 2, or 1
+  constexpr int CPT = BK / TX;       // score columns per thread: 8, or 4
+  constexpr int LDS = BK + 1;        // row stride of a score tile
   constexpr int LD = DMAX + 1;
   constexpr int OCPT = DMAX / TX;    // accumulator columns per thread
   extern __shared__ float smem[];
@@ -203,7 +215,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
 
   load_tile<T, DMAX>(qs, q + b * qsb + h * qsh, qss, q0, S, D, scale);
   load_tile<T, DMAX>(dos, dout + b * dsb + h * dsh, dss, q0, S, D, 1.f);
-  load_rows(lse_s, delta_s, lse, delta, static_cast<long long>(bh) * S, q0, S);
+  load_rows(lse_s, delta_s, lse, delta, static_cast<long long>(bh) * S, q0, BQ,
+            S);
 
   float acc[RPT][OCPT];
 #pragma unroll
@@ -302,6 +315,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
     long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, long long dsb, long long dss, long long dsh,
     float scale, int causal, int window, int off) {
+  constexpr int BQ = tile_rows<DMAX>(), BK = BQ;
+  constexpr int RPT = BQ / TY;       // tile rows per thread: 2, or 1
+  constexpr int CPT = BK / TX;       // score columns per thread: 8, or 4
+  constexpr int LDS = BK + 1;        // row stride of a score tile
   constexpr int LD = DMAX + 1;
   constexpr int OCPT = DMAX / TX;
   extern __shared__ float smem[];
@@ -352,7 +369,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
       __syncthreads();  // the previous tile's reads of qs, dos, pt, dst are done
       load_tile<T, DMAX>(qs, qb, qss, q0, S, D, scale);
       load_tile<T, DMAX>(dos, ob, dss, q0, S, D, 1.f);
-      load_rows(lse_s, delta_s, lse, delta, base, q0, S);
+      load_rows(lse_s, delta_s, lse, delta, base, q0, BQ, S);
       __syncthreads();
 
       // Transposed score tile: rows are keys, columns are queries.
@@ -841,7 +858,8 @@ cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.B * a.H, (a.S + BQ - 1) / BQ);
+  constexpr int rows = tile_rows<DMAX>();
+  const dim3 grid(a.B * a.H, (a.S + rows - 1) / rows);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
@@ -859,7 +877,8 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.B * a.Hkv, (a.S + BK - 1) / BK);
+  constexpr int rows = tile_rows<DMAX>();
+  const dim3 grid(a.B * a.Hkv, (a.S + rows - 1) / rows);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
@@ -877,13 +896,15 @@ cudaError_t dispatch_d(const Args& a, cudaStream_t s) {
     return DQ ? launch_dq<T, TO, 32>(a, s) : launch_dkv<T, TO, 32>(a, s);
   if (a.D <= 64)
     return DQ ? launch_dq<T, TO, 64>(a, s) : launch_dkv<T, TO, 64>(a, s);
-  return DQ ? launch_dq<T, TO, 128>(a, s) : launch_dkv<T, TO, 128>(a, s);
+  if (a.D <= 128)
+    return DQ ? launch_dq<T, TO, 128>(a, s) : launch_dkv<T, TO, 128>(a, s);
+  return DQ ? launch_dq<T, TO, 256>(a, s) : launch_dkv<T, TO, 256>(a, s);
 }
 
 // f32_out: gradients in f32 (the band kernels) rather than the input type.
 template <bool DQ>
 int run(const Args& a, int dtype, bool f32_out, void* stream) {
-  if (a.D < 1 || a.D > 128 || a.Hkv < 1 || a.H % a.Hkv != 0 ||
+  if (a.D < 1 || a.D > 256 || a.Hkv < 1 || a.H % a.Hkv != 0 ||
       (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

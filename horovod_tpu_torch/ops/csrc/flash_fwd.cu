@@ -88,7 +88,10 @@
 // max and row sum reduce over the 8 lanes of a row with shuffles. Each kv tile
 // is converted to f32 in shared memory; the P tile reuses the K tile's shared
 // memory. Padded row strides (D + 1, 64 + 1) keep the shared-memory reads free
-// of bank conflicts.
+// of bank conflicts. It takes head dims up to 256 (tiles padded to DMAX 32, 64,
+// 128 or 256 columns); at DMAX 256 a CTA takes 197,120 bytes of shared memory,
+// inside the 227 KB a block may have, and grid.x carries B*H (grid.y would stop
+// at 65535).
 //
 // Bound on this card (H100 SXM): 4*D FLOPs per live (query, key) pair against
 // 989 TFLOP/s bf16, and the bytes (2*B*H*S*D + 2*B*H_kv*S*D) * dtype size (Q
@@ -164,10 +167,12 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
   const int tid = threadIdx.x;
   const int tx = tid % TX;
   const int ty = tid / TX;
-  // Highest q tiles first: under a causal mask they have the most kv tiles.
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
+  // B*H on grid.x (up to 2^31 - 1 blocks; grid.y stops at 65535), q tiles
+  // on grid.y, highest first: under a causal mask they have the most kv
+  // tiles.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
   const int hk = h / group;
   const T* qb = q + b * qsb + h * qsh;
   const T* kb = k + b * ksb + hk * ksh;
@@ -509,7 +514,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.S + BQ - 1) / BQ, a.B * a.H);
+  const dim3 grid(a.B * a.H, (a.S + BQ - 1) / BQ);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.o),
@@ -523,11 +528,12 @@ template <typename T>
 cudaError_t dispatch_d(const Args& a, cudaStream_t s) {
   if (a.D <= 32) return launch<T, 32>(a, s);
   if (a.D <= 64) return launch<T, 64>(a, s);
-  return launch<T, 128>(a, s);
+  if (a.D <= 128) return launch<T, 128>(a, s);
+  return launch<T, 256>(a, s);
 }
 
 int run(const Args& a, int dtype, void* stream) {
-  if (a.D < 1 || a.D > 128 || a.Hkv < 1 || a.H % a.Hkv != 0 ||
+  if (a.D < 1 || a.D > 256 || a.Hkv < 1 || a.H % a.Hkv != 0 ||
       (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

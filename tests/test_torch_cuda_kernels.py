@@ -286,7 +286,9 @@ def test_flash_autograd_runs_the_kernels_end_to_end(card):
 
 @pytest.mark.cuda
 def test_flash_bwd_raises_on_a_head_dim_the_kernel_does_not_take(card):
-    args = _bwd_inputs(card, torch.float32, 1, 64, 2, 2, 256, True, None, 0)
+    """Head dims past 256 (the loop's widest tiles) are refused by the
+    wrapper and, past it, by the C entry point."""
+    args = _bwd_inputs(card, torch.float32, 1, 64, 2, 2, 264, True, None, 0)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_bwd_dq(*args)
     with pytest.raises(ValueError, match="head_dim"):
@@ -300,8 +302,85 @@ def test_flash_bwd_raises_on_a_head_dim_the_kernel_does_not_take(card):
                                            "failed"):
         fa._call("flash_bwd", "hvd_flash_bwd_dq",
                  *[x.data_ptr() for x in args], dq.data_ptr(), 0,
-                 1, 64, 2, 2, 256, *strides, fa._scale(256), 1, 0,
+                 1, 64, 2, 2, 264, *strides, fa._scale(264), 1, 0,
                  fa._stream(q))
+
+
+# Head dim 256: the CUDA-core loop at DMAX 256 (the forward's 64-row
+# tiles in 197 KB of shared memory, the backward's 32-row tiles), for
+# both input types (bf16 at D 256 is not the tensor cores' either).
+D256_CASES = [  # (b, s, h, h_kv, causal, window)
+    (1, 300, 4, 2, True, None),    # ragged, GQA 2
+    (2, 128, 2, 2, False, None),   # non-causal, MHA
+    (1, 200, 4, 1, True, 50),      # ragged, window, GQA 4
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,h_kv,causal,window", D256_CASES)
+def test_head_dim_256_forward_and_backward_match_plain_versions(
+        card, dtype, b, s, h, h_kv, causal, window):
+    td = getattr(torch, dtype)
+    q, k, v = _fwd_inputs(card, td, b, s, h, h_kv, 256, s + 7)
+    assert not fa.tensor_core_route(q, k, v)
+    n0 = _counts([("flash_fwd", False)])
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert _counts([("flash_fwd", False)]) == [n0[0] + 1]
+    _assert_fwd_route_close(out, lse, (q, k, v), (causal, window),
+                            fa.flash_attention_reference, False,
+                            (causal, window))
+    args = _bwd_inputs(card, td, b, s, h, h_kv, 256, causal, window, s + 8)
+    names = [("flash_bwd_dq", False), ("flash_bwd_dkv", False)]
+    n0 = _counts(names)
+    dq = fa.flash_bwd_dq(*args, causal, window)
+    dk, dv = fa.flash_bwd_dkv(*args, causal, window)
+    torch.cuda.synchronize()
+    assert _counts(names) == [n + 1 for n in n0]
+    _assert_route_close((dq, dk, dv), args, (causal, window),
+                        (fa.flash_bwd_dq_reference,
+                         fa.flash_bwd_dkv_reference), False, (causal, window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_256_band_kernels_match_plain_versions(card, dtype):
+    """The band entry points share the loop's D 256 tiles: a ragged tile
+    at offset S with rows past the window that see no key."""
+    b, s, h, h_kv, off, window = 1, 200, 4, 2, 200, 150
+    td = getattr(torch, dtype)
+    args = _band_inputs(card, td, b, s, h, h_kv, 256, off, window, 5)
+    q, k, v = args[:3]
+    out, lse = fa.flash_band_fwd(q, k, v, off, window)
+    dq = fa.flash_band_dq(*args, off, window)
+    dk, dv = fa.flash_band_dkv(*args, off, window)
+    torch.cuda.synchronize()
+    live = _live_rows(s, off, window).to(card)
+    assert (lse[:, :, ~live] <= -1e29).all()
+    _assert_fwd_route_close(out, lse, (q, k, v), (off, window),
+                            fa.flash_band_fwd_reference, False,
+                            (True, window, off), rows=live)
+    _assert_route_close((dq, dk, dv), args, (off, window),
+                        (fa.flash_band_dq_reference,
+                         fa.flash_band_dkv_reference), False,
+                        (True, window, off))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_takes_batch_times_heads_past_65535(card, dtype):
+    """B 4100 x H 16 = 65,600 (B*H rides grid.x, whose limit is 2^31 - 1;
+    grid.y stops at 65535): f32 on the loop, bf16 on the tensor cores."""
+    b, s, h, h_kv, d = 4100, 32, 16, 1, 64
+    td = getattr(torch, dtype)
+    q, k, v = _fwd_inputs(card, td, b, s, h, h_kv, d, 3)
+    tc = fa.tensor_core_route(q, k, v)
+    assert tc == (td == torch.bfloat16)
+    out, lse = fa.flash_attention_with_lse(q, k, v, True, None)
+    torch.cuda.synchronize()
+    _assert_fwd_route_close(out, lse, (q, k, v), (True, None),
+                            fa.flash_attention_reference, tc, (True, None))
 
 
 def _live_rows(s, off, window):

@@ -24,6 +24,11 @@ kernel (plus 2e-5, or one bf16 ulp of the output for bf16 inputs), and
 with ``operand_dtype=None`` is the reference's arithmetic bit for bit;
 the route rule ``tensor_core_route`` without dO takes the model's
 ``kv[:, :, 1]`` views.
+
+The launch checks take head dims up to 256 and B*H past 65535, and at
+D 256 (the CUDA-core loop's widest tiles on the card) the plain forward
+and backward hold to the Pallas kernels in interpret mode at the
+reference's own bands (2e-5 on out and lse, 5e-5 on the gradients).
 """
 
 import functools
@@ -33,8 +38,11 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from horovod_tpu.ops.flash_attention import (
-    _flash_fwd_impl, paged_attention_decode as jax_paged_decode)
+    _flash_fwd_impl, flash_attention as jax_flash,
+    paged_attention_decode as jax_paged_decode)
 from horovod_tpu_torch.models import transformer as tfm
 from horovod_tpu_torch.ops import flash_attention as fa
 
@@ -313,3 +321,53 @@ def test_forward_route_rejects_what_tma_cannot_read(bad):
         q = torch.zeros(64 * 260, dtype=torch.bfloat16).as_strided(
             (1, 64, 2, 128), (64 * 260, 260, 128, 1))
     assert not fa.tensor_core_route(q, k, v)
+
+
+def test_kernel_args_take_head_dim_256_and_any_batch_times_heads():
+    """The launch checks: head dims 1..256 (the CUDA-core loop takes 256
+    since the forward loop's DMAX 256 and the backward's 32-row tiles),
+    and B*H past 65535 (every kernel puts B*H on grid.x). Shapes and
+    strides are all that is read, so expanded views stand in."""
+    q = torch.empty(1, 1, 1, 256).expand(4096, 64, 16, 256)
+    sizes, strides, tail = fa._kernel_args(q, q, q, True, None)
+    assert sizes == (4096, 64, 16, 16, 256) and sizes[0] * sizes[2] == 65536
+    assert tail[0] == pytest.approx(256 ** -0.5)
+    with pytest.raises(ValueError, match="1..256"):
+        fa._kernel_args(*(torch.empty(1, 8, 2, 257),) * 3, True, None)
+
+
+# The reference's bands for its kernels against dense attention
+# (tests/test_flash_attention.py:22, :52): 2e-5 on out, 5e-5 on the
+# gradients; f32 on both sides.
+D256_CASES = {  # (B, S, H, H_kv, causal, window, block_size)
+    "causal-gqa2": (1, 256, 4, 2, True, None, 128),
+    "noncausal-mha": (1, 128, 2, 2, False, None, 128),
+    "window-gqa4": (1, 256, 4, 1, True, 40, 128),
+}
+
+
+@pytest.mark.parametrize("case", list(D256_CASES))
+def test_plain_versions_match_jax_kernels_at_head_dim_256(case):
+    """Forward and backward of the plain versions at D 256, the card's
+    new loop shape, against the Pallas kernels in interpret mode."""
+    b, s, h, h_kv, causal, window, block = D256_CASES[case]
+    q, k, v = _qkv((b, s, h, 256), h_kv, seed=11)
+    g = np.random.default_rng(12).standard_normal((b, s, h, 256),
+                                                  dtype=np.float32)
+    out, lse = _flash_fwd_impl(*(jnp.asarray(x) for x in (q, k, v)),
+                               causal, block, True, window)
+    _, vjp = jax.vjp(lambda *x: jax_flash(*x, causal, block, True, window),
+                     *(jnp.asarray(x) for x in (q, k, v)))
+    want_grads = vjp(jnp.asarray(g))
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    got_o, got_lse = fa.flash_attention_with_lse(qt, kt, vt, causal, window)
+    np.testing.assert_allclose(got_o.detach().numpy(), np.asarray(out),
+                               atol=F32_ATOL, rtol=0)
+    np.testing.assert_allclose(got_lse.detach().numpy(),
+                               np.asarray(lse).reshape(b, h, s),
+                               atol=F32_ATOL, rtol=0)
+    got_grads = torch.autograd.grad(got_o, (qt, kt, vt),
+                                    torch.from_numpy(g))
+    for name, x, w in zip("qkv", got_grads, want_grads):
+        np.testing.assert_allclose(x.numpy(), np.asarray(w), atol=5e-5,
+                                   rtol=0, err_msg=f"d{name}")
