@@ -4,15 +4,17 @@ paths on one card.
     python3 chip_profile.py
 
 Builds the full-width flagship transformer of chip_smoke.py (random
-weights from seed 0). Serving: warms one prefill of 8 x 512 prompt
-tokens and two decode steps, then records one prefill and 8 decode
-steps. Training: ``hvd.init()``, ``DistributedOptimizer(AdamW)`` and the
+weights from seed 0). Serving, once eagerly (HOROVOD_STEP_PROGRAM=0) and
+once through the engine's CUDA graphs: warms one prefill of 8 x 512
+prompt tokens and two decode steps (capturing the graphs), then records
+one prefill and 8 decode steps. Training: ``hvd.init()``, ``DistributedOptimizer(AdamW)`` and the
 batch of chip_smoke.py (4 x 4096, loss_chunk 512); warms one step, then
 records one. The sequence-parallel step likewise: chip_smoke.py's SP
 model (window 4096, a local ring of 4) at batch 2 x 8192. ResNet-50 as
 chip_smoke.py's phase_resnet trains it (bf16, channels_last, batch 256
 x 224^2, SGD(0.01) under ``DistributedOptimizer``); warms one step, then
-records one. The band
+records one; then times the host's launch of that step as a CUDA graph
+(``compiled_train_step``) with 0 to 3 launches of it queued. The band
 tiles' forward runs the same kernel as the static one (``flash_fwd``
 at an offset), on the tensor-core route (``flash_fwd_wgmma_kernel``)
 as on the loop, so the profile counts them together; the band backward
@@ -25,6 +27,7 @@ when the profiler records no kernel time.
 """
 
 import gc
+import os
 import subprocess
 import sys
 import time
@@ -137,6 +140,21 @@ def main():
     cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
                                 **FLAGSHIP)
     params = tfm.init_params(cfg, torch.Generator().manual_seed(0), card)
+    for mode, value in (("eager", "0"), ("graphs", "1")):
+        os.environ["HOROVOD_STEP_PROGRAM"] = value
+        profile_serve(ServeEngine, params, cfg, card, f"{where}, {mode}")
+    os.environ.pop("HOROVOD_STEP_PROGRAM")
+    del params
+    torch.cuda.empty_cache()
+    profile_train(card, where)
+    profile_train(card, where, sp=True)
+    profile_resnet(card, where)
+    return 0
+
+
+def profile_serve(ServeEngine, params, cfg, card, where):
+    """One prefill and DECODE_STEPS decode steps after a warm-up (which
+    also captures the graphs when the engine takes them)."""
     eng = ServeEngine(params, cfg, page_size=PAGE_SIZE, device=card)
     ids = list(range(N_REQUESTS))
     for sid in ids:
@@ -168,12 +186,6 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     report(f"decode {DECODE_STEPS} steps x 8 rows", prof, wall, where)
-    del eng, params
-    torch.cuda.empty_cache()
-    profile_train(card, where)
-    profile_train(card, where, sp=True)
-    profile_resnet(card, where)
-    return 0
 
 
 def profile_resnet(card, where):
@@ -209,7 +221,35 @@ def profile_resnet(card, where):
         wall = time.perf_counter() - t0
     report(f"resnet50 train step {RESNET_BATCH} x {RESNET_SIZE}^2", prof,
            wall, where)
-    del opt, model, images
+
+    # The same step as one CUDA graph: the host time of a replay's launch
+    # with 0, 1, 2 and 3 launches of it still queued, beside its device
+    # time (what bench.resnet's python_overhead_ms reads with two steps
+    # in flight).
+    step = hvd.compiled_train_step(
+        lambda x, y: torch.nn.functional.cross_entropy(model(x), y), opt)
+    for _ in range(2):  # warm-up and capture, then a replay
+        step(images, labels)
+    torch.cuda.synchronize()
+    prog = next(iter(hvd.runtime.live_state().programs._programs.values()))
+    launch_ms = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        prog()
+        launch_ms.append((time.perf_counter() - t0) * 1e3)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    prog()
+    end.record()
+    torch.cuda.synchronize()
+    print(f"resnet50 compiled step {RESNET_BATCH} x {RESNET_SIZE}^2 "
+          f"[{where}]: replay launch on the host "
+          f"{' / '.join(f'{t:.3f}' for t in launch_ms)} ms with 0 / 1 / 2 / "
+          f"3 launches queued; one replay {start.elapsed_time(end):.2f} ms "
+          f"on the card", flush=True)
+    del step, prog, opt, model, images
     gc.collect()
     hvd.shutdown()
     torch.cuda.empty_cache()

@@ -69,17 +69,38 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    on cuDNN (the reference has none of its own), so it launches none of
    the kernels above;
 11. bench: ``python -m horovod_tpu_torch.bench.resnet`` in its
-   ``HOROVOD_BENCH_SMOKE=1`` shrink and ``python -m
+   ``HOROVOD_BENCH_SMOKE=1`` shrink (its compiled-step and serve rows
+   checked for no fallback and their cache hit rates) and ``python -m
    horovod_tpu_torch.bench.transformer --iters 2``, each line checked for
    its metric, a positive value and a numeric MFU.
+
+The hot loop's CUDA graphs (ops/step_program.py) have two phases of
+their own, each after the eager phase it mirrors; the eager serve phase
+(5) runs with ``HOROVOD_STEP_PROGRAM=0``:
+
+- compiled serve (main path 5, after 5): the serving workload through
+  ``serve.Engine`` with graph-replayed prefill and decode beside the same
+  engine run eagerly in this call (tokens identical, steady decode hit
+  rate >= 0.9, no fallback; decode step, prefill, token latency p50/p99,
+  TTFT and the card's busy share of a round, each beside the eager
+  figure), then ``generate`` on the flagship: its graph-replayed greedy
+  tokens equal the eager ``decode_step``'s argmax, whose logits lie within
+  LOGITS_ATOL of a full forward over the same prefix;
+- compiled train (main path 6, after 6): the flagship at 4 x 4096
+  through ``compiled_train_step`` with capturable AdamW: parameters after
+  3 steps bitwise equal to the same optimizer's eager run, 1 cache miss
+  and 0 fallbacks, per replay 8 launches of each static kernel on the
+  tensor-core route and one ``allreduce_jit`` a bucket, and the replay's
+  time beside the eager step's.
 
 The kernels phases also run the CUDA-core loop at head dim 256 against
 the plain versions and time it (off every main path).
 
 On every main path each kernel launch takes the tensor-core route: the
 loop's counters stay at 0 there, and the route's counters are exact (8
-``flash_fwd`` a prefill; 8 of each static kernel a data-parallel step;
-32 static and 40 band of each an SP step).
+``flash_fwd`` a prefill, replayed or not; 8 of each static kernel a
+data-parallel step, replayed or not; 32 static and 40 band of each an SP
+step). A graph's replay counts the launches its capture recorded.
 
 Each main path runs with the kernel launch counts zeroed just before it
 and read just after. The first line is the card's name and power limit
@@ -89,6 +110,7 @@ last two lines, which are
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import gc
 import json
 import os
@@ -472,8 +494,29 @@ def phase_parity(tfm, ServeEngine, params, card):
     check(small_diff <= SMALL_ATOL, "serve path disagrees with forward")
 
 
+@contextlib.contextmanager
+def step_program(value):
+    """HOROVOD_STEP_PROGRAM set to ``value`` ("0": programs run eagerly,
+    "1": captured as CUDA graphs) while the block builds programs."""
+    old = os.environ.get("HOROVOD_STEP_PROGRAM")
+    os.environ["HOROVOD_STEP_PROGRAM"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("HOROVOD_STEP_PROGRAM")
+        else:
+            os.environ["HOROVOD_STEP_PROGRAM"] = old
+
+
 def phase_serve(fa, serve, metrics, lm, card, where):
-    """The main path: serve.Engine, 8 requests, counts zeroed around."""
+    """The main path: serve.Engine, 8 requests, counts zeroed around;
+    every program eager (HOROVOD_STEP_PROGRAM=0), as before the graphs."""
+    with step_program("0"):
+        return _phase_serve(fa, serve, metrics, lm, card, where)
+
+
+def _phase_serve(fa, serve, metrics, lm, card, where):
     engine = serve.Engine(lm, lm.params, page_size=PAGE_SIZE,
                           max_batch=N_REQUESTS, device=card)
     try:
@@ -523,6 +566,142 @@ def phase_serve(fa, serve, metrics, lm, card, where):
           f"{decode_ms:.2f} ms; flash_fwd launches {launches} (tensor "
           f"cores)", flush=True)
     return routes
+
+
+def serve_round(engine, metrics, vocab):
+    """One round of the serving workload driven on this thread: the 8
+    requests submitted, then the batcher drained. Returns the streams,
+    the wall time and the round's TTFT, token latencies and mean prefill
+    and decode step times (ms)."""
+    b = engine.batcher
+    b.recent_ttft.clear()
+    b.recent_token_latency.clear()
+    hists = {ph: metrics.SERVE_STEP_SECONDS.labels(phase=ph)
+             for ph in ("prefill", "decode")}
+    h0 = {ph: h.value() for ph, h in hists.items()}
+    t0 = time.perf_counter()
+    handles = [engine.submit(p, NEW_TOKENS) for p in prompts(vocab)]
+    b.drain()
+    wall = time.perf_counter() - t0
+    out = {"outs": [list(h.request.generated) for h in handles],
+           "wall_ms": wall * 1e3,
+           "ttft": np.asarray(b.recent_ttft) * 1e3,
+           "tok": np.asarray(b.recent_token_latency) * 1e3}
+    for ph, h in hists.items():
+        v = h.value()
+        calls = v["count"] - h0[ph]["count"]
+        out[f"{ph}_calls"] = calls
+        out[f"{ph}_ms"] = (v["sum"] - h0[ph]["sum"]) / max(calls, 1) * 1e3
+    return out
+
+
+def phase_compiled_serve(fa, serve, metrics, tfm, lm, card, where):
+    """Main path 5: the serving workload through graph-replayed prefill
+    and decode, beside the same engine run eagerly in this call. Each
+    engine serves the 8 requests three times from this thread: a round
+    that builds its programs (the graphs' warm-up and capture), a timed
+    round, and a round under torch.profiler for the device time, whose
+    ratio to the timed round's wall is the card's busy share. The graph
+    engine's tokens must equal the eager one's, its timed round must hit
+    its program cache on >= 0.9 of the decode steps with no fallback,
+    and its prefill replay launches flash_fwd 8 times. Then ``generate``
+    on the flagship: its graph-replayed greedy tokens against the eager
+    ``decode_step``'s argmax, whose logits must lie within LOGITS_ATOL of
+    a full forward over the same prefix. Returns {kernel: launches} of
+    the graph engine's timed round and of ``generate``."""
+    vocab = lm.cfg.vocab_size
+    res = {}
+    for mode, value in (("eager", "0"), ("graphs", "1")):
+        with step_program(value):
+            engine = serve.Engine(lm, lm.params, page_size=PAGE_SIZE,
+                                  max_batch=N_REQUESTS, start=False,
+                                  device=card)
+            se = engine.engine
+            built = serve_round(engine, metrics, vocab)
+            c0 = (se.decode_hits, se.decode_misses)
+            zero_launches(fa)
+            timed = serve_round(engine, metrics, vocab)
+            timed["launches"] = read_launches(fa)
+            hits, misses = (se.decode_hits - c0[0], se.decode_misses - c0[1])
+            timed["steady_hit_rate"] = hits / max(hits + misses, 1)
+            timed["device_ms"] = device_ms(
+                lambda: serve_round(engine, metrics, vocab), 1)
+            timed["busy"] = timed["device_ms"] / timed["wall_ms"]
+            timed["built_outs"] = built["outs"]
+            timed["captured"] = [p.captured
+                                 for p in se._local_progs.values()]
+            timed["fallback_steps"] = se.fallback_steps
+            res[mode] = timed
+            engine.close()
+            del engine, se
+            gc.collect()
+            torch.cuda.empty_cache()
+    eager, graphs = res["eager"], res["graphs"]
+    check(graphs["captured"] and all(graphs["captured"])
+          and not any(eager["captured"]),
+          f"graph capture by engine: graphs {graphs['captured']}, eager "
+          f"{eager['captured']}")
+    check(graphs["outs"] == eager["outs"] == graphs["built_outs"]
+          == eager["built_outs"],
+          "graph-served tokens differ from the eager engine's")
+    check(graphs["steady_hit_rate"] >= 0.9 and graphs["fallback_steps"] == 0,
+          f"decode hit rate {graphs['steady_hit_rate']}, fallbacks "
+          f"{graphs['fallback_steps']}")
+    launches = graphs["launches"]
+    check(graphs["prefill_calls"] >= 1 and launches["flash_fwd_wgmma"]
+          == lm.cfg.n_layers * graphs["prefill_calls"]
+          and sum(launches.values()) == launches["flash_fwd_wgmma"],
+          f"graph serving launches {launches} over "
+          f"{graphs['prefill_calls']} prefill replays")
+    for mode, r in res.items():
+        print(f"compiled serve [{mode}] {N_REQUESTS} x ({PROMPT_LEN} + "
+              f"{NEW_TOKENS}) [{where}]: prefill {r['prefill_ms']:.2f} ms "
+              f"({r['prefill_calls']} call); decode step "
+              f"{r['decode_ms']:.2f} ms (mean of {r['decode_calls']}); "
+              f"token latency p50 {np.percentile(r['tok'], 50):.2f} ms p99 "
+              f"{np.percentile(r['tok'], 99):.2f} ms; ttft p50 "
+              f"{np.percentile(r['ttft'], 50):.2f} ms; "
+              f"{N_REQUESTS * NEW_TOKENS / r['wall_ms'] * 1e3:.1f} tokens/s; "
+              f"device {r['device_ms']:.2f} ms of a {r['wall_ms']:.2f} ms "
+              f"round, busy {r['busy']:.3f}", flush=True)
+    print(f"compiled serve: tokens identical to eager; steady decode hit "
+          f"rate {graphs['steady_hit_rate']:.3f}; decode step "
+          f"{eager['decode_ms']:.2f} -> {graphs['decode_ms']:.2f} ms",
+          flush=True)
+
+    # generate on the flagship: graph-replayed decode against eager
+    # decode_step and a full forward over the same prefix
+    cfg, params = lm.cfg, lm.params
+    gen_prompt, gen_new = 64, 16
+    prompt = torch.from_numpy(np.random.default_rng(2).integers(
+        0, vocab, (2, gen_prompt))).to(card)
+    zero_launches(fa)
+    with step_program("1"):
+        out = tfm.generate(params, prompt, cfg, gen_new)
+    gen_launches = read_launches(fa)
+    total = gen_prompt + gen_new
+    with torch.inference_mode():
+        cache = tfm.init_cache(cfg, 2, total, device=card)
+        logits, cache = tfm.prefill_cache(params, cache, out[:, :gen_prompt],
+                                          cfg)
+        rows = [logits]
+        for i in range(gen_prompt, total - 1):
+            logits, cache = tfm.decode_step(params, cache, out[:, i], cfg)
+            rows.append(logits)
+        rows = torch.stack(rows, dim=1)
+        ref = tfm.forward(params, out[:, :total - 1], cfg)[:, gen_prompt - 1:]
+    diff = float((rows - ref).abs().max())
+    greedy = torch.equal(rows.argmax(-1), out[:, gen_prompt:])
+    print(f"generate 2 x ({gen_prompt} + {gen_new}) on the flagship: "
+          f"decode_step logits vs forward max|d|={diff:.4g} (tol "
+          f"{LOGITS_ATOL:g}); graph tokens equal eager decode_step's argmax "
+          f"{greedy}; launches {gen_launches}", flush=True)
+    check(diff <= LOGITS_ATOL, "decode_step logits disagree with forward")
+    check(greedy, "generate's graph tokens differ from eager decode_step's")
+    check(gen_launches["flash_fwd_wgmma"] == cfg.n_layers
+          and sum(gen_launches.values()) == cfg.n_layers,
+          f"generate launches {gen_launches}: one prefill expected")
+    return {k: launches[k] + gen_launches[k] for k in launches}
 
 
 def causal_pairs(s, causal, window, off=0):
@@ -1284,6 +1463,130 @@ def phase_train(hvd, fa, tfm, card, where, ring=None):
     return launches
 
 
+COMPILED_STEPS, REPLAYS = 3, 4
+
+
+def phase_compiled_train(hvd, fa, tfm, card, where):
+    """Main path 6: the flagship at batch 4 x 4096 through
+    ``compiled_train_step`` over ``DistributedOptimizer(AdamW(...,
+    capturable=True))``, under HOROVOD_PROFILER_JIT_CALLBACKS=1. First
+    COMPILED_STEPS eager steps of the same optimizer from the same init
+    (the last ones timed); then COMPILED_STEPS compiled steps (the
+    first runs eagerly and captures the graph, the rest replay it), whose
+    parameters must equal the eager run's bitwise, with 1 cache miss, the
+    rest hits and no fallback; then REPLAYS timed replays, each with 8
+    launches of each static kernel on the tensor-core route and the
+    eager path's one all-reduce a bucket. Returns {kernel: launches} of
+    the compiled steps."""
+    os.environ["HOROVOD_PROFILER_JIT_CALLBACKS"] = "1"
+    hvd.init(device=card)
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
+                                loss_chunk=LOSS_CHUNK, **FLAGSHIP)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                               (TRAIN_BATCH, TRAIN_SEQ))
+    targets = torch.from_numpy(np.roll(tokens, -1, axis=1)).to(card)
+    tokens = torch.from_numpy(tokens).to(card)
+
+    def build():
+        lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
+                               device=card)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(lm.parameters(), capturable=True, **ADAMW),
+            named_parameters=lm.named_parameters())
+        return lm, opt
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        loss = fn()
+        host = time.perf_counter() - t0
+        end.record()
+        return loss, (start, end), host
+
+    lm, opt = build()
+    eager = []
+    for _ in range(COMPILED_STEPS):
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss = lm.loss(tokens, targets)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+        eager.append(timed(step))
+    torch.cuda.synchronize()
+    want = {n: p.detach().cpu() for n, p in lm.named_parameters()}
+    eager_losses = [x[0].item() for x in eager]
+    eager_ms = [a.elapsed_time(b) for _, (a, b), _ in eager[1:]]
+    del lm, opt, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lm, opt = build()
+    n_buckets = len(opt.exchange_buckets)
+    step = hvd.compiled_train_step(lm.loss, opt)
+    stats = hvd.runtime.live_state().stats
+    zero_launches(fa)
+    runs = [timed(lambda: step(tokens, targets))
+            for _ in range(COMPILED_STEPS)]
+    torch.cuda.synchronize()
+    losses = [x[0].item() for x in runs]
+    got = {n: p.detach().cpu() for n, p in lm.named_parameters()}
+    deltas = {n: float((got[n] - want[n]).abs().max()) for n in want}
+    differ = {n: deltas[n] for n in want if not torch.equal(got[n], want[n])}
+    del got, want
+    prog = next(iter(hvd.runtime.live_state().programs._programs.values()))
+    jit0 = stats.counter("allreduce_jit")
+    replay_launches0 = read_launches(fa)
+    replays = [timed(lambda: step(tokens, targets)) for _ in range(REPLAYS)]
+    torch.cuda.synchronize()
+    launches = read_launches(fa)
+    per_replay = {k: (launches[k] - replay_launches0[k]) / REPLAYS
+                  for k in launches}
+    jit_calls = stats.counter("allreduce_jit") - jit0
+    replay_ms = [a.elapsed_time(b) for _, (a, b), _ in replays]
+    host_ms = [h * 1e3 for _, _, h in replays]
+    print(f"compiled train losses: {' '.join(f'{x:.4f}' for x in losses)} "
+          f"(eager {' '.join(f'{x:.4f}' for x in eager_losses)})", flush=True)
+    print(f"compiled train vs eager after {COMPILED_STEPS} steps: "
+          f"{len(differ)} of {len(deltas)} parameters differ, max|d| "
+          f"{max(deltas.values()):.3g}"
+          + (f" (worst {max(differ, key=differ.get)})" if differ else ""),
+          flush=True)
+    print(f"compiled train 4 x 4096 [{where}]: replay {np.median(replay_ms):.1f}"
+          f" ms (median of {REPLAYS}; {' '.join(f'{t:.1f}' for t in replay_ms)})"
+          f" against eager {np.median(eager_ms):.1f} ms (steps 2-"
+          f"{COMPILED_STEPS} of the same optimizer); step() returns in "
+          f"{np.median(host_ms):.3f} ms on the host; cache hits "
+          f"{step.cache_hits} misses {step.cache_misses} fallbacks "
+          f"{step.fallback_steps}; per replay {per_replay}; "
+          f"{jit_calls} allreduce_jit records in {REPLAYS} replays",
+          flush=True)
+    check(not differ, f"compiled parameters differ from eager: {differ}")
+    check(losses == eager_losses, f"losses {losses} vs eager {eager_losses}")
+    check((step.cache_misses, step.fallback_steps) == (1, 0)
+          and step.cache_hits == COMPILED_STEPS + REPLAYS - 1,
+          f"cache {step.cache_hits}/{step.cache_misses}, fallbacks "
+          f"{step.fallback_steps}")
+    for name, n in per_replay.items():
+        want_n = cfg.n_layers if name in ("flash_fwd_wgmma",
+                                          "flash_bwd_dq_wgmma",
+                                          "flash_bwd_dkv_wgmma") else 0
+        check(n == want_n, f"{name}: {n} launches a replay, {want_n} "
+                           "expected")
+    check(len(prog.collectives) == n_buckets and jit_calls
+          == REPLAYS * n_buckets,
+          f"all-reduces a replay: {prog.collectives}, {jit_calls} records "
+          f"in {REPLAYS} replays of {n_buckets} bucket(s)")
+    del step, prog, opt, lm
+    gc.collect()
+    hvd.shutdown()
+    os.environ.pop("HOROVOD_PROFILER_JIT_CALLBACKS")
+    torch.cuda.empty_cache()
+    return launches
+
+
 # bench.py's ResNet-50: 224 x 224, bf16, the per-chip batch its sweep
 # picks on this card (256), SGD(0.01); one warm-up and RESNET_STEPS timed
 # steps on one batch (numpy seed 2).
@@ -1465,9 +1768,21 @@ def phase_bench(where):
               and isinstance(line["mfu_pct"], (int, float)),
               f"bench line {line}")
     check(tfm["attention"] == "flash", f"bench attention {tfm['attention']}")
+    compiled, srv = res["compiled_step"], res["serve"]
+    check(compiled["fallback_steps"] == 0
+          and compiled["step_program_cache_hit_rate"] == 1.0
+          and compiled["img_sec_per_chip"] > 0,
+          f"bench compiled_step row {compiled}")
+    check(srv["decode_cache_hit_rate"] >= 0.9 and srv["fallback_steps"] == 0
+          and srv["tokens_per_sec"] > 0, f"bench serve row {srv}")
     print(f"bench [{where}]: resnet smoke {res['value']} img/s (MFU "
-          f"{res['mfu_pct']}%, multiply-adds); transformer "
-          f"{tfm['value']} tokens/s (MFU {tfm['mfu_pct']}%)", flush=True)
+          f"{res['mfu_pct']}%, multiply-adds), compiled "
+          f"{compiled['img_sec_per_chip']} img/s (python overhead "
+          f"{compiled['python_overhead_ms']} ms a step); serve row "
+          f"{srv['tokens_per_sec']} tokens/s, token latency p50/p99 "
+          f"{srv['token_latency_p50_ms']}/{srv['token_latency_p99_ms']} ms; "
+          f"transformer {tfm['value']} tokens/s (MFU {tfm['mfu_pct']}%)",
+          flush=True)
 
 
 def main():
@@ -1511,9 +1826,18 @@ def main():
     phase_train_parity(tfm, card)
 
     serve_launches = phase_serve(fa, serve, metrics, lm, card, where)
+    t0 = time.perf_counter()
+    compiled_serve_launches = phase_compiled_serve(fa, serve, metrics, tfm,
+                                                   lm, card, where)
+    print(f"compiled serve phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     del lm
     torch.cuda.empty_cache()
     train_launches = phase_train(hvd, fa, tfm, card, where)
+    t0 = time.perf_counter()
+    compiled_train_launches = phase_compiled_train(hvd, fa, tfm, card, where)
+    print(f"compiled train phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     phase_sp_parity(tfm, RingAxis, card)
     sp_launches = phase_train(hvd, fa, tfm, card, where,
                               RingAxis.local(SP_RING))
@@ -1526,7 +1850,9 @@ def main():
     entries = [entry, bwd_entries["flash_bwd_dq"],
                bwd_entries["flash_bwd_dkv"], *band_entries]
     paths = {"serve": serve_launches, "train": train_launches,
-             "sp_train": sp_launches}
+             "sp_train": sp_launches,
+             "compiled_serve": compiled_serve_launches,
+             "compiled_train": compiled_train_launches}
     for e in entries:
         # a kernel's launches are its tensor-core route's: the main paths
         # launch its loop never (checked in phase_serve and phase_train)

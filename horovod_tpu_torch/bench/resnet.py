@@ -31,6 +31,16 @@ One JSON line carries the reference's keys for what it measures, the
 flagship transformer's row (``bench.transformer`` at 4 iterations, on a
 card), and ``{"skipped": "not ported: ROADMAP item N"}`` for each profile
 whose subsystem the port does not have yet.
+
+``compiled_step`` is bench.py's compiled hot loop profile at the chosen
+batch: the same model and SGD(0.01) through ``compiled_train_step`` (on
+a card one CUDA graph a step), two untimed calls, then
+max(NUM_ITERS x BATCHES_PER_ITER, 12) steps paced on the completion of
+the step PIPELINE_DEPTH back and never fetching a value:
+``python_overhead_ms`` is the median wall time of one ``step()`` call,
+beside img/s, MFU and the program cache's counters. Its phase trace and
+``overlap_ab`` parts are skipped rows naming the items that bring them.
+``serve`` is ``bench.transformer --serve``'s sub-dict.
 """
 
 import argparse
@@ -39,6 +49,7 @@ import json
 import os
 import sys
 import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -47,6 +58,7 @@ import torch.nn.functional as F
 from .. import config as config_mod
 from .. import hardware, optimizers, runtime
 from ..models import ResNet50
+from ..ops.step_program import compiled_train_step
 from . import transformer as transformer_bench
 
 BASELINE_IMG_SEC_PER_DEVICE = 103.55
@@ -60,12 +72,21 @@ NUM_CLASSES = 1000
 # The reference's profiles whose subsystems are not ported, by the
 # ROADMAP.md Queue 1 item that brings each.
 NOT_PORTED = {
-    "dispatch": 10, "eager_exchange": 10, "compiled_step": 9,
-    "zero_profile": 11, "input_pipeline": 14,
-    "flight_step_phase_breakdown": 16, "guard_overhead_frac": 15,
-    "trace_overhead_frac": 16, "serve": 9, "moe": 7, "mesh3d": 6,
-    "control_plane": 16,
+    "dispatch": 10, "eager_exchange": 10, "zero_profile": 11,
+    "input_pipeline": 14, "flight_step_phase_breakdown": 16,
+    "guard_overhead_frac": 15, "trace_overhead_frac": 16, "moe": 7,
+    "mesh3d": 6, "control_plane": 16,
 }
+# bench.py's compiled-step profile parts whose subsystems are not ported:
+# the bucket overlap A/B and the step's phase trace.
+COMPILED_NOT_PORTED = {
+    "overlap_ab": 11, "overlap_microbench": 11, "step_phase_breakdown": 16,
+    "wire_stage_ms": 16, "guard_overhead_frac": 15,
+    "trace_overhead_frac": 16,
+}
+# Calls the compiled loop runs ahead of the completion it waits for
+# (bench.py's HOROVOD_PIPELINE_DEPTH default).
+PIPELINE_DEPTH = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,6 +205,75 @@ def _sweep(model, master, proto, device):
     return sweep, min(b for b, v in usable.items() if v >= cutoff)
 
 
+def _skipped(item):
+    return {"skipped": f"not ported: ROADMAP item {item}"}
+
+
+def _compiled_step_profile(run, proto, device):
+    """bench.py's ``_compiled_step_profile`` at ``run``'s batch: the model,
+    data and ``DistributedOptimizer(SGD(0.01))`` of ``run`` (its
+    parameters as they are) through ``compiled_train_step``, whose graph
+    captures the optimizer's bucket all-reduces."""
+    model, images, labels = run.model, run.images, run.labels
+
+    def loss_fn(x, y):
+        return F.cross_entropy(model(x), y)
+
+    step = compiled_train_step(loss_fn, run.opt, name="bench.compiled")
+    for _ in range(2):  # untimed: the first call captures
+        loss = step(images, labels)
+    float(loss)
+    h0, m0 = step.cache_hits, step.cache_misses
+    cuda = device.type == "cuda"
+    iters = max(proto.num_iters * proto.batches_per_iter, 12)
+    py_overheads, rates, pending = [], [], deque()
+    for _ in range(iters + PIPELINE_DEPTH):
+        t0 = time.perf_counter()
+        step(images, labels)
+        py_overheads.append(time.perf_counter() - t0)
+        if cuda:
+            done = torch.cuda.Event()
+            done.record()
+            pending.append(done)
+        else:
+            pending.append(None)
+        if len(pending) > PIPELINE_DEPTH:
+            done = pending.popleft()
+            if done is not None:
+                done.synchronize()
+            rates.append(run.batch / (time.perf_counter() - t0))
+    if cuda:
+        torch.cuda.synchronize()
+    hits = step.cache_hits - h0
+    misses = step.cache_misses - m0
+    mean, spread, _, rejected = _robust_stats(rates)
+    peak = hardware.peak_flops_per_chip(config_mod.Config.from_env(), device)
+    mfu = ANALYTIC_TRAIN_FLOPS_PER_IMAGE * mean / peak * 100.0 if peak \
+        else None
+    out = {
+        "img_sec_per_chip": round(mean, 2),
+        "spread": round(spread, 2),
+        "samples": len(rates),
+        "outliers_rejected": rejected,
+        "mfu_pct": None if mfu is None else round(mfu, 2),
+        "python_overhead_ms": round(
+            float(np.median(py_overheads)) * 1e3, 3),
+        "step_program_cache_hit_rate": round(
+            hits / max(hits + misses, 1), 4),
+        "step_program_cache_hits": hits,
+        "step_program_cache_misses": misses,
+        "compiled_steps": step.compiled_steps,
+        "fallback_steps": step.fallback_steps,
+        "loop_readback_wait_ms": 0.0,
+        "exchange_buckets": len(run.opt.exchange_buckets),
+        "exchange_hidden_frac": None,
+        "steps": iters,
+    }
+    for key, item in COMPILED_NOT_PORTED.items():
+        out[key] = _skipped(item)
+    return out
+
+
 def run_benchmark(proto, device):
     runtime.init(device=device)
     device = runtime.device()
@@ -215,6 +305,12 @@ def run_benchmark(proto, device):
               file=sys.stderr)
     ci_pct = sem / mean * 100.0 if mean else 0.0
     block_rate = run.block_timed(proto.num_iters)
+    compiled = _compiled_step_profile(run, proto, device)
+    print(f"# compiled step: {compiled['img_sec_per_chip']:.1f} img/s/chip "
+          f"(eager {mean:.1f}), python overhead "
+          f"{compiled['python_overhead_ms']:.3f} ms/step, cache hit rate "
+          f"{compiled['step_program_cache_hit_rate']:.2f}, fallbacks "
+          f"{compiled['fallback_steps']}", file=sys.stderr)
     peak = hardware.peak_flops_per_chip(config_mod.Config.from_env(), device)
     mfu = ANALYTIC_TRAIN_FLOPS_PER_IMAGE * mean / peak * 100.0 if peak \
         else None
@@ -233,6 +329,9 @@ def run_benchmark(proto, device):
     else:
         transformer = {"skipped": "runs on a CUDA card: python -m "
                                   "horovod_tpu_torch.bench.transformer"}
+    serve = transformer_bench.run_serve_benchmark(
+        transformer_bench.parse_args(["--serve", "--device",
+                                      device.type]))["serve"]
     result = {
         "metric": "resnet50_img_sec_per_chip",
         "value": round(mean, 2),
@@ -247,10 +346,12 @@ def run_benchmark(proto, device):
         "mfu_pct": None if mfu is None else round(mfu, 2),
         "sweep": sweep,
         "transformer": transformer,
+        "compiled_step": compiled,
+        "serve": serve,
         "card": card,
     }
     for key, item in NOT_PORTED.items():
-        result[key] = {"skipped": f"not ported: ROADMAP item {item}"}
+        result[key] = _skipped(item)
     return result
 
 

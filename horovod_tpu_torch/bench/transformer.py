@@ -23,8 +23,18 @@ stream time an iteration. MFU: the analytic model FLOPs (6 x matmul
 params + 6 x L x S x d_model, causal attention at half of S^2) times the
 device-side rate over the card's peak (``hardware.py``); None where the
 peak is unknown, as on the CPU. ``--device cpu`` runs the plain versions
-of the kernels, for the tests only. ``--moe``, ``--mesh3d`` and
-``--serve`` name scenarios that are not ported yet.
+of the kernels, for the tests only. ``--moe`` and ``--mesh3d`` name
+scenarios that are not ported yet.
+
+``--serve`` runs the serving scenario instead (``run_serve_benchmark``,
+bench_transformer.py's): the continuous-batching engine at
+``--serve-streams`` concurrent streams of a small MHA model (f32, dense
+attention, rope), on one card. Its bin floors pin one prefill and one
+decode program (on a card, one CUDA graph each) for the run: an untimed
+round builds them, the timed round reports TTFT and per-token latency
+p50/p99, tokens/s and the program-cache hit rates under the serve
+sub-dict's keys. Over more than one rank it raises: serving across
+ranks shards the model (ROADMAP.md, Queue 1 item 6).
 """
 
 import argparse
@@ -39,6 +49,7 @@ import torch
 from .. import config as config_mod
 from .. import hardware
 from .. import optimizers, runtime
+from .. import serve as hvd_serve
 from ..models import transformer as tfm
 
 ITERS = 10
@@ -51,8 +62,6 @@ NOT_PORTED = {
            "Queue 1 item 7)",
     "mesh3d": "--mesh3d: tensor parallelism on the 3-D mesh is not ported "
               "yet (ROADMAP.md, Queue 1 item 6)",
-    "serve": "--serve: the serving bench is not ported yet (ROADMAP.md, "
-             "Queue 1 item 9)",
 }
 
 
@@ -104,7 +113,21 @@ def parse_args(argv=None):
                     help="dense attention instead of the flash kernels")
     ap.add_argument("--moe", action="store_true")
     ap.add_argument("--mesh3d", action="store_true")
-    ap.add_argument("--serve", action="store_true")
+    ap.add_argument("--serve", action="store_true",
+                    help="run the continuous-batching serving scenario "
+                         "instead: TTFT and per-token latency percentiles "
+                         "plus tokens/sec at N concurrent streams")
+    ap.add_argument("--serve-streams", type=int, default=8,
+                    help="concurrent generation streams")
+    ap.add_argument("--serve-prompt-len", type=int, default=16)
+    ap.add_argument("--serve-new-tokens", type=int, default=32)
+    ap.add_argument("--serve-page-size", type=int, default=16,
+                    help="KV pool page size in tokens "
+                         "(HOROVOD_SERVE_PAGE_SIZE)")
+    ap.add_argument("--serve-d-model", type=int, default=128)
+    ap.add_argument("--serve-layers", type=int, default=2)
+    ap.add_argument("--serve-heads", type=int, default=8)
+    ap.add_argument("--serve-vocab", type=int, default=1024)
     ap.add_argument("--iters", type=int, default=ITERS)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the tests: plain versions "
@@ -204,11 +227,117 @@ def run_benchmark(args):
     }
 
 
+def _ms(samples, q):
+    return round(float(np.percentile(samples, q)) * 1e3, 3)
+
+
+def run_serve_benchmark(args):
+    """The serving scenario (bench_transformer.py's run_serve_benchmark,
+    on one card): returns the result dict whose ``"serve"`` sub-dict
+    carries the reference's keys."""
+    runtime.init(device=args.device)
+    device = runtime.device()
+    if runtime.size() > 1:
+        raise NotImplementedError(
+            "--serve over more than one rank shards the model: tensor-"
+            "parallel serving is not ported yet (ROADMAP.md, Queue 1 item "
+            "6)")
+    streams = max(int(args.serve_streams), 1)
+    prompt_len = max(int(args.serve_prompt_len), 1)
+    new_tokens = max(int(args.serve_new_tokens), 2)
+    page_size = max(int(args.serve_page_size), 1)
+    pages_per_seq = -(-(prompt_len + new_tokens) // page_size)
+    # headroom: two full generations' worth of pages + the null page
+    num_pages = 1 + 2 * streams * pages_per_seq
+    cfg = tfm.TransformerConfig(
+        vocab_size=args.serve_vocab, d_model=args.serve_d_model,
+        n_heads=args.serve_heads, n_kv_heads=None,
+        n_layers=args.serve_layers, d_ff=4 * args.serve_d_model,
+        max_seq=prompt_len + new_tokens, dtype=torch.float32,
+        positional="rope", attention_impl="dense")
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0), device)
+    # Bin floors pinned to the stream count: one prefill and one decode
+    # signature for the whole run.
+    eng = hvd_serve.Engine(
+        cfg, params, num_pages=num_pages, page_size=page_size,
+        max_batch=streams, queue_depth=max(2 * streams, 8), start=False,
+        batch_bin_floor=streams, page_bin_floor=pages_per_seq,
+        len_bin_floor=prompt_len, device=device)
+    se = eng.engine
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=prompt_len).tolist()
+               for _ in range(streams)]
+
+    def run_round():
+        handles = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+        t0 = time.perf_counter()
+        eng.batcher.drain()
+        wall = time.perf_counter() - t0
+        return handles, sum(len(h.request.generated) for h in handles), wall
+
+    run_round()  # untimed: builds (captures) both binned programs
+    eng.batcher.recent_ttft.clear()
+    eng.batcher.recent_token_latency.clear()
+    dh0, dm0 = se.decode_hits, se.decode_misses
+    handles, toks, wall = run_round()
+    tps = toks / wall
+    ttft = np.asarray([h.request.first_token_t - h.request.submitted_t
+                       for h in handles])
+    tok_lat = np.asarray(eng.batcher.recent_token_latency)
+    dh, dm = se.decode_hits - dh0, se.decode_misses - dm0
+    steady_hit_rate = dh / max(dh + dm, 1)
+    sig = eng.write_slo_signal()
+    pool = se.update_pool_metrics()
+    card = hardware.card_line(device.index or 0) \
+        if device.type == "cuda" else None
+    print(f"# Serve tokens/sec on {card or 'cpu'}: {tps:,.0f} at {streams} "
+          f"streams x {new_tokens} new tokens (prompt {prompt_len}), TTFT "
+          f"p99 {np.percentile(ttft, 99) * 1e3:.1f} ms, token latency p99 "
+          f"{np.percentile(tok_lat, 99) * 1e3:.1f} ms, decode hit rate "
+          f"{se.decode_hit_rate():.2f} (steady {steady_hit_rate:.2f}), "
+          f"fallbacks {se.fallback_steps}", file=sys.stderr)
+    return {
+        "metric": "serve_tokens_per_sec",
+        "value": round(tps, 1),
+        "unit": "tokens/sec",
+        "serve": {
+            "tokens_per_sec": round(tps, 1),
+            "streams": streams,
+            "prompt_len": prompt_len,
+            "new_tokens": new_tokens,
+            "ttft_p50_ms": _ms(ttft, 50),
+            "ttft_p99_ms": _ms(ttft, 99),
+            "token_latency_p50_ms": _ms(tok_lat, 50),
+            "token_latency_p99_ms": _ms(tok_lat, 99),
+            "slo_p99_latency_s": round(float(sig["p99_latency"]), 6),
+            "decode_cache_hit_rate": round(se.decode_hit_rate(), 4),
+            "steady_state_decode_hit_rate": round(steady_hit_rate, 4),
+            "prefill_cache_hits": se.prefill_hits,
+            "prefill_cache_misses": se.prefill_misses,
+            "decode_cache_hits": se.decode_hits,
+            "decode_cache_misses": se.decode_misses,
+            "fallback_steps": se.fallback_steps,
+            "page_size": page_size,
+            "num_pages": num_pages,
+            "kv_page_utilization": round(pool["utilization"], 4),
+            "scheduler_steps": eng.batcher.steps,
+            "d_model": cfg.d_model,
+            "layers": cfg.n_layers,
+            "heads": cfg.n_heads,
+            "vocab": cfg.vocab_size,
+            "devices": runtime.size(),
+            "card": card,
+        },
+    }
+
+
 def main(argv=None):
     # the bench's own timers are its output: no profiler.txt in the cwd
     # unless HOROVOD_PROFILER_PATH / _DISABLE say otherwise
     os.environ.setdefault("HOROVOD_PROFILER_DISABLE", "1")
-    result = run_benchmark(parse_args(argv))
+    args = parse_args(argv)
+    result = (run_serve_benchmark(args) if args.serve
+              else run_benchmark(args))
     runtime.shutdown()
     print(json.dumps(result))
 

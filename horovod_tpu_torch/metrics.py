@@ -1,12 +1,12 @@
 """Process-wide metrics registry: labeled counters, gauges, histograms.
 
 Counterpart of horovod_tpu/metrics.py, carrying the registry core with
-its collect hooks, the serving families (``hvd_serve_*``), the runtime
-lifecycle families, the per-collective mirror of stats.py and the ZeRO
-stage gauge, under the JAX package's names. The program-cache and
-fallback families and the exporters (JSONL, Prometheus, timeline
-counters) come with the CUDA-graph and observability slices (ROADMAP.md,
-Queue 1).
+its collect hooks, the serving families (``hvd_serve_*``, program
+caches included), the compiled hot loop's cache and fallback families
+(``hvd_step_*``), the runtime lifecycle families, the per-collective
+mirror of stats.py and the ZeRO stage gauge, under the JAX package's
+names. The exporters (JSONL, Prometheus, timeline counters) come with
+the observability slice (ROADMAP.md, Queue 1 item 16).
 """
 
 import threading
@@ -303,6 +303,23 @@ SERVE_P99_LATENCY_SECONDS = _registry.gauge(
     "Sliding-window p99 of hvd_serve_token_latency_seconds "
     "observations — the value exported to the autoscale policy next "
     "to queue depth.")
+SERVE_PROGRAM_CACHE_HITS = _registry.gauge(
+    "hvd_serve_program_cache_hits",
+    "Serve program fetches served from cache, by phase; steady state "
+    "is one executable per live shape bin, so the decode hit rate "
+    "(hits / (hits + misses)) sits >= 0.9 after warmup — the CI "
+    "serve-smoke gate.", labelnames=("phase",))
+SERVE_PROGRAM_CACHE_MISSES = _registry.gauge(
+    "hvd_serve_program_cache_misses",
+    "Serve program fetches that built (compiled) a new executable, by "
+    "phase; growth after warmup means shape bins are churning "
+    "(docs/troubleshooting.md \"my decode step keeps recompiling\").",
+    labelnames=("phase",))
+SERVE_FALLBACK_STEPS = _registry.counter(
+    "hvd_serve_fallback_steps_total",
+    "Serve steps that fell back to a process-local program cache "
+    "because the engine's step-program tier errored; the serve bench "
+    "and CI assert this stays 0.")
 SERVE_JOINS = _registry.counter(
     "hvd_serve_joins_total",
     "Sequences admitted into the continuous batch (each join is one "
@@ -312,6 +329,28 @@ SERVE_EVICTIONS = _registry.counter(
     "Sequences removed from the continuous batch, by reason: "
     "finished (token budget), eos (stop token), cancelled (client "
     "gone); every eviction returns its pages to the free list.",
+    labelnames=("reason",))
+
+# Compiled step program (ops/step_program.py): on a card each program
+# is a captured CUDA graph, where the JAX package compiles an XLA one.
+STEP_PROGRAM_CACHE_HITS = _registry.gauge(
+    "hvd_step_program_cache_hits",
+    "Engine step-program cache hits (signature-keyed compiled train "
+    "steps); steady-state training should hit on every step after "
+    "warmup.")
+STEP_PROGRAM_CACHE_MISSES = _registry.gauge(
+    "hvd_step_program_cache_misses",
+    "Engine step-program cache misses — each one is a full XLA "
+    "recompile of the fused train step (docs/troubleshooting.md \"my "
+    "compiled step keeps recompiling\").")
+STEP_COMPILED_TOTAL = _registry.counter(
+    "hvd_step_compiled_total",
+    "Training steps executed through the compiled hot loop (one donated "
+    "XLA program: forward, backward, exchange, optimizer apply).")
+STEP_FALLBACK_TOTAL = _registry.counter(
+    "hvd_step_fallback_total",
+    "compiled_train_step calls that ran the eager/legacy step instead, "
+    "by reason (disabled | host_mode | shape_churn).",
     labelnames=("reason",))
 
 # Runtime lifecycle (runtime.py)

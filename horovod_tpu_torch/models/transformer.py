@@ -28,7 +28,9 @@ each weight's f32 gradient to bf16, and the ``.to(dtype)`` /
 a cast as redundant. ``remat`` checkpoints each layer
 (``torch.utils.checkpoint``, as ``jax.checkpoint``), and ``loss_chunk``
 runs the head and the cross entropy per sequence chunk under a
-checkpoint of its own, as the JAX package does.
+checkpoint of its own, as the JAX package does. The model draws no
+random numbers, so no checkpoint saves the RNG state, which a CUDA graph
+capture could not read.
 
 Sequence parallelism is ring attention over ``ShardAxes(sp=RingAxis)``
 (parallel/ring_attention.py). On one process with a local ring the
@@ -50,8 +52,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import runtime
 from ..ops.flash_attention import flash_attention
-from ..parallel.ring_attention import RingAxis, dense_attention, ring_attention
+from ..ops.step_program import StepProgram, engine_cached_program
+from ..parallel.ring_attention import (NEG_INF, RingAxis, dense_attention,
+                                       gqa_group, ring_attention)
 from ..utils.devices import resolve_device
 
 TENSOR_PARALLEL = "tensor parallelism (ROADMAP.md, Queue 1 item 6)"
@@ -401,7 +406,8 @@ def trunk_with_aux(params, tokens, cfg, axes=None):
     x = embed_tokens(params, tokens, cfg, axes)
     for p in params["layers"]:
         if cfg.remat:
-            x = checkpoint(_one_layer, p, x, cfg, axes, use_reentrant=False)
+            x = checkpoint(_one_layer, p, x, cfg, axes, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             x = _one_layer(p, x, cfg, axes)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -457,7 +463,8 @@ def _chunked_cross_entropy(params, x, targets, cfg):
     for i in range(s // chunk):
         sl = slice(i * chunk, (i + 1) * chunk)
         total = total + checkpoint(_chunk_nll_sum, params, x[:, sl],
-                                   targets[:, sl], cfg, use_reentrant=False)
+                                   targets[:, sl], cfg, use_reentrant=False,
+                                   preserve_rng_state=False)
     return total / (b * s)
 
 
@@ -538,3 +545,199 @@ class TransformerLM(nn.Module):
 
     def loss(self, tokens, targets):
         return loss_fn(self.params, tokens, targets, self.cfg, self.axes)
+
+    def generate(self, prompt, max_new_tokens, max_len=None, **kw):
+        return generate(self.params, prompt, self.cfg, max_new_tokens,
+                        max_len=max_len, **kw)
+
+
+# --------------------------------------------------------------- decoding
+#
+# The cache is updated in place and returned, the counterpart of the JAX
+# functions' new cache: its tensors and its position cursor (a 0-dim
+# int64 tensor on the cache's device) are what a CUDA graph of
+# decode_step reads and writes on every replay.
+
+def init_cache(cfg, batch, max_len, axes=None, device="cuda"):
+    """Per-layer K/V cache for incremental decoding: ``{"layers":
+    [{"k", "v"}], "pos"}``, each K/V ``(batch, max_len, h_kv, head_dim)``
+    in ``cfg.dtype`` and ``pos`` the number of rows written. Under GQA
+    it carries n_kv_heads, the decode-time memory the feature saves."""
+    _check_axes(axes)
+    device = resolve_device(device)
+    shape = (batch, max_len, cfg.n_kv_heads or cfg.n_heads, cfg.head_dim)
+
+    def zeros():
+        return torch.zeros(shape, dtype=cfg.dtype, device=device)
+
+    return {"layers": [{"k": zeros(), "v": zeros()}
+                       for _ in range(cfg.n_layers)],
+            "pos": torch.zeros((), dtype=torch.int64, device=device)}
+
+
+def _cache_attention(q, k, v, length, window=None):
+    """Single-position attention against the first ``length`` cache rows
+    (a 0-dim tensor), or only the last ``window`` of them. q (B, 1, H,
+    D); k/v (B, L_max, H_kv, D) with H % H_kv == 0."""
+    rep = gqa_group(q.shape[2], k.shape[2], v.shape[2])
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    d = q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / (d ** 0.5)
+    idx = torch.arange(s.shape[3], device=q.device)
+    mask = idx < length
+    if window is not None:
+        mask = mask & (idx >= length - window)
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
+
+
+def _check_fresh_cache(cache):
+    """prefill overwrites rows at offset 0 and attends only the prompt;
+    on a warm cache that would corrupt earlier entries."""
+    pos = int(cache["pos"])
+    if pos != 0:
+        raise ValueError(
+            f"prefill_cache requires a fresh cache (pos == 0), got pos="
+            f"{pos}; use decode_step to append to a warm cache")
+
+
+def prefill_cache(params, cache, tokens, cfg, axes=None):
+    """Fill a fresh cache (pos == 0) for a whole prompt in one forward
+    pass. Returns (last-position f32 logits (B, vocab), the cache with
+    pos advanced by S). Prompt attention runs through the flash kernel
+    when ``cfg.attention_impl == "flash"``."""
+    _check_axes(axes)
+    _check_fresh_cache(cache)
+    s_len = tokens.shape[1]
+    x = embed_tokens(params, tokens, cfg)
+    for p, lc in zip(params["layers"], cache["layers"]):
+        x, k, v = _attention_block_kv(p, x, cfg)
+        lc["k"][:, :s_len] = k
+        lc["v"][:, :s_len] = v
+        x = _mlp_block(p, x, cfg)
+    logits = _head(params, x[:, -1:], cfg)[:, 0]
+    cache["pos"].add_(s_len)
+    return logits, cache
+
+
+def decode_step(params, cache, token, cfg, axes=None):
+    """One incremental decode step: ``token`` (B,) int64 at the cache's
+    position. Returns (f32 logits (B, vocab), the cache with this
+    position's K/V written and pos advanced by one). Runs no host
+    synchronization, so a CUDA graph can capture it."""
+    _check_axes(axes)
+    pos = cache["pos"]
+    positions = pos[None]                                          # (1,)
+    x = _embed_rows(params, token[:, None])
+    if cfg.positional == "learned":
+        x = x + params["pos"][positions][None]
+    x = x.to(cfg.dtype)
+    for p, lc in zip(params["layers"], cache["layers"]):
+        h = _rmsnorm(x, p["ln1"])
+        q, k_new, v_new = _qkv_proj(p, h, cfg)
+        if cfg.positional == "rope":
+            q = _rope(q, positions)
+            k_new = _rope(k_new, positions)  # the cache keeps rotated K
+        lc["k"].index_copy_(1, positions, k_new)
+        lc["v"].index_copy_(1, positions, v_new)
+        attn = _cache_attention(q, lc["k"], lc["v"], pos + 1,
+                                window=cfg.attention_window)
+        out = _einsum_f32("bshx,hxd->bsd", attn, p["wo"].to(cfg.dtype))
+        x = x + out.to(cfg.dtype)
+        x = _mlp_block(p, x, cfg)
+    logits = _head(params, x, cfg)[:, 0]
+    pos.add_(1)
+    return logits, cache
+
+
+def _select_token(logits, temperature, top_k, generator, dtype):
+    """argmax when temperature == 0, else softmax sampling at the given
+    temperature over the top_k-filtered logits, drawn from
+    ``generator`` (on its own device)."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1).to(dtype)
+    if top_k is not None:
+        kth = torch.sort(logits, dim=-1).values[:, -top_k][:, None]
+        logits = torch.where(logits >= kth, logits, float("-inf"))
+    probs = torch.softmax(logits / temperature, dim=-1)
+    draw = torch.multinomial(probs.to(generator.device), 1,
+                             generator=generator)
+    return draw[:, 0].to(logits.device, dtype)
+
+
+def _leaves(params):
+    yield from (v for k, v in params.items() if k != "layers")
+    for layer in params["layers"]:
+        yield from layer.values()
+
+
+def _decoder(params, cfg, batch, max_len, device):
+    """``(program, cache)``: ``decode_step`` over a cache of its own and
+    one static token (``program.inputs[0]``), returning the logits. On a
+    card the program is a CUDA graph, one per (B, max_len), cached in
+    the session's program cache when there is a session; its key holds
+    the parameters' addresses, which the graph reads."""
+    def build():
+        cache = init_cache(cfg, batch, max_len, device=device)
+        token = torch.zeros((batch,), dtype=torch.int64, device=device)
+        pool = None
+        if device.type == "cuda" and runtime.is_initialized():
+            pool = runtime.live_state().programs.graph_pool()
+        prog = StepProgram(lambda: decode_step(params, cache, token, cfg)[0],
+                           device, pool, [token])
+        return prog, cache
+
+    if not runtime.is_initialized():
+        return build()
+    sig = ("generate_decode", cfg, batch, max_len, str(device),
+           tuple((t.data_ptr(), tuple(t.shape), str(t.dtype))
+                 for t in _leaves(params)))
+    return engine_cached_program(sig, build)[0]
+
+
+@torch.inference_mode()
+def generate(params, prompt, cfg, max_new_tokens, max_len=None,
+             temperature=0.0, top_k=None, generator=None, axes=None):
+    """Autoregressive decoding through the KV cache: greedy by default,
+    softmax sampling when ``temperature > 0`` (optionally
+    top_k-filtered; ``generator``, a ``torch.Generator``, required).
+    Returns (B, S + max_new_tokens) int64. The prompt runs through
+    :func:`prefill_cache`; on a card every :func:`decode_step` after the
+    first replays one CUDA graph per (B, max_len). The sampled draws
+    differ from the JAX package's, which come from ``jax.random``."""
+    _check_axes(axes)
+    if temperature < 0:
+        raise ValueError(f"temperature must be >= 0, got {temperature}")
+    if temperature > 0 and generator is None:
+        raise ValueError("sampling (temperature > 0) needs a PRNG key "
+                         "(generator=torch.Generator)")
+    if top_k is not None and top_k < 1:
+        raise ValueError(f"top_k must be >= 1, got {top_k}")
+    b, s = prompt.shape
+    if max_new_tokens < 1:
+        raise ValueError(
+            f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    max_len = max_len or (s + max_new_tokens)
+    if max_len < s + max_new_tokens:
+        raise ValueError(
+            f"max_len ({max_len}) must cover prompt + new tokens "
+            f"({s} + {max_new_tokens}); an undersized cache would be "
+            f"silently clobbered by the clamped update slice")
+    if max_len > cfg.max_seq:
+        raise ValueError(
+            f"generation length {max_len} exceeds cfg.max_seq "
+            f"({cfg.max_seq})")
+    prog, cache = _decoder(params, cfg, b, max_len, prompt.device)
+    cache["pos"].zero_()
+    logits, _ = prefill_cache(params, cache, prompt, cfg)
+    token = prog.inputs[0]
+    new = [_select_token(logits, temperature, top_k, generator,
+                         prompt.dtype)]
+    for _ in range(max_new_tokens - 1):
+        token.copy_(new[-1])
+        new.append(_select_token(prog(), temperature, top_k, generator,
+                                 prompt.dtype))
+    return torch.cat([prompt, torch.stack(new, dim=1)], dim=1)

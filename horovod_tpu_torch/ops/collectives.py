@@ -22,6 +22,7 @@ import torch
 import torch.distributed as dist
 
 from .. import runtime
+from ..stats import record_jit_traced
 from .compression import Compression
 
 
@@ -38,17 +39,24 @@ class Exchange:
     the device work queued between the two calls: a fused exchange starts
     its clock before the copy into its flat buffers and stops it after
     the copy out, as the reference's timeline counts its fusion-buffer
-    copies in the op."""
+    copies in the op.
+
+    Inside a CUDA graph capture (ops/step_program.py) the exchange takes
+    no events, which would become graph nodes with no time to read: it
+    records as ``<op>_jit`` once, at the capture
+    (stats.record_jit_traced)."""
 
     def __init__(self, op):
         st = runtime.live_state()
         self._op, self._stats = op, st.stats
         self._cuda = st.device.type == "cuda"
-        if self._cuda:
+        self._captured = (self._cuda
+                          and torch.cuda.is_current_stream_capturing())
+        if not self._cuda:
+            self._t0 = time.perf_counter()
+        elif not self._captured:
             self._start = torch.cuda.Event(enable_timing=True)
             self._start.record()
-        else:
-            self._t0 = time.perf_counter()
         self._works, self._nbytes = [], 0
 
     def launch(self, fn, nbytes):
@@ -66,7 +74,9 @@ class Exchange:
 
     def done(self):
         """Stop the clock and record the execution."""
-        if self._cuda:
+        if self._captured:
+            record_jit_traced(f"{self._op}_jit", self._nbytes)
+        elif self._cuda:
             end = torch.cuda.Event(enable_timing=True)
             end.record()
             self._stats.record_events(self._op, self._nbytes, self._start,

@@ -37,7 +37,10 @@ products and the reference's order of operations. Every route takes any
 B*H (it is the grid's x dimension); the loop takes head dims up to 256,
 and on a CUDA tensor a larger one raises. Each route counts its
 own launches (``launches`` and ``wgmma_launches`` for ``flash_fwd``,
-and so on). The tensor-core route computes the scores as
+and so on), on the host where it launches. A CUDA graph's replay runs
+no host code, so a captured program takes its capture's counts back
+(:func:`uncount_capture`) and adds them on every replay
+(:func:`count_replay`). The tensor-core route computes the scores as
 ``(q.k^T) * scale`` from the unscaled bf16 q and rounds P to bf16
 before ``P.V`` (P and dS before the backward's second products), as
 SDPA does; the forward's ``l`` sums the f32 p. Both routes keep the
@@ -113,7 +116,33 @@ _SIGNATURES["flash_bwd"]["hvd_flash_bwd_wgmma_smem"] = [_I, _I]
 _COUNTERS = {name: {False: f"{prefix}launches",
                     True: f"{prefix}wgmma_launches"}
              for name, (_, _, prefix) in _KERNELS.items()}
+_COUNTER_NAMES = tuple(c for routes in _COUNTERS.values()
+                       for c in routes.values())
 _libs = {}
+
+
+def launch_counts():
+    """{counter name: launches so far} of every kernel and route."""
+    return {c: globals()[c] for c in _COUNTER_NAMES}
+
+
+def uncount_capture(before):
+    """Launches counted since ``before`` (:func:`launch_counts`) that a
+    CUDA graph capture recorded rather than ran: take them back off the
+    counters and return them, for :func:`count_replay` to add on every
+    replay of the graph."""
+    captured = {c: globals()[c] - n for c, n in before.items()
+                if globals()[c] != n}
+    for c, n in captured.items():
+        globals()[c] -= n
+    return captured
+
+
+def count_replay(captured):
+    """Count one replay of a graph whose capture recorded ``captured``
+    launches (:func:`uncount_capture`)."""
+    for c, n in captured.items():
+        globals()[c] += n
 
 
 def _kernel_lib(name):
@@ -719,7 +748,9 @@ def paged_attention_decode(q, k_pages, v_pages, page_table, lengths):
     if rep > 1:
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
-    scale = f32_scale(q.shape[3]).to(q.device)
+    # The f32 scale as a Python number: a host tensor moved to the card
+    # would be a copy that a CUDA graph cannot capture.
+    scale = float(f32_scale(q.shape[3]))
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     idx = torch.arange(s.shape[3], device=q.device)
     s = torch.where(idx < lengths[:, None, None, None], s, NEG_INF)

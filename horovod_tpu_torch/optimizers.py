@@ -43,6 +43,10 @@ class _DistributedOptimizer(torch.optim.Optimizer):
     """Allreduce-averaging optimizer wrapper, mixed into the wrapped
     optimizer's class (see :func:`DistributedOptimizer`)."""
 
+    # What ops/step_program.py reads: the gradient hooks exchange, so a
+    # compiled step adds no exchange of its own.
+    _hvd_exchange = "hooks"
+
     def __init__(self, params, named_parameters, compression,
                  backward_passes_per_step, exchange_buckets):
         super(self.__class__, self).__init__(params)
@@ -71,12 +75,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         params = [p for group in self.param_groups for p in group["params"]
                   if p.requires_grad]
         self._allreduce_delay = {p: backward_passes_per_step for p in params}
-        self._buckets = [[params[i] for i in idx]
-                         for idx in exchange_bucket_plan(params,
-                                                         exchange_buckets)]
-        self._bucket_of = {p: b for b, ps in enumerate(self._buckets)
-                           for p in ps}
-        self._ready = [0] * len(self._buckets)
+        self.plan_exchange(exchange_buckets)
         self._inflight = {}  # bucket -> (exchange, [(indices, flat)], ctxs)
         self._synchronized = False
         # The hooks hold the optimizer weakly. A bound method would tie
@@ -98,6 +97,17 @@ class _DistributedOptimizer(torch.optim.Optimizer):
     def exchange_buckets(self):
         """The parameters of each bucket, in launch order."""
         return [list(b) for b in self._buckets]
+
+    def plan_exchange(self, exchange_buckets):
+        """Group the parameters into at most ``exchange_buckets``
+        buckets (:func:`exchange_bucket_plan`); call between steps."""
+        params = list(self._allreduce_delay)
+        self._buckets = [[params[i] for i in idx]
+                         for idx in exchange_bucket_plan(params,
+                                                         exchange_buckets)]
+        self._bucket_of = {p: b for b, ps in enumerate(self._buckets)
+                           for p in ps}
+        self._ready = [0] * len(self._buckets)
 
     def _hook(self, p):
         if self._allreduce_delay[p] <= 0:

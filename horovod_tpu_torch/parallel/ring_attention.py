@@ -69,7 +69,8 @@ def dense_attention(q, k, v, causal=True, scale=None, window=None):
         v = v.repeat_interleave(rep, dim=2)
     s = q.shape[1]
     if scale is None:
-        scale = f32_scale(q.shape[3]).to(q.device)
+        # a Python number (f32's value): a CUDA graph captures no host copy
+        scale = float(f32_scale(q.shape[3]))
     s_ = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")

@@ -24,12 +24,19 @@ process's place among them, and ``local_rank()`` picks its card.
 Knobs that would start subsystems the port does not have yet (the
 timeline, the guard, autotune, the metrics exporters) make ``init()``
 raise rather than run without them.
+
+Each session owns a :class:`ProgramCache`: the signature-keyed step
+programs of ops/step_program.py (on a card, captured CUDA graphs sharing
+one memory pool). ``shutdown()`` drops it and the next ``init()`` starts
+an empty one, as an elastic re-init over a new membership cold-starts
+the JAX engine's step-program tier.
 """
 
 import atexit
 import datetime
 import os
 import threading
+from collections import OrderedDict
 
 import torch
 import torch.distributed as dist
@@ -54,6 +61,54 @@ _MISSING = (
 )
 
 
+class ProgramCache:
+    """One session's step programs, keyed by signature, LRU-bounded,
+    with hit and miss counts: the counterpart of the JAX engine's
+    step-program tier (``EagerEngine.step_program`` over a
+    ``WireProgramCache``), whose engine is not ported yet (ROADMAP.md,
+    Queue 1 item 10). On a card every program it builds captures into
+    one CUDA graph memory pool (:meth:`graph_pool`): programs replay one
+    at a time on one stream, so they may share what each frees."""
+
+    def __init__(self, capacity=256):
+        self.capacity = capacity
+        self._programs = OrderedDict()
+        self._lock = threading.RLock()
+        self._pool = None
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, signature, build):
+        """``(program, was_hit)``: the program cached under
+        ``signature``, or ``build()``'s, cached."""
+        with self._lock:
+            prog = self._programs.get(signature)
+            if prog is not None:
+                self._programs.move_to_end(signature)
+                self.hits += 1
+                return prog, True
+            self.misses += 1
+            prog = self._programs[signature] = build()
+            while len(self._programs) > self.capacity:
+                self._programs.popitem(last=False)
+            return prog, False
+
+    def graph_pool(self):
+        """The CUDA graph memory pool this session's captures share."""
+        with self._lock:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            return self._pool
+
+    def __len__(self):
+        return len(self._programs)
+
+    def clear(self):
+        with self._lock:
+            self._programs.clear()
+            self._pool = None
+
+
 class _State:
     def __init__(self):
         self.initialized = False
@@ -61,6 +116,7 @@ class _State:
         self.config = None
         self.device = None
         self.stats = None
+        self.programs = None
         self.store = None
         self.mesh = None
         self.rank = 0
@@ -149,6 +205,7 @@ def init(comm=None, *, device="cuda"):
         _state.cross_rank = _env_int("HOROVOD_TPU_CROSS_RANK", rank)
         _state.cross_size = _env_int("HOROVOD_TPU_CROSS_SIZE", size)
         _state.stats = CollectiveStats()
+        _state.programs = ProgramCache()
         register_metrics(_state.stats)
         metrics.RUNTIME_INITS.inc()
         metrics.RUNTIME_UP.set(1)
@@ -184,6 +241,9 @@ def shutdown():
             except OSError as e:
                 _logger.warning("could not write profiler dump: %s", e)
         metrics.registry().remove_collect_hook("collective_stats")
+        # The programs go first: a captured graph holds the collectives
+        # of the group destroyed next.
+        _state.programs.clear()
         dist.destroy_process_group()
         _state.store = None
         _state.mesh = None

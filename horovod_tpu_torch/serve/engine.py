@@ -15,22 +15,35 @@ Counterpart of horovod_tpu/serve/engine.py. Two paths:
   into its page, and full-vocab logits.
 
 Batch, prompt length and page-table width round up to powers of two
-(config.next_power_of_two), the JAX engine's shape bins. Both paths run
-eagerly; the JAX engine's compiled-program cache, its hit/miss counters
-and the perf-sentry hook come with the CUDA-graph slice (ROADMAP.md,
-Queue 1 item 9). Where the JAX engine rebuilt the pools functionally,
-this one updates them in place (``index_put_``).
+(config.next_power_of_two), the JAX engine's shape bins. Each bin's
+prefill and decode is a program (ops/step_program.py: a CUDA graph on a
+card) in a signature-keyed cache, the session's when ``hvd.init()`` has
+run (as the JAX engine goes through its runtime's step-program tier),
+else the engine's own: one graph per (prefill, batch_bin, len_bin,
+page_bin) and per (decode, batch_bin, page_bin), whose tokens, lengths
+and page tables are copied into static inputs (one host-to-card copy a
+step) and whose logits are read from a static output. Hits and misses
+by phase feed ``hvd_serve_program_cache_{hits,misses}``, a failed
+session tier ``hvd_serve_fallback_steps_total``. With
+``HOROVOD_STEP_PROGRAM=0`` (or ``HOROVOD_DEVICE_RESIDENT=0``) a card
+runs each program without capturing it, as the CPU always does.
+
+Where the JAX engine rebuilt the pools functionally, this one updates
+them in place (``index_put_``), and ``defrag`` permutes them in place:
+every captured graph holds the pools' addresses.
 """
 
 import time
+import weakref
 
 import numpy as np
 import torch
 
-from .. import metrics
+from .. import metrics, runtime
 from ..config import next_power_of_two
 from ..models import transformer as tfm
 from ..ops.flash_attention import paged_attention_decode
+from ..ops.step_program import StepProgram, engine_cached_program, obj_token
 from ..utils.devices import resolve_device
 from .kv_cache import PagedKVCache
 
@@ -109,7 +122,9 @@ class ServeEngine:
     on ``device``. ``batch_bin_floor``/``page_bin_floor``/
     ``len_bin_floor`` pin the minimum bin, which makes a sequence's
     stream independent of its neighbours (the churn-exactness contract).
-    ``fallback_steps`` stays 0: the engine has no second path."""
+    ``prefill_hits``/``_misses`` and ``decode_hits``/``_misses`` count
+    program fetches; ``fallback_steps`` counts steps whose session
+    cache failed and that took the engine's own instead."""
 
     def __init__(self, params, cfg, *, mesh=None, tp_axis=None,
                  num_pages=DEFAULT_PAGES, page_size=DEFAULT_PAGE_SIZE,
@@ -138,7 +153,90 @@ class ServeEngine:
                                    device=self.device)
         self._v_pool = torch.zeros(shape, dtype=cfg.dtype,
                                    device=self.device)
+        self._local_progs = {}
+        self._local_pool = None
+        self.prefill_hits = 0
+        self.prefill_misses = 0
+        self.decode_hits = 0
+        self.decode_misses = 0
         self.fallback_steps = 0
+
+    # --------------------------------------------------------- caching
+
+    def _program(self, kind, signature, build):
+        """The program of ``signature``: from the session's cache when
+        there is a session (a failure there counts a fallback step and
+        takes the engine's own cache), else from the engine's own."""
+        was_hit = None
+        if runtime.is_initialized():
+            try:
+                prog, was_hit = engine_cached_program(signature, build)
+            except Exception:  # noqa: BLE001 - counted, then served locally
+                self.fallback_steps += 1
+                metrics.SERVE_FALLBACK_STEPS.inc()
+                was_hit = None
+        if was_hit is None:
+            was_hit = signature in self._local_progs
+            if not was_hit:
+                self._local_progs[signature] = build()
+            prog = self._local_progs[signature]
+        if kind == "prefill":
+            self.prefill_hits += was_hit
+            self.prefill_misses += not was_hit
+            metrics.SERVE_PROGRAM_CACHE_HITS.labels(
+                phase="prefill").set(self.prefill_hits)
+            metrics.SERVE_PROGRAM_CACHE_MISSES.labels(
+                phase="prefill").set(self.prefill_misses)
+        else:
+            self.decode_hits += was_hit
+            self.decode_misses += not was_hit
+            metrics.SERVE_PROGRAM_CACHE_HITS.labels(
+                phase="decode").set(self.decode_hits)
+            metrics.SERVE_PROGRAM_CACHE_MISSES.labels(
+                phase="decode").set(self.decode_misses)
+        return prog
+
+    def decode_hit_rate(self):
+        total = self.decode_hits + self.decode_misses
+        return self.decode_hits / total if total else 0.0
+
+    def _build(self, core, batch_bin, page_bin, len_bin=None):
+        """A program running ``core`` on static int64 inputs: tokens
+        (batch_bin, len_bin), or (batch_bin,) for decode, lengths
+        (batch_bin,) and page tables (batch_bin, page_bin), views of one
+        buffer that a step fills with one copy."""
+        shape = (batch_bin,) if len_bin is None else (batch_bin, len_bin)
+        sizes = (int(np.prod(shape)), batch_bin, batch_bin * page_bin)
+        buf = torch.zeros(sum(sizes), dtype=torch.int64, device=self.device)
+        tokens, lengths, tables = torch.split(buf, sizes)
+        tokens = tokens.view(shape)
+        tables = tables.view(batch_bin, page_bin)
+        ps = self.cache.page_size
+        # Weak: a session's cache may outlive the engine, and must not
+        # keep its pools alive (a dead engine's token never hits again).
+        ref = weakref.ref(self)
+
+        def fn():
+            eng = ref()
+            return core(eng.params, eng._k_pool, eng._v_pool, tokens,
+                        lengths, tables, eng.cfg, ps)
+
+        pool = None
+        if self.device.type == "cuda":
+            if runtime.is_initialized():
+                pool = runtime.live_state().programs.graph_pool()
+            else:
+                if self._local_pool is None:
+                    self._local_pool = torch.cuda.graph_pool_handle()
+                pool = self._local_pool
+        return StepProgram(fn, self.device, pool, [buf])
+
+    def _run(self, prog, *arrays):
+        """Fill ``prog``'s static inputs from host ``arrays`` (one copy)
+        and run it; the logits on the host."""
+        prog.inputs[0].copy_(torch.from_numpy(np.concatenate(
+            [a.reshape(-1) for a in arrays])))
+        return prog()
 
     def _page_bin(self, seq_ids, extra_pages=0):
         widest = max((len(self.cache.pages_of(s)) for s in seq_ids
@@ -149,7 +247,7 @@ class ServeEngine:
     def _tables(self, seq_ids, batch_bin, page_bin):
         rows = self.cache.page_table_rows(
             list(seq_ids) + [None] * (batch_bin - len(seq_ids)), page_bin)
-        return torch.tensor(rows, dtype=torch.int64, device=self.device)
+        return np.asarray(rows, np.int64)
 
     # ------------------------------------------------------------ runs
 
@@ -170,17 +268,19 @@ class ServeEngine:
         for i, p in enumerate(prompts):
             tokens[i, :len(p)] = p
             lengths[i] = len(p)
+        sig = ("serve_prefill", obj_token(self), self.cfg, batch_bin,
+               len_bin, page_bin, ps)
+        prog = self._program("prefill", sig, lambda: self._build(
+            _prefill_core, batch_bin, page_bin, len_bin))
         t0 = time.perf_counter()
         with torch.inference_mode():
-            logits = _prefill_core(
-                self.params, self._k_pool, self._v_pool,
-                torch.from_numpy(tokens).to(self.device),
-                torch.from_numpy(lengths).to(self.device),
-                self._tables(seq_ids, batch_bin, page_bin), self.cfg, ps)
+            logits = self._run(prog, tokens, lengths,
+                               self._tables(seq_ids, batch_bin, page_bin))
             logits = logits[:b].cpu().numpy()
         dt = time.perf_counter() - t0
         metrics.SERVE_STEP_SECONDS.labels(phase="prefill").observe(dt)
         metrics.SERVE_TOKENS.labels(phase="prefill").inc(sum(lens))
+        self._observe_sentry(f"serve_prefill|b{batch_bin}|s{len_bin}", dt)
         return logits
 
     def decode(self, seq_ids, tokens, lengths):
@@ -188,25 +288,32 @@ class ServeEngine:
         are the per-sequence last token and current visible length.
         Returns (B, V) f32 logits for the NEXT token."""
         b = len(seq_ids)
+        ps = self.cache.page_size
         batch_bin = next_power_of_two(max(b, self.batch_bin_floor))
         page_bin = self._page_bin(seq_ids)
         tok = np.zeros((batch_bin,), np.int64)
         tok[:b] = tokens
         lng = np.zeros((batch_bin,), np.int64)
         lng[:b] = lengths
+        sig = ("serve_decode", obj_token(self), self.cfg, batch_bin,
+               page_bin, ps)
+        prog = self._program("decode", sig, lambda: self._build(
+            _decode_core, batch_bin, page_bin))
         t0 = time.perf_counter()
         with torch.inference_mode():
-            logits = _decode_core(
-                self.params, self._k_pool, self._v_pool,
-                torch.from_numpy(tok).to(self.device),
-                torch.from_numpy(lng).to(self.device),
-                self._tables(seq_ids, batch_bin, page_bin), self.cfg,
-                self.cache.page_size)
+            logits = self._run(prog, tok, lng,
+                               self._tables(seq_ids, batch_bin, page_bin))
             logits = logits[:b].cpu().numpy()
         dt = time.perf_counter() - t0
         metrics.SERVE_STEP_SECONDS.labels(phase="decode").observe(dt)
         metrics.SERVE_TOKENS.labels(phase="decode").inc(b)
+        self._observe_sentry(f"serve_decode|b{batch_bin}|p{page_bin}", dt)
         return logits
+
+    def _observe_sentry(self, signature, dt):
+        """The perf-regression sentry's hook, under the JAX engine's key
+        strings; a no-op until the sentry is ported (ROADMAP.md, Queue 1
+        item 16)."""
 
     # ------------------------------------------------------ pool admin
 
@@ -216,11 +323,14 @@ class ServeEngine:
         moves = self.cache.defrag()
         if not moves:
             return 0
-        perm = torch.arange(self.cache.num_pages, device=self.device)
+        perm = np.arange(self.cache.num_pages)
         for src, dst in moves.items():
             perm[dst] = src
-        self._k_pool = self._k_pool[:, perm]
-        self._v_pool = self._v_pool[:, perm]
+        perm = torch.from_numpy(perm).to(self.device)
+        # In place: the captured graphs read the pools at their addresses.
+        with torch.inference_mode():
+            self._k_pool.copy_(self._k_pool[:, perm])
+            self._v_pool.copy_(self._v_pool[:, perm])
         return len(moves)
 
     def update_pool_metrics(self):

@@ -17,6 +17,14 @@ second event has completed: :meth:`CollectiveStats.record_events` queues
 it, and every read resolves the queue first. The step never blocks on
 the clock. The ctypes ``NativeCollectiveStats`` comes with the native
 control plane (ROADMAP.md, Queue 1 item 10).
+
+A collective captured into a CUDA graph (ops/step_program.py) has no
+host time of its own: its events would become graph nodes. It is
+recorded as ``<op>_jit`` once, when the program is captured
+(:func:`record_jit_traced`), as the JAX package records a jitted
+collective once per trace; the program records it again on every
+replay only under ``HOROVOD_PROFILER_JIT_CALLBACKS=1``
+(:func:`replay_jit`).
 """
 
 import os
@@ -94,6 +102,14 @@ class CollectiveStats:
         on the host's clock."""
         return self._Timer(self, op, nbytes)
 
+    def jit_records(self):
+        """``{(op, nbytes): calls}`` of the ``*_jit`` rows: a program
+        diffs it around its capture to learn what one replay records."""
+        with self._lock:
+            return {(op, sz): n for op, s in self._ops.items()
+                    if op.endswith("_jit")
+                    for sz, n in s.size_count.items()}
+
     def counter(self, op):
         self.resolve()
         return self._ops[op].counter
@@ -129,6 +145,29 @@ class CollectiveStats:
             os.makedirs(parent, exist_ok=True)
         with open(path, "w") as f:
             f.write("\n".join(lines) + "\n")
+
+
+def record_jit(op, nbytes):
+    """Record one execution of a program's collective (no host time of
+    its own) in the live session's stats; a no-op without a session."""
+    from . import runtime
+    if runtime.is_initialized():
+        runtime._state.stats.record(op, int(nbytes), 0.0)
+
+
+def record_jit_traced(op, nbytes):
+    """Record a collective being captured into a program (``op`` is the
+    ``*_jit`` row): once per capture. Its replays record through
+    :func:`replay_jit`, and only under HOROVOD_PROFILER_JIT_CALLBACKS=1,
+    which the program reads when it is captured."""
+    record_jit(op, nbytes)
+
+
+def replay_jit(records):
+    """Record one replay of a program whose capture recorded
+    ``records`` (``[(op, nbytes)]``)."""
+    for op, nbytes in records:
+        record_jit(op, nbytes)
 
 
 def register_metrics(stats):

@@ -384,3 +384,122 @@ def test_engine_rejects_tensor_parallel_serving():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ServeEngine(_params(cfg), cfg, mesh=object(), tp_axis="tp",
                     device="cpu")
+
+
+# ------------------------------------------------------ program cache
+
+
+def _cache_sequence(eng, batcher_cls, request_cls):
+    """The request sequence of the reference's
+    test_decode_program_cache_steady_state: 4 requests of 5 prompt
+    tokens and 12 new, numpy seed 3, through a batcher of width 4."""
+    bat = batcher_cls(eng, queue_depth=8, max_batch=4)
+    rng = np.random.default_rng(3)
+    reqs = [request_cls(list(rng.integers(0, 64, size=5)), 12)
+            for _ in range(4)]
+    for r in reqs:
+        bat.submit(r)
+    bat.drain()
+    return [list(r.generated) for r in reqs]
+
+
+def test_decode_program_cache_steady_state():
+    """One program per live bin: the first decode builds it and every
+    later one hits (rate >= 0.9, no fallback), with the prefill and
+    decode hit and miss counts of the JAX engine on the same requests,
+    and its f32 greedy tokens."""
+    from horovod_tpu.serve.scheduler import ContinuousBatcher as JaxBatcher
+    from horovod_tpu.serve.scheduler import Request as JaxRequest
+    base = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=2, d_ff=64,
+                max_seq=32, positional="rope", attention_impl="flash")
+    jcfg = jtfm.TransformerConfig(dtype=jnp.float32, flash_interpret=True,
+                                  **base)
+    cfg = tfm.TransformerConfig(dtype=torch.float32, **base)
+    jparams = jtfm.init_params(jax.random.PRNGKey(0), jcfg)
+    params = tfm.params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                                 device="cpu")
+    kw = dict(num_pages=32, page_size=4, batch_bin_floor=4,
+              page_bin_floor=4, len_bin_floor=8)
+    jeng = JaxServeEngine(jparams, jcfg, **kw)
+    want = _cache_sequence(jeng, JaxBatcher, JaxRequest)
+    eng = ServeEngine(params, cfg, device="cpu", **kw)
+    got = _cache_sequence(eng, ContinuousBatcher, Request)
+    assert got == want
+    assert eng.decode_hits + eng.decode_misses >= 10
+    assert eng.decode_misses == 1
+    assert eng.decode_hit_rate() >= 0.9
+    assert eng.fallback_steps == 0
+    counts = (eng.prefill_hits, eng.prefill_misses, eng.decode_hits,
+              eng.decode_misses)
+    assert counts == (jeng.prefill_hits, jeng.prefill_misses,
+                      jeng.decode_hits, jeng.decode_misses)
+    values = metrics.snapshot()["hvd_serve_program_cache_hits"]["values"]
+    assert values['phase="decode"'] == eng.decode_hits
+
+
+def test_programs_use_the_session_cache_and_count_its_failures(monkeypatch):
+    """Under hvd.init() the engine's programs live in the session's
+    program cache, beside the train step's; a failing session tier is
+    counted as a fallback step and the engine's own cache serves."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.serve import engine as engine_mod
+    cfg = _cfg()
+    prompts = [[3, 1, 4], [1, 5]]
+    hvd.init(device="cpu")
+    try:
+        programs = hvd.runtime.live_state().programs
+        eng = _engine(cfg, num_pages=16, page_size=4)
+        bat = ContinuousBatcher(eng, queue_depth=4, max_batch=2)
+        reqs = [Request(p, 4) for p in prompts]
+        for r in reqs:
+            bat.submit(r)
+        bat.drain()
+        assert len(programs) == eng.prefill_misses + eng.decode_misses
+        assert programs.hits == eng.prefill_hits + eng.decode_hits
+        assert eng.fallback_steps == 0
+
+        def broken(signature, build):
+            raise RuntimeError("session tier down")
+
+        monkeypatch.setattr(engine_mod, "engine_cached_program", broken)
+        fallback0 = metrics.SERVE_FALLBACK_STEPS.value()
+        local = _engine(cfg, num_pages=16, page_size=4)
+        bat = ContinuousBatcher(local, queue_depth=4, max_batch=2)
+        again = [Request(p, 4) for p in prompts]
+        for r in again:
+            bat.submit(r)
+        bat.drain()
+        steps = (local.prefill_hits + local.prefill_misses
+                 + local.decode_hits + local.decode_misses)
+        assert local.fallback_steps == steps > 0
+        assert metrics.SERVE_FALLBACK_STEPS.value() == fallback0 + steps
+        assert [r.generated for r in again] == [r.generated for r in reqs]
+    finally:
+        hvd.shutdown()
+
+
+def test_defrag_permutes_the_pools_in_place():
+    """defrag moves live pages down inside the same pool tensors (a
+    captured graph reads them at their addresses), and decoding after it
+    gives the logits of an engine that never defragmented."""
+    cfg = _cfg(n_kv_heads=2)
+    params = _params(cfg)
+    kw = dict(num_pages=16, page_size=4, batch_bin_floor=2,
+              page_bin_floor=4, len_bin_floor=8)
+
+    def run(defrag):
+        eng = _engine(cfg, params, **kw)
+        for sid, n in ((0, 12), (1, 12), (2, 12)):
+            eng.cache.allocate(sid, n)
+        eng.prefill([0, 1, 2], [[3, 1, 4, 1], [5, 9, 2, 6], [5, 3, 5, 8]])
+        eng.cache.free(1)
+        ptrs = (eng._k_pool.data_ptr(), eng._v_pool.data_ptr())
+        moved = eng.defrag() if defrag else 0
+        assert (eng._k_pool.data_ptr(), eng._v_pool.data_ptr()) == ptrs
+        rows = [eng.decode([0, 2], [7, 9], [4, 4]),
+                eng.decode([0, 2], [2, 3], [5, 5])]
+        return moved, np.stack(rows)
+
+    moved, got = run(defrag=True)
+    assert moved > 0
+    np.testing.assert_array_equal(got, run(defrag=False)[1])

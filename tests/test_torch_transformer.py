@@ -162,3 +162,137 @@ def test_default_device_is_the_card():
     _, tcfg = _cfgs()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tfm.init_params(tcfg, torch.Generator().manual_seed(0))
+
+
+# ----------------------------------------------------------- decoding
+#
+# init_cache / prefill_cache / decode_step / generate against the JAX
+# package's, f32 at a tiny size: greedy tokens identical, logits within
+# F32_ATOL (the serve tests' band for decode against the reference).
+
+
+@pytest.mark.parametrize("positional,kv_heads,window,impl", [
+    ("rope", None, None, "flash"), ("learned", 2, 6, "dense")])
+def test_generate_greedy_matches_jax(positional, kv_heads, window, impl):
+    jcfg, tcfg = _cfgs(positional=positional, n_kv_heads=kv_heads,
+                       attention_window=window, attention_impl=impl,
+                       max_seq=16)
+    jparams, params = _pair(jcfg, tcfg)
+    prompt = _tokens(b=2, s=5, seed=3)
+    want = jax.jit(lambda p, t: jtfm.generate(p, t, jcfg, 7))(
+        jparams, jnp.asarray(prompt))
+    got = tfm.generate(params, torch.from_numpy(prompt), tcfg, 7)
+    assert got.shape == (2, 12) and got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("positional,kv_heads", [("rope", 2),
+                                                 ("learned", None)])
+def test_decode_step_logits_match_jax(positional, kv_heads):
+    jcfg, tcfg = _cfgs(positional=positional, n_kv_heads=kv_heads,
+                       attention_impl="flash", max_seq=16)
+    jparams, params = _pair(jcfg, tcfg)
+    tokens = _tokens(b=2, s=10, seed=4)
+    jprefill = jax.jit(jtfm.prefill_cache, static_argnums=3)
+    jdecode = jax.jit(jtfm.decode_step, static_argnums=3)
+    jcache = jtfm.init_cache(jcfg, 2, 12)
+    logits, jcache = jprefill(jparams, jcache, jnp.asarray(tokens[:, :4]),
+                              jcfg)
+    want = [np.asarray(logits)]
+    cache = tfm.init_cache(tcfg, 2, 12, device="cpu")
+    logits, cache = tfm.prefill_cache(params, cache,
+                                      torch.from_numpy(tokens[:, :4]), tcfg)
+    got = [logits.numpy()]
+    for i in range(4, 10):
+        logits, jcache = jdecode(jparams, jcache, jnp.asarray(tokens[:, i]),
+                                 jcfg)
+        want.append(np.asarray(logits))
+        logits, cache = tfm.decode_step(
+            params, cache, torch.from_numpy(tokens[:, i]), tcfg)
+        got.append(logits.numpy())
+    assert int(cache["pos"]) == int(jcache["pos"]) == 10
+    np.testing.assert_allclose(np.stack(got), np.stack(want),
+                               atol=F32_ATOL, rtol=0)
+    for lc, jlc in zip(cache["layers"], jcache["layers"]):
+        np.testing.assert_allclose(lc["k"].numpy(), np.asarray(jlc["k"]),
+                                   atol=F32_ATOL, rtol=0)
+
+
+def test_generate_length_validation():
+    _, tcfg = _cfgs(vocab_size=8, d_model=8, n_heads=2, n_layers=1, d_ff=8,
+                    max_seq=8)
+    params = tfm.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match="max_seq"):
+        tfm.generate(params, torch.zeros((1, 6), dtype=torch.int64), tcfg, 4)
+
+
+def test_generate_bad_args():
+    _, tcfg = _cfgs(vocab_size=8, d_model=8, n_heads=2, n_layers=1, d_ff=8,
+                    max_seq=16)
+    params = tfm.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    prompt = torch.zeros((1, 6), dtype=torch.int64)
+    with pytest.raises(ValueError, match="max_new_tokens"):
+        tfm.generate(params, prompt, tcfg, 0)
+    with pytest.raises(ValueError, match="must cover"):
+        tfm.generate(params, prompt, tcfg, 4, max_len=6)
+    with pytest.raises(ValueError, match="temperature must be >= 0"):
+        tfm.generate(params, prompt, tcfg, 4, temperature=-1.0)
+    with pytest.raises(ValueError, match="needs a PRNG key"):
+        tfm.generate(params, prompt, tcfg, 4, temperature=0.5)
+    with pytest.raises(ValueError, match="top_k must be >= 1"):
+        tfm.generate(params, prompt, tcfg, 4, top_k=0)
+
+
+def test_prefill_warm_cache_rejected():
+    """prefill on a non-fresh cache would clobber rows at offset 0 and
+    ignore the context before them: it raises instead."""
+    _, tcfg = _cfgs(max_seq=16)
+    params = tfm.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    cache = tfm.init_cache(tcfg, 1, 12, device="cpu")
+    _, cache = tfm.decode_step(params, cache,
+                               torch.zeros((1,), dtype=torch.int64), tcfg)
+    with pytest.raises(ValueError, match="fresh cache"):
+        tfm.prefill_cache(params, cache,
+                          torch.zeros((1, 4), dtype=torch.int64), tcfg)
+
+
+def test_generate_sampling_contract():
+    """The port samples from a torch.Generator where the JAX package
+    draws from jax.random, so the draws differ by design; what holds:
+    top_k=1 is greedy, one seed gives one stream, every token is in the
+    vocabulary."""
+    _, tcfg = _cfgs(max_seq=16)
+    params = tfm.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    prompt = torch.from_numpy(_tokens(b=2, s=4, seed=5))
+
+    def sample(seed, **kw):
+        return tfm.generate(params, prompt, tcfg, 8, temperature=0.8,
+                            generator=torch.Generator().manual_seed(seed),
+                            **kw)
+
+    greedy = tfm.generate(params, prompt, tcfg, 8)
+    assert torch.equal(sample(0, top_k=1), greedy)
+    first = sample(1, top_k=5)
+    assert torch.equal(first, sample(1, top_k=5))
+    assert torch.equal(first[:, :4], prompt)
+    assert bool(((first >= 0) & (first < tcfg.vocab_size)).all())
+
+
+def test_generate_replays_one_decode_program_per_shape_in_a_session():
+    """Under hvd.init() the decode program of a (B, max_len) lives in the
+    session's program cache: a second generate of that shape hits it and
+    gives the same tokens."""
+    import horovod_tpu_torch as hvd
+    _, tcfg = _cfgs(max_seq=16, attention_impl="flash")
+    params = tfm.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    prompt = torch.from_numpy(_tokens(b=2, s=4, seed=6))
+    alone = tfm.generate(params, prompt, tcfg, 6)
+    hvd.init(device="cpu")
+    try:
+        programs = hvd.runtime.live_state().programs
+        first = tfm.generate(params, prompt, tcfg, 6)
+        second = tfm.generate(params, prompt, tcfg, 6)
+        assert (programs.misses, programs.hits, len(programs)) == (1, 1, 1)
+    finally:
+        hvd.shutdown()
+    assert torch.equal(first, alone) and torch.equal(second, alone)
