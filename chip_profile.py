@@ -10,7 +10,14 @@ prompt tokens and two decode steps (capturing the graphs), then records
 one prefill and 8 decode steps. Training: ``hvd.init()``, ``DistributedOptimizer(AdamW)`` and the
 batch of chip_smoke.py (4 x 4096, loss_chunk 512); warms one step, then
 records one. The sequence-parallel step likewise: chip_smoke.py's SP
-model (window 4096, a local ring of 4) at batch 2 x 8192. ResNet-50 as
+model (window 4096, a local ring of 4) at batch 2 x 8192. flagship-moe
+(chip_smoke.py's MOE_MODEL: MoE FFNs in layers 1, 3, 5 and 7, 8
+experts, top-2) likewise at 4 x 4096, with the expert keys on the
+exchange; then one MoE layer's forward and backward, and one dense
+FFN's, timed alone at the step's shape (bf16 rows of 4 x 4096, CUDA
+events, mean of 3), and the MoE layers' share of the step's device time
+(4 MoE layers' time over the step's); and its serving round through the
+graphs (full capacity). ResNet-50 as
 chip_smoke.py's phase_resnet trains it (bf16, channels_last, batch 256
 x 224^2, SGD(0.01) under ``DistributedOptimizer``); warms one step, then
 records one; then times the host's launch of that step as a CUDA graph
@@ -37,10 +44,10 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import (ADAMW, FLAGSHIP, LOSS_CHUNK, N_REQUESTS, NEW_TOKENS,
-                        PAGE_SIZE, RESNET_BATCH, RESNET_SIZE, SP_BATCH,
-                        SP_MODEL, SP_RING, SP_SEQ, TRAIN_BATCH, TRAIN_SEQ,
-                        prompts)
+from chip_smoke import (ADAMW, FLAGSHIP, LOSS_CHUNK, MOE_EXPERT_KEYS,
+                        MOE_MODEL, N_REQUESTS, NEW_TOKENS, PAGE_SIZE,
+                        RESNET_BATCH, RESNET_SIZE, SP_BATCH, SP_MODEL,
+                        SP_RING, SP_SEQ, TRAIN_BATCH, TRAIN_SEQ, prompts)
 
 DECODE_STEPS = 8
 
@@ -119,6 +126,7 @@ def report(label, prof, wall_s, where):
         print(f"  {group}: {t / 1e3:.2f} ms ({t / total_us:.3f})")
     for name, t in sorted(times.items(), key=lambda kv: -kv[1])[:8]:
         print(f"    {t / 1e3:8.2f} ms  {name[:100]}")
+    return total_us / 1e3
 
 
 def main():
@@ -148,6 +156,16 @@ def main():
     torch.cuda.empty_cache()
     profile_train(card, where)
     profile_train(card, where, sp=True)
+    profile_train(card, where, moe=True)
+    moe_cfg = tfm.TransformerConfig(dtype=torch.bfloat16,
+                                    attention_impl="flash", **MOE_MODEL)
+    params = tfm.init_params(moe_cfg, torch.Generator().manual_seed(0), card)
+    os.environ["HOROVOD_STEP_PROGRAM"] = "1"
+    profile_serve(ServeEngine, params, moe_cfg, card,
+                  f"{where}, graphs, flagship-moe")
+    os.environ.pop("HOROVOD_STEP_PROGRAM")
+    del params
+    torch.cuda.empty_cache()
     profile_resnet(card, where)
     return 0
 
@@ -255,13 +273,15 @@ def profile_resnet(card, where):
     torch.cuda.empty_cache()
 
 
-def profile_train(card, where, sp=False):
+def profile_train(card, where, sp=False, moe=False):
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import transformer as tfm
     from horovod_tpu_torch.parallel.ring_attention import RingAxis
 
     hvd.init(device=card)
     model, batch, seq, axes = FLAGSHIP, TRAIN_BATCH, TRAIN_SEQ, None
+    if moe:
+        model = MOE_MODEL
     if sp:
         model, batch, seq = SP_MODEL, SP_BATCH, SP_SEQ
         axes = tfm.ShardAxes(sp=RingAxis.local(SP_RING))
@@ -272,7 +292,8 @@ def profile_train(card, where, sp=False):
     hvd.broadcast_parameters(lm.state_dict(), root_rank=0)
     opt = hvd.DistributedOptimizer(
         torch.optim.AdamW(lm.parameters(), **ADAMW),
-        named_parameters=lm.named_parameters())
+        named_parameters=lm.named_parameters(),
+        expert_keys=MOE_EXPERT_KEYS if moe else None)
     tokens = np.random.default_rng(1).integers(0, cfg.vocab_size,
                                                (batch, seq))
     targets = torch.from_numpy(np.roll(tokens, -1, axis=1)).to(card)
@@ -291,12 +312,52 @@ def profile_train(card, where, sp=False):
         step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    label = f"{'sp ' if sp else ''}train step {batch} x {seq}"
-    report(label, prof, wall, where)
-    del opt, lm
+    label = (f"{'sp ' if sp else 'moe ' if moe else ''}train step {batch} "
+             f"x {seq}")
+    step_ms = report(label, prof, wall, where)
+    del opt  # its gradient hooks would count the timed passes below
+    gc.collect()
+    if moe:
+        ffn_share(tfm, lm.params, cfg, batch, seq, step_ms, card, where)
+    del lm
     gc.collect()
     hvd.shutdown()
     torch.cuda.empty_cache()
+
+
+def ffn_share(tfm, params, cfg, batch, seq, step_ms, card, where):
+    """One MoE layer's and one dense FFN's forward and backward (the
+    block with its norm and residual, bf16 rows of batch x seq) timed
+    alone with CUDA events, and the MoE layers' share of a step's
+    device time ``step_ms``."""
+    def fwd_bwd(layer):
+        x = torch.randn(batch, seq, cfg.d_model, device=card,
+                        dtype=cfg.dtype, requires_grad=True)
+        g = torch.randn(batch, seq, cfg.d_model, device=card)
+
+        def run():
+            # an MoE layer's load-balance loss joins its output's gradient
+            y, aux = tfm._mlp_block(params["layers"][layer], x, cfg)
+            (y.float() + aux).backward(g)
+
+        run()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(3):
+            run()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 3
+
+    moe_ms, dense_ms = fwd_bwd(cfg.moe_layers[0]), fwd_bwd(0)
+    n_moe = len(cfg.moe_layers)
+    print(f"moe layer forward + backward at {batch} x {seq} [{where}]: "
+          f"{moe_ms:.2f} ms, a dense FFN's {dense_ms:.2f} ms; the "
+          f"{n_moe} MoE layers {n_moe * moe_ms:.2f} ms of a {step_ms:.2f} "
+          f"ms step's device time ({n_moe * moe_ms / step_ms:.3f})",
+          flush=True)
 
 
 if __name__ == "__main__":

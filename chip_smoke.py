@@ -93,8 +93,35 @@ their own, each after the eager phase it mirrors; the eager serve phase
   tensor-core route and one ``allreduce_jit`` a bucket, and the replay's
   time beside the eager step's.
 
-The kernels phases also run the CUDA-core loop at head dim 256 against
-the plain versions and time it (off every main path).
+Mixture-of-Experts has three phases of its own, after the compiled
+train phase, on flagship-moe (``MOE_MODEL``: the flagship with an MoE
+FFN in layers 1, 3, 5 and 7, 8 experts, top-2, capacity factor 1.25;
+1426 M parameters, drawn once on the host from seed 0):
+
+- moe parity: the MoE layer at full width (d 2048, ff 8192, 4 x 4096
+  tokens, f32, a router skewed so that capacity drops happen) in index
+  form against its dense plain version on the card (routing tables
+  equal to the dense tensors, aux and counts equal, outputs within
+  MOE_LAYER_REL), and flagship-moe cut to 2 layers (dense attention,
+  full capacity) on the card against the CPU (router probabilities
+  within MOE_PROB_ATOL, logits within LOGITS_ATOL wherever both sides
+  pick the same experts);
+- moe train (main path 7): flagship-moe at 4 x 4096 as the compiled
+  train phase runs the flagship (3 eager steps, 3 compiled steps and 4
+  replays, bitwise against eager; the expert stacks' gradients on the
+  expert keys), with step time, tokens/s and peak memory; then the
+  ``hvd_moe_*`` counters of one evaluation: dropped = t * k * MoE layers
+  - routed;
+- moe serve (main path 8): the serving workload on flagship-moe through
+  the eager and the graph engine (tokens identical, steady decode hit
+  rate 1.0, no fallback), MoE layers at full capacity: nothing dropped.
+
+The bench phase also runs ``bench.transformer --moe --expert-parallel
+1`` and checks the ``moe`` rows.
+
+The kernels phases also run the CUDA-core loop at head dims 256 and 320
+(the latter in 256-column pieces) against the plain versions and time
+it (off every main path).
 
 On every main path each kernel launch takes the tensor-core route: the
 loop's counters stay at 0 there, and the route's counters are exact (8
@@ -148,6 +175,13 @@ SP_STEPS = min(SP_RING, 1 + -(-(SP_WINDOW - 1) // SP_SHARD))
 SP_BAND_OFFSETS = [t * SP_SHARD for t in range(1, SP_STEPS)
                    for _ in range(t, SP_RING)]
 SP_MODEL = dict(FLAGSHIP, max_seq=SP_SEQ, attention_window=SP_WINDOW)
+# flagship-moe: the flagship with an MoE FFN in every other layer (as
+# GShard and Switch place them, and tests/test_moe.py:201), 8 experts and
+# top-2 routing (bench_transformer.py's --moe defaults, Mixtral's), the
+# MoEConfig capacity factor 1.25; the expert stacks are the expert keys.
+MOE_MODEL = dict(FLAGSHIP, moe_layers=(1, 3, 5, 7), moe_num_experts=8,
+                 moe_top_k=2)
+MOE_EXPERT_KEYS = ("moe.w1", "moe.w2")
 
 # Kernel vs plain version: f32 outputs differ by summation order only;
 # a bf16 output by at most one rounding of a value below 4 (2^-6); lse
@@ -199,6 +233,32 @@ BAND_BF16_REL = 2.0 ** -7
 # against 0.01912, a ratio of 1.188, on an H100).
 TRAIN_LOSS_ATOL, TRAIN_GRAD_REL, SMALL_GRAD_ATOL = 1e-2, 3e-2, 1e-4
 YARDSTICK_RATIO = 1.5
+# The MoE layer's index form against its dense plain version, f32, on
+# the card: the same routing (tables equal the dense tensors exactly),
+# the same expert rows, aux and counts; the dense combine's GEMM sums
+# each token's two gate-weighted rows (and zeros) with fused multiply-
+# adds in its own order, so an output may differ by a few f32 roundings
+# of the largest magnitude: MOE_LAYER_REL of it.
+MOE_LAYER_REL = 2.0 ** -20
+# flagship-moe cut to 2 layers (layer 1 MoE) on the card against the CPU
+# at B 1 x MOE_PARITY_SEQ: layer 1's router probabilities within
+# MOE_PROB_ATOL, and the logits within LOGITS_ATOL at every position
+# where both sides pick the same experts, which must be all but
+# MOE_FLIPS of them. Routing is discrete: where two experts' router
+# probabilities lie closer than the two sides' difference, each side may
+# pick another (both answers right), and that position's output differs
+# by a whole expert's. The sides differ in f32 summation order, which
+# flips a bf16 rounding now and then; a flipped rounding of a dominant
+# softmax weight moves a whole head's output, so the router's input of
+# that position moves on most of its elements. Both sides run dense
+# attention (the same torch ops; the flash route rounds every P to bf16
+# where the CPU's plain version does not) and the MoE layer at full
+# capacity (nothing drops, so a position depends on its own routing only;
+# in capacity mode a token's queue position, and so what drops, depends
+# on every earlier token's routing). The flash route and the capacity
+# mode are held by the kernel and layer checks above and by the CPU
+# tests.
+MOE_PARITY_SEQ, MOE_PROB_ATOL, MOE_FLIPS = 256, 2e-2, 256 // 50
 
 
 def check(cond, msg):
@@ -377,6 +437,8 @@ def phase_kernels(fa, card, gen):
         (2, 130, 4, 2, 8, torch.float32, True, None),             # small f32
         (2, 300, 4, 2, 256, torch.bfloat16, True, None),          # D 256
         (1, 200, 4, 1, 256, torch.float32, True, 50),     # D 256, window
+        (2, 300, 4, 2, 320, torch.bfloat16, True, None),  # D 320, pieces
+        (1, 200, 4, 1, 320, torch.float32, True, 50),     # D 320, window
     ]
     worst = worst32 = 0.0
     entry = None
@@ -595,20 +657,19 @@ def serve_round(engine, metrics, vocab):
     return out
 
 
-def phase_compiled_serve(fa, serve, metrics, tfm, lm, card, where):
-    """Main path 5: the serving workload through graph-replayed prefill
-    and decode, beside the same engine run eagerly in this call. Each
-    engine serves the 8 requests three times from this thread: a round
-    that builds its programs (the graphs' warm-up and capture), a timed
-    round, and a round under torch.profiler for the device time, whose
-    ratio to the timed round's wall is the card's busy share. The graph
-    engine's tokens must equal the eager one's, its timed round must hit
-    its program cache on >= 0.9 of the decode steps with no fallback,
-    and its prefill replay launches flash_fwd 8 times. Then ``generate``
-    on the flagship: its graph-replayed greedy tokens against the eager
-    ``decode_step``'s argmax, whose logits must lie within LOGITS_ATOL of
-    a full forward over the same prefix. Returns {kernel: launches} of
-    the graph engine's timed round and of ``generate``."""
+def serve_both_engines(fa, serve, metrics, lm, card, where, label):
+    """The serving workload through ``serve.Engine`` eagerly and through
+    its graphs, each engine serving the 8 requests three times from this
+    thread: a round that builds its programs (the graphs' warm-up and
+    capture), a timed round (launch counts zeroed just before it and
+    read just after), and a round under torch.profiler for the device
+    time, whose ratio to the timed round's wall is the card's busy
+    share. The graph engine's tokens must equal the eager one's, its
+    timed round must hit its program cache on >= 0.9 of the decode
+    steps with no fallback, and each prefill launches flash_fwd once a
+    layer on the tensor cores. Prints each engine's prefill, decode
+    step, token latency p50/p99, TTFT, tokens/s and busy share. Returns
+    {mode: round}."""
     vocab = lm.cfg.vocab_size
     res = {}
     for mode, value in (("eager", "0"), ("graphs", "1")):
@@ -654,7 +715,7 @@ def phase_compiled_serve(fa, serve, metrics, tfm, lm, card, where):
           f"graph serving launches {launches} over "
           f"{graphs['prefill_calls']} prefill replays")
     for mode, r in res.items():
-        print(f"compiled serve [{mode}] {N_REQUESTS} x ({PROMPT_LEN} + "
+        print(f"{label} [{mode}] {N_REQUESTS} x ({PROMPT_LEN} + "
               f"{NEW_TOKENS}) [{where}]: prefill {r['prefill_ms']:.2f} ms "
               f"({r['prefill_calls']} call); decode step "
               f"{r['decode_ms']:.2f} ms (mean of {r['decode_calls']}); "
@@ -664,10 +725,26 @@ def phase_compiled_serve(fa, serve, metrics, tfm, lm, card, where):
               f"{N_REQUESTS * NEW_TOKENS / r['wall_ms'] * 1e3:.1f} tokens/s; "
               f"device {r['device_ms']:.2f} ms of a {r['wall_ms']:.2f} ms "
               f"round, busy {r['busy']:.3f}", flush=True)
-    print(f"compiled serve: tokens identical to eager; steady decode hit "
+    print(f"{label}: tokens identical to eager; steady decode hit "
           f"rate {graphs['steady_hit_rate']:.3f}; decode step "
           f"{eager['decode_ms']:.2f} -> {graphs['decode_ms']:.2f} ms",
           flush=True)
+    return res
+
+
+def phase_compiled_serve(fa, serve, metrics, tfm, lm, card, where):
+    """Main path 5: the serving workload through graph-replayed prefill
+    and decode, beside the same engine run eagerly in this call
+    (:func:`serve_both_engines`). Then ``generate``
+    on the flagship: its graph-replayed greedy tokens against the eager
+    ``decode_step``'s argmax, whose logits must lie within LOGITS_ATOL of
+    a full forward over the same prefix. Returns {kernel: launches} of
+    the graph engine's timed round and of ``generate``."""
+    res = serve_both_engines(fa, serve, metrics, lm, card, where,
+                             "compiled serve")
+    graphs = res["graphs"]
+    launches = graphs["launches"]
+    vocab = lm.cfg.vocab_size
 
     # generate on the flagship: graph-replayed decode against eager
     # decode_step and a full forward over the same prefix
@@ -824,6 +901,8 @@ def phase_backward_kernels(fa, card, gen):
         (2, 130, 4, 2, 8, torch.float32, True, None),            # small f32
         (2, 300, 4, 2, 256, torch.bfloat16, True, None),         # D 256
         (1, 200, 4, 1, 256, torch.float32, True, 50),    # D 256, window
+        (2, 300, 4, 2, 320, torch.bfloat16, True, None),  # D 320, pieces
+        (1, 200, 4, 1, 320, torch.float32, True, 50),    # D 320, window
     ]
     names = ("flash_bwd_dq", "flash_bwd_dkv")
     worst = dict.fromkeys(names, 0.0)
@@ -911,32 +990,37 @@ def phase_backward_kernels(fa, card, gen):
                  "bound_ms": bound(fwd_bytes, fwd_flops, torch.bfloat16)[0]}
     del args, q, k, v, g
     torch.cuda.empty_cache()
-    d256 = loop_d256_timings(fa, card, gen)
-    train_fwd["loop_d256_ms"] = d256["flash_fwd"]
-    for name in names:
-        entries[name]["loop_d256_ms"] = d256[name]
+    for d in LOOP_WIDE_DIMS:
+        wide = loop_wide_timings(fa, card, gen, d)
+        train_fwd[f"loop_d{d}_ms"] = wide["flash_fwd"]
+        for name in names:
+            entries[name][f"loop_d{d}_ms"] = wide[name]
     return entries, train_fwd
 
 
-# Head dim 256 runs the CUDA-core loop only (off every main path): its
-# times at B 1 x S 4096, H 8 / H_kv 2, bf16, causal.
-D256_SHAPE = (1, TRAIN_SEQ, 8, 2, 256, torch.bfloat16, True, None)
+# Head dims 256 and 320 run the CUDA-core loop only (off every main
+# path; 320 in two 256-column pieces): their times at B 1 x S 4096,
+# H 8 / H_kv 2, bf16, causal.
+LOOP_WIDE_DIMS = (256, 320)
 
 
-def loop_d256_timings(fa, card, gen):
-    """{kernel: ms} of the three static kernels at D256_SHAPE, each with
-    its bound (operations, at the f32 rate: the loop multiplies on the
-    CUDA cores)."""
-    args = bwd_inputs(fa, card, gen, *D256_SHAPE)
-    check(not fa.tensor_core_route(*args[:4]), "D 256 took the tensor cores")
+def loop_wide_timings(fa, card, gen, d):
+    """{kernel: ms} of the three static kernels at head dim ``d`` (B 1,
+    S 4096, H 8 / 2, bf16, causal), each with its bound (operations, at
+    the f32 rate: the loop multiplies on the CUDA cores). The times are
+    wall times on the card's stream (CUDA events)."""
+    shape = (1, TRAIN_SEQ, 8, 2, d, torch.bfloat16, True, None)
+    args = bwd_inputs(fa, card, gen, *shape)
+    check(not fa.tensor_core_route(*args[:4]),
+          f"D {d} took the tensor cores")
     ms = {"flash_fwd": time_ms(lambda: fa.flash_attention(*args[:3]), 3),
           "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq(*args), 3),
           "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv(*args), 3)}
-    work = backward_work(*D256_SHAPE)
-    work["flash_fwd"] = attention_work(*D256_SHAPE)
+    work = backward_work(*shape)
+    work["flash_fwd"] = attention_work(*shape)
     for name, t in ms.items():
         b_ms, by = bound(*work[name], torch.float32)
-        print(f"kernel {name} on the loop at D 256 (B 1, S 4096, H 8/2, "
+        print(f"kernel {name} on the loop at D {d} (B 1, S 4096, H 8/2, "
               f"bf16, causal): {t:.4f} ms, bound {b_ms:.4f} ms ({by}, f32 "
               f"rate; {work[name][1] / t / 1e9:.1f} TFLOP/s)", flush=True)
     del args
@@ -1013,6 +1097,7 @@ def phase_band_kernels(fa, card, gen):
         (2, 130, 4, 2, 8, torch.float32, 130, 100),     # ragged, dead rows
         (1, 1000, 8, 8, 64, torch.float32, 2000, 1500),  # off 2S, dead rows
         (1, 700, 16, 4, 128, torch.bfloat16, 700, 1000),  # ragged, window > S
+        (1, 200, 4, 2, 320, torch.bfloat16, 200, 150),  # D 320, dead rows
     ]
     names = ("flash_band_fwd", "flash_band_dq", "flash_band_dkv")
     worst = dict.fromkeys(names, 0.0)
@@ -1326,6 +1411,11 @@ def flops_per_token(params, cfg, seq):
     p_mm = sum(v.numel() for layer in params["layers"]
                for k, v in layer.items()
                if k.startswith(("wq", "wk", "wo", "w1", "w2")))
+    # an MoE layer: the router and the top_k experts a token is sent to
+    p_mm += sum(layer["moe"]["w_router"].numel() + cfg.moe_top_k
+                * (layer["moe"]["w1"].numel() + layer["moe"]["w2"].numel())
+                // cfg.moe_num_experts
+                for layer in params["layers"] if "moe" in layer)
     p_mm += params["lm_head"].numel()
     return 6 * p_mm + 6 * cfg.n_layers * seq * cfg.d_model
 
@@ -1466,8 +1556,20 @@ def phase_train(hvd, fa, tfm, card, where, ring=None):
 COMPILED_STEPS, REPLAYS = 3, 4
 
 
-def phase_compiled_train(hvd, fa, tfm, card, where):
-    """Main path 6: the flagship at batch 4 x 4096 through
+def to_card(tree, card):
+    """A copy of a parameter tree (dicts, lists of layers) on the card."""
+    if isinstance(tree, dict):
+        return {k: to_card(v, card) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_card(v, card) for v in tree]
+    return tree.to(card, copy=True)
+
+
+def phase_compiled_train(hvd, fa, tfm, card, where, model=FLAGSHIP,
+                         label="compiled train", expert_keys=None,
+                         init=None):
+    """Main path 6 (``model`` the flagship) or 7 (flagship-moe, with
+    ``expert_keys``): the model at batch 4 x 4096 through
     ``compiled_train_step`` over ``DistributedOptimizer(AdamW(...,
     capturable=True))``, under HOROVOD_PROFILER_JIT_CALLBACKS=1. First
     COMPILED_STEPS eager steps of the same optimizer from the same init
@@ -1476,23 +1578,28 @@ def phase_compiled_train(hvd, fa, tfm, card, where):
     parameters must equal the eager run's bitwise, with 1 cache miss, the
     rest hits and no fallback; then REPLAYS timed replays, each with 8
     launches of each static kernel on the tensor-core route and the
-    eager path's one all-reduce a bucket. Returns {kernel: launches} of
-    the compiled steps."""
+    eager path's one all-reduce a bucket (a bucket a group with expert
+    keys: the experts' over the data group, the rest over the world).
+    The losses must be finite and fall. ``init`` (a parameter tree on
+    the host) starts both runs, else seed 0 does. Returns ({kernel:
+    launches} of the compiled steps, the trained parameters, the
+    batch)."""
     os.environ["HOROVOD_PROFILER_JIT_CALLBACKS"] = "1"
     hvd.init(device=card)
     cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
-                                loss_chunk=LOSS_CHUNK, **FLAGSHIP)
+                                loss_chunk=LOSS_CHUNK, **model)
     tokens = np.random.default_rng(1).integers(0, cfg.vocab_size,
                                                (TRAIN_BATCH, TRAIN_SEQ))
     targets = torch.from_numpy(np.roll(tokens, -1, axis=1)).to(card)
     tokens = torch.from_numpy(tokens).to(card)
 
     def build():
-        lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
-                               device=card)
+        lm = tfm.TransformerLM(
+            cfg, None if init is None else to_card(init, card),
+            generator=torch.Generator().manual_seed(0), device=card)
         opt = hvd.DistributedOptimizer(
             torch.optim.AdamW(lm.parameters(), capturable=True, **ADAMW),
-            named_parameters=lm.named_parameters())
+            named_parameters=lm.named_parameters(), expert_keys=expert_keys)
         return lm, opt
 
     def timed(fn):
@@ -1524,9 +1631,13 @@ def phase_compiled_train(hvd, fa, tfm, card, where):
     torch.cuda.empty_cache()
 
     lm, opt = build()
-    n_buckets = len(opt.exchange_buckets)
+    # one all-reduce per bucket and exchange group (expert or world)
+    n_buckets = sum(len({opt._group_of[p] for p in b})
+                    for b in opt.exchange_buckets)
     step = hvd.compiled_train_step(lm.loss, opt)
     stats = hvd.runtime.live_state().stats
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     zero_launches(fa)
     runs = [timed(lambda: step(tokens, targets))
             for _ in range(COMPILED_STEPS)]
@@ -1547,14 +1658,26 @@ def phase_compiled_train(hvd, fa, tfm, card, where):
     jit_calls = stats.counter("allreduce_jit") - jit0
     replay_ms = [a.elapsed_time(b) for _, (a, b), _ in replays]
     host_ms = [h * 1e3 for _, _, h in replays]
-    print(f"compiled train losses: {' '.join(f'{x:.4f}' for x in losses)} "
+    losses += [x[0].item() for x in replays]
+    peak = torch.cuda.max_memory_allocated()
+    median = float(np.median(replay_ms))
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (median / 1e3)
+    fpt = flops_per_token(lm.params, cfg, TRAIN_SEQ)
+    n_params = sum(p.numel() for p in lm.parameters())
+    print(f"{label} losses: {' '.join(f'{x:.4f}' for x in losses)} "
           f"(eager {' '.join(f'{x:.4f}' for x in eager_losses)})", flush=True)
-    print(f"compiled train vs eager after {COMPILED_STEPS} steps: "
+    print(f"{label} {TRAIN_BATCH} x {TRAIN_SEQ}, {n_params / 1e6:.1f} M "
+          f"parameters [{where}]: step {median:.1f} ms (replay, median of "
+          f"{REPLAYS}); {tok_s:.1f} tokens/s; {fpt / 1e9:.3f} GFLOP/token "
+          f"(active); MFU {fpt * tok_s / PEAK_FLOPS[torch.bfloat16]:.4f} "
+          f"against 989 TFLOP/s bf16; peak memory {peak / 2 ** 30:.2f} GiB",
+          flush=True)
+    print(f"{label} vs eager after {COMPILED_STEPS} steps: "
           f"{len(differ)} of {len(deltas)} parameters differ, max|d| "
           f"{max(deltas.values()):.3g}"
           + (f" (worst {max(differ, key=differ.get)})" if differ else ""),
           flush=True)
-    print(f"compiled train 4 x 4096 [{where}]: replay {np.median(replay_ms):.1f}"
+    print(f"{label} 4 x 4096 [{where}]: replay {np.median(replay_ms):.1f}"
           f" ms (median of {REPLAYS}; {' '.join(f'{t:.1f}' for t in replay_ms)})"
           f" against eager {np.median(eager_ms):.1f} ms (steps 2-"
           f"{COMPILED_STEPS} of the same optimizer); step() returns in "
@@ -1564,7 +1687,10 @@ def phase_compiled_train(hvd, fa, tfm, card, where):
           f"{jit_calls} allreduce_jit records in {REPLAYS} replays",
           flush=True)
     check(not differ, f"compiled parameters differ from eager: {differ}")
-    check(losses == eager_losses, f"losses {losses} vs eager {eager_losses}")
+    check(losses[:COMPILED_STEPS] == eager_losses,
+          f"losses {losses} vs eager {eager_losses}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{label}: losses not finite or not falling: {losses}")
     check((step.cache_misses, step.fallback_steps) == (1, 0)
           and step.cache_hits == COMPILED_STEPS + REPLAYS - 1,
           f"cache {step.cache_hits}/{step.cache_misses}, fallbacks "
@@ -1579,12 +1705,220 @@ def phase_compiled_train(hvd, fa, tfm, card, where):
           == REPLAYS * n_buckets,
           f"all-reduces a replay: {prog.collectives}, {jit_calls} records "
           f"in {REPLAYS} replays of {n_buckets} bucket(s)")
-    del step, prog, opt, lm
+    params = lm.params
+    del step, prog, opt
     gc.collect()
     hvd.shutdown()
     os.environ.pop("HOROVOD_PROFILER_JIT_CALLBACKS")
+    return launches, params, tokens
+
+
+def moe_stats(tfm, moe, metrics, params, tokens, cfg, full_capacity):
+    """One evaluation of the model on ``tokens`` whose MoE layers run
+    with ``with_stats`` (the other layers as the model runs them), each
+    layer's counts recorded in the hvd_moe_* families
+    (``metrics.record_moe_step``). Returns (routed, dropped) summed over
+    the MoE layers."""
+    routed = dropped = 0.0
+    with torch.no_grad():
+        x = tfm.embed_tokens(params, tokens, cfg)
+        for p in params["layers"]:
+            x, _, _ = tfm._attention_block_kv(p, x, cfg)
+            if "moe" not in p:
+                x, _ = tfm._mlp_block(p, x, cfg)
+                continue
+            h = tfm._rmsnorm(x, p["ln2"]).to(cfg.dtype)
+            y, _, st = moe.moe_layer(p["moe"], h, cfg.moe_cfg,
+                                     with_stats=True,
+                                     full_capacity=full_capacity)
+            x = x + y.to(cfg.dtype)
+            r, d = st["routed_tokens"].item(), st["dropped_tokens"].item()
+            metrics.record_moe_step(r, d, st["load_balance_loss"].item(),
+                                    st["chunks"])
+            routed, dropped = routed + r, dropped + d
+    return routed, dropped
+
+
+def full_capacity_logits(tfm, params, tokens, cfg):
+    """The model's f32 logits with its MoE layers at full capacity (the
+    serving mode)."""
+    with torch.no_grad():
+        x = tfm.embed_tokens(params, tokens, cfg)
+        for p in params["layers"]:
+            x, _, _ = tfm._attention_block_kv(p, x, cfg)
+            x, _ = tfm._mlp_block(p, x, cfg, moe_full_capacity=True)
+        return tfm._head(params, x, cfg)
+
+
+def router_probs(tfm, moe, params, tokens, cfg, layer):
+    """The router probabilities (t, E) of MoE layer ``layer`` (the model
+    run up to it) on the host, and each position's k experts (sorted)."""
+    with torch.no_grad():
+        x = tfm.embed_tokens(params, tokens, cfg)
+        for p in params["layers"][:layer]:
+            x, _ = tfm._one_layer(p, x, cfg, tfm.ShardAxes())
+        p = params["layers"][layer]
+        x, _, _ = tfm._attention_block_kv(p, x, cfg)
+        h = tfm._rmsnorm(x, p["ln2"]).to(cfg.dtype)
+        probs = moe._router(h.reshape(-1, cfg.d_model),
+                            p["moe"]["w_router"])
+        picks = moe._top_k(probs, cfg.moe_top_k)[1]
+        return probs.cpu(), torch.sort(picks, dim=-1).values.cpu()
+
+
+def phase_moe_parity(tfm, moe, card, init):
+    """The MoE layer at full width (d 2048, ff 8192, E 8, top-2, 4 x 4096
+    tokens, f32) on the card: its routing tables rebuilt as dense
+    tensors equal ``_top_k_dispatch``'s exactly, and ``moe_layer``
+    against ``moe_layer_reference`` (the dense einsums): the same aux and
+    counts, outputs within MOE_LAYER_REL of the largest; both timed.
+    Then flagship-moe cut to 2 layers (the first two of ``init``, a
+    host tree: layer 1 MoE), B 1 x MOE_PARITY_SEQ, dense attention and
+    full capacity, on the card against the same weights on the CPU:
+    router probabilities within MOE_PROB_ATOL, logits within LOGITS_ATOL
+    wherever both pick the same experts (all but MOE_FLIPS positions)."""
+    cfg = moe.MoEConfig(d_model=FLAGSHIP["d_model"], d_ff=FLAGSHIP["d_ff"],
+                        num_experts=MOE_MODEL["moe_num_experts"],
+                        top_k=MOE_MODEL["moe_top_k"], dtype=torch.float32)
+    params = moe.init_moe_params(cfg, torch.Generator().manual_seed(4), card)
+    # a router leaning on expert 0, so that its queue overflows and the
+    # drop path runs (random rows alone spread over the experts evenly)
+    params["w_router"][:, 0] *= 4
+    x = torch.randn(TRAIN_BATCH, TRAIN_SEQ, cfg.d_model, device=card,
+                    generator=torch.Generator(device=card).manual_seed(5))
+    t = TRAIN_BATCH * TRAIN_SEQ
+    cap = moe.capacity(t, cfg)
+    probs = moe._router(x.reshape(t, -1), params["w_router"])
+    dense = moe._top_k_dispatch(probs, cfg.top_k, cap)
+    tables = moe.routing_to_dense(moe._route(probs, cfg.top_k, cap), cap)
+    same = [torch.equal(a, b) for a, b in zip(tables, dense)]
+    del dense, tables
+    torch.cuda.empty_cache()
+    y, aux, st = moe.moe_layer(params, x, cfg, with_stats=True)
+    y_ref, aux_ref, st_ref = moe.moe_layer_reference(params, x, cfg,
+                                                     with_stats=True)
+    err = float((y - y_ref).abs().max())
+    scale = float(y_ref.abs().max())
+    counts = [(st[k].item(), st_ref[k].item())
+              for k in ("routed_tokens", "dropped_tokens")]
+    ms = time_ms(lambda: moe.moe_layer(params, x, cfg), 3)
+    plain_ms = time_ms(lambda: moe.moe_layer_reference(params, x, cfg), 2)
+    print(f"moe parity layer (d {cfg.d_model}, ff {cfg.d_ff}, E "
+          f"{cfg.num_experts}, top-{cfg.top_k}, {t} tokens, capacity {cap}, "
+          f"f32): tables equal dispatch/combine {same}; routed/dropped "
+          f"{counts}; aux {aux.item():.6f} vs {aux_ref.item():.6f}; "
+          f"max|dy| {err:.3g} of max|y| {scale:.3g} (tol "
+          f"{MOE_LAYER_REL * scale:.3g}); forward {ms:.2f} ms, dense plain "
+          f"version {plain_ms:.2f} ms", flush=True)
+    check(all(same), "MoE routing tables differ from the dense dispatch")
+    check(all(a == b for a, b in counts) and aux.item() == aux_ref.item(),
+          "MoE counts or aux differ from the dense plain version")
+    check(counts[1][0] > 0, "the parity layer dropped nothing")
+    check(err <= MOE_LAYER_REL * scale,
+          "MoE index form disagrees with the dense plain version")
+    del params, x, probs, y, y_ref
+    torch.cuda.empty_cache()
+
+    kw = dict(MOE_MODEL, n_layers=2, moe_layers=(1,))
+    tcfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="dense",
+                                 **kw)
+    host = dict(init, layers=init["layers"][:2])
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, tcfg.vocab_size, (1, MOE_PARITY_SEQ)))
+    with torch.no_grad():
+        want = full_capacity_logits(tfm, host, tokens, tcfg)
+        probs, picks = router_probs(tfm, moe, host, tokens, tcfg, 1)
+    params = to_card(host, card)
+    with torch.no_grad():
+        got = full_capacity_logits(tfm, params, tokens.to(card), tcfg).cpu()
+    card_probs, card_picks = router_probs(tfm, moe, params, tokens.to(card),
+                                          tcfg, 1)
+    dp = float((probs - card_probs).abs().max())
+    same = (picks == card_picks).all(-1).view(tokens.shape)
+    err = (got - want).abs().amax(-1)
+    diff = float(err[same].max())
+    worst_flip = float(err[~same].max()) if (~same).any() else 0.0
+    print(f"moe parity flagship-moe 2 layers (layer 1 MoE, full capacity, "
+          f"dense attention) B 1 x {MOE_PARITY_SEQ}, card vs CPU: router "
+          f"probabilities max|d| {dp:.3g} (tol {MOE_PROB_ATOL:g}); "
+          f"{int((~same).sum())} positions picked other experts (at most "
+          f"{MOE_FLIPS}; their max|d logits| {worst_flip:.4g}); max|d "
+          f"logits| {diff:.4g} (tol {LOGITS_ATOL:g}) over the "
+          f"{int(same.sum())} others; argmax agreement "
+          f"{float((got.argmax(-1) == want.argmax(-1)).float().mean()):.3f}",
+          flush=True)
+    check(torch.isfinite(got).all() and got.shape == want.shape,
+          "flagship-moe logits shape or finiteness")
+    check(dp <= MOE_PROB_ATOL, "flagship-moe router: card and CPU disagree")
+    check(int((~same).sum()) <= MOE_FLIPS,
+          f"{int((~same).sum())} of {MOE_PARITY_SEQ} positions routed apart")
+    check(diff <= LOGITS_ATOL, "flagship-moe logits: card and CPU disagree")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_moe_train(hvd, fa, tfm, moe, metrics, card, where, init):
+    """Main path 7: flagship-moe at 4 x 4096 through
+    :func:`phase_compiled_train` (3 eager steps, then 3 compiled steps
+    and 4 replays, bitwise against eager, expert keys on the exchange);
+    then one evaluation of the trained model on the batch with the MoE
+    layers' counts recorded: the hvd_moe_* counters must give
+    ``dropped == t * k * moe_layers - routed``. Returns {kernel:
+    launches} of the compiled steps."""
+    launches, params, tokens = phase_compiled_train(
+        hvd, fa, tfm, card, where, model=MOE_MODEL, label="moe train",
+        expert_keys=MOE_EXPERT_KEYS, init=init)
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
+                                **MOE_MODEL)
+    r0 = metrics.MOE_ROUTED_TOKENS.value()
+    d0 = metrics.MOE_DROPPED_TOKENS.value()
+    routed, dropped = moe_stats(tfm, moe, metrics, params, tokens, cfg,
+                                False)
+    got_r = metrics.MOE_ROUTED_TOKENS.value() - r0
+    got_d = metrics.MOE_DROPPED_TOKENS.value() - d0
+    assigned = TRAIN_BATCH * TRAIN_SEQ * cfg.moe_top_k * len(cfg.moe_layers)
+    print(f"moe train routing after the steps: {got_r:.0f} routed, "
+          f"{got_d:.0f} dropped of {assigned} assignments "
+          f"({got_d / assigned:.4f}); load-balance loss "
+          f"{metrics.MOE_LOAD_BALANCE_LOSS.value():.4f} (last layer)",
+          flush=True)
+    check((got_r, got_d) == (routed, dropped) and got_d == assigned - got_r,
+          f"hvd_moe counters: routed {got_r}, dropped {got_d} of {assigned}")
+    del params, tokens
+    gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_moe_serve(fa, serve, metrics, tfm, moe, card, where, init):
+    """Main path 8: the serving workload on flagship-moe through the
+    eager engine and the graph engine (:func:`serve_both_engines`), MoE
+    layers at full capacity: tokens identical, steady decode hit rate
+    1.0, no fallback; then the prompts' MoE counts at full capacity:
+    nothing dropped. Returns {kernel: launches} of both timed rounds."""
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
+                                **MOE_MODEL)
+    lm = tfm.TransformerLM(cfg, to_card(init, card), device=card)
+    res = serve_both_engines(fa, serve, metrics, lm, card, where,
+                             "moe serve")
+    graphs = res["graphs"]
+    check(graphs["steady_hit_rate"] == 1.0,
+          f"moe serve: steady decode hit rate {graphs['steady_hit_rate']}")
+    d0 = metrics.MOE_DROPPED_TOKENS.value()
+    tokens = torch.tensor(prompts(cfg.vocab_size), device=card)
+    routed, dropped = moe_stats(tfm, moe, metrics, lm.params, tokens, cfg,
+                                True)
+    print(f"moe serve at full capacity: {routed:.0f} routed, {dropped:.0f} "
+          f"dropped over the prompts' {len(cfg.moe_layers)} MoE layers",
+          flush=True)
+    check(dropped == 0 and metrics.MOE_DROPPED_TOKENS.value() == d0
+          and routed == tokens.numel() * cfg.moe_top_k * len(cfg.moe_layers),
+          f"full capacity dropped {dropped} of {routed + dropped}")
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: res["eager"]["launches"][k] + graphs["launches"][k]
+            for k in graphs["launches"]}
 
 
 # bench.py's ResNet-50: 224 x 224, bf16, the per-chip batch its sweep
@@ -1760,6 +2094,8 @@ def phase_bench(where):
     env.pop("HOROVOD_BENCH_SMOKE")
     tfm = _bench_line(["horovod_tpu_torch.bench.transformer", "--iters",
                        "2"], env, 600)
+    moe = _bench_line(["horovod_tpu_torch.bench.transformer", "--moe",
+                       "--expert-parallel", "1"], env, 300)
     for line, metric in ((res, "resnet50_img_sec_per_chip"),
                          (res["transformer"],
                           "transformer_tokens_per_sec_per_chip"),
@@ -1775,14 +2111,23 @@ def phase_bench(where):
           f"bench compiled_step row {compiled}")
     check(srv["decode_cache_hit_rate"] >= 0.9 and srv["fallback_steps"] == 0
           and srv["tokens_per_sec"] > 0, f"bench serve row {srv}")
+    for row in (moe["moe"], res["moe"]):
+        check(row["tokens_per_sec_per_chip"] > 0 and row["fallback_steps"]
+              == 0 and row["step_program_cache_hit_rate"] == 1.0
+              and row["expert_parallel"] == 1,
+              f"bench moe row {row}")
+    check(moe["metric"] == "moe_tokens_per_sec_per_chip",
+          f"bench moe line {moe}")
     print(f"bench [{where}]: resnet smoke {res['value']} img/s (MFU "
           f"{res['mfu_pct']}%, multiply-adds), compiled "
           f"{compiled['img_sec_per_chip']} img/s (python overhead "
           f"{compiled['python_overhead_ms']} ms a step); serve row "
           f"{srv['tokens_per_sec']} tokens/s, token latency p50/p99 "
           f"{srv['token_latency_p50_ms']}/{srv['token_latency_p99_ms']} ms; "
-          f"transformer {tfm['value']} tokens/s (MFU {tfm['mfu_pct']}%)",
-          flush=True)
+          f"transformer {tfm['value']} tokens/s (MFU {tfm['mfu_pct']}%); "
+          f"moe {moe['value']} tokens/s (drop fraction "
+          f"{moe['moe']['drop_fraction']}, resnet's row "
+          f"{res['moe']['tokens_per_sec_per_chip']})", flush=True)
 
 
 def main():
@@ -1796,6 +2141,7 @@ def main():
 
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import metrics, serve
+    from horovod_tpu_torch.models import moe
     from horovod_tpu_torch.models import transformer as tfm
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import flash_attention as fa
@@ -1835,9 +2181,31 @@ def main():
     torch.cuda.empty_cache()
     train_launches = phase_train(hvd, fa, tfm, card, where)
     t0 = time.perf_counter()
-    compiled_train_launches = phase_compiled_train(hvd, fa, tfm, card, where)
+    compiled_train_launches, params, _ = phase_compiled_train(
+        hvd, fa, tfm, card, where)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     print(f"compiled train phase: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    # flagship-moe's weights, drawn once on the host (seed 0) for every
+    # MoE phase
+    t0 = time.perf_counter()
+    moe_cfg = tfm.TransformerConfig(dtype=torch.bfloat16, **MOE_MODEL)
+    moe_init = tfm.init_params(moe_cfg, torch.Generator().manual_seed(0),
+                               "cpu")
+    print(f"flagship-moe: {sum(t.numel() for t in tfm._leaves(moe_init)) / 1e6:.1f}"
+          f" M parameters drawn in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    phase_moe_parity(tfm, moe, card, moe_init)
+    print(f"moe parity phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    moe_train_launches = phase_moe_train(hvd, fa, tfm, moe, metrics, card,
+                                         where, moe_init)
+    print(f"moe train phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    moe_serve_launches = phase_moe_serve(fa, serve, metrics, tfm, moe, card,
+                                         where, moe_init)
+    del moe_init
+    print(f"moe phases: {time.perf_counter() - t0:.1f} s", flush=True)
     phase_sp_parity(tfm, RingAxis, card)
     sp_launches = phase_train(hvd, fa, tfm, card, where,
                               RingAxis.local(SP_RING))
@@ -1852,7 +2220,9 @@ def main():
     paths = {"serve": serve_launches, "train": train_launches,
              "sp_train": sp_launches,
              "compiled_serve": compiled_serve_launches,
-             "compiled_train": compiled_train_launches}
+             "compiled_train": compiled_train_launches,
+             "moe_train": moe_train_launches,
+             "moe_serve": moe_serve_launches}
     for e in entries:
         # a kernel's launches are its tensor-core route's: the main paths
         # launch its loop never (checked in phase_serve and phase_train)

@@ -40,7 +40,10 @@ the step PIPELINE_DEPTH back and never fetching a value:
 ``python_overhead_ms`` is the median wall time of one ``step()`` call,
 beside img/s, MFU and the program cache's counters. Its phase trace and
 ``overlap_ab`` parts are skipped rows naming the items that bring them.
-``serve`` is ``bench.transformer --serve``'s sub-dict.
+``serve`` is ``bench.transformer --serve``'s sub-dict, and ``moe``
+``bench.transformer --moe``'s at 4 iterations, on the expert mesh of 4
+ranks, or 2, as bench.py picks it, and at ``--expert-parallel 1``
+(every expert on each card) when the world is odd, one card included.
 """
 
 import argparse
@@ -74,7 +77,7 @@ NUM_CLASSES = 1000
 NOT_PORTED = {
     "dispatch": 10, "eager_exchange": 10, "zero_profile": 11,
     "input_pipeline": 14, "flight_step_phase_breakdown": 16,
-    "guard_overhead_frac": 15, "trace_overhead_frac": 16, "moe": 7,
+    "guard_overhead_frac": 15, "trace_overhead_frac": 16,
     "mesh3d": 6, "control_plane": 16,
 }
 # bench.py's compiled-step profile parts whose subsystems are not ported:
@@ -332,6 +335,11 @@ def run_benchmark(proto, device):
     serve = transformer_bench.run_serve_benchmark(
         transformer_bench.parse_args(["--serve", "--device",
                                       device.type]))["serve"]
+    world = runtime.size()
+    ep = 4 if world % 4 == 0 else 2 if world % 2 == 0 else 1
+    moe = transformer_bench.run_moe_benchmark(transformer_bench.parse_args(
+        ["--moe", "--iters", "4", "--expert-parallel", str(ep),
+         "--device", device.type]))["moe"]
     result = {
         "metric": "resnet50_img_sec_per_chip",
         "value": round(mean, 2),
@@ -348,6 +356,7 @@ def run_benchmark(proto, device):
         "transformer": transformer,
         "compiled_step": compiled,
         "serve": serve,
+        "moe": moe,
         "card": card,
     }
     for key, item in NOT_PORTED.items():

@@ -23,8 +23,24 @@ stream time an iteration. MFU: the analytic model FLOPs (6 x matmul
 params + 6 x L x S x d_model, causal attention at half of S^2) times the
 device-side rate over the card's peak (``hardware.py``); None where the
 peak is unknown, as on the CPU. ``--device cpu`` runs the plain versions
-of the kernels, for the tests only. ``--moe`` and ``--mesh3d`` name
-scenarios that are not ported yet.
+of the kernels, for the tests only. ``--mesh3d`` names a scenario that
+is not ported yet (ROADMAP.md, Queue 1 item 6).
+
+``--moe`` runs the expert-parallel MoE scenario instead
+(``run_moe_benchmark``, bench_transformer.py's, with its flags and
+defaults): the capacity-routed MoE layer (d_model 256, d_ff 1024, E 8,
+top-2, capacity factor 2.0, f32; 32 sequences of 64 tokens over every
+rank) trained with SGD(0.05) through ``compiled_train_step`` under
+``DistributedOptimizer(expert_keys=("w1", "w2"))`` on the expert mesh of
+``--expert-parallel`` ranks, the dispatch and combine all-to-all cut
+into ``--moe-chunks`` slices. On one card the run is ``--expert-parallel
+1``: every expert on the card, no all-to-all. It prints the reference's
+``moe`` keys: tokens/s per chip over max(iters, 8) timed steps, the
+program cache's counters and the routing's drop fraction from one
+``with_stats`` evaluation (fed to the ``hvd_moe_*`` families). The
+all-to-all's time and its hidden fraction read a phase trace, which
+comes with ROADMAP.md, Queue 1 item 16: those keys print as skipped
+rows.
 
 ``--serve`` runs the serving scenario instead (``run_serve_benchmark``,
 bench_transformer.py's): the continuous-batching engine at
@@ -47,10 +63,13 @@ import numpy as np
 import torch
 
 from .. import config as config_mod
-from .. import hardware
+from .. import hardware, metrics
 from .. import optimizers, runtime
 from .. import serve as hvd_serve
+from ..models import moe as moe_lib
 from ..models import transformer as tfm
+from ..ops.collectives import allreduce
+from ..ops.step_program import compiled_train_step
 
 ITERS = 10
 STEPS_PER_ITER = 5
@@ -58,8 +77,6 @@ STEPS_PER_ITER = 5
 # decay to 1e-2; optax to 1e-4).
 ADAMW = dict(lr=3e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
 NOT_PORTED = {
-    "moe": "--moe: expert parallelism is not ported yet (ROADMAP.md, "
-           "Queue 1 item 7)",
     "mesh3d": "--mesh3d: tensor parallelism on the 3-D mesh is not ported "
               "yet (ROADMAP.md, Queue 1 item 6)",
 }
@@ -82,7 +99,8 @@ def matmul_param_count(params):
     for layer in params["layers"]:
         for k, v in layer.items():
             if k.startswith(("wq", "wk", "wo", "w1", "w2", "moe")):
-                total += v.numel()
+                total += sum(x.numel() for x in tfm._leaves(v)) \
+                    if isinstance(v, dict) else v.numel()
     return total + params["lm_head"].numel()
 
 
@@ -111,7 +129,26 @@ def parse_args(argv=None):
                          "O(layers) less activation memory")
     ap.add_argument("--dense", action="store_true",
                     help="dense attention instead of the flash kernels")
-    ap.add_argument("--moe", action="store_true")
+    ap.add_argument("--moe", action="store_true",
+                    help="run the expert-parallel MoE scenario instead: "
+                         "2-D (data, expert) mesh, chunked alltoall "
+                         "dispatch/combine")
+    ap.add_argument("--expert-parallel", type=int, default=4,
+                    help="expert-axis size of the 2-D mesh the MoE "
+                         "scenario re-inits with when the runtime has "
+                         "none (HOROVOD_EXPERT_PARALLEL); 1 on one card")
+    ap.add_argument("--moe-chunks", type=int, default=8,
+                    help="capacity slices the dispatch/combine alltoall "
+                         "is pipelined into (HOROVOD_MOE_CHUNKS; 1 = "
+                         "unchunked, bit-identical either way)")
+    ap.add_argument("--moe-experts", type=int, default=8)
+    ap.add_argument("--moe-capacity-factor", type=float, default=2.0)
+    ap.add_argument("--moe-batch", type=int, default=32,
+                    help="GLOBAL sequence count for the MoE scenario "
+                         "(split over every rank)")
+    ap.add_argument("--moe-seq", type=int, default=64)
+    ap.add_argument("--moe-d-model", type=int, default=256)
+    ap.add_argument("--moe-d-ff", type=int, default=1024)
     ap.add_argument("--mesh3d", action="store_true")
     ap.add_argument("--serve", action="store_true",
                     help="run the continuous-batching serving scenario "
@@ -331,13 +368,146 @@ def run_serve_benchmark(args):
     }
 
 
+MOE_TRACE_ITEM = 16  # the phase trace (ROADMAP.md, Queue 1)
+
+
+class _MoEBench(torch.nn.Module):
+    """The MoE layer of the scenario and its loss, mean((y - target)^2)
+    + 0.01 aux, over this rank's expert group."""
+
+    def __init__(self, params, cfg, group, chunks):
+        super().__init__()
+        self.moe = torch.nn.ParameterDict(
+            {k: torch.nn.Parameter(v) for k, v in params.items()})
+        self.cfg, self.group, self.chunks = cfg, group, chunks
+
+    def forward(self, x, with_stats=False):
+        return moe_lib.moe_layer(dict(self.moe.items()), x, self.cfg,
+                                 ep_group=self.group, chunks=self.chunks,
+                                 with_stats=with_stats)
+
+    def loss(self, x, target):
+        y, aux = self(x)
+        return torch.mean((y - target) ** 2) + 0.01 * aux
+
+
+def run_moe_benchmark(args):
+    """The expert-parallel MoE scenario (bench_transformer.py's
+    run_moe_benchmark): returns the result dict whose ``"moe"`` sub-dict
+    carries the reference's keys."""
+    runtime.init(device=args.device)
+    if args.expert_parallel > 1 and runtime.expert_parallel_size() == 1:
+        # up on the flat group: re-init with the 2-D (data, expert) layout
+        runtime.shutdown()
+        os.environ["HOROVOD_EXPERT_PARALLEL"] = str(args.expert_parallel)
+        runtime.init(device=args.device)
+    device = runtime.device()
+    cuda = device.type == "cuda"
+    ep = runtime.expert_parallel_size()
+    n = runtime.size()
+    group = runtime.expert_mesh().get_group("ep") if ep > 1 else None
+    chunks = max(1, args.moe_chunks)
+    cfg = moe_lib.MoEConfig(
+        d_model=args.moe_d_model, d_ff=args.moe_d_ff,
+        num_experts=args.moe_experts, top_k=2,
+        capacity_factor=args.moe_capacity_factor, dtype=torch.float32)
+    full = moe_lib.init_moe_params(cfg, torch.Generator().manual_seed(0),
+                                   device)
+    model = _MoEBench(moe_lib.expert_slice(full, runtime.rank() % ep, ep),
+                      cfg, group, chunks)
+    opt = optimizers.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.05),
+        named_parameters=model.named_parameters(), expert_keys=("w1", "w2"))
+    step = compiled_train_step(model.loss, opt, name="bench.moe")
+
+    batch, seq = args.moe_batch, args.moe_seq
+    if batch % n:
+        raise ValueError(f"--moe-batch {batch} not divisible by {n}")
+    gen = torch.Generator().manual_seed(1 + runtime.rank())
+    x, y = (torch.randn(batch // n, seq, cfg.d_model, generator=gen)
+            .to(device) for _ in range(2))
+
+    for _ in range(2):  # untimed: the first call captures
+        loss = step(x, y)
+    float(loss)
+    h0, m0 = step.cache_hits, step.cache_misses
+    tok_per_chip = batch * seq // n
+    iters = max(args.iters, 8)
+    rates = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        loss = step(x, y)
+        float(loss)  # the barrier: the loss is read on the host
+        rates.append(tok_per_chip / (time.perf_counter() - t0))
+    mean = float(np.mean(rates))
+    conf = float(1.96 * np.std(rates))
+    hits = step.cache_hits - h0
+    misses = step.cache_misses - m0
+    hit_rate = hits / max(hits + misses, 1)
+
+    # Routing accounting from one with_stats evaluation of the same
+    # layer, summed over the ranks (the load-balance loss averaged), so
+    # every rank reports the same global numbers.
+    with torch.no_grad():
+        _, _, st = model(x, with_stats=True)
+    routed = float(allreduce(st["routed_tokens"], average=False))
+    dropped = float(allreduce(st["dropped_tokens"], average=False))
+    lb = float(allreduce(st["load_balance_loss"]))
+    chunks_used = int(st["chunks"])
+    drop_frac = dropped / max(routed + dropped, 1.0)
+    metrics.record_moe_step(routed, dropped, lb, chunks_used)
+    card = hardware.card_line(device.index or 0) if cuda else None
+    print(f"# MoE tokens/sec per chip on {card or 'cpu'}: {mean:,.0f} "
+          f"+-{conf:,.0f} at E={cfg.num_experts} ep={ep} "
+          f"chunks={chunks_used}, drop_frac {drop_frac:.4f}, cache hit "
+          f"rate {hit_rate:.2f}, fallbacks {step.fallback_steps}",
+          file=sys.stderr)
+    trace = {"skipped": f"not ported: ROADMAP item {MOE_TRACE_ITEM}"}
+    return {
+        "metric": "moe_tokens_per_sec_per_chip",
+        "value": round(mean, 1),
+        "unit": "tokens/sec",
+        "moe": {
+            "tokens_per_sec_per_chip": round(mean, 1),
+            "spread": round(conf, 1),
+            "alltoall_ms_per_step": trace,
+            "alltoall_hidden_frac": trace,
+            "drop_fraction": round(drop_frac, 4),
+            "routed_tokens": routed,
+            "dropped_tokens": dropped,
+            "load_balance_loss": round(lb, 4),
+            "num_experts": cfg.num_experts,
+            "expert_parallel": ep,
+            "moe_chunks": chunks_used,
+            "capacity_factor": cfg.capacity_factor,
+            "top_k": cfg.top_k,
+            "batch_per_chip": batch // n,
+            "seq_len": seq,
+            "d_model": cfg.d_model,
+            "d_ff": cfg.d_ff,
+            "step_program_cache_hit_rate": round(hit_rate, 4),
+            "step_program_cache_hits": hits,
+            "step_program_cache_misses": misses,
+            "fallback_steps": step.fallback_steps,
+            "step_phase_breakdown": trace,
+            "xla_trace_dir": trace,
+            "steps": iters,
+            "card": card,
+        },
+    }
+
+
 def main(argv=None):
     # the bench's own timers are its output: no profiler.txt in the cwd
     # unless HOROVOD_PROFILER_PATH / _DISABLE say otherwise
     os.environ.setdefault("HOROVOD_PROFILER_DISABLE", "1")
     args = parse_args(argv)
-    result = (run_serve_benchmark(args) if args.serve
-              else run_benchmark(args))
+    if args.serve:
+        result = run_serve_benchmark(args)
+    elif args.moe:
+        result = run_moe_benchmark(args)
+    else:
+        result = run_benchmark(args)
     runtime.shutdown()
     print(json.dumps(result))
 

@@ -3,7 +3,9 @@
 Counterpart of horovod_tpu/config.py, carrying what the serving and
 training slices read: the five ``HOROVOD_SERVE_*`` knobs, the elastic
 policy directory the SLO signal is dropped into, the ZeRO stage, the
-exchange bucket count, the compiled hot loop's switches
+exchange bucket count, the expert-parallel degree and the MoE
+all-to-all chunks (``HOROVOD_EXPERT_PARALLEL``, ``HOROVOD_MOE_CHUNKS``),
+the compiled hot loop's switches
 (``HOROVOD_STEP_PROGRAM``, ``HOROVOD_STEP_PROGRAM_CHURN_LIMIT``,
 ``HOROVOD_DEVICE_RESIDENT``), the profiler dump and its per-replay
 records (``HOROVOD_PROFILER_JIT_CALLBACKS``), the MFU peak, the knobs of
@@ -60,6 +62,15 @@ class Config:
     # reverse-layer groups, each one fused all-reduce launched from the
     # backward as soon as its gradients are ready (1 = one exchange).
     exchange_buckets: int = 1
+    # Expert-parallel degree: > 1 makes init() lay the ranks out as
+    # (world/ep, ep) with axes ("hvd", "ep"), expert axis innermost
+    # (parallel/mesh.py expert_data_mesh). Must divide the world size.
+    expert_parallel: int = 1
+    # Capacity slices the MoE dispatch/combine all-to-all is split into
+    # (ops/collectives.py alltoall_chunked); 1 = unchunked. Numerics are
+    # bit-identical at every setting; a value that does not divide the
+    # capacity falls back to its largest divisor below.
+    moe_chunks: int = 1
     # Device-resident mode: -1 = auto, 1 = on, 0 = host mode, where
     # compiled_train_step runs every step eagerly (reason host_mode).
     device_resident: int = -1
@@ -108,6 +119,10 @@ class Config:
                                         c.zero_stage), 0), 3)
         c.exchange_buckets = max(_env_int("HOROVOD_EXCHANGE_BUCKETS",
                                           c.exchange_buckets), 1)
+        c.expert_parallel = max(_env_int("HOROVOD_EXPERT_PARALLEL",
+                                         c.expert_parallel), 1)
+        c.moe_chunks = max(_env_int("HOROVOD_MOE_CHUNKS",
+                                    c.moe_chunks), 1)
         c.device_resident = _env_int("HOROVOD_DEVICE_RESIDENT",
                                      c.device_resident)
         c.step_program = _env_int("HOROVOD_STEP_PROGRAM", c.step_program)

@@ -4,8 +4,10 @@ Counterpart of horovod_tpu/metrics.py, carrying the registry core with
 its collect hooks, the serving families (``hvd_serve_*``, program
 caches included), the compiled hot loop's cache and fallback families
 (``hvd_step_*``), the runtime lifecycle families, the per-collective
-mirror of stats.py and the ZeRO stage gauge, under the JAX package's
-names. The exporters (JSONL, Prometheus, timeline counters) come with
+mirror of stats.py, the ZeRO stage gauge and the expert-parallel MoE
+families (``hvd_moe_*``, fed by :func:`record_moe_step`), under the JAX
+package's names and help texts. ``hvd_moe_alltoall_hidden_frac`` is
+registered and left unset: it reads a phase trace (item 16). The exporters (JSONL, Prometheus, timeline counters) come with
 the observability slice (ROADMAP.md, Queue 1 item 16).
 """
 
@@ -378,3 +380,43 @@ ZERO_STAGE = _registry.gauge(
     "ZeRO sharding stage of the most recently constructed "
     "DistributedOptimizer (0 = replicated, 1 = optimizer state, "
     "2 = +gradients, 3 = +parameters).")
+
+# Expert-parallel MoE (models/moe.py, optimizers.py expert_keys=,
+# ops/collectives.py alltoall_chunked)
+MOE_ROUTED_TOKENS = _registry.counter(
+    "hvd_moe_routed_tokens_total",
+    "Token-slot assignments the capacity router kept (landed in an "
+    "expert's capacity buffer), summed over observed steps on this "
+    "rank's shard.")
+MOE_DROPPED_TOKENS = _registry.counter(
+    "hvd_moe_dropped_tokens_total",
+    "Token-slot assignments lost to expert capacity overflow (the "
+    "residual path carries the token instead); a high ratio against "
+    "hvd_moe_routed_tokens_total means capacity_factor is too low "
+    "(docs/troubleshooting.md \"my MoE step drops too many tokens\").")
+MOE_LOAD_BALANCE_LOSS = _registry.gauge(
+    "hvd_moe_load_balance_loss",
+    "Most recent Switch load-balancing aux loss (E * sum over experts "
+    "of routed-fraction x mean router prob); ~top_k under uniform "
+    "routing, growing as the router collapses onto few experts.")
+MOE_CHUNKS = _registry.gauge(
+    "hvd_moe_chunks",
+    "Capacity slices the MoE dispatch/combine alltoall is pipelined "
+    "into (HOROVOD_MOE_CHUNKS after the largest-divisor fallback); 1 = "
+    "unchunked.")
+MOE_ALLTOALL_HIDDEN_FRAC = _registry.gauge(
+    "hvd_moe_alltoall_hidden_frac",
+    "Fraction of dispatch/combine alltoall device time overlapped with "
+    "expert FFN compute in the most recent trace capture (hvd_dispatch/"
+    "hvd_combine vs hvd_expert scopes) — the chunked-pipeline win the "
+    "CI moe-smoke gate asserts >= 0.3.")
+
+
+def record_moe_step(routed, dropped, load_balance_loss, chunks):
+    """Host-side per-step MoE accounting (bench loops / callbacks):
+    feed the hvd_moe_* families from a ``moe_layer(...,
+    with_stats=True)`` stats dict's fetched values."""
+    MOE_ROUTED_TOKENS.inc(float(routed))
+    MOE_DROPPED_TOKENS.inc(float(dropped))
+    MOE_LOAD_BALANCE_LOSS.set(float(load_balance_loss))
+    MOE_CHUNKS.set(int(chunks))

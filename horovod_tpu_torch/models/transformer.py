@@ -5,8 +5,11 @@ Counterpart of horovod_tpu/models/transformer.py. The functions keep
 the JAX names and parameter layouts — ``wqkv (d, 3, h, hd)``,
 ``wq (d, h, hd)``, ``wkv (d, 2, h_kv, hd)``, ``wo (h, hd, d)``,
 ``w1 (d, ff)``, ``w2 (ff, d)``, ``embed (V, d)``, ``lm_head (d, V)``,
-``pos (max_seq, d)`` — so a JAX parameter tree converts leaf for leaf
-(:func:`params_from_jax`) and a reader finds each counterpart by name.
+``pos (max_seq, d)``, and in a layer of ``cfg.moe_layers`` a nested
+``moe`` dict (``w_router (d, E)``, ``w1 (E, d, ff)``, ``w2 (E, ff, d)``)
+in place of ``w1``/``w2`` — so a JAX parameter tree converts leaf for
+leaf (:func:`params_from_jax`) and a reader finds each counterpart by
+name.
 
 Numerics follow JAX's type promotion, op for op:
 
@@ -36,9 +39,12 @@ Sequence parallelism is ring attention over ``ShardAxes(sp=RingAxis)``
 (parallel/ring_attention.py). On one process with a local ring the
 position-wise layers run over the whole local sequence at once and only
 attention splits it into shards; over a process group each rank holds
-one shard. What this slice does not carry raises ``NotImplementedError``
-naming the ROADMAP.md item that adds it: tensor and expert parallelism,
-data parallelism inside the model, Ulysses, and MoE layers.
+one shard. MoE layers (models/moe.py) run every expert in the process,
+or, over ``ShardAxes(ep=group)``, this rank's slice of them
+(:func:`slice_expert_params`) with the tokens exchanged by all-to-all.
+What the port does not carry raises ``NotImplementedError`` naming the
+ROADMAP.md item that adds it: tensor parallelism, data parallelism
+inside the model, and Ulysses.
 """
 
 import dataclasses
@@ -58,9 +64,10 @@ from ..ops.step_program import StepProgram, engine_cached_program
 from ..parallel.ring_attention import (NEG_INF, RingAxis, dense_attention,
                                        gqa_group, ring_attention)
 from ..utils.devices import resolve_device
+from .moe import (MoEConfig, _einsum_f32, expert_slice, init_moe_params,
+                  moe_layer)
 
 TENSOR_PARALLEL = "tensor parallelism (ROADMAP.md, Queue 1 item 6)"
-MOE = "MoE layers (ROADMAP.md, Queue 1 item 7)"
 ULYSSES = "Ulysses sequence parallelism (ROADMAP.md, Queue 1 item 12)"
 
 
@@ -91,7 +98,11 @@ class TransformerConfig:
     # remat: each layer under a checkpoint (recomputed in the backward).
     loss_chunk: int = None
     remat: bool = False
+    # Layer indices whose FFN is a Mixture-of-Experts block (models/moe.py);
+    # empty = all dense.
     moe_layers: tuple = ()
+    moe_num_experts: int = 4
+    moe_top_k: int = 2
 
     def __post_init__(self):
         if self.attention_impl not in ("dense", "flash"):
@@ -121,21 +132,27 @@ class TransformerConfig:
         if self.positional == "rope" and self.head_dim % 2 != 0:
             raise ValueError(
                 f"rope needs an even head_dim, got {self.head_dim}")
-        if self.moe_layers:
-            raise NotImplementedError(f"moe_layers come with {MOE}")
 
     @property
     def head_dim(self):
         return self.d_model // self.n_heads
 
+    @property
+    def moe_cfg(self):
+        return MoEConfig(d_model=self.d_model, d_ff=self.d_ff,
+                         num_experts=self.moe_num_experts,
+                         top_k=self.moe_top_k, dtype=self.dtype,
+                         param_dtype=self.param_dtype)
+
 
 @dataclasses.dataclass(frozen=True)
 class ShardAxes:
     """The axes the model runs over; None elides each. ``sp`` is a
-    :class:`~horovod_tpu_torch.parallel.ring_attention.RingAxis`, where
-    the JAX package names a mesh axis. ``dp``, ``tp`` and ``ep`` are not
-    carried: data parallelism runs in ``DistributedOptimizer``, outside
-    the model."""
+    :class:`~horovod_tpu_torch.parallel.ring_attention.RingAxis` and
+    ``ep`` a process group (the ``ep`` sub-group of the runtime's
+    ``expert_mesh()``), where the JAX package names mesh axes. ``dp``
+    and ``tp`` are not carried: data parallelism runs in
+    ``DistributedOptimizer``, outside the model."""
     dp: Any = None
     sp: Any = None
     tp: Any = None
@@ -150,8 +167,9 @@ def _check_axes(axes):
         raise TypeError(f"axes must be a ShardAxes, got {type(axes).__name__}")
     if axes.tp is not None:
         raise NotImplementedError(f"axes.tp comes with {TENSOR_PARALLEL}")
-    if axes.ep is not None:
-        raise NotImplementedError(f"axes.ep comes with {MOE}")
+    if axes.ep is not None and not isinstance(axes.ep, dist.ProcessGroup):
+        raise TypeError(
+            f"axes.ep must be a process group, got {type(axes.ep).__name__}")
     if axes.dp is not None:
         raise NotImplementedError(
             "axes.dp: the port averages over data-parallel ranks in "
@@ -171,19 +189,25 @@ def _sp_start(axes, s):
 
 
 def param_shapes(cfg):
-    """The parameter tree's shapes, in the JAX package's layout."""
+    """The parameter tree's shapes, in the JAX package's layout (all E
+    experts in an MoE layer)."""
     d, h, hd, ff = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
     h_kv = cfg.n_kv_heads
+    e = cfg.moe_num_experts
     layers = []
-    for _ in range(cfg.n_layers):
+    for i in range(cfg.n_layers):
         layer = {"ln1": (d,), "wo": (h, hd, d), "ln2": (d,)}
         if h_kv is not None and h_kv != h:
             layer["wq"] = (d, h, hd)
             layer["wkv"] = (d, 2, h_kv, hd)
         else:
             layer["wqkv"] = (d, 3, h, hd)
-        layer["w1"] = (d, ff)
-        layer["w2"] = (ff, d)
+        if i in cfg.moe_layers:
+            layer["moe"] = {"w_router": (d, e), "w1": (e, d, ff),
+                            "w2": (e, ff, d)}
+        else:
+            layer["w1"] = (d, ff)
+            layer["w2"] = (ff, d)
         layers.append(layer)
     out = {"embed": (cfg.vocab_size, d), "layers": layers, "ln_f": (d,),
            "lm_head": (d, cfg.vocab_size)}
@@ -201,6 +225,8 @@ def init_params(cfg, generator=None, device="cuda"):
     pd = cfg.param_dtype
 
     def make(name, shape):
+        if name == "moe":
+            return init_moe_params(cfg.moe_cfg, generator, device)
         if name.startswith("ln"):
             return torch.ones(shape, dtype=pd, device=device)
         fan_in = cfg.d_ff if name == "w2" else cfg.d_model
@@ -214,11 +240,25 @@ def init_params(cfg, generator=None, device="cuda"):
     return out
 
 
+def slice_expert_params(params, rank, ep):
+    """The tree a member of an expert group of ``ep`` ranks holds: every
+    MoE layer's ``w1``/``w2`` cut to the ``E / ep`` experts of position
+    ``rank`` in the group, every other leaf as it is (the ``ep`` part of
+    the JAX package's ``slice_param_shards``; its tensor-parallel part
+    comes with ROADMAP.md, Queue 1 item 6)."""
+    out = dict(params)
+    out["layers"] = [
+        {**layer, "moe": expert_slice(layer["moe"], rank, ep)}
+        if "moe" in layer else layer for layer in params["layers"]]
+    return out
+
+
 def params_from_jax(tree, cfg, device="cuda"):
     """The port's parameters from a JAX parameter tree whose leaves are
-    numpy arrays (``jax.tree.map(np.asarray, params)``): key for key,
-    ``torch.from_numpy`` per leaf, no transposes. Raises on a missing or
-    extra key or a shape that does not match ``cfg``."""
+    numpy arrays (``jax.tree.map(np.asarray, params)``): key for key (an
+    MoE layer's nested ``moe`` dict too), ``torch.from_numpy`` per leaf,
+    no transposes. Raises on a missing or extra key or a shape that does
+    not match ``cfg``."""
     device = resolve_device(device)
 
     def leaf(path, x, shape):
@@ -230,42 +270,37 @@ def params_from_jax(tree, cfg, device="cuda"):
                              f"{tuple(shape)} for this config")
         return t
 
-    def keys_match(path, got, want):
+    def node(path, got, want):
         if set(got) != set(want):
             raise ValueError(f"{path}: keys {sorted(got)}, expected "
                              f"{sorted(want)} for this config")
+        return {k: node(f"{path}[{k}]", got[k], s) if isinstance(s, dict)
+                else leaf(f"{path}[{k}]", got[k], s) for k, s in want.items()}
 
     shapes = param_shapes(cfg)
-    keys_match("params", tree, shapes)
+    if set(tree) != set(shapes):
+        raise ValueError(f"params: keys {sorted(tree)}, expected "
+                         f"{sorted(shapes)} for this config")
     if len(tree["layers"]) != len(shapes["layers"]):
         raise ValueError(f"{len(tree['layers'])} layers, expected "
                          f"{cfg.n_layers}")
     out = {k: leaf(k, tree[k], s) for k, s in shapes.items() if k != "layers"}
-    out["layers"] = []
-    for i, (layer, want) in enumerate(zip(tree["layers"], shapes["layers"])):
-        keys_match(f"layers[{i}]", layer, want)
-        out["layers"].append({k: leaf(f"layers[{i}][{k}]", layer[k], s)
-                              for k, s in want.items()})
+    out["layers"] = [node(f"layers[{i}]", layer, want) for i, (layer, want)
+                     in enumerate(zip(tree["layers"], shapes["layers"]))]
     return out
 
 
 def params_to_numpy(params):
     """The inverse of :func:`params_from_jax`: the parameter tree with
     every leaf a numpy array (a copy on the host), key for key."""
-    def leaf(t):
-        return t.detach().to("cpu", copy=True).numpy()
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [conv(v) for v in x]
+        return x.detach().to("cpu", copy=True).numpy()
 
-    out = {k: leaf(v) for k, v in params.items() if k != "layers"}
-    out["layers"] = [{k: leaf(v) for k, v in layer.items()}
-                     for layer in params["layers"]]
-    return out
-
-
-def _einsum_f32(eq, a, b):
-    """``jnp.einsum(eq, a, b, preferred_element_type=jnp.float32)``: the
-    operands' values (bf16 is exact in f32) multiplied and summed in
-    f32."""
-    return torch.einsum(eq, a.float(), b.float())
+    return conv(params)
 
 
 def _rope_angles(positions, half, theta):
@@ -374,14 +409,34 @@ def _attention_block_kv(p, x, cfg, axes=None):
     return x + out.to(cfg.dtype), k, v
 
 
-def _mlp_block(p, x, cfg):
-    """Dense FFN with its residual: f32 normed rows x w1 (dtype), tanh
-    GELU in f32, cast to dtype, x w2 (dtype) with f32 accumulation."""
+def _mlp_block(p, x, cfg, axes=None, moe_full_capacity=False):
+    """Dense or MoE FFN with its residual, by the layer's params; returns
+    (output, aux loss), the aux the MoE load-balancing loss (0 for a
+    dense layer). Dense: f32 normed rows x w1 (dtype), tanh GELU in f32,
+    cast to dtype, x w2 (dtype) with f32 accumulation. MoE: the normed
+    rows cast to dtype through :func:`~.moe.moe_layer` over ``axes.ep``;
+    ``moe_full_capacity`` is the serving mode, where nothing drops and a
+    token's output does not depend on its batch."""
     h = _rmsnorm(x, p["ln2"])
+    if "moe" in p:
+        ep = None if axes is None else axes.ep
+        y, aux = moe_layer(p["moe"], h.to(cfg.dtype), cfg.moe_cfg,
+                           ep_group=ep, chunks=_moe_chunks(ep),
+                           full_capacity=moe_full_capacity)
+        return x + y.to(cfg.dtype), aux
     u = _einsum_f32("bsd,df->bsf", h, p["w1"].to(cfg.dtype))
     u = F.gelu(u, approximate="tanh").to(cfg.dtype)
     out = _einsum_f32("bsf,fd->bsd", u, p["w2"].to(cfg.dtype))
-    return x + out.to(cfg.dtype)
+    return x + out.to(cfg.dtype), torch.zeros((), dtype=torch.float32,
+                                              device=x.device)
+
+
+def _moe_chunks(ep_group):
+    """The all-to-all chunks of an expert-parallel layer: the session's
+    ``HOROVOD_MOE_CHUNKS``, 1 without a session or an expert group."""
+    if ep_group is None or not runtime.is_initialized():
+        return 1
+    return runtime.live_state().config.moe_chunks
 
 
 def _head(params, x, cfg):
@@ -395,22 +450,25 @@ MOE_AUX_COEF = 0.01  # the JAX package's Switch load-balance coefficient
 
 def _one_layer(p, x, cfg, axes):
     x, _, _ = _attention_block_kv(p, x, cfg, axes)
-    return _mlp_block(p, x, cfg)
+    return _mlp_block(p, x, cfg, axes)
 
 
 def trunk_with_aux(params, tokens, cfg, axes=None):
-    """Pre-head activations (B, S, d) and the total MoE aux loss (0: no
-    MoE layers in this slice). With ``cfg.remat`` each layer runs under
-    a checkpoint, so its activations are recomputed in the backward."""
+    """Pre-head activations (B, S, d) and the total MoE aux loss, summed
+    over the MoE layers (0 without any). With ``cfg.remat`` each layer
+    runs under a checkpoint, so its activations are recomputed in the
+    backward."""
     axes = _check_axes(axes)
     x = embed_tokens(params, tokens, cfg, axes)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in params["layers"]:
         if cfg.remat:
-            x = checkpoint(_one_layer, p, x, cfg, axes, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, aux = checkpoint(_one_layer, p, x, cfg, axes,
+                                use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _one_layer(p, x, cfg, axes)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, aux = _one_layer(p, x, cfg, axes)
+        aux_total = aux_total + aux
+    return x, aux_total
 
 
 def forward_with_aux(params, tokens, cfg, axes=None):
@@ -483,8 +541,8 @@ class _MeanOverRanks(torch.autograd.Function):
 
 
 def loss_fn(params, tokens, targets, cfg, axes=None):
-    """Mean causal-LM cross entropy over all tokens of the sequence (+ the
-    MoE aux term, 0 here). With ``cfg.loss_chunk`` set, the head and the
+    """Mean causal-LM cross entropy over all tokens of the sequence, plus
+    ``MOE_AUX_COEF`` times the MoE aux loss. With ``cfg.loss_chunk`` set, the head and the
     cross entropy run per sequence chunk and full logits never
     materialize.
 
@@ -514,8 +572,10 @@ class TransformerLM(nn.Module):
     :func:`forward` and :func:`loss_fn` on them over ``axes`` (a
     :class:`ShardAxes`; ``ShardAxes(sp=RingAxis.local(4))`` trains with
     sequence parallelism on one card). ``params`` defaults to
-    :func:`init_params` drawn from ``generator``. Serving runs it under
-    ``torch.inference_mode()``, where no graph is kept."""
+    :func:`init_params` drawn from ``generator``; over ``axes.ep`` the
+    caller passes this rank's tree (:func:`slice_expert_params`). An MoE
+    layer's leaves are named ``layers.<i>.moe.<leaf>``. Serving runs it
+    under ``torch.inference_mode()``, where no graph is kept."""
 
     def __init__(self, cfg=TransformerConfig(), params=None, *,
                  generator=None, device="cuda", axes=None):
@@ -526,9 +586,9 @@ class TransformerLM(nn.Module):
             params = init_params(cfg, generator, device)
 
         def group(tree):
-            return nn.ParameterDict({k: nn.Parameter(v)
-                                     for k, v in tree.items()
-                                     if k != "layers"})
+            return nn.ParameterDict({
+                k: group(v) if isinstance(v, dict) else nn.Parameter(v)
+                for k, v in tree.items() if k != "layers"})
 
         self.top = group(params)
         self.layers = nn.ModuleList(group(p) for p in params["layers"])
@@ -536,8 +596,12 @@ class TransformerLM(nn.Module):
     @property
     def params(self):
         """The parameter tree the functions of this module take."""
-        out = dict(self.top.items())
-        out["layers"] = [dict(p.items()) for p in self.layers]
+        def tree(pd):
+            return {k: tree(v) if isinstance(v, nn.ParameterDict) else v
+                    for k, v in pd.items()}
+
+        out = tree(self.top)
+        out["layers"] = [tree(p) for p in self.layers]
         return out
 
     def forward(self, tokens):
@@ -617,7 +681,7 @@ def prefill_cache(params, cache, tokens, cfg, axes=None):
         x, k, v = _attention_block_kv(p, x, cfg)
         lc["k"][:, :s_len] = k
         lc["v"][:, :s_len] = v
-        x = _mlp_block(p, x, cfg)
+        x, _ = _mlp_block(p, x, cfg)
     logits = _head(params, x[:, -1:], cfg)[:, 0]
     cache["pos"].add_(s_len)
     return logits, cache
@@ -647,7 +711,7 @@ def decode_step(params, cache, token, cfg, axes=None):
                                 window=cfg.attention_window)
         out = _einsum_f32("bshx,hxd->bsd", attn, p["wo"].to(cfg.dtype))
         x = x + out.to(cfg.dtype)
-        x = _mlp_block(p, x, cfg)
+        x, _ = _mlp_block(p, x, cfg)
     logits = _head(params, x, cfg)[:, 0]
     pos.add_(1)
     return logits, cache
@@ -669,9 +733,15 @@ def _select_token(logits, temperature, top_k, generator, dtype):
 
 
 def _leaves(params):
-    yield from (v for k, v in params.items() if k != "layers")
-    for layer in params["layers"]:
-        yield from layer.values()
+    """Every tensor of a parameter tree, in tree order."""
+    for v in params.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        elif isinstance(v, list):
+            for layer in v:
+                yield from _leaves(layer)
+        else:
+            yield v
 
 
 def _decoder(params, cfg, batch, max_len, device):

@@ -1,14 +1,18 @@
 """Collectives over the runtime's process group.
 
 Counterpart of horovod_tpu/ops/collectives.py, carrying what the
-training slice needs: :func:`allreduce` (average or sum),
+training and MoE slices need: :func:`allreduce` (average or sum),
 :func:`grouped_allreduce` (one flat buffer per dtype),
-:func:`allgather` (equal shapes), :func:`broadcast` and the bucket
-scheduler :func:`exchange_bucket_plan`, copied from the JAX package.
-Each function runs on ``torch.distributed`` and records every execution
-in the session's stats (stats.py): op, wire bytes, time from launch to
-completion. ``reducescatter``, ``alltoall`` and the DCN stages wait for
-ROADMAP.md, Queue 1 items 3 and 11.
+:func:`allgather` (equal shapes), :func:`broadcast`, the bucket
+scheduler :func:`exchange_bucket_plan`, copied from the JAX package, and
+the expert-parallel exchange :func:`alltoall` / :func:`alltoall_chunked`
+(differentiable, over a sub-group). Each function runs on
+``torch.distributed`` and records every execution in the session's
+stats (stats.py): op, wire bytes, time from launch to completion; the
+all-to-all, which the JAX package only ever runs inside a jitted
+program, records as ``alltoall_jit`` with no time, once a call. The
+remaining collectives wait for ROADMAP.md, Queue 1 item 3 (each marked
+there with the item that needs it) and the DCN stages for item 11.
 
 In the JAX package these run inside a mapped program over a mesh axis;
 here each rank is a process and calls them eagerly, in the same order on
@@ -98,14 +102,15 @@ def _on_device(tensor):
     return tensor.to(dev).contiguous()
 
 
-def start_allreduce(buf, exchange=None):
+def start_allreduce(buf, exchange=None, group=None):
     """Launch an in-place sum of ``buf`` (on the runtime's device,
-    contiguous) over every rank, as part of ``exchange`` (default: a new
-    one); returns the exchange."""
+    contiguous) over the ranks of ``group`` (None: every rank), as part
+    of ``exchange`` (default: a new one); returns the exchange."""
     if exchange is None:
         exchange = Exchange("allreduce")
-    return exchange.launch(lambda: dist.all_reduce(buf, async_op=True),
-                           _nbytes(buf))
+    return exchange.launch(
+        lambda: dist.all_reduce(buf, group=group, async_op=True),
+        _nbytes(buf))
 
 
 def _average(summed, n):
@@ -192,6 +197,80 @@ def broadcast(tensor, root_rank):
     """``root_rank``'s value of ``tensor`` on every rank, as a new tensor
     on the runtime's device."""
     return broadcast_(_on_device(tensor).clone(), root_rank)
+
+
+def _alltoall_raw(tensor, group, split_axis, concat_axis):
+    """The tiled all-to-all of :func:`alltoall`, without autograd: the
+    split axis cut into one slice per rank and moved to the front for
+    ``all_to_all_single``, the received slices (rank order along dim 0)
+    merged into the concat axis."""
+    n = dist.get_world_size(group)
+    shape = list(tensor.shape)
+    if shape[split_axis] % n:
+        raise ValueError(
+            f"alltoall: split axis {split_axis} of size {shape[split_axis]} "
+            f"does not divide over {n} ranks")
+    x = tensor.movedim(split_axis, 0)
+    x = x.reshape(n, shape[split_axis] // n, *x.shape[1:]).contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    # (n, *slice) with the slice in the tensor's own axis order, then the
+    # rank axis merged into the concat axis, outermost: rank order.
+    out = out.movedim(1, split_axis + 1).movedim(0, concat_axis)
+    shape[split_axis] //= n
+    shape[concat_axis] *= n
+    return out.reshape(shape)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled all-to-all; its backward is the reverse all-to-all
+    (split and concat axes swapped), as ``lax.all_to_all``'s transpose."""
+
+    @staticmethod
+    def forward(ctx, tensor, group, split_axis, concat_axis):
+        ctx.args = (group, split_axis, concat_axis)
+        return _alltoall_raw(tensor, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_axis, concat_axis = ctx.args
+        return (_alltoall_raw(g.contiguous(), group, concat_axis, split_axis),
+                None, None, None)
+
+
+def alltoall(tensor, group=None, split_axis=0, concat_axis=0):
+    """Scatter dim-``split_axis`` slices to each rank of ``group`` (None:
+    every rank) and gather the received slices along ``concat_axis``, in
+    rank order: ``lax.all_to_all(..., tiled=True)``. Rank j receives
+    slice j of every rank. Differentiable: the gradient travels back
+    through the reverse all-to-all. Records ``alltoall_jit`` (the bytes
+    of ``tensor``) in the session's stats."""
+    record_jit_traced("alltoall_jit", _nbytes(tensor))
+    return _AllToAll.apply(tensor, group, split_axis, concat_axis)
+
+
+def _largest_divisor_leq(n, k):
+    """Largest divisor of ``n`` that is <= ``k`` (static ints)."""
+    k = min(max(int(k), 1), int(n))
+    while n % k:
+        k -= 1
+    return k
+
+
+def alltoall_chunked(tensor, chunks, group=None, split_axis=0,
+                     concat_axis=0, chunk_axis=1):
+    """:func:`alltoall` split into ``chunks`` independent slices along
+    ``chunk_axis``; returns the tuple of per-chunk results. Each chunk
+    round-trips on its own, so the results concatenated along
+    ``chunk_axis`` equal the unchunked all-to-all bit for bit. A
+    ``chunks`` that does not divide the chunk axis falls back to its
+    largest divisor below; ``chunks=1`` is one all-to-all. Records one
+    ``alltoall_jit`` of the whole tensor's bytes, as the JAX package
+    does."""
+    k = _largest_divisor_leq(tensor.shape[chunk_axis], chunks)
+    record_jit_traced("alltoall_jit", _nbytes(tensor))
+    return tuple(_AllToAll.apply(piece, group, split_axis, concat_axis)
+                 for piece in torch.chunk(tensor, k, dim=chunk_axis))
 
 
 def exchange_bucket_plan(leaves, buckets):

@@ -108,7 +108,12 @@
 // and dK is accumulated from the scaled q. At D = 128 the dq CTA takes 145 KB
 // of shared memory and the dkv CTA 162 KB, one CTA per SM. Head dims up to 256
 // take 32-row tiles (tile_rows), each thread then 1 row x 4 columns of a score
-// tile: the dq CTA takes 133 KB and the dkv CTA 137 KB.
+// tile: the dq CTA takes 133 KB and the dkv CTA 137 KB. A head dim above 256 is
+// held in 256-column pieces: S and dP sum over the pieces of q, dO, k and v
+// (loaded in turn, in column order, so every CTA of a tile gets the same
+// bits), and grid.z gives each CTA one 256-column piece of dQ, or of dK and dV,
+// whose operand piece it loads again after the scores; a CTA recomputes the
+// scores once per output piece.
 
 #include <math.h>
 
@@ -179,7 +184,9 @@ __host__ __device__ constexpr int dkv_smem_floats() {
   return 4 * n * (DMAX + 1) + 2 * n * (n + 1);
 }
 
-template <typename T, typename TO, int DMAX>
+// PIECES: the head dim may exceed DMAX (then DMAX is 256 and the pieces of
+// the file comment run); without it the pieces fold away at compile time.
+template <typename T, typename TO, int DMAX, bool PIECES>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
@@ -210,11 +217,19 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
   const int h = bh % H;
   const int hk = h / group;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const T* qb = q + b * qsb + h * qsh;
+  const T* ob = dout + b * dsb + h * dsh;
   const T* kb = k + b * ksb + hk * ksh;
   const T* vb = v + b * vsb + hk * vsh;
+  // Pieces of the score sums, and this CTA's dQ columns [c0, c0 + DMAX).
+  const int n_dp = PIECES ? (D + DMAX - 1) / DMAX : 1;
+  const int c0 = PIECES ? blockIdx.z * DMAX : 0;
+  const int d_end = PIECES ? D : 1;  // the pieces' starts are below d_end
 
-  load_tile<T, DMAX>(qs, q + b * qsb + h * qsh, qss, q0, S, D, scale);
-  load_tile<T, DMAX>(dos, dout + b * dsb + h * dsh, dss, q0, S, D, 1.f);
+  if (n_dp == 1) {
+    load_tile<T, DMAX>(qs, qb, qss, q0, S, D, scale);
+    load_tile<T, DMAX>(dos, ob, dss, q0, S, D, 1.f);
+  }
   load_rows(lse_s, delta_s, lse, delta, static_cast<long long>(bh) * S, q0, BQ,
             S);
 
@@ -236,34 +251,42 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
   for (int t = kv_lo / BK; t < t_hi; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // the previous tile's reads of ks and dst are done
-    load_tile<T, DMAX>(ks, kb, kss, k0, S, D, 1.f);
-    load_tile<T, DMAX>(vs, vb, vss, k0, S, D, 1.f);
-    __syncthreads();
 
     float s[RPT][CPT], dp[RPT][CPT];
 #pragma unroll
     for (int i = 0; i < RPT; ++i)
 #pragma unroll
       for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[RPT], ov[RPT], kv[CPT], vv[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        qv[i] = qs[(ty + TY * i) * LD + d];
-        ov[i] = dos[(ty + TY * i) * LD + d];
+    for (int d0 = 0; d0 < d_end; d0 += DMAX) {
+      if (d0 > 0) __syncthreads();  // the previous piece's reads are done
+      if (n_dp > 1) {
+        load_tile<T, DMAX>(qs, qb + d0, qss, q0, S, D - d0, scale);
+        load_tile<T, DMAX>(dos, ob + d0, dss, q0, S, D - d0, 1.f);
       }
+      load_tile<T, DMAX>(ks, kb + d0, kss, k0, S, D - d0, 1.f);
+      load_tile<T, DMAX>(vs, vb + d0, vss, k0, S, D - d0, 1.f);
+      __syncthreads();
+      const int dw = PIECES ? min(DMAX, D - d0) : D;
+      for (int d = 0; d < dw; ++d) {
+        float qv[RPT], ov[RPT], kv[CPT], vv[CPT];
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        kv[j] = ks[(tx + TX * j) * LD + d];
-        vv[j] = vs[(tx + TX * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
+        for (int i = 0; i < RPT; ++i) {
+          qv[i] = qs[(ty + TY * i) * LD + d];
+          ov[i] = dos[(ty + TY * i) * LD + d];
+        }
 #pragma unroll
         for (int j = 0; j < CPT; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+          kv[j] = ks[(tx + TX * j) * LD + d];
+          vv[j] = vs[(tx + TX * j) * LD + d];
         }
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) {
+            s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+            dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+          }
+      }
     }
 
 #pragma unroll
@@ -277,6 +300,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
         const float p = expf(sv - lse_s[r]);
         dst[r * LDS + c] = p * (dp[i][j] - delta_s[r]);
       }
+    }
+    if (n_dp > 1) {  // the k columns of this CTA's dQ piece
+      __syncthreads();
+      load_tile<T, DMAX>(ks, kb + c0, kss, k0, S, D - c0, 1.f);
     }
     __syncthreads();
 
@@ -300,13 +327,13 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
     TO* row = dq + ((static_cast<long long>(b) * S + qp) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < OCPT; ++c) {
-      const int d = tx + TX * c;
+      const int d = c0 + tx + TX * c;
       if (d < D) store(row + d, acc[i][c] * scale);
     }
   }
 }
 
-template <typename T, typename TO, int DMAX>
+template <typename T, typename TO, int DMAX, bool PIECES>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
@@ -337,9 +364,17 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
   const int b = blockIdx.x / h_kv;
   const int hk = blockIdx.x % h_kv;
   const int k0 = blockIdx.y * BK;
+  const T* kb = k + b * ksb + hk * ksh;
+  const T* vb = v + b * vsb + hk * vsh;
+  // Pieces of the score sums, and this CTA's dK/dV columns [c0, c0 + DMAX).
+  const int n_dp = PIECES ? (D + DMAX - 1) / DMAX : 1;
+  const int c0 = PIECES ? blockIdx.z * DMAX : 0;
+  const int d_end = PIECES ? D : 1;  // the pieces' starts are below d_end
 
-  load_tile<T, DMAX>(ks, k + b * ksb + hk * ksh, kss, k0, S, D, 1.f);
-  load_tile<T, DMAX>(vs, v + b * vsb + hk * vsh, vss, k0, S, D, 1.f);
+  if (n_dp == 1) {
+    load_tile<T, DMAX>(ks, kb, kss, k0, S, D, 1.f);
+    load_tile<T, DMAX>(vs, vb, vss, k0, S, D, 1.f);
+  }
 
   float acc_k[RPT][OCPT], acc_v[RPT][OCPT];
 #pragma unroll
@@ -367,10 +402,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
     for (int t = t_lo; t < t_hi; ++t) {
       const int q0 = t * BQ;
       __syncthreads();  // the previous tile's reads of qs, dos, pt, dst are done
-      load_tile<T, DMAX>(qs, qb, qss, q0, S, D, scale);
-      load_tile<T, DMAX>(dos, ob, dss, q0, S, D, 1.f);
       load_rows(lse_s, delta_s, lse, delta, base, q0, BQ, S);
-      __syncthreads();
 
       // Transposed score tile: rows are keys, columns are queries.
       float s[RPT][CPT], dp[RPT][CPT];
@@ -378,25 +410,36 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
       for (int i = 0; i < RPT; ++i)
 #pragma unroll
         for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        float kv[RPT], vv[RPT], qv[CPT], ov[CPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          kv[i] = ks[(ty + TY * i) * LD + d];
-          vv[i] = vs[(ty + TY * i) * LD + d];
+      for (int d0 = 0; d0 < d_end; d0 += DMAX) {
+        if (d0 > 0) __syncthreads();  // the previous piece's reads are done
+        if (n_dp > 1) {
+          load_tile<T, DMAX>(ks, kb + d0, kss, k0, S, D - d0, 1.f);
+          load_tile<T, DMAX>(vs, vb + d0, vss, k0, S, D - d0, 1.f);
         }
+        load_tile<T, DMAX>(qs, qb + d0, qss, q0, S, D - d0, scale);
+        load_tile<T, DMAX>(dos, ob + d0, dss, q0, S, D - d0, 1.f);
+        __syncthreads();
+        const int dw = PIECES ? min(DMAX, D - d0) : D;
+        for (int d = 0; d < dw; ++d) {
+          float kv[RPT], vv[RPT], qv[CPT], ov[CPT];
 #pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          qv[j] = qs[(tx + TX * j) * LD + d];
-          ov[j] = dos[(tx + TX * j) * LD + d];
-        }
-#pragma unroll
-        for (int i = 0; i < RPT; ++i)
+          for (int i = 0; i < RPT; ++i) {
+            kv[i] = ks[(ty + TY * i) * LD + d];
+            vv[i] = vs[(ty + TY * i) * LD + d];
+          }
 #pragma unroll
           for (int j = 0; j < CPT; ++j) {
-            s[i][j] = fmaf(qv[j], kv[i], s[i][j]);
-            dp[i][j] = fmaf(ov[j], vv[i], dp[i][j]);
+            qv[j] = qs[(tx + TX * j) * LD + d];
+            ov[j] = dos[(tx + TX * j) * LD + d];
           }
+#pragma unroll
+          for (int i = 0; i < RPT; ++i)
+#pragma unroll
+            for (int j = 0; j < CPT; ++j) {
+              s[i][j] = fmaf(qv[j], kv[i], s[i][j]);
+              dp[i][j] = fmaf(ov[j], vv[i], dp[i][j]);
+            }
+        }
       }
 
 #pragma unroll
@@ -411,6 +454,11 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
           pt[r * LDS + c] = p;
           dst[r * LDS + c] = p * (dp[i][j] - delta_s[c]);
         }
+      }
+      if (n_dp > 1) {  // the q and dO columns of this CTA's dK/dV piece
+        __syncthreads();
+        load_tile<T, DMAX>(qs, qb + c0, qss, q0, S, D - c0, scale);
+        load_tile<T, DMAX>(dos, ob + c0, dss, q0, S, D - c0, 1.f);
       }
       __syncthreads();
 
@@ -444,7 +492,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
     const long long at = ((static_cast<long long>(b) * S + kp) * h_kv + hk) * D;
 #pragma unroll
     for (int c = 0; c < OCPT; ++c) {
-      const int d = tx + TX * c;
+      const int d = c0 + tx + TX * c;
       if (d < D) {
         store(dk + at + d, acc_k[i][c]);
         store(dv + at + d, acc_v[i][c]);
@@ -851,15 +899,15 @@ struct Args {
   int causal, window, off;
 };
 
-template <typename T, typename TO, int DMAX>
+template <typename T, typename TO, int DMAX, bool PIECES = false>
 cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
   constexpr int smem = dq_smem_floats<DMAX>() * static_cast<int>(sizeof(float));
-  auto kernel = flash_bwd_dq_kernel<T, TO, DMAX>;
+  auto kernel = flash_bwd_dq_kernel<T, TO, DMAX, PIECES>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   constexpr int rows = tile_rows<DMAX>();
-  const dim3 grid(a.B * a.H, (a.S + rows - 1) / rows);
+  const dim3 grid(a.B * a.H, (a.S + rows - 1) / rows, (a.D + DMAX - 1) / DMAX);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
@@ -870,15 +918,16 @@ cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, typename TO, int DMAX>
+template <typename T, typename TO, int DMAX, bool PIECES = false>
 cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
   constexpr int smem = dkv_smem_floats<DMAX>() * static_cast<int>(sizeof(float));
-  auto kernel = flash_bwd_dkv_kernel<T, TO, DMAX>;
+  auto kernel = flash_bwd_dkv_kernel<T, TO, DMAX, PIECES>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   constexpr int rows = tile_rows<DMAX>();
-  const dim3 grid(a.B * a.Hkv, (a.S + rows - 1) / rows);
+  const dim3 grid(a.B * a.Hkv, (a.S + rows - 1) / rows,
+                  (a.D + DMAX - 1) / DMAX);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
@@ -898,14 +947,16 @@ cudaError_t dispatch_d(const Args& a, cudaStream_t s) {
     return DQ ? launch_dq<T, TO, 64>(a, s) : launch_dkv<T, TO, 64>(a, s);
   if (a.D <= 128)
     return DQ ? launch_dq<T, TO, 128>(a, s) : launch_dkv<T, TO, 128>(a, s);
-  return DQ ? launch_dq<T, TO, 256>(a, s) : launch_dkv<T, TO, 256>(a, s);
+  if (a.D <= 256)
+    return DQ ? launch_dq<T, TO, 256>(a, s) : launch_dkv<T, TO, 256>(a, s);
+  return DQ ? launch_dq<T, TO, 256, true>(a, s)
+            : launch_dkv<T, TO, 256, true>(a, s);
 }
 
 // f32_out: gradients in f32 (the band kernels) rather than the input type.
 template <bool DQ>
 int run(const Args& a, int dtype, bool f32_out, void* stream) {
-  if (a.D < 1 || a.D > 256 || a.Hkv < 1 || a.H % a.Hkv != 0 ||
-      (dtype != 0 && dtype != 1))
+  if (a.D < 1 || a.Hkv < 1 || a.H % a.Hkv != 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

@@ -88,10 +88,13 @@
 // max and row sum reduce over the 8 lanes of a row with shuffles. Each kv tile
 // is converted to f32 in shared memory; the P tile reuses the K tile's shared
 // memory. Padded row strides (D + 1, 64 + 1) keep the shared-memory reads free
-// of bank conflicts. It takes head dims up to 256 (tiles padded to DMAX 32, 64,
-// 128 or 256 columns); at DMAX 256 a CTA takes 197,120 bytes of shared memory,
-// inside the 227 KB a block may have, and grid.x carries B*H (grid.y would stop
-// at 65535).
+// of bank conflicts. Tiles are padded to DMAX 32, 64, 128 or 256 columns; at
+// DMAX 256 a CTA takes 197,120 bytes of shared memory, inside the 227 KB a block
+// may have, and grid.x carries B*H (grid.y would stop at 65535). A head dim
+// above 256 is held in 256-column pieces: S sums over the pieces of q and k
+// (each piece loaded in turn, in column order, so every CTA of a row gets the
+// same bits), and grid.z gives each CTA one 256-column piece of O, so a CTA
+// recomputes S once per output piece.
 //
 // Bound on this card (H100 SXM): 4*D FLOPs per live (query, key) pair against
 // 989 TFLOP/s bf16, and the bytes (2*B*H*S*D + 2*B*H_kv*S*D) * dtype size (Q
@@ -147,7 +150,9 @@ __device__ __forceinline__ float row_sum8(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 4);
 }
 
-template <typename T, int DMAX>
+// PIECES: the head dim may exceed DMAX (then DMAX is 256 and the pieces of
+// the file comment run); without it the pieces fold away at compile time.
+template <typename T, int DMAX, bool PIECES>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, float* __restrict__ lse, int S, int H, int group, int D,
@@ -177,13 +182,22 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
   const T* qb = q + b * qsb + h * qsh;
   const T* kb = k + b * ksb + hk * ksh;
   const T* vb = v + b * vsb + hk * vsh;
+  // Pieces of the score sum, and this CTA's output columns [c0, c0 + DMAX).
+  const int n_dp = PIECES ? (D + DMAX - 1) / DMAX : 1;
+  const int c0 = PIECES ? blockIdx.z * DMAX : 0;
+  const int d_end = PIECES ? D : 1;  // the pieces' starts are below d_end
 
-  for (int i = tid; i < BQ * DMAX; i += THREADS) {
-    const int r = i / DMAX, d = i % DMAX;
-    float x = 0.f;
-    if (q0 + r < S && d < D) x = to_f32(qb[(q0 + r) * qss + d]) * scale;
-    qs[r * LDQ + d] = x;
-  }
+  // The q columns [d0, d0 + DMAX), scaled, into qs.
+  auto load_q = [&](int d0) {
+    for (int i = tid; i < BQ * DMAX; i += THREADS) {
+      const int r = i / DMAX, d = i % DMAX;
+      float x = 0.f;
+      if (q0 + r < S && d0 + d < D)
+        x = to_f32(qb[(q0 + r) * qss + d0 + d]) * scale;
+      qs[r * LDQ + d] = x;
+    }
+  };
+  if (n_dp == 1) load_q(0);
 
   float m[RPT], l[RPT], acc[RPT][OCPT];
 #pragma unroll
@@ -206,29 +220,38 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
   for (int t = kv_lo / BK; t < t_hi; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // the previous tile's p and v reads are done
-    for (int i = tid; i < BK * DMAX; i += THREADS) {
-      const int r = i / DMAX, d = i % DMAX;
-      const bool ok = k0 + r < S && d < D;
-      kp[r * LDK + d] = ok ? to_f32(kb[(k0 + r) * kss + d]) : 0.f;
-      vs[r * LDV + d] = ok ? to_f32(vb[(k0 + r) * vss + d]) : 0.f;
-    }
-    __syncthreads();
 
     float s[RPT][CPT];
 #pragma unroll
     for (int i = 0; i < RPT; ++i)
 #pragma unroll
       for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[RPT], kv[CPT];
+    for (int d0 = 0; d0 < d_end; d0 += DMAX) {
+      if (d0 > 0) __syncthreads();  // the previous piece's reads are done
+      if (n_dp > 1) load_q(d0);
+      // this piece of k; with the first, this CTA's piece of v
+      for (int i = tid; i < BK * DMAX; i += THREADS) {
+        const int r = i / DMAX, d = i % DMAX;
+        const bool row = k0 + r < S;
+        kp[r * LDK + d] =
+            row && d0 + d < D ? to_f32(kb[(k0 + r) * kss + d0 + d]) : 0.f;
+        if (d0 == 0)
+          vs[r * LDV + d] =
+              row && c0 + d < D ? to_f32(vb[(k0 + r) * vss + c0 + d]) : 0.f;
+      }
+      __syncthreads();
+      const int dw = PIECES ? min(DMAX, D - d0) : D;
+      for (int d = 0; d < dw; ++d) {
+        float qv[RPT], kv[CPT];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) qv[i] = qs[(ty + TY * i) * LDQ + d];
+        for (int i = 0; i < RPT; ++i) qv[i] = qs[(ty + TY * i) * LDQ + d];
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) kv[j] = kp[(tx + TX * j) * LDK + d];
+        for (int j = 0; j < CPT; ++j) kv[j] = kp[(tx + TX * j) * LDK + d];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i)
+        for (int i = 0; i < RPT; ++i)
 #pragma unroll
-        for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
     }
 
 #pragma unroll
@@ -290,10 +313,11 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
       T* orow = o + ((static_cast<long long>(b) * S + qp) * H + h) * D;
 #pragma unroll
       for (int c = 0; c < OCPT; ++c) {
-        const int d = tx + TX * c;
+        const int d = c0 + tx + TX * c;
         if (d < D) store(orow + d, acc[i][c] / lt);
       }
-      if (tx == 0) lse[(static_cast<long long>(b) * H + h) * S + qp] = m[i] + logf(lt);
+      if (tx == 0 && blockIdx.z == 0)
+        lse[(static_cast<long long>(b) * H + h) * S + qp] = m[i] + logf(lt);
     }
   }
 }
@@ -507,14 +531,14 @@ struct Args {
   int causal, window, off;
 };
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool PIECES = false>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr int smem = smem_floats<DMAX>() * static_cast<int>(sizeof(float));
-  auto kernel = flash_fwd_kernel<T, DMAX>;
+  auto kernel = flash_fwd_kernel<T, DMAX, PIECES>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.B * a.H, (a.S + BQ - 1) / BQ);
+  const dim3 grid(a.B * a.H, (a.S + BQ - 1) / BQ, (a.D + DMAX - 1) / DMAX);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.o),
@@ -529,12 +553,12 @@ cudaError_t dispatch_d(const Args& a, cudaStream_t s) {
   if (a.D <= 32) return launch<T, 32>(a, s);
   if (a.D <= 64) return launch<T, 64>(a, s);
   if (a.D <= 128) return launch<T, 128>(a, s);
-  return launch<T, 256>(a, s);
+  if (a.D <= 256) return launch<T, 256>(a, s);
+  return launch<T, 256, true>(a, s);
 }
 
 int run(const Args& a, int dtype, void* stream) {
-  if (a.D < 1 || a.D > 256 || a.Hkv < 1 || a.H % a.Hkv != 0 ||
-      (dtype != 0 && dtype != 1))
+  if (a.D < 1 || a.Hkv < 1 || a.H % a.Hkv != 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = dtype == 0 ? dispatch_d<float>(a, s)

@@ -176,11 +176,15 @@ class CompiledTrainStep:
 
     The exchange: a ``DistributedOptimizer`` exchanges through its
     gradient hooks, whose bucket all-reduces the graph captures
-    (``exchange_buckets`` re-plans its buckets); a plain optimizer gets
-    one fused all-reduce a bucket in front of its update (the JAX
-    package's auto decomposition). The ZeRO, sharding-spec and MoE
-    layouts raise ``NotImplementedError`` naming their ROADMAP.md items
-    where ``DistributedOptimizer`` is built, and the guard here.
+    (``exchange_buckets`` re-plans its buckets); with ``expert_keys``
+    (exchange mode ``"moe"``, in the signature as the JAX package keys
+    it) those are the data group's all-reduces of the expert gradients
+    beside the world's of the rest, and the model's all-to-alls are
+    captured with the forward and backward. A plain optimizer gets one
+    fused all-reduce a bucket in front of its update (the JAX package's
+    auto decomposition). The ZeRO and sharding-spec layouts raise
+    ``NotImplementedError`` naming their ROADMAP.md items where
+    ``DistributedOptimizer`` is built, and the guard here.
 
     Fallback (``hvd_step_fallback_total`` by reason): the eager step
     runs instead under ``HOROVOD_STEP_PROGRAM=0`` (``disabled``),
@@ -205,7 +209,10 @@ class CompiledTrainStep:
         self._loss_fn = loss_fn
         self._optimizer = optimizer
         self._buckets = exchange_buckets
-        self._exchange = "hooks" if hooks else "psum"
+        if not hooks:
+            self._exchange = "psum"
+        else:
+            self._exchange = "moe" if optimizer.expert_keys else "hooks"
         self._params = [p for g in optimizer.param_groups
                         for p in g["params"] if p.requires_grad]
         self._layout = tuple((tuple(p.shape), str(p.dtype), str(p.device))
@@ -232,7 +239,7 @@ class CompiledTrainStep:
     # ------------------------------------------------------------ the step
 
     def _bucket_count(self, cfg):
-        if self._exchange == "hooks":
+        if self._exchange != "psum":
             return len(self._optimizer.exchange_buckets)
         return max(int(self._buckets if self._buckets is not None
                        else cfg.exchange_buckets), 1)

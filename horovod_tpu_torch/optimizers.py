@@ -22,9 +22,19 @@ in-place all-reduce does no device work, so there the exchange costs
 its copies into and out of the flat buffer; the stats time it from
 before the first to after the last.
 
+``expert_keys`` (the counterpart of the JAX package's ``_MoECore``)
+name the expert-sharded parameters of MoE layers by substring of their
+names: their gradients all-reduce over the data sub-group of the
+runtime's ``expert_mesh()`` (axis ``hvd``; every rank when no expert
+mesh was built), every other gradient over the world, and both divide
+by the full world size N. The expert group's all-to-all already
+brought its peers' cotangents into each expert shard's gradient, so the
+data-group sum completes the global sum. Each flat buffer of a bucket's
+exchange holds one dtype and one group.
+
 ZeRO stages 1-3 and the DCN-staged exchange (ROADMAP.md, Queue 1 item
-11), expert and model keys (items 7 and 6) and Int8 compression (item 3)
-raise ``NotImplementedError``.
+11), model keys (item 6) and Int8 compression (item 3) raise
+``NotImplementedError``.
 """
 
 import warnings
@@ -39,6 +49,36 @@ from .ops.collectives import (Exchange, broadcast_, exchange_bucket_plan,
 from .ops.compression import Compression, Int8Compressor
 
 
+class _ExpertSpec:
+    """Which parameters are expert shards, and their exchange group: the
+    counterpart of the JAX package's ``_MoECore``, with its checks and
+    its words."""
+
+    def __init__(self, data_axes, expert_axis, expert_keys):
+        self.data_axes = ((data_axes,) if isinstance(data_axes, str)
+                          else tuple(data_axes))
+        self.expert_axis = str(expert_axis)
+        self.expert_keys = tuple(str(k) for k in expert_keys)
+        if not self.expert_keys:
+            raise ValueError(
+                "expert_keys must name at least one expert-sharded leaf "
+                "(tree-path substrings, e.g. ('moe',))")
+        if self.expert_axis in self.data_axes:
+            raise ValueError(
+                f"expert axis {self.expert_axis!r} collides with the data "
+                f"axes {self.data_axes!r}")
+
+    def matches(self, name):
+        return any(k in name for k in self.expert_keys)
+
+    def data_group(self):
+        """The expert leaves' all-reduce group: this rank's data sub-group
+        of the expert mesh, or every rank (None) without one."""
+        if runtime.expert_parallel_size() == 1:
+            return None
+        return runtime.expert_mesh().get_group(self.data_axes[0])
+
+
 class _DistributedOptimizer(torch.optim.Optimizer):
     """Allreduce-averaging optimizer wrapper, mixed into the wrapped
     optimizer's class (see :func:`DistributedOptimizer`)."""
@@ -48,7 +88,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
     _hvd_exchange = "hooks"
 
     def __init__(self, params, named_parameters, compression,
-                 backward_passes_per_step, exchange_buckets):
+                 backward_passes_per_step, exchange_buckets, expert_spec):
         super(self.__class__, self).__init__(params)
         self._compression = compression
 
@@ -74,6 +114,15 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._size = runtime.size()
         params = [p for group in self.param_groups for p in group["params"]
                   if p.requires_grad]
+        # Each parameter's exchange group: the data sub-group for expert
+        # leaves, the world (None) for the rest.
+        self.expert_keys = () if expert_spec is None \
+            else expert_spec.expert_keys
+        data_group = None if expert_spec is None else expert_spec.data_group()
+        expert = {p for name, p in named_parameters
+                  if expert_spec is not None and expert_spec.matches(name)}
+        self._group_of = {p: data_group if p in expert else None
+                          for p in params}
         self._allreduce_delay = {p: backward_passes_per_step for p in params}
         self.plan_exchange(exchange_buckets)
         self._inflight = {}  # bucket -> (exchange, [(indices, flat)], ctxs)
@@ -124,17 +173,22 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 self._launch(b)
 
     def _launch(self, b):
-        """Flatten bucket ``b``'s gradients (one buffer per dtype, after
-        compression) and start their all-reduce. The exchange's clock
-        runs from before the copy in to after the copy out
-        (:meth:`synchronize`)."""
+        """Flatten bucket ``b``'s gradients (one buffer per exchange group
+        and dtype, after compression) and start their all-reduce. The
+        exchange's clock runs from before the copy in to after the copy
+        out (:meth:`synchronize`)."""
         exchange = Exchange("allreduce")
-        compressed = [self._compression.compress(p.grad)
-                      for p in self._buckets[b]]
-        groups = [(idx, flat) for _, idx, flat in
-                  flatten_by_dtype([w for w, _ in compressed])]
-        for _, flat in groups:
-            start_allreduce(flat, exchange)
+        params = self._buckets[b]
+        compressed = [self._compression.compress(p.grad) for p in params]
+        by_group = {}
+        for i, p in enumerate(params):
+            by_group.setdefault(self._group_of[p], []).append(i)
+        groups = []
+        for pg, members in by_group.items():
+            for _, idx, flat in flatten_by_dtype(
+                    [compressed[i][0] for i in members]):
+                groups.append(([members[i] for i in idx], flat))
+                start_allreduce(flat, exchange, pg)
         self._inflight[b] = (exchange, groups, compressed)
 
     def synchronize(self):
@@ -185,7 +239,7 @@ def DistributedOptimizer(optimizer, named_parameters=None,
                          compression=Compression.none,
                          backward_passes_per_step=1, zero_stage=None,
                          exchange_buckets=None, dcn_compression=None,
-                         expert_keys=None, model_keys=None):
+                         expert_keys=None, expert_axis="ep", model_keys=None):
     """Wrap a torch optimizer so its gradients are averaged over every
     rank during the backward.
 
@@ -193,7 +247,14 @@ def DistributedOptimizer(optimizer, named_parameters=None,
     ``HOROVOD_ZERO_STAGE`` and ``HOROVOD_EXCHANGE_BUCKETS``; only stage 0
     is carried. Gradients accumulated over ``backward_passes_per_step``
     backward passes are summed locally, then averaged over the ranks, as
-    the reference's torch binding does."""
+    the reference's torch binding does.
+
+    ``expert_keys`` (name substrings, e.g. ``("moe.w1", "moe.w2")``)
+    turns on the expert-parallel exchange over the runtime's
+    ``expert_mesh()`` (module docstring); ``named_parameters`` must then
+    name the parameters. Substrings match as the JAX package's tree
+    paths do, so ``"moe"`` alone would also take each MoE layer's
+    router, whose gradient the world must average."""
     cfg = config_mod.Config.from_env()
     zero_stage = cfg.zero_stage if zero_stage is None else int(zero_stage)
     if zero_stage not in (0, 1, 2, 3):
@@ -207,9 +268,8 @@ def DistributedOptimizer(optimizer, named_parameters=None,
     if dcn_compression:
         raise NotImplementedError(
             "dcn_compression is not ported yet (ROADMAP.md, Queue 1 item 11)")
-    if expert_keys:
-        raise NotImplementedError(
-            "expert_keys are not ported yet (ROADMAP.md, Queue 1 item 7)")
+    expert_spec = _ExpertSpec(runtime.AXIS, expert_axis, expert_keys) \
+        if expert_keys else None
     if model_keys:
         raise NotImplementedError(
             "model_keys are not ported yet (ROADMAP.md, Queue 1 item 6)")
@@ -221,7 +281,7 @@ def DistributedOptimizer(optimizer, named_parameters=None,
     cls = type(optimizer.__class__.__name__, (optimizer.__class__,),
                dict(_DistributedOptimizer.__dict__))
     return cls(optimizer.param_groups, named_parameters, compression,
-               backward_passes_per_step, exchange_buckets)
+               backward_passes_per_step, exchange_buckets, expert_spec)
 
 
 def broadcast_parameters(params, root_rank):

@@ -1,9 +1,14 @@
 """Device topology of the port.
 
-Counterpart of horovod_tpu/parallel/mesh.py, of which the training slice
-carries :func:`data_parallel_mesh`: one flat data-parallel axis over
-every rank. The 2-D expert and 3-D model meshes come with their slices
-(ROADMAP.md, Queue 1 items 6 and 7).
+Counterpart of horovod_tpu/parallel/mesh.py, of which the port carries
+:func:`data_parallel_mesh` (one flat data-parallel axis over every rank)
+and :func:`expert_data_mesh` (the 2-D (data, expert) layout of
+expert-parallel MoE). The 3-D model mesh comes with tensor parallelism
+(ROADMAP.md, Queue 1 item 6).
+
+A ``DeviceMesh`` creates one process group per row and column of the
+layout, on every rank in the same order; so every rank builds every
+mesh, with the same arguments.
 """
 
 from torch.distributed.device_mesh import DeviceMesh
@@ -14,3 +19,31 @@ def data_parallel_mesh(device_type, size, axis_name="hvd"):
     the default process group (the reference's global communicator)."""
     return DeviceMesh(device_type, list(range(size)),
                       mesh_dim_names=(axis_name,))
+
+
+def expert_data_mesh(device_type, size, expert_parallel=1, data_axis="hvd",
+                     expert_axis="ep"):
+    """The 2-D (data, expert) ``DeviceMesh`` of expert-parallel MoE: ranks
+    0..size-1 laid out as ``(size // expert_parallel, expert_parallel)``
+    with axes ``(data_axis, expert_axis)``, so rank r sits at
+    ``(r // ep, r % ep)`` and each run of ``ep`` consecutive ranks is
+    one expert group (the axis that carries the dispatch and combine
+    all-to-all every step); the data axis carries the expert gradients'
+    all-reduce. ``mesh.get_group(expert_axis)`` is this rank's expert
+    group, ``mesh.get_group(data_axis)`` its data group. Raises the JAX
+    package's errors when the degree is not positive, does not divide
+    the world, or the axes collide."""
+    ep = int(expert_parallel)
+    if ep <= 0:
+        raise ValueError(f"expert_parallel must be >= 1, got {ep}")
+    if size % ep != 0:
+        raise ValueError(
+            f"expert_parallel={ep} does not divide the world size {size} "
+            "(HOROVOD_EXPERT_PARALLEL must divide the device count, "
+            "including after an elastic re-init over survivors)")
+    if data_axis == expert_axis:
+        raise ValueError(
+            f"data and expert axes must differ, both are {data_axis!r}")
+    ranks = [[r * ep + e for e in range(ep)] for r in range(size // ep)]
+    return DeviceMesh(device_type, ranks,
+                      mesh_dim_names=(data_axis, expert_axis))

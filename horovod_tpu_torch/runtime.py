@@ -25,6 +25,11 @@ Knobs that would start subsystems the port does not have yet (the
 timeline, the guard, autotune, the metrics exporters) make ``init()``
 raise rather than run without them.
 
+With ``HOROVOD_EXPERT_PARALLEL`` above 1, ``init()`` also builds the
+2-D (data, expert) mesh of expert-parallel MoE (:func:`expert_mesh`;
+parallel/mesh.py), whose sub-groups every rank creates in the same
+order.
+
 Each session owns a :class:`ProgramCache`: the signature-keyed step
 programs of ops/step_program.py (on a card, captured CUDA graphs sharing
 one memory pool). ``shutdown()`` drops it and the next ``init()`` starts
@@ -119,6 +124,7 @@ class _State:
         self.programs = None
         self.store = None
         self.mesh = None
+        self.expert_mesh = None
         self.rank = 0
         self.size = 0
         self.local_rank = 0
@@ -195,10 +201,17 @@ def init(comm=None, *, device="cuda"):
 
         from . import metrics
         from .stats import CollectiveStats, register_metrics
+        exp_mesh = None
+        if cfg.expert_parallel > 1:
+            from .parallel.mesh import expert_data_mesh
+            exp_mesh = expert_data_mesh(device.type, size,
+                                        expert_parallel=cfg.expert_parallel,
+                                        data_axis=AXIS, expert_axis="ep")
         _state.config = cfg
         _state.device = device
         _state.store = store
         _state.mesh = None
+        _state.expert_mesh = exp_mesh
         _state.rank, _state.size = rank, size
         _state.local_rank = local_rank
         _state.local_size = _env_int("HOROVOD_TPU_LOCAL_SIZE", 1)
@@ -247,6 +260,7 @@ def shutdown():
         dist.destroy_process_group()
         _state.store = None
         _state.mesh = None
+        _state.expert_mesh = None
         _state.shutdown = True
         _state.initialized = False
 
@@ -285,6 +299,27 @@ def mesh():
         _state.mesh = data_parallel_mesh(_state.device.type, _state.size,
                                          axis_name=AXIS)
     return _state.mesh
+
+
+def expert_mesh():
+    """The 2-D (data, expert) ``DeviceMesh`` — axes ``("hvd", "ep")`` —
+    built when ``HOROVOD_EXPERT_PARALLEL > 1``. Raises when expert
+    parallelism was not configured at init."""
+    _check_init()
+    if _state.expert_mesh is None:
+        from .exceptions import HorovodError
+        raise HorovodError(
+            "no expert mesh: set HOROVOD_EXPERT_PARALLEL (or "
+            "Config.expert_parallel) to a degree > 1 dividing the world "
+            "size before hvd.init()")
+    return _state.expert_mesh
+
+
+def expert_parallel_size():
+    """Configured expert-parallel degree (1 = no expert mesh)."""
+    _check_init()
+    return (_state.expert_mesh.size(1)
+            if _state.expert_mesh is not None else 1)
 
 
 def rank():

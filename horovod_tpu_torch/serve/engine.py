@@ -67,8 +67,9 @@ def _pool_scatter_prefill(pool, li, page_tables, positions, rows,
 
 
 def _prefill_core(params, k_pool, v_pool, tokens, lengths, page_tables,
-                  cfg, page_size):
-    """Forward trunk + paged K/V capture + last-position logits."""
+                  cfg, page_size, moe_full):
+    """Forward trunk + paged K/V capture + last-position logits; MoE
+    layers at full capacity when ``moe_full``."""
     x = tfm.embed_tokens(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     for li, p in enumerate(params["layers"]):
@@ -77,7 +78,7 @@ def _prefill_core(params, k_pool, v_pool, tokens, lengths, page_tables,
                               page_size)
         _pool_scatter_prefill(v_pool, li, page_tables, positions, v,
                               page_size)
-        x = tfm._mlp_block(p, x, cfg)
+        x, _ = tfm._mlp_block(p, x, cfg, moe_full_capacity=moe_full)
     # The head is row-wise, so it runs on the last real rows only instead
     # of on every position and then selecting.
     last = torch.clamp(lengths - 1, 0, tokens.shape[1] - 1)
@@ -86,7 +87,7 @@ def _prefill_core(params, k_pool, v_pool, tokens, lengths, page_tables,
 
 
 def _decode_core(params, k_pool, v_pool, tokens, lengths, page_tables,
-                 cfg, page_size):
+                 cfg, page_size, moe_full):
     """One token for every row: scatter the new K/V row at position
     ``lengths`` (in place) and attend over ``lengths + 1`` visible
     positions."""
@@ -111,7 +112,7 @@ def _decode_core(params, k_pool, v_pool, tokens, lengths, page_tables,
         out = tfm._einsum_f32("bshx,hxd->bsd", attn,
                               p["wo"].to(cfg.dtype))
         x = x + out.to(cfg.dtype)
-        x = tfm._mlp_block(p, x, cfg)
+        x, _ = tfm._mlp_block(p, x, cfg, moe_full_capacity=moe_full)
     return tfm._head(params, x, cfg)[:, 0]                         # (B, V)
 
 
@@ -122,6 +123,10 @@ class ServeEngine:
     on ``device``. ``batch_bin_floor``/``page_bin_floor``/
     ``len_bin_floor`` pin the minimum bin, which makes a sequence's
     stream independent of its neighbours (the churn-exactness contract).
+    ``moe_full_capacity`` (default True, as the JAX engine's) runs MoE
+    layers with ``t*k`` slots per expert: nothing drops, so a token's
+    output does not depend on the rest of its batch, and the capacity is
+    static per bin, so one program a bin still holds.
     ``prefill_hits``/``_misses`` and ``decode_hits``/``_misses`` count
     program fetches; ``fallback_steps`` counts steps whose session
     cache failed and that took the engine's own instead."""
@@ -129,7 +134,8 @@ class ServeEngine:
     def __init__(self, params, cfg, *, mesh=None, tp_axis=None,
                  num_pages=DEFAULT_PAGES, page_size=DEFAULT_PAGE_SIZE,
                  max_pages_per_seq=None, batch_bin_floor=1,
-                 page_bin_floor=1, len_bin_floor=1, device="cuda"):
+                 page_bin_floor=1, len_bin_floor=1, moe_full_capacity=True,
+                 device="cuda"):
         if mesh is not None or tp_axis is not None:
             raise NotImplementedError(
                 f"mesh/tp_axis serving comes with {tfm.TENSOR_PARALLEL}")
@@ -139,6 +145,7 @@ class ServeEngine:
             raise ValueError(f"params lie on {params['embed'].device}, the "
                              f"engine on {self.device}")
         self.params = params
+        self.moe_full_capacity = bool(moe_full_capacity)
         self.batch_bin_floor = max(int(batch_bin_floor), 1)
         self.page_bin_floor = max(int(page_bin_floor), 1)
         self.len_bin_floor = max(int(len_bin_floor), 1)
@@ -219,7 +226,7 @@ class ServeEngine:
         def fn():
             eng = ref()
             return core(eng.params, eng._k_pool, eng._v_pool, tokens,
-                        lengths, tables, eng.cfg, ps)
+                        lengths, tables, eng.cfg, ps, eng.moe_full_capacity)
 
         pool = None
         if self.device.type == "cuda":
@@ -269,7 +276,7 @@ class ServeEngine:
             tokens[i, :len(p)] = p
             lengths[i] = len(p)
         sig = ("serve_prefill", obj_token(self), self.cfg, batch_bin,
-               len_bin, page_bin, ps)
+               len_bin, page_bin, ps, self.moe_full_capacity)
         prog = self._program("prefill", sig, lambda: self._build(
             _prefill_core, batch_bin, page_bin, len_bin))
         t0 = time.perf_counter()
@@ -296,7 +303,7 @@ class ServeEngine:
         lng = np.zeros((batch_bin,), np.int64)
         lng[:b] = lengths
         sig = ("serve_decode", obj_token(self), self.cfg, batch_bin,
-               page_bin, ps)
+               page_bin, ps, self.moe_full_capacity)
         prog = self._program("decode", sig, lambda: self._build(
             _decode_core, batch_bin, page_bin))
         t0 = time.perf_counter()

@@ -9,8 +9,9 @@ put under a device metric), the compiled-step and serving rows with
 their counters, and every profile whose subsystem is not ported as
 ``{"skipped": "not ported: ROADMAP item N"}``. Beside them:
 the FLOPs-per-token model and the robust statistics against the
-reference scripts' own functions, the refusals of the unported
-scenarios, and the H100 rows of the peak table.
+reference scripts' own functions, the MoE scenario's row and flags,
+the refusals of the unported scenarios, and the H100 rows of the peak
+table.
 """
 
 import json
@@ -78,8 +79,10 @@ def test_resnet_bench_smoke_json_contract():
     for key, item in resnet_bench.NOT_PORTED.items():
         assert got[key] == {"skipped": f"not ported: ROADMAP item {item}"}
     assert set(resnet_bench.NOT_PORTED) >= {
-        "eager_exchange", "zero_profile", "moe", "mesh3d", "control_plane"}
-    assert not set(resnet_bench.NOT_PORTED) & {"compiled_step", "serve"}
+        "eager_exchange", "zero_profile", "mesh3d", "control_plane"}
+    assert not set(resnet_bench.NOT_PORTED) & {"compiled_step", "serve",
+                                               "moe"}
+    _assert_moe_row(got["moe"], expert_parallel=1, steps=8)
     compiled = got["compiled_step"]
     assert compiled["img_sec_per_chip"] > 0
     assert compiled["python_overhead_ms"] > 0
@@ -164,7 +167,48 @@ def test_serve_defaults_are_the_reference_flags():
     assert {k: got[k] for k in keys} == {k: ref[k] for k in keys}
 
 
-@pytest.mark.parametrize("flag,item", [("--moe", 7), ("--mesh3d", 6)])
+def _assert_moe_row(moe, expert_parallel, steps):
+    """bench_transformer.py's moe sub-dict: the layer trained through the
+    compiled step (every timed step a cache hit), the routing counts of
+    one evaluation, and the trace's keys as skipped rows (item 16)."""
+    assert moe["tokens_per_sec_per_chip"] > 0
+    assert moe["expert_parallel"] == expert_parallel
+    assert moe["step_program_cache_hit_rate"] == 1.0
+    assert (moe["step_program_cache_hits"], moe["step_program_cache_misses"],
+            moe["fallback_steps"], moe["steps"]) == (steps, 0, 0, steps)
+    # 32 sequences x 64 tokens x top-2, every one kept or dropped
+    assert moe["routed_tokens"] + moe["dropped_tokens"] == 32 * 64 * 2
+    assert moe["drop_fraction"] == round(
+        moe["dropped_tokens"] / (32 * 64 * 2), 4)
+    assert moe["load_balance_loss"] > 0
+    assert (moe["num_experts"], moe["top_k"], moe["capacity_factor"],
+            moe["d_model"], moe["d_ff"]) == (8, 2, 2.0, 256, 1024)
+    for key in ("alltoall_ms_per_step", "alltoall_hidden_frac",
+                "step_phase_breakdown", "xla_trace_dir"):
+        assert moe[key] == {"skipped": "not ported: ROADMAP item 16"}, key
+
+
+def test_transformer_moe_json_contract():
+    got = _run("horovod_tpu_torch.bench.transformer",
+               ["--moe", "--expert-parallel", "1", "--iters", "1",
+                "--moe-chunks", "4", "--device", "cpu"])
+    assert got["metric"] == "moe_tokens_per_sec_per_chip"
+    assert got["unit"] == "tokens/sec"
+    assert got["value"] == got["moe"]["tokens_per_sec_per_chip"] > 0
+    _assert_moe_row(got["moe"], expert_parallel=1, steps=8)
+    # no expert group on one rank: the exchange is not cut
+    assert got["moe"]["moe_chunks"] == 1
+
+
+def test_moe_defaults_are_the_reference_flags():
+    ref = vars(bench_transformer.parse_args(["--moe"]))
+    got = vars(tfm_bench.parse_args(["--moe"]))
+    keys = [k for k in ref if k.startswith(("moe", "expert"))]
+    assert len(keys) == 9
+    assert {k: got[k] for k in keys} == {k: ref[k] for k in keys}
+
+
+@pytest.mark.parametrize("flag,item", [("--mesh3d", 6)])
 def test_unported_scenarios_raise_naming_their_item(flag, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         tfm_bench.parse_args([flag])

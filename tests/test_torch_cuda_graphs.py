@@ -31,6 +31,8 @@ SMALL = dict(vocab_size=256, d_model=256, n_heads=4, n_kv_heads=2,
              n_layers=2, d_ff=512, max_seq=256, positional="rope",
              attention_impl="flash", dtype=torch.bfloat16)
 ADAMW = dict(lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+# an MoE layer (E 4, top-2) in place of the second dense FFN
+MOE_SMALL = dict(SMALL, moe_layers=(1,), moe_num_experts=4, moe_top_k=2)
 
 
 @pytest.fixture
@@ -43,8 +45,8 @@ def card():
     hvd.shutdown()
 
 
-def _train(card, compiled, batches, **kw):
-    cfg = tfm.TransformerConfig(loss_chunk=64, **SMALL)
+def _train(card, compiled, batches, model=SMALL, **kw):
+    cfg = tfm.TransformerConfig(loss_chunk=64, **model)
     lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
                            device=card)
     opt = hvd.DistributedOptimizer(
@@ -83,6 +85,32 @@ def test_captured_step_replayed_on_new_batches_equals_eager(card):
         assert torch.equal(a, b), (name, float((a - b).abs().max()))
 
 
+def test_moe_step_replayed_on_new_batches_equals_eager(card):
+    """The MoE layer's routing tables, gather dispatch and combine, its
+    expert products and the expert-keyed exchange, captured: parameters
+    after 4 steps bitwise equal to the eager run's."""
+    batches = _batches(card, 4)
+    keys = dict(expert_keys=("moe.w1", "moe.w2"))
+    eager, _ = _train(card, False, batches, model=MOE_SMALL, **keys)
+    compiled, step = _train(card, True, batches, model=MOE_SMALL, **keys)
+    assert step._exchange == "moe"
+    assert (step.cache_misses, step.cache_hits, step.fallback_steps) == (
+        1, 3, 0)
+    for (name, a), (_, b) in zip(eager.named_parameters(),
+                                 compiled.named_parameters()):
+        assert torch.equal(a, b), (name, float((a - b).abs().max()))
+
+
+def test_moe_serve_graphs_equal_eager(card, monkeypatch):
+    """The MoE model served at full capacity through the per-bin graphs
+    gives the eager engine's logits, across a defrag."""
+    graphs, got = _serve(card, monkeypatch, True, model=MOE_SMALL)
+    _, want = _serve(card, monkeypatch, False, model=MOE_SMALL)
+    assert graphs.decode_misses == 1 and graphs.moe_full_capacity
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
 def test_replay_counts_the_launches_and_exchanges_it_runs(card,
                                                           monkeypatch):
     monkeypatch.setenv("HOROVOD_PROFILER_JIT_CALLBACKS", "1")
@@ -107,9 +135,9 @@ def test_replay_counts_the_launches_and_exchanges_it_runs(card,
     assert stats.counter("allreduce_jit") - jit0 == 6
 
 
-def _serve(card, monkeypatch, capture):
+def _serve(card, monkeypatch, capture, model=SMALL):
     monkeypatch.setenv("HOROVOD_STEP_PROGRAM", "1" if capture else "0")
-    cfg = tfm.TransformerConfig(**SMALL)
+    cfg = tfm.TransformerConfig(**model)
     params = tfm.init_params(cfg, torch.Generator().manual_seed(1), card)
     # batch_bin_floor 4: the 3 rows before the defrag and the 2 after it
     # share one decode bin, so its graph replays across the defrag

@@ -286,24 +286,29 @@ def test_flash_autograd_runs_the_kernels_end_to_end(card):
 
 @pytest.mark.cuda
 def test_flash_bwd_raises_on_a_head_dim_the_kernel_does_not_take(card):
-    """Head dims past 256 (the loop's widest tiles) are refused by the
-    wrapper and, past it, by the C entry point."""
-    args = _bwd_inputs(card, torch.float32, 1, 64, 2, 2, 264, True, None, 0)
+    """A head dim of 0 is refused by the wrapper; past it, the C entry
+    point refuses a launch whose sizes it does not take (head dim 0, or
+    query heads that the KV heads do not divide). Every head dim from 1
+    up is taken (test_head_dim_above_256_*)."""
+    empty = torch.zeros(1, 64, 2, 0, device=card)
+    rows = torch.zeros(1, 2, 64, device=card)
     with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_bwd_dq(*args)
+        fa.flash_bwd_dq(empty, empty, empty, empty, rows, rows)
     with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_bwd_dkv(*args)
+        fa.flash_bwd_dkv(empty, empty, empty, empty, rows, rows)
     # Past the Python check, the C entry point refuses the launch and the
     # wrapper's error path raises with CUDA's message.
+    args = _bwd_inputs(card, torch.float32, 1, 64, 2, 2, 264, True, None, 0)
     q, k, v, do = args[:4]
     dq = torch.empty_like(q)
     strides = [x.stride(i) for x in (q, k, v, do) for i in range(3)]
-    with pytest.raises(RuntimeError, match="flash_bwd_dq kernel launch "
-                                           "failed"):
-        fa._call("flash_bwd", "hvd_flash_bwd_dq",
-                 *[x.data_ptr() for x in args], dq.data_ptr(), 0,
-                 1, 64, 2, 2, 264, *strides, fa._scale(264), 1, 0,
-                 fa._stream(q))
+    for d, h_kv in ((0, 2), (264, 3)):
+        with pytest.raises(RuntimeError, match="flash_bwd_dq kernel launch "
+                                               "failed"):
+            fa._call("flash_bwd", "hvd_flash_bwd_dq",
+                     *[x.data_ptr() for x in args], dq.data_ptr(), 0,
+                     1, 64, 2, h_kv, d, *strides, fa._scale(264), 1, 0,
+                     fa._stream(q))
 
 
 # Head dim 256: the CUDA-core loop at DMAX 256 (the forward's 64-row
@@ -351,6 +356,68 @@ def test_head_dim_256_band_kernels_match_plain_versions(card, dtype):
     b, s, h, h_kv, off, window = 1, 200, 4, 2, 200, 150
     td = getattr(torch, dtype)
     args = _band_inputs(card, td, b, s, h, h_kv, 256, off, window, 5)
+    q, k, v = args[:3]
+    out, lse = fa.flash_band_fwd(q, k, v, off, window)
+    dq = fa.flash_band_dq(*args, off, window)
+    dk, dv = fa.flash_band_dkv(*args, off, window)
+    torch.cuda.synchronize()
+    live = _live_rows(s, off, window).to(card)
+    assert (lse[:, :, ~live] <= -1e29).all()
+    _assert_fwd_route_close(out, lse, (q, k, v), (off, window),
+                            fa.flash_band_fwd_reference, False,
+                            (True, window, off), rows=live)
+    _assert_route_close((dq, dk, dv), args, (off, window),
+                        (fa.flash_band_dq_reference,
+                         fa.flash_band_dkv_reference), False,
+                        (True, window, off))
+
+
+# Head dims above 256: the loop in 256-column pieces (the score sums run
+# over the pieces; grid.z gives each CTA one piece of the output).
+WIDE_CASES = [  # (b, s, h, h_kv, d, causal, window)
+    (1, 300, 4, 2, 320, True, None),   # ragged, GQA 2, a partial piece
+    (2, 128, 2, 2, 512, False, None),  # non-causal, MHA, two full pieces
+    (1, 200, 4, 1, 320, True, 50),     # ragged, window, GQA 4
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,h_kv,d,causal,window", WIDE_CASES)
+def test_head_dim_above_256_forward_and_backward_match_plain_versions(
+        card, dtype, b, s, h, h_kv, d, causal, window):
+    td = getattr(torch, dtype)
+    q, k, v = _fwd_inputs(card, td, b, s, h, h_kv, d, s + 17)
+    assert not fa.tensor_core_route(q, k, v)
+    n0 = _counts([("flash_fwd", False)])
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert _counts([("flash_fwd", False)]) == [n0[0] + 1]
+    _assert_fwd_route_close(out, lse, (q, k, v), (causal, window),
+                            fa.flash_attention_reference, False,
+                            (causal, window))
+    args = _bwd_inputs(card, td, b, s, h, h_kv, d, causal, window, s + 18)
+    names = [("flash_bwd_dq", False), ("flash_bwd_dkv", False)]
+    n0 = _counts(names)
+    dq = fa.flash_bwd_dq(*args, causal, window)
+    dk, dv = fa.flash_bwd_dkv(*args, causal, window)
+    torch.cuda.synchronize()
+    assert _counts(names) == [n + 1 for n in n0]
+    _assert_route_close((dq, dk, dv), args, (causal, window),
+                        (fa.flash_bwd_dq_reference,
+                         fa.flash_bwd_dkv_reference), False, (causal, window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [320, 512])
+def test_head_dim_above_256_band_kernels_match_plain_versions(card, dtype,
+                                                               d):
+    """The band entry points in pieces: a ragged tile at offset S with
+    rows past the window that see no key."""
+    b, s, h, h_kv, off, window = 1, 200, 4, 2, 200, 150
+    td = getattr(torch, dtype)
+    args = _band_inputs(card, td, b, s, h, h_kv, d, off, window, 25)
     q, k, v = args[:3]
     out, lse = fa.flash_band_fwd(q, k, v, off, window)
     dq = fa.flash_band_dq(*args, off, window)

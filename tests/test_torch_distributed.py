@@ -3,8 +3,8 @@ ranks, against the JAX package.
 
 A rank of the port is a process, so the multi-rank cases run in two
 processes started with the JAX launcher's variables
-(``HOROVOD_TPU_COORDINATOR`` and the rest), each running ``WORKER``
-below on the CPU. Spawning costs seconds, so one module-scoped run of
+(``HOROVOD_TPU_COORDINATOR`` and the rest; tests/torch_ranks.py), each
+running ``WORKER`` below on the CPU. Spawning costs seconds, so one module-scoped run of
 both processes covers every multi-rank case and the tests read its
 results: ``allreduce`` (average and sum), ``grouped_allreduce``,
 ``allgather``, ``broadcast``, ``broadcast_parameters``,
@@ -34,12 +34,6 @@ gradients, averaged over the ranks, to 1e-6 too (each rank's loss is its
 shard's mean, summed in another order than the whole sequence's).
 """
 
-import os
-import socket
-import subprocess
-import sys
-from pathlib import Path
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -58,8 +52,8 @@ import horovod_tpu_torch as hvd
 from horovod_tpu_torch.models import transformer as tfm
 from horovod_tpu_torch.parallel.ring_attention import RingAxis, ring_attention
 from horovod_tpu_torch.stats import CollectiveStats
+from torch_ranks import launch_ranks
 
-REPO = Path(__file__).resolve().parents[1]
 RANKS = 2
 LR, WD = 1e-3, 1e-4
 SGD_LR = 0.1
@@ -220,12 +214,6 @@ with open(f"{out_dir}/rank{r}.json", "w") as f:
 '''
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _flat_tree(tree):
     out = {k: v for k, v in tree.items() if k != "layers"}
     for i, layer in enumerate(tree["layers"]):
@@ -271,31 +259,10 @@ def run(tmp_path_factory):
     out = tmp_path_factory.mktemp("ranks")
     inp, jcfg, params = _inputs()
     np.savez(out / "inputs.npz", **inp)
-    port = _free_port()
-    procs = []
-    for r in range(RANKS):
-        env = dict(os.environ,
-                   HOROVOD_TPU_COORDINATOR=f"127.0.0.1:{port}",
-                   HOROVOD_TPU_NUM_PROCESSES=str(RANKS),
-                   HOROVOD_TPU_PROCESS_ID=str(r),
-                   HOROVOD_TPU_LOCAL_RANK=str(r),
-                   HOROVOD_TPU_LOCAL_SIZE=str(RANKS),
-                   HOROVOD_PROFILER_PATH=str(out / "profiler.txt"),
-                   HOROVOD_PROFILER_DISABLE="")
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", WORKER, str(out / "inputs.npz"),
-             str(out), json.dumps(CFG), json.dumps(OPT_CASES)],
-            cwd=REPO, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    logs = []
-    for p in procs:
-        try:
-            logs.append(p.communicate(timeout=120)[0])
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            raise
-    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    launch_ranks(RANKS, ["-c", WORKER, str(out / "inputs.npz"), str(out),
+                         json.dumps(CFG), json.dumps(OPT_CASES)],
+                 env={"HOROVOD_PROFILER_PATH": str(out / "profiler.txt"),
+                      "HOROVOD_PROFILER_DISABLE": ""}, timeout=120)
     arrays = {r: dict(np.load(out / f"rank{r}.npz")) for r in range(RANKS)}
     values = {r: json.loads((out / f"rank{r}.json").read_text())
               for r in range(RANKS)}

@@ -25,9 +25,10 @@ with ``operand_dtype=None`` is the reference's arithmetic bit for bit;
 the route rule ``tensor_core_route`` without dO takes the model's
 ``kv[:, :, 1]`` views.
 
-The launch checks take head dims up to 256 and B*H past 65535, and at
-D 256 (the CUDA-core loop's widest tiles on the card) the plain forward
-and backward hold to the Pallas kernels in interpret mode at the
+The launch checks take any head dim and B*H past 65535, and at D 256
+(the CUDA-core loop's widest tiles on the card) and at D 320 and 512
+(the loop's 256-column pieces) the plain forward and backward, static
+and band, hold to the Pallas kernels in interpret mode at the
 reference's own bands (2e-5 on out and lse, 5e-5 on the gradients).
 """
 
@@ -324,16 +325,20 @@ def test_forward_route_rejects_what_tma_cannot_read(bad):
 
 
 def test_kernel_args_take_head_dim_256_and_any_batch_times_heads():
-    """The launch checks: head dims 1..256 (the CUDA-core loop takes 256
-    since the forward loop's DMAX 256 and the backward's 32-row tiles),
-    and B*H past 65535 (every kernel puts B*H on grid.x). Shapes and
+    """The launch checks: head dim 256 and above (the CUDA-core loop
+    holds a head dim above 256 in 256-column pieces), no head dim below
+    1, and B*H past 65535 (every kernel puts B*H on grid.x). Shapes and
     strides are all that is read, so expanded views stand in."""
     q = torch.empty(1, 1, 1, 256).expand(4096, 64, 16, 256)
     sizes, strides, tail = fa._kernel_args(q, q, q, True, None)
     assert sizes == (4096, 64, 16, 16, 256) and sizes[0] * sizes[2] == 65536
     assert tail[0] == pytest.approx(256 ** -0.5)
-    with pytest.raises(ValueError, match="1..256"):
-        fa._kernel_args(*(torch.empty(1, 8, 2, 257),) * 3, True, None)
+    for d in (257, 320, 512):
+        sizes, _, tail = fa._kernel_args(*(torch.empty(1, 8, 2, d),) * 3,
+                                         True, None)
+        assert sizes[-1] == d and tail[0] == pytest.approx(d ** -0.5)
+    with pytest.raises(ValueError, match="head_dim >= 1"):
+        fa._kernel_args(*(torch.empty(1, 8, 2, 0),) * 3, True, None)
 
 
 # The reference's bands for its kernels against dense attention
@@ -371,3 +376,68 @@ def test_plain_versions_match_jax_kernels_at_head_dim_256(case):
     for name, x, w in zip("qkv", got_grads, want_grads):
         np.testing.assert_allclose(x.numpy(), np.asarray(w), atol=5e-5,
                                    rtol=0, err_msg=f"d{name}")
+
+
+# Head dims above 256: the loop's 256-column pieces on the card. The
+# plain versions against the Pallas kernels in interpret mode, at the
+# reference's bands; (B, S, H, H_kv, causal, window, block_size).
+WIDE_CASES = {
+    "causal-gqa2": (1, 128, 2, 1, True, None, 128),
+    "window-gqa2": (1, 128, 2, 1, True, 40, 64),
+}
+
+
+@pytest.mark.parametrize("d", [320, 512])
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+def test_plain_versions_match_jax_kernels_above_head_dim_256(case, d):
+    """Static forward and backward at D 320 and 512."""
+    b, s, h, h_kv, causal, window, block = WIDE_CASES[case]
+    q, k, v = _qkv((b, s, h, d), h_kv, seed=13)
+    g = np.random.default_rng(14).standard_normal((b, s, h, d),
+                                                  dtype=np.float32)
+    out, lse = _flash_fwd_impl(*(jnp.asarray(x) for x in (q, k, v)),
+                               causal, block, True, window)
+    _, vjp = jax.vjp(lambda *x: jax_flash(*x, causal, block, True, window),
+                     *(jnp.asarray(x) for x in (q, k, v)))
+    want_grads = vjp(jnp.asarray(g))
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    got_o, got_lse = fa.flash_attention_with_lse(qt, kt, vt, causal, window)
+    np.testing.assert_allclose(got_o.detach().numpy(), np.asarray(out),
+                               atol=F32_ATOL, rtol=0)
+    np.testing.assert_allclose(got_lse.detach().numpy(),
+                               np.asarray(lse).reshape(b, h, s),
+                               atol=F32_ATOL, rtol=0)
+    got_grads = torch.autograd.grad(got_o, (qt, kt, vt),
+                                    torch.from_numpy(g))
+    for name, x, w in zip("qkv", got_grads, want_grads):
+        np.testing.assert_allclose(x.numpy(), np.asarray(w), atol=5e-5,
+                                   rtol=0, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("d", [320, 512])
+def test_band_plain_versions_match_jax_kernels_above_head_dim_256(d):
+    """Band forward and backward at D 320 and 512, at the offset of the
+    next shard (every row live under the window)."""
+    from horovod_tpu.ops.flash_attention import (_band_tile_bwd,
+                                                 _band_tile_fwd)
+    b, s, h, h_kv, off, window = 1, 64, 2, 1, 64, 96
+    q, k, v = _qkv((b, s, h, d), h_kv, seed=15)
+    rng = np.random.default_rng(16)
+    g = rng.standard_normal((b, s, h, d), dtype=np.float32)
+    want_out, want_lse = _band_tile_fwd(*map(jnp.asarray, (q, k, v)), off,
+                                        window, 64, True)
+    qt, kt, vt, gt = map(torch.from_numpy, (q, k, v, g))
+    out, lse = fa.flash_band_fwd(qt, kt, vt, off, window)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out),
+                               atol=F32_ATOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse),
+                               atol=F32_ATOL, rtol=0)
+    delta = (gt * out).sum(-1).transpose(1, 2).contiguous()
+    args = (qt, kt, vt, gt, lse, delta)
+    want = _band_tile_bwd(*(jnp.asarray(x.numpy()) for x in args), off,
+                          window, 64, True)
+    got = (fa.flash_band_dq_reference(*args, off, window),
+           *fa.flash_band_dkv_reference(*args, off, window))
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(x.numpy(), np.asarray(w), atol=5e-5,
+                                   rtol=0, err_msg=name)

@@ -276,6 +276,50 @@ def test_join_evict_churn_streams_exact():
     assert st["free_pages"] == st["num_pages"] - 1
 
 
+def test_moe_serve_churn_streams_exact():
+    """Serving runs MoE layers at FULL capacity (capacity = tokens *
+    top_k, models/moe.py): no token is ever dropped, so routing — and
+    therefore every stream — stays batch-composition independent even
+    with expert layers in the stack."""
+    cfg = _cfg(moe_layers=(1,), moe_num_experts=4, moe_top_k=2)
+    rng = np.random.default_rng(11)
+    prompts = [list(rng.integers(0, 64, size=n)) for n in (4, 2, 6)]
+    news = [5, 7, 3]
+    eng, churned, solo = _churn_vs_solo(cfg, prompts, news, max_batch=2)
+    assert eng.moe_full_capacity
+    assert churned == solo
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_engine_matches_jax_engine(dtype):
+    """An MoE model's prefill and teacher-forced decode logits against
+    the JAX engine (full capacity on both), at this file's bands; f32
+    greedy tokens identical."""
+    base = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=2, d_ff=64,
+                max_seq=16, positional="rope", n_kv_heads=2,
+                attention_impl="flash", moe_layers=(1,), moe_num_experts=4,
+                moe_top_k=2)
+    jcfg = jtfm.TransformerConfig(dtype=getattr(jnp, dtype),
+                                  flash_interpret=True, **base)
+    tcfg = tfm.TransformerConfig(dtype=getattr(torch, dtype), **base)
+    jparams = jtfm.init_params(jax.random.PRNGKey(3), jcfg)
+    params = tfm.params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
+                                 device="cpu")
+    b, length, prompt = 2, 8, 4
+    tokens = np.random.default_rng(4).integers(0, 64, (b, length))
+    kw = dict(num_pages=16, page_size=4, max_pages_per_seq=2,
+              batch_bin_floor=b, page_bin_floor=2, len_bin_floor=length)
+    want = _drive_teacher_forced(JaxServeEngine(jparams, jcfg, **kw),
+                                 tokens, prompt)
+    got = _drive_teacher_forced(ServeEngine(params, tcfg, device="cpu",
+                                            **kw), tokens, prompt)
+    if dtype == "float32":
+        np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+        np.testing.assert_allclose(got, want, atol=F32_ATOL, rtol=0)
+    else:
+        np.testing.assert_allclose(got, want, atol=BF16_ATOL, rtol=0)
+
+
 def test_cancel_frees_pages():
     cfg = _cfg()
     eng = _engine(cfg, num_pages=32, page_size=4)

@@ -295,11 +295,12 @@ def test_exchange_buckets_replan_the_distributed_optimizer():
 
 @pytest.mark.parametrize("kw,item", [
     ({"zero_stage": 1}, 11), ({"zero_stage": 3}, 11),
-    ({"dcn_compression": "int8"}, 11), ({"expert_keys": ("w1",)}, 7)])
+    ({"dcn_compression": "int8"}, 11), ({"model_keys": ("w1",)}, 6)])
 def test_unported_layouts_raise_naming_their_item(kw, item):
     """The ZeRO ladder, the staged exchange of the sharding spec and the
-    MoE layout, which the reference's step compiles, are refused where
-    the optimizer is built."""
+    tensor-parallel layout, which the reference's step compiles, are
+    refused where the optimizer is built (the MoE layout is carried:
+    tests/test_torch_moe.py)."""
     _init()
     model = _MLP()
     with pytest.raises(NotImplementedError, match=f"item {item}"):
