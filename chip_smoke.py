@@ -117,7 +117,25 @@ FFN in layers 1, 3, 5 and 7, 8 experts, top-2, capacity factor 1.25;
   rate 1.0, no fallback), MoE layers at full capacity: nothing dropped.
 
 The bench phase also runs ``bench.transformer --moe --expert-parallel
-1`` and checks the ``moe`` rows.
+1`` and checks the ``moe`` rows, and checks that bench.resnet's
+``zero_profile`` row is filled (at one rank: no DCN stage, so
+``dcn_bytes_saved_frac`` is None and the stripes are the whole row).
+
+The ZeRO ladder has a phase of its own, after the compiled train phase:
+
+- zero train (main path 9): the flagship at 4 x 4096 through
+  ``DistributedOptimizer(AdamW(..., capturable=True), zero_stage=s)``,
+  s = 1, 2, 3, as the compiled train phase runs it (3 eager steps, 3
+  compiled steps and 4 replays): parameters after 3 steps bitwise equal
+  to the eager run's and to stage 0's compiled run (one rank: the
+  scatter and gather are copies, the division by 1), zero3's
+  ``unshard_params(shard_params(p)) == p``, per replay 8 launches of
+  each static kernel on the tensor-core route and one reduce-scatter
+  and one all-gather record a chunk, 1 cache miss and no fallback;
+  step time, tokens/s, peak memory and the ``hvd_zero_stripe_bytes``
+  gauges beside stage 0's. The staged exchange needs two ranks and
+  NCCL refuses two on one card: it is checked on the CPU only, and the
+  phase says so.
 
 The kernels phases also run the CUDA-core loop at head dims 256 and 320
 (the latter in 256-column pieces) against the plain versions and time
@@ -1582,8 +1600,10 @@ def phase_compiled_train(hvd, fa, tfm, card, where, model=FLAGSHIP,
     keys: the experts' over the data group, the rest over the world).
     The losses must be finite and fall. ``init`` (a parameter tree on
     the host) starts both runs, else seed 0 does. Returns ({kernel:
-    launches} of the compiled steps, the trained parameters, the
-    batch)."""
+    launches} of the compiled steps, the trained parameters, the batch,
+    {"params": the parameters after COMPILED_STEPS compiled steps on the
+    host, by name, "step_ms", "tok_s", "peak": the replays' median, its
+    tokens/s and the peak memory})."""
     os.environ["HOROVOD_PROFILER_JIT_CALLBACKS"] = "1"
     hvd.init(device=card)
     cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
@@ -1646,7 +1666,7 @@ def phase_compiled_train(hvd, fa, tfm, card, where, model=FLAGSHIP,
     got = {n: p.detach().cpu() for n, p in lm.named_parameters()}
     deltas = {n: float((got[n] - want[n]).abs().max()) for n in want}
     differ = {n: deltas[n] for n in want if not torch.equal(got[n], want[n])}
-    del got, want
+    del want
     prog = next(iter(hvd.runtime.live_state().programs._programs.values()))
     jit0 = stats.counter("allreduce_jit")
     replay_launches0 = read_launches(fa)
@@ -1710,7 +1730,180 @@ def phase_compiled_train(hvd, fa, tfm, card, where, model=FLAGSHIP,
     gc.collect()
     hvd.shutdown()
     os.environ.pop("HOROVOD_PROFILER_JIT_CALLBACKS")
-    return launches, params, tokens
+    return launches, params, tokens, {"params": got, "step_ms": median,
+                                      "tok_s": tok_s, "peak": peak}
+
+
+ZERO_STAGES = (1, 2, 3)
+
+
+def phase_zero_train(hvd, fa, tfm, metrics, card, where, stage0):
+    """Main path 9: the flagship at 4 x 4096 through
+    ``DistributedOptimizer(AdamW(..., capturable=True), zero_stage=s)``
+    for s in 1, 2, 3, one rank: COMPILED_STEPS eager steps, then
+    COMPILED_STEPS compiled steps and REPLAYS replays from the same start
+    (seed 0, drawn once on the host). The parameters after
+    COMPILED_STEPS steps must equal, bit for bit, both the eager run's
+    and stage 0's compiled run's (``stage0``, from
+    :func:`phase_compiled_train`: at one rank the scatter and the gather
+    are copies, the division is by 1 and AdamW is elementwise); zero3's
+    are read through ``unshard_params``, and its
+    ``unshard_params(shard_params(p))`` must be ``p``. Each stage: 1
+    cache miss, 0 fallbacks, per replay 8 launches of each static kernel
+    on the tensor-core route and one ``reducescatter_jit`` and one
+    ``allgather_jit`` a chunk. Prints step time, tokens/s, peak memory
+    and the ``hvd_zero_stripe_bytes`` gauges beside stage 0's. Each stage
+    runs in a session of its own, as stage 0 did: a session's program
+    cache keeps a step's graph, and with it the step's model and
+    optimizer, until ``shutdown()``. Returns {kernel: launches} of the
+    compiled steps, summed over the stages."""
+    print("zero train: no staged step on this card: two DCN stages need "
+          "two ranks at least and NCCL refuses two ranks on one card, so "
+          "the staged exchange and its bf16/int8 hops are checked on the "
+          "CPU over gloo only (tests/test_torch_zero.py, "
+          "tests/test_torch_sharding_spec.py)", flush=True)
+    os.environ["HOROVOD_PROFILER_JIT_CALLBACKS"] = "1"
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
+                                loss_chunk=LOSS_CHUNK, **FLAGSHIP)
+    init = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                               (TRAIN_BATCH, TRAIN_SEQ))
+    targets = torch.from_numpy(np.roll(tokens, -1, axis=1)).to(card)
+    tokens = torch.from_numpy(tokens).to(card)
+    total = {}
+
+    def build(stage):
+        lm = tfm.TransformerLM(cfg, to_card(init, card), device=card)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(lm.parameters(), capturable=True, **ADAMW),
+            named_parameters=lm.named_parameters(), zero_stage=stage)
+        return lm, opt
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = fn()
+        end.record()
+        return loss, (start, end)
+
+    for stage in ZERO_STAGES:
+        t0 = time.perf_counter()
+        hvd.init(device=card)
+        stats = hvd.runtime.live_state().stats
+        lm, opt = build(stage)
+        eager_losses = []
+        for _ in range(COMPILED_STEPS):
+            opt.zero_grad(set_to_none=True)
+            loss = lm.loss(tokens, targets)
+            loss.backward()
+            opt.step()
+            eager_losses.append(loss.detach())
+        want = {n: p.detach().cpu() for n, p in lm.named_parameters()}
+        eager_losses = [x.item() for x in eager_losses]
+        del lm, opt, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        lm, opt = build(stage)
+        names = [n for n, _ in lm.named_parameters()]
+        step = hvd.compiled_train_step(lm.loss, opt)
+        if stage == 3:
+            start = [p.detach().clone() for p in lm.parameters()]
+            back = step.unshard_params(step.shard_params())
+            check(all(torch.equal(a, b) for a, b in zip(start, back)),
+                  "zero3: unshard_params(shard_params(p)) != p")
+            del start, back
+        chunks = len(opt.exchange_buckets)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches(fa)
+        runs = [timed(lambda: step(tokens, targets))
+                for _ in range(COMPILED_STEPS)]
+        torch.cuda.synchronize()
+        losses = [x[0].item() for x in runs]
+        now = (step.unshard_params() if stage == 3
+               else [p.detach() for p in lm.parameters()])
+        got = {n: t.cpu() for n, t in zip(names, now)}
+        del now
+        vs_eager = [n for n in names if not torch.equal(got[n], want[n])]
+        vs_stage0 = [n for n in names
+                     if not torch.equal(got[n], stage0["params"][n])]
+        del got, want
+        prog = list(hvd.runtime.live_state().programs._programs.values())[-1]
+        rs0, ag0 = (stats.counter("reducescatter_jit"),
+                    stats.counter("allgather_jit"))
+        launches0 = read_launches(fa)
+        replays = [timed(lambda: step(tokens, targets))
+                   for _ in range(REPLAYS)]
+        torch.cuda.synchronize()
+        launches = read_launches(fa)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        per_replay = {k: (launches[k] - launches0[k]) / REPLAYS
+                      for k in launches}
+        rs = (stats.counter("reducescatter_jit") - rs0) / REPLAYS
+        ag = (stats.counter("allgather_jit") - ag0) / REPLAYS
+        losses += [x[0].item() for x in replays]
+        replay_ms = [a.elapsed_time(b) for _, (a, b) in replays]
+        median = float(np.median(replay_ms))
+        peak = torch.cuda.max_memory_allocated()
+        gauges = metrics.ZERO_STRIPE_BYTES.collect()
+        stripe = opt.stripe.numel()
+        print(f"zero{stage} train {TRAIN_BATCH} x {TRAIN_SEQ} [{where}]: "
+              f"step {median:.1f} ms (replay, median of {REPLAYS}; "
+              f"{' '.join(f'{t:.1f}' for t in replay_ms)}) against stage "
+              f"0's {stage0['step_ms']:.1f} ms; "
+              f"{TRAIN_BATCH * TRAIN_SEQ / (median / 1e3):.1f} tokens/s "
+              f"against {stage0['tok_s']:.1f}; peak memory "
+              f"{peak / 2 ** 30:.2f} GiB against "
+              f"{stage0['peak'] / 2 ** 30:.2f} GiB; stripe {stripe} elements in {chunks} chunk(s); "
+              f"hvd_zero_stripe_bytes {gauges}; per replay {per_replay}, "
+              f"{rs} reducescatter_jit and {ag} allgather_jit records; "
+              f"cache hits {step.cache_hits} misses {step.cache_misses} "
+              f"fallbacks {step.fallback_steps}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"zero{stage} train losses: "
+              f"{' '.join(f'{x:.4f}' for x in losses)} (eager "
+              f"{' '.join(f'{x:.4f}' for x in eager_losses)}); after "
+              f"{COMPILED_STEPS} steps {len(vs_eager)} of {len(names)} "
+              f"parameters differ from eager, {len(vs_stage0)} from stage "
+              "0", flush=True)
+        check(not vs_eager, f"zero{stage}: compiled differs from eager: "
+                            f"{vs_eager}")
+        check(not vs_stage0, f"zero{stage}: differs from stage 0: "
+                             f"{vs_stage0}")
+        check(losses[:COMPILED_STEPS] == eager_losses,
+              f"zero{stage}: losses {losses} vs eager {eager_losses}")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"zero{stage}: losses not finite or not falling: {losses}")
+        check((step.cache_misses, step.fallback_steps) == (1, 0)
+              and step.cache_hits == COMPILED_STEPS + REPLAYS - 1,
+              f"zero{stage}: cache {step.cache_hits}/{step.cache_misses}, "
+              f"fallbacks {step.fallback_steps}")
+        for name, n in per_replay.items():
+            want_n = cfg.n_layers if name in (
+                "flash_fwd_wgmma", "flash_bwd_dq_wgmma",
+                "flash_bwd_dkv_wgmma") else 0
+            check(n == want_n, f"zero{stage} {name}: {n} launches a "
+                               f"replay, {want_n} expected")
+        ops = sorted(op for op, _ in prog.collectives)
+        check(ops == ["allgather_jit"] * chunks
+              + ["reducescatter_jit"] * chunks and rs == ag == chunks,
+              f"zero{stage}: a replay records {ops}; {rs}/{ag} a replay, "
+              f"{chunks} chunk(s)")
+        check(gauges['kind="grads"'] == stripe * 4
+              and gauges['kind="params"'] == (stripe * 4 if stage == 3
+                                              else 0)
+              and gauges['kind="opt"'] == 2 * stripe * 4 + 4,
+              f"zero{stage}: gauges {gauges} for a stripe of {stripe}")
+        del step, prog, opt, lm
+        gc.collect()
+        hvd.shutdown()
+        torch.cuda.empty_cache()
+    del init
+    os.environ.pop("HOROVOD_PROFILER_JIT_CALLBACKS")
+    return total
 
 
 def moe_stats(tfm, moe, metrics, params, tokens, cfg, full_capacity):
@@ -1865,7 +2058,7 @@ def phase_moe_train(hvd, fa, tfm, moe, metrics, card, where, init):
     layers' counts recorded: the hvd_moe_* counters must give
     ``dropped == t * k * moe_layers - routed``. Returns {kernel:
     launches} of the compiled steps."""
-    launches, params, tokens = phase_compiled_train(
+    launches, params, tokens, _ = phase_compiled_train(
         hvd, fa, tfm, card, where, model=MOE_MODEL, label="moe train",
         expert_keys=MOE_EXPERT_KEYS, init=init)
     cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
@@ -2118,6 +2311,12 @@ def phase_bench(where):
               f"bench moe row {row}")
     check(moe["metric"] == "moe_tokens_per_sec_per_chip",
           f"bench moe line {moe}")
+    zero = res["zero_profile"]
+    check("skipped" not in zero and zero["dcn_bytes_saved_frac"] is None
+          and zero["dcn_loss_delta"] == 0.0
+          and zero["zero_memory"]["params_stripe_bytes"]
+          == zero["zero_memory"]["params_full_bytes"] > 0,
+          f"bench zero_profile row {zero}")
     print(f"bench [{where}]: resnet smoke {res['value']} img/s (MFU "
           f"{res['mfu_pct']}%, multiply-adds), compiled "
           f"{compiled['img_sec_per_chip']} img/s (python overhead "
@@ -2127,7 +2326,8 @@ def phase_bench(where):
           f"transformer {tfm['value']} tokens/s (MFU {tfm['mfu_pct']}%); "
           f"moe {moe['value']} tokens/s (drop fraction "
           f"{moe['moe']['drop_fraction']}, resnet's row "
-          f"{res['moe']['tokens_per_sec_per_chip']})", flush=True)
+          f"{res['moe']['tokens_per_sec_per_chip']}); zero_profile "
+          f"{json.dumps(zero)}", flush=True)
 
 
 def main():
@@ -2181,13 +2381,19 @@ def main():
     torch.cuda.empty_cache()
     train_launches = phase_train(hvd, fa, tfm, card, where)
     t0 = time.perf_counter()
-    compiled_train_launches, params, _ = phase_compiled_train(
+    compiled_train_launches, params, _, stage0 = phase_compiled_train(
         hvd, fa, tfm, card, where)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     print(f"compiled train phase: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    zero_launches_by_stage = phase_zero_train(hvd, fa, tfm, metrics, card,
+                                              where, stage0)
+    del stage0
+    gc.collect()
+    print(f"zero train phase: {time.perf_counter() - t0:.1f} s", flush=True)
     # flagship-moe's weights, drawn once on the host (seed 0) for every
     # MoE phase
     t0 = time.perf_counter()
@@ -2221,6 +2427,7 @@ def main():
              "sp_train": sp_launches,
              "compiled_serve": compiled_serve_launches,
              "compiled_train": compiled_train_launches,
+             "zero_train": zero_launches_by_stage,
              "moe_train": moe_train_launches,
              "moe_serve": moe_serve_launches}
     for e in entries:

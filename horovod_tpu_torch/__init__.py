@@ -5,10 +5,12 @@ horovod_tpu (JAX on a TPU) stays the reference. This package grows
 slice by slice (ROADMAP.md); so far it serves and trains the flagship
 transformer, with attention through hand-written sm_90a flash-attention
 kernels (ops/csrc/flash_fwd.cu, ops/csrc/flash_bwd.cu), averages
-gradients over data-parallel ranks, trains and serves
-Mixture-of-Experts layers (expert-parallel over a process group), and
-runs the hot loop (the training step, serving's shape bins,
-``generate``'s decode steps) as CUDA graphs:
+gradients over data-parallel ranks (replicated, or ZeRO-sharded at
+stages 1-3 with an optional two-stage exchange whose cross-host hop is
+bf16 or int8), trains and serves Mixture-of-Experts layers
+(expert-parallel over a process group), and runs the hot loop (the
+training step, serving's shape bins, ``generate``'s decode steps) as
+CUDA graphs:
 
     import horovod_tpu_torch as hvd
     hvd.init()
@@ -27,7 +29,9 @@ from . import models, serve
 from .exceptions import HorovodError, NotInitializedError, ShutDownError
 from .ops.collectives import (allgather, allreduce, alltoall,
                               alltoall_chunked, broadcast,
-                              exchange_bucket_plan, grouped_allreduce)
+                              bucketed_reducescatter_allgather,
+                              exchange_bucket_plan, grouped_allreduce,
+                              hierarchical_allreduce, reducescatter)
 from .ops.compression import Compression
 from .ops.step_program import CompiledTrainStep, compiled_train_step
 from .optimizers import (DistributedOptimizer, broadcast_optimizer_state,
@@ -43,9 +47,10 @@ __all__ = [
     "HorovodError",
     "NotInitializedError", "ShutDownError", "__version__", "allgather",
     "allreduce", "alltoall", "alltoall_chunked", "broadcast",
-    "broadcast_optimizer_state", "broadcast_parameters", "compiled_train_step", "cross_rank",
+    "broadcast_optimizer_state", "broadcast_parameters",
+    "bucketed_reducescatter_allgather", "compiled_train_step", "cross_rank",
     "cross_size", "expert_mesh", "expert_parallel_size",
-    "exchange_bucket_plan", "grouped_allreduce", "init", "is_initialized",
-    "local_rank", "local_size", "mesh", "models", "rank", "serve",
-    "shutdown", "size",
+    "exchange_bucket_plan", "grouped_allreduce", "hierarchical_allreduce",
+    "init", "is_initialized", "local_rank", "local_size", "mesh", "models",
+    "rank", "reducescatter", "serve", "shutdown", "size",
 ]

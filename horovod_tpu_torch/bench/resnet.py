@@ -40,7 +40,9 @@ the step PIPELINE_DEPTH back and never fetching a value:
 ``python_overhead_ms`` is the median wall time of one ``step()`` call,
 beside img/s, MFU and the program cache's counters. Its phase trace and
 ``overlap_ab`` parts are skipped rows naming the items that bring them.
-``serve`` is ``bench.transformer --serve``'s sub-dict, and ``moe``
+``zero_profile`` is bench.py's ZeRO and DCN-compression profile
+(:func:`_zero_profile`). ``serve`` is ``bench.transformer --serve``'s
+sub-dict, and ``moe``
 ``bench.transformer --moe``'s at 4 iterations, on the expert mesh of 4
 ranks, or 2, as bench.py picks it, and at ``--expert-parallel 1``
 (every expert on each card) when the world is odd, one card included.
@@ -75,15 +77,16 @@ NUM_CLASSES = 1000
 # The reference's profiles whose subsystems are not ported, by the
 # ROADMAP.md Queue 1 item that brings each.
 NOT_PORTED = {
-    "dispatch": 10, "eager_exchange": 10, "zero_profile": 11,
+    "dispatch": 10, "eager_exchange": 10,
     "input_pipeline": 14, "flight_step_phase_breakdown": 16,
     "guard_overhead_frac": 15, "trace_overhead_frac": 16,
     "mesh3d": 6, "control_plane": 16,
 }
 # bench.py's compiled-step profile parts whose subsystems are not ported:
-# the bucket overlap A/B and the step's phase trace.
+# the bucket overlap A/B and its microbench, which read the step's phase
+# trace (its exchange_hidden_frac, hvd.trace_steps), and the phase trace.
 COMPILED_NOT_PORTED = {
-    "overlap_ab": 11, "overlap_microbench": 11, "step_phase_breakdown": 16,
+    "overlap_ab": 16, "overlap_microbench": 16, "step_phase_breakdown": 16,
     "wire_stage_ms": 16, "guard_overhead_frac": 15,
     "trace_overhead_frac": 16,
 }
@@ -277,6 +280,110 @@ def _compiled_step_profile(run, proto, device):
     return out
 
 
+def _zero_profile(device):
+    """bench.py's ``_zero_profile`` at ``n = size()``: a D=256 two-layer
+    MLP (seed 7) trained 8 compiled steps at ``zero_stage=2``, without
+    and with ``dcn_compression="int8"`` (``dcn_local_size`` n // 2 on an
+    even world, else 1), each rank on its 4 rows of the batch. Reports
+    ``dcn_bytes_saved_frac``, 1 - wire/raw of the DCN stage's byte
+    counters over the compressed run; ``dcn_loss_delta``, the gap
+    between the two final losses (this rank's loss, the error-feedback
+    convergence claim); and ``zero_memory``, the per-rank bytes of the
+    zero3 stripes (parameters, gradients, Adam's state after one step)
+    against the replicated sizes, from the real buffers.
+
+    At one rank there is no second stage to stage (local 1 = n), so the
+    compressed run moves no DCN bytes and ``dcn_bytes_saved_frac`` is
+    None, as the reference's formula gives at n 1; both runs are then
+    the same exchange and ``dcn_loss_delta`` is 0."""
+    from .. import metrics
+    n, r = runtime.size(), runtime.rank()
+    d, steps = 256, 8
+    rng = np.random.RandomState(7)
+    w1 = rng.randn(d, d).astype(np.float32) * 0.05
+    w2 = rng.randn(d, 8).astype(np.float32) * 0.05
+    x = torch.from_numpy(rng.randn(n * 4, d).astype(np.float32)[
+        4 * r:4 * r + 4]).to(device)
+    y = torch.from_numpy(rng.randn(n * 4, 8).astype(np.float32)[
+        4 * r:4 * r + 4]).to(device)
+    local = n // 2 if n >= 2 and n % 2 == 0 else 1
+
+    def mlp():
+        # the reference's leaf order: b1, b2, w1, w2
+        model = torch.nn.Module()
+        for k, v in (("b1", np.zeros(d, np.float32)),
+                     ("b2", np.zeros(8, np.float32)), ("w1", w1),
+                     ("w2", w2)):
+            model.register_parameter(k, torch.nn.Parameter(
+                torch.from_numpy(v.copy()).to(device)))
+
+        def loss(x, y):
+            h = torch.tanh(x @ model.w1 + model.b1)
+            return ((h @ model.w2 + model.b2 - y) ** 2).mean()
+        return model, loss
+
+    def adam(model, **kw):
+        capturable = {"capturable": True} if device.type == "cuda" else {}
+        return optimizers.DistributedOptimizer(
+            torch.optim.Adam(model.parameters(), lr=1e-2, **capturable),
+            named_parameters=model.named_parameters(), **kw)
+
+    def run(dcn):
+        model, loss_fn = mlp()
+        step = compiled_train_step(loss_fn, adam(
+            model, zero_stage=2, dcn_compression=dcn,
+            dcn_local_size=local if dcn else 0),
+            name=f"bench.zero2.{dcn or 'raw'}")
+        for _ in range(steps):
+            loss = step(x, y)
+        return float(loss)
+
+    def dcn_bytes(family):
+        return family.collect().get('stage="dcn"', 0.0)
+
+    loss_raw = run("")
+    wire0 = dcn_bytes(metrics.WIRE_STAGE_BYTES)
+    raw0 = dcn_bytes(metrics.WIRE_STAGE_RAW_BYTES)
+    loss_c = run("int8")
+    wire = dcn_bytes(metrics.WIRE_STAGE_BYTES) - wire0
+    raw = dcn_bytes(metrics.WIRE_STAGE_RAW_BYTES) - raw0
+    saved = round(1.0 - wire / raw, 4) if raw else None
+
+    model, loss_fn = mlp()
+    opt3 = adam(model, zero_stage=3)
+    step3 = compiled_train_step(loss_fn, opt3, name="bench.zero3.mem")
+    full_params = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    stripe = step3.shard_params()
+    stripe_bytes = stripe.numel() * stripe.element_size()
+    step3(x, y)
+    opt_stripe = sum(t.numel() * t.element_size()
+                     for t in opt3.state[stripe].values()
+                     if torch.is_tensor(t))
+    memory = {
+        "world_size": n,
+        "params_full_bytes": full_params,
+        "params_stripe_bytes": stripe_bytes,
+        "grads_stripe_bytes": stripe_bytes,
+        "opt_state_stripe_bytes": opt_stripe,
+        # params + grads + opt state: the stripes against the replicated
+        # layout (replicated state would be this stripe's on every rank)
+        "resident_frac_of_replicated": round(
+            (2 * stripe_bytes + opt_stripe)
+            / max(2 * full_params + opt_stripe * n, 1), 4),
+    }
+    return {
+        "zero_stage": 2,
+        "dcn_local_size": local,
+        "dcn_bytes_saved_frac": saved,
+        "dcn_loss_delta": round(abs(loss_c - loss_raw), 6),
+        "loss_uncompressed": round(loss_raw, 6),
+        "loss_compressed": round(loss_c, 6),
+        "zero_memory": memory,
+        "steps": steps,
+    }
+
+
 def run_benchmark(proto, device):
     runtime.init(device=device)
     device = runtime.device()
@@ -340,6 +447,7 @@ def run_benchmark(proto, device):
     moe = transformer_bench.run_moe_benchmark(transformer_bench.parse_args(
         ["--moe", "--iters", "4", "--expert-parallel", str(ep),
          "--device", device.type]))["moe"]
+    zero = _zero_profile(runtime.device())
     result = {
         "metric": "resnet50_img_sec_per_chip",
         "value": round(mean, 2),
@@ -357,6 +465,7 @@ def run_benchmark(proto, device):
         "compiled_step": compiled,
         "serve": serve,
         "moe": moe,
+        "zero_profile": zero,
         "card": card,
     }
     for key, item in NOT_PORTED.items():

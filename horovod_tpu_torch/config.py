@@ -2,12 +2,15 @@
 
 Counterpart of horovod_tpu/config.py, carrying what the serving and
 training slices read: the five ``HOROVOD_SERVE_*`` knobs, the elastic
-policy directory the SLO signal is dropped into, the ZeRO stage, the
-exchange bucket count, the expert-parallel degree and the MoE
-all-to-all chunks (``HOROVOD_EXPERT_PARALLEL``, ``HOROVOD_MOE_CHUNKS``),
-the compiled hot loop's switches
-(``HOROVOD_STEP_PROGRAM``, ``HOROVOD_STEP_PROGRAM_CHURN_LIMIT``,
-``HOROVOD_DEVICE_RESIDENT``), the profiler dump and its per-replay
+policy directory the SLO signal is dropped into, the ZeRO stage and its
+reduce-scatter chunk (``HOROVOD_REDUCE_SCATTER_BUCKET``), the staged
+exchange's DCN wire and ICI group size (``HOROVOD_DCN_COMPRESSION``,
+``HOROVOD_DCN_LOCAL_SIZE``), the exchange bucket count, the
+expert-parallel degree and the MoE all-to-all chunks
+(``HOROVOD_EXPERT_PARALLEL``, ``HOROVOD_MOE_CHUNKS``), the compiled hot
+loop's switches (``HOROVOD_STEP_PROGRAM``,
+``HOROVOD_STEP_PROGRAM_CHURN_LIMIT``, ``HOROVOD_DEVICE_RESIDENT``), the
+profiler dump and its per-replay
 records (``HOROVOD_PROFILER_JIT_CALLBACKS``), the MFU peak, the knobs of
 subsystems the port does not have yet (``init()`` refuses them), and
 :func:`next_power_of_two` (the shape bins). Names, defaults and clamps
@@ -56,8 +59,12 @@ class Config:
     # Where the serve engine drops its SLO signal file ('' disables).
     elastic_policy_dir: str = ""
     # ZeRO sharding stage DistributedOptimizer uses when the call site
-    # passes none (0 = replicated allreduce; 1-3 are not ported yet).
+    # passes none (0 = replicated allreduce, 1 = optimizer state,
+    # 2 = + gradients, 3 = + parameters).
     zero_stage: int = 0
+    # Byte size of one chunk of the ZeRO-2/3 reduce-scatter and of one
+    # bucket of bucketed_reducescatter_allgather (minimum 1).
+    reduce_scatter_bucket: int = 32 * 1024 * 1024
     # Gradient-exchange buckets of DistributedOptimizer: byte-balanced,
     # reverse-layer groups, each one fused all-reduce launched from the
     # backward as soon as its gradients are ready (1 = one exchange).
@@ -96,7 +103,10 @@ class Config:
     autotune: bool = False
     metrics_dir: str = ""
     metrics_port: int = -1
+    # Two-stage exchange: the DCN hop's wire ("", "bf16" or "int8") and
+    # the ICI group size (ranks a host; 0 = the launcher's local size).
     dcn_compression: str = ""
+    dcn_local_size: int = 0
     # Per-chip peak FLOP/s for MFU (0 = look the card up in hardware.py).
     peak_flops: float = 0.0
 
@@ -139,8 +149,12 @@ class Config:
         c.autotune = _env_flag("HOROVOD_AUTOTUNE")
         c.metrics_dir = os.environ.get("HOROVOD_METRICS_DIR", "")
         c.metrics_port = _env_int("HOROVOD_METRICS_PORT", c.metrics_port)
+        c.reduce_scatter_bucket = max(_env_int(
+            "HOROVOD_REDUCE_SCATTER_BUCKET", c.reduce_scatter_bucket), 1)
         c.dcn_compression = os.environ.get("HOROVOD_DCN_COMPRESSION",
                                            c.dcn_compression)
+        c.dcn_local_size = max(_env_int("HOROVOD_DCN_LOCAL_SIZE",
+                                        c.dcn_local_size), 0)
         c.peak_flops = max(_env_float("HOROVOD_PEAK_FLOPS", c.peak_flops),
                            0.0)
         return c

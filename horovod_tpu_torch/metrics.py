@@ -4,11 +4,14 @@ Counterpart of horovod_tpu/metrics.py, carrying the registry core with
 its collect hooks, the serving families (``hvd_serve_*``, program
 caches included), the compiled hot loop's cache and fallback families
 (``hvd_step_*``), the runtime lifecycle families, the per-collective
-mirror of stats.py, the ZeRO stage gauge and the expert-parallel MoE
-families (``hvd_moe_*``, fed by :func:`record_moe_step`), under the JAX
-package's names and help texts. ``hvd_moe_alltoall_hidden_frac`` is
-registered and left unset: it reads a phase trace (item 16). The exporters (JSONL, Prometheus, timeline counters) come with
-the observability slice (ROADMAP.md, Queue 1 item 16).
+mirror of stats.py, the ZeRO and staged-exchange families
+(``hvd_zero_*``, ``hvd_wire_stage_*``, ``hvd_spec_leaves``) and the
+expert-parallel MoE families (``hvd_moe_*``, fed by
+:func:`record_moe_step`), under the JAX package's names and help texts.
+``hvd_moe_alltoall_hidden_frac`` and ``hvd_wire_stage_seconds`` are
+registered and left unset: they read a phase trace (item 16). The
+exporters (JSONL, Prometheus, timeline counters) come with the
+observability slice (ROADMAP.md, Queue 1 item 16).
 """
 
 import threading
@@ -374,12 +377,45 @@ COLLECTIVE_TIME_US = _registry.gauge(
     "hvd_collective_time_us", "Cumulative wall time per collective, "
     "microseconds (profiler.txt Time rows).", labelnames=("op",))
 
-# ZeRO sharding (optimizers.py)
+# ZeRO sharding + DCN-staged exchange (optimizers.py zero_stage=1|2|3,
+# ops/collectives.py dcn_staged_*)
 ZERO_STAGE = _registry.gauge(
     "hvd_zero_stage",
     "ZeRO sharding stage of the most recently constructed "
     "DistributedOptimizer (0 = replicated, 1 = optimizer state, "
     "2 = +gradients, 3 = +parameters).")
+ZERO_STRIPE_BYTES = _registry.gauge(
+    "hvd_zero_stripe_bytes",
+    "Per-device bytes of this rank's 1/N stripe, by kind "
+    "(params | grads | opt): the sharded footprint the ZeRO ladder "
+    "trades wire time for.", labelnames=("kind",))
+WIRE_STAGE_BYTES = _registry.counter(
+    "hvd_wire_stage_bytes_total",
+    "Wire bytes recorded at trace time for each tier of the DCN-staged "
+    "exchange (stage = ici | dcn). The dcn slot counts the COMPRESSED "
+    "width (int8 codes count 1 byte/element even though the XLA "
+    "emulation carries an int32 accumulator).", labelnames=("stage",))
+WIRE_STAGE_RAW_BYTES = _registry.counter(
+    "hvd_wire_stage_raw_bytes_total",
+    "Uncompressed bytes the same staged exchanges would have moved — "
+    "1 - wire/raw is the compression saving per stage "
+    "(bench.py dcn_bytes_saved_frac).", labelnames=("stage",))
+WIRE_STAGE_SECONDS = _registry.histogram(
+    "hvd_wire_stage_seconds",
+    "Measured per-step device time inside each tier of the staged "
+    "exchange (stage = ici | dcn), attributed from the XLA device "
+    "trace's hvd_ici/hvd_dcn scopes — the latency counterpart of "
+    "hvd_wire_stage_bytes_total. One observation per traced capture "
+    "window.", labelnames=("stage",))
+
+# Composable parallelism (optimizers.py _ShardingSpec)
+SPEC_LEAVES = _registry.gauge(
+    "hvd_spec_leaves",
+    "Parameter leaves the most recently classified per-leaf sharding "
+    "spec assigned to each exchange family (kind = dense | expert | "
+    "model): dense leaves reduce over every mesh axis, expert/model "
+    "leaves stay sharded over their own axis and reduce over the rest.",
+    labelnames=("kind",))
 
 # Expert-parallel MoE (models/moe.py, optimizers.py expert_keys=,
 # ops/collectives.py alltoall_chunked)

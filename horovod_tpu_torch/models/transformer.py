@@ -732,6 +732,19 @@ def _select_token(logits, temperature, top_k, generator, dtype):
     return draw[:, 0].to(logits.device, dtype)
 
 
+def tree_leaves(params):
+    """The tensors of a parameter tree in the JAX package's leaf order
+    (``jax.tree.leaves``: dict keys sorted, layers in order). A ZeRO
+    optimizer lays its flat row out in the order of its parameters, so
+    ``DistributedOptimizer(AdamW(tree_leaves(lm.params)), zero_stage=k)``
+    stripes and chunks the row as the JAX package does."""
+    if isinstance(params, dict):
+        return [t for k in sorted(params) for t in tree_leaves(params[k])]
+    if isinstance(params, list):
+        return [t for v in params for t in tree_leaves(v)]
+    return [params]
+
+
 def _leaves(params):
     """Every tensor of a parameter tree, in tree order."""
     for v in params.values():

@@ -1,33 +1,42 @@
 """Collectives over the runtime's process group.
 
 Counterpart of horovod_tpu/ops/collectives.py, carrying what the
-training and MoE slices need: :func:`allreduce` (average or sum),
+training, MoE and ZeRO slices need: :func:`allreduce` (average or sum),
 :func:`grouped_allreduce` (one flat buffer per dtype),
 :func:`allgather` (equal shapes), :func:`broadcast`, the bucket
-scheduler :func:`exchange_bucket_plan`, copied from the JAX package, and
-the expert-parallel exchange :func:`alltoall` / :func:`alltoall_chunked`
-(differentiable, over a sub-group). Each function runs on
-``torch.distributed`` and records every execution in the session's
-stats (stats.py): op, wire bytes, time from launch to completion; the
-all-to-all, which the JAX package only ever runs inside a jitted
-program, records as ``alltoall_jit`` with no time, once a call. The
-remaining collectives wait for ROADMAP.md, Queue 1 item 3 (each marked
-there with the item that needs it) and the DCN stages for item 11.
+scheduler :func:`exchange_bucket_plan`, copied from the JAX package, the
+expert-parallel exchange :func:`alltoall` / :func:`alltoall_chunked`
+(differentiable, over a sub-group), :func:`reducescatter`,
+:func:`bucketed_reducescatter_allgather`, :func:`hierarchical_allreduce`
+and the DCN-staged exchange of the ZeRO ladder
+(:func:`dcn_staged_psum_scatter`, :func:`dcn_staged_all_gather`,
+:func:`dcn_sigma`). Each function runs on ``torch.distributed`` and
+records every execution in the session's stats (stats.py): op, wire
+bytes, time from launch to completion; the collectives the JAX package
+only ever runs inside a jitted program (the all-to-all, the
+reduce-scatter family, the staged exchange) record as ``<op>_jit`` with
+no time, once a call, with the JAX package's byte counts. The remaining
+collectives wait for ROADMAP.md, Queue 1 item 3 (each marked there with
+the item that needs it).
 
 In the JAX package these run inside a mapped program over a mesh axis;
 here each rank is a process and calls them eagerly, in the same order on
 every rank, as with the reference Horovod. An average is the sum over
-ranks divided by ``size()``, taken after decompression.
+ranks divided by ``size()``, taken after decompression. A mesh axis is
+an :class:`Axis`: every group of ranks along it and this rank's process
+group; ``None`` is the world (the JAX package's ``"hvd"`` axis on the
+1-D mesh).
 """
 
 import time
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
 
 from .. import runtime
 from ..stats import record_jit_traced
-from .compression import Compression
+from .compression import Compression, Int8Compressor
 
 
 def _nbytes(x):
@@ -311,3 +320,392 @@ def exchange_bucket_plan(leaves, buckets):
     if cur:
         plan.append(tuple(cur))
     return tuple(plan)
+
+
+# ------------------------------------------------------ mesh axes, scatter
+
+class Axis(NamedTuple):
+    """One mesh axis over the ranks: ``groups`` holds every group of
+    ranks along it (global ranks in axis order), ``group`` is this
+    rank's process group (None: the world). ``torch.distributed`` builds
+    a sub-group collectively, so a collective that needs sub-groups of
+    an axis builds them for every group, on every rank."""
+    groups: tuple
+    group: object
+
+    @property
+    def size(self):
+        return len(self.groups[0])
+
+    def index(self):
+        """This rank's position along the axis."""
+        r = runtime.rank()
+        return next(g.index(r) for g in self.groups if r in g)
+
+
+def world_axis():
+    """The 1-D data-parallel axis over every rank."""
+    return Axis((tuple(range(runtime.size())),), None)
+
+
+def mesh_axis(mesh, name):
+    """The axis ``name`` of a ``DeviceMesh``: its groups are the mesh's
+    rows along that dimension."""
+    dim = mesh.mesh_dim_names.index(name)
+    rows = mesh.mesh.movedim(dim, -1).reshape(-1, mesh.mesh.shape[dim])
+    return Axis(tuple(tuple(int(r) for r in row) for row in rows.tolist()),
+                mesh.get_group(name))
+
+
+def _axis(axis):
+    return world_axis() if axis is None else axis
+
+
+def _reduce_scatter(out, inp, group=None, op=dist.ReduceOp.SUM):
+    """The tiled reduce-scatter (member i of ``group`` gets block i of the
+    sum), under the name this torch gives it: 2.13 deprecates
+    ``reduce_scatter_tensor`` for ``reduce_scatter_single``."""
+    fn = getattr(dist, "reduce_scatter_single", None) \
+        or dist.reduce_scatter_tensor
+    fn(out, inp, op=op, group=group)
+    return out
+
+
+def _all_gather(out, inp, group=None):
+    """The tiled all-gather (blocks in member order), by name as
+    :func:`_reduce_scatter`."""
+    fn = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    fn(out, inp, group=group)
+    return out
+
+
+def _scatter(flat, group, n):
+    out = flat.new_empty(flat.shape[0] // n, *flat.shape[1:])
+    return _reduce_scatter(out, flat.contiguous(), group)
+
+
+def _gather(part, group, n, out=None):
+    if out is None:
+        out = part.new_empty(part.shape[0] * n, *part.shape[1:])
+    return _all_gather(out, part.contiguous(), group)
+
+
+def _divide(x, n):
+    """``x / n`` in ``x``'s dtype (the JAX package's ``(x / n).astype``);
+    an integer quotient truncates toward zero."""
+    if x.is_floating_point() or x.is_complex():
+        return x.div_(n)
+    return x.div_(n, rounding_mode="trunc")
+
+
+def reducescatter(tensor, average=False, axis=None):
+    """Reduce across the ranks of ``axis`` (None: every rank), leaving
+    each with its dim-0 stripe: rank i of the axis gets rows
+    ``[i * d0 / n, (i + 1) * d0 / n)`` of the sum (``lax.psum_scatter(...,
+    tiled=True)``). ``average`` divides by n, to a float for an integer
+    tensor, as the JAX package's ``out / psum(1)`` does. Records
+    ``reducescatter_jit``."""
+    ax = _axis(axis)
+    n = ax.size
+    buf = _on_device(tensor)
+    if buf.shape[0] % n:
+        raise ValueError(f"reducescatter: dim 0 of size {buf.shape[0]} does "
+                         f"not divide over {n} ranks")
+    record_jit_traced("reducescatter_jit", _nbytes(buf))
+    out = _scatter(buf, ax.group, n)
+    return out / n if average else out
+
+
+DEFAULT_RS_BUCKET_BYTES = 32 * 1024 * 1024
+
+
+def _rs_bucket_bytes(bucket_bytes):
+    if bucket_bytes is not None:
+        return max(int(bucket_bytes), 1)
+    from ..config import Config
+    return Config.from_env().reduce_scatter_bucket
+
+
+def _leaf_buckets(leaves, idxs, bucket_bytes):
+    """Group leaf indices by dtype, then split each dtype run into buckets
+    of at most ``bucket_bytes``: several bounded collectives instead of
+    one monolith (or thousands of slivers)."""
+    by_dtype = {}
+    for i in idxs:
+        by_dtype.setdefault(leaves[i].dtype, []).append(i)
+    buckets = []
+    for group in by_dtype.values():
+        cur, cur_bytes = [], 0
+        for i in group:
+            nb = _nbytes(leaves[i])
+            if cur and cur_bytes + nb > bucket_bytes:
+                buckets.append(cur)
+                cur, cur_bytes = [], 0
+            cur.append(i)
+            cur_bytes += nb
+        if cur:
+            buckets.append(cur)
+    return buckets
+
+
+def bucketed_reducescatter_allgather(tensors, average=True,
+                                     bucket_bytes=None, axis=None):
+    """Allreduce-equivalent exchange of a list of tensors as bucketed
+    reduce-scatter + all-gather: each bucket (:func:`_leaf_buckets`,
+    ``bucket_bytes`` default HOROVOD_REDUCE_SCATTER_BUCKET) is flattened,
+    zero-padded to a multiple of n, reduce-scattered (each rank sums 1/n
+    of it), averaged, and all-gathered back. Equal to
+    :func:`grouped_allreduce` up to the sum's order. Records one
+    ``reducescatter_jit`` and one ``allgather_jit`` a bucket. Returns the
+    exchanged tensors in order."""
+    leaves = [_on_device(t) for t in tensors]
+    if not leaves:
+        return []
+    ax = _axis(axis)
+    n = ax.size
+    out = list(leaves)
+    for idxs in _leaf_buckets(leaves, range(len(leaves)),
+                              _rs_bucket_bytes(bucket_bytes)):
+        flat = torch.cat([leaves[i].reshape(-1) for i in idxs])
+        size = flat.shape[0]
+        pad = -size % n
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        record_jit_traced("reducescatter_jit", _nbytes(flat))
+        shard = _scatter(flat, ax.group, n)
+        if average:
+            shard = _divide(shard, n)
+        record_jit_traced("allgather_jit", _nbytes(shard))
+        full = _gather(shard, ax.group, n)
+        pos = 0
+        for i in idxs:
+            sz = leaves[i].numel()
+            out[i] = full[pos:pos + sz].view(leaves[i].shape)
+            pos += sz
+    return out
+
+
+# ------------------------------------------------------------- DCN staging
+#
+# One mesh axis of n ranks viewed as n / local hosts of local ranks (rank
+# r of the axis = h * local + l): the exchange runs in two tiers, within
+# each host (ICI in the JAX package; NVLink within an H100 node) at full
+# width, then across hosts (DCN; the network between nodes), optionally
+# compressed (bf16, or int8 on a scale shared by the group) with an
+# error-feedback residual the caller carries. The tiers are process
+# groups built once a session (:func:`_stage_groups`).
+
+def dcn_index_groups(n, local):
+    """(ici_groups, dcn_groups) for ``n`` ranks laid out as
+    ``n // local`` hosts of ``local`` ranks. ICI group h =
+    [h*local, (h+1)*local); DCN group l = [l, local+l, 2*local+l, ...]
+    (one member per host, ordered by host)."""
+    hosts = n // local
+    ici = [list(range(h * local, (h + 1) * local)) for h in range(hosts)]
+    dcn = [list(range(l, n, local)) for l in range(local)]
+    return ici, dcn
+
+
+def normalize_dcn_local_size(n, local=0):
+    """Effective ICI-group size for DCN staging over ``n`` ranks.
+
+    0/None asks the config (HOROVOD_DCN_LOCAL_SIZE), then the runtime's
+    launcher-provided local size (ranks a host). Values that cannot tile
+    the axis (non-dividing, out of range) normalize to ``n``: a single
+    full-precision ICI stage, i.e. staging disabled."""
+    if not local:
+        from ..config import Config
+        local = Config.from_env().dcn_local_size
+    if not local:
+        local = runtime.local_size() if runtime.is_initialized() else n
+    local = int(local)
+    if local <= 0 or local > n or n % local:
+        return n
+    return local
+
+
+def _stage_groups(ax, local):
+    """This rank's (ici, dcn) process groups for ``ax`` laid out as hosts
+    of ``local`` ranks: built for every group of the axis, on every rank
+    in the same order, once a session (``runtime.cached_groups``). A
+    one-member tier has no group (None)."""
+    def build():
+        ici_idx, dcn_idx = dcn_index_groups(len(ax.groups[0]), local)
+        me, mine = runtime.rank(), [None, None]
+        for ranks in ax.groups:
+            for tier, lists in enumerate((ici_idx, dcn_idx)):
+                for idx in lists:
+                    members = [ranks[i] for i in idx]
+                    if len(members) < 2:
+                        continue
+                    pg = dist.new_group(members)
+                    if me in members:
+                        mine[tier] = pg
+        return tuple(mine)
+    return runtime.cached_groups(("dcn", ax.groups, int(local)), build)
+
+
+def dcn_sigma(axis=None, local=None):
+    """This rank's stripe-owner index after a staged reduce-scatter.
+
+    Staging permutes ownership: rank r = (h, l) of the axis ends up
+    holding flat segment (l*H + h), not segment r. Identity when staging
+    is off (local == n) and, by the same formula, when every rank is its
+    own host (local == 1). Parameter-stripe slicing and
+    ``shard_params``/``unshard_params`` use this index so they agree
+    with the scatter layout."""
+    ax = _axis(axis)
+    n, r = ax.size, ax.index()
+    if local is None or local >= n or n % local:
+        return r
+    hosts = n // local
+    return (r % local) * hosts + r // local
+
+
+def _record_stage(stage, wire_bytes, raw_bytes):
+    """Per-stage wire accounting (hvd_wire_stage_bytes_total / _raw_),
+    once a call, so wire/raw is the exact compression factor."""
+    from .. import metrics
+    metrics.WIRE_STAGE_BYTES.labels(stage=stage).inc(int(wire_bytes))
+    metrics.WIRE_STAGE_RAW_BYTES.labels(stage=stage).inc(int(raw_bytes))
+
+
+def dcn_staged_psum_scatter(flat, axis=None, local=None, dcn_compression="",
+                            residual=None):
+    """Reduce-scatter ``flat`` (length divisible by the axis size n) in
+    two tiers: a full-width reduce-scatter within each ICI group, then a
+    reduce-scatter across hosts (the DCN hop), optionally compressed.
+
+    Returns ``(stripe, new_residual)``: ``stripe`` is this rank's 1/n
+    segment of the global sum, the one at offset ``dcn_sigma(...) *
+    (len(flat) // n)``, and ``new_residual`` the error-feedback carry of
+    a lossy DCN hop (None when the hop is lossless or absent). Each rank
+    adds last step's residual to its DCN-stage input, sends the
+    compressed value and keeps the quantization error, so the next step
+    corrects it. ``residual``/``new_residual`` have the ICI chunk's
+    shape (``len(flat) // local``,) and belong in the optimizer's state.
+
+    int8 quantizes on a scale shared by the DCN group (an all-reduce
+    ``MAX`` of the max-abs, / 127), so every rank's codes lie on one grid
+    and their sum dequantizes exactly; the codes are summed as int32 (H
+    values in [-127, 127] cannot overflow), while the wire accounting
+    records the 8-bit width. With staging off (``local >= n``) this is
+    one plain reduce-scatter."""
+    ax = _axis(axis)
+    n = ax.size
+    if local is None:
+        local = n
+    if flat.shape[0] % n:
+        raise ValueError(
+            f"dcn_staged_psum_scatter needs len(flat) % n == 0; got "
+            f"{flat.shape[0]} over {n} ranks — pad before calling")
+    comp = dcn_compression or "none"
+    if local >= n or n % local:
+        # a single full-precision stage: the whole exchange is ICI
+        _record_stage("ici", _nbytes(flat), _nbytes(flat))
+        record_jit_traced("reducescatter_jit", _nbytes(flat))
+        return _scatter(flat, ax.group, n), None
+    ici, dcn = _stage_groups(ax, local)
+    hosts = n // local
+    if local > 1:
+        _record_stage("ici", _nbytes(flat), _nbytes(flat))
+        record_jit_traced("reducescatter_jit", _nbytes(flat))
+        chunk = _scatter(flat, ici, local)
+    else:
+        chunk = flat
+    raw = _nbytes(chunk)
+    elems = chunk.shape[0]
+    if comp == "none":
+        _record_stage("dcn", raw, raw)
+        record_jit_traced("reducescatter_jit", raw)
+        return _scatter(chunk, dcn, hosts), None
+    e = chunk if residual is None else chunk + residual.to(chunk.dtype)
+    if comp == "bf16":
+        wire = e.to(torch.bfloat16)
+        new_residual = e - wire.to(e.dtype)
+        _record_stage("dcn", elems * 2, raw)
+        record_jit_traced("reducescatter_jit", elems * 2)
+        return _scatter(wire, dcn, hosts).to(e.dtype), new_residual
+    if comp == "int8":
+        amax = e.abs().max().reshape(1)
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=dcn)
+        scale = Int8Compressor.scale_for(amax[0])
+        codes = Int8Compressor.quantize(e, scale)
+        new_residual = e - (codes * scale).to(e.dtype)
+        _record_stage("dcn", elems, raw)
+        record_jit_traced("reducescatter_jit", elems)
+        summed = _scatter(codes.to(torch.int32), dcn, hosts)
+        return (summed.to(scale.dtype) * scale).to(e.dtype), new_residual
+    raise ValueError(
+        f"unknown DCN compression {dcn_compression!r} (expected '', "
+        "'none', 'bf16' or 'int8')")
+
+
+def dcn_staged_all_gather(stripe, axis=None, local=None, dcn_compression="",
+                          out=None):
+    """Reassemble the flat vector from per-rank stripes laid out by
+    :func:`dcn_staged_psum_scatter`: gather across hosts first (the DCN
+    hop, in bf16 on the wire when compression is on; every rank receives
+    the same rounded values, so this is transport rounding, not a source
+    of divergence), then within each ICI group at full width. With
+    staging off this is one plain all-gather, into ``out`` where
+    given."""
+    ax = _axis(axis)
+    n = ax.size
+    if local is None:
+        local = n
+    if local >= n or n % local:
+        _record_stage("ici", _nbytes(stripe), _nbytes(stripe))
+        record_jit_traced("allgather_jit", _nbytes(stripe))
+        return _gather(stripe, ax.group, n, out)
+    ici, dcn = _stage_groups(ax, local)
+    comp = dcn_compression or "none"
+    raw = _nbytes(stripe)
+    if comp == "none":
+        wire = stripe
+        _record_stage("dcn", raw, raw)
+        record_jit_traced("allgather_jit", raw)
+    else:
+        wire = stripe.to(torch.bfloat16)
+        _record_stage("dcn", stripe.shape[0] * 2, raw)
+        record_jit_traced("allgather_jit", stripe.shape[0] * 2)
+    chunk = _gather(wire, dcn, n // local).to(stripe.dtype)
+    if local > 1:
+        _record_stage("ici", _nbytes(chunk), _nbytes(chunk))
+        record_jit_traced("allgather_jit", _nbytes(chunk))
+        chunk = _gather(chunk, ici, local)
+    if out is not None:
+        return out.copy_(chunk)
+    return chunk
+
+
+def hierarchical_allreduce(tensor, ici_axis, dcn_axis, average=True,
+                           mesh=None):
+    """Two-level all-reduce: reduce-scatter over the ICI tier, all-reduce
+    over the DCN tier, all-gather back over ICI (the reference's
+    ``NCCLHierarchicalAllreduce``). The axes are :class:`Axis` values or
+    names of ``mesh`` (e.g. :func:`~horovod_tpu_torch.parallel.mesh.
+    hierarchical_mesh`'s ``"local"`` and ``"cross"``). A length that the
+    ICI size does not divide is zero-padded before the scatter and
+    sliced back after the gather. ``average`` divides by the product of
+    both sizes (to a float for an integer tensor). Records one
+    ``allreduce_jit`` of the tensor's bytes."""
+    if isinstance(ici_axis, str):
+        ici_axis = mesh_axis(mesh, ici_axis)
+    if isinstance(dcn_axis, str):
+        dcn_axis = mesh_axis(mesh, dcn_axis)
+    buf = _on_device(tensor)
+    record_jit_traced("allreduce_jit", _nbytes(buf))
+    flat = buf.reshape(-1)
+    size = flat.shape[0]
+    ici = ici_axis.size
+    padded = -(-size // ici) * ici
+    if padded != size:
+        flat = torch.cat([flat, flat.new_zeros(padded - size)])
+    shard = _scatter(flat, ici_axis.group, ici)
+    dist.all_reduce(shard, group=dcn_axis.group)
+    if average:
+        shard = shard / (ici * dcn_axis.size)
+    out = _gather(shard, ici_axis.group, ici)
+    return out[:size].reshape(buf.shape)

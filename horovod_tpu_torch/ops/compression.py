@@ -6,8 +6,11 @@ and the ``Compression`` namespace. On a card 16 bits on the wire can be
 either half format, so ``Compression.fp16`` is IEEE fp16, as in the
 reference Horovod and the JAX package's torch binding (the JAX package
 itself maps ``fp16`` to bf16, the TPU's native half format), and
-``Compression.bf16`` is bfloat16. Int8 waits for ROADMAP.md, Queue 1
-item 3.
+``Compression.bf16`` is bfloat16. ``Compression.int8`` is the JAX
+package's 8-bit linear code (:class:`Int8Compressor`), the wire format of
+the DCN stage of the staged exchange (ops/collectives.py
+``dcn_staged_psum_scatter``), where every rank of the group quantizes on
+one shared scale.
 """
 
 import torch
@@ -66,17 +69,63 @@ class BF16Compressor(_HalfCompressor):
 
 
 class Int8Compressor(Compressor):
-    """The JAX package's 8-bit wire format; not ported yet."""
+    """8-bit linear quantization with a per-tensor (per-bucket) scale:
+    ``codes = round(x / scale)`` clipped to [-127, 127] with
+    ``scale = max|x| / 127``, so the wire carries one int8 per element
+    plus one scalar. ``torch.round`` rounds half to even, as
+    ``jnp.round`` does.
 
-    MESSAGE = "Int8 compression is not ported yet (ROADMAP.md, Queue 1 item 3)"
+    The staged exchange quantizes on a scale shared by its DCN group (an
+    all-reduce ``MAX`` of the max-abs), so the summed codes dequantize
+    exactly. The standalone ``compress``/``decompress`` here use the
+    local per-tensor scale and are not safe around a plain sum, whose
+    ranks would each use their own scale (the JAX package's docstring
+    says so, horovod_tpu/ops/compression.py:100-106): so
+    ``DistributedOptimizer(compression=Compression.int8)`` is refused,
+    and int8 is reached through ``dcn_compression="int8"``."""
+
+    WIRE_DTYPE = torch.int8
+    MESSAGE = ("Compression.int8 uses a per-rank scale, which a plain "
+               "all-reduce cannot sum (horovod_tpu/ops/compression.py:"
+               "100-106): use dcn_compression='int8', whose DCN stage "
+               "quantizes on a scale shared by the group")
+
+    @staticmethod
+    def scale_for(amax):
+        """Quantization step for a max-abs value (a tensor), guarded
+        against the all-zero bucket: ``max(amax, 1e-30) / 127`` in the
+        dtype of ``amax``, as the JAX package's weak-typed constants
+        keep it (f32 in the exchange)."""
+        return torch.clamp_min(amax, 1e-30) / 127.0
+
+    @classmethod
+    def quantize(cls, tensor, scale):
+        """Codes (in ``tensor``'s float dtype) on a caller-supplied,
+        possibly group-shared, grid."""
+        return torch.clamp(torch.round(tensor / scale), -127, 127)
+
+    @staticmethod
+    def dequantize(codes, scale, dtype):
+        return (codes * scale).to(dtype)
 
     @classmethod
     def compress(cls, tensor):
-        raise NotImplementedError(cls.MESSAGE)
+        if not tensor.is_floating_point():
+            return tensor, (tensor.dtype, None)
+        scale = cls.scale_for(tensor.abs().max())
+        codes = cls.quantize(tensor.float(), scale)
+        return codes.to(cls.WIRE_DTYPE), (tensor.dtype, scale)
 
     @classmethod
     def decompress(cls, tensor, ctx):
-        raise NotImplementedError(cls.MESSAGE)
+        dtype, scale = ctx
+        if scale is None:
+            return tensor
+        return cls.dequantize(tensor.float(), scale, dtype)
+
+    @classmethod
+    def wire_dtype(cls, dtype):
+        return cls.WIRE_DTYPE if dtype.is_floating_point else dtype
 
 
 class Compression:

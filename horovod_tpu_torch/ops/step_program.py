@@ -182,9 +182,21 @@ class CompiledTrainStep:
     beside the world's of the rest, and the model's all-to-alls are
     captured with the forward and backward. A plain optimizer gets one
     fused all-reduce a bucket in front of its update (the JAX package's
-    auto decomposition). The ZeRO and sharding-spec layouts raise
-    ``NotImplementedError`` naming their ROADMAP.md items where
-    ``DistributedOptimizer`` is built, and the guard here.
+    auto decomposition). A ZeRO optimizer (modes ``"zero1"``,
+    ``"zero2"``, ``"zero3"``, or ``"spec"`` with expert keys) exchanges
+    in its ``step()``: the capture takes its chunked reduce-scatters,
+    the update of the stripe and the all-gathers (``exchange_buckets``
+    re-chunks them); at stage 0 with ``dcn_compression`` the mode is
+    ``"none"``: the optimizer's staged exchange is all there is.
+
+    Under ``zero3`` (and a spec at stage 3) the stripe is resident:
+    between steps only the optimizer's parameter stripe and its state
+    over it persist. Each step starts by gathering the stripe into the
+    model's parameters (inside the capture, so the row lives in the
+    graph's pool, as XLA keeps it among the program's temporaries) and
+    leaves them as they were gathered, one update behind:
+    :meth:`unshard_params` reads the trained parameters,
+    :meth:`shard_params` loads new ones. The guard raises here.
 
     Fallback (``hvd_step_fallback_total`` by reason): the eager step
     runs instead under ``HOROVOD_STEP_PROGRAM=0`` (``disabled``),
@@ -197,24 +209,31 @@ class CompiledTrainStep:
             raise NotImplementedError(
                 "HOROVOD_GUARD is set, but the step-integrity guard "
                 "(ROADMAP.md, Queue 1 item 15) is not ported yet")
-        hooks = getattr(optimizer, "_hvd_exchange", None) == "hooks"
-        if hooks and optimizer.backward_passes_per_step > 1:
+        tag = getattr(optimizer, "_hvd_exchange", None)
+        wrapped = tag in ("hooks", "zero1", "zero2", "zero3", "spec",
+                          "inline")
+        if wrapped and optimizer.backward_passes_per_step > 1:
             raise ValueError(
                 "compiled_train_step cannot introspect "
                 "DistributedOptimizer(backward_passes_per_step>1); "
                 "compile the inner step and accumulate outside")
-        if hooks and exchange_buckets is not None:
+        if wrapped and exchange_buckets is not None:
             optimizer.plan_exchange(exchange_buckets)
         self.name = name
         self._loss_fn = loss_fn
         self._optimizer = optimizer
         self._buckets = exchange_buckets
-        if not hooks:
-            self._exchange = "psum"
+        if tag == "hooks":
+            self._exchange = optimizer._hvd_mode
+        elif tag == "inline":
+            self._exchange = "none"
         else:
-            self._exchange = "moe" if optimizer.expert_keys else "hooks"
-        self._params = [p for g in optimizer.param_groups
-                        for p in g["params"] if p.requires_grad]
+            self._exchange = tag if wrapped else "psum"
+        self._resident = (wrapped and tag != "hooks"
+                          and optimizer.zero_stage == 3)
+        self._params = (optimizer._params if wrapped and tag != "hooks"
+                        else [p for g in optimizer.param_groups
+                              for p in g["params"] if p.requires_grad])
         self._layout = tuple((tuple(p.shape), str(p.dtype), str(p.device))
                              for p in self._params)
         self._programs = None
@@ -237,6 +256,29 @@ class CompiledTrainStep:
         return None
 
     # ------------------------------------------------------------ the step
+
+    def shard_params(self, params=None):
+        """Full parameters -> this rank's stripe, loaded into the
+        optimizer as the resident truth (``zero3``): ``params`` are full
+        tensors in the optimizer's parameter order, default the model's
+        as they are. Returns the stripe (the optimizer's flat
+        parameter), ``ceil(total / n)`` long."""
+        self._check_resident("shard_params")
+        return self._optimizer.shard(params)
+
+    def unshard_params(self, stripe=None):
+        """Stripe (default the optimizer's) -> the full parameters, in
+        its parameter order, by the full-width gather: exact. For eval,
+        checkpoints, or handing back to unsharded code."""
+        self._check_resident("unshard_params")
+        return self._optimizer.unshard(stripe)
+
+    def _check_resident(self, what):
+        if not self._resident:
+            raise ValueError(
+                f"{what} needs the stripe-resident layout: a "
+                "DistributedOptimizer(zero_stage=3) transform (exchange "
+                f"mode {self._exchange!r})")
 
     def _bucket_count(self, cfg):
         if self._exchange != "psum":
@@ -261,6 +303,8 @@ class CompiledTrainStep:
         on the host only: the graph's backward then allocates the
         gradients in its pool, and each replay writes them afresh."""
         self._optimizer.zero_grad(set_to_none=True)
+        if self._resident:
+            self._optimizer.materialize()
         loss = self._loss_fn(*batch)
         loss.backward()
         if self._exchange == "psum":
@@ -299,6 +343,8 @@ class CompiledTrainStep:
             self._signatures = set()
         cfg = st.config
         buckets = self._bucket_count(cfg)
+        if self._resident and not self._optimizer._resident:
+            self._optimizer.shard()
         if not step_program_enabled(cfg):
             reason = "disabled" if cfg.step_program == 0 else "host_mode"
             return self._fallback(reason, batch, buckets)

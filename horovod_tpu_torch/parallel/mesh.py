@@ -1,10 +1,12 @@
 """Device topology of the port.
 
 Counterpart of horovod_tpu/parallel/mesh.py, of which the port carries
-:func:`data_parallel_mesh` (one flat data-parallel axis over every rank)
-and :func:`expert_data_mesh` (the 2-D (data, expert) layout of
-expert-parallel MoE). The 3-D model mesh comes with tensor parallelism
-(ROADMAP.md, Queue 1 item 6).
+:func:`data_parallel_mesh` (one flat data-parallel axis over every rank),
+:func:`expert_data_mesh` (the 2-D (data, expert) layout of
+expert-parallel MoE), :func:`hierarchical_mesh` (the 2-D (cross, local)
+layout of the two-tier collectives) and :func:`hierarchical_axes`. The
+3-D model mesh comes with tensor parallelism (ROADMAP.md, Queue 1
+item 6).
 
 A ``DeviceMesh`` creates one process group per row and column of the
 layout, on every rank in the same order; so every rank builds every
@@ -47,3 +49,33 @@ def expert_data_mesh(device_type, size, expert_parallel=1, data_axis="hvd",
     ranks = [[r * ep + e for e in range(ep)] for r in range(size // ep)]
     return DeviceMesh(device_type, ranks,
                       mesh_dim_names=(data_axis, expert_axis))
+
+
+def hierarchical_axes(mesh, ici_axis="local", dcn_axis="cross"):
+    """Names of the (intra-host, cross-host) axis pair for hierarchical
+    collectives, checked against ``mesh``'s axes: the analog of the
+    reference's (local, cross) communicator pair."""
+    names = tuple(mesh.mesh_dim_names)
+    if ici_axis not in names or dcn_axis not in names:
+        raise ValueError(
+            f"mesh axes {names} do not contain the hierarchical "
+            f"pair ({ici_axis!r}, {dcn_axis!r})")
+    return (ici_axis, dcn_axis)
+
+
+def hierarchical_mesh(device_type, size, local_size, cross_axis="cross",
+                      local_axis="local"):
+    """The 2-D (cross, local) ``DeviceMesh`` over ranks 0..size-1 that
+    hierarchical collectives decompose over: rank r sits at
+    ``(r // local_size, r % local_size)``, row-major over (cross, local),
+    the reference's rank -> (node, local_rank) mapping. The local tier
+    is a host's ranks (NVLink within an H100 node), the cross tier the
+    network between hosts. Raises the JAX package's error when
+    ``local_size`` does not tile the ranks."""
+    if local_size <= 0 or size % local_size != 0:
+        raise ValueError(
+            f"local_size={local_size} does not evenly divide {size} devices")
+    ranks = [[h * local_size + l for l in range(local_size)]
+             for h in range(size // local_size)]
+    return DeviceMesh(device_type, ranks,
+                      mesh_dim_names=(cross_axis, local_axis))

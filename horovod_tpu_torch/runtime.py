@@ -28,7 +28,8 @@ raise rather than run without them.
 With ``HOROVOD_EXPERT_PARALLEL`` above 1, ``init()`` also builds the
 2-D (data, expert) mesh of expert-parallel MoE (:func:`expert_mesh`;
 parallel/mesh.py), whose sub-groups every rank creates in the same
-order.
+order. The ICI and DCN tiers of the staged exchange are built on first
+use and kept for the session (:func:`cached_groups`).
 
 Each session owns a :class:`ProgramCache`: the signature-keyed step
 programs of ops/step_program.py (on a card, captured CUDA graphs sharing
@@ -125,6 +126,7 @@ class _State:
         self.store = None
         self.mesh = None
         self.expert_mesh = None
+        self.groups = {}
         self.rank = 0
         self.size = 0
         self.local_rank = 0
@@ -212,6 +214,7 @@ def init(comm=None, *, device="cuda"):
         _state.store = store
         _state.mesh = None
         _state.expert_mesh = exp_mesh
+        _state.groups = {}
         _state.rank, _state.size = rank, size
         _state.local_rank = local_rank
         _state.local_size = _env_int("HOROVOD_TPU_LOCAL_SIZE", 1)
@@ -261,6 +264,7 @@ def shutdown():
         _state.store = None
         _state.mesh = None
         _state.expert_mesh = None
+        _state.groups = {}
         _state.shutdown = True
         _state.initialized = False
 
@@ -313,6 +317,20 @@ def expert_mesh():
             "Config.expert_parallel) to a degree > 1 dividing the world "
             "size before hvd.init()")
     return _state.expert_mesh
+
+
+def cached_groups(key, build):
+    """``build()``'s process groups, built once a session under ``key``.
+    ``torch.distributed`` creates a group collectively, over the world,
+    in the same order on every rank, so a caller builds every group of a
+    layout at once (ops/collectives.py ``_stage_groups``: the ICI and DCN
+    tiers of the staged exchange); the cache keeps them until
+    ``shutdown()``, so a captured step finds them made and warmed."""
+    st = live_state()
+    with st.lock:
+        if key not in st.groups:
+            st.groups[key] = build()
+        return st.groups[key]
 
 
 def expert_parallel_size():

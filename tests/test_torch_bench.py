@@ -14,6 +14,7 @@ the refusals of the unported scenarios, and the H100 rows of the peak
 table.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -61,9 +62,15 @@ def _run(module, args, **env):
 VS_BASELINE_BOUND = 0.0005 + 0.005 / 103.55
 
 
+@functools.lru_cache(maxsize=None)
+def _resnet_smoke():
+    """The ResNet bench's line in its smoke shrink, run once a module."""
+    return _run("horovod_tpu_torch.bench.resnet", ["--device", "cpu"],
+                HOROVOD_BENCH_SMOKE="1")
+
+
 def test_resnet_bench_smoke_json_contract():
-    got = _run("horovod_tpu_torch.bench.resnet", ["--device", "cpu"],
-               HOROVOD_BENCH_SMOKE="1")
+    got = _resnet_smoke()
     assert got["metric"] == "resnet50_img_sec_per_chip"
     assert got["unit"] == "img/sec"
     assert got["value"] > 0 and got["img_sec_block_timed"] > 0
@@ -79,9 +86,9 @@ def test_resnet_bench_smoke_json_contract():
     for key, item in resnet_bench.NOT_PORTED.items():
         assert got[key] == {"skipped": f"not ported: ROADMAP item {item}"}
     assert set(resnet_bench.NOT_PORTED) >= {
-        "eager_exchange", "zero_profile", "mesh3d", "control_plane"}
+        "eager_exchange", "mesh3d", "control_plane"}
     assert not set(resnet_bench.NOT_PORTED) & {"compiled_step", "serve",
-                                               "moe"}
+                                               "moe", "zero_profile"}
     _assert_moe_row(got["moe"], expert_parallel=1, steps=8)
     compiled = got["compiled_step"]
     assert compiled["img_sec_per_chip"] > 0
@@ -99,7 +106,34 @@ def test_resnet_bench_smoke_json_contract():
             "skipped": f"not ported: ROADMAP item {item}"}
     assert {"overlap_ab", "step_phase_breakdown"} <= set(
         resnet_bench.COMPILED_NOT_PORTED)
+    # no skipped row names a finished item (11: the ZeRO ladder)
+    assert 11 not in set(resnet_bench.NOT_PORTED.values()) | set(
+        resnet_bench.COMPILED_NOT_PORTED.values())
     _assert_serve_row(got["serve"], streams=8, prompt_len=16, new_tokens=32)
+
+
+def test_resnet_bench_fills_the_zero_profile_row():
+    """bench.py's ``zero_profile`` at one rank on the CPU: its keys, the
+    two losses finite and equal (one rank has no DCN stage: both runs are
+    the same exchange), ``dcn_bytes_saved_frac`` None as the reference's
+    formula gives at n 1, and the zero3 stripes' bytes from the real
+    buffers (at n 1, the whole row: 256 x 256 + 256 + 256 x 8 + 8
+    parameters; Adam's state twice that and its step count)."""
+    zero = _resnet_smoke()["zero_profile"]
+    assert "skipped" not in zero
+    assert (zero["zero_stage"], zero["dcn_local_size"], zero["steps"]) == (
+        2, 1, 8)
+    assert zero["dcn_bytes_saved_frac"] is None
+    assert np.isfinite(zero["loss_uncompressed"])
+    assert zero["loss_compressed"] == zero["loss_uncompressed"]
+    assert zero["dcn_loss_delta"] == 0.0
+    mem = zero["zero_memory"]
+    row = 4 * (256 * 256 + 256 + 256 * 8 + 8)
+    assert mem["world_size"] == 1
+    assert mem["params_full_bytes"] == mem["params_stripe_bytes"] == row
+    assert mem["grads_stripe_bytes"] == row
+    assert mem["opt_state_stripe_bytes"] == 2 * row + 4
+    assert mem["resident_frac_of_replicated"] == 1.0
 
 
 def _assert_serve_row(serve, streams, prompt_len, new_tokens):

@@ -10,7 +10,12 @@ values and adds nothing); its backward, the reverse all-to-all, which
 brings the cotangent of ``alltoall(g)`` back to ``g`` exactly;
 ``alltoall_chunked`` at 1 to 4 chunks (3 falls back to the largest
 divisor, 2) equal to the unchunked all-to-all, bit for bit; and the
-2 x 2 (data, expert) mesh's layout, rank r at (r // 2, r % 2).
+2 x 2 (data, expert) mesh's layout, rank r at (r // 2, r % 2). The same
+run holds ``reducescatter`` to ``lax.psum_scatter(tiled=True)``,
+``bucketed_reducescatter_allgather`` to the JAX package's own over 4
+devices (f32 within rtol 1e-6, the sum's order; int32 exactly), and
+``hierarchical_allreduce`` on a 2 x 2 ``hierarchical_mesh`` to the flat
+sum and mean, an odd length included (padded to the ICI size).
 """
 
 import jax
@@ -37,7 +42,14 @@ PAIRS = ((0, 0), (0, 1), (1, 0), (2, 1), (1, 2))
 def run():
     rng = np.random.default_rng(0)
     inp = {"x": rng.standard_normal((RANKS, 8, 4, 4), np.float32),
-           "g": rng.standard_normal((RANKS, 8, 4, 4), np.float32)}
+           "g": rng.standard_normal((RANKS, 8, 4, 4), np.float32),
+           "rs": rng.standard_normal((RANKS, 8, 3), np.float32),
+           "bk_a": rng.standard_normal((RANKS, 5), np.float32),
+           "bk_b": rng.standard_normal((RANKS, 3, 4), np.float32),
+           "bk_c": rng.integers(-50, 50, (RANKS, 7)).astype(np.int32),
+           "h_odd": rng.standard_normal((RANKS, 7), np.float32),
+           "h_2d": rng.standard_normal((RANKS, 5, 3), np.float32),
+           "h_int": rng.integers(-50, 50, (RANKS, 9)).astype(np.int32)}
     res = spawn_ranks(RANKS, torch_rank_workers.collectives, inp, PAIRS,
                       env={"HOROVOD_EXPERT_PARALLEL": "2"})
     return inp, res
@@ -140,3 +152,94 @@ def test_config_reads_the_expert_knobs_with_the_references_clamps(
         got, want = Config.from_env(), JaxConfig.from_env()
         assert (got.expert_parallel, got.moe_chunks) == (
             want.expert_parallel, want.moe_chunks)
+
+
+def _jax_per_rank(fn, *arrays):
+    """``fn`` of each rank's slice over 4 virtual devices; per-rank
+    results stacked."""
+    mesh = Mesh(np.array(jax.devices()[:RANKS]), ("hvd",))
+
+    def f(*xs):
+        out = fn(*[x[0] for x in xs])
+        return jax.tree.map(lambda y: y[None], out)
+
+    return jax.tree.map(np.asarray, jax.jit(jax.shard_map(
+        f, mesh=mesh, in_specs=(P("hvd"),) * len(arrays),
+        out_specs=P("hvd"), check_vma=False))(*map(jnp.asarray, arrays)))
+
+
+def test_reducescatter_matches_lax_psum_scatter(run):
+    inp, res = run
+    want = _jax_per_rank(
+        lambda x: jax.lax.psum_scatter(x, "hvd", scatter_dimension=0,
+                                       tiled=True), inp["rs"])
+    for r in range(RANKS):
+        np.testing.assert_allclose(res[r]["rs_sum"], want[r], rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_allclose(res[r]["rs_avg"], want[r] / RANKS,
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_bucketed_reducescatter_allgather_matches_the_reference(run):
+    """Three leaves (f32 5, f32 3 x 4, int32 7) in 32-byte buckets: the
+    f32 pair splits in two, the int32 leaf rides alone; each bucket one
+    reduce-scatter and one all-gather record, as the JAX package's."""
+    from horovod_tpu.ops.collectives import (
+        bucketed_reducescatter_allgather as jax_bucketed)
+    inp, res = run
+    want = _jax_per_rank(
+        lambda a, b, c: jax_bucketed([a, b, c], "hvd", True,
+                                     bucket_bytes=32),
+        inp["bk_a"], inp["bk_b"], inp["bk_c"])
+    for r in range(RANKS):
+        got = res[r]["bk"]
+        for i in range(2):
+            np.testing.assert_allclose(got[i], want[i][r], rtol=1e-6,
+                                       atol=1e-6)
+            np.testing.assert_allclose(
+                got[i], [inp["bk_a"], inp["bk_b"]][i].mean(0), rtol=1e-5,
+                atol=1e-6)
+        assert got[2].dtype == np.int32
+        assert np.array_equal(got[2], want[2][r])
+        assert res[r]["bk_records"] == (3, 3)
+
+
+def test_hierarchical_allreduce_matches_the_flat_sum(run):
+    inp, res = run
+    for r in range(RANKS):
+        assert tuple(res[r]["hier_coordinate"]) == (r // 2, r % 2)
+        for k in ("h_odd", "h_2d"):
+            np.testing.assert_allclose(res[r][f"{k}_sum"], inp[k].sum(0),
+                                       rtol=1e-5, atol=1e-6)
+            np.testing.assert_allclose(res[r][f"{k}_avg"], inp[k].mean(0),
+                                       rtol=1e-5, atol=1e-6)
+        assert np.array_equal(res[r]["h_int_sum"], inp["h_int"].sum(0))
+
+
+@pytest.mark.parametrize("local", [3, 0, -2])
+def test_hierarchical_mesh_errors_are_the_references(local):
+    from horovod_tpu.parallel.mesh import hierarchical_mesh as jax_mesh
+    from horovod_tpu_torch.parallel.mesh import hierarchical_mesh
+    with pytest.raises(ValueError) as want:
+        jax_mesh(jax.devices()[:4], local)
+    with pytest.raises(ValueError) as got:
+        hierarchical_mesh("cpu", 4, local)
+    assert str(got.value) == str(want.value)
+
+
+def test_hierarchical_axes_error_is_the_references():
+    from horovod_tpu.parallel.mesh import hierarchical_axes as jax_axes
+    from horovod_tpu.parallel.mesh import hierarchical_mesh as jax_mesh
+    from horovod_tpu_torch.parallel.mesh import hierarchical_axes
+
+    class _Mesh:  # the names are all the check reads
+        mesh_dim_names = ("cross", "local")
+    jmesh = jax_mesh(jax.devices()[:4], 2)
+    assert hierarchical_axes(_Mesh()) == jax_axes(jmesh) == ("local",
+                                                             "cross")
+    with pytest.raises(ValueError) as want:
+        jax_axes(jmesh, "ici", "dcn")
+    with pytest.raises(ValueError) as got:
+        hierarchical_axes(_Mesh(), "ici", "dcn")
+    assert str(got.value) == str(want.value).replace(
+        str(jmesh.axis_names), str(_Mesh.mesh_dim_names))

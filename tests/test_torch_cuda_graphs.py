@@ -101,6 +101,51 @@ def test_moe_step_replayed_on_new_batches_equals_eager(card):
         assert torch.equal(a, b), (name, float((a - b).abs().max()))
 
 
+@pytest.mark.parametrize("stage", [1, 2, 3])
+def test_zero_step_replayed_on_new_batches_equals_eager(card, stage,
+                                                        monkeypatch):
+    """The ZeRO ladder captured (256 KiB chunks at stages 2 and 3, so the
+    capture takes several reduce-scatters and all-gathers): parameters
+    after 4 steps bitwise equal to the same stage's eager run and to
+    stage 0's (one rank: the scatter and gather are copies), zero3's read
+    back through ``unshard_params``; one reduce-scatter and one
+    all-gather record a chunk a replay."""
+    monkeypatch.setenv("HOROVOD_PROFILER_JIT_CALLBACKS", "1")
+    batches = _batches(card, 4)
+    kw = dict(zero_stage=stage, bucket_bytes=None if stage == 1 else 2 ** 18)
+    eager, _ = _train(card, False, batches, **kw)
+    stage0, _ = _train(card, True, batches)
+    compiled, step = _train(card, True, batches, **kw)
+    assert step._exchange == f"zero{stage}"
+    assert (step.cache_misses, step.cache_hits, step.fallback_steps) == (
+        1, 3, 0)
+    got = (step.unshard_params() if stage == 3
+           else [p.detach() for p in compiled.parameters()])
+    for (name, a), b, c in zip(eager.named_parameters(), got,
+                               stage0.parameters()):
+        assert torch.equal(a, b), (name, float((a - b).abs().max()))
+        assert torch.equal(a, c), (name, float((a - c).abs().max()))
+    prog = list(hvd.runtime.live_state().programs._programs.values())[-1]
+    chunks = len(step._optimizer.exchange_buckets)
+    assert (chunks > 1) == (stage > 1)
+    ops = [op for op, _ in prog.collectives]
+    assert sorted(ops) == ["allgather_jit"] * chunks + \
+        ["reducescatter_jit"] * chunks
+
+
+def test_zero3_round_trip_is_exact(card):
+    lm = tfm.TransformerLM(tfm.TransformerConfig(loss_chunk=64, **SMALL),
+                           generator=torch.Generator().manual_seed(0),
+                           device=card)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(lm.parameters(), capturable=True, **ADAMW),
+        named_parameters=lm.named_parameters(), zero_stage=3)
+    step = hvd.compiled_train_step(lm.loss, opt)
+    want = [p.detach().clone() for p in lm.parameters()]
+    for a, b in zip(want, step.unshard_params(step.shard_params())):
+        assert torch.equal(a, b)
+
+
 def test_moe_serve_graphs_equal_eager(card, monkeypatch):
     """The MoE model served at full capacity through the per-bin graphs
     gives the eager engine's logits, across a defrag."""

@@ -39,12 +39,47 @@ def collectives(inp, pairs):
                                                     whole)
     stats = hvd.runtime.live_state().stats
     out["alltoall_jit_calls"] = stats.counter("alltoall_jit")
+    out.update(reduce_scatter_family(inp, r))
     mesh = hvd.expert_mesh()
     out["ep_size"] = hvd.expert_parallel_size()
     out["coordinate"] = mesh.get_coordinate()
     out["ep_group"] = dist.get_process_group_ranks(mesh.get_group("ep"))
     out["data_group"] = dist.get_process_group_ranks(mesh.get_group("hvd"))
     hvd.shutdown()
+    return out
+
+
+def reduce_scatter_family(inp, r):
+    """``reducescatter``, ``bucketed_reducescatter_allgather`` and
+    ``hierarchical_allreduce`` on a 2 x 2 ``hierarchical_mesh``, on this
+    rank's inputs."""
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.parallel.mesh import (hierarchical_axes,
+                                                 hierarchical_mesh)
+    out = {}
+    rs = torch.from_numpy(inp["rs"][r])
+    out["rs_sum"] = C.reducescatter(rs).numpy()
+    out["rs_avg"] = C.reducescatter(rs, average=True).numpy()
+    stats = hvd.runtime.live_state().stats
+    rs0, ag0 = stats.counter("reducescatter_jit"), \
+        stats.counter("allgather_jit")
+    leaves = [torch.from_numpy(inp[k][r]) for k in ("bk_a", "bk_b", "bk_c")]
+    got = C.bucketed_reducescatter_allgather(leaves, bucket_bytes=32)
+    out["bk"] = [t.numpy() for t in got]
+    out["bk_records"] = (stats.counter("reducescatter_jit") - rs0,
+                         stats.counter("allgather_jit") - ag0)
+    mesh = hierarchical_mesh("cpu", hvd.size(), 2)
+    out["hier_coordinate"] = mesh.get_coordinate()
+    ici, dcn = hierarchical_axes(mesh)
+    for k in ("h_odd", "h_2d"):
+        x = torch.from_numpy(inp[k][r])
+        out[f"{k}_avg"] = C.hierarchical_allreduce(x, ici, dcn,
+                                                   mesh=mesh).numpy()
+        out[f"{k}_sum"] = C.hierarchical_allreduce(
+            x, ici, dcn, average=False, mesh=mesh).numpy()
+    hi = torch.from_numpy(inp["h_int"][r])
+    out["h_int_sum"] = C.hierarchical_allreduce(hi, ici, dcn, average=False,
+                                                mesh=mesh).numpy()
     return out
 
 
@@ -105,5 +140,312 @@ def expert_parallel(inp, cfg_kw, steps, lr):
                 out[f"{mode}{i}:{k}"] = v.detach().numpy().copy()
         if step is not None:
             out["exchange_mode"] = step._exchange
+    hvd.shutdown()
+    return out
+
+
+# ---------------------------------------------------------------- ZeRO
+
+class _MLP(torch.nn.Module):
+    """tests/test_zero_sharding.py's 6 -> 13 -> 3 MLP. Its parameters
+    register in the JAX package's leaf order (sorted keys: b1, b2, w1,
+    w2), so the ZeRO flat row matches the reference's element for
+    element."""
+
+    def __init__(self, params):
+        super().__init__()
+        for k in ("b1", "b2", "w1", "w2"):
+            self.register_parameter(k, torch.nn.Parameter(
+                torch.from_numpy(np.array(params[k]))))
+
+    def loss(self, x, y):
+        h = torch.tanh(x @ self.w1 + self.b1)
+        return ((h @ self.w2 + self.b2 - y) ** 2).mean()
+
+    def numpy(self):
+        return {k: v.detach().numpy().copy()
+                for k, v in self.named_parameters()}
+
+
+def _zero_train(inp, x, y, steps=10, base="adam", compiled=False, **kw):
+    """``steps`` steps of the MLP under ``DistributedOptimizer(**kw)``
+    over torch Adam or SGD at 1e-2, eagerly or through
+    ``compiled_train_step`` (a zero3 stripe loaded by ``shard_params``
+    first and read back by ``unshard_params``). Returns (parameters,
+    losses, optimizer)."""
+    model = _MLP(inp["params"])
+    cls = torch.optim.Adam if base == "adam" else torch.optim.SGD
+    opt = hvd.DistributedOptimizer(cls(model.parameters(), lr=1e-2),
+                                   named_parameters=model.named_parameters(),
+                                   **kw)
+    step = hvd.compiled_train_step(model.loss, opt) if compiled else None
+    if step is not None and step._resident:
+        step.shard_params()
+    losses = []
+    for _ in range(steps):
+        if step is not None:
+            loss = step(x, y)
+        else:
+            opt.zero_grad(set_to_none=True)
+            loss = model.loss(x, y)
+            loss.backward()
+            opt.step()
+        losses.append(float(loss))
+    if step is not None:
+        assert step.fallback_steps == 0
+    if step is not None and step._resident:
+        out = {k: v.numpy() for k, v in zip(
+            ("b1", "b2", "w1", "w2"), step.unshard_params())}
+    else:
+        out = model.numpy()
+    return out, losses, opt
+
+
+def _stages(family):
+    vals = family.collect()
+    return vals.get('stage="ici"', 0.0), vals.get('stage="dcn"', 0.0)
+
+
+def zero(inp):
+    """Every case of tests/test_torch_zero.py on this rank: the ladder,
+    its compiled forms, the zero3 layout, the staged scatter and gather,
+    compressed training, the residual's state and the metric
+    families."""
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.ops import collectives as C
+    hvd.init(device="cpu")
+    r, n = hvd.rank(), hvd.size()
+    rows = slice(4 * r, 4 * r + 4)
+    x = torch.from_numpy(inp["x"][rows])
+    y = torch.from_numpy(inp["y"][rows])
+    out = {"rank": r, "size": n}
+    for name, kw in (("zero0", {}), ("zero1", {"zero_stage": 1}),
+                     ("reduce_scatter", {"reduce_scatter": True}),
+                     ("zero2", {"zero_stage": 2}),
+                     ("zero3", {"zero_stage": 3}),
+                     ("zero2_b64", {"zero_stage": 2, "bucket_bytes": 64}),
+                     ("zero2_fp16", {"zero_stage": 2,
+                                     "compression": hvd.Compression.fp16}),
+                     ("dcn0_bf16", {"dcn_compression": "bf16",
+                                    "dcn_local_size": 2})):
+        out[name], _, opt = _zero_train(inp, x, y, **kw)
+        out[f"mode:{name}"] = opt._hvd_exchange
+    for name, base, kw in (("c_zero0", "adam", {}),
+                           ("c_zero2", "adam", {"zero_stage": 2}),
+                           ("c_zero3_adam", "adam", {"zero_stage": 3}),
+                           ("c_zero0_sgd", "sgd", {}),
+                           ("c_zero3_sgd", "sgd", {"zero_stage": 3})):
+        out[name], _, _ = _zero_train(inp, x, y, base=base, compiled=True,
+                                      **kw)
+    # compressed training against the uncompressed trajectory, 12 steps
+    for name, dcn in (("c12", ""), ("c12_bf16", "bf16"),
+                      ("c12_int8", "int8")):
+        out[name], out[f"loss:{name}"], _ = _zero_train(
+            inp, x, y, steps=12, compiled=True, zero_stage=2,
+            dcn_compression=dcn, dcn_local_size=2 if dcn else 0)
+
+    # the zero3 layout: the stripe, the Adam state over it, the round trip
+    model = _MLP(inp["params"])
+    opt = hvd.DistributedOptimizer(
+        torch.optim.Adam(model.parameters(), lr=1e-2),
+        named_parameters=model.named_parameters(), zero_stage=3)
+    step = hvd.compiled_train_step(model.loss, opt)
+    full = [p.detach().clone() for p in model.parameters()]
+    stripe = step.shard_params()
+    out["stripe_len"] = stripe.numel()
+    out["stripe"] = stripe.detach().numpy().copy()
+    out["roundtrip_exact"] = all(torch.equal(a, b) for a, b in
+                                 zip(full, step.unshard_params()))
+    step(x, y)
+    out["adam_state_shapes"] = [tuple(v.shape) for v in
+                                opt.state_dict()["state"][0].values()]
+    out["stripe_gauges"] = metrics.ZERO_STRIPE_BYTES.collect()
+
+    # the staged scatter and gather, exact and compressed
+    g = torch.from_numpy(inp["rows"][r])
+    for local in (1, 2, 4):
+        stripe, res = C.dcn_staged_psum_scatter(g, local=local)
+        out[f"staged{local}"] = C.dcn_staged_all_gather(
+            stripe, local=local).numpy()
+        out[f"staged_res{local}"] = res
+        out[f"sigma{local}"] = C.dcn_sigma(None, local)
+    c = torch.from_numpy(inp["crows"][r])
+    for comp in ("bf16", "int8"):
+        res0 = torch.zeros(c.shape[0] // 2)
+        stripe, res = C.dcn_staged_psum_scatter(
+            c, local=2, dcn_compression=comp, residual=res0)
+        out[f"full_{comp}"] = C.dcn_staged_all_gather(
+            stripe, local=2, dcn_compression=comp).numpy()
+        out[f"res_{comp}"] = res.numpy()
+        out[f"stripe_{comp}"] = stripe.numpy()
+
+    # the stripe a rank owns under staging (local 2): segment sigma(r)
+    model = _MLP(inp["params"])
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=1e-2),
+        named_parameters=model.named_parameters(), zero_stage=1,
+        dcn_compression="bf16", dcn_local_size=2)
+    out["staged_stripe"] = opt.stripe.detach().numpy().copy()
+    out["state_kinds"] = [type(o.zero_state()).__name__ for o in (
+        opt, hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=1e-2),
+            named_parameters=model.named_parameters(), zero_stage=1),
+        hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=1e-2),
+            named_parameters=model.named_parameters(),
+            dcn_compression="int8", dcn_local_size=2))]
+
+    # the residual is optimizer state
+    for name, kw in (("int8", {"dcn_compression": "int8",
+                               "dcn_local_size": 2}), ("plain", {})):
+        model = _MLP(inp["params"])
+        opt = hvd.DistributedOptimizer(
+            torch.optim.Adam(model.parameters(), lr=1e-2),
+            named_parameters=model.named_parameters(), zero_stage=2, **kw)
+        res = opt.state_dict()["dcn_residual"]
+        out[f"residual:{name}"] = None if res is None \
+            else res.numpy().copy()
+        out[f"state_residual:{name}"] = opt.zero_state().residual is res
+        if res is not None:
+            model.loss(x, y).backward()
+            opt.step()
+            sd = opt.state_dict()
+            out["residual_after_step"] = sd["dcn_residual"].numpy().copy()
+            opt2 = hvd.DistributedOptimizer(
+                torch.optim.Adam(_MLP(inp["params"]).parameters(),
+                                 lr=1e-2), zero_stage=2, **kw)
+            opt2.load_state_dict(sd)
+            out["residual_loaded"] = opt2.state_dict()["dcn_residual"] \
+                .numpy()
+            # broadcast_optimizer_state keeps each rank's stripe state
+            mine = sd["state"][0]["exp_avg"].clone()
+            hvd.broadcast_optimizer_state(opt, root_rank=0)
+            out["stripe_state_kept"] = torch.equal(
+                opt.state_dict()["state"][0]["exp_avg"], mine)
+            out["exp_avg"] = mine.numpy().copy()
+
+    # the metric families over 2 compiled int8 steps
+    stats = hvd.runtime.live_state().stats
+    jit0 = stats.jit_records()
+    w0 = _stages(metrics.WIRE_STAGE_BYTES)
+    r0 = _stages(metrics.WIRE_STAGE_RAW_BYTES)
+    _zero_train(inp, x, y, steps=2, compiled=True, zero_stage=2,
+                dcn_compression="int8", dcn_local_size=2)
+    out["wire"] = [a - b for a, b in zip(_stages(metrics.WIRE_STAGE_BYTES),
+                                         w0)]
+    out["raw"] = [a - b for a, b in zip(
+        _stages(metrics.WIRE_STAGE_RAW_BYTES), r0)]
+    out["zero_stage_gauge"] = metrics.ZERO_STAGE.value()
+    out["jit"] = {k: v - jit0.get(k, 0) for k, v in
+                  stats.jit_records().items() if v != jit0.get(k, 0)}
+    hvd.shutdown()
+    return out
+
+
+# ------------------------------------------------------- sharding spec
+
+def _compiled(model, opt, batch, steps):
+    step = hvd.compiled_train_step(model.loss, opt)
+    if step._resident:
+        step.shard_params()
+    for _ in range(steps):
+        step(*batch)
+    assert step.fallback_steps == 0
+    return step
+
+
+def sharding_spec(inp, cfg_kw, steps, lr):
+    """tests/test_torch_sharding_spec.py's cases on this rank of the 2
+    data x 2 expert layout (HOROVOD_EXPERT_PARALLEL=2): the 1-D ladder's
+    exchanges (psum, zero1-3) against the same layouts spelled as a
+    ``_ShardingSpec``, then one MoE layer trained through the moe fast
+    path, its spec spelling and the expert x ZeRO x DCN combinations,
+    ``steps`` compiled SGD (or Adam) steps each."""
+    from horovod_tpu_torch.ops.compression import Compression
+    from horovod_tpu_torch.optimizers import (
+        _DistributedOptimizer, _mix, _named, _ShardingSpec, _zero_sharded)
+    hvd.init(device="cpu")
+    r = hvd.rank()
+    ep = hvd.expert_parallel_size()
+    group = hvd.expert_mesh().get_group("ep")
+    out = {"rank": r}
+
+    def spec_hooks(base, model, spec):
+        named = _named(base, model.named_parameters())
+        return _mix(base, _DistributedOptimizer)(
+            base.param_groups, named, Compression.none, 1, 1, spec, "spec")
+
+    def spec_zero(base, model, stage, spec):
+        return _zero_sharded(base, _named(base, model.named_parameters()),
+                             Compression.none, 1, stage, "", 0, None, None,
+                             spec)
+
+    rows = slice(4 * r, 4 * r + 4)
+    batch = (torch.from_numpy(inp["x"][rows]),
+             torch.from_numpy(inp["y"][rows]))
+    cases = {"psum": (torch.optim.SGD, 0.1, {}, lambda b, m: spec_hooks(
+        b, m, _ShardingSpec()))}
+    for stage in (1, 2, 3):
+        cases[f"zero{stage}"] = (
+            torch.optim.Adam, 1e-2, {"zero_stage": stage},
+            lambda b, m, s=stage: spec_zero(b, m, s,
+                                            _ShardingSpec(zero_stage=s)))
+    for name, (cls, rate, kw, as_spec) in cases.items():
+        for form in ("direct", "spec"):
+            model = _MLP(inp["params"])
+            base = cls(model.parameters(), lr=rate)
+            opt = (hvd.DistributedOptimizer(
+                base, named_parameters=model.named_parameters(), **kw)
+                if form == "direct" else as_spec(base, model))
+            step = _compiled(model, opt, batch, 5)
+            out[f"{name}:{form}"] = (
+                [t.numpy() for t in step.unshard_params()] if step._resident
+                else [p.detach().numpy().copy() for p in model.parameters()])
+            out[f"mode:{name}:{form}"] = step._exchange
+
+    cfg = moe.MoEConfig(dtype=torch.float32, **cfg_kw)
+    full = {k: torch.from_numpy(inp[k]) for k in ("w1", "w2", "w_router")}
+    mine = moe.expert_slice(full, r % ep, ep)
+    mbatch = (torch.from_numpy(inp["mx"][r]), torch.from_numpy(inp["my"][r]))
+    keys = ("w1", "w2")
+    dcn = {"dcn_compression": "bf16", "dcn_local_size": 2}
+    moe_cases = {
+        "moe": (torch.optim.SGD, {"expert_keys": keys}),
+        "moe_spec": (torch.optim.SGD, None),
+        "moe_zero2": (torch.optim.SGD, {"expert_keys": keys,
+                                        "zero_stage": 2}),
+        "moe_zero2_dcn": (torch.optim.SGD, {"expert_keys": keys,
+                                            "zero_stage": 2, **dcn}),
+        "moe_dcn": (torch.optim.SGD, {"expert_keys": keys, **dcn}),
+        "moe_zero2_staged": (torch.optim.SGD, {
+            "expert_keys": keys, "zero_stage": 2,
+            "dcn_compression": "bf16", "dcn_local_size": 1}),
+        "adam_zero2_dcn": (torch.optim.Adam, {"expert_keys": keys,
+                                              "zero_stage": 2, **dcn}),
+        "adam_zero0_dcn": (torch.optim.Adam, {"expert_keys": keys, **dcn}),
+        "zero2_only": (torch.optim.SGD, {"zero_stage": 2}),
+    }
+    for name, (cls, kw) in moe_cases.items():
+        local = name == "zero2_only"
+        model = _MoELoss(full if local else mine, cfg,
+                         None if local else group, chunks=1)
+        base = cls(model.parameters(), lr=lr if cls is torch.optim.SGD
+                   else 1e-2)
+        if kw is None:
+            opt = spec_hooks(base, model, _ShardingSpec(
+                "hvd", "ep", keys))
+        else:
+            opt = hvd.DistributedOptimizer(
+                base, named_parameters=model.named_parameters(), **kw)
+        step = _compiled(model, opt, mbatch,
+                         5 if name.startswith("adam") else steps)
+        out[name] = {k: v.detach().numpy().copy()
+                     for k, v in model.moe.items()}
+        out[f"mode:{name}"] = step._exchange
+        if kw and "dcn_compression" in kw:
+            out[f"spec:{name}"] = (opt._spec.mesh_axes,
+                                   opt._spec.dcn_link)
+    from horovod_tpu_torch import metrics
+    out["spec_leaves"] = metrics.SPEC_LEAVES.collect()
     hvd.shutdown()
     return out
