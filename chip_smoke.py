@@ -19,7 +19,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    ``flash_bwd_dq`` and ``flash_bwd_dkv`` at the training head shape
    (B 1, S 4096), the SP diagonal tile with lse and delta strided as the
    ring's chunks are, and ragged causal, windowed, non-causal MHA and f32
-   shapes. Every kernel, forward and backward, takes the tensor-core
+   shapes. Both at a TP rank's heads too (H 8 / H_kv 2: the prefill
+   B 8 x 512 and the training B 1 x 4096, whose dO has the batch stride
+   1 that autograd gives it there). Every kernel, forward and backward, takes the tensor-core
    route on bf16 at D 64 or 128 and the CUDA-core loop elsewhere (the
    f32 shapes), as ``tensor_core_route`` says, and each shape checks
    that it took the route the rule gives. Each kernel, its plain version
@@ -133,9 +135,36 @@ The ZeRO ladder has a phase of its own, after the compiled train phase:
   each static kernel on the tensor-core route and one reduce-scatter
   and one all-gather record a chunk, 1 cache miss and no fallback;
   step time, tokens/s, peak memory and the ``hvd_zero_stripe_bytes``
-  gauges beside stage 0's. The staged exchange needs two ranks and
-  NCCL refuses two on one card: it is checked on the CPU only, and the
-  phase says so.
+  gauges beside stage 0's. The three stages share one session: a
+  dropped step leaves the program cache, so each peak lies within 0.5
+  GiB of the one the stage reaches in a session of its own. The staged
+  exchange needs two ranks and NCCL refuses two on one card: it is
+  checked on the CPU only, and the phase says so.
+
+Tensor parallelism has a phase of its own, after the zero train phase:
+two processes on this card (``chip_smoke.py --tp-rank R PORT OUT``),
+one model group joined by gloo, which moves card tensors through the
+host (NCCL refuses two ranks on one card); each checks first that gloo
+carries card tensors, then ``hvd.init()`` keeps that group and builds
+the 3-D mesh. The flagship at full width, each rank H 8 / H_kv 2:
+
+- tp serve (main path 10): the 8 requests through ``ServeEngine(mesh,
+  tp_axis)`` in lockstep, teacher-forced on the unsharded engine's
+  greedy streams (logits within LOGITS_ATOL; the argmax equal wherever
+  the unsharded top-2 gap exceeds TP_NEAR_TIE) and free running (each
+  stream equal to the unsharded one up to such a near-tie); each rank's
+  KV pool holds H_kv 2; 16 ``flash_fwd`` launches a rank. Off the
+  counted path, the same 8 requests in f32 activations: every TP token
+  identical to the unsharded engine's;
+- tp train (main path 11): B 1 x 4096 through the sharded trunk and
+  ``DistributedOptimizer(AdamW, model_keys=...)``: the loss within
+  TRAIN_LOSS_ATOL of the unsharded model's, every gathered gradient
+  within TRAIN_GRAD_REL (a model leaf's divided by the group's size:
+  the reference's psum transposes to a psum), the loss falling over 3
+  AdamW steps; 8 launches of each static kernel a step.
+
+Its times are gloo's through the host with two ranks on one card, not
+a TP speed figure, and the phase prints them so.
 
 The kernels phases also run the CUDA-core loop at head dims 256 and 320
 (the latter in 256-column pieces) against the plain versions and time
@@ -144,8 +173,9 @@ it (off every main path).
 On every main path each kernel launch takes the tensor-core route: the
 loop's counters stay at 0 there, and the route's counters are exact (8
 ``flash_fwd`` a prefill, replayed or not; 8 of each static kernel a
-data-parallel step, replayed or not; 32 static and 40 band of each an SP
-step). A graph's replay counts the launches its capture recorded.
+data-parallel step, replayed or not, or a TP step; 32 static and 40
+band of each an SP step). A graph's replay counts the launches its
+capture recorded; a TP path's launches are one rank's.
 
 Each main path runs with the kernel launch counts zeroed just before it
 and read just after. The first line is the card's name and power limit
@@ -156,6 +186,7 @@ last two lines, which are
 """
 
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -447,6 +478,8 @@ def phase_kernels(fa, card, gen):
     cases = [  # (B, S, H, H_kv, D, dtype, causal, window)
         (8, PROMPT_LEN, 16, 4, 128, torch.bfloat16, True, None),  # prefill
         (1, TRAIN_SEQ, 16, 4, 128, torch.bfloat16, True, None),  # training
+        (8, PROMPT_LEN, 8, 2, 128, torch.bfloat16, True, None),  # TP prefill
+        (1, TRAIN_SEQ, 8, 2, 128, torch.bfloat16, True, None),   # TP training
         (SP_BATCH, SP_SHARD, 16, 4, 128, torch.bfloat16, True,
          SP_WINDOW),                                    # SP diagonal tile
         (2, 1000, 16, 4, 128, torch.bfloat16, True, None),        # ragged
@@ -834,14 +867,19 @@ def backward_work(b, s, h, h_kv, d, dtype, causal, window):
 
 
 def bwd_inputs(fa, card, gen, b, s, h, h_kv, d, dtype, causal, window,
-               shard=None):
+               shard=None, unit_batch_stride=False):
     """q, k, v, dO in ``dtype`` and the forward's lse and delta. With
     ``shard`` i, lse and delta are the strided views of shard i of a
-    (B, H, SP_RING * S) pair, as a chunk of the ring's lse is."""
+    (B, H, SP_RING * S) pair, as a chunk of the ring's lse is. With
+    ``unit_batch_stride`` (B 1), dO's batch stride is 1, as autograd
+    hands it to the tensor-parallel step's backward."""
     q = torch.randn(b, s, h, d, generator=gen, device=card).to(dtype)
     k = torch.randn(b, s, h_kv, d, generator=gen, device=card).to(dtype)
     v = torch.randn(b, s, h_kv, d, generator=gen, device=card).to(dtype)
     do = torch.randn(b, s, h, d, generator=gen, device=card).to(dtype)
+    if unit_batch_stride:
+        check(b == 1, "a batch stride of 1 needs B 1")
+        do = do.as_strided(do.shape, (1,) + do.stride()[1:])
     out, lse = fa.flash_attention_with_lse(q, k, v, causal, window)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     if shard is not None:
@@ -904,6 +942,11 @@ def hold_backward(fa, name, got, args, extra, bound_args):
     return worst, worst32, tc, "; ".join(text)
 
 
+# The TP training shape of the backward kernels: a rank's H 8 / H_kv 2
+# at B 1, whose dO autograd hands over with a batch stride of 1.
+TP_TRAIN_BWD = (1, TRAIN_SEQ, 8, 2, 128, torch.bfloat16, True, None)
+
+
 def phase_backward_kernels(fa, card, gen):
     """flash_bwd_dq and flash_bwd_dkv against their plain versions at
     every listed shape; the kernels and SDPA's backward timed at the
@@ -911,6 +954,8 @@ def phase_backward_kernels(fa, card, gen):
     of the kernels line (launches filled in by the main paths)."""
     cases = [  # (B, S, H, H_kv, D, dtype, causal, window)
         (1, TRAIN_SEQ, 16, 4, 128, torch.bfloat16, True, None),  # training
+        (8, PROMPT_LEN, 8, 2, 128, torch.bfloat16, True, None),  # TP prefill
+        TP_TRAIN_BWD,                      # TP training, dO batch stride 1
         # the SP path's diagonal tile, lse and delta strided as the ring's
         (SP_BATCH, SP_SHARD, 16, 4, 128, torch.bfloat16, True, SP_WINDOW),
         (1, 1000, 16, 4, 128, torch.bfloat16, True, None),       # ragged
@@ -927,8 +972,10 @@ def phase_backward_kernels(fa, card, gen):
     worst32 = dict.fromkeys(names, 0.0)
     plain_ms = {}
     for i, (b, s, h, h_kv, d, dtype, causal, window) in enumerate(cases):
+        unit = cases[i] == TP_TRAIN_BWD
         args = bwd_inputs(fa, card, gen, b, s, h, h_kv, d, dtype, causal,
-                          window, shard=1 if s == SP_SHARD else None)
+                          window, shard=1 if s == SP_SHARD else None,
+                          unit_batch_stride=unit)
         got = {"flash_bwd_dq": (fa.flash_bwd_dq(*args, causal, window),),
                "flash_bwd_dkv": fa.flash_bwd_dkv(*args, causal, window)}
         torch.cuda.synchronize()
@@ -943,7 +990,8 @@ def phase_backward_kernels(fa, card, gen):
             worst[name] = max(worst[name], err)
             worst32[name] = max(worst32[name], err32)
         print(f"kernel backward B={b} S={s} H={h} H_kv={h_kv} D={d} "
-              f"{str(dtype)[6:]} causal={causal} window={window} "
+              f"{str(dtype)[6:]} causal={causal} window={window}"
+              f"{' dO batch stride 1' if unit else ''} "
               f"[{'tensor cores' if tc else 'loop'}]: " + "; ".join(line),
               flush=True)
         if i == 0:
@@ -1735,6 +1783,13 @@ def phase_compiled_train(hvd, fa, tfm, card, where, model=FLAGSHIP,
 
 
 ZERO_STAGES = (1, 2, 3)
+# Each stage's peak memory at 4 x 4096 when it ran in a session of its
+# own (GiB; this phase before the stages shared a session, on an NVIDIA
+# H100 80GB HBM3 at 700 W): in one session a stage may not read more
+# than ZERO_PEAK_SLACK_GIB above it, as it did while dropped steps stayed
+# in the program cache (+9.1 GiB a stage).
+ZERO_SESSION_PEAK_GIB = {1: 25.89, 2: 25.96, 3: 26.02}
+ZERO_PEAK_SLACK_GIB = 0.5
 
 
 def phase_zero_train(hvd, fa, tfm, metrics, card, where, stage0):
@@ -1752,11 +1807,12 @@ def phase_zero_train(hvd, fa, tfm, metrics, card, where, stage0):
     cache miss, 0 fallbacks, per replay 8 launches of each static kernel
     on the tensor-core route and one ``reducescatter_jit`` and one
     ``allgather_jit`` a chunk. Prints step time, tokens/s, peak memory
-    and the ``hvd_zero_stripe_bytes`` gauges beside stage 0's. Each stage
-    runs in a session of its own, as stage 0 did: a session's program
-    cache keeps a step's graph, and with it the step's model and
-    optimizer, until ``shutdown()``. Returns {kernel: launches} of the
-    compiled steps, summed over the stages."""
+    and the ``hvd_zero_stripe_bytes`` gauges beside stage 0's. The three
+    stages run in one session: a dropped step's program leaves the
+    session's cache with its model and optimizer, so each stage's peak
+    must lie within ZERO_PEAK_SLACK_GIB of the peak it reached in a
+    session of its own (ZERO_SESSION_PEAK_GIB). Returns {kernel:
+    launches} of the compiled steps, summed over the stages."""
     print("zero train: no staged step on this card: two DCN stages need "
           "two ranks at least and NCCL refuses two ranks on one card, so "
           "the staged exchange and its bf16/int8 hops are checked on the "
@@ -1787,10 +1843,10 @@ def phase_zero_train(hvd, fa, tfm, metrics, card, where, stage0):
         end.record()
         return loss, (start, end)
 
+    hvd.init(device=card)
+    stats = hvd.runtime.live_state().stats
     for stage in ZERO_STAGES:
         t0 = time.perf_counter()
-        hvd.init(device=card)
-        stats = hvd.runtime.live_state().stats
         lm, opt = build(stage)
         eager_losses = []
         for _ in range(COMPILED_STEPS):
@@ -1897,13 +1953,338 @@ def phase_zero_train(hvd, fa, tfm, metrics, card, where, stage0):
                                               else 0)
               and gauges['kind="opt"'] == 2 * stripe * 4 + 4,
               f"zero{stage}: gauges {gauges} for a stripe of {stripe}")
+        alone = ZERO_SESSION_PEAK_GIB[stage]
+        print(f"zero{stage} peak in one session with the earlier stages: "
+              f"{peak / 2 ** 30:.2f} GiB against {alone:.2f} GiB in a "
+              f"session of its own (slack {ZERO_PEAK_SLACK_GIB} GiB); "
+              f"programs cached {len(hvd.runtime.live_state().programs)}",
+              flush=True)
+        check(abs(peak / 2 ** 30 - alone) <= ZERO_PEAK_SLACK_GIB,
+              f"zero{stage}: peak {peak / 2 ** 30:.2f} GiB in one session, "
+              f"{alone:.2f} GiB alone")
         del step, prog, opt, lm
         gc.collect()
-        hvd.shutdown()
         torch.cuda.empty_cache()
+        check(len(hvd.runtime.live_state().programs) == 0,
+              f"zero{stage}: the dropped step's program is still cached")
+    hvd.shutdown()
     del init
     os.environ.pop("HOROVOD_PROFILER_JIT_CALLBACKS")
     return total
+
+
+# Tensor parallelism on one card: two processes, one model group, joined
+# by gloo (NCCL refuses two ranks on one card; gloo moves card tensors
+# through the host). The flagship at full width, each rank holding half
+# of every head, FFN and vocabulary stripe: H 8 / H_kv 2 a rank. Serving
+# the 8 requests above; training at B 1 x 4096, one step checked against
+# the unsharded model and TP_STEPS more AdamW steps.
+TP_RANKS, TP_BATCH, TP_STEPS = 2, 1, 3
+TP_TIMEOUT_S = 900
+# A top-2 gap of the unsharded logits at or below which a bf16 argmax is
+# left to the rounding: TP sums ``wo`` and ``w2`` over heads and columns
+# in another order, and the bf16 residual carries that. Fixed between
+# the largest gap an H100 run flipped at (0.015) and the smallest twice
+# a flipped row's max|d| (0.0586); at f32 the tokens must be identical.
+TP_NEAR_TIE = 2.0 ** -5
+
+
+def _gloo_carries_cuda(dist, card):
+    """gloo's all_reduce, all_gather and broadcast on card tensors, each
+    against its answer on both ranks."""
+    r = dist.get_rank()
+    x = torch.full((4,), float(r + 1), device=card)
+    dist.all_reduce(x)
+    parts = [torch.empty(2, device=card) for _ in range(TP_RANKS)]
+    dist.all_gather(parts, torch.full((2,), float(r), device=card))
+    b = torch.full((3,), float(r + 7), device=card)
+    dist.broadcast(b, src=0)
+    return (x.tolist() == [3.0] * 4 and b.tolist() == [7.0] * 3
+            and [p.tolist() for p in parts] == [[0.0, 0.0], [1.0, 1.0]])
+
+
+def _tp_greedy(eng):
+    """The 8 greedy requests through a batcher on ``eng``: (streams,
+    wall seconds, scheduler steps)."""
+    from horovod_tpu_torch.serve.scheduler import ContinuousBatcher, Request
+    batcher = ContinuousBatcher(eng, max_batch=N_REQUESTS)
+    reqs = [Request(p, NEW_TOKENS) for p in prompts(eng.cfg.vocab_size)]
+    for q in reqs:
+        batcher.submit(q)
+    t0 = time.perf_counter()
+    batcher.drain()
+    return [q.generated for q in reqs], time.perf_counter() - t0, \
+        batcher.steps
+
+
+def _tp_teacher_forced(eng, streams):
+    """The logits rows (NEW_TOKENS, 8, V) of the 8 prompts' prefill and
+    of NEW_TOKENS - 1 decode steps fed ``streams``, and the prefill's
+    time (ms); the pages freed after."""
+    ids = list(range(N_REQUESTS))
+    for sid in ids:
+        eng.cache.allocate(sid, PROMPT_LEN + NEW_TOKENS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = [eng.prefill(ids, prompts(eng.cfg.vocab_size))]
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    for i in range(NEW_TOKENS - 1):
+        rows.append(eng.decode(ids, [s[i] for s in streams],
+                               [PROMPT_LEN + i] * N_REQUESTS))
+    for sid in ids:
+        eng.cache.free(sid)
+    return np.stack(rows), prefill_ms
+
+
+def _tp_serve_checks(rows, ref_rows, tokens, streams):
+    """The TP engine against the unsharded one: ``(ok, message)`` pairs.
+    Teacher-forced on the unsharded greedy streams, every logit lies
+    within LOGITS_ATOL, and the argmax agrees wherever the unsharded
+    row's top-2 gap exceeds TP_NEAR_TIE; each free-running TP stream
+    equals the unsharded one up to its first difference, and that
+    difference is one of those near-ties, teacher-forced."""
+    diff = np.abs(rows - ref_rows)
+    got, want = rows.argmax(-1), ref_rows.argmax(-1)
+    top2 = np.sort(ref_rows, axis=-1)[..., -2:]
+    gap = top2[..., 1] - top2[..., 0]
+    row_d = diff.max(-1)
+    flips = list(zip(*np.nonzero(got != want)))
+    decided = [(int(p), int(i)) for p, i in flips if gap[p, i] > TP_NEAR_TIE]
+    first = [next((p for p, (a, b) in enumerate(zip(t, s)) if a != b), None)
+             for t, s in zip(tokens, streams)]
+    unexplained = [(i, p) for i, p in enumerate(first) if p is not None
+                   and (got[p, i] == want[p, i] or got[p, i] != tokens[i][p])]
+    print(f"tp serve vs unsharded, teacher-forced on its 8 x {NEW_TOKENS} "
+          f"greedy tokens: logits max|d| {float(diff.max()):.4g} (tol "
+          f"{LOGITS_ATOL:g}; prefill {float(diff[0].max()):.4g}); argmax "
+          f"differs at {len(flips)} of {got.size} positions, top-2 gaps "
+          f"{[round(float(gap[p, i]), 4) for p, i in flips]} (near-tie at "
+          f"<= {TP_NEAR_TIE:g}; the rows' max|d| "
+          f"{[round(float(row_d[p, i]), 4) for p, i in flips]}); "
+          f"free-running streams identical {first.count(None)} of "
+          f"{len(first)} (first difference at {first})", flush=True)
+    return [(np.isfinite(rows).all() and float(diff.max()) <= LOGITS_ATOL,
+             "tp logits disagree with the unsharded engine's"),
+            (not decided, f"tp argmax differs where the unsharded choice "
+                          f"is clear: {decided}"),
+            (not unexplained, f"tp streams diverge where teacher forcing "
+                              f"agrees: {unexplained}")]
+
+
+def tp_worker(rank, port, out_path):
+    """One rank of the TP phase (``chip_smoke.py --tp-rank R PORT OUT``):
+    joins the gloo group, checks that gloo carries card tensors, then
+    ``hvd.init()`` takes the group and builds the model mesh
+    (HOROVOD_MODEL_PARALLEL=2; programs eager, HOROVOD_STEP_PROGRAM=0: a
+    gloo collective cannot be captured). Rank 0 also runs the unsharded
+    model for the comparisons and writes the results to ``out_path``."""
+    import torch.distributed as dist
+    card = torch.device("cuda", 0)
+    torch.cuda.set_device(card)
+    os.environ.update(HOROVOD_MODEL_PARALLEL=str(TP_RANKS),
+                      HOROVOD_STEP_PROGRAM="0", HOROVOD_PROFILER_DISABLE="1")
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=TP_RANKS)
+    check(_gloo_carries_cuda(dist, card),
+          "gloo does not carry card tensors for all_reduce, all_gather "
+          "and broadcast: the TP phase cannot run on one card")
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.serve.engine import ServeEngine
+    hvd.init(device=card)
+    mesh = hvd.model_mesh()
+    tp = mesh.get_group("model")
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
+                                loss_chunk=LOSS_CHUNK, **FLAGSHIP)
+    full = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    specs = tfm.param_specs(cfg)
+    label = "gloo through the host, 2 ranks on one card: not a TP speed " \
+            "figure"
+    res = {"gloo_cuda": True}
+
+    # ---- serving: the unsharded engine on rank 0, then the TP engine,
+    # each free-running and teacher-forced on the unsharded streams
+    on_card = to_card(full, card)  # the TP engine cuts its shard
+    streams = [None]
+    if rank == 0:
+        ref = ServeEngine(on_card, cfg, page_size=PAGE_SIZE, device=card)
+        streams[0], _, _ = _tp_greedy(ref)
+        ref_rows, _ = _tp_teacher_forced(ref, streams[0])
+        del ref
+        torch.cuda.empty_cache()
+    dist.broadcast_object_list(streams, src=0)
+    eng = ServeEngine(on_card, cfg, mesh=mesh, tp_axis="model",
+                      page_size=PAGE_SIZE, device=card)
+    h_kv = eng._k_pool.shape[3]
+    zero_launches(fa)
+    rows, prefill_ms = _tp_teacher_forced(eng, streams[0])
+    tokens, wall, steps = _tp_greedy(eng)
+    torch.cuda.synchronize()
+    serve_launches = read_launches(fa)
+    del eng
+    # the same requests in f32 activations, where the TP tokens must be
+    # those of the unsharded engine
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    if rank == 0:
+        ref32, _, _ = _tp_greedy(ServeEngine(
+            on_card, cfg32, page_size=PAGE_SIZE, device=card))
+    tokens32, _, _ = _tp_greedy(ServeEngine(
+        on_card, cfg32, mesh=mesh, tp_axis="model", page_size=PAGE_SIZE,
+        device=card))
+    del on_card
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"tp serve rank {rank} ({label}): prefill 8 x 512 "
+          f"{prefill_ms:.1f} ms; {steps} scheduler steps in "
+          f"{wall * 1e3:.1f} ms ({wall * 1e3 / steps:.1f} ms a step); "
+          f"KV pool H_kv {h_kv}; launches {serve_launches}", flush=True)
+    checks = [(h_kv == FLAGSHIP["n_kv_heads"] // TP_RANKS,
+               f"rank {rank}: the KV pool holds {h_kv} kv heads"),
+              (serve_launches["flash_fwd_wgmma"] == 2 * cfg.n_layers
+               and sum(serve_launches.values()) == 2 * cfg.n_layers,
+               f"rank {rank} tp_serve launches {serve_launches}: "
+               f"{2 * cfg.n_layers} flash_fwd on the tensor cores expected")]
+    if rank == 0:
+        checks += _tp_serve_checks(rows, ref_rows, tokens, streams[0])
+        same = [a == b for a, b in zip(tokens32, ref32)]
+        print(f"tp serve f32 vs unsharded f32: {sum(same)} of "
+              f"{len(same)} streams of {NEW_TOKENS} tokens identical",
+              flush=True)
+        checks.append((all(same), "tp f32 tokens differ from the "
+                                  "unsharded f32 engine's"))
+        res.update(prefill_ms=prefill_ms, decode_step_ms=wall * 1e3 / steps,
+                   logits_max_abs=float(np.abs(rows - ref_rows).max()))
+        del rows, ref_rows
+
+    # ---- training: the unsharded step on rank 0, then the TP steps
+    rng = np.random.default_rng(1)
+    batch = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                          (TP_BATCH, TRAIN_SEQ))).to(card)
+    targets = torch.roll(batch, -1, dims=1)
+    if rank == 0:
+        ref = tfm.TransformerLM(cfg, to_card(full, card), device=card)
+        loss = ref.loss(batch, targets)
+        loss.backward()
+        ref_loss = loss.item()
+        ref_grads = {k: v.grad.float().cpu()
+                     for k, v in tfm._named_leaves(ref.params)}
+        del ref, loss
+        torch.cuda.empty_cache()
+    shard = to_card(tfm.slice_param_shards(full, specs, mesh), card)
+    del full
+    dist.barrier()
+    lm = tfm.TransformerLM(cfg, shard, device=card,
+                           axes=tfm.ShardAxes(tp=tp))
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(lm.parameters(), **ADAMW),
+        named_parameters=lm.named_parameters(),
+        model_keys=tfm.model_parallel_keys(cfg))
+    zero_launches(fa)
+    losses, step_ms = [], []
+    for i in range(1 + TP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = lm.loss(batch, targets)
+        loss.backward()
+        opt.synchronize()
+        if i == 0:
+            grads = {k: v.grad for k, v in tfm._named_leaves(lm.params)}
+        opt.step(synchronize=False)
+        losses.append(loss.item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            # the exchanged gradients, gathered over the group: a model
+            # leaf's is tp times its block of the unsharded gradient (the
+            # reference's psum transposes to a psum), a replicated leaf's
+            # the unsharded gradient itself
+            rel = {}
+            spec_of = dict(tfm._named_leaves(specs))
+            for k, g in grads.items():
+                if "model" in spec_of[k]:
+                    parts = [torch.empty_like(g) for _ in range(TP_RANKS)]
+                    dist.all_gather(parts, g.contiguous(), group=tp)
+                    g = torch.cat(parts, spec_of[k].index("model")) / TP_RANKS
+                if rank == 0:
+                    want = ref_grads.pop(k)
+                    g = g.float().cpu()
+                    rel[k] = float((g - want).norm()
+                                   / want.norm().clamp_min(1e-30))
+            del grads
+    torch.cuda.synchronize()
+    train_launches = read_launches(fa)
+    want_n = (1 + TP_STEPS) * cfg.n_layers
+    check(all(train_launches[k] == want_n for k in (
+        "flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma"))
+        and sum(train_launches.values()) == 3 * want_n,
+        f"rank {rank} tp_train launches {train_launches}: {want_n} of each "
+        "static kernel on the tensor cores expected")
+    print(f"tp train rank {rank} ({label}): B {TP_BATCH} x {TRAIN_SEQ}, "
+          f"steps {' '.join(f'{t:.1f}' for t in step_ms)} ms, losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}; launches "
+          f"{train_launches}", flush=True)
+    for ok, msg in checks:
+        check(ok, msg)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"tp train: losses not finite or not falling: {losses}")
+    if rank == 0:
+        worst = max(rel, key=rel.get)
+        print(f"tp train vs unsharded: loss {losses[0]:.6f} vs "
+              f"{ref_loss:.6f} (|d| {abs(losses[0] - ref_loss):.3g}, tol "
+              f"{TRAIN_LOSS_ATOL:g}); gathered gradients relative L2 worst "
+              f"{rel[worst]:.4g} at {worst} (tol {TRAIN_GRAD_REL:g}), median "
+              f"{float(np.median(list(rel.values()))):.4g} over {len(rel)} "
+              "leaves", flush=True)
+        check(abs(losses[0] - ref_loss) <= TRAIN_LOSS_ATOL,
+              "tp loss differs from the unsharded model's")
+        check(rel[worst] <= TRAIN_GRAD_REL,
+              "tp gradients differ from the unsharded model's")
+        res.update(launches={"tp_serve": serve_launches,
+                             "tp_train": train_launches},
+                   step_ms=step_ms, losses=losses, ref_loss=ref_loss,
+                   grad_rel_worst=rel[worst])
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+    del lm, opt
+    hvd.shutdown()
+    dist.destroy_process_group()
+
+
+def phase_tp(where):
+    """Tensor parallelism at full width, two ranks on this card
+    (:func:`tp_worker`, main paths tp_serve and tp_train): the TP
+    engine against the unsharded one (:func:`_tp_serve_checks`: logits
+    within LOGITS_ATOL teacher-forced, argmax and free-running tokens
+    equal but at near-ties of at most TP_NEAR_TIE; in f32 every token
+    equal); each rank's KV pool holds H_kv 2; the TP
+    step's loss lies within TRAIN_LOSS_ATOL of the unsharded model's and
+    every gathered gradient within TRAIN_GRAD_REL; the loss falls over
+    TP_STEPS AdamW steps; every flash launch (H 8 / H_kv 2) takes the
+    tensor-core route. Returns ({kernel: launches} of tp_serve, of
+    tp_train), rank 0's."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out = os.path.join(tempfile.mkdtemp(), "tp.json")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--tp-rank", str(r), str(port), out])
+             for r in range(TP_RANKS)]
+    try:
+        codes = [p.wait(timeout=TP_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(codes == [0] * TP_RANKS, f"tp ranks exited with {codes}")
+    with open(out) as f:
+        res = json.load(f)
+    print(f"tp phase [{where}]: 2 ranks over gloo on one card, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return res["launches"]["tp_serve"], res["launches"]["tp_train"]
 
 
 def moe_stats(tfm, moe, metrics, params, tokens, cfg, full_capacity):
@@ -2311,6 +2692,9 @@ def phase_bench(where):
               f"bench moe row {row}")
     check(moe["metric"] == "moe_tokens_per_sec_per_chip",
           f"bench moe line {moe}")
+    check("divisible by 8" in res["mesh3d"].get("skipped", ""),
+          f"bench mesh3d row {res['mesh3d']}: one card cannot hold the "
+          "2x2x2 mesh")
     zero = res["zero_profile"]
     check("skipped" not in zero and zero["dcn_bytes_saved_frac"] is None
           and zero["dcn_loss_delta"] == 0.0
@@ -2394,6 +2778,8 @@ def main():
     del stage0
     gc.collect()
     print(f"zero train phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    tp_serve_launches, tp_train_launches = phase_tp(where)
     # flagship-moe's weights, drawn once on the host (seed 0) for every
     # MoE phase
     t0 = time.perf_counter()
@@ -2429,7 +2815,8 @@ def main():
              "compiled_train": compiled_train_launches,
              "zero_train": zero_launches_by_stage,
              "moe_train": moe_train_launches,
-             "moe_serve": moe_serve_launches}
+             "moe_serve": moe_serve_launches,
+             "tp_serve": tp_serve_launches, "tp_train": tp_train_launches}
     for e in entries:
         # a kernel's launches are its tensor-core route's: the main paths
         # launch its loop never (checked in phase_serve and phase_train)
@@ -2449,4 +2836,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-rank"]:
+        tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

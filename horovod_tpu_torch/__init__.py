@@ -8,7 +8,9 @@ kernels (ops/csrc/flash_fwd.cu, ops/csrc/flash_bwd.cu), averages
 gradients over data-parallel ranks (replicated, or ZeRO-sharded at
 stages 1-3 with an optional two-stage exchange whose cross-host hop is
 bf16 or int8), trains and serves Mixture-of-Experts layers
-(expert-parallel over a process group), and runs the hot loop (the
+(expert-parallel over a process group), trains and serves the flagship
+Megatron-sharded over a model group (the 3-D (data, expert, model)
+mesh), and runs the hot loop (the
 training step, serving's shape bins, ``generate``'s decode steps) as
 CUDA graphs:
 
@@ -38,7 +40,8 @@ from .optimizers import (DistributedOptimizer, broadcast_optimizer_state,
                          broadcast_parameters)
 from .runtime import (AXIS, cross_rank, cross_size, expert_mesh,
                       expert_parallel_size, init, is_initialized, local_rank,
-                      local_size, mesh, rank, shutdown, size)
+                      local_size, mesh, model_mesh, model_parallel_size,
+                      rank, shutdown, size)
 
 __version__ = "0.2.0"
 
@@ -51,6 +54,6 @@ __all__ = [
     "bucketed_reducescatter_allgather", "compiled_train_step", "cross_rank",
     "cross_size", "expert_mesh", "expert_parallel_size",
     "exchange_bucket_plan", "grouped_allreduce", "hierarchical_allreduce",
-    "init", "is_initialized", "local_rank", "local_size", "mesh", "models",
-    "rank", "reducescatter", "serve", "shutdown", "size",
+    "init", "is_initialized", "local_rank", "local_size", "mesh",
+    "model_mesh", "model_parallel_size", "models", "rank", "reducescatter", "serve", "shutdown", "size",
 ]

@@ -46,6 +46,9 @@ sub-dict, and ``moe``
 ``bench.transformer --moe``'s at 4 iterations, on the expert mesh of 4
 ranks, or 2, as bench.py picks it, and at ``--expert-parallel 1``
 (every expert on each card) when the world is odd, one card included.
+``mesh3d`` is ``bench.transformer --mesh3d``'s at 4 iterations where the
+world holds a multiple of 8 ranks (the 2x2x2 mesh), else a skipped row
+with bench.py's reason.
 """
 
 import argparse
@@ -80,7 +83,7 @@ NOT_PORTED = {
     "dispatch": 10, "eager_exchange": 10,
     "input_pipeline": 14, "flight_step_phase_breakdown": 16,
     "guard_overhead_frac": 15, "trace_overhead_frac": 16,
-    "mesh3d": 6, "control_plane": 16,
+    "control_plane": 16,
 }
 # bench.py's compiled-step profile parts whose subsystems are not ported:
 # the bucket overlap A/B and its microbench, which read the step's phase
@@ -384,6 +387,24 @@ def _zero_profile(device):
     }
 
 
+def _mesh3d_row(device):
+    """bench.py's composable-parallelism row: ``bench.transformer
+    --mesh3d``'s sub-dict at 4 iterations on the 2x2x2 (data, expert,
+    model) mesh, where the world holds a multiple of 8 ranks; else, or
+    when it fails, a skipped row saying why, as bench.py records it."""
+    if runtime.size() % 8:
+        return {"skipped": "needs a device count divisible by 8 and the "
+                           "device-resident path for the 2x2x2 (data, "
+                           "expert, model) mesh"}
+    try:
+        return transformer_bench.run_mesh3d_benchmark(
+            transformer_bench.parse_args(
+                ["--mesh3d", "--iters", "4", "--device", device.type])
+        )["mesh3d"]
+    except Exception as e:  # noqa: BLE001 - recorded, as bench.py does
+        return {"skipped": f"{type(e).__name__}: {e}"}
+
+
 def run_benchmark(proto, device):
     runtime.init(device=device)
     device = runtime.device()
@@ -448,6 +469,7 @@ def run_benchmark(proto, device):
         ["--moe", "--iters", "4", "--expert-parallel", str(ep),
          "--device", device.type]))["moe"]
     zero = _zero_profile(runtime.device())
+    mesh3d = _mesh3d_row(device)
     result = {
         "metric": "resnet50_img_sec_per_chip",
         "value": round(mean, 2),
@@ -466,6 +488,7 @@ def run_benchmark(proto, device):
         "serve": serve,
         "moe": moe,
         "zero_profile": zero,
+        "mesh3d": mesh3d,
         "card": card,
     }
     for key, item in NOT_PORTED.items():

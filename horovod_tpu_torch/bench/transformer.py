@@ -23,8 +23,21 @@ stream time an iteration. MFU: the analytic model FLOPs (6 x matmul
 params + 6 x L x S x d_model, causal attention at half of S^2) times the
 device-side rate over the card's peak (``hardware.py``); None where the
 peak is unknown, as on the CPU. ``--device cpu`` runs the plain versions
-of the kernels, for the tests only. ``--mesh3d`` names a scenario that
-is not ported yet (ROADMAP.md, Queue 1 item 6).
+of the kernels, for the tests only.
+
+``--mesh3d`` runs the composable-parallelism scenario instead
+(``run_mesh3d_benchmark``, bench_transformer.py's, with its flags and
+defaults): a small TransformerLM (d_model 64, 2 layers, vocab 256, f32,
+rope, dense attention) whose trunk is tensor-parallel over the ``model``
+axis and whose last FFN is an expert-parallel MoE layer over ``ep``,
+trained with SGD(0.05) and ZeRO-2 striping over the data axis through
+one ``compiled_train_step`` on the 3-D (data, expert, model) mesh of
+``--mesh3d-ep`` x ``--mesh3d-mp`` (re-initializing with
+``HOROVOD_EXPERT_PARALLEL``/``HOROVOD_MODEL_PARALLEL`` when the runtime
+has no model mesh; a world those do not divide raises the reference's
+error). It prints the reference's ``mesh3d`` keys: tokens/s per chip,
+the cache counters, and the largest parameter difference from the same
+spec at ZeRO stage 0 after 5 steps.
 
 ``--moe`` runs the expert-parallel MoE scenario instead
 (``run_moe_benchmark``, bench_transformer.py's, with its flags and
@@ -49,8 +62,9 @@ attention, rope), on one card. Its bin floors pin one prefill and one
 decode program (on a card, one CUDA graph each) for the run: an untimed
 round builds them, the timed round reports TTFT and per-token latency
 p50/p99, tokens/s and the program-cache hit rates under the serve
-sub-dict's keys. Over more than one rank it raises: serving across
-ranks shards the model (ROADMAP.md, Queue 1 item 6).
+sub-dict's keys. Over more than one rank the model is tensor-parallel
+over every rank (``mesh()``, axis ``hvd``), as the reference serves on
+its mesh: each rank runs the engine in lockstep with rank 0.
 """
 
 import argparse
@@ -65,6 +79,7 @@ import torch
 from .. import config as config_mod
 from .. import hardware, metrics
 from .. import optimizers, runtime
+from ..exceptions import HorovodError
 from .. import serve as hvd_serve
 from ..models import moe as moe_lib
 from ..models import transformer as tfm
@@ -76,10 +91,6 @@ STEPS_PER_ITER = 5
 # optax.adamw(3e-4)'s hyperparameters (torch's AdamW defaults its weight
 # decay to 1e-2; optax to 1e-4).
 ADAMW = dict(lr=3e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
-NOT_PORTED = {
-    "mesh3d": "--mesh3d: tensor parallelism on the 3-D mesh is not ported "
-              "yet (ROADMAP.md, Queue 1 item 6)",
-}
 
 
 def build_cfg(args):
@@ -149,7 +160,24 @@ def parse_args(argv=None):
     ap.add_argument("--moe-seq", type=int, default=64)
     ap.add_argument("--moe-d-model", type=int, default=256)
     ap.add_argument("--moe-d-ff", type=int, default=1024)
-    ap.add_argument("--mesh3d", action="store_true")
+    ap.add_argument("--mesh3d", action="store_true",
+                    help="run the composable-parallelism scenario "
+                         "instead: a TP dense trunk + expert-parallel "
+                         "MoE FFN + ZeRO-2 striping in one compiled step "
+                         "on the 3-D (data, expert, model) mesh")
+    ap.add_argument("--mesh3d-ep", type=int, default=2,
+                    help="expert-axis size of the 3-D mesh "
+                         "(HOROVOD_EXPERT_PARALLEL)")
+    ap.add_argument("--mesh3d-mp", type=int, default=2,
+                    help="model-axis size of the 3-D mesh "
+                         "(HOROVOD_MODEL_PARALLEL)")
+    ap.add_argument("--mesh3d-batch", type=int, default=16,
+                    help="GLOBAL sequence count (sharded over the data "
+                         "and expert axes, replicated over model)")
+    ap.add_argument("--mesh3d-seq", type=int, default=32)
+    ap.add_argument("--mesh3d-d-model", type=int, default=64)
+    ap.add_argument("--mesh3d-layers", type=int, default=2)
+    ap.add_argument("--mesh3d-vocab", type=int, default=256)
     ap.add_argument("--serve", action="store_true",
                     help="run the continuous-batching serving scenario "
                          "instead: TTFT and per-token latency percentiles "
@@ -172,9 +200,6 @@ def parse_args(argv=None):
     args = ap.parse_args(argv)
     if args.kv_heads == -1:
         args.kv_heads = args.heads // 4 if args.heads % 4 == 0 else 0
-    for name, why in NOT_PORTED.items():
-        if getattr(args, name):
-            raise NotImplementedError(why)
     return args
 
 
@@ -274,11 +299,7 @@ def run_serve_benchmark(args):
     carries the reference's keys."""
     runtime.init(device=args.device)
     device = runtime.device()
-    if runtime.size() > 1:
-        raise NotImplementedError(
-            "--serve over more than one rank shards the model: tensor-"
-            "parallel serving is not ported yet (ROADMAP.md, Queue 1 item "
-            "6)")
+    n = runtime.size()
     streams = max(int(args.serve_streams), 1)
     prompt_len = max(int(args.serve_prompt_len), 1)
     new_tokens = max(int(args.serve_new_tokens), 2)
@@ -292,11 +313,18 @@ def run_serve_benchmark(args):
         n_layers=args.serve_layers, d_ff=4 * args.serve_d_model,
         max_seq=prompt_len + new_tokens, dtype=torch.float32,
         positional="rope", attention_impl="dense")
+    if cfg.n_heads % n:
+        raise ValueError(f"--serve-heads {cfg.n_heads} not divisible by "
+                         f"world size {n}")
     params = tfm.init_params(cfg, torch.Generator().manual_seed(0), device)
+    # Tensor-parallel over every rank when there are several, as the
+    # reference serves on its mesh.
+    mesh = runtime.mesh() if n > 1 else None
     # Bin floors pinned to the stream count: one prefill and one decode
     # signature for the whole run.
     eng = hvd_serve.Engine(
-        cfg, params, num_pages=num_pages, page_size=page_size,
+        cfg, params, mesh=mesh, tp_axis="hvd" if mesh else None,
+        num_pages=num_pages, page_size=page_size,
         max_batch=streams, queue_depth=max(2 * streams, 8), start=False,
         batch_bin_floor=streams, page_bin_floor=pages_per_seq,
         len_bin_floor=prompt_len, device=device)
@@ -366,6 +394,148 @@ def run_serve_benchmark(args):
             "card": card,
         },
     }
+
+
+def _mesh3d_runtime(args):
+    """The 3-D (data, expert, model) mesh, re-initializing the runtime
+    with ``--mesh3d-ep``/``--mesh3d-mp`` when it has none (a world they
+    do not divide raises the reference's error from ``init()``)."""
+    runtime.init(device=args.device)
+    try:
+        return runtime.model_mesh()
+    except HorovodError:
+        runtime.shutdown()
+        os.environ["HOROVOD_EXPERT_PARALLEL"] = str(args.mesh3d_ep)
+        os.environ["HOROVOD_MODEL_PARALLEL"] = str(args.mesh3d_mp)
+        runtime.init(device=args.device)
+        return runtime.model_mesh()
+
+
+def run_mesh3d_benchmark(args):
+    """The composable-parallelism scenario (bench_transformer.py's
+    run_mesh3d_benchmark): returns the result dict whose ``"mesh3d"``
+    sub-dict carries the reference's keys."""
+    mesh = _mesh3d_runtime(args)
+    device = runtime.device()
+    n = runtime.size()
+    ep = runtime.expert_parallel_size()
+    mp = runtime.model_parallel_size()
+    data_shards = n // mp  # batch shards: data x expert
+    cfg = tfm.TransformerConfig(
+        vocab_size=args.mesh3d_vocab, d_model=args.mesh3d_d_model,
+        n_heads=4, n_kv_heads=None, n_layers=args.mesh3d_layers,
+        d_ff=4 * args.mesh3d_d_model, max_seq=args.mesh3d_seq,
+        dtype=torch.float32, positional="rope", attention_impl="dense",
+        moe_layers=(args.mesh3d_layers - 1,), moe_num_experts=2 * ep,
+        moe_top_k=2)
+    axes = tfm.ShardAxes(tp=mesh.get_group("model"),
+                         ep=mesh.get_group("ep"))
+    specs = tfm.param_specs(cfg)
+    model_keys = tfm.model_parallel_keys(cfg)
+    expert_keys = ("moe.w1", "moe.w2")
+    full = tfm.init_params(cfg, torch.Generator().manual_seed(0), device)
+
+    batch, seq = args.mesh3d_batch, args.mesh3d_seq
+    if batch % data_shards:
+        raise ValueError(f"--mesh3d-batch {batch} not divisible by "
+                         f"{data_shards} (data x expert shards)")
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen)
+    targets = torch.roll(tokens, -1, dims=1)
+    # this rank's batch shard: row-major over (data, expert), the same
+    # on every rank of a model group
+    shard = runtime.rank() // mp
+    rows = slice(shard * batch // data_shards,
+                 (shard + 1) * batch // data_shards)
+    tokens, targets = tokens[rows].to(device), targets[rows].to(device)
+
+    def make_step(zero_stage):
+        model = tfm.TransformerLM(
+            cfg, tfm.slice_param_shards(full, specs, mesh), device=device,
+            axes=axes)
+        opt = optimizers.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.05),
+            named_parameters=model.named_parameters(),
+            expert_keys=expert_keys, model_keys=model_keys,
+            zero_stage=zero_stage)
+        step = compiled_train_step(model.loss, opt,
+                                   name=f"bench.mesh3d.z{zero_stage}")
+        assert step._exchange == "spec", step._exchange
+        return model, opt, step
+
+    def train(step, steps):
+        for _ in range(steps):
+            loss = step(tokens, targets)
+        float(loss)
+        return loss
+
+    # Parity leg: the same spec without striping, 5 steps from the same
+    # init.
+    model2, combo, step = make_step(zero_stage=2)
+    model0, _, step0 = make_step(zero_stage=0)
+    train(step, 5)
+    train(step0, 5)
+    parity = max(float((a - b).abs().max()) for a, b in
+                 zip(model2.parameters(), model0.parameters()))
+    parity = _max_over_ranks(parity, device)
+
+    train(step, 2)  # untimed
+    h0, m0 = step.cache_hits, step.cache_misses
+    tok_per_chip = batch * seq // n
+    iters = max(args.iters, 8)
+    rates = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        float(step(tokens, targets))  # the barrier: read on the host
+        rates.append(tok_per_chip / (time.perf_counter() - t0))
+    mean = float(np.mean(rates))
+    conf = float(1.96 * np.std(rates))
+    hits = step.cache_hits - h0
+    misses = step.cache_misses - m0
+    hit_rate = hits / max(hits + misses, 1)
+    kinds = [combo._spec.kind(name) for name, _ in
+             tfm._named_leaves(full)]
+    spec_leaves = {k: kinds.count(k) for k in ("dense", "expert", "model")}
+    shape = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    print(f"# 3-D mesh tokens/sec per chip: {mean:,.0f} +-{conf:,.0f} at "
+          f"mesh {shape} (zero2 + moe + TP in one step), parity vs "
+          f"unstriped {parity:.2e}, cache hit rate {hit_rate:.2f}, "
+          f"fallbacks {step.fallback_steps}", file=sys.stderr)
+    return {
+        "metric": "mesh3d_tokens_per_sec_per_chip",
+        "value": round(mean, 1),
+        "unit": "tokens/sec",
+        "mesh3d": {
+            "tokens_per_sec_per_chip": round(mean, 1),
+            "spread": round(conf, 1),
+            "mesh_shape": {k: int(v) for k, v in shape.items()},
+            "expert_parallel": ep,
+            "model_parallel": mp,
+            "zero_stage": 2,
+            "spec_leaves": spec_leaves,
+            "model_keys": len(model_keys),
+            "zero2_parity_max_delta": parity,
+            "parity_steps": 5,
+            "global_batch": batch,
+            "seq_len": seq,
+            "d_model": cfg.d_model,
+            "layers": cfg.n_layers,
+            "moe_layers": list(cfg.moe_layers),
+            "num_experts": cfg.moe_num_experts,
+            "step_program_cache_hit_rate": round(hit_rate, 4),
+            "step_program_cache_hits": hits,
+            "step_program_cache_misses": misses,
+            "fallback_steps": step.fallback_steps,
+            "steps": iters,
+        },
+    }
+
+
+def _max_over_ranks(x, device):
+    """The largest of every rank's ``x``."""
+    t = torch.tensor(float(x), device=device)
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
+    return float(t)
 
 
 MOE_TRACE_ITEM = 16  # the phase trace (ROADMAP.md, Queue 1)
@@ -504,6 +674,8 @@ def main(argv=None):
     args = parse_args(argv)
     if args.serve:
         result = run_serve_benchmark(args)
+    elif args.mesh3d:
+        result = run_mesh3d_benchmark(args)
     elif args.moe:
         result = run_moe_benchmark(args)
     else:

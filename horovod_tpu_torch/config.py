@@ -6,8 +6,9 @@ policy directory the SLO signal is dropped into, the ZeRO stage and its
 reduce-scatter chunk (``HOROVOD_REDUCE_SCATTER_BUCKET``), the staged
 exchange's DCN wire and ICI group size (``HOROVOD_DCN_COMPRESSION``,
 ``HOROVOD_DCN_LOCAL_SIZE``), the exchange bucket count, the
-expert-parallel degree and the MoE all-to-all chunks
-(``HOROVOD_EXPERT_PARALLEL``, ``HOROVOD_MOE_CHUNKS``), the compiled hot
+expert-parallel and model-parallel degrees and the MoE all-to-all chunks
+(``HOROVOD_EXPERT_PARALLEL``, ``HOROVOD_MODEL_PARALLEL``,
+``HOROVOD_MOE_CHUNKS``), the compiled hot
 loop's switches (``HOROVOD_STEP_PROGRAM``,
 ``HOROVOD_STEP_PROGRAM_CHURN_LIMIT``, ``HOROVOD_DEVICE_RESIDENT``), the
 profiler dump and its per-replay
@@ -73,6 +74,12 @@ class Config:
     # (world/ep, ep) with axes ("hvd", "ep"), expert axis innermost
     # (parallel/mesh.py expert_data_mesh). Must divide the world size.
     expert_parallel: int = 1
+    # Tensor (model) parallelism degree of the dense trunk: > 1 makes
+    # init() lay the ranks out as (world/(ep*mp), ep, mp) with axes
+    # ("hvd", "ep", "model"), model axis innermost (parallel/mesh.py
+    # model_expert_data_mesh). expert_parallel * model_parallel must
+    # divide the world size.
+    model_parallel: int = 1
     # Capacity slices the MoE dispatch/combine all-to-all is split into
     # (ops/collectives.py alltoall_chunked); 1 = unchunked. Numerics are
     # bit-identical at every setting; a value that does not divide the
@@ -131,6 +138,8 @@ class Config:
                                           c.exchange_buckets), 1)
         c.expert_parallel = max(_env_int("HOROVOD_EXPERT_PARALLEL",
                                          c.expert_parallel), 1)
+        c.model_parallel = max(_env_int("HOROVOD_MODEL_PARALLEL",
+                                        c.model_parallel), 1)
         c.moe_chunks = max(_env_int("HOROVOD_MOE_CHUNKS",
                                     c.moe_chunks), 1)
         c.device_resident = _env_int("HOROVOD_DEVICE_RESIDENT",

@@ -5,8 +5,9 @@ its collect hooks, the serving families (``hvd_serve_*``, program
 caches included), the compiled hot loop's cache and fallback families
 (``hvd_step_*``), the runtime lifecycle families, the per-collective
 mirror of stats.py, the ZeRO and staged-exchange families
-(``hvd_zero_*``, ``hvd_wire_stage_*``, ``hvd_spec_leaves``) and the
-expert-parallel MoE families (``hvd_moe_*``, fed by
+(``hvd_zero_*``, ``hvd_wire_stage_*``, ``hvd_spec_leaves``), the
+model-parallel degree (``hvd_model_parallel``) and the expert-parallel
+MoE families (``hvd_moe_*``, fed by
 :func:`record_moe_step`), under the JAX package's names and help texts.
 ``hvd_moe_alltoall_hidden_frac`` and ``hvd_wire_stage_seconds`` are
 registered and left unset: they read a phase trace (item 16). The
@@ -408,7 +409,14 @@ WIRE_STAGE_SECONDS = _registry.histogram(
     "hvd_wire_stage_bytes_total. One observation per traced capture "
     "window.", labelnames=("stage",))
 
-# Composable parallelism (optimizers.py _ShardingSpec)
+# Composable parallelism (optimizers.py _ShardingSpec, parallel/mesh.py
+# model_expert_data_mesh)
+MODEL_PARALLEL = _registry.gauge(
+    "hvd_model_parallel",
+    "Model (tensor-parallel) axis size of the runtime's 3-D "
+    "(data, expert, model) mesh, set at hvd.init() from "
+    "HOROVOD_MODEL_PARALLEL; 1 = no model mesh built. Elastic re-inits "
+    "re-validate the degree against the surviving world.")
 SPEC_LEAVES = _registry.gauge(
     "hvd_spec_leaves",
     "Parameter leaves the most recently classified per-leaf sharding "

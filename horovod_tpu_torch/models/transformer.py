@@ -40,15 +40,31 @@ Sequence parallelism is ring attention over ``ShardAxes(sp=RingAxis)``
 position-wise layers run over the whole local sequence at once and only
 attention splits it into shards; over a process group each rank holds
 one shard. MoE layers (models/moe.py) run every expert in the process,
-or, over ``ShardAxes(ep=group)``, this rank's slice of them
-(:func:`slice_expert_params`) with the tokens exchanged by all-to-all.
+or, over ``ShardAxes(ep=group)``, this rank's slice of them with the
+tokens exchanged by all-to-all.
+
+Tensor parallelism is Megatron's, over ``ShardAxes(tp=group)`` (the
+``model`` sub-group of the runtime's ``model_mesh()``), each rank
+holding its shard of the tree (:func:`param_specs`,
+:func:`slice_param_shards`): heads (q and kv) split over the group,
+``w1`` by columns and ``w2`` by rows, the embedding and the head by
+vocabulary stripes. One psum follows ``wo`` and one ``w2``, the
+embedding rows are psummed, and the cross entropy runs over the vocab
+stripes (a max by all-gather, the normalizer and the target logit by
+psum); decoding gathers the logits over the vocabulary. The psum's
+backward is a psum (ops/collectives.py ``_psum``), as the reference's
+under ``check_vma=False``: a rank's gradient is the reference's
+per-shard gradient, and ``DistributedOptimizer(model_keys=...)`` reduces
+it as the reference's sharding spec does. TP composes with the ring and
+with expert-parallel MoE layers (replicated over the model group).
 What the port does not carry raises ``NotImplementedError`` naming the
-ROADMAP.md item that adds it: tensor parallelism, data parallelism
-inside the model, and Ulysses.
+ROADMAP.md item that adds it: data parallelism inside the model, and
+Ulysses.
 """
 
 import dataclasses
 import math
+import weakref
 from typing import Any
 
 import numpy as np
@@ -59,15 +75,15 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import runtime
+from ..ops.collectives import _axis_index, _gather_vocab, _pmax, _psum
 from ..ops.flash_attention import flash_attention
-from ..ops.step_program import StepProgram, engine_cached_program
+from ..ops.step_program import StepProgram, engine_cached_program, obj_token
 from ..parallel.ring_attention import (NEG_INF, RingAxis, dense_attention,
                                        gqa_group, ring_attention)
 from ..utils.devices import resolve_device
 from .moe import (MoEConfig, _einsum_f32, expert_slice, init_moe_params,
                   moe_layer)
 
-TENSOR_PARALLEL = "tensor parallelism (ROADMAP.md, Queue 1 item 6)"
 ULYSSES = "Ulysses sequence parallelism (ROADMAP.md, Queue 1 item 12)"
 
 
@@ -148,11 +164,11 @@ class TransformerConfig:
 @dataclasses.dataclass(frozen=True)
 class ShardAxes:
     """The axes the model runs over; None elides each. ``sp`` is a
-    :class:`~horovod_tpu_torch.parallel.ring_attention.RingAxis` and
-    ``ep`` a process group (the ``ep`` sub-group of the runtime's
-    ``expert_mesh()``), where the JAX package names mesh axes. ``dp``
-    and ``tp`` are not carried: data parallelism runs in
-    ``DistributedOptimizer``, outside the model."""
+    :class:`~horovod_tpu_torch.parallel.ring_attention.RingAxis`, ``tp``
+    and ``ep`` process groups (the ``model`` and ``ep`` sub-groups of
+    the runtime's ``model_mesh()`` or ``expert_mesh()``), where the JAX
+    package names mesh axes. ``dp`` is not carried: data parallelism
+    runs in ``DistributedOptimizer``, outside the model."""
     dp: Any = None
     sp: Any = None
     tp: Any = None
@@ -165,11 +181,11 @@ def _check_axes(axes):
         return ShardAxes()
     if not isinstance(axes, ShardAxes):
         raise TypeError(f"axes must be a ShardAxes, got {type(axes).__name__}")
-    if axes.tp is not None:
-        raise NotImplementedError(f"axes.tp comes with {TENSOR_PARALLEL}")
-    if axes.ep is not None and not isinstance(axes.ep, dist.ProcessGroup):
-        raise TypeError(
-            f"axes.ep must be a process group, got {type(axes.ep).__name__}")
+    for name in ("tp", "ep"):
+        group = getattr(axes, name)
+        if group is not None and not isinstance(group, dist.ProcessGroup):
+            raise TypeError(f"axes.{name} must be a process group, got "
+                            f"{type(group).__name__}")
     if axes.dp is not None:
         raise NotImplementedError(
             "axes.dp: the port averages over data-parallel ranks in "
@@ -240,17 +256,114 @@ def init_params(cfg, generator=None, device="cuda"):
     return out
 
 
-def slice_expert_params(params, rank, ep):
-    """The tree a member of an expert group of ``ep`` ranks holds: every
-    MoE layer's ``w1``/``w2`` cut to the ``E / ep`` experts of position
-    ``rank`` in the group, every other leaf as it is (the ``ep`` part of
-    the JAX package's ``slice_param_shards``; its tensor-parallel part
-    comes with ROADMAP.md, Queue 1 item 6)."""
-    out = dict(params)
-    out["layers"] = [
-        {**layer, "moe": expert_slice(layer["moe"], rank, ep)}
-        if "moe" in layer else layer for layer in params["layers"]]
+def param_specs(cfg, tp="model", ep="ep"):
+    """The sharding of every leaf, as a tree that mirrors the parameter
+    tree: each leaf a tuple with one entry a dimension, the axis name
+    that dimension is split over or None (the JAX package's
+    ``PartitionSpec``, entry for entry; () is replicated). Megatron's
+    layout over ``tp``: heads of ``wqkv``/``wq``/``wkv``/``wo``, columns
+    of ``w1``, rows of ``w2``, vocabulary stripes of ``embed`` and
+    ``lm_head``; an MoE layer's experts over ``ep`` (its router
+    replicated). ``tp=None`` or ``ep=None`` leaves that axis out."""
+    layers = []
+    for i in range(cfg.n_layers):
+        layer = {"ln1": (), "wo": (tp, None, None), "ln2": ()}
+        if cfg.n_kv_heads is not None and cfg.n_kv_heads != cfg.n_heads:
+            layer["wq"] = (None, tp, None)
+            layer["wkv"] = (None, None, tp, None)
+        else:
+            layer["wqkv"] = (None, None, tp, None)
+        if i in cfg.moe_layers:
+            layer["moe"] = {"w_router": (), "w1": (ep, None, None),
+                            "w2": (ep, None, None)}
+        else:
+            layer["w1"] = (None, tp)
+            layer["w2"] = (tp, None)
+        layers.append(layer)
+    out = {"embed": (tp, None), "layers": layers, "ln_f": (),
+           "lm_head": (None, tp)}
+    if cfg.positional == "learned":
+        out["pos"] = ()
     return out
+
+
+def _named_leaves(tree, prefix=""):
+    """``(dotted name, leaf)`` of a tree in the JAX package's leaf order
+    (keys sorted, layers in order): ``layers.3.moe.w1``."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{prefix}{k}.")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def model_parallel_keys(cfg, tp="model"):
+    """The full dotted names (``embed``, ``layers.0.wqkv``, ...) of every
+    leaf :func:`param_specs` shards over ``tp``: the ``model_keys`` of
+    ``DistributedOptimizer``, whose sharding spec matches a parameter by
+    substring of its name. Full names, as the JAX package's full tree
+    paths: a bare ``wq`` would also match ``wqkv``, and ``w1``/``w2``
+    reappear inside MoE layers (``layers.1.moe.w1``), which shard over
+    the expert axis, never the model axis. Each name is the
+    ``TransformerLM`` parameter's own, less its ``top.`` prefix."""
+    if tp is None:
+        return ()
+    specs = param_specs(cfg, tp=tp, ep=None)
+    return tuple(name for name, spec in _named_leaves(specs)
+                 if tp in spec)
+
+
+def _coords(mesh, names):
+    """``{axis: (index, size)}`` of this rank on ``mesh`` (a
+    ``DeviceMesh``), for the axes of ``names`` it has."""
+    out = {}
+    for name in names:
+        if name in (mesh.mesh_dim_names or ()):
+            out[name] = (mesh.get_local_rank(name),
+                         mesh.size(mesh.mesh_dim_names.index(name)))
+    return out
+
+
+def slice_param_shards(params, specs, mesh):
+    """This rank's shard of a full tree: each leaf cut, along every
+    dimension its spec (:func:`param_specs`) splits over an axis of
+    ``mesh``, to the block of this rank's position on that axis (the JAX
+    package's ``slice_param_shards``, which each device runs for itself
+    in a ``shard_map``). ``mesh`` is a ``DeviceMesh``, or a mapping
+    ``{axis: (index, size)}``; an axis it lacks, or of size 1, leaves
+    the dimension whole. Every leaf is a copy, so training a shard
+    leaves the full tree as it was, and the full tree may be dropped."""
+    if not isinstance(mesh, dict):
+        mesh = _coords(mesh, {a for _, sp in _named_leaves(specs)
+                              for a in sp if a is not None})
+
+    def cut(p, spec):
+        out = p
+        for dim, name in enumerate(spec):
+            if name is None or name not in mesh:
+                continue
+            index, n = mesh[name]
+            if n == 1:
+                continue
+            if p.shape[dim] % n:
+                raise ValueError(
+                    f"dimension {dim} of size {p.shape[dim]} does not "
+                    f"split over {n} ranks of axis {name!r}")
+            loc = p.shape[dim] // n
+            out = out.narrow(dim, index * loc, loc)
+        return out.clone(memory_format=torch.contiguous_format)
+
+    def walk(p, spec):
+        if isinstance(p, dict):
+            return {k: walk(p[k], spec[k]) for k in p}
+        if isinstance(p, list):
+            return [walk(a, b) for a, b in zip(p, spec)]
+        return cut(p, spec)
+
+    return walk(params, specs)
 
 
 def params_from_jax(tree, cfg, device="cuda"):
@@ -293,14 +406,18 @@ def params_from_jax(tree, cfg, device="cuda"):
 def params_to_numpy(params):
     """The inverse of :func:`params_from_jax`: the parameter tree with
     every leaf a numpy array (a copy on the host), key for key."""
-    def conv(x):
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        if isinstance(x, list):
-            return [conv(v) for v in x]
-        return x.detach().to("cpu", copy=True).numpy()
+    return _tree_map(lambda x: x.detach().to("cpu", copy=True).numpy(),
+                     params)
 
-    return conv(params)
+
+def _tree_map(fn, tree):
+    """``tree`` (dicts, lists of layers) with ``fn`` applied to each
+    leaf, key for key."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
 
 
 def _rope_angles(positions, half, theta):
@@ -342,15 +459,19 @@ def _rmsnorm(x, scale):
     return (x32 * torch.rsqrt(var + 1e-6)).to(x.dtype) * scale
 
 
-def _embed_rows(params, tokens):
+def _embed_rows(params, tokens, tp=None):
     """Embedding rows (f32, no positions); out-of-range ids give zero
-    rows, as the JAX package's masked take does."""
+    rows, as the JAX package's masked take does. Over ``tp`` each rank
+    holds a contiguous vocabulary stripe: ids outside it give zero rows
+    and one psum restores the full row."""
     emb = params["embed"]
-    vocab = emb.shape[0]
-    valid = (tokens >= 0) & (tokens < vocab)
-    rows = emb[tokens.clamp(0, vocab - 1)]
-    return torch.where(valid[..., None], rows, torch.zeros((), dtype=rows.dtype,
-                                                           device=rows.device))
+    vloc = emb.shape[0]
+    local = tokens - _axis_index(tp) * vloc
+    valid = (local >= 0) & (local < vloc)
+    rows = emb[local.clamp(0, vloc - 1)]
+    rows = torch.where(valid[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return _psum(rows, tp)
 
 
 def embed_tokens(params, tokens, cfg, axes=None):
@@ -358,7 +479,7 @@ def embed_tokens(params, tokens, cfg, axes=None):
     first sequence position, cast to ``cfg.dtype`` (rope rotates q/k
     instead)."""
     axes = _check_axes(axes)
-    x = _embed_rows(params, tokens)
+    x = _embed_rows(params, tokens, axes.tp)
     if cfg.positional != "learned":
         return x.to(cfg.dtype)
     start = _sp_start(axes, tokens.shape[1])
@@ -404,16 +525,18 @@ def _attention_block_kv(p, x, cfg, axes=None):
         attn = flash_attention(q, k, v, True, window=win)
     else:
         attn = dense_attention(q, k, v, causal=True, window=win)
-    # attn (dtype) x wo (dtype) with f32 accumulation, cast to dtype.
+    # attn (dtype) x wo (dtype) with f32 accumulation, summed over the
+    # model group (the row-parallel product), cast to dtype.
     out = _einsum_f32("bshx,hxd->bsd", attn, p["wo"].to(cfg.dtype))
-    return x + out.to(cfg.dtype), k, v
+    return x + _psum(out, axes.tp).to(cfg.dtype), k, v
 
 
 def _mlp_block(p, x, cfg, axes=None, moe_full_capacity=False):
     """Dense or MoE FFN with its residual, by the layer's params; returns
     (output, aux loss), the aux the MoE load-balancing loss (0 for a
     dense layer). Dense: f32 normed rows x w1 (dtype), tanh GELU in f32,
-    cast to dtype, x w2 (dtype) with f32 accumulation. MoE: the normed
+    cast to dtype, x w2 (dtype) with f32 accumulation, summed over
+    ``axes.tp`` (column- then row-parallel). MoE: the normed
     rows cast to dtype through :func:`~.moe.moe_layer` over ``axes.ep``;
     ``moe_full_capacity`` is the serving mode, where nothing drops and a
     token's output does not depend on its batch."""
@@ -427,8 +550,9 @@ def _mlp_block(p, x, cfg, axes=None, moe_full_capacity=False):
     u = _einsum_f32("bsd,df->bsf", h, p["w1"].to(cfg.dtype))
     u = F.gelu(u, approximate="tanh").to(cfg.dtype)
     out = _einsum_f32("bsf,fd->bsd", u, p["w2"].to(cfg.dtype))
-    return x + out.to(cfg.dtype), torch.zeros((), dtype=torch.float32,
-                                              device=x.device)
+    tp = None if axes is None else axes.tp
+    return x + _psum(out, tp).to(cfg.dtype), torch.zeros(
+        (), dtype=torch.float32, device=x.device)
 
 
 def _moe_chunks(ep_group):
@@ -440,7 +564,8 @@ def _moe_chunks(ep_group):
 
 
 def _head(params, x, cfg):
-    """Final norm + LM head: (B, S, d) -> f32 logits (B, S, V)."""
+    """Final norm + LM head: (B, S, d) -> f32 logits (B, S, V), or this
+    rank's vocabulary stripe (B, S, V_loc) over a model group."""
     x = _rmsnorm(x, params["ln_f"])
     return _einsum_f32("bsd,dv->bsv", x, params["lm_head"].to(cfg.dtype))
 
@@ -472,41 +597,47 @@ def trunk_with_aux(params, tokens, cfg, axes=None):
 
 
 def forward_with_aux(params, tokens, cfg, axes=None):
-    """(f32 logits (B, S, V), total MoE aux loss)."""
+    """(f32 logits (B, S, V), total MoE aux loss); over ``axes.tp`` the
+    logits are this rank's vocabulary stripe (B, S, V_loc)."""
     x, aux = trunk_with_aux(params, tokens, cfg, axes)
     return _head(params, x, cfg), aux
 
 
 def forward(params, tokens, cfg, axes=None):
-    """f32 logits (B, S, V) of int tokens (B, S)."""
+    """f32 logits (B, S, V) of int tokens (B, S); (B, S, V_loc) over
+    ``axes.tp``."""
     return forward_with_aux(params, tokens, cfg, axes)[0]
 
 
-def _nll(logits, targets):
+def _nll(logits, targets, tp=None):
     """Per-token negative log likelihood (B, S) of f32 logits. The max is
     a stability shift only, so no gradient flows through it (the JAX
     package's ``stop_gradient``); targets outside the vocabulary give a
-    zero target logit."""
-    vocab = logits.shape[-1]
-    m = logits.amax(dim=-1).detach()
-    z = torch.exp(logits - m[..., None]).sum(dim=-1)
-    valid = (targets >= 0) & (targets < vocab)
+    zero target logit. Over ``tp`` the logits are vocabulary stripes
+    and the full logits never form (Megatron's parallel cross entropy):
+    the max by an all-gather, the normalizer and the target logit (from
+    the rank whose stripe holds it) by psum."""
+    vloc = logits.shape[-1]
+    m = _pmax(logits.amax(dim=-1).detach(), tp)
+    z = _psum(torch.exp(logits - m[..., None]).sum(dim=-1), tp)
+    local = targets - _axis_index(tp) * vloc
+    valid = (local >= 0) & (local < vloc)
     tgt = torch.gather(logits, -1,
-                       targets.clamp(0, vocab - 1)[..., None])[..., 0]
+                       local.clamp(0, vloc - 1)[..., None])[..., 0]
     tgt = torch.where(valid, tgt, torch.zeros((), dtype=tgt.dtype,
                                               device=tgt.device))
-    return torch.log(z) + m - tgt
+    return torch.log(z) + m - _psum(tgt, tp)
 
 
-def _cross_entropy(logits, targets):
-    return torch.mean(_nll(logits, targets))
+def _cross_entropy(logits, targets, tp=None):
+    return torch.mean(_nll(logits, targets, tp))
 
 
-def _chunk_nll_sum(params, xk, tk, cfg):
-    return torch.sum(_nll(_head(params, xk, cfg), tk))
+def _chunk_nll_sum(params, xk, tk, cfg, tp):
+    return torch.sum(_nll(_head(params, xk, cfg), tk, tp))
 
 
-def _chunked_cross_entropy(params, x, targets, cfg):
+def _chunked_cross_entropy(params, x, targets, cfg, tp=None):
     """Mean cross entropy with the head applied per sequence chunk under
     a checkpoint: the logits of one (B, chunk, V) chunk exist at a time
     in both directions. Chunk sums accumulate into an f32 carry, divided
@@ -521,7 +652,8 @@ def _chunked_cross_entropy(params, x, targets, cfg):
     for i in range(s // chunk):
         sl = slice(i * chunk, (i + 1) * chunk)
         total = total + checkpoint(_chunk_nll_sum, params, x[:, sl],
-                                   targets[:, sl], cfg, use_reentrant=False,
+                                   targets[:, sl], cfg, tp,
+                                   use_reentrant=False,
                                    preserve_rng_state=False)
     return total / (b * s)
 
@@ -553,14 +685,17 @@ def loss_fn(params, tokens, targets, cfg, axes=None):
     back is the shard's own. The ring's backward sends each rank the
     dK/dV of the other ranks' queries, so the world average of the
     ranks' gradients, which ``DistributedOptimizer`` already takes, is
-    the gradient of the averaged loss."""
+    the gradient of the averaged loss.
+
+    Over ``axes.tp`` the ranks of a model group hold the same tokens and
+    return the same loss, from the vocabulary stripes of their logits."""
     axes = _check_axes(axes)
     if cfg.loss_chunk:
         x, aux = trunk_with_aux(params, tokens, cfg, axes)
-        nll = _chunked_cross_entropy(params, x, targets, cfg)
+        nll = _chunked_cross_entropy(params, x, targets, cfg, axes.tp)
     else:
         logits, aux = forward_with_aux(params, tokens, cfg, axes)
-        nll = _cross_entropy(logits, targets)
+        nll = _cross_entropy(logits, targets, axes.tp)
     loss = nll + MOE_AUX_COEF * aux
     if axes.sp is not None and axes.sp.distributed:
         loss = _MeanOverRanks.apply(loss, axes.sp.group)
@@ -572,8 +707,9 @@ class TransformerLM(nn.Module):
     :func:`forward` and :func:`loss_fn` on them over ``axes`` (a
     :class:`ShardAxes`; ``ShardAxes(sp=RingAxis.local(4))`` trains with
     sequence parallelism on one card). ``params`` defaults to
-    :func:`init_params` drawn from ``generator``; over ``axes.ep`` the
-    caller passes this rank's tree (:func:`slice_expert_params`). An MoE
+    :func:`init_params` drawn from ``generator``; over ``axes.tp`` or
+    ``axes.ep`` the caller passes this rank's tree
+    (:func:`slice_param_shards`). An MoE
     layer's leaves are named ``layers.<i>.moe.<leaf>``. Serving runs it
     under ``torch.inference_mode()``, where no graph is kept."""
 
@@ -611,6 +747,7 @@ class TransformerLM(nn.Module):
         return loss_fn(self.params, tokens, targets, self.cfg, self.axes)
 
     def generate(self, prompt, max_new_tokens, max_len=None, **kw):
+        kw.setdefault("axes", self.axes)
         return generate(self.params, prompt, self.cfg, max_new_tokens,
                         max_len=max_len, **kw)
 
@@ -622,14 +759,29 @@ class TransformerLM(nn.Module):
 # int64 tensor on the cache's device) are what a CUDA graph of
 # decode_step reads and writes on every replay.
 
+def _local_kv_heads(cfg, tp):
+    """The kv heads of one rank of the model group ``tp``."""
+    h_kv = cfg.n_kv_heads or cfg.n_heads
+    if tp is None:
+        return h_kv
+    n = dist.get_world_size(tp)
+    if h_kv % n != 0:
+        raise ValueError(
+            f"kv head count ({h_kv}) must be divisible by the tp axis "
+            f"size ({n})")
+    return h_kv // n
+
+
 def init_cache(cfg, batch, max_len, axes=None, device="cuda"):
     """Per-layer K/V cache for incremental decoding: ``{"layers":
     [{"k", "v"}], "pos"}``, each K/V ``(batch, max_len, h_kv, head_dim)``
     in ``cfg.dtype`` and ``pos`` the number of rows written. Under GQA
-    it carries n_kv_heads, the decode-time memory the feature saves."""
-    _check_axes(axes)
+    it carries n_kv_heads, the decode-time memory the feature saves;
+    over ``axes.tp`` only this rank's kv heads, which the group must
+    divide."""
+    axes = _check_axes(axes)
     device = resolve_device(device)
-    shape = (batch, max_len, cfg.n_kv_heads or cfg.n_heads, cfg.head_dim)
+    shape = (batch, max_len, _local_kv_heads(cfg, axes.tp), cfg.head_dim)
 
     def zeros():
         return torch.zeros(shape, dtype=cfg.dtype, device=device)
@@ -672,30 +824,35 @@ def prefill_cache(params, cache, tokens, cfg, axes=None):
     """Fill a fresh cache (pos == 0) for a whole prompt in one forward
     pass. Returns (last-position f32 logits (B, vocab), the cache with
     pos advanced by S). Prompt attention runs through the flash kernel
-    when ``cfg.attention_impl == "flash"``."""
-    _check_axes(axes)
+    when ``cfg.attention_impl == "flash"``. Over ``axes.tp`` the prompt
+    runs through training's shardings into a head-sharded cache, and
+    the logits are gathered over the vocabulary."""
+    axes = _check_axes(axes)
     _check_fresh_cache(cache)
     s_len = tokens.shape[1]
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, ShardAxes(tp=axes.tp))
     for p, lc in zip(params["layers"], cache["layers"]):
-        x, k, v = _attention_block_kv(p, x, cfg)
+        x, k, v = _attention_block_kv(p, x, cfg, ShardAxes(tp=axes.tp))
         lc["k"][:, :s_len] = k
         lc["v"][:, :s_len] = v
-        x, _ = _mlp_block(p, x, cfg)
+        x, _ = _mlp_block(p, x, cfg, axes)
     logits = _head(params, x[:, -1:], cfg)[:, 0]
     cache["pos"].add_(s_len)
-    return logits, cache
+    return _gather_vocab(logits, axes.tp), cache
 
 
 def decode_step(params, cache, token, cfg, axes=None):
     """One incremental decode step: ``token`` (B,) int64 at the cache's
     position. Returns (f32 logits (B, vocab), the cache with this
     position's K/V written and pos advanced by one). Runs no host
-    synchronization, so a CUDA graph can capture it."""
-    _check_axes(axes)
+    synchronization, so a CUDA graph can capture it. Over ``axes.tp``
+    it runs training's shardings on a head-sharded cache and gathers
+    the logits over the vocabulary."""
+    axes = _check_axes(axes)
+    tp = axes.tp
     pos = cache["pos"]
     positions = pos[None]                                          # (1,)
-    x = _embed_rows(params, token[:, None])
+    x = _embed_rows(params, token[:, None], tp)
     if cfg.positional == "learned":
         x = x + params["pos"][positions][None]
     x = x.to(cfg.dtype)
@@ -710,11 +867,11 @@ def decode_step(params, cache, token, cfg, axes=None):
         attn = _cache_attention(q, lc["k"], lc["v"], pos + 1,
                                 window=cfg.attention_window)
         out = _einsum_f32("bshx,hxd->bsd", attn, p["wo"].to(cfg.dtype))
-        x = x + out.to(cfg.dtype)
-        x, _ = _mlp_block(p, x, cfg)
+        x = x + _psum(out, tp).to(cfg.dtype)
+        x, _ = _mlp_block(p, x, cfg, axes)
     logits = _head(params, x, cfg)[:, 0]
     pos.add_(1)
-    return logits, cache
+    return _gather_vocab(logits, tp), cache
 
 
 def _select_token(logits, temperature, top_k, generator, dtype):
@@ -738,11 +895,7 @@ def tree_leaves(params):
     optimizer lays its flat row out in the order of its parameters, so
     ``DistributedOptimizer(AdamW(tree_leaves(lm.params)), zero_stage=k)``
     stripes and chunks the row as the JAX package does."""
-    if isinstance(params, dict):
-        return [t for k in sorted(params) for t in tree_leaves(params[k])]
-    if isinstance(params, list):
-        return [t for v in params for t in tree_leaves(v)]
-    return [params]
+    return [t for _, t in _named_leaves(params)]
 
 
 def _leaves(params):
@@ -757,28 +910,38 @@ def _leaves(params):
             yield v
 
 
-def _decoder(params, cfg, batch, max_len, device):
+def _decoder(params, cfg, batch, max_len, device, axes):
     """``(program, cache)``: ``decode_step`` over a cache of its own and
     one static token (``program.inputs[0]``), returning the logits. On a
     card the program is a CUDA graph, one per (B, max_len), cached in
     the session's program cache when there is a session; its key holds
-    the parameters' addresses, which the graph reads."""
+    the parameters' addresses, which the graph reads. The program holds
+    the parameters weakly, and the first of them to die drops it from
+    the cache."""
     def build():
-        cache = init_cache(cfg, batch, max_len, device=device)
+        cache = init_cache(cfg, batch, max_len, axes, device=device)
         token = torch.zeros((batch,), dtype=torch.int64, device=device)
         pool = None
         if device.type == "cuda" and runtime.is_initialized():
             pool = runtime.live_state().programs.graph_pool()
-        prog = StepProgram(lambda: decode_step(params, cache, token, cfg)[0],
-                           device, pool, [token])
+        refs = _tree_map(weakref.ref, params)
+        prog = StepProgram(lambda: decode_step(
+            _tree_map(lambda r: r(), refs), cache, token, cfg, axes)[0],
+            device, pool, [token])
         return prog, cache
 
     if not runtime.is_initialized():
         return build()
     sig = ("generate_decode", cfg, batch, max_len, str(device),
+           obj_token(axes.tp),
            tuple((t.data_ptr(), tuple(t.shape), str(t.dtype))
                  for t in _leaves(params)))
-    return engine_cached_program(sig, build)[0]
+    (prog, cache), was_hit = engine_cached_program(sig, build)
+    if not was_hit:
+        programs = runtime.live_state().programs
+        for t in _leaves(params):
+            weakref.finalize(t, programs.discard, sig)
+    return prog, cache
 
 
 @torch.inference_mode()
@@ -790,8 +953,11 @@ def generate(params, prompt, cfg, max_new_tokens, max_len=None,
     Returns (B, S + max_new_tokens) int64. The prompt runs through
     :func:`prefill_cache`; on a card every :func:`decode_step` after the
     first replays one CUDA graph per (B, max_len). The sampled draws
-    differ from the JAX package's, which come from ``jax.random``."""
-    _check_axes(axes)
+    differ from the JAX package's, which come from ``jax.random``. Over
+    ``axes.tp`` every step runs sharded and every rank selects from the
+    same gathered logits (the same ``generator`` seed on every rank
+    gives the same draws)."""
+    axes = _check_axes(axes)
     if temperature < 0:
         raise ValueError(f"temperature must be >= 0, got {temperature}")
     if temperature > 0 and generator is None:
@@ -813,9 +979,9 @@ def generate(params, prompt, cfg, max_new_tokens, max_len=None,
         raise ValueError(
             f"generation length {max_len} exceeds cfg.max_seq "
             f"({cfg.max_seq})")
-    prog, cache = _decoder(params, cfg, b, max_len, prompt.device)
+    prog, cache = _decoder(params, cfg, b, max_len, prompt.device, axes)
     cache["pos"].zero_()
-    logits, _ = prefill_cache(params, cache, prompt, cfg)
+    logits, _ = prefill_cache(params, cache, prompt, cfg, axes)
     token = prog.inputs[0]
     new = [_select_token(logits, temperature, top_k, generator,
                          prompt.dtype)]

@@ -8,9 +8,11 @@ scheduler :func:`exchange_bucket_plan`, copied from the JAX package, the
 expert-parallel exchange :func:`alltoall` / :func:`alltoall_chunked`
 (differentiable, over a sub-group), :func:`reducescatter`,
 :func:`bucketed_reducescatter_allgather`, :func:`hierarchical_allreduce`
-and the DCN-staged exchange of the ZeRO ladder
+the DCN-staged exchange of the ZeRO ladder
 (:func:`dcn_staged_psum_scatter`, :func:`dcn_staged_all_gather`,
-:func:`dcn_sigma`). Each function runs on ``torch.distributed`` and
+:func:`dcn_sigma`), and the model axis's collectives of tensor
+parallelism (:func:`_psum`, :func:`_pmax`, :func:`_gather_vocab`,
+:func:`_axis_index`). Each function runs on ``torch.distributed`` and
 records every execution in the session's stats (stats.py): op, wire
 bytes, time from launch to completion; the collectives the JAX package
 only ever runs inside a jitted program (the all-to-all, the
@@ -258,6 +260,97 @@ def alltoall(tensor, group=None, split_axis=0, concat_axis=0):
     return _AllToAll.apply(tensor, group, split_axis, concat_axis)
 
 
+# ------------------------------------------------ the model axis (TP)
+#
+# The JAX package's trunk runs these inside ``shard_map(...,
+# check_vma=False)``, where the transpose of ``lax.psum`` is a psum and
+# that of a tiled ``lax.all_gather`` a psum-scatter. Each is one
+# collective over the model group (None: no model axis, the identity),
+# not recorded in the session's stats: they are the model's arithmetic,
+# as the reference's are part of its program.
+
+def _axis_index(group):
+    """This rank's position in ``group`` (0 without one):
+    ``lax.axis_index``."""
+    return 0 if group is None else dist.get_rank(group)
+
+
+class _PSum(torch.autograd.Function):
+    """The sum over ``group``; its backward sums the cotangents over the
+    group too, as ``lax.psum`` transposes under ``check_vma=False`` (not
+    Megatron's identity): each rank's gradient before any exchange is
+    the reference's per-shard gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def _psum(x, group):
+    """``lax.psum(x, axis)`` over ``group``; differentiable."""
+    return x if group is None else _PSum.apply(x, group)
+
+
+def _gather_last(x, group):
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return parts
+
+
+def _pmax(x, group):
+    """The elementwise max over ``group``, by an all-gather and a max as
+    the JAX package takes it, outside autograd (its callers stop the
+    gradient)."""
+    if group is None:
+        return x
+    with torch.no_grad():
+        return torch.stack(_gather_last(x.detach(), group)).amax(dim=0)
+
+
+class _GatherVocab(torch.autograd.Function):
+    """The tiled all-gather of the last dimension; its backward is the
+    psum-scatter (the sum of the cotangents, this rank's block)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.width = group, x.shape[-1]
+        return torch.cat(_gather_last(x, group), dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        i = _axis_index(ctx.group)
+        return g[..., i * ctx.width:(i + 1) * ctx.width], None
+
+
+def _gather_vocab(logits, group):
+    """Full-vocab logits from the contiguous vocab stripes of ``group``'s
+    ranks, in rank order: ``lax.all_gather(..., axis=-1, tiled=True)``.
+    Every rank then holds the same distribution, so every rank selects
+    the same token."""
+    return logits if group is None else _GatherVocab.apply(logits, group)
+
+
+def broadcast_object(obj, group):
+    """The first rank of ``group``'s ``obj`` (any picklable value) on
+    every rank of ``group``: what keeps a model group's ranks in
+    lockstep (serve/scheduler.py)."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                               group=group)
+    return box[0]
+
+
 def _largest_divisor_leq(n, k):
     """Largest divisor of ``n`` that is <= ``k`` (static ints)."""
     k = min(max(int(k), 1), int(n))
@@ -351,10 +444,33 @@ def world_axis():
 def mesh_axis(mesh, name):
     """The axis ``name`` of a ``DeviceMesh``: its groups are the mesh's
     rows along that dimension."""
-    dim = mesh.mesh_dim_names.index(name)
-    rows = mesh.mesh.movedim(dim, -1).reshape(-1, mesh.mesh.shape[dim])
-    return Axis(tuple(tuple(int(r) for r in row) for row in rows.tolist()),
-                mesh.get_group(name))
+    return mesh_axes(mesh, (name,))
+
+
+def mesh_axes(mesh, names):
+    """The axes ``names`` of a ``DeviceMesh`` taken as one: each group
+    holds the ranks that share every other coordinate, row-major over
+    ``names`` in mesh order (the JAX package's collectives over a tuple
+    of axes). One axis is the mesh's own group; several are sub-groups
+    built for every group at once, on every rank, and kept for the
+    session (``runtime.cached_groups``); all of the mesh's axes are the
+    world (None) when the mesh covers it."""
+    dims = sorted(mesh.mesh_dim_names.index(n) for n in names)
+    rest = [d for d in range(mesh.mesh.ndim) if d not in dims]
+    width = 1
+    for d in dims:
+        width *= mesh.mesh.shape[d]
+    rows = mesh.mesh.permute(*rest, *dims).reshape(-1, width)
+    groups = tuple(tuple(int(r) for r in row) for row in rows.tolist())
+    if len(dims) == 1:
+        return Axis(groups, mesh.get_group(mesh.mesh_dim_names[dims[0]]))
+    if width == runtime.size():
+        return Axis(groups, None)
+    key = ("mesh_axes",) + groups
+    pgs = runtime.cached_groups(
+        key, lambda: [dist.new_group(list(g)) for g in groups])
+    r = runtime.rank()
+    return Axis(groups, next(pg for g, pg in zip(groups, pgs) if r in g))
 
 
 def _axis(axis):

@@ -471,19 +471,31 @@ def dkv_query_tiles(k0, s, off=0, causal=True, window=None, tile=64):
     return lo, max(lo, hi)
 
 
+def _strides(x):
+    """``x``'s (batch, sequence, head) strides as the kernels take them:
+    a dimension of size 1 is never stepped, so torch leaves its stride
+    arbitrary (a dO at B 1 arrives with a batch stride of 1), and it gets
+    the stride a dense layout would give it, which addresses the same
+    bytes."""
+    out = list(x.stride()[:4])
+    for i in (2, 1, 0):
+        if x.shape[i] == 1:
+            out[i] = out[i + 1] * x.shape[i + 1]
+    return out[:3]
+
+
 def tensor_core_route(q, k, v, do=None):
     """True when the kernels' tensor-core route takes these operands (q,
     k, v, and for the backward dO): bf16, head dim 64 or 128, every base
-    pointer 16-byte aligned and every (batch, sequence, head) stride a
-    positive multiple of 8 elements (TMA's 16 bytes). Everything else
-    takes the CUDA-core loop. A rule on the operands alone, so the CPU
-    tests check it."""
+    pointer 16-byte aligned and every (batch, sequence, head) stride
+    (:func:`_strides`) a positive multiple of 8 elements (TMA's 16
+    bytes). Everything else takes the CUDA-core loop. A rule on the
+    operands alone, so the CPU tests check it."""
     if q.dtype != torch.bfloat16 or q.shape[3] not in (64, 128):
         return False
     ops = (q, k, v) if do is None else (q, k, v, do)
     return all(x.data_ptr() % 16 == 0
-               and all(x.stride(i) > 0 and x.stride(i) % 8 == 0
-                       for i in range(3))
+               and all(st > 0 and st % 8 == 0 for st in _strides(x))
                for x in ops)
 
 
@@ -502,7 +514,7 @@ def _kernel_args(q, k, v, causal, window, off=None):
     # keeps the C int in range.
     reach = s if off is None else s + int(off)
     win = 0 if window is None else int(min(window, max(reach, 1)))
-    strides = [x.stride(i) for x in (q, k, v) for i in range(3)]
+    strides = [st for x in (q, k, v) for st in _strides(x)]
     mode = int(causal) if off is None else int(off)
     return (b, s, h, k.shape[2], d), strides, (_scale(d), mode, win)
 
@@ -533,7 +545,7 @@ def _bwd_args(q, k, v, do, lse, delta, causal, window, off=None):
     sizes, strides, tail = _kernel_args(q, k, v, causal, window, off)
     if do.stride(3) != 1:
         raise ValueError("dO must have a contiguous head dim")
-    strides += [do.stride(i) for i in range(3)]
+    strides += _strides(do)
     ops = (q, k, v, do, lse.contiguous(), delta.contiguous())
     return ops, sizes, strides, tail
 

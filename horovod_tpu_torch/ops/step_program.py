@@ -180,7 +180,14 @@ class CompiledTrainStep:
     (exchange mode ``"moe"``, in the signature as the JAX package keys
     it) those are the data group's all-reduces of the expert gradients
     beside the world's of the rest, and the model's all-to-alls are
-    captured with the forward and backward. A plain optimizer gets one
+    captured with the forward and backward; with ``model_keys`` (mode
+    ``"spec"``) each group of leaves all-reduces over its own axes of
+    the 3-D mesh, and a tensor-parallel model's psums are captured with
+    the forward and backward (NCCL only: a gloo collective moves through
+    the host and cannot be captured). The optimizer's sharding spec
+    already runs over the smallest runtime mesh that provides its axes,
+    the one the JAX package's ``_step_mesh`` picks, and raises in its
+    words where none does (optimizers.py ``_spec_mesh``). A plain optimizer gets one
     fused all-reduce a bucket in front of its update (the JAX package's
     auto decomposition). A ZeRO optimizer (modes ``"zero1"``,
     ``"zero2"``, ``"zero3"``, or ``"spec"`` with expert keys) exchanges
@@ -319,7 +326,7 @@ class CompiledTrainStep:
                 tuple((tuple(x.shape), str(x.dtype), str(x.device))
                       for x in batch), str(device))
 
-    def _build(self, st, batch, buckets):
+    def _build(self, st, sig, batch, buckets):
         device = st.device
         if device.type == "cuda":
             for g in self._optimizer.param_groups:
@@ -331,7 +338,14 @@ class CompiledTrainStep:
         inputs = [torch.empty_like(x, device=device) for x in batch]
         pool = (st.programs.graph_pool() if device.type == "cuda"
                 else None)
-        return StepProgram(lambda: self._step(inputs, buckets), device,
+        # The program holds its step weakly, and the step's finalizer
+        # drops the program from the cache: a session's cache outlives
+        # the steps built in it, and must not keep a dropped step's model
+        # and optimizer on the card (the JAX package's cached programs
+        # hold no device buffers either).
+        ref = weakref.ref(self)
+        weakref.finalize(self, st.programs.discard, sig)
+        return StepProgram(lambda: ref()._step(inputs, buckets), device,
                            pool, inputs)
 
     def __call__(self, *batch):
@@ -354,7 +368,7 @@ class CompiledTrainStep:
                 return self._fallback("shape_churn", batch, buckets)
             self._signatures.add(sig)
         prog, was_hit = st.programs.get(
-            sig, lambda: self._build(st, batch, buckets))
+            sig, lambda: self._build(st, sig, batch, buckets))
         if was_hit:
             self.cache_hits += 1
         else:

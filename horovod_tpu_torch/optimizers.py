@@ -40,9 +40,16 @@ exchange runs in :meth:`synchronize` once every gradient has landed
 one rank its scatter and gather are copies and its division is by 1, so
 a ZeRO step gives stage 0's bits with an elementwise optimizer.
 
-Model keys (ROADMAP.md, Queue 1 item 6) raise ``NotImplementedError``,
-and so does ``compression=Compression.int8``, whose per-rank scale a
-plain all-reduce cannot sum (int8 runs as ``dcn_compression``).
+``model_keys`` name the tensor-parallel parameters (Megatron's heads,
+FFN halves and vocabulary stripes, each rank its own shard; the exact
+names come from ``models.transformer.model_parallel_keys``) over the
+``model`` axis of the runtime's ``model_mesh()``: their gradients reduce
+over every other axis and average by those axes' sizes, the rest reduce
+over every axis, one all-reduce a group of leaves in the hooks or the
+spec's pre-reduce in front of a ZeRO stripe. A spec whose axes no
+runtime mesh provides raises; nothing falls back to a layout without
+them. ``compression=Compression.int8`` is refused: its per-rank scale
+a plain all-reduce cannot sum (int8 runs as ``dcn_compression``).
 """
 
 import warnings
@@ -50,6 +57,7 @@ import weakref
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from . import config as config_mod
 from . import metrics, runtime
@@ -57,7 +65,7 @@ from .ops.collectives import (Exchange, _all_gather, _nbytes,
                               _reduce_scatter, _rs_bucket_bytes, broadcast_,
                               dcn_sigma, dcn_staged_all_gather,
                               dcn_staged_psum_scatter, exchange_bucket_plan,
-                              flatten_by_dtype, mesh_axis,
+                              flatten_by_dtype, mesh_axes,
                               normalize_dcn_local_size, start_allreduce,
                               unflatten, world_axis)
 from .ops.compression import (BF16Compressor, Compression, Int8Compressor,
@@ -102,15 +110,18 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._compression = compression
         self._hvd_mode = mode  # the compiled step's exchange mode
         self.backward_passes_per_step = backward_passes_per_step
-        self._size = runtime.size()
         params = [p for group in self.param_groups for p in group["params"]
                   if p.requires_grad]
-        # Each parameter's exchange group, from the spec: the data
-        # sub-group for expert leaves, the world (None) for the rest.
+        # Each parameter's exchange group and divisor, from the spec:
+        # the data sub-group for expert leaves, the group of every axis
+        # but the model axis for model leaves (divided by its size),
+        # the world (None) for the rest.
         self.expert_keys = spec.expert_keys
+        self._spec = spec
         lspecs = spec.leaf_specs(_names_of(params, named_parameters),
                                  gauge=mode == "spec")
-        self._group_of = {p: spec.group_for(ls.reduce)
+        self._group_of = {p: (spec.group_for(ls.reduce),
+                              spec.size_of(ls.denom))
                           for p, ls in zip(params, lspecs)}
         self._allreduce_delay = {p: backward_passes_per_step for p in params}
         self.plan_exchange(exchange_buckets)
@@ -173,11 +184,12 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         for i, p in enumerate(params):
             by_group.setdefault(self._group_of[p], []).append(i)
         groups = []
-        for pg, members in by_group.items():
+        for (pg, denom), members in by_group.items():
             for _, idx, flat in flatten_by_dtype(
                     [compressed[i][0] for i in members]):
-                groups.append(([members[i] for i in idx], flat))
-                start_allreduce(flat, exchange, pg)
+                groups.append(([members[i] for i in idx], flat, denom))
+                if pg is None or dist.get_world_size(pg) > 1:
+                    start_allreduce(flat, exchange, pg)
         self._inflight[b] = (exchange, groups, compressed)
 
     def synchronize(self):
@@ -196,10 +208,10 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         for b, (exchange, groups, compressed) in self._inflight.items():
             params = self._buckets[b]
             exchange.wait()
-            for idx, flat in groups:
+            for idx, flat, denom in groups:
                 flat = self._compression.decompress(
                     flat, compressed[idx[0]][1])
-                flat.div_(self._size)
+                flat.div_(denom)
                 for i, avg in zip(idx, unflatten(flat,
                                                  [params[i] for i in idx])):
                     params[i].grad.copy_(avg)
@@ -241,30 +253,64 @@ class _LeafSpec(NamedTuple):
     denom: tuple
 
 
+def _spec_mesh(spec):
+    """``(axes, mesh)`` a spec runs over: the 1-D world (mesh None)
+    without sharded axes, else the smallest runtime mesh providing every
+    axis the spec names (the JAX package's ``CompiledTrainStep.
+    _step_mesh``, in its words when none does): the 2-D (data, expert)
+    ``expert_mesh()`` or the 3-D (data, expert, model) ``model_mesh()``.
+    An expert axis alone with no expert mesh (one rank, or
+    ``HOROVOD_EXPERT_PARALLEL`` unset) folds into the dense set: every
+    expert is on each rank."""
+    world = spec.data_axes[:1]
+    if spec.expert_axis is None and spec.model_axis is None:
+        return world, None
+    st = runtime.live_state()
+    req = set(spec.known_axes)
+    for mesh in (st.expert_mesh, st.model_mesh):
+        if mesh is not None and req.issubset(mesh.mesh_dim_names):
+            return tuple(mesh.mesh_dim_names), mesh
+    if spec.model_axis is None:
+        return world, None
+    raise ValueError(
+        f"no runtime mesh provides the sharding-spec axes "
+        f"{tuple(sorted(req))}: set HOROVOD_EXPERT_PARALLEL and/or "
+        "HOROVOD_MODEL_PARALLEL (Config.expert_parallel / "
+        "Config.model_parallel) to degrees > 1 whose product "
+        "divides the world size before hvd.init() so the matching "
+        "expert/model mesh exists")
+
+
 class _ShardingSpec:
     """Per-leaf sharding spec: one description of how every parameter
     exchanges its gradient, over the runtime's mesh: the 1-D data axis
-    ``hvd``, or the 2-D ``(hvd, ep)`` expert mesh (``expert_mesh()``).
-    Counterpart of the JAX package's ``_ShardingSpec`` for dense and
-    expert leaves (model keys come with ROADMAP.md, Queue 1 item 6).
+    ``hvd``, the 2-D ``(hvd, ep)`` expert mesh (``expert_mesh()``) or
+    the 3-D ``(hvd, ep, model)`` model mesh (``model_mesh()``), the
+    smallest that provides the spec's axes (:func:`_spec_mesh`).
+    Counterpart of the JAX package's ``_ShardingSpec``.
 
     For each leaf, by name (:meth:`leaf_specs`): expert leaves (an
     ``expert_keys`` substring of the name) reduce over every axis but
-    ``expert_axis`` and average by the world; dense leaves reduce over
-    every axis and average by the world. The stage-0 exchange sums each
-    leaf over its group (:meth:`group_for`) in the gradient hooks; the
-    ZeRO stripe runs over the data axis for every leaf, each leaf first
-    reduced over its other axes and divided by the rest of its
-    denominator (:func:`_spec_pre_reduce`). On the 1-D mesh both
-    pre-steps vanish, and the ladder's own sequence is what runs."""
+    ``expert_axis`` and average by the world; model leaves (a
+    ``model_keys`` substring) reduce over every axis but ``model_axis``
+    and average by the product of the axes they reduce over (their
+    shards are distinct parameters); dense leaves reduce over every axis
+    and average by the world. The stage-0 exchange sums each leaf over
+    its group (:meth:`group_for`) in the gradient hooks; the ZeRO stripe
+    runs over the data axis for every leaf, each leaf first reduced over
+    its other axes and divided by the rest of its denominator
+    (:func:`_spec_pre_reduce`). On the 1-D mesh both pre-steps vanish,
+    and the ladder's own sequence is what runs."""
 
     def __init__(self, data_axes=runtime.AXIS, expert_axis=None,
-                 expert_keys=(), average=True, zero_stage=0,
-                 dcn_link=False):
+                 expert_keys=(), model_axis=None, model_keys=(),
+                 average=True, zero_stage=0, dcn_link=False):
         self.data_axes = ((data_axes,) if isinstance(data_axes, str)
                           else tuple(data_axes))
         self.expert_keys = tuple(str(k) for k in (expert_keys or ()))
+        self.model_keys = tuple(str(k) for k in (model_keys or ()))
         self.expert_axis = str(expert_axis) if self.expert_keys else None
+        self.model_axis = str(model_axis) if self.model_keys else None
         self.average = bool(average)
         self.zero_stage = int(zero_stage)
         # True when the stage-0 exchange carries a DCN error-feedback
@@ -272,20 +318,33 @@ class _ShardingSpec:
         self.dcn_link = bool(dcn_link)
         if self.expert_keys and expert_axis is None:
             raise ValueError("expert_keys need an expert_axis")
-        if self.expert_axis is not None and \
-                self.expert_axis in self.data_axes:
+        if self.model_keys and model_axis is None:
+            raise ValueError("model_keys need a model_axis")
+        shard_axes = [a for a in (self.expert_axis, self.model_axis)
+                      if a is not None]
+        if len(set(shard_axes)) != len(shard_axes):
             raise ValueError(
-                f"sharded axis {self.expert_axis!r} collides with the data "
-                f"axes {self.data_axes!r}")
-        # The axes the port runs over: (hvd, ep) on the expert mesh
-        # when expert keys ask for it, else the world's one axis.
-        self.mesh_axes = (self.data_axes[:1] + ("ep",)
-                          if self.expert_axis == "ep"
-                          and runtime.expert_parallel_size() > 1
-                          else self.data_axes[:1])
+                f"expert_axis and model_axis must differ, both are "
+                f"{self.expert_axis!r}")
+        for a in shard_axes:
+            if a in self.data_axes:
+                raise ValueError(
+                    f"sharded axis {a!r} collides with the data axes "
+                    f"{self.data_axes!r}")
+        self.known_axes = self.data_axes + tuple(shard_axes)
+        self.mesh_axes, self._mesh = _spec_mesh(self)
 
-    def matches(self, name):
-        return any(k in name for k in self.expert_keys)
+    def kind(self, name):
+        """``"expert"``, ``"model"`` or ``"dense"``: the family of the
+        parameter called ``name``, by substring of its keys."""
+        e = any(k in name for k in self.expert_keys)
+        m = any(k in name for k in self.model_keys)
+        if e and m:
+            raise ValueError(
+                f"parameter leaf {name} matches both expert_keys and "
+                "model_keys — a leaf shards over one axis; tighten the "
+                "key patterns (model_parallel_keys gives exact paths)")
+        return "expert" if e else ("model" if m else "dense")
 
     def leaf_specs(self, names, gauge=True):
         """Per-leaf :class:`_LeafSpec`, in order, classified against
@@ -295,12 +354,15 @@ class _ShardingSpec:
         axes = self.mesh_axes
         out, counts = [], {"dense": 0, "expert": 0, "model": 0}
         for name in names:
-            if self.matches(name):
-                counts["expert"] += 1
+            kind = self.kind(name)
+            counts[kind] += 1
+            if kind == "expert":
                 out.append(_LeafSpec(
                     tuple(a for a in axes if a != self.expert_axis), axes))
+            elif kind == "model":
+                red = tuple(a for a in axes if a != self.model_axis)
+                out.append(_LeafSpec(red, red))
             else:
-                counts["dense"] += 1
                 out.append(_LeafSpec(axes, axes))
         for kind, n in counts.items():
             if gauge:
@@ -309,25 +371,25 @@ class _ShardingSpec:
 
     def group_for(self, axes):
         """The process group that sums over ``axes``: the world (None)
-        for every axis of the mesh, else the expert mesh's group."""
+        for every axis of the mesh, else the mesh's group over those
+        axes."""
         if set(axes) == set(self.mesh_axes):
             return None
-        (name,) = axes
-        return runtime.expert_mesh().get_group(name)
+        return mesh_axes(self._mesh, axes).group
 
     def size_of(self, axes):
         """The product of the sizes of ``axes``."""
         n = 1
         for a in axes:
-            n *= (runtime.size() if len(self.mesh_axes) == 1
-                  else runtime.expert_mesh().size(self.mesh_axes.index(a)))
+            n *= (runtime.size() if self._mesh is None
+                  else self._mesh.size(self.mesh_axes.index(a)))
         return n
 
     def stripe_axis(self):
         """The data axis the ZeRO stripe runs over."""
-        if len(self.mesh_axes) == 1:
+        if self._mesh is None:
             return world_axis()
-        return mesh_axis(runtime.expert_mesh(), self.mesh_axes[0])
+        return mesh_axes(self._mesh, self.mesh_axes[:1])
 
 
 def _spec_pre_reduce(leaves, lspecs, spec, stripe):
@@ -886,8 +948,8 @@ def DistributedOptimizer(optimizer, named_parameters=None,
                          backward_passes_per_step=1, zero_stage=None,
                          exchange_buckets=None, dcn_compression=None,
                          expert_keys=None, expert_axis="ep", model_keys=None,
-                         reduce_scatter=False, dcn_local_size=None,
-                         bucket_bytes=None):
+                         model_axis="model", reduce_scatter=False,
+                         dcn_local_size=None, bucket_bytes=None):
     """Wrap a torch optimizer so its gradients are averaged over every
     rank.
 
@@ -933,7 +995,15 @@ def DistributedOptimizer(optimizer, named_parameters=None,
     (the stripe over the data axis). ``named_parameters`` must then name
     the parameters. Substrings match as the JAX package's tree paths do,
     so ``"moe"`` alone would also take each MoE layer's router, whose
-    gradient the world must average."""
+    gradient the world must average.
+
+    ``model_keys`` (full names, ``models.transformer.model_parallel_keys``)
+    name the tensor-parallel parameters, sharded over ``model_axis`` of
+    the runtime's ``model_mesh()`` (``HOROVOD_MODEL_PARALLEL``): they
+    reduce over the other axes and average by their sizes (module
+    docstring). They compose with ``expert_keys``, every ZeRO stage and
+    ``dcn_compression``, in one per-leaf sharding spec; a name both key
+    sets match raises."""
     cfg = config_mod.Config.from_env()
     if zero_stage is None:
         zero_stage = 1 if reduce_scatter else cfg.zero_stage
@@ -951,22 +1021,24 @@ def DistributedOptimizer(optimizer, named_parameters=None,
         raise ValueError(
             "dcn_compression already defines the wire precision of the "
             "compressed hop — combine it with compression=Compression.none")
-    if model_keys:
-        raise NotImplementedError(
-            "model_keys are not ported yet (ROADMAP.md, Queue 1 item 6)")
     if compression is Int8Compressor:
         raise NotImplementedError(Int8Compressor.MESSAGE)
     hook_buckets = (cfg.exchange_buckets if exchange_buckets is None
                     else exchange_buckets)
     named = _named(optimizer, named_parameters)
-    if expert_keys and zero_stage == 0 and not dcn_compression:
+    sharded = bool(expert_keys or model_keys)
+    if expert_keys and not model_keys and zero_stage == 0 \
+            and not dcn_compression:
         # Pure expert parallelism: the hooks' exchange (the JAX
         # package's "moe" fast path), with its checks and words.
         _moe_checks(runtime.AXIS, expert_axis, expert_keys)
         spec = _ShardingSpec(runtime.AXIS, expert_axis, expert_keys)
         mode = "moe"
-    elif expert_keys:
-        spec = _ShardingSpec(runtime.AXIS, expert_axis, expert_keys,
+    elif sharded:
+        spec = _ShardingSpec(runtime.AXIS,
+                             expert_axis if expert_keys else None,
+                             expert_keys,
+                             model_axis if model_keys else None, model_keys,
                              zero_stage=zero_stage,
                              dcn_link=bool(dcn_compression)
                              and zero_stage == 0)
@@ -981,7 +1053,7 @@ def DistributedOptimizer(optimizer, named_parameters=None,
     return _zero_sharded(optimizer, named, compression,
                          backward_passes_per_step, zero_stage,
                          dcn_compression, dcn_local_size, bucket_bytes,
-                         exchange_buckets, spec if expert_keys else None)
+                         exchange_buckets, spec if sharded else None)
 
 
 def _moe_checks(data_axes, expert_axis, expert_keys):

@@ -51,6 +51,39 @@ def expert_data_mesh(device_type, size, expert_parallel=1, data_axis="hvd",
                       mesh_dim_names=(data_axis, expert_axis))
 
 
+def model_expert_data_mesh(device_type, size, expert_parallel=1,
+                           model_parallel=1, data_axis="hvd",
+                           expert_axis="ep", model_axis="model"):
+    """The 3-D (data, expert, model) ``DeviceMesh`` of composable
+    parallelism: ranks 0..size-1 laid out as ``(size // (ep * mp), ep,
+    mp)`` with axes ``(data_axis, expert_axis, model_axis)``, so rank r
+    sits at ``(r // (ep * mp), (r // mp) % ep, r % mp)``. The model axis
+    varies fastest: each run of ``mp`` consecutive ranks is one model
+    group, which carries an activation all-reduce in every layer (on a
+    host, NVLink); the expert axis carries the MoE all-to-all, the data
+    axis one gradient exchange a step. Raises the JAX package's errors
+    when a degree is not positive, the degrees do not divide the world,
+    or two axis names collide."""
+    ep = int(expert_parallel)
+    mp = int(model_parallel)
+    if ep <= 0:
+        raise ValueError(f"expert_parallel must be >= 1, got {ep}")
+    if mp <= 0:
+        raise ValueError(f"model_parallel must be >= 1, got {mp}")
+    if size % (ep * mp) != 0:
+        raise ValueError(
+            f"expert_parallel={ep} * model_parallel={mp} does not divide "
+            f"the world size {size} (HOROVOD_EXPERT_PARALLEL * "
+            "HOROVOD_MODEL_PARALLEL must divide the device count, "
+            "including after an elastic re-init over survivors)")
+    names = (data_axis, expert_axis, model_axis)
+    if len(set(names)) != 3:
+        raise ValueError(f"mesh axis names must be distinct, got {names}")
+    ranks = [[[(d * ep + e) * mp + m for m in range(mp)] for e in range(ep)]
+             for d in range(size // (ep * mp))]
+    return DeviceMesh(device_type, ranks, mesh_dim_names=names)
+
+
 def hierarchical_axes(mesh, ici_axis="local", dcn_axis="cross"):
     """Names of the (intra-host, cross-host) axis pair for hierarchical
     collectives, checked against ``mesh``'s axes: the analog of the

@@ -13,7 +13,11 @@ on:
   ``HashStore``, and nothing listens on a network port.
 
 The backend is NCCL on ``device="cuda"`` (the default) and gloo on
-``device="cpu"``.
+``device="cpu"``. A process that has already joined a default process
+group (``torch.distributed.init_process_group``) keeps it: ``init()``
+takes its backend, rank and size, and ``shutdown()`` leaves it to its
+owner. That is how two ranks share one card, over gloo, where NCCL
+refuses them.
 
 Rank model. In the JAX package a rank is a mesh position, and one process
 can own eight of them (all of its host's chips). Here a rank is one
@@ -28,7 +32,9 @@ raise rather than run without them.
 With ``HOROVOD_EXPERT_PARALLEL`` above 1, ``init()`` also builds the
 2-D (data, expert) mesh of expert-parallel MoE (:func:`expert_mesh`;
 parallel/mesh.py), whose sub-groups every rank creates in the same
-order. The ICI and DCN tiers of the staged exchange are built on first
+order; with ``HOROVOD_MODEL_PARALLEL`` above 1, the 3-D (data, expert,
+model) mesh of tensor parallelism (:func:`model_mesh`), whose expert
+axis is there at size 1 too. The ICI and DCN tiers of the staged exchange are built on first
 use and kept for the session (:func:`cached_groups`).
 
 Each session owns a :class:`ProgramCache`: the signature-keyed step
@@ -81,6 +87,7 @@ class ProgramCache:
         self._programs = OrderedDict()
         self._lock = threading.RLock()
         self._pool = None
+        self._anchor = None
         self.hits = 0
         self.misses = 0
 
@@ -99,11 +106,25 @@ class ProgramCache:
                 self._programs.popitem(last=False)
             return prog, False
 
+    def discard(self, signature):
+        """Drop the program cached under ``signature``, if any: a step
+        or an engine that dies takes its programs (and what their
+        captures hold in the pool) with it."""
+        with self._lock:
+            self._programs.pop(signature, None)
+
     def graph_pool(self):
-        """The CUDA graph memory pool this session's captures share."""
+        """The CUDA graph memory pool this session's captures share. A
+        graph of one fill, held for the session, keeps the pool in use:
+        the graphs that share it may all leave with the steps that
+        dropped them, and the allocator refuses a capture into a pool no
+        graph uses any more."""
         with self._lock:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
+                self._anchor = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(self._anchor, pool=self._pool):
+                    torch.zeros((), device="cuda")
             return self._pool
 
     def __len__(self):
@@ -112,7 +133,7 @@ class ProgramCache:
     def clear(self):
         with self._lock:
             self._programs.clear()
-            self._pool = None
+            self._pool = self._anchor = None
 
 
 class _State:
@@ -124,8 +145,10 @@ class _State:
         self.stats = None
         self.programs = None
         self.store = None
+        self.owns_group = False
         self.mesh = None
         self.expert_mesh = None
+        self.model_mesh = None
         self.groups = {}
         self.rank = 0
         self.size = 0
@@ -170,6 +193,26 @@ def _join_group():
     return store, rank, size
 
 
+def _meshes(cfg, device_type, size):
+    """The expert and model meshes the config asks for (None where it
+    does not): the 2-D (data, expert) one at ``expert_parallel > 1``,
+    the 3-D (data, expert, model) one at ``model_parallel > 1``, whose
+    expert axis is there at size 1 too, so a sharding spec can always
+    name all three axes."""
+    from .parallel.mesh import expert_data_mesh, model_expert_data_mesh
+    exp_mesh = mdl_mesh = None
+    if cfg.expert_parallel > 1:
+        exp_mesh = expert_data_mesh(device_type, size,
+                                    expert_parallel=cfg.expert_parallel,
+                                    data_axis=AXIS, expert_axis="ep")
+    if cfg.model_parallel > 1:
+        mdl_mesh = model_expert_data_mesh(
+            device_type, size, expert_parallel=cfg.expert_parallel,
+            model_parallel=cfg.model_parallel, data_axis=AXIS,
+            expert_axis="ep", model_axis="model")
+    return exp_mesh, mdl_mesh
+
+
 def init(comm=None, *, device="cuda"):
     """Initialize the runtime: the process group, the rank topology and
     the collective stats. Idempotent; a second ``init()`` after
@@ -197,23 +240,31 @@ def init(comm=None, *, device="cuda"):
         if device.type == "cuda":
             torch.cuda.set_device(device)
 
-        store, rank, size = _join_group()
-        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
-                                store=store, rank=rank, world_size=size)
+        owns_group = not dist.is_initialized()
+        if owns_group:
+            store, rank, size = _join_group()
+            dist.init_process_group(
+                "nccl" if device.type == "cuda" else "gloo", store=store,
+                rank=rank, world_size=size)
+        else:
+            store, rank, size = None, dist.get_rank(), dist.get_world_size()
 
         from . import metrics
         from .stats import CollectiveStats, register_metrics
-        exp_mesh = None
-        if cfg.expert_parallel > 1:
-            from .parallel.mesh import expert_data_mesh
-            exp_mesh = expert_data_mesh(device.type, size,
-                                        expert_parallel=cfg.expert_parallel,
-                                        data_axis=AXIS, expert_axis="ep")
+        try:
+            exp_mesh, mdl_mesh = _meshes(cfg, device.type, size)
+        except Exception:
+            # a degree the world does not divide: leave no group behind
+            if owns_group:
+                dist.destroy_process_group()
+            raise
         _state.config = cfg
         _state.device = device
         _state.store = store
+        _state.owns_group = owns_group
         _state.mesh = None
         _state.expert_mesh = exp_mesh
+        _state.model_mesh = mdl_mesh
         _state.groups = {}
         _state.rank, _state.size = rank, size
         _state.local_rank = local_rank
@@ -226,6 +277,7 @@ def init(comm=None, *, device="cuda"):
         metrics.RUNTIME_INITS.inc()
         metrics.RUNTIME_UP.set(1)
         metrics.RUNTIME_RANKS.set(size)
+        metrics.MODEL_PARALLEL.set(cfg.model_parallel if mdl_mesh else 1)
         _state.shutdown = False
         _state.initialized = True
         _logger.info("Started horovod_tpu_torch with %d ranks on %s (%s)",
@@ -260,10 +312,12 @@ def shutdown():
         # The programs go first: a captured graph holds the collectives
         # of the group destroyed next.
         _state.programs.clear()
-        dist.destroy_process_group()
+        if _state.owns_group:
+            dist.destroy_process_group()
         _state.store = None
         _state.mesh = None
         _state.expert_mesh = None
+        _state.model_mesh = None
         _state.groups = {}
         _state.shutdown = True
         _state.initialized = False
@@ -317,6 +371,29 @@ def expert_mesh():
             "Config.expert_parallel) to a degree > 1 dividing the world "
             "size before hvd.init()")
     return _state.expert_mesh
+
+
+def model_mesh():
+    """The 3-D (data, expert, model) ``DeviceMesh`` — axes
+    ``("hvd", "ep", "model")`` — built when ``HOROVOD_MODEL_PARALLEL >
+    1``; its expert axis is there at degree 1 too. Raises when model
+    parallelism was not configured at init."""
+    _check_init()
+    if _state.model_mesh is None:
+        from .exceptions import HorovodError
+        raise HorovodError(
+            "no model mesh: set HOROVOD_MODEL_PARALLEL (or "
+            "Config.model_parallel) to a degree > 1 such that "
+            "expert_parallel * model_parallel divides the world size "
+            "before hvd.init()")
+    return _state.model_mesh
+
+
+def model_parallel_size():
+    """Configured model-parallel degree (1 = no model mesh)."""
+    _check_init()
+    return (_state.model_mesh.size(2)
+            if _state.model_mesh is not None else 1)
 
 
 def cached_groups(key, build):

@@ -71,7 +71,14 @@ class Engine:
     ``device`` (default ``cuda``). A keyword left at None takes its
     ``HOROVOD_SERVE_*`` knob from the environment, or the default.
     ``start=False`` skips the background thread: callers then drive
-    ``self.batcher.step()`` themselves."""
+    ``self.batcher.step()`` themselves.
+
+    ``mesh``/``tp_axis`` serve tensor-parallel over a model group
+    (serve/engine.py): every rank of the group builds an ``Engine`` with
+    the same arguments and submits the same requests in the same order;
+    the group's rank 0 leads the schedule (serve/scheduler.py). Its
+    ``close()`` ends the other ranks' loops, whose ``close()`` waits for
+    that."""
 
     def __init__(self, model, params, *, mesh=None, tp_axis=None,
                  num_pages=None, page_size=None, max_batch=None,
@@ -133,10 +140,24 @@ class Engine:
         loop's exception) if the background thread died with work
         outstanding, TimeoutError after ``timeout`` seconds
         (``timeout=None`` waits forever) — the thread is stopped
-        either way instead of hanging the caller."""
+        either way instead of hanging the caller. A follower of a
+        model group waits for its leader's ``close()``."""
         if self._thread is None:
             if drain:
                 self.batcher.drain()
+            return
+        if not self.batcher.leader:
+            self._thread.join(timeout)
+            alive = self._thread.is_alive()
+            self._stop.set()
+            self._thread = None
+            if alive:
+                raise TimeoutError(
+                    f"the model group's leader did not close within "
+                    f"{timeout:.0f}s")
+            if self._loop_exc is not None:
+                raise RuntimeError("hvd-serve loop thread died") \
+                    from self._loop_exc
             return
         if drain:
             deadline = (None if timeout is None
@@ -159,6 +180,7 @@ class Engine:
         self._stop.set()
         self._thread.join(timeout=10.0)
         self._thread = None
+        self.batcher.stop_followers()
 
     def __enter__(self):
         return self
@@ -203,13 +225,13 @@ class Engine:
 
     def _loop(self):
         try:
-            while not self._stop.is_set():
+            while not self._stop.is_set() and not self.batcher.stopped:
                 did_work = self.batcher.step()
                 now = time.monotonic()
                 if now - self._last_signal_t >= _SIGNAL_INTERVAL_S:
                     self._last_signal_t = now
                     self.write_slo_signal()
-                if not did_work:
+                if not did_work and self.batcher.leader:
                     self._stop.wait(_POLL_S)
         except BaseException as exc:
             self._loop_exc = exc  # close() chains it for the caller

@@ -30,7 +30,21 @@ runs each program without capturing it, as the CPU always does.
 
 Where the JAX engine rebuilt the pools functionally, this one updates
 them in place (``index_put_``), and ``defrag`` permutes them in place:
-every captured graph holds the pools' addresses.
+every captured graph holds the pools' addresses. A dead engine's
+programs leave the session's cache with it.
+
+``mesh``/``tp_axis`` shard the model Megatron-style over the
+``tp_axis`` group of a ``DeviceMesh`` (models/transformer.py): each rank
+of the group holds its shard of the parameters and of the KV pools,
+split on the kv-head dimension, and the logits are gathered over the
+vocabulary, so every rank selects the same token. The reference's engine
+is one controller over a mesh; here every rank of the group runs an
+engine, and every rank must make the same calls with the same
+arguments, as in any SPMD program. The scheduler keeps its ranks so
+(serve/scheduler.py: the group's rank 0 broadcasts each step's joins
+and evictions, and every rank then allocates the same pages and samples
+the same token); a caller that drives the engine directly passes the
+same arguments on every rank itself.
 """
 
 import time
@@ -38,6 +52,7 @@ import weakref
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import metrics, runtime
 from ..config import next_power_of_two
@@ -67,32 +82,36 @@ def _pool_scatter_prefill(pool, li, page_tables, positions, rows,
 
 
 def _prefill_core(params, k_pool, v_pool, tokens, lengths, page_tables,
-                  cfg, page_size, moe_full):
+                  cfg, page_size, moe_full, tp):
     """Forward trunk + paged K/V capture + last-position logits; MoE
-    layers at full capacity when ``moe_full``."""
-    x = tfm.embed_tokens(params, tokens, cfg)
+    layers at full capacity when ``moe_full``; sharded over the model
+    group ``tp`` (None: unsharded)."""
+    axes = tfm.ShardAxes(tp=tp)
+    x = tfm.embed_tokens(params, tokens, cfg, axes)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     for li, p in enumerate(params["layers"]):
-        x, k, v = tfm._attention_block_kv(p, x, cfg)
+        x, k, v = tfm._attention_block_kv(p, x, cfg, axes)
         _pool_scatter_prefill(k_pool, li, page_tables, positions, k,
                               page_size)
         _pool_scatter_prefill(v_pool, li, page_tables, positions, v,
                               page_size)
-        x, _ = tfm._mlp_block(p, x, cfg, moe_full_capacity=moe_full)
+        x, _ = tfm._mlp_block(p, x, cfg, axes, moe_full_capacity=moe_full)
     # The head is row-wise, so it runs on the last real rows only instead
     # of on every position and then selecting.
     last = torch.clamp(lengths - 1, 0, tokens.shape[1] - 1)
     x = x[torch.arange(x.shape[0], device=x.device), last][:, None]
-    return tfm._head(params, x, cfg)[:, 0]                         # (B, V)
+    logits = tfm._head(params, x, cfg)[:, 0]                   # (B, V_loc)
+    return tfm._gather_vocab(logits, tp)                           # (B, V)
 
 
 def _decode_core(params, k_pool, v_pool, tokens, lengths, page_tables,
-                 cfg, page_size, moe_full):
+                 cfg, page_size, moe_full, tp):
     """One token for every row: scatter the new K/V row at position
     ``lengths`` (in place) and attend over ``lengths + 1`` visible
-    positions."""
+    positions; sharded over the model group ``tp`` (None: unsharded)."""
+    axes = tfm.ShardAxes(tp=tp)
     b = tokens.shape[0]
-    x = tfm._embed_rows(params, tokens[:, None])
+    x = tfm._embed_rows(params, tokens[:, None], tp)
     if cfg.positional == "learned":
         x = x + params["pos"][lengths][:, None]
     x = x.to(cfg.dtype)
@@ -111,9 +130,10 @@ def _decode_core(params, k_pool, v_pool, tokens, lengths, page_tables,
                                       page_tables, lengths + 1)
         out = tfm._einsum_f32("bshx,hxd->bsd", attn,
                               p["wo"].to(cfg.dtype))
-        x = x + out.to(cfg.dtype)
-        x, _ = tfm._mlp_block(p, x, cfg, moe_full_capacity=moe_full)
-    return tfm._head(params, x, cfg)[:, 0]                         # (B, V)
+        x = x + tfm._psum(out, tp).to(cfg.dtype)
+        x, _ = tfm._mlp_block(p, x, cfg, axes, moe_full_capacity=moe_full)
+    logits = tfm._head(params, x, cfg)[:, 0]                   # (B, V_loc)
+    return tfm._gather_vocab(logits, tp)                           # (B, V)
 
 
 class ServeEngine:
@@ -129,27 +149,46 @@ class ServeEngine:
     static per bin, so one program a bin still holds.
     ``prefill_hits``/``_misses`` and ``decode_hits``/``_misses`` count
     program fetches; ``fallback_steps`` counts steps whose session
-    cache failed and that took the engine's own instead."""
+    cache failed and that took the engine's own instead.
+
+    ``mesh``/``tp_axis``: tensor-parallel serving over the ``tp_axis``
+    group of ``mesh`` (a ``DeviceMesh``; module docstring). ``params``
+    is the full tree, as the JAX engine's is; the engine cuts this
+    rank's shard from it (``slice_param_shards``). The kv heads must
+    divide over the group."""
 
     def __init__(self, params, cfg, *, mesh=None, tp_axis=None,
                  num_pages=DEFAULT_PAGES, page_size=DEFAULT_PAGE_SIZE,
                  max_pages_per_seq=None, batch_bin_floor=1,
                  page_bin_floor=1, len_bin_floor=1, moe_full_capacity=True,
                  device="cuda"):
-        if mesh is not None or tp_axis is not None:
-            raise NotImplementedError(
-                f"mesh/tp_axis serving comes with {tfm.TENSOR_PARALLEL}")
         self.cfg = cfg
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params lie on {params['embed'].device}, the "
                              f"engine on {self.device}")
+        self.mesh = mesh
+        self.tp_axis = tp_axis if mesh is not None else None
+        self.tp = None
+        if mesh is not None:
+            if tp_axis is None:
+                raise ValueError("mesh serving needs tp_axis")
+            if params["embed"].shape[0] != cfg.vocab_size:
+                raise ValueError(
+                    f"mesh serving takes the full parameter tree: embed "
+                    f"has {params['embed'].shape[0]} rows, the vocabulary "
+                    f"{cfg.vocab_size}")
+            self.tp = mesh.get_group(tp_axis)
+            params = tfm.slice_param_shards(
+                params, tfm.param_specs(cfg, tp=tp_axis, ep=None),
+                {tp_axis: (dist.get_rank(self.tp),
+                           dist.get_world_size(self.tp))})
         self.params = params
         self.moe_full_capacity = bool(moe_full_capacity)
         self.batch_bin_floor = max(int(batch_bin_floor), 1)
         self.page_bin_floor = max(int(page_bin_floor), 1)
         self.len_bin_floor = max(int(len_bin_floor), 1)
-        h_kv = cfg.n_kv_heads or cfg.n_heads
+        h_kv = tfm._local_kv_heads(cfg, self.tp)
         if max_pages_per_seq is None:
             max_pages_per_seq = max(1, -(-cfg.max_seq // int(page_size)))
         self.cache = PagedKVCache(cfg.n_layers, h_kv, cfg.head_dim,
@@ -176,8 +215,18 @@ class ServeEngine:
         takes the engine's own cache), else from the engine's own."""
         was_hit = None
         if runtime.is_initialized():
+            programs = runtime.live_state().programs
+
+            def build_owned():
+                # the engine's finalizer drops its programs from the
+                # session's cache
+                prog = build()
+                weakref.finalize(self, programs.discard, signature)
+                return prog
+
             try:
-                prog, was_hit = engine_cached_program(signature, build)
+                prog, was_hit = engine_cached_program(signature,
+                                                      build_owned)
             except Exception:  # noqa: BLE001 - counted, then served locally
                 self.fallback_steps += 1
                 metrics.SERVE_FALLBACK_STEPS.inc()
@@ -226,7 +275,8 @@ class ServeEngine:
         def fn():
             eng = ref()
             return core(eng.params, eng._k_pool, eng._v_pool, tokens,
-                        lengths, tables, eng.cfg, ps, eng.moe_full_capacity)
+                        lengths, tables, eng.cfg, ps, eng.moe_full_capacity,
+                        eng.tp)
 
         pool = None
         if self.device.type == "cuda":
@@ -281,8 +331,8 @@ class ServeEngine:
             _prefill_core, batch_bin, page_bin, len_bin))
         t0 = time.perf_counter()
         with torch.inference_mode():
-            logits = self._run(prog, tokens, lengths,
-                               self._tables(seq_ids, batch_bin, page_bin))
+            logits = self._run(prog, tokens, lengths, self._tables(
+                seq_ids, batch_bin, page_bin))
             logits = logits[:b].cpu().numpy()
         dt = time.perf_counter() - t0
         metrics.SERVE_STEP_SECONDS.labels(phase="prefill").observe(dt)
@@ -308,8 +358,8 @@ class ServeEngine:
             _decode_core, batch_bin, page_bin))
         t0 = time.perf_counter()
         with torch.inference_mode():
-            logits = self._run(prog, tok, lng,
-                               self._tables(seq_ids, batch_bin, page_bin))
+            logits = self._run(prog, tok, lng, self._tables(
+                seq_ids, batch_bin, page_bin))
             logits = logits[:b].cpu().numpy()
         dt = time.perf_counter() - t0
         metrics.SERVE_STEP_SECONDS.labels(phase="decode").observe(dt)

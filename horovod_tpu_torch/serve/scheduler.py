@@ -19,6 +19,17 @@ Determinism: joins are processed in FIFO order, sampling is greedy at
 temperature 0 and seeded per request above it, and the engine's math is
 row-independent, so with pinned shape-bin floors a sequence's token
 stream is the same whether it runs alone or among other sequences.
+
+Lockstep (a tensor-parallel engine, ``engine.tp``): every rank of the
+model group runs a batcher, each fed the same requests in the same
+order, whenever they arrive there. The group's rank 0 leads: each step
+it takes its own decisions (cancellations, joins) and broadcasts them as
+the submission numbers of the requests concerned; the other ranks apply
+them to their own copies, waiting for a request that has not reached
+them yet, and so run the same prefill and decode calls with the same
+pages: every rank samples the same token from the gathered logits, so
+the plan is the only thing the group exchanges for its schedule (the
+engine broadcasts nothing). A cancellation counts on the leader only.
 """
 
 import collections
@@ -28,11 +39,15 @@ import threading
 import time
 
 import numpy as np
+import torch.distributed as dist
 
 from .. import metrics
+from ..ops.collectives import broadcast_object
 
 _POLL_S = 0.05  # admission-queue poll interval
 _END = object()  # per-stream terminator sentinel
+# How long a follower waits for a request its leader already took.
+_LOCKSTEP_WAIT_S = 300.0
 
 
 class ServeOverloaded(RuntimeError):
@@ -107,6 +122,15 @@ class ContinuousBatcher:
         # p99 (serve/api.py) needs quantiles, which counters can't give.
         self.recent_ttft = collections.deque(maxlen=256)
         self.recent_token_latency = collections.deque(maxlen=1024)
+        # Lockstep over a model group (module docstring).
+        self._tp = getattr(engine, "tp", None)
+        self.leader = self._tp is None or dist.get_rank(self._tp) == 0
+        self._seq = itertools.count()
+        self._seq_lock = threading.Lock()
+        self._held = {}           # follower: arrived, not yet taken
+        self._plan = {"cancel": [], "drop": []}  # leader: this step's
+        self._more = False        # follower: the leader's queue not empty
+        self.stopped = False      # follower: the leader has stopped
 
     # ------------------------------------------------------- admission
 
@@ -132,6 +156,8 @@ class ContinuousBatcher:
                 f"than {cap} (max_pages_per_seq="
                 f"{cache.max_pages_per_seq}, allocatable pages="
                 f"{cache.num_pages - 1})")
+        with self._seq_lock:
+            request.seq = next(self._seq)
         try:
             if timeout is None:
                 self._admit.put(request)
@@ -202,6 +228,8 @@ class ContinuousBatcher:
                         else "finished")
 
     def _evict(self, req, reason):
+        if reason == "cancelled" and self.leader:
+            self._plan["cancel"].append(req.seq)
         req.finished = True
         self._active.pop(req.rid, None)
         self.engine.cache.free(req.rid)
@@ -235,10 +263,68 @@ class ContinuousBatcher:
         """Terminate a cancelled request that never joined — it holds
         no pages and was never in ``_active``, only its stream needs
         closing."""
+        if self.leader:
+            self._plan["drop"].append(req.seq)
         req.finished = True
         req.out_q.put(_END)
         metrics.SERVE_EVICTIONS.labels(reason="cancelled").inc()
         metrics.SERVE_REQUESTS.labels(outcome="completed").inc()
+
+    # -------------------------------------------------------- lockstep
+
+    def _take(self, seq):
+        """Follower: the request submitted ``seq``-th, from the
+        admission queue (waiting for it) or from those already taken."""
+        deadline = time.monotonic() + _LOCKSTEP_WAIT_S
+        while seq not in self._held:
+            left = deadline - time.monotonic()
+            try:
+                req = self._admit.get(timeout=max(left, 0.0))
+            except queue.Empty:
+                raise RuntimeError(
+                    f"lockstep: the leader took request {seq}, which "
+                    f"never reached this rank in {_LOCKSTEP_WAIT_S:.0f}s"
+                ) from None
+            self._held[req.seq] = req
+        return self._held.pop(seq)
+
+    def _lead(self):
+        """Leader: this step's decisions, broadcast to the group."""
+        self._apply_cancels()
+        joins = self._take_joins()
+        plan, self._plan = self._plan, {"cancel": [], "drop": []}
+        plan.update(join=[r.seq for r in joins], more=self.queue_depth() > 0,
+                    stop=False)
+        broadcast_object(plan, self._tp)
+        return joins
+
+    def _follow(self):
+        """Follower: the leader's decisions of this step, applied; None
+        once the leader has stopped."""
+        plan = broadcast_object(None, self._tp)
+        if plan["stop"]:
+            self.stopped = True
+            return None
+        by_seq = {r.seq: r for r in self._active.values()}
+        for seq in plan["cancel"]:
+            self._evict(by_seq[seq], "cancelled")
+        for seq in plan["drop"]:
+            self._finish_unjoined(self._take(seq))
+        joins = []
+        for seq in plan["join"]:
+            req = self._take(seq)
+            self.engine.cache.allocate(req.rid, len(req.prompt)
+                                       + req.max_new_tokens)
+            joins.append(req)
+        self._more = plan["more"]
+        return joins
+
+    def stop_followers(self):
+        """Leader: release the followers' loops (their ``step()`` returns
+        False and sets ``stopped``). A no-op unsharded or on a
+        follower."""
+        if self._tp is not None and self.leader:
+            broadcast_object({"stop": True}, self._tp)
 
     def _apply_cancels(self):
         """Step-thread only: evict every marked request that is live.
@@ -258,8 +344,15 @@ class ContinuousBatcher:
         cancellations, join waiting requests (one shared prefill call →
         each joiner's FIRST token), then one decode step for every
         active sequence. Returns True when any work happened."""
-        self._apply_cancels()
-        joins = self._take_joins()
+        if self._tp is None:
+            self._apply_cancels()
+            joins = self._take_joins()
+        elif self.leader:
+            joins = self._lead()
+        else:
+            joins = self._follow()
+            if joins is None:
+                return False
         if joins:
             metrics.SERVE_JOINS.inc(len(joins))
             logits = self.engine.prefill([r.rid for r in joins],
@@ -284,8 +377,10 @@ class ContinuousBatcher:
         return bool(joins or live)
 
     def drain(self):
-        """Step until every admitted request has finished."""
-        while self.step() or self.queue_depth():
+        """Step until every admitted request has finished (in lockstep:
+        every request the leader admitted)."""
+        while self.step() or (self._more if not self.leader
+                              else self.queue_depth()):
             pass
 
     # ------------------------------------------------------- loop glue
@@ -293,6 +388,6 @@ class ContinuousBatcher:
     def run(self, stop_event: threading.Event):
         """Drive steps until ``stop_event``; idle-polls on the loader
         cadence when there is nothing to do."""
-        while not stop_event.is_set():
-            if not self.step():
+        while not stop_event.is_set() and not self.stopped:
+            if not self.step() and self.leader:
                 stop_event.wait(_POLL_S)

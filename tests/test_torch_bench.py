@@ -86,9 +86,14 @@ def test_resnet_bench_smoke_json_contract():
     for key, item in resnet_bench.NOT_PORTED.items():
         assert got[key] == {"skipped": f"not ported: ROADMAP item {item}"}
     assert set(resnet_bench.NOT_PORTED) >= {
-        "eager_exchange", "mesh3d", "control_plane"}
-    assert not set(resnet_bench.NOT_PORTED) & {"compiled_step", "serve",
-                                               "moe", "zero_profile"}
+        "eager_exchange", "control_plane"}
+    assert not set(resnet_bench.NOT_PORTED) & {
+        "compiled_step", "serve", "moe", "zero_profile", "mesh3d"}
+    # bench.py's mesh3d row needs 8 ranks: at one, its reason
+    assert got["mesh3d"] == {
+        "skipped": "needs a device count divisible by 8 and the "
+                   "device-resident path for the 2x2x2 (data, expert, "
+                   "model) mesh"}
     _assert_moe_row(got["moe"], expert_parallel=1, steps=8)
     compiled = got["compiled_step"]
     assert compiled["img_sec_per_chip"] > 0
@@ -106,9 +111,10 @@ def test_resnet_bench_smoke_json_contract():
             "skipped": f"not ported: ROADMAP item {item}"}
     assert {"overlap_ab", "step_phase_breakdown"} <= set(
         resnet_bench.COMPILED_NOT_PORTED)
-    # no skipped row names a finished item (11: the ZeRO ladder)
-    assert 11 not in set(resnet_bench.NOT_PORTED.values()) | set(
-        resnet_bench.COMPILED_NOT_PORTED.values())
+    # no skipped row names a finished item (11: the ZeRO ladder; 6:
+    # tensor parallelism)
+    assert not {6, 11} & (set(resnet_bench.NOT_PORTED.values()) | set(
+        resnet_bench.COMPILED_NOT_PORTED.values()))
     _assert_serve_row(got["serve"], streams=8, prompt_len=16, new_tokens=32)
 
 
@@ -183,14 +189,25 @@ def test_transformer_serve_json_contract():
             got["serve"]["vocab"], got["serve"]["layers"]) == (32, 4, 128, 2)
 
 
-def test_serve_over_several_ranks_raises_naming_item_6(monkeypatch):
-    monkeypatch.setattr(tfm_bench.runtime, "size", lambda: 2)
-    try:
-        with pytest.raises(NotImplementedError, match="item 6"):
-            tfm_bench.run_serve_benchmark(
-                tfm_bench.parse_args(["--serve", "--device", "cpu"]))
-    finally:
-        tfm_bench.runtime.shutdown()
+def test_serve_over_several_ranks_raises_naming_item_6():
+    """``--serve`` over 2 ranks, which raised naming ROADMAP.md item 6
+    until the item was ported: the model is tensor-parallel over both
+    (the reference's serving on its mesh), each rank runs the engine in
+    lockstep with rank 0, and both print the same tokens' row."""
+    from torch_ranks import launch_ranks
+    logs = launch_ranks(2, [
+        "-m", "horovod_tpu_torch.bench.transformer", "--serve", "--device",
+        "cpu", "--serve-streams", "2", "--serve-prompt-len", "4",
+        "--serve-new-tokens", "4", "--serve-d-model", "32",
+        "--serve-heads", "4", "--serve-vocab", "64"],
+        env={"HOROVOD_PROFILER_DISABLE": "1"}, timeout=300)
+    rows = [json.loads([ln for ln in log.splitlines()
+                        if ln.startswith("{")][-1])["serve"]
+            for log in logs]
+    for row in rows:
+        assert row["devices"] == 2 and row["fallback_steps"] == 0
+        assert row["tokens_per_sec"] > 0
+    assert rows[0]["scheduler_steps"] == rows[1]["scheduler_steps"]
 
 
 def test_serve_defaults_are_the_reference_flags():
@@ -243,9 +260,33 @@ def test_moe_defaults_are_the_reference_flags():
 
 
 @pytest.mark.parametrize("flag,item", [("--mesh3d", 6)])
-def test_unported_scenarios_raise_naming_their_item(flag, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tfm_bench.parse_args([flag])
+def test_unported_scenarios_raise_naming_their_item(flag, item,
+                                                    monkeypatch):
+    """``--mesh3d``, the scenario of ROADMAP.md item 6 (ported since):
+    its flags and defaults are the reference's, and a world smaller than
+    ep x mp ranks (one, here) raises the reference's error from
+    ``init()``, leaving no process group behind."""
+    assert item == 6
+    ref = vars(bench_transformer.parse_args([flag]))
+    got = vars(tfm_bench.parse_args([flag, "--device", "cpu"]))
+    keys = [k for k in ref if k.startswith("mesh3d")]
+    assert len(keys) == 8
+    assert {k: got[k] for k in keys} == {k: ref[k] for k in keys}
+    # init() builds the expert mesh first, as the reference's does
+    from horovod_tpu.parallel.mesh import expert_data_mesh
+    with pytest.raises(ValueError) as want:
+        expert_data_mesh(jax.devices()[:1], expert_parallel=2)
+    # the bench re-inits with these set; monkeypatch restores them
+    monkeypatch.setenv("HOROVOD_EXPERT_PARALLEL", "1")
+    monkeypatch.setenv("HOROVOD_MODEL_PARALLEL", "1")
+    try:
+        with pytest.raises(ValueError) as err:
+            tfm_bench.run_mesh3d_benchmark(tfm_bench.parse_args(
+                [flag, "--device", "cpu"]))
+        assert str(err.value) == str(want.value)
+        assert not torch.distributed.is_initialized()
+    finally:
+        tfm_bench.runtime.shutdown()
 
 
 @pytest.mark.parametrize("argv", [[], TINY])

@@ -226,3 +226,66 @@ def test_generate_replays_a_decode_graph_with_eager_tokens(card,
     monkeypatch.setenv("HOROVOD_STEP_PROGRAM", "0")
     eager = tfm.generate(params, prompt, cfg, 24)
     assert torch.equal(graphs, eager)
+
+
+def test_a_dropped_step_frees_its_graph_and_model(card):
+    """The program cache holds a compiled step weakly: once the caller
+    drops the step, its model and its optimizer, the graph leaves the
+    cache and nothing holds the model's parameters or the optimizer's
+    state on the card any more."""
+    import gc
+    import weakref
+    cfg = tfm.TransformerConfig(loss_chunk=64, **SMALL)
+    lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
+                           device=card)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(lm.parameters(), capturable=True, **ADAMW),
+        named_parameters=lm.named_parameters())
+    step = hvd.compiled_train_step(lm.loss, opt)
+    for tokens, targets in _batches(card, 3):
+        step(tokens, targets)
+    programs = hvd.runtime.live_state().programs
+    assert len(programs) == 1
+    held = [weakref.ref(lm), weakref.ref(opt), weakref.ref(lm.params["embed"]),
+            *(weakref.ref(t) for t in opt.state[lm.params["embed"]].values())]
+    del lm, opt, step, tokens, targets
+    gc.collect()
+    assert len(programs) == 0
+    assert [r() for r in held] == [None] * len(held)
+
+
+def test_tp_over_gloo_on_one_card_matches_the_unsharded_model(card):
+    """Two ranks of a model group on this card, joined by gloo (NCCL
+    refuses two ranks on one card): bf16 at head dim 64, so every flash
+    launch (2 q heads and 1 kv head a rank) takes the tensor-core route;
+    the loss equals the unsharded model's within the kernels' bf16 band
+    and the TP engine's greedy tokens equal the unsharded engine's."""
+    from torch_ranks import spawn_ranks
+    import torch_rank_workers
+    hvd.shutdown()
+    res = spawn_ranks(2, torch_rank_workers.tp_card, SMALL, timeout=300)
+    for got in res:
+        assert got["launches"]["flash_fwd_wgmma"] > 0
+        assert got["launches"]["flash_bwd_dq_wgmma"] > 0
+        assert got["launches"]["flash_bwd_dkv_wgmma"] > 0
+        assert got["launches"]["flash_fwd"] == 0
+        assert got["h_kv"] == 1
+        assert abs(got["loss"] - got["ref_loss"]) <= 1e-2
+        assert got["tokens"] == got["ref_tokens"]
+
+
+def test_a_capture_after_every_graph_was_dropped(card):
+    """Every graph of the session's pool may leave the cache with the
+    step that dropped it; a later capture into the pool still works (the
+    cache keeps the pool in use), and replays as its eager run does."""
+    import gc
+    batches = _batches(card, 3)
+    for _ in range(2):
+        _train(card, True, batches)
+        gc.collect()
+        assert len(hvd.runtime.live_state().programs) == 0
+    got, step = _train(card, True, batches)
+    want, _ = _train(card, False, batches)
+    assert step.cache_misses == 1
+    for a, b in zip(got.parameters(), want.parameters()):
+        assert torch.equal(a, b)

@@ -285,6 +285,32 @@ def test_flash_autograd_runs_the_kernels_end_to_end(card):
 
 
 @pytest.mark.cuda
+def test_flash_autograd_at_batch_one_takes_the_tensor_cores(card):
+    """At B 1 autograd may hand the backward a dO whose batch stride is
+    1 (a size-1 dimension's stride is arbitrary; the tensor-parallel
+    step's is): bf16 at D 128, both backward kernels still take the
+    tensor-core route, and give the first row of the same call at B 2."""
+    rng = np.random.default_rng(12)
+    q, k, v, go = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+                   .to(card, torch.bfloat16) for shape in
+                   ((2, 256, 4, 128), (2, 256, 2, 128), (2, 256, 2, 128),
+                    (2, 256, 4, 128)))
+    one = go[0].reshape(-1).clone().as_strided((1, 256, 4, 128),
+                                               (1, 512, 128, 1))
+    counts = (fa.wgmma_launches, fa.dq_wgmma_launches, fa.dkv_wgmma_launches)
+    grads = []
+    for rows, g in ((slice(0, 1), one), (slice(0, 2), go)):
+        leaves = [x[rows].clone().requires_grad_() for x in (q, k, v)]
+        out = fa.flash_attention(*leaves, True)
+        grads.append([x[:1] for x in torch.autograd.grad(out, leaves, g)])
+    torch.cuda.synchronize()
+    assert (fa.wgmma_launches, fa.dq_wgmma_launches,
+            fa.dkv_wgmma_launches) == tuple(n + 2 for n in counts)
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_flash_bwd_raises_on_a_head_dim_the_kernel_does_not_take(card):
     """A head dim of 0 is refused by the wrapper; past it, the C entry
     point refuses a launch whose sizes it does not take (head dim 0, or

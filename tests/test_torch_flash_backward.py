@@ -316,6 +316,22 @@ def test_tensor_core_route_rule(case):
     assert fa.tensor_core_route(*make()) is expected
 
 
+def test_tensor_core_route_ignores_the_stride_of_a_size_one_dim():
+    """torch leaves the stride of a size-1 dimension arbitrary: at B 1
+    autograd hands the backward a dO whose batch stride is 1. Such a
+    stride is never stepped, so the kernels take the stride a dense
+    layout gives it, and the route stays the tensor cores'."""
+    q = _bf16(1, 64, 4, 64)
+    do = torch.zeros(64 * 4 * 64, dtype=torch.bfloat16).as_strided(
+        (1, 64, 4, 64), (1, 256, 64, 1))
+    assert do.is_contiguous()
+    assert fa._strides(do) == fa._strides(q) == [16384, 256, 64]
+    assert fa.tensor_core_route(q, q, q, do)
+    one_head = torch.zeros(64 * 64, dtype=torch.bfloat16).as_strided(
+        (1, 64, 1, 64), (3, 64, 5, 1))
+    assert fa._strides(one_head) == [4096, 64, 64]
+
+
 @pytest.mark.parametrize("d,expected", [(128, True), (64, True), (40, False)])
 def test_tensor_core_route_takes_the_rings_chunk_views(d, expected):
     """The ring passes q, k, v and dO as ``chunk(dim=1)`` views of the

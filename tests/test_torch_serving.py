@@ -424,10 +424,32 @@ def test_close_drain_detects_dead_loop():
 
 
 def test_engine_rejects_tensor_parallel_serving():
+    """Tensor-parallel serving (run over a model group of 2 in
+    tests/test_torch_tensor_parallel.py): a mesh without a ``tp_axis``
+    is refused in the reference's words, a tree already cut to a shard
+    is refused (the engine takes the full tree, as the reference's
+    does), and over a group of one rank the engine is the unsharded
+    engine, bit for bit."""
+    import horovod_tpu_torch as hvd
     cfg = _cfg()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServeEngine(_params(cfg), cfg, mesh=object(), tp_axis="tp",
-                    device="cpu")
+    hvd.init(device="cpu")
+    try:
+        mesh = hvd.mesh()
+        with pytest.raises(ValueError, match="mesh serving needs tp_axis"):
+            ServeEngine(_params(cfg), cfg, mesh=mesh, device="cpu")
+        shard = tfm.slice_param_shards(_params(cfg), tfm.param_specs(cfg),
+                                       {"model": (0, 2)})
+        with pytest.raises(ValueError, match="takes the full parameter"):
+            ServeEngine(shard, cfg, mesh=mesh, tp_axis="hvd", device="cpu")
+        tokens = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 8))
+        kw = dict(num_pages=16, page_size=4, batch_bin_floor=2,
+                  page_bin_floor=2, len_bin_floor=8)
+        ref = _drive_teacher_forced(_engine(cfg, **kw), tokens, 4)
+        got = _drive_teacher_forced(
+            _engine(cfg, mesh=mesh, tp_axis="hvd", **kw), tokens, 4)
+        np.testing.assert_array_equal(got, ref)
+    finally:
+        hvd.shutdown()
 
 
 # ------------------------------------------------------ program cache

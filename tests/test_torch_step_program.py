@@ -299,15 +299,49 @@ def test_exchange_buckets_replan_the_distributed_optimizer():
     ({"model_keys": ("w1",), "dcn_compression": "int8"}, 6),
     ({"model_keys": ("w1",)}, 6)])
 def test_unported_layouts_raise_naming_their_item(kw, item):
-    """The tensor-parallel layout, which the reference's step compiles
-    with every ZeRO stage and the staged exchange, is refused where the
-    optimizer is built, whatever it is combined with (the ZeRO and MoE
-    layouts are carried: tests/test_torch_zero.py,
-    tests/test_torch_sharding_spec.py)."""
+    """The tensor-parallel layouts of ROADMAP.md item 6 (ported since),
+    with every ZeRO stage and the staged exchange, on a runtime without
+    a model mesh: the reference builds the optimizer and its compiled
+    step refuses to run it (``_step_mesh``), the port refuses where the
+    optimizer is built, in the reference's words. Nothing runs with the
+    model axis dropped. tests/test_torch_tensor_parallel.py trains these
+    layouts on the 3-D mesh."""
+    assert item == 6
+    jhvd.init()
+    tx = jhvd.DistributedOptimizer(optax.sgd(0.05), **kw)
+    step = jhvd.compiled_train_step(_jax_loss_fn, tx)
+    params = jax.tree.map(jnp.asarray, _numpy_params())
+    x, y = _batch()
+    with pytest.raises(ValueError) as want:
+        step(params, step.init(params), x, y)
     _init()
     model = _MLP()
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises(ValueError) as got:
         hvd.DistributedOptimizer(_sgd(model), **kw)
+    assert str(got.value) == str(want.value)
+    assert "HOROVOD_MODEL_PARALLEL" in str(got.value)
+
+
+def test_a_dropped_step_leaves_the_program_cache():
+    """A compiled step's program holds the step weakly: once the caller
+    drops the step (and its model and optimizer), the session's cache
+    holds no signature of it and nothing keeps the model or the
+    optimizer alive (on a card, their tensors leave the card)."""
+    import gc
+    import weakref
+    _init()
+    model = _MLP()
+    opt = _sgd(model, True)
+    step = hvd.compiled_train_step(model.loss, opt)
+    _run_port(step, steps=1)
+    programs = hvd.runtime.live_state().programs
+    (sig,) = step._signatures
+    assert sig in programs._programs and len(programs) == 1
+    refs = weakref.ref(model), weakref.ref(opt)
+    del model, opt, step
+    gc.collect()
+    assert sig not in programs._programs and len(programs) == 0
+    assert [r() for r in refs] == [None, None]
 
 
 def test_guard_raises_naming_its_item(monkeypatch):

@@ -135,11 +135,13 @@ def test_transformer_lm_holds_params_and_runs_forward():
 @pytest.mark.parametrize("what", ["moe", "ulysses", "loss_chunk", "remat",
                                   "axes", "loss"])
 def test_rejects_what_this_slice_does_not_carry(what):
-    """Ulysses and the tensor axis raise. MoE layers, the loss,
-    ``loss_chunk`` and ``remat`` are carried now; over the tensor axis
-    they raise too (sequence parallelism is carried:
-    tests/test_torch_ring_attention.py; expert parallelism too, and its
-    axis takes a process group, not a name: tests/test_torch_moe.py)."""
+    """Ulysses raises. MoE layers, the loss, ``loss_chunk``, ``remat``
+    and the tensor axis are carried now (sequence parallelism:
+    tests/test_torch_ring_attention.py; expert parallelism:
+    tests/test_torch_moe.py; tensor parallelism:
+    tests/test_torch_tensor_parallel.py), and the tensor and expert axes
+    take a process group: an axis given by name, as the JAX package
+    names mesh axes, raises."""
     if what == "ulysses":
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             _cfgs(sp_impl="ulysses")
@@ -149,7 +151,7 @@ def test_rejects_what_this_slice_does_not_carry(what):
     _, tcfg = _cfgs(**kw.get(what, {}))
     params = tfm.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
     tokens = torch.from_numpy(_tokens())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="axes.tp must be a process group"):
         if what == "axes":
             tfm.forward(params, tokens, tcfg, axes=tfm.ShardAxes(tp="tp"))
         else:

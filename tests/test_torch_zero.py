@@ -452,11 +452,13 @@ def test_zero_stage_conflicts_rejected(one_rank, kw):
 
 
 def test_unported_and_unsafe_arguments_raise(one_rank):
-    """``model_keys`` names item 6; ``compression=Compression.int8``
+    """``model_keys`` on a runtime without a model mesh raise (no layout
+    drops the model axis: tests/test_torch_step_program.py holds the
+    words to the reference's); ``compression=Compression.int8``
     (per-rank scales around a plain sum) is refused, pointing at the
     reference's docstring; param groups with different hyperparameters
     cannot share one flat stripe."""
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="HOROVOD_MODEL_PARALLEL"):
         hvd.DistributedOptimizer(_sgd(), zero_stage=2, model_keys=("w",))
     with pytest.raises(NotImplementedError, match="compression.py:100"):
         hvd.DistributedOptimizer(_sgd(), compression=Compression.int8)

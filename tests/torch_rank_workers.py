@@ -449,3 +449,251 @@ def sharding_spec(inp, cfg_kw, steps, lr):
     out["spec_leaves"] = metrics.SPEC_LEAVES.collect()
     hvd.shutdown()
     return out
+
+
+# ------------------------------------------------ tensor parallelism
+
+def _tree(arrays):
+    """A numpy parameter tree as CPU tensors."""
+    from horovod_tpu_torch.models import transformer as tfm
+    return tfm.params_from_jax(arrays["tree"], arrays["cfg"], "cpu")
+
+
+def _np_named(tree):
+    from horovod_tpu_torch.models import transformer as tfm
+    return {k: v.detach().numpy().copy()
+            for k, v in tfm._named_leaves(tree)}
+
+
+def _teacher_forced(eng, tokens, prompt):
+    """Prefill the prompt, then feed the remaining columns one decode
+    step at a time; the logits rows of positions prompt-1 .. L-1."""
+    b, length = tokens.shape
+    sids = list(range(b))
+    for s in sids:
+        eng.cache.allocate(s, length)
+    outs = [eng.prefill(sids, [list(tokens[i, :prompt]) for i in sids])]
+    for i in range(prompt, length):
+        outs.append(eng.decode(sids, tokens[:, i], [i] * b))
+    return np.stack(outs)
+
+
+def tensor_parallel(inp):
+    """tests/test_torch_tensor_parallel.py's cases on this rank of a
+    model group of 2 (``HOROVOD_MODEL_PARALLEL=2``): the runtime's model
+    mesh; per-shard losses and gradients of the sharded trunk; TP with a
+    local ring; generate and a head-sharded decode cache; the TP serve
+    engine, driven directly and through lockstep batchers and the API
+    whose requests reach the two ranks at different times; the shards of
+    the weights converter gathered back."""
+    import time
+
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.parallel.ring_attention import RingAxis
+    from horovod_tpu_torch.serve import Engine
+    from horovod_tpu_torch.serve.engine import ServeEngine
+    from horovod_tpu_torch.serve.scheduler import ContinuousBatcher, Request
+    hvd.init(device="cpu")
+    r = hvd.rank()
+    mesh = hvd.model_mesh()
+    tp = mesh.get_group("model")
+    axes = tfm.ShardAxes(tp=tp)
+    out = {"rank": r, "mesh": mesh.mesh.tolist(),
+           "names": mesh.mesh_dim_names, "mp": hvd.model_parallel_size(),
+           "gauge": metrics.MODEL_PARALLEL.collect()}
+
+    for name, case in inp["grads"].items():
+        cfg = case["cfg"]
+        full = _tree(case)
+        shard = tfm.slice_param_shards(full, tfm.param_specs(cfg), mesh)
+        model = tfm.TransformerLM(cfg, shard, device="cpu", axes=axes)
+        tokens, targets = map(torch.from_numpy, case["batch"])
+        loss = model.loss(tokens, targets)
+        loss.backward()
+        ref = tfm.TransformerLM(cfg, full, device="cpu")
+        ref_loss = ref.loss(tokens, targets)
+        ref_loss.backward()
+        out[f"grads:{name}"] = (float(loss), {
+            k: v.grad.numpy().copy()
+            for k, v in tfm._named_leaves(model.params)})
+        out[f"unsharded:{name}"] = (float(ref_loss), {
+            k: v.grad.numpy().copy()
+            for k, v in tfm._named_leaves(ref.params)})
+
+    case = inp["ring"]
+    full = _tree(case)
+    shard = tfm.slice_param_shards(full, tfm.param_specs(case["cfg"]), mesh)
+    tokens, targets = map(torch.from_numpy, case["batch"])
+    out["ring"] = float(tfm.loss_fn(
+        shard, tokens, targets, case["cfg"],
+        tfm.ShardAxes(tp=tp, sp=RingAxis.local(2))))
+
+    for name, case in inp["generate"].items():
+        cfg = case["cfg"]
+        shard = tfm.slice_param_shards(_tree(case), tfm.param_specs(cfg),
+                                       mesh)
+        prompt = torch.from_numpy(case["prompt"])
+        out[f"generate:{name}"] = tfm.generate(
+            shard, prompt, cfg, 6, axes=axes).numpy()
+        cache = tfm.init_cache(cfg, 2, 8, axes, device="cpu")
+        logits, _ = tfm.decode_step(shard, cache, prompt[:, 0], cfg, axes)
+        out[f"cache:{name}"] = (tuple(cache["layers"][0]["k"].shape),
+                                tuple(logits.shape))
+
+    case = inp["serve"]
+    cfg = case["cfg"]
+    full = _tree(case)
+    tokens = case["tokens"]
+    kw = dict(num_pages=16, page_size=4, batch_bin_floor=tokens.shape[0],
+              page_bin_floor=2, len_bin_floor=tokens.shape[1], device="cpu")
+    out["serve_ref"] = _teacher_forced(ServeEngine(full, cfg, **kw),
+                                       tokens, 4)
+    eng = ServeEngine(full, cfg, mesh=mesh, tp_axis="model", **kw)
+    out["serve_tp"] = _teacher_forced(eng, tokens, 4)
+    out["pool"] = tuple(eng._k_pool.shape)
+
+    def requests():
+        return [Request(list(p), 6) for p in case["prompts"]]
+
+    def run(batcher, lag):
+        reqs = requests()
+        for q in reqs:
+            if lag:
+                time.sleep(0.1)
+            batcher.submit(q)
+        batcher.drain()
+        return [q.generated for q in reqs]
+
+    kw = dict(num_pages=32, page_size=4, device="cpu")
+    out["batcher_ref"] = run(ContinuousBatcher(
+        ServeEngine(full, cfg, **kw), max_batch=2), False)
+    out["batcher_tp"] = run(ContinuousBatcher(
+        ServeEngine(full, cfg, mesh=mesh, tp_axis="model", **kw),
+        max_batch=2), lag=r == 1)
+    api = Engine(cfg, full, mesh=mesh, tp_axis="model", max_batch=2,
+                 **kw)
+    handles = []
+    for p in case["prompts"]:
+        if r == 0:
+            time.sleep(0.1)
+        handles.append(api.submit(list(p), 6))
+    out["api_tp"] = [h.result() for h in handles]
+    api.close()
+
+    # the converter's shards, gathered back over the group
+    case = inp["convert"]
+    cfg = case["cfg"]
+    full = _tree(case)
+    specs = tfm.param_specs(cfg)
+    shard = tfm.slice_param_shards(full, specs, mesh)
+    worst = 0.0
+    for (name, part), (_, spec), (_, whole) in zip(
+            tfm._named_leaves(shard), tfm._named_leaves(specs),
+            tfm._named_leaves(full)):
+        if "model" in spec:
+            parts = [torch.empty_like(part) for _ in range(2)]
+            dist.all_gather(parts, part, group=tp)
+            part = torch.cat(parts, dim=spec.index("model"))
+        worst = max(worst, float((part - whole).abs().max()))
+    out["roundtrip"] = worst
+    hvd.shutdown()
+    return out
+
+
+def mesh3d(inp):
+    """tests/test_torch_tensor_parallel.py's 3-D case on this rank of the
+    2 x 2 x 2 (data, expert, model) mesh: a tensor-parallel trunk with an
+    expert-parallel MoE layer trained by 3 compiled SGD steps through
+    the sharding spec at ZeRO stages 2 and 0, from the same shards."""
+    from horovod_tpu_torch.models import transformer as tfm
+    hvd.init(device="cpu")
+    r = hvd.rank()
+    mesh = hvd.model_mesh()
+    cfg = inp["cfg"]
+    axes = tfm.ShardAxes(tp=mesh.get_group("model"),
+                         ep=mesh.get_group("ep"))
+    model_keys = tfm.model_parallel_keys(cfg)
+    full = _tree(inp)
+    # the batch shards over data x expert, the same on a model group
+    shard = r // hvd.model_parallel_size()
+    tokens, targets = (torch.from_numpy(a[2 * shard:2 * shard + 2])
+                       for a in inp["batch"])
+    out = {"rank": r, "mesh": mesh.mesh.tolist(),
+           "shape": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}
+    for stage in (2, 0):
+        model = tfm.TransformerLM(
+            cfg, tfm.slice_param_shards(full, tfm.param_specs(cfg), mesh),
+            device="cpu", axes=axes)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.05),
+            named_parameters=model.named_parameters(),
+            expert_keys=("moe.w1", "moe.w2"), model_keys=model_keys,
+            zero_stage=stage)
+        step = hvd.compiled_train_step(model.loss, opt)
+        for _ in range(3):
+            step(tokens, targets)
+        assert step.fallback_steps == 0
+        out[f"mode:{stage}"] = step._exchange
+        out[f"zero{stage}"] = _np_named(model.params)
+    from horovod_tpu_torch import metrics
+    out["spec_leaves"] = metrics.SPEC_LEAVES.collect()
+    hvd.shutdown()
+    return out
+
+
+def tp_card(model):
+    """One rank of a model group of 2 on one card, over gloo: the group
+    is made here (``hvd.init()`` takes a group that exists, NCCL refuses
+    two ranks on one card), then the TP loss and greedy tokens of
+    ``model`` against the unsharded model's, with the launches by
+    route."""
+    import os
+
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.serve.engine import ServeEngine
+    from horovod_tpu_torch.serve.scheduler import ContinuousBatcher, Request
+    card = torch.device("cuda", 0)
+    torch.cuda.set_device(card)
+    os.environ.update(HOROVOD_MODEL_PARALLEL="2", HOROVOD_STEP_PROGRAM="0")
+    # the launcher's coordinator address: init() takes this group and
+    # makes no store of its own there
+    dist.init_process_group(
+        "gloo", init_method="tcp://" + os.environ["HOROVOD_TPU_COORDINATOR"],
+        rank=int(os.environ["HOROVOD_TPU_PROCESS_ID"]), world_size=2)
+    hvd.init(device=card)
+    mesh = hvd.model_mesh()
+    cfg = tfm.TransformerConfig(loss_chunk=64, **model)
+    full = tfm.init_params(cfg, torch.Generator().manual_seed(0), card)
+    shard = tfm.slice_param_shards(full, tfm.param_specs(cfg), mesh)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 128))).to(card)
+    targets = torch.roll(tokens, -1, dims=1)
+
+    def greedy(eng):
+        batcher = ContinuousBatcher(eng, max_batch=2)
+        reqs = [Request(list(range(3 + i, 40 + i)), 8) for i in range(2)]
+        for q in reqs:
+            batcher.submit(q)
+        batcher.drain()
+        return [q.generated for q in reqs]
+
+    out = {"ref_loss": float(tfm.loss_fn(full, tokens, targets, cfg)),
+           "ref_tokens": greedy(ServeEngine(full, cfg, device=card))}
+    for c in [c for c in vars(fa) if c.endswith("launches")]:
+        setattr(fa, c, 0)
+    lm = tfm.TransformerLM(cfg, shard, device=card,
+                           axes=tfm.ShardAxes(tp=mesh.get_group("model")))
+    loss = lm.loss(tokens, targets)
+    loss.backward()
+    eng = ServeEngine(full, cfg, mesh=mesh, tp_axis="model", device=card)
+    out.update(loss=float(loss), tokens=greedy(eng),
+               h_kv=eng._k_pool.shape[3],
+               launches={k: getattr(fa, p + "launches") for k, p in (
+                   ("flash_fwd", ""), ("flash_fwd_wgmma", "wgmma_"),
+                   ("flash_bwd_dq_wgmma", "dq_wgmma_"),
+                   ("flash_bwd_dkv_wgmma", "dkv_wgmma_"))})
+    hvd.shutdown()
+    dist.destroy_process_group()
+    return out
