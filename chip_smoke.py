@@ -166,6 +166,43 @@ the 3-D mesh. The flagship at full width, each rank H 8 / H_kv 2:
 Its times are gloo's through the host with two ranks on one card, not
 a TP speed figure, and the phase prints them so.
 
+The tp train phase also runs an f32-activation leg of the same step,
+off the counted path: the gathered gradients against the unsharded f32
+model's within TP_F32_GRAD_REL, its worst and median relative L2
+printed (how far the bf16 gap is the order of the sums).
+
+Ulysses, the SP step in graphs and the pipeline (PR 11), after the SP
+train phase:
+
+- kernels: ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` at
+  Ulysses' shard shape (B 2, S 8192, H 4 / H_kv 1, D 128, bf16, causal,
+  window 4096) on head-sliced views of the projections, against their
+  plain versions (the backward's at B 1) and timed beside SDPA with the
+  window as a mask (``ulysses_shape`` in the kernels line);
+- ulysses parity: the sp parity phase also runs ``sp_impl="ulysses"``
+  over a local axis of 4 against the unsharded flash model (bitwise
+  equal or not, max|d| printed; within TRAIN_LOSS_ATOL and
+  TRAIN_GRAD_REL) and a small f32 model's Ulysses against dense within
+  SMALL_GRAD_ATOL;
+- ulysses train (main path 12): that model trained as the SP train
+  phase trains the ring, 32 launches of each static kernel and no band
+  kernel a step, all on the tensor cores, its step time, tokens/s and
+  peak beside the ring's;
+- compiled sp (main path 13): the ring's and Ulysses' SP step through
+  ``compiled_train_step`` with capturable AdamW as the compiled train
+  phase runs the flagship (parameters after 3 steps bitwise equal to
+  eager, 1 cache miss, no fallback; per replay the ring 32 static and
+  40 band launches of each kernel, Ulysses 32 static);
+- pipeline (main path 14): the flagship's 8 layers over a local pp
+  axis of 4 at 4 x 4096 in 4 microbatches: GPipe, 1F1B and 1F1B at V 2
+  against the unpipelined ``loss_fn`` (loss within TRAIN_LOSS_ATOL,
+  gradients within TRAIN_GRAD_REL; a small f32 model within
+  SMALL_GRAD_ATOL); then 3 AdamW steps each of the unpipelined model,
+  GPipe and 1F1B, each loss falling, their step times (a local schedule
+  on one card, not a PP speed) and peaks (1F1B's below GPipe's), and
+  each pipelined step's launches exact: 32 ``flash_fwd`` (GPipe) or 64
+  (1F1B: the backward phase's recompute) and 32 of each backward kernel.
+
 The kernels phases also run the CUDA-core loop at head dims 256 and 320
 (the latter in 256-column pieces) against the plain versions and time
 it (off every main path).
@@ -174,7 +211,8 @@ On every main path each kernel launch takes the tensor-core route: the
 loop's counters stay at 0 there, and the route's counters are exact (8
 ``flash_fwd`` a prefill, replayed or not; 8 of each static kernel a
 data-parallel step, replayed or not, or a TP step; 32 static and 40
-band of each an SP step). A graph's replay counts the launches its
+band of each a ring SP step, replayed or not; 32 static a Ulysses step;
+the pipeline's above). A graph's replay counts the launches its
 capture recorded; a TP path's launches are one rank's.
 
 Each main path runs with the kernel launch counts zeroed just before it
@@ -1316,33 +1354,155 @@ def band_timings(fa, args, off, window, work):
     return out
 
 
+# Ulysses' shard shape on the SP path: the SP model's q over a local
+# axis of SP_RING, H 16 / H_kv 4 cut to H 4 / H_kv 1 a shard, over the
+# whole sequence of 2 x 8192 at the window.
+ULYSSES_SHAPE = (SP_BATCH, SP_SEQ, 16 // SP_RING, 4 // SP_RING, 128)
+
+
+def ulysses_views(card, gen, b):
+    """Shard 1's q, k and v as Ulysses hands them to the kernels: head
+    slices of a (B, S, 16, D) q and of the (B, S, 2, 4, D) kv
+    projection, their base pointers (H/n)*D elements on."""
+    _, s, h, h_kv, d = ULYSSES_SHAPE
+    q = torch.randn(b, s, h * SP_RING, d, generator=gen, device=card).to(
+        torch.bfloat16)
+    kv = torch.randn(b, s, 2, h_kv * SP_RING, d, generator=gen,
+                     device=card).to(torch.bfloat16)
+    views = (q[:, :, h:2 * h], kv[:, :, 0, h_kv:2 * h_kv],
+             kv[:, :, 1, h_kv:2 * h_kv])
+    check(all(not x.is_contiguous() for x in views)
+          and views[0].data_ptr() == q.data_ptr() + h * d * 2,
+          "the Ulysses views are not head slices")
+    return views
+
+
+def phase_ulysses_kernels(fa, card, gen, entries):
+    """flash_fwd, flash_bwd_dq and flash_bwd_dkv at Ulysses' shard shape
+    (B 2, S 8192, H 4, H_kv 1, D 128, bf16, causal, window 4096) on
+    head-sliced views, against their plain versions at the phase's
+    tolerances (the backward's at B 1), and timed beside SDPA with the
+    window as a boolean mask at B 2. Adds ``ulysses_shape`` to each
+    kernel's entry of the kernels line (``entries`` by name)."""
+    b, s, h, h_kv, d = ULYSSES_SHAPE
+    dtype, window = torch.bfloat16, SP_WINDOW
+    q, k, v = ulysses_views(card, gen, b)
+    check(fa.tensor_core_route(q, k, v),
+          "Ulysses' head slices do not take the tensor cores")
+    before = read_launches(fa)
+    out, lse = fa.flash_attention_with_lse(q, k, v, True, window)
+    torch.cuda.synchronize()
+    check(read_launches(fa)["flash_fwd_wgmma"]
+          == before["flash_fwd_wgmma"] + 1,
+          "flash_fwd on Ulysses' views was not counted on the tensor cores")
+    err, _, _, text = hold_forward(fa, "flash_attention", out, lse,
+                                   (q, k, v), (True, window), (True, window))
+    print(f"kernel flash_fwd Ulysses shard B={b} S={s} H={h} H_kv={h_kv} "
+          f"D={d} window={window}, head-sliced views [tensor cores]: {text}",
+          flush=True)
+    errs = {"flash_fwd": err}
+    do = torch.randn(b, s, h, d, generator=gen, device=card).to(dtype)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta)
+    one = tuple(x[:1] for x in args)   # the plain backward at B 1
+    check(fa.tensor_core_route(*one[:4]),
+          "the Ulysses backward does not take the tensor cores")
+    got = {"flash_bwd_dq": (fa.flash_bwd_dq(*one, True, window),),
+           "flash_bwd_dkv": fa.flash_bwd_dkv(*one, True, window)}
+    torch.cuda.synchronize()
+    line = []
+    for name in got:
+        errs[name], _, _, text = hold_backward(fa, name, got[name], one,
+                                               (True, window), (True, window))
+        line.append(text)
+    print(f"kernel backward Ulysses shard B=1 S={s} H={h} H_kv={h_kv} D={d} "
+          f"window={window} [tensor cores]: " + "; ".join(line), flush=True)
+    del got
+    ms = {"flash_fwd": time_ms(lambda: fa.flash_attention(q, k, v, True,
+                                                          window), 10),
+          "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq(
+              *args, True, window), 5),
+          "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv(
+              *args, True, window), 5)}
+    plain = {"flash_fwd": time_ms(lambda: fa.flash_attention_reference(
+        q, k, v, True, window, operand_dtype=dtype), 1),
+             "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq_reference(
+                 *one, True, window, operand_dtype=dtype), 1),
+             "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv_reference(
+                 *one, True, window, operand_dtype=dtype), 1)}
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (x.repeat_interleave(h // h_kv, dim=2).transpose(1, 2)
+              .detach().requires_grad_() for x in (k, v))
+    g = do.transpose(1, 2)
+    pos = torch.arange(s, device=card)
+    gap = pos[:, None] - pos[None, :]
+    mask = (gap >= 0) & (gap < window)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask), 5)
+    lib_both = time_ms(lambda: torch.autograd.grad(
+        sdpa(qt, kt, vt, attn_mask=mask), (qt, kt, vt), g), 5)
+    work = backward_work(b, s, h, h_kv, d, dtype, True, window)
+    work["flash_fwd"] = attention_work(b, s, h, h_kv, d, dtype, True, window)
+    for name in ms:
+        bound_ms, bound_by = bound(*work[name], dtype)
+        lib = lib_fwd if name == "flash_fwd" else lib_both - lib_fwd
+        entries[name]["ulysses_shape"] = {
+            "shape": f"B {b}, S {s}, H {h} / H_kv {h_kv}, D {d}, window "
+                     f"{window}, head-sliced views",
+            "ms": ms[name], "plain_ms": plain[name],
+            "plain_shape": "B 2" if name == "flash_fwd" else "B 1",
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
+            "library": "scaled_dot_product_attention with the window as a "
+                       "boolean attn_mask" + ("" if name == "flash_fwd" else
+                                              " (backward: dq, dk, dv)"),
+            "max_abs_err": errs[name]}
+        print(f"kernel {name} timing at Ulysses' shard shape: {ms[name]:.4f}"
+              f" ms, plain {plain[name]:.4f} ms, SDPA {lib:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}; "
+              f"{work[name][1] / ms[name] / 1e9:.1f} TFLOP/s)", flush=True)
+    del q, k, v, out, lse, do, delta, args, one, qt, kt, vt, g, mask
+    torch.cuda.empty_cache()
+
+
 def phase_sp_parity(tfm, RingAxis, card):
-    """One step's loss and gradients through the sp-4 ring against the
-    model without SP at the same window, full width on one batch of
-    2 x 8192, with each run's peak memory; and a small f32 model's ring
-    (flash tiles, band tiles with rows that see no key, a pruned ring)
-    against dense attention."""
+    """One step's loss and gradients through the sp-4 ring and through
+    Ulysses over a local axis of 4, each against the model without SP
+    at the same window, full width on one batch of 2 x 8192, with each
+    run's peak memory; and a small f32 model's ring (flash tiles, band
+    tiles with rows that see no key, a pruned ring) and Ulysses (the
+    CUDA-core loop at H/4 heads) against dense attention. Ulysses' shards
+    hold whole GQA groups and the kernels compute each head alone, so
+    its run should equal the unsharded one bit for bit but where the
+    products around the attention differ: the phase prints max|d| and
+    the leaves that are bitwise equal."""
     rng = np.random.default_rng(4)
-    small = dict(vocab_size=256, d_model=128, n_heads=4, n_kv_heads=2,
+    # 8 / 4 heads: Ulysses over 4 shards needs the K/V heads to divide
+    small = dict(vocab_size=256, d_model=128, n_heads=8, n_kv_heads=4,
                  n_layers=2, d_ff=256, max_seq=256, positional="rope",
                  attention_window=100)
+    # (name, attention impl, sp_impl or None without SP); the second run
+    # is the yardstick of the others
     runs = (("full width 2 x 8192", SP_MODEL, SP_BATCH, SP_SEQ,
-             torch.bfloat16, (("ring", "flash", True), ("flash", "flash",
-                                                        False))),
+             torch.bfloat16, (("ring", "flash", "ring"),
+                              ("flash", "flash", None),
+                              ("ulysses", "flash", "ulysses"))),
             ("small f32", small, 2, 256, torch.float32,
-             (("ring", "flash", True), ("dense", "dense", False))))
-    for label, kw, batch, seq, dtype, pair in runs:
+             (("ring", "flash", "ring"), ("dense", "dense", None),
+              ("ulysses", "flash", "ulysses"))))
+    for label, kw, batch, seq, dtype, triple in runs:
         tokens = torch.from_numpy(rng.integers(0, kw["vocab_size"],
                                                (batch, seq))).to(card)
         targets = torch.roll(tokens, -1, dims=1)
         params, loss, grads, peak = None, {}, {}, {}
-        for name, impl, ring in pair:
+        for name, impl, sp_impl in triple:
             cfg = tfm.TransformerConfig(dtype=dtype, attention_impl=impl,
+                                        sp_impl=sp_impl or "ring",
                                         loss_chunk=min(LOSS_CHUNK, seq), **kw)
             if params is None:
                 params = tfm.init_params(cfg, torch.Generator().manual_seed(5),
                                          card)
-            axes = tfm.ShardAxes(sp=RingAxis.local(SP_RING)) if ring else None
+            axes = (None if sp_impl is None
+                    else tfm.ShardAxes(sp=RingAxis.local(SP_RING)))
             for t in _leaves(params):
                 t.grad = None
             torch.cuda.synchronize()
@@ -1353,31 +1513,35 @@ def phase_sp_parity(tfm, RingAxis, card):
             peak[name] = torch.cuda.max_memory_allocated() - base
             grads[name] = {k: v.float().clone() for k, v in g.items()}
             del g
-        a, b = (p[0] for p in pair)
-        dl = abs(loss[a] - loss[b])
-        if dtype == torch.float32:
-            err = max((grads[a][k] - grads[b][k]).abs().max().item()
-                      for k in grads[b])
-            print(f"parity sp {label}: loss {a} {loss[a]:.6f}, {b} "
-                  f"{loss[b]:.6f}; max|dgrad|={err:.3g} (tol "
-                  f"{SMALL_GRAD_ATOL:g})", flush=True)
-            check(err <= SMALL_GRAD_ATOL and dl <= SMALL_GRAD_ATOL,
-                  "small f32 model: ring and dense gradients disagree")
-        else:
+        b = triple[1][0]
+        for a in (triple[0][0], triple[2][0]):
+            dl = abs(loss[a] - loss[b])
+            diff = {k: (grads[a][k] - grads[b][k]).abs().max().item()
+                    for k in grads[b]}
+            same = sum(d == 0.0 for d in diff.values())
+            err = max(diff.values())
+            head = (f"parity sp {label}: {a} vs {b}: loss {loss[a]:.6f} vs "
+                    f"{loss[b]:.6f} (|d|={dl:.3g}); max|dgrad|={err:.3g}, "
+                    f"{same} of {len(diff)} leaves bitwise equal"
+                    + (" (loss too)" if dl == 0.0 else ""))
+            if dtype == torch.float32:
+                print(f"{head} (tol {SMALL_GRAD_ATOL:g})", flush=True)
+                check(err <= SMALL_GRAD_ATOL and dl <= SMALL_GRAD_ATOL,
+                      f"small f32 model: {a} and {b} gradients disagree")
+                continue
             rel = _rel_l2(grads[a], grads[b])
             worst = max(rel, key=rel.get)
-            print(f"parity sp {label}: loss {a} {loss[a]:.6f}, {b} "
-                  f"{loss[b]:.6f} (|d|={dl:.3g}, tol {TRAIN_LOSS_ATOL:g}); "
-                  f"gradient relative L2 worst {rel[worst]:.4g} at {worst} "
-                  f"(tol {TRAIN_GRAD_REL:g}), median "
+            print(f"{head}; loss tol {TRAIN_LOSS_ATOL:g}; gradient "
+                  f"relative L2 worst {rel[worst]:.4g} at {worst} (tol "
+                  f"{TRAIN_GRAD_REL:g}), median "
                   f"{float(np.median(list(rel.values()))):.4g}; peak memory "
                   f"of loss and backward above what was allocated before "
                   f"(the new gradients included): {a} "
                   f"{peak[a] / 2 ** 30:.2f} GiB, {b} "
                   f"{peak[b] / 2 ** 30:.2f} GiB", flush=True)
-            check(dl <= TRAIN_LOSS_ATOL, "ring and flash losses disagree")
+            check(dl <= TRAIN_LOSS_ATOL, f"{a} and {b} losses disagree")
             check(rel[worst] <= TRAIN_GRAD_REL,
-                  "ring and flash gradients disagree")
+                  f"{a} and {b} gradients disagree")
         del params, grads
         torch.cuda.empty_cache()
 
@@ -1507,12 +1671,14 @@ def zero_launches(fa):
         setattr(fa, c, 0)
 
 
-def phase_train(hvd, fa, tfm, card, where, ring=None):
-    """Main path 2 (``ring`` None: batch 4 x 4096) or 3 (``ring`` a
-    RingAxis: the SP model at batch 2 x 8192): init ->
+def phase_train(hvd, fa, tfm, card, where, ring=None, sp_impl="ring"):
+    """Main path 2 (``ring`` None: batch 4 x 4096), 3 (``ring`` a
+    RingAxis: the SP model at batch 2 x 8192 through the ring) or 12
+    (the same through Ulysses, ``sp_impl="ulysses"``): init ->
     broadcast_parameters -> DistributedOptimizer -> loss_fn, warm-up plus
-    timed steps on one batch, counts zeroed around it. Returns {kernel:
-    launches}."""
+    timed steps on one batch, counts zeroed around it. Returns ({kernel:
+    launches}, {"step_ms", "tok_s", "peak"}: the median timed step, its
+    tokens/s and the peak memory)."""
     dump = os.path.join(tempfile.mkdtemp(), "profiler.txt")
     os.environ["HOROVOD_PROFILER_PATH"] = dump
     os.environ.pop("HOROVOD_PROFILER_DISABLE", None)
@@ -1523,10 +1689,12 @@ def phase_train(hvd, fa, tfm, card, where, ring=None):
         label, batch, seq, model, axes = ("train", TRAIN_BATCH, TRAIN_SEQ,
                                           FLAGSHIP, None)
     else:
-        label, batch, seq, model = "sp train", SP_BATCH, SP_SEQ, SP_MODEL
+        label = "sp train" if sp_impl == "ring" else "ulysses train"
+        batch, seq, model = SP_BATCH, SP_SEQ, SP_MODEL
         axes = tfm.ShardAxes(sp=ring)
     cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
-                                loss_chunk=LOSS_CHUNK, **model)
+                                loss_chunk=LOSS_CHUNK, sp_impl=sp_impl,
+                                **model)
     lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
                            device=card, axes=axes)
     hvd.broadcast_parameters(lm.state_dict(), root_rank=0)
@@ -1571,11 +1739,11 @@ def phase_train(hvd, fa, tfm, card, where, ring=None):
     check(all(np.isfinite(losses)), f"losses {losses}")
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
     # a step's launches per layer: one of each static kernel per local
-    # shard (the diagonal tiles), one of each band kernel per live
-    # visiting tile; every launch on the tensor-core route, none
-    # on the loop
+    # shard (the ring's diagonal tiles, Ulysses' head slices), one of
+    # each band kernel per live visiting tile of the ring; every launch
+    # on the tensor-core route, none on the loop
     shards = 1 if ring is None else len(ring.shards)
-    bands = 0 if ring is None else len(SP_BAND_OFFSETS)
+    bands = 0 if ring is None or sp_impl != "ring" else len(SP_BAND_OFFSETS)
     for name, n in launches.items():
         per_layer = bands if name.startswith("flash_band") else shards
         if name in WGMMA:
@@ -1595,7 +1763,8 @@ def phase_train(hvd, fa, tfm, card, where, ring=None):
     print(f"{label} losses: {' '.join(f'{x:.4f}' for x in losses)}",
           flush=True)
     print(f"{label} {batch} x {seq} tokens"
-          f"{'' if ring is None else f' over {ring}, window {SP_WINDOW}'}, "
+          f"{'' if ring is None else f' over {ring} ({sp_impl}), window '}"
+          f"{'' if ring is None else SP_WINDOW}, "
           f"{n_params / 1e6:.1f} M "
           f"parameters [{where}]: step {median:.1f} ms (median of "
           f"{TIMED_STEPS}; {' '.join(f'{t:.1f}' for t in step_ms)}); "
@@ -1616,7 +1785,7 @@ def phase_train(hvd, fa, tfm, card, where, ring=None):
           f"profiler dump {dump}: {counter!r}")
     print(f"{label} shutdown: profiler dump {counter.strip()}", flush=True)
     torch.cuda.empty_cache()
-    return launches
+    return launches, {"step_ms": median, "tok_s": tok_s, "peak": peak}
 
 
 COMPILED_STEPS, REPLAYS = 3, 4
@@ -1633,7 +1802,8 @@ def to_card(tree, card):
 
 def phase_compiled_train(hvd, fa, tfm, card, where, model=FLAGSHIP,
                          label="compiled train", expert_keys=None,
-                         init=None):
+                         init=None, shape=(TRAIN_BATCH, TRAIN_SEQ),
+                         axes=None, per_replay=None):
     """Main path 6 (``model`` the flagship) or 7 (flagship-moe, with
     ``expert_keys``): the model at batch 4 x 4096 through
     ``compiled_train_step`` over ``DistributedOptimizer(AdamW(...,
@@ -1647,7 +1817,11 @@ def phase_compiled_train(hvd, fa, tfm, card, where, model=FLAGSHIP,
     eager path's one all-reduce a bucket (a bucket a group with expert
     keys: the experts' over the data group, the rest over the world).
     The losses must be finite and fall. ``init`` (a parameter tree on
-    the host) starts both runs, else seed 0 does. Returns ({kernel:
+    the host) starts both runs, else seed 0 does. Main path 13 runs the
+    SP model at ``shape`` 2 x 8192 over ``axes`` (a local axis of 4,
+    the ring's or Ulysses', ``model``'s ``sp_impl``), each replay with
+    ``per_replay`` launches ({route counter: launches}; default one of
+    each static kernel a layer). Returns ({kernel:
     launches} of the compiled steps, the trained parameters, the batch,
     {"params": the parameters after COMPILED_STEPS compiled steps on the
     host, by name, "step_ms", "tok_s", "peak": the replays' median, its
@@ -1656,15 +1830,17 @@ def phase_compiled_train(hvd, fa, tfm, card, where, model=FLAGSHIP,
     hvd.init(device=card)
     cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
                                 loss_chunk=LOSS_CHUNK, **model)
+    batch, seq = shape
     tokens = np.random.default_rng(1).integers(0, cfg.vocab_size,
-                                               (TRAIN_BATCH, TRAIN_SEQ))
+                                               (batch, seq))
     targets = torch.from_numpy(np.roll(tokens, -1, axis=1)).to(card)
     tokens = torch.from_numpy(tokens).to(card)
 
     def build():
         lm = tfm.TransformerLM(
             cfg, None if init is None else to_card(init, card),
-            generator=torch.Generator().manual_seed(0), device=card)
+            generator=torch.Generator().manual_seed(0), device=card,
+            axes=axes)
         opt = hvd.DistributedOptimizer(
             torch.optim.AdamW(lm.parameters(), capturable=True, **ADAMW),
             named_parameters=lm.named_parameters(), expert_keys=expert_keys)
@@ -1721,20 +1897,20 @@ def phase_compiled_train(hvd, fa, tfm, card, where, model=FLAGSHIP,
     replays = [timed(lambda: step(tokens, targets)) for _ in range(REPLAYS)]
     torch.cuda.synchronize()
     launches = read_launches(fa)
-    per_replay = {k: (launches[k] - replay_launches0[k]) / REPLAYS
-                  for k in launches}
+    replay_counts = {k: (launches[k] - replay_launches0[k]) / REPLAYS
+                     for k in launches}
     jit_calls = stats.counter("allreduce_jit") - jit0
     replay_ms = [a.elapsed_time(b) for _, (a, b), _ in replays]
     host_ms = [h * 1e3 for _, _, h in replays]
     losses += [x[0].item() for x in replays]
     peak = torch.cuda.max_memory_allocated()
     median = float(np.median(replay_ms))
-    tok_s = TRAIN_BATCH * TRAIN_SEQ / (median / 1e3)
-    fpt = flops_per_token(lm.params, cfg, TRAIN_SEQ)
+    tok_s = batch * seq / (median / 1e3)
+    fpt = flops_per_token(lm.params, cfg, seq)
     n_params = sum(p.numel() for p in lm.parameters())
     print(f"{label} losses: {' '.join(f'{x:.4f}' for x in losses)} "
           f"(eager {' '.join(f'{x:.4f}' for x in eager_losses)})", flush=True)
-    print(f"{label} {TRAIN_BATCH} x {TRAIN_SEQ}, {n_params / 1e6:.1f} M "
+    print(f"{label} {batch} x {seq}, {n_params / 1e6:.1f} M "
           f"parameters [{where}]: step {median:.1f} ms (replay, median of "
           f"{REPLAYS}); {tok_s:.1f} tokens/s; {fpt / 1e9:.3f} GFLOP/token "
           f"(active); MFU {fpt * tok_s / PEAK_FLOPS[torch.bfloat16]:.4f} "
@@ -1745,13 +1921,14 @@ def phase_compiled_train(hvd, fa, tfm, card, where, model=FLAGSHIP,
           f"{max(deltas.values()):.3g}"
           + (f" (worst {max(differ, key=differ.get)})" if differ else ""),
           flush=True)
-    print(f"{label} 4 x 4096 [{where}]: replay {np.median(replay_ms):.1f}"
+    print(f"{label} {batch} x {seq} [{where}]: replay "
+          f"{np.median(replay_ms):.1f}"
           f" ms (median of {REPLAYS}; {' '.join(f'{t:.1f}' for t in replay_ms)})"
           f" against eager {np.median(eager_ms):.1f} ms (steps 2-"
           f"{COMPILED_STEPS} of the same optimizer); step() returns in "
           f"{np.median(host_ms):.3f} ms on the host; cache hits "
           f"{step.cache_hits} misses {step.cache_misses} fallbacks "
-          f"{step.fallback_steps}; per replay {per_replay}; "
+          f"{step.fallback_steps}; per replay {replay_counts}; "
           f"{jit_calls} allreduce_jit records in {REPLAYS} replays",
           flush=True)
     check(not differ, f"compiled parameters differ from eager: {differ}")
@@ -1763,10 +1940,11 @@ def phase_compiled_train(hvd, fa, tfm, card, where, model=FLAGSHIP,
           and step.cache_hits == COMPILED_STEPS + REPLAYS - 1,
           f"cache {step.cache_hits}/{step.cache_misses}, fallbacks "
           f"{step.fallback_steps}")
-    for name, n in per_replay.items():
-        want_n = cfg.n_layers if name in ("flash_fwd_wgmma",
-                                          "flash_bwd_dq_wgmma",
-                                          "flash_bwd_dkv_wgmma") else 0
+    if per_replay is None:
+        per_replay = dict.fromkeys(("flash_fwd_wgmma", "flash_bwd_dq_wgmma",
+                                    "flash_bwd_dkv_wgmma"), cfg.n_layers)
+    for name, n in replay_counts.items():
+        want_n = per_replay.get(name, 0)
         check(n == want_n, f"{name}: {n} launches a replay, {want_n} "
                            "expected")
     check(len(prog.collectives) == n_buckets and jit_calls
@@ -1780,6 +1958,228 @@ def phase_compiled_train(hvd, fa, tfm, card, where, model=FLAGSHIP,
     os.environ.pop("HOROVOD_PROFILER_JIT_CALLBACKS")
     return launches, params, tokens, {"params": got, "step_ms": median,
                                       "tok_s": tok_s, "peak": peak}
+
+
+# Pipeline parallelism: the flagship's 8 layers over a local pp axis of
+# 4 stages (2 layers a stage, 1 a chunk interleaved at V 2), the
+# training batch 4 x 4096 in 4 microbatches of 1 x 4096.
+PP_STAGES, PP_MICROBATCHES, PP_STEPS = 4, 4, 3
+
+
+def _pp_want(tfm, grads, cfg, interleave=1):
+    """The unpipelined gradients (``_flat_grads`` names) in the stacked
+    layout's names and shapes (layer (c*S + s)*L' + l at [c, s, l])."""
+    want = {k: g for k, g in grads.items() if not k.startswith("layers.")}
+    for k in {n.split(".", 2)[2] for n in grads if n.startswith("layers.")}:
+        g = torch.stack([grads[f"layers.{i}.{k}"]
+                         for i in range(cfg.n_layers)])
+        if interleave > 1:
+            g = g.reshape((interleave, PP_STAGES, -1) + tuple(g.shape[1:]))
+        want[f"layers.{k}"] = g
+    return want
+
+
+def _pp_run(tfm, fa, cfg, stacked, tokens, targets, schedule, interleave=1):
+    """(loss, {name: gradient}, launches, peak above the allocation
+    before) of one pipelined loss and backward over the local pp axis:
+    GPipe under autograd, or 1F1B's own gradients."""
+    from horovod_tpu_torch.parallel.ring_attention import RingAxis
+    pp = RingAxis.local(PP_STAGES)
+    for t in tfm._leaves(stacked):
+        t.grad = None
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(fa)
+    if schedule == "gpipe":
+        loss = tfm.pipeline_loss_fn(stacked, tokens, targets, cfg,
+                                    num_microbatches=PP_MICROBATCHES, pp=pp)
+        loss.backward()
+        grads = {k: t.grad for k, t in tfm._named_leaves(stacked)}
+    else:
+        loss, tree = tfm.pipeline_value_and_grad_1f1b(
+            stacked, tokens, targets, cfg, num_microbatches=PP_MICROBATCHES,
+            pp=pp, interleave=interleave)
+        grads = dict(tfm._named_leaves(tree))
+    torch.cuda.synchronize()
+    return (loss.item(), grads, read_launches(fa),
+            torch.cuda.max_memory_allocated() - base)
+
+
+def pp_launches(cfg, schedule):
+    """One pipelined step's launches of each static kernel on the tensor
+    cores, by the port's rule (parallel/pipeline.py: inactive slots
+    skipped): every (stage, microbatch) runs its layers' forward once
+    under GPipe, twice under 1F1B (the forward phase and the backward
+    phase's recompute), and their backward once."""
+    fwd = cfg.n_layers * PP_MICROBATCHES
+    return {"flash_fwd_wgmma": fwd * (1 if schedule == "gpipe" else 2),
+            "flash_bwd_dq_wgmma": fwd, "flash_bwd_dkv_wgmma": fwd}
+
+
+def phase_pipeline(fa, tfm, card, where):
+    """Main path 14: the flagship over a local pp axis of PP_STAGES on
+    this card, batch 4 x 4096 in PP_MICROBATCHES microbatches, loss
+    chunk 512. Parity: GPipe (``pipeline_loss_fn`` under autograd), 1F1B
+    at V 1 and at V 2 (one layer a chunk) against the unpipelined
+    ``loss_fn`` on one batch (loss within TRAIN_LOSS_ATOL, every
+    gradient within TRAIN_GRAD_REL), and a small f32 model's three
+    within SMALL_GRAD_ATOL. Then PP_STEPS AdamW steps of the
+    unpipelined model, of GPipe and of 1F1B from the same weights, each
+    loss falling, with step times (a local schedule on one card, not a
+    PP speed), peak memory (1F1B's below GPipe's) and each pipelined
+    step's launches exactly as ``pp_launches`` says. Returns ({kernel:
+    launches} of GPipe's steps, of 1F1B's)."""
+    from horovod_tpu_torch.parallel.ring_attention import RingAxis
+    rng = np.random.default_rng(6)
+    small = dict(vocab_size=256, d_model=128, n_heads=4, n_kv_heads=2,
+                 n_layers=8, d_ff=256, max_seq=128, positional="rope")
+    for label, kw, batch, seq, dtype in (
+            ("full width 4 x 4096", FLAGSHIP, TRAIN_BATCH, TRAIN_SEQ,
+             torch.bfloat16),
+            ("small f32", small, 4, 128, torch.float32)):
+        cfg = tfm.TransformerConfig(dtype=dtype, attention_impl="flash",
+                                    loss_chunk=min(LOSS_CHUNK, seq), **kw)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                               (batch, seq))).to(card)
+        targets = torch.roll(tokens, -1, dims=1)
+        params = tfm.init_params(cfg, torch.Generator().manual_seed(7), card)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ref_loss, g = _loss_and_grads(tfm, params, cfg, tokens, targets)
+        ref_peak = torch.cuda.max_memory_allocated() - base
+        grads = {k: v.float().clone() for k, v in g.items()}
+        del g
+        for t in _leaves(params):
+            t.grad = None
+            t.requires_grad_(False)
+        peaks = {"unpipelined": ref_peak}
+        for name, schedule, v in (("gpipe", "gpipe", 1), ("1f1b", "1f1b", 1),
+                                  ("1f1b V 2", "1f1b", 2)):
+            stacked = tfm.stack_pipeline_params(params, interleave=v,
+                                                num_stages=PP_STAGES)
+            for t in tfm._leaves(stacked):
+                t.requires_grad_()
+            loss, got, launches, peaks[name] = _pp_run(
+                tfm, fa, cfg, stacked, tokens, targets, schedule, v)
+            want = _pp_want(tfm, grads, cfg, v)
+            dl = abs(loss - ref_loss)
+            head = (f"parity pp {label} {name} vs unpipelined: loss "
+                    f"{loss:.6f} vs {ref_loss:.6f} (|d|={dl:.3g})")
+            if dtype == torch.float32:
+                err = max((got[k].float() - want[k]).abs().max().item()
+                          for k in want)
+                print(f"{head}; max|dgrad|={err:.3g} (tol "
+                      f"{SMALL_GRAD_ATOL:g})", flush=True)
+                check(err <= SMALL_GRAD_ATOL and dl <= SMALL_GRAD_ATOL,
+                      f"small f32 pipeline {name} disagrees with loss_fn")
+            else:
+                rel = _rel_l2({k: got[k].float() for k in want}, want)
+                worst = max(rel, key=rel.get)
+                print(f"{head} (tol {TRAIN_LOSS_ATOL:g}); gradient relative "
+                      f"L2 worst {rel[worst]:.4g} at {worst} (tol "
+                      f"{TRAIN_GRAD_REL:g}), median "
+                      f"{float(np.median(list(rel.values()))):.4g}; peak "
+                      f"above the weights {peaks[name] / 2 ** 30:.2f} GiB "
+                      f"(unpipelined {ref_peak / 2 ** 30:.2f}); launches "
+                      f"{launches}", flush=True)
+                check(dl <= TRAIN_LOSS_ATOL,
+                      f"pipeline {name} loss disagrees with loss_fn")
+                check(rel[worst] <= TRAIN_GRAD_REL,
+                      f"pipeline {name} gradients disagree with loss_fn")
+                want_n = pp_launches(cfg, schedule)
+                check(all(launches[k] == want_n.get(k, 0) for k in launches),
+                      f"pipeline {name} launches {launches}, {want_n} "
+                      "expected")
+            del stacked, got, want
+        del params, grads
+        torch.cuda.empty_cache()
+
+    # ---- training: PP_STEPS AdamW steps of each schedule
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
+                                loss_chunk=LOSS_CHUNK, **FLAGSHIP)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (TRAIN_BATCH, TRAIN_SEQ))).to(card)
+    targets = torch.roll(tokens, -1, dims=1)
+    init = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    stats, paths = {}, {}
+    for schedule in ("unpipelined", "gpipe", "1f1b"):
+        params = to_card(init, card)
+        if schedule != "unpipelined":
+            params = tfm.stack_pipeline_params(params,
+                                               num_stages=PP_STAGES)
+        leaves = list(tfm._leaves(params))
+        for t in leaves:
+            t.requires_grad_()
+        opt = torch.optim.AdamW(leaves, **ADAMW)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches(fa)
+        losses, events = [], []
+        for _ in range(PP_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            opt.zero_grad(set_to_none=True)
+            if schedule == "1f1b":
+                loss, tree = tfm.pipeline_value_and_grad_1f1b(
+                    params, tokens, targets, cfg,
+                    num_microbatches=PP_MICROBATCHES,
+                    pp=RingAxis.local(PP_STAGES))
+                for (_, t), (_, g) in zip(tfm._named_leaves(params),
+                                          tfm._named_leaves(tree)):
+                    t.grad = g
+                del tree
+            else:
+                if schedule == "gpipe":
+                    loss = tfm.pipeline_loss_fn(
+                        params, tokens, targets, cfg,
+                        num_microbatches=PP_MICROBATCHES,
+                        pp=RingAxis.local(PP_STAGES))
+                else:
+                    loss = tfm.loss_fn(params, tokens, targets, cfg)
+                loss.backward()
+            opt.step()
+            end.record()
+            events.append((start, end))
+            losses.append(loss.detach())
+        torch.cuda.synchronize()
+        launches = read_launches(fa)
+        losses = [x.item() for x in losses]
+        step_ms = [a.elapsed_time(b) for a, b in events]
+        peak = torch.cuda.max_memory_allocated()
+        stats[schedule] = (step_ms, peak)
+        print(f"pp train {schedule} [{where}] (a local schedule of "
+              f"{PP_STAGES} stages on one card, not a PP speed): 4 x 4096 "
+              f"in {PP_MICROBATCHES} microbatches, steps "
+              f"{' '.join(f'{t:.1f}' for t in step_ms)} ms, losses "
+              f"{' '.join(f'{x:.4f}' for x in losses)}, peak memory "
+              f"{peak / 2 ** 30:.2f} GiB; launches {launches}", flush=True)
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"pp train {schedule}: losses not finite or not falling: "
+              f"{losses}")
+        if schedule != "unpipelined":
+            want_n = {k: PP_STEPS * n
+                      for k, n in pp_launches(cfg, schedule).items()}
+            check(all(launches[k] == want_n.get(k, 0) for k in launches),
+                  f"pp train {schedule} launches {launches}, {want_n} "
+                  "expected")
+            paths[schedule] = launches
+        del params, leaves, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    stash_mib = (2 * PP_STAGES - 1) * TRAIN_SEQ * cfg.d_model * 2 / 2 ** 20
+    gib = {k: v[1] / 2 ** 30 for k, v in stats.items()}
+    print(f"pp train peaks: unpipelined {gib['unpipelined']:.2f} GiB, GPipe "
+          f"{gib['gpipe']:.2f} GiB, 1F1B {gib['1f1b']:.2f} GiB (a stage "
+          f"stashes at most "
+          f"{2 * PP_STAGES - 1} inputs of 1 x {TRAIN_SEQ} x {cfg.d_model} "
+          f"bf16, {stash_mib:.0f} MiB); 1F1B below GPipe: "
+          f"{stats['1f1b'][1] < stats['gpipe'][1]}", flush=True)
+    check(stats["1f1b"][1] < stats["gpipe"][1],
+          "1F1B's peak memory is not below GPipe's")
+    return paths["gpipe"], paths["1f1b"]
 
 
 ZERO_STAGES = (1, 2, 3)
@@ -2071,6 +2471,32 @@ def _tp_serve_checks(rows, ref_rows, tokens, streams):
                               f"agrees: {unexplained}")]
 
 
+# The f32 leg of TP training: the gathered gradients against the
+# unsharded f32 model's differ by the f32 sums' order only (the wo and w2
+# psums add two halves where the unsharded product adds one row).
+TP_F32_GRAD_REL = 1e-4
+
+
+def _tp_grad_rel(dist, tfm, grads, specs, tp, rank, want):
+    """{leaf: relative L2} on rank 0 of the rank's gradients gathered
+    over the model group against ``want`` (the unsharded model's, by
+    name, on the host): a model leaf's gradient is tp times its block of
+    the unsharded one (the reference's psum transposes to a psum), a
+    replicated leaf's the unsharded gradient itself. Collective."""
+    rel = {}
+    spec_of = dict(tfm._named_leaves(specs))
+    for k, g in grads.items():
+        if "model" in spec_of[k]:
+            parts = [torch.empty_like(g) for _ in range(TP_RANKS)]
+            dist.all_gather(parts, g.contiguous(), group=tp)
+            g = torch.cat(parts, spec_of[k].index("model")) / TP_RANKS
+        if rank == 0:
+            w = want[k].float()
+            g = g.float().cpu()
+            rel[k] = float((g - w).norm() / w.norm().clamp_min(1e-30))
+    return rel
+
+
 def tp_worker(rank, port, out_path):
     """One rank of the TP phase (``chip_smoke.py --tp-rank R PORT OUT``):
     joins the gloo group, checks that gloo carries card tensors, then
@@ -2162,6 +2588,7 @@ def tp_worker(rank, port, out_path):
     batch = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                           (TP_BATCH, TRAIN_SEQ))).to(card)
     targets = torch.roll(batch, -1, dims=1)
+    ref_grads = ref32 = None
     if rank == 0:
         ref = tfm.TransformerLM(cfg, to_card(full, card), device=card)
         loss = ref.loss(batch, targets)
@@ -2172,7 +2599,6 @@ def tp_worker(rank, port, out_path):
         del ref, loss
         torch.cuda.empty_cache()
     shard = to_card(tfm.slice_param_shards(full, specs, mesh), card)
-    del full
     dist.barrier()
     lm = tfm.TransformerLM(cfg, shard, device=card,
                            axes=tfm.ShardAxes(tp=tp))
@@ -2195,25 +2621,43 @@ def tp_worker(rank, port, out_path):
         losses.append(loss.item())
         step_ms.append((time.perf_counter() - t0) * 1e3)
         if i == 0:
-            # the exchanged gradients, gathered over the group: a model
-            # leaf's is tp times its block of the unsharded gradient (the
-            # reference's psum transposes to a psum), a replicated leaf's
-            # the unsharded gradient itself
-            rel = {}
-            spec_of = dict(tfm._named_leaves(specs))
-            for k, g in grads.items():
-                if "model" in spec_of[k]:
-                    parts = [torch.empty_like(g) for _ in range(TP_RANKS)]
-                    dist.all_gather(parts, g.contiguous(), group=tp)
-                    g = torch.cat(parts, spec_of[k].index("model")) / TP_RANKS
-                if rank == 0:
-                    want = ref_grads.pop(k)
-                    g = g.float().cpu()
-                    rel[k] = float((g - want).norm()
-                                   / want.norm().clamp_min(1e-30))
+            rel = _tp_grad_rel(dist, tfm, grads, specs, tp, rank, ref_grads)
             del grads
     torch.cuda.synchronize()
     train_launches = read_launches(fa)
+    del lm, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the f32 leg: the same step in f32 activations (the CUDA-core
+    # loop's exact arithmetic, off the counted path), its gathered
+    # gradients against the unsharded f32 model's
+    if rank == 0:
+        ref = tfm.TransformerLM(cfg32, to_card(full, card), device=card)
+        loss = ref.loss(batch, targets)
+        loss.backward()
+        ref32_loss = loss.item()
+        ref32 = {k: v.grad.cpu() for k, v in tfm._named_leaves(ref.params)}
+        del ref, loss
+        torch.cuda.empty_cache()
+    dist.barrier()
+    lm = tfm.TransformerLM(cfg32, to_card(tfm.slice_param_shards(
+        full, specs, mesh), card), device=card, axes=tfm.ShardAxes(tp=tp))
+    del full
+    # the exchange as the bf16 step's (a replicated leaf's gradients
+    # summed over the group make tp times the unsharded one)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(lm.parameters(), lr=0.0),
+        named_parameters=lm.named_parameters(),
+        model_keys=tfm.model_parallel_keys(cfg))
+    loss32 = lm.loss(batch, targets)
+    loss32.backward()
+    opt.synchronize()
+    rel32 = _tp_grad_rel(dist, tfm, {k: v.grad for k, v in
+                                     tfm._named_leaves(lm.params)},
+                         specs, tp, rank, ref32)
+    loss32 = loss32.item()
+    del lm, opt
     want_n = (1 + TP_STEPS) * cfg.n_layers
     check(all(train_launches[k] == want_n for k in (
         "flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma"))
@@ -2236,17 +2680,26 @@ def tp_worker(rank, port, out_path):
               f"{rel[worst]:.4g} at {worst} (tol {TRAIN_GRAD_REL:g}), median "
               f"{float(np.median(list(rel.values()))):.4g} over {len(rel)} "
               "leaves", flush=True)
+        worst32 = max(rel32, key=rel32.get)
+        print(f"tp train f32 vs unsharded f32: loss {loss32:.6f} vs "
+              f"{ref32_loss:.6f} (|d| {abs(loss32 - ref32_loss):.3g}); "
+              f"gathered gradients relative L2 worst {rel32[worst32]:.4g} "
+              f"at {worst32} (tol {TP_F32_GRAD_REL:g}), median "
+              f"{float(np.median(list(rel32.values()))):.4g} over "
+              f"{len(rel32)} leaves", flush=True)
         check(abs(losses[0] - ref_loss) <= TRAIN_LOSS_ATOL,
               "tp loss differs from the unsharded model's")
         check(rel[worst] <= TRAIN_GRAD_REL,
               "tp gradients differ from the unsharded model's")
+        check(rel32[worst32] <= TP_F32_GRAD_REL,
+              "tp f32 gradients differ from the unsharded f32 model's")
         res.update(launches={"tp_serve": serve_launches,
                              "tp_train": train_launches},
                    step_ms=step_ms, losses=losses, ref_loss=ref_loss,
-                   grad_rel_worst=rel[worst])
+                   grad_rel_worst=rel[worst],
+                   f32_grad_rel_worst=rel32[worst32])
         with open(out_path, "w") as f:
             json.dump(res, f)
-    del lm, opt
     hvd.shutdown()
     dist.destroy_process_group()
 
@@ -2744,6 +3197,7 @@ def main():
     bwd_entries, train_fwd = phase_backward_kernels(fa, card, gen)
     entry["train_shape"] = train_fwd
     band_entries = phase_band_kernels(fa, card, gen)
+    phase_ulysses_kernels(fa, card, gen, {"flash_fwd": entry, **bwd_entries})
 
     cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
                                 **FLAGSHIP)
@@ -2763,7 +3217,7 @@ def main():
           flush=True)
     del lm
     torch.cuda.empty_cache()
-    train_launches = phase_train(hvd, fa, tfm, card, where)
+    train_launches, _ = phase_train(hvd, fa, tfm, card, where)
     t0 = time.perf_counter()
     compiled_train_launches, params, _, stage0 = phase_compiled_train(
         hvd, fa, tfm, card, where)
@@ -2799,8 +3253,41 @@ def main():
     del moe_init
     print(f"moe phases: {time.perf_counter() - t0:.1f} s", flush=True)
     phase_sp_parity(tfm, RingAxis, card)
-    sp_launches = phase_train(hvd, fa, tfm, card, where,
-                              RingAxis.local(SP_RING))
+    sp_launches, ring_step = phase_train(hvd, fa, tfm, card, where,
+                                         RingAxis.local(SP_RING))
+    ulysses_launches, ulysses_step = phase_train(
+        hvd, fa, tfm, card, where, RingAxis.local(SP_RING), "ulysses")
+    print(f"sp train 2 x 8192 [{where}]: Ulysses step "
+          f"{ulysses_step['step_ms']:.1f} ms ({ulysses_step['tok_s']:.1f} "
+          f"tokens/s, peak {ulysses_step['peak'] / 2 ** 30:.2f} GiB) beside "
+          f"the ring's {ring_step['step_ms']:.1f} ms "
+          f"({ring_step['tok_s']:.1f} tokens/s, peak "
+          f"{ring_step['peak'] / 2 ** 30:.2f} GiB)", flush=True)
+    t0 = time.perf_counter()
+    static = ("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
+    band = ("flash_band_fwd_wgmma", "flash_band_dq_wgmma",
+            "flash_band_dkv_wgmma")
+    n_layers = FLAGSHIP["n_layers"]
+    compiled_sp = {}
+    for sp_impl in ("ring", "ulysses"):
+        per_replay = dict.fromkeys(static, SP_RING * n_layers)
+        if sp_impl == "ring":
+            per_replay.update(dict.fromkeys(
+                band, len(SP_BAND_OFFSETS) * n_layers))
+        compiled_sp[sp_impl], params, _, _ = phase_compiled_train(
+            hvd, fa, tfm, card, where,
+            model=dict(SP_MODEL, sp_impl=sp_impl),
+            label=f"compiled sp {sp_impl}", shape=(SP_BATCH, SP_SEQ),
+            axes=tfm.ShardAxes(sp=RingAxis.local(SP_RING)),
+            per_replay=per_replay)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"compiled sp phases: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    pp_gpipe, pp_1f1b = phase_pipeline(fa, tfm, card, where)
+    print(f"pipeline phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     phase_resnet(hvd, card, where)
     phase_bench(where)
@@ -2816,7 +3303,11 @@ def main():
              "zero_train": zero_launches_by_stage,
              "moe_train": moe_train_launches,
              "moe_serve": moe_serve_launches,
-             "tp_serve": tp_serve_launches, "tp_train": tp_train_launches}
+             "tp_serve": tp_serve_launches, "tp_train": tp_train_launches,
+             "ulysses_train": ulysses_launches,
+             "sp_compiled": compiled_sp["ring"],
+             "ulysses_compiled": compiled_sp["ulysses"],
+             "pp_gpipe": pp_gpipe, "pp_1f1b": pp_1f1b}
     for e in entries:
         # a kernel's launches are its tensor-core route's: the main paths
         # launch its loop never (checked in phase_serve and phase_train)

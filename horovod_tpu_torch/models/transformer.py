@@ -35,11 +35,13 @@ checkpoint of its own, as the JAX package does. The model draws no
 random numbers, so no checkpoint saves the RNG state, which a CUDA graph
 capture could not read.
 
-Sequence parallelism is ring attention over ``ShardAxes(sp=RingAxis)``
-(parallel/ring_attention.py). On one process with a local ring the
-position-wise layers run over the whole local sequence at once and only
-attention splits it into shards; over a process group each rank holds
-one shard. MoE layers (models/moe.py) run every expert in the process,
+Sequence parallelism runs over ``ShardAxes(sp=RingAxis)``: ring
+attention (parallel/ring_attention.py) or, with ``sp_impl="ulysses"``,
+the all-to-all head re-shard (parallel/ulysses.py). On one process with
+a local axis the position-wise layers run over the whole local sequence
+at once and only attention splits it into shards (the ring by
+sequence, Ulysses by heads); over a process group each rank holds one
+shard. MoE layers (models/moe.py) run every expert in the process,
 or, over ``ShardAxes(ep=group)``, this rank's slice of them with the
 tokens exchanged by all-to-all.
 
@@ -57,9 +59,14 @@ under ``check_vma=False``: a rank's gradient is the reference's
 per-shard gradient, and ``DistributedOptimizer(model_keys=...)`` reduces
 it as the reference's sharding spec does. TP composes with the ring and
 with expert-parallel MoE layers (replicated over the model group).
-What the port does not carry raises ``NotImplementedError`` naming the
-ROADMAP.md item that adds it: data parallelism inside the model, and
-Ulysses.
+Data parallelism runs in ``DistributedOptimizer``, outside the model.
+
+Pipeline parallelism runs the layers stacked by stage
+(:func:`stack_pipeline_params`, :func:`pipeline_param_specs`) through
+the GPipe schedule under autograd (:func:`pipeline_loss_fn`) or the 1F1B
+schedule, which computes its own gradients
+(:func:`pipeline_value_and_grad_1f1b`), over a pp ``RingAxis``
+(parallel/pipeline.py).
 """
 
 import dataclasses
@@ -80,11 +87,10 @@ from ..ops.flash_attention import flash_attention
 from ..ops.step_program import StepProgram, engine_cached_program, obj_token
 from ..parallel.ring_attention import (NEG_INF, RingAxis, dense_attention,
                                        gqa_group, ring_attention)
+from ..parallel.ulysses import ulysses_attention
 from ..utils.devices import resolve_device
 from .moe import (MoEConfig, _einsum_f32, expert_slice, init_moe_params,
                   moe_layer)
-
-ULYSSES = "Ulysses sequence parallelism (ROADMAP.md, Queue 1 item 12)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,7 +108,8 @@ class TransformerConfig:
     # "dense" (ring_attention.dense_attention) | "flash" (the Hopper
     # kernel, ops/flash_attention.py).
     attention_impl: str = "dense"
-    # Sequence parallelism over ShardAxes.sp: only "ring" is carried.
+    # Sequence parallelism over ShardAxes.sp: "ring"
+    # (parallel/ring_attention.py) | "ulysses" (parallel/ulysses.py).
     sp_impl: str = "ring"
     # "learned" (absolute table) | "rope" (rotary on q/k).
     positional: str = "learned"
@@ -129,9 +136,6 @@ class TransformerConfig:
             raise ValueError(
                 f"unknown sp_impl {self.sp_impl!r}; "
                 "expected 'ring' or 'ulysses'")
-        if self.sp_impl == "ulysses":
-            raise NotImplementedError(
-                f"sp_impl='ulysses' comes with {ULYSSES}")
         if self.n_kv_heads is not None \
                 and self.n_heads % self.n_kv_heads != 0:
             raise ValueError(
@@ -515,7 +519,21 @@ def _attention_block_kv(p, x, cfg, axes=None):
         q = _rope(q, positions)
         k = _rope(k, positions)
     win = cfg.attention_window
-    if axes.sp is not None:
+    if axes.sp is not None and cfg.sp_impl == "ulysses":
+        # all-to-all re-shard to (whole sequence, H/n heads); the kernel
+        # then runs whole over the global sequence, so a window applies
+        # in global positions.
+        if cfg.attention_impl == "flash":
+            def attn_fn(qg, kg, vg, causal, scale):
+                # the kernels apply 1/sqrt(D) themselves
+                return flash_attention(qg, kg, vg, causal, window=win)
+        else:
+            def attn_fn(qg, kg, vg, causal, scale):
+                return dense_attention(qg, kg, vg, causal=causal,
+                                       scale=scale, window=win)
+        attn = ulysses_attention(q, k, v, axes.sp, causal=True,
+                                 attn_fn=attn_fn)
+    elif axes.sp is not None:
         # ring x flash: the static kernels for each diagonal tile, the band
         # kernels for the visiting tiles under a window; partials merge
         # by log-sum-exp.
@@ -700,6 +718,317 @@ def loss_fn(params, tokens, targets, cfg, axes=None):
     if axes.sp is not None and axes.sp.distributed:
         loss = _MeanOverRanks.apply(loss, axes.sp.group)
     return loss
+
+
+# ------------------------------------------------------------ pipeline
+#
+# The layers stacked by stage (stack_pipeline_params), run through the
+# GPipe schedule under autograd (pipeline_loss_fn) or the 1F1B schedule,
+# which computes its own gradients (pipeline_value_and_grad_1f1b), over
+# a pp RingAxis: local (every stage in this process, the stacked tree
+# whole) or one stage a rank of a process group (this rank's block of
+# the tree, cut by slice_param_shards with pipeline_param_specs and the
+# rank's "pp" coordinate). Weights from the JAX package convert per
+# layer (params_from_jax) and stack after.
+
+def _pipeline_is_mixed(cfg):
+    """True when the config interleaves dense and MoE layers: the
+    per-position stacked layout (a list over in-stage positions)
+    replaces the single homogeneous stack."""
+    return bool(cfg.moe_layers) and \
+        set(cfg.moe_layers) != set(range(cfg.n_layers))
+
+
+def _pipeline_units(n_layers, interleave, num_stages):
+    """(units, layers a position): the one place the divisibility
+    contract of the pipelined layouts lives."""
+    units = interleave * num_stages
+    if n_layers % units != 0:
+        raise ValueError(f"n_layers ({n_layers}) not divisible by "
+                         f"interleave x num_stages ({units})")
+    return units, n_layers // units
+
+
+def pipeline_param_specs(cfg, tp="model", ep="ep", pp="pp", interleave=1,
+                         num_stages=None):
+    """:func:`param_specs` for the pipelined layout: ``layers`` carries a
+    stacked leading layer dim split over ``pp`` (each stage holds a
+    contiguous run of n_layers/S layers); the rest keeps the Megatron
+    sharding and is replicated over ``pp``. ``interleave=V`` > 1 gives
+    the virtual-chunk layout (V, S, L', ...) with dim 1 split over
+    ``pp``: stage s holds virtual stages {c*S + s}. A mixed dense/MoE
+    config (``num_stages`` required) gives the per-position layout:
+    ``layers`` a list over in-stage positions, each a (V*S, ...) stack of
+    that position's layer over the pipeline units."""
+    specs = param_specs(cfg, tp=tp, ep=ep)
+    lead = (None, pp) if interleave > 1 else (pp,)
+    if _pipeline_is_mixed(cfg):
+        if num_stages is None:
+            raise ValueError(
+                "mixed dense/MoE pipeline specs need num_stages")
+        _, lpp = _pipeline_units(cfg.n_layers, interleave, num_stages)
+        specs["layers"] = [_tree_map(lambda sp: (*lead, *sp),
+                                     specs["layers"][j])
+                           for j in range(lpp)]
+        return specs
+    layer = specs["layers"][0]
+    if interleave > 1:
+        specs["layers"] = _tree_map(lambda sp: (None, pp, None, *sp), layer)
+    else:
+        specs["layers"] = _tree_map(lambda sp: (pp, *sp), layer)
+    return specs
+
+
+def _structure(tree):
+    return tuple(name for name, _ in _named_leaves(tree))
+
+
+def stack_pipeline_params(params, interleave=1, num_stages=None):
+    """The per-layer list stacked into the pipelined layout (leading
+    layer dim; :func:`pipeline_param_specs` places it). ``interleave=V``
+    with ``num_stages=S`` reshapes to the virtual-chunk layout (V, S, L',
+    ...), where layer (c*S + s)*L' + l sits at [c, s, l]. A mixed
+    dense/MoE layer list (trees that cannot form one stack) becomes the
+    per-position layout: a list over the L' in-stage positions, each
+    stacking that position's layer over the V*S pipeline units, shaped
+    (S, ...) or (V, S, ...); the kind of each position must repeat in
+    every unit. A JAX tree converts per layer (:func:`params_from_jax`)
+    and stacks after."""
+    from ..parallel.pipeline import stack_layers
+    out = dict(params)
+    layers = params["layers"]
+    n = len(layers)
+
+    def split(a):
+        return a.reshape((interleave, num_stages) + tuple(a.shape[1:]))
+
+    if len({_structure(layer) for layer in layers}) > 1:
+        if num_stages is None:
+            raise ValueError(
+                "mixed dense/MoE pipeline layout needs num_stages")
+        units, lpp = _pipeline_units(n, interleave, num_stages)
+        pos_stacks = []
+        for j in range(lpp):
+            group = [layers[u * lpp + j] for u in range(units)]
+            if len({_structure(g) for g in group}) > 1:
+                raise NotImplementedError(
+                    f"in-stage position {j} mixes dense and MoE layers "
+                    f"across pipeline units; mixed configs need the kind "
+                    f"pattern to repeat every {lpp} layers (e.g. "
+                    f"alternating dense/MoE aligned to stage boundaries)")
+            stk = stack_layers(group)
+            pos_stacks.append(_tree_map(split, stk) if interleave > 1
+                              else stk)
+        out["layers"] = pos_stacks
+        return out
+    stacked = stack_layers(layers)
+    if interleave > 1:
+        if num_stages is None or n % (interleave * num_stages) != 0:
+            raise ValueError(
+                f"interleave={interleave} needs num_stages and n_layers "
+                f"({n}) divisible by interleave x num_stages")
+        lpc = n // (interleave * num_stages)
+        stacked = _tree_map(lambda a: a.reshape(
+            (interleave, num_stages, lpc) + tuple(a.shape[1:])), stacked)
+    out["layers"] = stacked
+    return out
+
+
+def _apply_stage_layers(stage_layers, h, block):
+    """One stage's layers in order: the stacked (L', ...) block layer by
+    layer, or the per-position list, each entry (1, ...)."""
+    from ..parallel.pipeline import apply_stacked_layers
+    if isinstance(stage_layers, list):
+        for p in stage_layers:
+            h = block(_tree_map(lambda a: a[0], p), h)
+        return h
+    return apply_stacked_layers(block, stage_layers, h)
+
+
+def _pipeline_block(cfg, axes):
+    """One layer on the pipe's activation (x, aux): the MoE aux loss
+    rides through the pipe, so the last stage sees the model's total."""
+    def block(p, h):
+        x, aux = h
+        x, _, _ = _attention_block_kv(p, x, cfg, axes)
+        x, a = _mlp_block(p, x, cfg, axes)
+        return (x, aux + a)
+    return block
+
+
+def _microbatches(tokens, targets, m):
+    b, s = tokens.shape
+    if b % m != 0:
+        raise ValueError(f"batch {b} not divisible by microbatches {m}")
+    return tokens.reshape(m, b // m, s), targets.reshape(m, b // m, s)
+
+
+def _pipeline_loss(cfg, axes, targets_mb, moe):
+    """The last stage's loss of microbatch ``mb``: the (chunked) cross
+    entropy, plus the MoE aux term when the model has MoE layers."""
+    def loss(params, h, mb):
+        y, aux = h
+        if cfg.loss_chunk:
+            ce = _chunked_cross_entropy(params, y, targets_mb[mb], cfg,
+                                        axes.tp)
+        else:
+            ce = _cross_entropy(_head(params, y, cfg), targets_mb[mb],
+                                axes.tp)
+        return ce + MOE_AUX_COEF * aux if moe else ce
+    return loss
+
+
+def _check_pp(pp):
+    if not isinstance(pp, RingAxis):
+        raise TypeError(f"pp must be a RingAxis, got {type(pp).__name__}")
+
+
+def pipeline_loss_fn(params, tokens, targets, cfg, axes=None,
+                     num_microbatches=4, pp=None):
+    """GPipe-pipelined mean cross entropy over the pp axis ``pp`` (a
+    :class:`RingAxis`), differentiable by autograd.
+
+    ``params["layers"]`` is the stacked layout (:func:`stack_pipeline_params`):
+    all stages' on a local axis, this rank's block over a process group.
+    Tokens and targets are (B, S) with B divisible by
+    ``num_microbatches``. Composes with the tensor and sequence shardings
+    of :func:`loss_fn` (each stage's blocks psum over ``axes.tp`` and
+    attend over ``axes.sp``). Over a process group each rank's gradient
+    is its own paths': its stage's layers whole, and its share of the
+    replicated embedding and head, which sum over the pp group to the
+    reference's."""
+    from ..parallel.pipeline import _stage_params, last_stage_value, pipeline
+    axes = _check_axes(axes)
+    moe = _check_pipeline_moe(cfg, num_stages=None if pp is None
+                              else pp.size)
+    _check_pp(pp)
+    m = num_microbatches
+    tokens_mb, targets_mb = _microbatches(tokens, targets, m)
+    block = _pipeline_block(cfg, axes)
+
+    def stage_fn(s, h):
+        layers = _stage_params(params["layers"], s - pp.shards[0],
+                               len(pp.shards), 1)
+        return _apply_stage_layers(layers, h, block)
+
+    def inject(toks):
+        return (embed_tokens(params, toks, cfg, axes),
+                torch.zeros((), dtype=torch.float32, device=toks.device))
+
+    loss_f = _pipeline_loss(cfg, axes, targets_mb, moe)
+    losses = pipeline(stage_fn, tokens_mb, pp, num_microbatches=m,
+                      inject_fn=inject,
+                      collect_fn=lambda h, mb: loss_f(params, h, mb))
+    loss = last_stage_value(torch.mean(losses), pp)
+    if axes.sp is not None and axes.sp.distributed:
+        loss = _MeanOverRanks.apply(loss, axes.sp.group)
+    return loss
+
+
+def _check_pipeline_moe(cfg, num_stages=None, interleave=1):
+    """MoE x PP composition check. All-MoE models stack homogeneously.
+    Mixed dense/MoE composes through the per-position layout when every
+    pipeline unit (chunk, stage) sees the same per-position kind
+    pattern; a pattern that differs across units would need a program a
+    stage. Returns whether MoE is active."""
+    if not cfg.moe_layers:
+        return False
+    if set(cfg.moe_layers) == set(range(cfg.n_layers)):
+        return True
+    if num_stages is None:
+        raise NotImplementedError(
+            "mixed dense/MoE pipeline schedules need the stage count to "
+            "validate the per-position kind pattern")
+    units, lpp = _pipeline_units(cfg.n_layers, interleave, num_stages)
+    for j in range(lpp):
+        kinds = {(u * lpp + j) in cfg.moe_layers for u in range(units)}
+        if len(kinds) > 1:
+            raise NotImplementedError(
+                f"mixed dense/MoE pipeline stages need a per-position "
+                f"kind pattern identical across all {units} pipeline "
+                f"units (in-stage position {j} mixes dense and MoE); "
+                f"e.g. every-other-layer MoE aligned to stage boundaries "
+                f"composes, MoE-only-in-stage-0 does not — use loss_fn "
+                f"(pp=1) for such shapes")
+    return True
+
+
+def pipeline_value_and_grad_1f1b(params, tokens, targets, cfg, axes=None,
+                                 num_microbatches=4, pp=None, interleave=1,
+                                 stage_collectives=None):
+    """1F1B-scheduled (loss, grads) over the pp axis ``pp``: the bounded
+    activation memory alternative to differentiating
+    :func:`pipeline_loss_fn` (parallel/pipeline.py ``pipeline_1f1b``).
+    Same layout contract as :func:`pipeline_loss_fn`; do not wrap it in
+    autograd. Returns the loss and a gradient tree in ``params``'
+    layout: the stacked layers' (this rank's block over a process
+    group), and the embedding's and head's summed over the pp group, as
+    the reference's. Over ``axes.tp`` (and ``axes.ep`` with MoE layers)
+    the loss is replicated on the group's ranks, so the backward's seed
+    divides by the group's size and leaves replicated over the group are
+    summed over it afterwards; over a distributed ``axes.sp`` the loss
+    and the gradients are averaged over the sequence shards.
+    ``stage_collectives`` is the reference's (None: whether a tensor,
+    sequence or expert axis runs inside the stages); the port's schedule
+    is the same either way."""
+    from ..parallel.pipeline import pipeline_1f1b
+    axes = _check_axes(axes)
+    moe = _check_pipeline_moe(cfg, num_stages=None if pp is None
+                              else pp.size, interleave=interleave)
+    _check_pp(pp)
+    if stage_collectives is None:
+        stage_collectives = bool(axes.tp or axes.sp or (moe and axes.ep))
+    m = num_microbatches
+    tokens_mb, targets_mb = _microbatches(tokens, targets, m)
+    shared = {k: v for k, v in params.items() if k != "layers"}
+    block = _pipeline_block(cfg, axes)
+
+    def stage(stage_layers, h):
+        if interleave > 1 and not isinstance(stage_layers, list):
+            # one chunk's params arrive (1, L', ...): the stage dim of
+            # the (V, S, L', ...) layout
+            stage_layers = _tree_map(lambda a: a[0], stage_layers)
+        return _apply_stage_layers(stage_layers, h, block)
+
+    def inject(sh, toks):
+        return (embed_tokens(sh, toks, cfg, axes),
+                torch.zeros((), dtype=torch.float32, device=toks.device))
+
+    # The loss of a (stage, microbatch) is the same on every rank of the
+    # tensor group (_nll psums over it) and, with expert parallelism, of
+    # the expert group (the all-to-alls hand every rank the same expert
+    # outputs). Seeding each rank's vjp with the whole cotangent would
+    # differentiate the sum of the copies: the seed divides by the
+    # copies, and leaves replicated over those groups sum afterwards.
+    rep = [(name, g) for name, g in (("tp", axes.tp),
+                                     ("ep", axes.ep if moe else None))
+           if g is not None]
+    replicas = 1
+    for _, g in rep:
+        replicas *= dist.get_world_size(g)
+    loss, d_layers, d_shared = pipeline_1f1b(
+        stage, params["layers"], shared, tokens_mb, pp,
+        num_microbatches=m, inject_fn=inject,
+        loss_fn=_pipeline_loss(cfg, axes, targets_mb, moe),
+        loss_replicas=replicas, num_chunks=interleave,
+        stage_collectives=stage_collectives)
+    grads = dict(d_shared)
+    grads["layers"] = d_layers
+    if rep:
+        specs = pipeline_param_specs(cfg, tp="tp", ep="ep",
+                                     interleave=interleave,
+                                     num_stages=pp.size)
+        for (_, g), (_, spec) in zip(_named_leaves(grads),
+                                     _named_leaves(specs)):
+            for name, group in rep:
+                if name not in spec:
+                    dist.all_reduce(g, group=group)
+    if axes.sp is not None and axes.sp.distributed:
+        n = dist.get_world_size(axes.sp.group)
+        for t in [loss, *_leaves(grads)]:
+            dist.all_reduce(t, group=axes.sp.group)
+            t.div_(n)
+    return loss, grads
 
 
 class TransformerLM(nn.Module):

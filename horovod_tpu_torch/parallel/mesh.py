@@ -1,19 +1,70 @@
 """Device topology of the port.
 
-Counterpart of horovod_tpu/parallel/mesh.py, of which the port carries
-:func:`data_parallel_mesh` (one flat data-parallel axis over every rank),
-:func:`expert_data_mesh` (the 2-D (data, expert) layout of
-expert-parallel MoE), :func:`hierarchical_mesh` (the 2-D (cross, local)
-layout of the two-tier collectives) and :func:`hierarchical_axes`. The
-3-D model mesh comes with tensor parallelism (ROADMAP.md, Queue 1
-item 6).
+Counterpart of horovod_tpu/parallel/mesh.py: :func:`create_mesh` (the
+5-axis ``("pp", "dp", "ep", "sp", "tp")`` layout of composable
+parallelism, with :class:`MeshConfig`), :func:`data_parallel_mesh` (one
+flat data-parallel axis over every rank), :func:`expert_data_mesh` (the
+2-D (data, expert) layout of expert-parallel MoE),
+:func:`model_expert_data_mesh` (the 3-D (data, expert, model) layout of
+tensor parallelism), :func:`hierarchical_mesh` (the 2-D (cross, local)
+layout of the two-tier collectives) and :func:`hierarchical_axes`.
+``RingAxis.over(mesh.get_group("sp"))`` (or ``"pp"``) is the
+:class:`~horovod_tpu_torch.parallel.ring_attention.RingAxis` that ring
+attention, Ulysses and the pipeline schedules run over.
 
 A ``DeviceMesh`` creates one process group per row and column of the
 layout, on every rank in the same order; so every rank builds every
 mesh, with the same arguments.
 """
 
+import dataclasses
+
+import torch
 from torch.distributed.device_mesh import DeviceMesh
+
+
+@dataclasses.dataclass
+class MeshConfig:
+    """Requested logical parallelism degrees. -1 on dp means "whatever is
+    left" after the explicit axes."""
+    dp: int = -1   # data parallel
+    tp: int = 1    # tensor/model parallel
+    pp: int = 1    # pipeline parallel
+    sp: int = 1    # sequence/context parallel (ring or Ulysses axis)
+    ep: int = 1    # expert parallel
+
+
+def create_mesh(device_type, size, config=None, *, dp=None, tp=None,
+                pp=None, sp=None, ep=None):
+    """The 5-D ``DeviceMesh`` with axes ``("pp", "dp", "ep", "sp", "tp")``
+    over ranks 0..size-1, laid out row-major as the JAX package's
+    ``create_mesh`` reshapes its device list: tp varies fastest, so each
+    run of ``tp`` consecutive ranks is one model group (NVLink within a
+    host), then sp, ep, dp, and pp outermost. Axes of size 1 are still
+    there, so code can name every axis. ``config`` (a
+    :class:`MeshConfig`) gives the degrees, and a keyword overrides its
+    field; ``dp=-1`` takes what the others leave. Raises the JAX
+    package's errors, word for word, when the degrees do not fit."""
+    cfg = config or MeshConfig()
+    for name, value in (("dp", dp), ("tp", tp), ("pp", pp), ("sp", sp),
+                        ("ep", ep)):
+        if value is not None:
+            cfg = dataclasses.replace(cfg, **{name: value})
+    n = int(size)
+    fixed = cfg.tp * cfg.pp * cfg.sp * cfg.ep
+    if cfg.dp == -1:
+        if n % fixed != 0:
+            raise ValueError(
+                f"device count {n} not divisible by tp*pp*sp*ep={fixed}")
+        cfg = dataclasses.replace(cfg, dp=n // fixed)
+    total = cfg.dp * fixed
+    if total != n:
+        raise ValueError(f"mesh axes {cfg} require {total} devices, "
+                         f"have {n}")
+    shape = (cfg.pp, cfg.dp, cfg.ep, cfg.sp, cfg.tp)
+    ranks = torch.arange(n).reshape(shape).tolist()
+    return DeviceMesh(device_type, ranks,
+                      mesh_dim_names=("pp", "dp", "ep", "sp", "tp"))
 
 
 def data_parallel_mesh(device_type, size, axis_name="hvd"):

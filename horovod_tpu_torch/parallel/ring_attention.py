@@ -135,7 +135,21 @@ class RingAxis:
             return [blocks[(i - hops) % n] for i in range(n)]
         return [self._send_recv(blocks[0], hops)]
 
+    def refuse_capture(self):
+        """Raise when a CUDA graph is being captured and this ring spans
+        a process group: gloo moves tensors through the host and cannot
+        be captured, and NCCL needs a card a rank."""
+        if self.distributed and torch.cuda.is_available() \
+                and torch.cuda.is_current_stream_capturing():
+            raise NotImplementedError(
+                "a sequence- or pipeline-parallel step over a process "
+                "group cannot be captured in a CUDA graph yet (ROADMAP.md,"
+                " \"Waiting for several cards\": the capture of a "
+                "process-group SP or PP step); run it with "
+                "HOROVOD_STEP_PROGRAM=0, or over RingAxis.local")
+
     def _send_recv(self, tensors, hops):
+        self.refuse_capture()
         me = dist.get_rank(self.group)
         dst = dist.get_global_rank(self.group, (me + hops) % self.size)
         src = dist.get_global_rank(self.group, (me - hops) % self.size)

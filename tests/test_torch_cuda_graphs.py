@@ -45,10 +45,10 @@ def card():
     hvd.shutdown()
 
 
-def _train(card, compiled, batches, model=SMALL, **kw):
+def _train(card, compiled, batches, model=SMALL, axes=None, **kw):
     cfg = tfm.TransformerConfig(loss_chunk=64, **model)
     lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
-                           device=card)
+                           device=card, axes=axes)
     opt = hvd.DistributedOptimizer(
         torch.optim.AdamW(lm.parameters(), capturable=True, **ADAMW),
         named_parameters=lm.named_parameters(), **kw)
@@ -80,6 +80,36 @@ def test_captured_step_replayed_on_new_batches_equals_eager(card):
     compiled, step = _train(card, True, batches)
     assert (step.cache_misses, step.cache_hits, step.fallback_steps) == (
         1, 3, 0)
+    for (name, a), (_, b) in zip(eager.named_parameters(),
+                                 compiled.named_parameters()):
+        assert torch.equal(a, b), (name, float((a - b).abs().max()))
+
+
+@pytest.mark.parametrize("sp_impl", ["ring", "ulysses"])
+def test_sp_step_replayed_on_new_batches_equals_eager(card, sp_impl):
+    """A sequence-parallel step over a local axis of 2, captured: the
+    ring (window 48 over shards of 64, so every layer runs a band tile)
+    and Ulysses (H 2 / H_kv 1 a shard). Parameters after 4 steps bitwise
+    equal to the eager run's; a replay runs the kernels its capture
+    recorded (per layer, 2 of each static kernel, and the ring's 1 of
+    each band kernel)."""
+    from horovod_tpu_torch.parallel.ring_attention import RingAxis
+    batches = _batches(card, 4)
+    model = dict(SMALL, sp_impl=sp_impl, attention_window=48)
+    axes = tfm.ShardAxes(sp=RingAxis.local(2))
+    eager, _ = _train(card, False, batches, model=model, axes=axes)
+    n0 = fa.launch_counts()
+    compiled, step = _train(card, True, batches, model=model, axes=axes)
+    got = {k: v - n0[k] for k, v in fa.launch_counts().items()
+           if v != n0[k]}
+    assert (step.cache_misses, step.cache_hits, step.fallback_steps) == (
+        1, 3, 0)
+    layers, band = SMALL["n_layers"], int(sp_impl == "ring")
+    want = {"wgmma_launches": 2, "dq_wgmma_launches": 2,
+            "dkv_wgmma_launches": 2, "band_wgmma_launches": band,
+            "band_dq_wgmma_launches": band,
+            "band_dkv_wgmma_launches": band}
+    assert got == {k: 4 * layers * n for k, n in want.items() if n}
     for (name, a), (_, b) in zip(eager.named_parameters(),
                                  compiled.named_parameters()):
         assert torch.equal(a, b), (name, float((a - b).abs().max()))

@@ -166,6 +166,57 @@ def test_flash_fwd_takes_the_models_and_the_rings_views(card):
 
 
 @pytest.mark.cuda
+def test_static_kernels_take_ulysses_head_slices(card):
+    """A local Ulysses shard (parallel/ulysses.py): q, k and v are head
+    slices of the model's projections, H 4 / H_kv 1 out of H 16 / H_kv
+    4, k and v views of ``kv[:, :, c]``, their base pointers j*(H/n)*D
+    elements on. Each static kernel, forward and backward (dO the dense
+    gradient autograd hands over), takes the tensor cores on every slice
+    and gives what the same values made dense give, within the bands of
+    its plain version."""
+    rng = np.random.default_rng(23)
+    b, s, h, h_kv, d, n, window = 1, 640, 16, 4, 128, 4, 256
+
+    def draw(shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)) \
+            .to(card, torch.bfloat16)
+
+    q, kv, do = draw((b, s, h, d)), draw((b, s, 2, h_kv, d)), \
+        draw((b, s, h // n, d))
+    hq, hk = h // n, h_kv // n
+    for j in range(n):
+        args = (q[:, :, j * hq:(j + 1) * hq], kv[:, :, 0, j * hk:(j + 1) * hk],
+                kv[:, :, 1, j * hk:(j + 1) * hk])
+        assert args[0].data_ptr() == q.data_ptr() + j * hq * d * 2
+        assert fa.tensor_core_route(*args, do)
+        dense = [x.contiguous() for x in args]
+        names = [("flash_fwd", True), ("flash_bwd_dq", True),
+                 ("flash_bwd_dkv", True)]
+        n0 = _counts(names)
+        out, lse = fa.flash_attention_with_lse(*args, True, window)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        dq = fa.flash_bwd_dq(*args, do, lse, delta, True, window)
+        dk, dv = fa.flash_bwd_dkv(*args, do, lse, delta, True, window)
+        torch.cuda.synchronize()
+        assert _counts(names) == [c + 1 for c in n0]
+        want, want_lse = fa.flash_attention_with_lse(*dense, True, window)
+        assert torch.equal(out, want) and torch.equal(lse, want_lse)
+        assert torch.equal(dq, fa.flash_bwd_dq(*dense, do, lse, delta, True,
+                                               window))
+        for g, w in zip((dk, dv), fa.flash_bwd_dkv(*dense, do, lse, delta,
+                                                   True, window)):
+            assert torch.equal(g, w)
+        _assert_fwd_route_close(out, lse, args, (True, window),
+                                fa.flash_attention_reference, True,
+                                (True, window))
+        _assert_route_close((dq, dk, dv), (*args, do, lse, delta),
+                            (True, window), (fa.flash_bwd_dq_reference,
+                                             fa.flash_bwd_dkv_reference),
+                            True, (True, window))
+
+
+@pytest.mark.cuda
 def test_flash_fwd_rejects_a_strided_head_dim(card):
     q = torch.zeros(1, 16, 2, 16, device=card)[..., ::2]
     with pytest.raises(ValueError, match="contiguous"):

@@ -471,3 +471,65 @@ def test_metric_families_carry_the_reference_names():
         got, want = getattr(metrics, attr), getattr(jmetrics, attr)
         assert (got.name, got.help, got.labelnames, got.kind) == (
             want.name, want.help, want.labelnames, want.kind), attr
+
+
+# ------------------------------------------- sequence-parallel steps
+
+
+def _sp_model(sp_impl, axis):
+    cfg = tfm.TransformerConfig(vocab_size=64, d_model=32, n_heads=4,
+                                n_kv_heads=2, n_layers=2, d_ff=64,
+                                max_seq=32, positional="rope",
+                                attention_window=12, loss_chunk=8,
+                                attention_impl="flash", sp_impl=sp_impl,
+                                dtype=torch.float32)
+    return tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
+                             device="cpu", axes=tfm.ShardAxes(sp=axis))
+
+
+@pytest.mark.parametrize("sp_impl", ["ring", "ulysses"])
+def test_sp_step_compiles_as_the_eager_step(sp_impl):
+    """The ring's and Ulysses' step over a local axis of 2 through
+    ``compiled_train_step`` with AdamW: one signature (1 miss, then
+    hits, no fallback) and, the program being its step run as it is on
+    the CPU, the eager step's parameters bitwise after 3 steps (on a
+    card: tests/test_torch_cuda_graphs.py)."""
+    from horovod_tpu_torch.parallel.ring_attention import RingAxis
+    _init()
+    rng = np.random.default_rng(3)
+    batches = [torch.from_numpy(rng.integers(0, 64, (2, 32)))
+               for _ in range(3)]
+    models = [_sp_model(sp_impl, RingAxis.local(2)) for _ in range(2)]
+    opts = [torch.optim.AdamW(m.parameters(), lr=LR, weight_decay=WD)
+            for m in models]
+    step = hvd.compiled_train_step(models[0].loss, opts[0])
+    for tokens in batches:
+        targets = torch.roll(tokens, -1, dims=1)
+        step(tokens, targets)
+        opts[1].zero_grad(set_to_none=True)
+        models[1].loss(tokens, targets).backward()
+        opts[1].step()
+    assert _counts(step) == (3, 0, 2, 1)
+    for (name, a), (_, b) in zip(models[0].named_parameters(),
+                                 models[1].named_parameters()):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("sp_impl", ["ring", "ulysses"])
+def test_a_process_group_sp_step_refuses_capture(monkeypatch, sp_impl):
+    """A step whose sequence axis spans a process group, while a CUDA
+    graph captures it, raises naming the ROADMAP.md entry (gloo cannot
+    be captured, NCCL needs a card a rank): the capture is simulated
+    here, as the CPU has none."""
+    from horovod_tpu_torch.parallel.ring_attention import RingAxis
+    _init()
+    model = _sp_model(sp_impl, RingAxis(2, (0,), group=object()))
+    step = hvd.compiled_train_step(
+        model.loss, torch.optim.AdamW(model.parameters(), lr=LR))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    tokens = torch.zeros((2, 16), dtype=torch.int64)
+    with pytest.raises(NotImplementedError,
+                       match="Waiting for several cards"):
+        step(tokens, tokens)

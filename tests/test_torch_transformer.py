@@ -135,16 +135,24 @@ def test_transformer_lm_holds_params_and_runs_forward():
 @pytest.mark.parametrize("what", ["moe", "ulysses", "loss_chunk", "remat",
                                   "axes", "loss"])
 def test_rejects_what_this_slice_does_not_carry(what):
-    """Ulysses raises. MoE layers, the loss, ``loss_chunk``, ``remat``
-    and the tensor axis are carried now (sequence parallelism:
-    tests/test_torch_ring_attention.py; expert parallelism:
-    tests/test_torch_moe.py; tensor parallelism:
+    """MoE layers, the loss, ``loss_chunk``, ``remat``, the tensor axis
+    and Ulysses are carried now (sequence parallelism:
+    tests/test_torch_ring_attention.py and tests/test_torch_ulysses.py;
+    expert parallelism: tests/test_torch_moe.py; tensor parallelism:
     tests/test_torch_tensor_parallel.py), and the tensor and expert axes
     take a process group: an axis given by name, as the JAX package
-    names mesh axes, raises."""
+    names mesh axes, raises. Ulysses on an axis that does not divide the
+    heads raises the reference's error."""
     if what == "ulysses":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            _cfgs(sp_impl="ulysses")
+        from horovod_tpu_torch.parallel.ring_attention import RingAxis
+        _, tcfg = _cfgs(sp_impl="ulysses")
+        params = tfm.init_params(tcfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+        tokens = torch.from_numpy(_tokens(s=12))
+        with pytest.raises(ValueError, match="n_heads .4. divisible by "
+                                             "the 'sp' axis size .3."):
+            tfm.loss_fn(params, tokens, tokens, tcfg,
+                        axes=tfm.ShardAxes(sp=RingAxis.local(3)))
         return
     kw = {"loss_chunk": dict(loss_chunk=8), "remat": dict(remat=True),
           "moe": dict(moe_layers=(1,))}

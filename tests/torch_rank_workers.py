@@ -697,3 +697,169 @@ def tp_card(model):
     hvd.shutdown()
     dist.destroy_process_group()
     return out
+
+
+# ------------------------------------------ Ulysses sequence parallelism
+
+def _sp_shard(x, j, n, dim=1):
+    size = x.shape[dim] // n
+    return x.narrow(dim, j * size, size).clone()
+
+
+def ulysses(inp):
+    """tests/test_torch_ulysses.py's process-group cases on this rank of
+    8: ``ulysses_attention`` over the sp group of ``create_mesh(sp=n)``
+    (n 2, 4, 8; dp takes the rest) per shard, forward and gradients;
+    then each model case's loss over the dp 2 x sp 2 x tp 2 mesh, the
+    sequence shard's mean averaged over the sp group by ``loss_fn`` and
+    over the dp group here."""
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.parallel.mesh import create_mesh
+    from horovod_tpu_torch.parallel.ring_attention import RingAxis
+    from horovod_tpu_torch.parallel.ulysses import ulysses_attention
+    hvd.init(device="cpu")
+    n = hvd.size()
+    out = {"rank": hvd.rank()}
+    q, k, v = (torch.from_numpy(inp["attn"][x]) for x in "qkv")
+    for sp in (2, 4, 8):
+        mesh = create_mesh("cpu", n, sp=sp)
+        axis = RingAxis.over(mesh.get_group("sp"))
+        j = axis.shards[0]
+        out[f"shard{sp}"] = (j, mesh.get_local_rank("sp"))
+        for causal in (True, False):
+            got = ulysses_attention(*(_sp_shard(x, j, sp) for x in (q, k, v)),
+                                    axis, causal=causal)
+            out[f"attn{sp}{causal}"] = got.numpy()
+    mesh = create_mesh("cpu", n, sp=4)
+    axis = RingAxis.over(mesh.get_group("sp"))
+    j = axis.shards[0]
+    gq, gk, gv = (torch.from_numpy(inp["grad"][x]) for x in "qkv")
+    shards = [_sp_shard(x, j, 4).requires_grad_() for x in (gq, gk, gv)]
+    (ulysses_attention(*shards, axis, causal=True) ** 2).sum().backward()
+    out["grad"] = [x.grad.numpy() for x in shards]
+
+    mesh = create_mesh("cpu", n, dp=2, sp=2, tp=2)
+    axes = tfm.ShardAxes(sp=RingAxis.over(mesh.get_group("sp")),
+                         tp=mesh.get_group("tp"))
+    di, si = mesh.get_local_rank("dp"), mesh.get_local_rank("sp")
+    for name, case in inp["models"].items():
+        cfg = case["cfg"]
+        shard = tfm.slice_param_shards(_tree(case),
+                                       tfm.param_specs(cfg, tp="tp"), mesh)
+        tokens, targets = (_sp_shard(_sp_shard(torch.from_numpy(a), di, 2, 0),
+                                     si, 2) for a in case["batch"])
+        loss = tfm.loss_fn(shard, tokens, targets, cfg, axes).detach()
+        dist.all_reduce(loss, group=mesh.get_group("dp"))
+        out[f"model:{name}"] = float(loss) / 2
+    hvd.shutdown()
+    return out
+
+
+# ------------------------------------------------ pipeline parallelism
+
+def _toy_1f1b(axis, inp, m, v, gated):
+    """The reference's toy 4-virtual-stage pipeline (tanh(x * w_stage),
+    inject by ``win``, MSE loss against the microbatch index) through
+    ``pipeline_1f1b`` on this rank's block of the stage weights."""
+    from horovod_tpu_torch.parallel.pipeline import pipeline_1f1b
+    s = axis.shards[0]
+    w = torch.from_numpy(inp["w"])
+    w = w[s:s + 1] if v == 1 else w.reshape(v, -1)[:, s:s + 1]
+    shared = {k: torch.tensor(x) for k, x in inp["shared"].items()}
+    runs = {"fwd": 0, "bwd": 0}
+
+    def stage_fn(sp, x):
+        runs["bwd" if torch.is_grad_enabled() else "fwd"] += 1
+        return torch.tanh(x * sp[0])
+
+    loss, d_w, d_sh = pipeline_1f1b(
+        stage_fn, w, shared, torch.from_numpy(inp["xs"][:m]), axis,
+        num_microbatches=m, inject_fn=lambda sh, raw: raw * sh["win"],
+        loss_fn=lambda sh, y, mb: torch.mean((y * sh["wout"] - mb) ** 2),
+        num_chunks=v, stage_collectives=not gated)
+    return (float(loss), d_w.numpy(), {k: float(g) for k, g in d_sh.items()},
+            runs)
+
+
+def pipelines(inp):
+    """tests/test_torch_pipeline.py's process-group cases on this rank of
+    8, each on its own ``create_mesh`` (dp takes the ranks the case
+    leaves): the toy GPipe and 1F1B schedules, the pipelined
+    transformer's losses and per-rank gradients (GPipe under autograd,
+    1F1B, interleaved, loss_chunk, MoE over an expert group), with this
+    rank's coordinates on each mesh."""
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.parallel.mesh import create_mesh
+    from horovod_tpu_torch.parallel.pipeline import last_stage_value, pipeline
+    from horovod_tpu_torch.parallel.ring_attention import RingAxis
+    hvd.init(device="cpu")
+    n = hvd.size()
+    out = {"rank": hvd.rank()}
+    meshes = {}
+
+    def mesh_of(**kw):
+        key = tuple(sorted(kw.items()))
+        if key not in meshes:
+            meshes[key] = create_mesh("cpu", n, **kw)
+            out[f"mesh{key}"] = meshes[key].mesh.tolist()
+        return meshes[key]
+
+    def coords(mesh):
+        return {a: (mesh.get_local_rank(a), mesh.size(i))
+                for i, a in enumerate(mesh.mesh_dim_names)}
+
+    # the toy 2-stage GPipe
+    mesh = mesh_of(pp=2)
+    axis = RingAxis.over(mesh.get_group("pp"))
+    w = torch.tensor([2.0, 3.0])
+    got = pipeline(lambda s, x: x * w[s], torch.arange(12.0).reshape(4, 3),
+                   axis, num_microbatches=4)
+    out["toy_gpipe"] = last_stage_value(got, axis).numpy()
+
+    # the toy 1F1B: core, interleaved and gated
+    for key, (m, v, gated) in inp["toys"].items():
+        mesh = mesh_of(pp=4 // v)
+        pp = RingAxis.over(mesh.get_group("pp"))
+        out[f"toy:{key}"] = (coords(mesh)["pp"],
+                             _toy_1f1b(pp, inp["toy"], m, v, gated))
+
+    # the transformer
+    for key, case in inp["models"].items():
+        cfg, kw = case["cfg"], case["mesh"]
+        mesh = mesh_of(**kw)
+        v = case.get("interleave", 1)
+        full = tfm.stack_pipeline_params(_tree(case), interleave=v,
+                                         num_stages=kw["pp"])
+        specs = tfm.pipeline_param_specs(cfg, tp="tp", interleave=v,
+                                         num_stages=kw["pp"])
+        shard = tfm.slice_param_shards(full, specs, mesh)
+        axes = tfm.ShardAxes(
+            sp=(RingAxis.over(mesh.get_group("sp")) if kw.get("sp", 1) > 1
+                else None),
+            tp=mesh.get_group("tp") if kw.get("tp", 1) > 1 else None,
+            ep=mesh.get_group("ep") if kw.get("ep", 1) > 1 else None)
+        si, sn = mesh.get_local_rank("sp"), kw.get("sp", 1)
+        tokens, targets = (_sp_shard(torch.from_numpy(a), si, sn)
+                           for a in case["batch"])
+        pp = RingAxis.over(mesh.get_group("pp"))
+        res = {"coords": coords(mesh)}
+        if "gpipe" in case["runs"]:
+            for t in tfm._leaves(shard):
+                t.requires_grad_()
+            loss = tfm.pipeline_loss_fn(shard, tokens, targets, cfg, axes,
+                                        num_microbatches=4, pp=pp)
+            loss.backward()
+            res["gpipe"] = (loss.item(), {
+                k: t.grad.numpy().copy() for k, t in tfm._named_leaves(shard)})
+            for t in tfm._leaves(shard):
+                t.grad = None
+        if "1f1b" in case["runs"]:
+            loss, grads = tfm.pipeline_value_and_grad_1f1b(
+                shard, tokens, targets, cfg, axes, num_microbatches=4, pp=pp,
+                interleave=v)
+            res["1f1b"] = (loss.item(), {k: t.numpy().copy()
+                                         for k, t in tfm._named_leaves(grads)})
+        out[f"model:{key}"] = res
+    hvd.shutdown()
+    return out
+
