@@ -203,6 +203,40 @@ train phase:
   each pipelined step's launches exact: 32 ``flash_fwd`` (GPipe) or 64
   (1F1B: the backward phase's recompute) and 32 of each backward kernel.
 
+The phase trace (diag/xla_trace.py) has a phase of its own, after the
+compiled train phase:
+
+- trace (main path 15): the flagship at 4 x 4096 with capturable AdamW
+  under ``DistributedOptimizer``, random weights from seed 0:
+  ``hvd.trace_steps(4)`` over the ``compiled_train_step`` replay (the
+  program re-captures once for its phase map), over the eager step
+  ticked by ``TelemetryCallback`` (its regions under the same phase
+  ranges), and over one graph serve round of the 8 requests. Each
+  prints its device ms a step by phase, ``other``, its device time and
+  ``exchange_hidden_frac``; the step also prints ``flops_per_step``
+  (FlopCounterMode and the flash kernels' own counts), MFU and the idle
+  tracer's and flight recorder's cost over a loop of 3 eager steps. Its
+  gates: each window's phases plus ``other`` equal the device time of
+  its kernels, copies and sets summed from the capture files within
+  TRACE_SUM_REL; a step's ``other`` stays under TRACE_OTHER_MAX of it,
+  replayed or eager; each replayed phase above TRACE_PHASE_FLOOR of the
+  step lies within TRACE_PHASE_REL of the eager step's; the serve round
+  keeps TRACE_SERVE_MIN of its device time in prefill and decode;
+  ``flash_fwd_wgmma_kernel`` lands in forward alone and the two
+  backward kernels in backward alone; both idle costs stay under
+  TRACE_OVERHEAD_MAX of the loop; and the traced replays' launches by
+  route equal an untraced replay's, and the parameters after the 7
+  compiled steps the compiled train phase's after its 7 (the same seed
+  and batch), bitwise.
+
+The bench phase checks bench.resnet's trace rows too: the compiled
+step's ``step_phase_breakdown``, ``wire_stage_ms``,
+``exchange_hidden_frac``, ``overlap_ab`` and ``overlap_microbench``,
+``flight_step_phase_breakdown`` and both overhead fractions filled,
+``control_plane`` a skipped row naming item 10, and the MoE rows'
+all-to-all keys None at ``--expert-parallel 1`` beside their phase
+breakdown.
+
 The kernels phases also run the CUDA-core loop at head dims 256 and 320
 (the latter in 256-column pieces) against the plain versions and time
 it (off every main path).
@@ -210,10 +244,10 @@ it (off every main path).
 On every main path each kernel launch takes the tensor-core route: the
 loop's counters stay at 0 there, and the route's counters are exact (8
 ``flash_fwd`` a prefill, replayed or not; 8 of each static kernel a
-data-parallel step, replayed or not, or a TP step; 32 static and 40
-band of each a ring SP step, replayed or not; 32 static a Ulysses step;
-the pipeline's above). A graph's replay counts the launches its
-capture recorded; a TP path's launches are one rank's.
+data-parallel step, replayed or not, traced or not, or a TP step; 32
+static and 40 band of each a ring SP step, replayed or not; 32 static a
+Ulysses step; the pipeline's above). A graph's replay counts the
+launches its capture recorded; a TP path's launches are one rank's.
 
 Each main path runs with the kernel launch counts zeroed just before it
 and read just after. The first line is the card's name and power limit
@@ -1960,6 +1994,219 @@ def phase_compiled_train(hvd, fa, tfm, card, where, model=FLAGSHIP,
                                       "tok_s": tok_s, "peak": peak}
 
 
+# The phase trace (main path 15): steps traced a window, and its gates.
+TRACE_STEPS = 4
+TRACE_SUM_REL, TRACE_OTHER_MAX, TRACE_PHASE_REL = 0.01, 0.05, 0.10
+TRACE_PHASE_FLOOR, TRACE_SERVE_MIN, TRACE_OVERHEAD_MAX = 0.01, 0.95, 0.01
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def trace_device_us(trace_dir):
+    """The device time (us) of every kernel, copy and set in a capture,
+    summed straight from its kineto files: the phase join's yardstick."""
+    total = 0.0
+    for name in os.listdir(trace_dir):
+        if name.endswith(".trace.json"):
+            with open(os.path.join(trace_dir, name)) as f:
+                events = json.load(f)["traceEvents"]
+            total += sum(float(e.get("dur") or 0.0) for e in events
+                         if e.get("ph") == "X"
+                         and e.get("cat") in _DEVICE_CATS)
+    return total
+
+
+def check_trace(label, summary, trace_dir, steps, where, phases=None):
+    """Print a traced window's device ms a step by phase, ``other``, its
+    device time and ``exchange_hidden_frac``; hold the phases plus other
+    to the capture's device time (TRACE_SUM_REL) and, for a step,
+    ``other`` under TRACE_OTHER_MAX of it. Returns {phase: ms a step}."""
+    check(summary is not None, f"{label}: the capture parsed to nothing")
+    total_us = trace_device_us(trace_dir)
+    got = summary["total_s"] * 1e6
+    per = {p: v * 1e3 / steps for p, v in summary["phases"].items()}
+    ex = summary.get("exchange")
+    hidden = None if not ex else round(ex["hidden_frac"], 4)
+    shown = {p: round(v, 3) for p, v in per.items() if v > 0 or p == "other"}
+    lost = sum(g["lost"] for g in summary["graphs"].values())
+    print(f"trace {label} [{where}]: device ms a step by phase {shown}; "
+          f"device time {total_us / 1e3 / steps:.3f} ms a step over "
+          f"{summary['events']} events ({summary['graph_events']} replayed, "
+          f"{summary['unmatched']} unmatched, {lost} dropped by the "
+          f"profiler) on {summary['lanes']} stream(s); "
+          f"exchange_hidden_frac {hidden}", flush=True)
+    check(abs(got - total_us) <= TRACE_SUM_REL * total_us,
+          f"{label}: phases plus other {got:.1f} us against the capture's "
+          f"device time {total_us:.1f} us")
+    if phases == "step":
+        check(per["other"] * 1e3 * steps <= TRACE_OTHER_MAX * total_us,
+              f"{label}: other is {per['other']:.3f} ms of "
+              f"{total_us / 1e3 / steps:.3f} ms a step")
+        for name, want in (("flash_fwd_wgmma_kernel", "forward"),
+                           ("flash_bwd_dq_wgmma_kernel", "backward"),
+                           ("flash_bwd_dkv_wgmma_kernel", "backward")):
+            where_ = {}
+            for k, by in summary["kernels"].items():
+                if name in k:
+                    for ph, sec in by.items():
+                        where_[ph] = where_.get(ph, 0.0) + sec
+            check(where_ and set(where_) == {want},
+                  f"{label}: {name} lands in {where_}, not {want} alone")
+    return per
+
+
+def phase_trace(hvd, fa, tfm, serve, metrics, card, where, untraced):
+    """Main path 15: the phase trace (diag/xla_trace.py) of the flagship
+    at 4 x 4096 with capturable AdamW under DistributedOptimizer:
+
+    - a compiled step (warm-up and capture), an untraced replay (its
+      launches by route kept), then ``hvd.trace_steps(4)`` over the next
+      4 replays, ticked by the step, and one more replay: 7 steps, as
+      the compiled train phase runs from the same seed. The traced
+      replays' launches by route must equal the untraced one's, and the
+      parameters after the 7 steps ``untraced`` (that phase's, on the
+      card), bitwise;
+    - on that model, 3 eager steps timed for the idle costs (the
+      tracer's tick and phase ranges, the flight recorder's events; each
+      under 1% of the loop), then ``trace_steps(4)`` over the eager
+      step, ticked by ``TelemetryCallback``, its regions under the phase
+      ranges as the compiled step's;
+    - one graph serve round of the 8 requests, traced.
+
+    Each window's phases plus ``other`` must equal the capture's device
+    time within TRACE_SUM_REL; a step's ``other`` stays under
+    TRACE_OTHER_MAX; the replay's phases above TRACE_PHASE_FLOOR of the
+    step lie within TRACE_PHASE_REL of the eager step's; the flash
+    kernels land in forward and backward alone; the serve round keeps
+    TRACE_SERVE_MIN of its device time in prefill and decode. Returns
+    {kernel: launches} of the compiled run."""
+    from torch.profiler import record_function
+
+    from horovod_tpu_torch.bench.resnet import (flight_attribution,
+                                                trace_attribution)
+    from horovod_tpu_torch.callbacks import TelemetryCallback
+    from horovod_tpu_torch.diag import recorder
+    diag_dir = tempfile.mkdtemp(prefix="chip-trace-")
+    hvd.init(device=card)
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
+                                loss_chunk=LOSS_CHUNK, **FLAGSHIP)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                               (TRAIN_BATCH, TRAIN_SEQ))
+    targets = torch.from_numpy(np.roll(tokens, -1, axis=1)).to(card)
+    tokens = torch.from_numpy(tokens).to(card)
+    lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
+                           device=card)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(lm.parameters(), capturable=True, **ADAMW),
+        named_parameters=lm.named_parameters())
+    step = hvd.compiled_train_step(lm.loss, opt)
+
+    def replay_counts(calls):
+        before = read_launches(fa)
+        for _ in range(calls):
+            step(tokens, targets)
+        torch.cuda.synchronize()
+        after = read_launches(fa)
+        return {k: (after[k] - before[k]) / calls for k in after}
+
+    zero_launches(fa)
+    step(tokens, targets)
+    plain = replay_counts(1)
+    tracer = hvd.trace_steps(TRACE_STEPS, out_dir=diag_dir)
+    traced = replay_counts(TRACE_STEPS + 1)
+    launches = read_launches(fa)
+    steps = 2 + TRACE_STEPS + 1
+    check(steps == COMPILED_STEPS + REPLAYS, f"{steps} steps traced")
+    differ = sum(not torch.equal(a, b) for a, b in zip(
+        _leaves(lm.params), _leaves(untraced)))
+    replay = check_trace("compiled replay", tracer.last_summary,
+                         tracer.last_dir, TRACE_STEPS, where, "step")
+    flops = step.flops_per_step
+    print(f"trace compiled replay: launches a replay {traced} (untraced "
+          f"{plain}); {differ} parameters differ from the untraced "
+          f"run's after {steps} steps; {flops / 1e12:.3f} TFLOP a step "
+          f"(FlopCounterMode and the flash kernels' own counts)",
+          flush=True)
+    check(traced == plain, f"traced replays launch {traced}, untraced "
+                           f"{plain}")
+    check(not differ, f"tracing changed {differ} parameters")
+
+    def eager_step():
+        opt.zero_grad(set_to_none=True)
+        with record_function("hvd_forward"):
+            loss = lm.loss(tokens, targets)
+        with record_function("hvd_backward"):
+            loss.backward()
+        with record_function("hvd_optimizer"):
+            opt.step()
+        torch.cuda.synchronize()
+
+    eager_step()
+    flight = recorder.get()
+    phase0, events0 = flight.phase_totals(), flight.events_recorded
+    t0 = time.perf_counter()
+    for _ in range(3):
+        eager_step()
+    loop_wall = time.perf_counter() - t0
+    _, flight_frac = flight_attribution(flight, phase0, events0, loop_wall, 3)
+    trace_frac = trace_attribution(loop_wall, 3)  # 5 phase ranges a step
+    step_ms = loop_wall / 3 * 1e3
+    tracer = hvd.trace_steps(TRACE_STEPS, out_dir=diag_dir)
+    cb = TelemetryCallback(batch_size=TRAIN_BATCH, skew_interval=0)
+    for i in range(TRACE_STEPS + 1):
+        cb.on_batch_begin(i)
+        eager_step()
+        cb.on_batch_end(i)
+    check(not tracer.active and tracer.captures == 2,
+          f"the eager window did not close: {tracer.captures} captures")
+    eager = check_trace("eager step", tracer.last_summary, tracer.last_dir,
+                        TRACE_STEPS, where, "step")
+    mfu = flops / (step_ms / 1e3 * PEAK_FLOPS[torch.bfloat16])
+    print(f"trace flagship step [{where}]: {step_ms:.1f} ms eager, "
+          f"flops_per_step {flops:.6g}, MFU {mfu:.4f} against 989 TFLOP/s "
+          f"bf16; idle costs over the loop: trace_overhead_frac "
+          f"{trace_frac:.6f}, flight_overhead_frac {flight_frac:.6f}",
+          flush=True)
+    check(trace_frac < TRACE_OVERHEAD_MAX and flight_frac
+          < TRACE_OVERHEAD_MAX, f"idle costs {trace_frac}, {flight_frac}")
+    total = sum(eager.values())
+    for ph, ms in eager.items():
+        if ph != "other" and ms > TRACE_PHASE_FLOOR * total:
+            check(abs(replay[ph] - ms) <= TRACE_PHASE_REL * ms,
+                  f"{ph}: replay {replay[ph]:.3f} ms against eager "
+                  f"{ms:.3f} ms a step")
+    del lm, opt, step, untraced
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lm = tfm.TransformerLM(tfm.TransformerConfig(
+        dtype=torch.bfloat16, attention_impl="flash", **FLAGSHIP),
+        generator=torch.Generator().manual_seed(0), device=card)
+    with step_program("1"):
+        engine = serve.Engine(lm, lm.params, page_size=PAGE_SIZE,
+                              max_batch=N_REQUESTS, start=False,
+                              device=card)
+        serve_round(engine, metrics, lm.cfg.vocab_size)
+        tracer = hvd.trace_steps(1, out_dir=diag_dir)
+        tracer.tick(owner=phase_trace)
+        serve_round(engine, metrics, lm.cfg.vocab_size)
+        tracer.tick(owner=phase_trace)
+        engine.close()
+    summary = tracer.last_summary
+    served = check_trace("graph serve round", summary, tracer.last_dir, 1,
+                         where)
+    share = (served["prefill"] + served["decode"]) / sum(served.values())
+    print(f"trace graph serve round: prefill and decode hold {share:.4f} "
+          f"of its device time", flush=True)
+    check(share >= TRACE_SERVE_MIN, f"serve round: {share:.4f} in prefill "
+                                    f"and decode")
+    del engine, lm
+    gc.collect()
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    shutil.rmtree(diag_dir, ignore_errors=True)
+    return launches
+
+
 # Pipeline parallelism: the flagship's 8 layers over a local pp axis of
 # 4 stages (2 layers a stage, 1 a chunk interleaved at V 2), the
 # training batch 4 x 4096 in 4 microbatches of 1 x 4096.
@@ -3148,6 +3395,38 @@ def phase_bench(where):
     check("divisible by 8" in res["mesh3d"].get("skipped", ""),
           f"bench mesh3d row {res['mesh3d']}: one card cannot hold the "
           "2x2x2 mesh")
+    # the phase trace's rows (bench.py's): filled, none skipped
+    flight = res["flight_step_phase_breakdown"]
+    check(isinstance(flight, dict) and flight["compute_ms"] > 0
+          and 0 <= res["flight_overhead_frac"] < TRACE_OVERHEAD_MAX
+          and 0 <= res["trace_overhead_frac"] < TRACE_OVERHEAD_MAX
+          and res["control_plane"] == {
+              "skipped": "not ported: ROADMAP item 10"},
+          f"bench flight rows {flight}, {res['flight_overhead_frac']}, "
+          f"{res['trace_overhead_frac']}, {res['control_plane']}")
+    phases, ab = compiled["step_phase_breakdown"], compiled["overlap_ab"]
+    micro = compiled["overlap_microbench"]
+    check(isinstance(phases, dict) and phases["forward"] > 0
+          and phases["backward"] > 0 and phases["optimizer"] > 0
+          and isinstance(compiled["wire_stage_ms"], dict)
+          and isinstance(compiled["exchange_hidden_frac"], float)
+          and ab["step_ms_base"] > 0 and ab["step_ms_tuned"] > 0
+          and micro["step_ms_base"] > 0 and micro["step_ms_tuned"] > 0
+          and 0 <= compiled["trace_overhead_frac"] < TRACE_OVERHEAD_MAX,
+          f"bench compiled trace rows {phases}, {ab}, {micro}")
+    for row in (moe["moe"], res["moe"]):
+        check(row["alltoall_ms_per_step"] is None
+              and row["alltoall_hidden_frac"] is None
+              and row["step_phase_breakdown"]["expert"] > 0,
+              f"bench moe trace rows {row}")
+    print(f"bench trace rows [{where}]: step_phase_breakdown {phases}; "
+          f"wire_stage_ms {compiled['wire_stage_ms']}; exchange_hidden_frac "
+          f"{compiled['exchange_hidden_frac']}; overlap_ab {ab}; "
+          f"overlap_microbench {micro}; flight_step_phase_breakdown "
+          f"{flight}; flight_overhead_frac {res['flight_overhead_frac']}; "
+          f"trace_overhead_frac {res['trace_overhead_frac']}; moe "
+          f"step_phase_breakdown {moe['moe']['step_phase_breakdown']}",
+          flush=True)
     zero = res["zero_profile"]
     check("skipped" not in zero and zero["dcn_bytes_saved_frac"] is None
           and zero["dcn_loss_delta"] == 0.0
@@ -3221,11 +3500,15 @@ def main():
     t0 = time.perf_counter()
     compiled_train_launches, params, _, stage0 = phase_compiled_train(
         hvd, fa, tfm, card, where)
-    del params
     gc.collect()
     torch.cuda.empty_cache()
     print(f"compiled train phase: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    trace_launches = phase_trace(hvd, fa, tfm, serve, metrics, card, where,
+                                 params)
+    del params
+    print(f"trace phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     zero_launches_by_stage = phase_zero_train(hvd, fa, tfm, metrics, card,
                                               where, stage0)
@@ -3307,7 +3590,8 @@ def main():
              "ulysses_train": ulysses_launches,
              "sp_compiled": compiled_sp["ring"],
              "ulysses_compiled": compiled_sp["ulysses"],
-             "pp_gpipe": pp_gpipe, "pp_1f1b": pp_1f1b}
+             "pp_gpipe": pp_gpipe, "pp_1f1b": pp_1f1b,
+             "trace": trace_launches}
     for e in entries:
         # a kernel's launches are its tensor-core route's: the main paths
         # launch its loop never (checked in phase_serve and phase_train)

@@ -25,9 +25,19 @@ CUDA graphs:
 Entry points run on ``torch.device("cuda")`` unless the caller passes
 ``device="cpu"``, where each kernel's plain PyTorch version runs
 instead.
+
+Diagnostics (diag/): ``hvd.trace_steps(n)`` (or ``HOROVOD_XPROF_STEPS``)
+captures the next n steps with ``torch.profiler`` and attributes their
+device time to the step's phases, replayed CUDA graphs included; the
+flight recorder, the hang watchdog, the perf sentry and the metrics
+exporters follow their knobs (``HOROVOD_FLIGHT_BUFFER``,
+``HOROVOD_STALL_TIMEOUT_SECONDS``, ``HOROVOD_PERF_SENTRY``,
+``HOROVOD_METRICS_DIR`` / ``HOROVOD_METRICS_PORT``), and
+``callbacks.TelemetryCallback`` gives a training loop its step
+telemetry.
 """
 
-from . import models, serve
+from . import callbacks, diag, metrics, models, serve
 from .exceptions import HorovodError, NotInitializedError, ShutDownError
 from .ops.collectives import (allgather, allreduce, alltoall,
                               alltoall_chunked, broadcast,
@@ -35,6 +45,7 @@ from .ops.collectives import (allgather, allreduce, alltoall,
                               exchange_bucket_plan, grouped_allreduce,
                               hierarchical_allreduce, reducescatter)
 from .ops.compression import Compression
+from .diag.xla_trace import trace_steps
 from .ops.step_program import CompiledTrainStep, compiled_train_step
 from .optimizers import (DistributedOptimizer, broadcast_optimizer_state,
                          broadcast_parameters)
@@ -55,5 +66,6 @@ __all__ = [
     "cross_size", "expert_mesh", "expert_parallel_size",
     "exchange_bucket_plan", "grouped_allreduce", "hierarchical_allreduce",
     "init", "is_initialized", "local_rank", "local_size", "mesh",
-    "model_mesh", "model_parallel_size", "models", "rank", "reducescatter", "serve", "shutdown", "size",
+    "model_mesh", "model_parallel_size", "models", "rank", "reducescatter",
+    "serve", "shutdown", "size", "trace_steps",
 ]

@@ -30,16 +30,35 @@ the protocol's. ``--device cpu`` runs the plain versions, for the tests.
 One JSON line carries the reference's keys for what it measures, the
 flagship transformer's row (``bench.transformer`` at 4 iterations, on a
 card), and ``{"skipped": "not ported: ROADMAP item N"}`` for each profile
-whose subsystem the port does not have yet.
+whose subsystem the port does not have yet (:data:`NOT_PORTED`: the
+eager engine's dispatch and exchange profiles and the control plane,
+item 10; the input pipeline, item 14; the guard, item 15).
+
+The eager loop's diagnostics, bench.py's: ``flight_step_phase_breakdown``
+(the flight recorder's wire, readback and input time over the timed
+loop, a timed call, compute the rest of its wall time) and
+``flight_overhead_frac`` (the ring's measured per-event cost times the
+events the loop recorded, over its wall time); ``trace_overhead_frac``
+and ``step_phase_breakdown`` (the compiled profile's, the latter else
+the flight recorder's).
 
 ``compiled_step`` is bench.py's compiled hot loop profile at the chosen
 batch: the same model and SGD(0.01) through ``compiled_train_step`` (on
-a card one CUDA graph a step), two untimed calls, then
-max(NUM_ITERS x BATCHES_PER_ITER, 12) steps paced on the completion of
-the step PIPELINE_DEPTH back and never fetching a value:
+a card one CUDA graph a step) at EXCHANGE_BUCKETS buckets, two untimed
+calls, then max(NUM_ITERS x BATCHES_PER_ITER, 12) steps paced on the
+completion of the step PIPELINE_DEPTH back and never fetching a value:
 ``python_overhead_ms`` is the median wall time of one ``step()`` call,
-beside img/s, MFU and the program cache's counters. Its phase trace and
-``overlap_ab`` parts are skipped rows naming the items that bring them.
+beside img/s, MFU and the program cache's counters (of the timed
+profile). Then, as bench.py: 4 traced steps (``hvd.trace_steps``) give
+``step_phase_breakdown`` and ``wire_stage_ms`` (device ms a step by
+phase and by staged tier), ``xla_trace_dir`` and
+``exchange_hidden_frac``; ``overlap_ab`` times 8 blocked steps at
+EXCHANGE_BUCKETS and at 1 bucket, each side's hidden fraction traced;
+``overlap_microbench`` is the comm-bound MLP's A/B (depth 8, width
+1024, 32 rows a rank; width 256 in the smoke shrink); and
+``trace_overhead_frac`` is the idle tracer's cost over the profile's
+loop: a tick a step (a replay runs no host code, so none of the phase
+ranges). ``guard_overhead_frac`` stays a skipped row (item 15).
 ``zero_profile`` is bench.py's ZeRO and DCN-compression profile
 (:func:`_zero_profile`). ``serve`` is ``bench.transformer --serve``'s
 sub-dict, and ``moe``
@@ -64,7 +83,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import config as config_mod
-from .. import hardware, optimizers, runtime
+from .. import diag, hardware, optimizers, runtime
 from ..models import ResNet50
 from ..ops.step_program import compiled_train_step
 from . import transformer as transformer_bench
@@ -78,21 +97,26 @@ CI_TARGET_PCT = 3.0
 NUM_CLASSES = 1000
 
 # The reference's profiles whose subsystems are not ported, by the
-# ROADMAP.md Queue 1 item that brings each.
+# ROADMAP.md Queue 1 item that brings each: the eager engine and the
+# control plane (tree fan-in, graduation, simrank) with the native
+# engine (10), the input pipeline (14), the guard (15).
 NOT_PORTED = {
     "dispatch": 10, "eager_exchange": 10,
-    "input_pipeline": 14, "flight_step_phase_breakdown": 16,
-    "guard_overhead_frac": 15, "trace_overhead_frac": 16,
-    "control_plane": 16,
+    "input_pipeline": 14, "guard_overhead_frac": 15,
+    "control_plane": 10,
 }
-# bench.py's compiled-step profile parts whose subsystems are not ported:
-# the bucket overlap A/B and its microbench, which read the step's phase
-# trace (its exchange_hidden_frac, hvd.trace_steps), and the phase trace.
-COMPILED_NOT_PORTED = {
-    "overlap_ab": 16, "overlap_microbench": 16, "step_phase_breakdown": 16,
-    "wire_stage_ms": 16, "guard_overhead_frac": 15,
-    "trace_overhead_frac": 16,
-}
+# bench.py's compiled-step profile parts whose subsystems are not ported.
+COMPILED_NOT_PORTED = {"guard_overhead_frac": 15}
+# bench.py's tuned bucket count of the bucketed backward/exchange
+# overlap (HOROVOD_EXCHANGE_BUCKETS, default 8), A/B'd against 1.
+EXCHANGE_BUCKETS = max(
+    int(os.environ.get("HOROVOD_EXCHANGE_BUCKETS", "8") or 8), 1)
+# The record_function ranges one eager step of a one-bucket
+# DistributedOptimizer opens with tracing off (forward, backward, the
+# bucket hook's exchange and its synchronize, optimizer): the port's
+# share of the idle tracer's cost, where the JAX package's named scopes
+# cost nothing at run time.
+RANGES_PER_STEP = 5
 # Calls the compiled loop runs ahead of the completion it waits for
 # (bench.py's HOROVOD_PIPELINE_DEPTH default).
 PIPELINE_DEPTH = 2
@@ -107,6 +131,7 @@ class Protocol:
     image_size: int = 224
     max_measure_rounds: int = 4
     transformer_iters: int = 4
+    micro_width: int = 1024
 
     @classmethod
     def from_env(cls):
@@ -117,7 +142,7 @@ class Protocol:
             return cls()
         return cls(batch_candidates=(8,), num_iters=2, sweep_iters=1,
                    batches_per_iter=2, image_size=64, max_measure_rounds=1,
-                   transformer_iters=1)
+                   transformer_iters=1, micro_width=256)
 
 
 class _Run:
@@ -218,6 +243,125 @@ def _skipped(item):
     return {"skipped": f"not ported: ROADMAP item {item}"}
 
 
+def flight_attribution(flight, phase0, events0, loop_wall, iters):
+    """bench.py's ``_flight_attribution``: per-iteration phase breakdown
+    and recorder self-cost over a timed loop. The breakdown comes from
+    the flight recorder's phase accounting (wire/readback/input seconds
+    that accrued during the loop, compute the unattributed remainder of
+    its wall time); ``flight_overhead_frac`` is measured, not modeled:
+    the per-event cost of a ring append (timed on a throwaway recorder,
+    same code path) times the events the loop recorded, over the loop's
+    wall time. Acceptance for the always-on default is < 1%."""
+    from ..diag import FlightRecorder
+    if flight is None or loop_wall <= 0 or iters <= 0:
+        return None, 0.0
+    p1 = flight.phase_totals()
+    wire_s = max(p1["wire_s"] - phase0["wire_s"], 0.0)
+    readback_s = max(p1["readback_s"] - phase0["readback_s"], 0.0)
+    input_s = max(p1["input_s"] - phase0["input_s"], 0.0)
+    compute_s = max(loop_wall - wire_s - readback_s - input_s, 0.0)
+    per_iter = 1e3 / iters
+    breakdown = {
+        "compute_ms": round(compute_s * per_iter, 3),
+        "wire_ms": round(wire_s * per_iter, 3),
+        "readback_ms": round(readback_s * per_iter, 3),
+        "input_ms": round(input_s * per_iter, 3),
+    }
+    probe = FlightRecorder(capacity=256)
+    n_probe = 2000
+    t0 = time.perf_counter()
+    for _ in range(n_probe):
+        probe.record("probe", name="bench.overhead", op="PROBE",
+                     nbytes=0, dtype="f32")
+    cost_per_event = (time.perf_counter() - t0) / n_probe
+    events = max(flight.events_recorded - events0, 0)
+    frac = min(events * cost_per_event / loop_wall, 1.0)
+    return breakdown, round(frac, 6)
+
+
+def trace_attribution(loop_wall, iters, ranges=RANGES_PER_STEP):
+    """bench.py's ``_trace_attribution``: the fraction of a loop's wall
+    time the step tracer costs when tracing is OFF — one
+    ``StepTracer.tick`` that returns at its first check — plus, in the
+    port, the ``ranges`` idle ``record_function`` phase ranges a step of
+    the loop opens. Timed on a throwaway tracer and scaled by the loop's
+    iteration count (acceptance: < 1%)."""
+    from torch.profiler import record_function
+
+    from ..diag.xla_trace import StepTracer
+    if loop_wall <= 0 or iters <= 0:
+        return 0.0
+    probe = StepTracer(diag_dir=".")
+    n_probe = 10000
+    t0 = time.perf_counter()
+    for _ in range(n_probe):
+        probe.tick(owner=trace_attribution)
+        for _ in range(ranges):
+            with record_function("hvd_forward"):
+                pass
+    cost_per_step = (time.perf_counter() - t0) / n_probe
+    return round(min(cost_per_step * iters / loop_wall, 1.0), 6)
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _overlap_microbench(device, buckets, width, trace_n=4):
+    """bench.py's ``_overlap_microbench``: a params-heavy,
+    compute-light MLP (depth 8, ``width``, 32 rows a rank; exchange
+    bytes ~ backward FLOPs) through ``compiled_train_step`` with
+    SGD(0.01) at ``buckets=1`` and at the tuned count, each side's
+    median step time and its traced exchange time and hidden
+    fraction."""
+    depth, rows = 8, 32 * runtime.size()
+    gen = torch.Generator().manual_seed(11)
+    host = [torch.randn(width, width, generator=gen) * 0.05
+            for _ in range(depth)]
+    x = torch.randn(rows // runtime.size(), width, generator=gen).to(device)
+    y = torch.zeros_like(x)
+    out = {"buckets": buckets, "depth": depth, "width": width}
+    for tag, bk in (("base", 1), ("tuned", buckets)):
+        model = torch.nn.Module()
+        for i, w in enumerate(host):
+            model.register_parameter(
+                f"w{i}", torch.nn.Parameter(w.clone().to(device)))
+
+        def loss_fn(x, y, model=model):
+            h = x
+            for i in range(depth):
+                h = torch.tanh(h @ getattr(model, f"w{i}"))
+            return torch.mean((h - y) ** 2)
+
+        opt = optimizers.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.01),
+            named_parameters=model.named_parameters())
+        step = compiled_train_step(loss_fn, opt,
+                                   name=f"bench.overlap_micro.{tag}",
+                                   exchange_buckets=bk)
+        for _ in range(2):  # warm-up and capture outside the trace
+            step(x, y)
+        _sync(device)
+        ts = []
+
+        def one_step():
+            t0 = time.perf_counter()
+            step(x, y)
+            _sync(device)
+            ts.append(time.perf_counter() - t0)
+
+        summary, _, _ = transformer_bench.trace_window(one_step, trace_n)
+        ex = (summary or {}).get("exchange")
+        out[f"step_ms_{tag}"] = round(float(np.median(ts)) * 1e3, 3)
+        out[f"hidden_frac_{tag}"] = (
+            None if not ex else round(ex["hidden_frac"], 4))
+        out[f"exchange_ms_{tag}"] = (
+            None if not ex else round(ex["exchange_s"] * 1e3, 3))
+        del step, opt, model
+    return out
+
+
 def _compiled_step_profile(run, proto, device):
     """bench.py's ``_compiled_step_profile`` at ``run``'s batch: the model,
     data and ``DistributedOptimizer(SGD(0.01))`` of ``run`` (its
@@ -228,7 +372,8 @@ def _compiled_step_profile(run, proto, device):
     def loss_fn(x, y):
         return F.cross_entropy(model(x), y)
 
-    step = compiled_train_step(loss_fn, run.opt, name="bench.compiled")
+    step = compiled_train_step(loss_fn, run.opt, name="bench.compiled",
+                               exchange_buckets=EXCHANGE_BUCKETS)
     for _ in range(2):  # untimed: the first call captures
         loss = step(images, labels)
     float(loss)
@@ -236,6 +381,7 @@ def _compiled_step_profile(run, proto, device):
     cuda = device.type == "cuda"
     iters = max(proto.num_iters * proto.batches_per_iter, 12)
     py_overheads, rates, pending = [], [], deque()
+    t_loop0 = time.perf_counter()
     for _ in range(iters + PIPELINE_DEPTH):
         t0 = time.perf_counter()
         step(images, labels)
@@ -253,8 +399,10 @@ def _compiled_step_profile(run, proto, device):
             rates.append(run.batch / (time.perf_counter() - t0))
     if cuda:
         torch.cuda.synchronize()
+    loop_wall = time.perf_counter() - t_loop0
     hits = step.cache_hits - h0
     misses = step.cache_misses - m0
+    compiled_steps = step.compiled_steps
     mean, spread, _, rejected = _robust_stats(rates)
     peak = hardware.peak_flops_per_chip(config_mod.Config.from_env(), device)
     mfu = ANALYTIC_TRAIN_FLOPS_PER_IMAGE * mean / peak * 100.0 if peak \
@@ -271,16 +419,74 @@ def _compiled_step_profile(run, proto, device):
             hits / max(hits + misses, 1), 4),
         "step_program_cache_hits": hits,
         "step_program_cache_misses": misses,
-        "compiled_steps": step.compiled_steps,
+        "compiled_steps": compiled_steps,
         "fallback_steps": step.fallback_steps,
         "loop_readback_wait_ms": 0.0,
         "exchange_buckets": len(run.opt.exchange_buckets),
-        "exchange_hidden_frac": None,
         "steps": iters,
     }
+    out.update(_compiled_trace_rows(step, run, proto, device, loss_fn))
+    out["trace_overhead_frac"] = trace_attribution(loop_wall, iters,
+                                                   ranges=0)
     for key, item in COMPILED_NOT_PORTED.items():
         out[key] = _skipped(item)
     return out
+
+
+def _compiled_trace_rows(step, run, proto, device, loss_fn):
+    """bench.py's trace rows of the compiled profile, after its timed
+    loop: the phase breakdown of 4 traced steps, the overlap A/B
+    (EXCHANGE_BUCKETS against 1 bucket, 8 blocked steps each) and the
+    microbench."""
+    images, labels = run.images, run.labels
+
+    def one_step(st=step):
+        st(images, labels)
+        _sync(device)
+
+    summary, trace_dir, phase_ms = transformer_bench.trace_window(one_step)
+    stage_ms = hidden = None
+    if summary:
+        per = 1e3 / transformer_bench.TRACE_STEPS / max(summary["lanes"], 1)
+        stage_ms = {k: round(v * per, 3)
+                    for k, v in summary["stages"].items()}
+        if summary.get("exchange"):
+            hidden = round(summary["exchange"]["hidden_frac"], 4)
+
+    def blocked_ms(st, n=8):
+        for _ in range(2):
+            one_step(st)
+        ts = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            one_step(st)
+            ts.append(time.perf_counter() - t0)
+        return float(np.median(ts)) * 1e3
+
+    tuned_ms = blocked_ms(step)
+    # the base side re-plans the same optimizer (one set of hooks on the
+    # parameters): the tuned step is not called again
+    step1 = compiled_train_step(loss_fn, run.opt, name="bench.compiled.b1",
+                                exchange_buckets=1)
+    base_ms = blocked_ms(step1)
+    base, _, _ = transformer_bench.trace_window(lambda: one_step(step1))
+    base_ex = (base or {}).get("exchange")
+    overlap_ab = {
+        "buckets_base": 1,
+        "buckets_tuned": EXCHANGE_BUCKETS,
+        "step_ms_base": round(base_ms, 3),
+        "step_ms_tuned": round(tuned_ms, 3),
+        "speedup_pct": round((base_ms - tuned_ms) / base_ms * 100.0, 2),
+        "hidden_frac_base": (None if not base_ex
+                             else round(base_ex["hidden_frac"], 4)),
+        "hidden_frac_tuned": hidden,
+    }
+    micro = _overlap_microbench(device, EXCHANGE_BUCKETS, proto.micro_width)
+    if hidden is None and micro:
+        hidden = micro.get("hidden_frac_tuned")
+    return {"step_phase_breakdown": phase_ms, "wire_stage_ms": stage_ms,
+            "xla_trace_dir": trace_dir, "exchange_hidden_frac": hidden,
+            "overlap_ab": overlap_ab, "overlap_microbench": micro}
 
 
 def _zero_profile(device):
@@ -424,6 +630,10 @@ def run_benchmark(proto, device):
     run = _Run(model, master, best, proto, device)
     run.warmup()
     samples, rounds = [], 0
+    flight = diag.get()
+    phase0 = flight.phase_totals() if flight is not None else None
+    events0 = flight.events_recorded if flight is not None else 0
+    t_loop0 = time.perf_counter()
     while True:
         samples += run.timed(proto.num_iters)
         rounds += 1
@@ -434,6 +644,9 @@ def run_benchmark(proto, device):
         print(f"# CI {sem / mean * 100:.1f}% > {CI_TARGET_PCT}% after "
               f"{len(samples)} samples; measuring another round",
               file=sys.stderr)
+    loop_wall = time.perf_counter() - t_loop0
+    flight_phases, flight_overhead = flight_attribution(
+        flight, phase0, events0, loop_wall, len(samples))
     ci_pct = sem / mean * 100.0 if mean else 0.0
     block_rate = run.block_timed(proto.num_iters)
     compiled = _compiled_step_profile(run, proto, device)
@@ -489,6 +702,11 @@ def run_benchmark(proto, device):
         "moe": moe,
         "zero_profile": zero,
         "mesh3d": mesh3d,
+        "step_phase_breakdown": compiled.get("step_phase_breakdown")
+        or flight_phases,
+        "flight_step_phase_breakdown": flight_phases,
+        "flight_overhead_frac": flight_overhead,
+        "trace_overhead_frac": compiled["trace_overhead_frac"],
         "card": card,
     }
     for key, item in NOT_PORTED.items():

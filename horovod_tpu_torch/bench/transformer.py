@@ -50,10 +50,13 @@ into ``--moe-chunks`` slices. On one card the run is ``--expert-parallel
 1``: every expert on the card, no all-to-all. It prints the reference's
 ``moe`` keys: tokens/s per chip over max(iters, 8) timed steps, the
 program cache's counters and the routing's drop fraction from one
-``with_stats`` evaluation (fed to the ``hvd_moe_*`` families). The
-all-to-all's time and its hidden fraction read a phase trace, which
-comes with ROADMAP.md, Queue 1 item 16: those keys print as skipped
-rows.
+``with_stats`` evaluation (fed to the ``hvd_moe_*`` families). After
+the timed loop, 4 steps are traced (``hvd.trace_steps``,
+:func:`trace_window`): ``step_phase_breakdown`` (device ms a step by
+phase), ``xla_trace_dir``, and the all-to-all's device ms a step and
+the fraction of it hidden under the expert FFN, which read None where
+no all-to-all ran (``--expert-parallel 1``), as the reference's parser
+gives them when the capture holds none.
 
 ``--serve`` runs the serving scenario instead (``run_serve_benchmark``,
 bench_transformer.py's): the continuous-batching engine at
@@ -538,7 +541,35 @@ def _max_over_ranks(x, device):
     return float(t)
 
 
-MOE_TRACE_ITEM = 16  # the phase trace (ROADMAP.md, Queue 1)
+TRACE_STEPS = 4  # steps a bench's phase trace captures
+
+
+def trace_window(run_step, trace_n=TRACE_STEPS, out_dir=None):
+    """Trace ``trace_n`` steps of ``run_step()`` (which runs one step and
+    waits for it) with ``hvd.trace_steps``, after a bench's timed loop,
+    as bench.py does: ``trace_n + 2`` steps, the first starting the
+    capture and one spare so the stop fires. Returns ``(summary,
+    capture dir, phase ms a step)``; the capture lands under
+    ``HOROVOD_DIAG_DIR`` or a fresh temporary directory. A step that
+    does not tick the tracer itself (an eager loop) ticks it here."""
+    import tempfile
+
+    from ..diag import xla_trace
+    out_base = out_dir or config_mod.Config.from_env().diag_dir \
+        or tempfile.mkdtemp(prefix="bench-xla-trace-")
+    tracer = xla_trace.trace_steps(trace_n, out_dir=out_base)
+    for _ in range(trace_n + 2):
+        tracer.tick(owner=trace_window)
+        run_step()
+    if tracer.active or tracer.armed:
+        tracer.stop()
+    summary = tracer.last_summary
+    phase_ms = None
+    if summary:
+        per = 1e3 / trace_n / max(summary["lanes"], 1)
+        phase_ms = {p: round(v * per, 3)
+                    for p, v in summary["phases"].items()}
+    return summary, tracer.last_dir, phase_ms
 
 
 class _MoEBench(torch.nn.Module):
@@ -632,7 +663,20 @@ def run_moe_benchmark(args):
           f"chunks={chunks_used}, drop_frac {drop_frac:.4f}, cache hit "
           f"rate {hit_rate:.2f}, fallbacks {step.fallback_steps}",
           file=sys.stderr)
-    trace = {"skipped": f"not ported: ROADMAP item {MOE_TRACE_ITEM}"}
+    # Phase-attributed trace of the same step, after the timed loop:
+    # the all-to-all's time and the share of it the chunked pipeline
+    # hides under the expert FFN (None where none ran).
+    def one_step():
+        float(step(x, y))
+
+    summary, trace_dir, phase_ms = trace_window(one_step)
+    moe_trace = (summary or {}).get("moe")
+    a2a_ms = hidden_frac = None
+    if moe_trace:
+        per = 1e3 / TRACE_STEPS / max(summary["lanes"], 1)
+        a2a_ms = round(moe_trace["alltoall_s"] * per, 3)
+        hidden_frac = round(moe_trace["hidden_frac"], 4)
+        metrics.MOE_ALLTOALL_HIDDEN_FRAC.set(hidden_frac)
     return {
         "metric": "moe_tokens_per_sec_per_chip",
         "value": round(mean, 1),
@@ -640,8 +684,8 @@ def run_moe_benchmark(args):
         "moe": {
             "tokens_per_sec_per_chip": round(mean, 1),
             "spread": round(conf, 1),
-            "alltoall_ms_per_step": trace,
-            "alltoall_hidden_frac": trace,
+            "alltoall_ms_per_step": a2a_ms,
+            "alltoall_hidden_frac": hidden_frac,
             "drop_fraction": round(drop_frac, 4),
             "routed_tokens": routed,
             "dropped_tokens": dropped,
@@ -659,8 +703,8 @@ def run_moe_benchmark(args):
             "step_program_cache_hits": hits,
             "step_program_cache_misses": misses,
             "fallback_steps": step.fallback_steps,
-            "step_phase_breakdown": trace,
-            "xla_trace_dir": trace,
+            "step_phase_breakdown": phase_ms,
+            "xla_trace_dir": trace_dir,
             "steps": iters,
             "card": card,
         },

@@ -108,8 +108,43 @@ class Config:
     timeline: str = ""
     guard: bool = False
     autotune: bool = False
+    # Runtime metrics exporters (metrics.py). metrics_dir enables the JSONL
+    # + Prometheus-textfile sinks; metrics_port >= 0 enables the HTTP scrape
+    # endpoint (0 binds an ephemeral port); metrics_interval is the export
+    # cadence in seconds (also the device-memory sampling floor).
     metrics_dir: str = ""
     metrics_port: int = -1
+    # Scrape-endpoint bind address. Loopback by default: /metrics is
+    # unauthenticated, so reaching it from another host (a Prometheus
+    # scraper) is an explicit opt-in (HOROVOD_METRICS_BIND=0.0.0.0).
+    metrics_bind: str = "127.0.0.1"
+    metrics_interval: float = 10.0
+    # Collective flight recorder + hang diagnosis (diag/). flight_buffer
+    # is the per-rank ring capacity in events (rounded up to a power of
+    # two; 0 disables recording). stall_timeout_seconds > 0 starts the
+    # hang watchdog: any collective in flight past the timeout triggers a
+    # durable flight dump and (on process 0) a desync report; 0 (default)
+    # is fully inert — no thread, no beacons. diag_dir is where
+    # flight-rank<N>.json / desync-report.json land ('' = CWD when a dump
+    # is triggered).
+    flight_buffer: int = 4096
+    stall_timeout_seconds: float = 0.0
+    diag_dir: str = ""
+    # On-demand device tracing (diag/xla_trace.py). xprof_steps > 0 arms
+    # a one-shot capture at init: the first N steps are recorded with
+    # torch.profiler into a xla-trace-<seq> directory under diag_dir and
+    # parsed into per-phase device-time totals (hvd.trace_steps(n) is the
+    # programmatic form). 0 (default) is fully inert — no tracer object,
+    # no profiler state.
+    xprof_steps: int = 0
+    # Perf-regression sentry (diag/sentry.py): per-signature EMA
+    # baseline of step time and MFU persisted under metrics_dir as
+    # perf-baseline.json. A step slower (or an MFU lower) than the
+    # baseline by more than perf_sentry_threshold increments
+    # hvd_perf_regressions_total, records a flight-recorder event and
+    # auto-arms one trace window. Off (default) = no state, no I/O.
+    perf_sentry: bool = False
+    perf_sentry_threshold: float = 0.25
     # Two-stage exchange: the DCN hop's wire ("", "bf16" or "int8") and
     # the ICI group size (ranks a host; 0 = the launcher's local size).
     dcn_compression: str = ""
@@ -158,6 +193,20 @@ class Config:
         c.autotune = _env_flag("HOROVOD_AUTOTUNE")
         c.metrics_dir = os.environ.get("HOROVOD_METRICS_DIR", "")
         c.metrics_port = _env_int("HOROVOD_METRICS_PORT", c.metrics_port)
+        c.metrics_bind = os.environ.get("HOROVOD_METRICS_BIND",
+                                        c.metrics_bind)
+        c.metrics_interval = _env_float("HOROVOD_METRICS_INTERVAL",
+                                        c.metrics_interval)
+        c.flight_buffer = max(_env_int("HOROVOD_FLIGHT_BUFFER",
+                                       c.flight_buffer), 0)
+        c.stall_timeout_seconds = _env_float(
+            "HOROVOD_STALL_TIMEOUT_SECONDS", c.stall_timeout_seconds)
+        c.diag_dir = os.environ.get("HOROVOD_DIAG_DIR", c.diag_dir)
+        c.xprof_steps = max(_env_int("HOROVOD_XPROF_STEPS",
+                                     c.xprof_steps), 0)
+        c.perf_sentry = _env_flag("HOROVOD_PERF_SENTRY")
+        c.perf_sentry_threshold = max(_env_float(
+            "HOROVOD_PERF_SENTRY_THRESHOLD", c.perf_sentry_threshold), 0.0)
         c.reduce_scatter_bucket = max(_env_int(
             "HOROVOD_REDUCE_SCATTER_BUCKET", c.reduce_scatter_bucket), 1)
         c.dcn_compression = os.environ.get("HOROVOD_DCN_COMPRESSION",
@@ -166,6 +215,13 @@ class Config:
                                         c.dcn_local_size), 0)
         c.peak_flops = max(_env_float("HOROVOD_PEAK_FLOPS", c.peak_flops),
                            0.0)
+        # The profiler.txt dump defaults into HOROVOD_METRICS_DIR, else
+        # HOROVOD_DIAG_DIR, when no explicit path overrides it.
+        if "HOROVOD_PROFILER_PATH" not in os.environ:
+            if c.metrics_dir:
+                c.profiler_path = os.path.join(c.metrics_dir, "profiler.txt")
+            elif c.diag_dir:
+                c.profiler_path = os.path.join(c.diag_dir, "profiler.txt")
         return c
 
 

@@ -1,0 +1,391 @@
+"""``python -m horovod_tpu_torch.diag`` — merge per-rank flight dumps.
+
+Counterpart of ``python -m horovod_tpu.diag``; either reads the other's
+dumps (the format is shared). Takes ``flight-rank<N>.json`` dumps (files
+or directories to glob) and produces:
+
+- one clock-aligned Chrome/Perfetto trace (``--trace out.json``) by
+  splicing each rank's events into a disjoint pid space, as the JAX
+  package's ``timeline.Timeline.merge_remote`` does (the file it writes
+  is byte for byte the JAX CLI's). Alignment uses the wall-clock
+  timestamps every event carries: the earliest wall time across all
+  dumps becomes t=0.
+- a critical-path report on stdout: per-step phase breakdown (compute /
+  wire / readback / input-wait), per-rank skew (max/median of mean step
+  time) and a slowest-rank ranking. ``--json out.json`` writes the same
+  numbers machine-readably.
+
+With ``--xla-trace DIR`` (an ``xla-trace-<seq>/`` capture directory from
+``hvd.trace_steps`` / ``HOROVOD_XPROF_STEPS``: a ``torch.profiler``
+trace), the merge also splices the device trace into the same timeline
+— each device event phase-labeled by the join of diag/xla_trace.py,
+with the phase maps of the capture's ``xla-trace-meta.json`` sidecar,
+and clock-aligned through the sidecar's wall-clock window — and the
+report gains a per-phase device-time breakdown (forward / backward /
+exchange / optimizer / guard / other).
+
+Usage::
+
+    python -m horovod_tpu_torch.diag $HOROVOD_DIAG_DIR --trace merged.json
+    python -m horovod_tpu_torch.diag flight-rank0.json flight-rank1.json
+    python -m horovod_tpu_torch.diag $HOROVOD_DIAG_DIR \\
+        --xla-trace $HOROVOD_DIAG_DIR/xla-trace-001 --trace merged.json
+"""
+
+import argparse
+import glob
+import json
+import os
+import sys
+
+
+def load_dumps(paths):
+    """[(path, dump_dict)] from explicit files and/or directories."""
+    files = []
+    for p in paths:
+        if os.path.isdir(p):
+            files.extend(sorted(glob.glob(
+                os.path.join(p, "flight-rank*.json"))))
+        else:
+            files.append(p)
+    dumps = []
+    for f in files:
+        try:
+            with open(f) as fh:
+                d = json.load(fh)
+        except (OSError, ValueError) as e:
+            print(f"warning: skipping unreadable dump {f}: {e}",
+                  file=sys.stderr)
+            continue
+        if not isinstance(d, dict) or "events" not in d:
+            print(f"warning: {f} is not a flight dump; skipping",
+                  file=sys.stderr)
+            continue
+        dumps.append((f, d))
+    return dumps
+
+
+def _chrome_events(dump):
+    """One rank's dump as Chrome events with ts/dur in WALL microseconds
+    (merge_remote then shifts them against the global epoch). Spans
+    (wire, readback, input-wait, step) become "X" complete events ending
+    at their recorded wall time; lifecycle points become "i" instants."""
+    out = []
+    rank = dump.get("rank", 0)
+    for tid, label in ((0, "wire"), (1, "readback"), (2, "input"),
+                       (3, "step"), (4, "lifecycle")):
+        out.append({"name": "thread_name", "ph": "M", "pid": 0, "tid": tid,
+                    "args": {"name": label}})
+    out.append({"name": "process_name", "ph": "M", "pid": 0,
+                "args": {"name": f"rank{rank} flight"}})
+    for ev in dump.get("events", ()):
+        try:
+            wall_us = int(float(ev["wall"]) * 1e6)
+            kind = ev.get("ev", "")
+        except (KeyError, TypeError, ValueError):
+            continue
+        name = ev.get("name") or ev.get("op") or kind
+        args = {k: v for k, v in ev.items()
+                if k not in ("seq", "t", "wall", "ev")}
+        if kind == "wire_end":
+            span_us = int(float(ev.get("span", 0)) * 1e6)
+            out.append({"name": name, "cat": "wire", "ph": "X", "pid": 0,
+                        "tid": 0, "ts": wall_us - span_us, "dur": span_us,
+                        "args": args})
+            wait_us = int(float(ev.get("wait", 0)) * 1e6)
+            if wait_us > 0:
+                out.append({"name": f"readback:{name}", "cat": "readback",
+                            "ph": "X", "pid": 0, "tid": 1,
+                            "ts": wall_us - wait_us, "dur": wait_us})
+        elif kind == "input_wait":
+            wait_us = int(float(ev.get("wait", 0)) * 1e6)
+            out.append({"name": "INPUT_WAIT", "cat": "input", "ph": "X",
+                        "pid": 0, "tid": 2, "ts": wall_us - wait_us,
+                        "dur": wait_us})
+        elif kind == "step":
+            dt_us = int(float(ev.get("dt", 0)) * 1e6)
+            out.append({"name": f"STEP {ev.get('step', '?')}",
+                        "cat": "step", "ph": "X", "pid": 0, "tid": 3,
+                        "ts": wall_us - dt_us, "dur": dt_us})
+        else:
+            out.append({"name": f"{kind}:{name}" if name != kind else kind,
+                        "cat": "lifecycle", "ph": "i", "s": "t", "pid": 0,
+                        "tid": 4, "ts": wall_us, "args": args})
+    return out
+
+
+def load_xla_trace(trace_dir):
+    """Device-trace view for ``--xla-trace``: per-phase totals (from the
+    ``xla-trace-meta.json`` sidecar, re-parsing the raw capture when the
+    sidecar is absent) plus phase-labeled Chrome events on wall-clock
+    microseconds, ready for the same pid-space splicing as the flight
+    dumps. Returns None when the directory holds no device events; the
+    events list is empty when no sidecar pins the wall-clock window
+    (device timestamps alone cannot be aligned to the flight view)."""
+    from .xla_trace import (_attributed, _iter_trace_files,
+                            _load_trace_events, load_meta, parse_trace_dir,
+                            phase_of_op_name)
+    meta = load_meta(trace_dir) or {}
+    op_map = meta.get("op_map") or {}
+    summary = meta.get("summary") or parse_trace_dir(trace_dir, op_map)
+    if summary is None:
+        print(f"warning: no parseable device events under {trace_dir}",
+              file=sys.stderr)
+        return None
+    op_map = dict(op_map, **(summary.get("op_map") or {}))
+    raw, lanes = [], {}
+    wall0 = meta.get("wall_start")
+    if isinstance(wall0, (int, float)) and wall0 > 0:
+        for path in _iter_trace_files(trace_dir):
+            for ev, scope in _attributed(_load_trace_events(path) or [],
+                                         op_map)[0]:
+                tid = lanes.setdefault((ev.get("pid"), ev.get("tid")),
+                                       len(lanes))
+                phase = (phase_of_op_name(scope) if isinstance(scope, str)
+                         else None) or "other"
+                raw.append({"name": f"{phase}:{ev.get('name', '')}",
+                            "cat": phase, "ph": "X", "pid": 0, "tid": tid,
+                            "ts": float(ev["ts"]),
+                            "dur": float(ev.get("dur") or 0.0)})
+        # Clock alignment: the capture started (sidecar wall_start) at
+        # the step tick right before the first device event, so the
+        # earliest device timestamp maps onto wall_start and every event
+        # shifts by the same offset into wall microseconds.
+        ts_min = min((e["ts"] for e in raw), default=0.0)
+        shift = float(wall0) * 1e6 - ts_min
+        for e in raw:
+            e["ts"] += shift
+    evs = [{"name": "process_name", "ph": "M", "pid": 0,
+            "args": {"name": "device trace"}}]
+    evs += [{"name": "thread_name", "ph": "M", "pid": 0, "tid": t,
+             "args": {"name": f"device lane {t}"}}
+            for t in range(len(lanes))]
+    return {"dir": trace_dir, "meta": meta, "summary": summary,
+            "events": evs + raw, "aligned": bool(raw)}
+
+
+def _merge_remote(out, events, epoch, base_epoch, base, label):
+    """Splice ``events`` into ``out`` under pid space ``base``, as the
+    JAX package's ``Timeline.merge_remote`` does: metadata rows labeled
+    ``label``, timestamps shifted by the wall-clock epochs, a malformed
+    event skipped alone, a placeholder row when nothing merged."""
+    offset_us = int((epoch - base_epoch) * 1e6)
+    merged = skipped = 0
+    for ev in events or ():
+        try:
+            ev = dict(ev)
+            if ev.get("ph") == "M":
+                args = ev.get("args") or {}
+                ev["args"] = {"name": f"{label}:{args.get('name', '?')}"}
+            ev["pid"] = base + int(ev.get("pid", 0))
+            if "ts" in ev:
+                ev["ts"] = int(ev["ts"]) + offset_us
+        except (TypeError, ValueError, AttributeError):
+            skipped += 1
+            continue
+        out.append(ev)
+        merged += 1
+    if skipped:
+        print(f"warning: trace merge skipped {skipped} malformed events "
+              f"from {label}", file=sys.stderr)
+    if not merged:
+        out.append({"name": "process_name", "ph": "M", "pid": base,
+                    "args": {"name": f"{label}: (no events — died "
+                                     f"before shutdown?)"}})
+
+
+def write_trace(dumps, out_path, xla=None):
+    """Merge every dump into one Chrome trace, each rank in a pid space
+    of its own (:func:`_merge_remote`). Events carry wall-clock
+    microsecond timestamps; the trace's epoch is the earliest wall time
+    and each rank merges at epoch 0, so every rank lands on a shared
+    t=0. The file is the JAX package's Timeline file: a JSON array, one
+    event a line, closed by ``{}]``."""
+    per_rank = [(path, dump, _chrome_events(dump)) for path, dump in dumps]
+    groups = [(f"rank{dump.get('rank', os.path.basename(path))}", evs)
+              for path, dump, evs in per_rank]
+    if xla and xla["events"]:
+        groups.append(("xla", xla["events"]))
+    # Spans are end-timestamped in the ring, so the earliest *start*
+    # (ts = wall - dur) across all ranks is the true t=0 — aligning on
+    # the earliest event wall time would push long first spans negative.
+    starts = [e["ts"] for _, evs in groups for e in evs if "ts" in e]
+    epoch = (min(starts) / 1e6) if starts else 0.0
+    out = []
+    for i, (label, evs) in enumerate(groups):
+        _merge_remote(out, evs, 0.0, epoch, 10000 * (i + 1), label)
+    d = os.path.dirname(out_path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(out_path, "w") as f:
+        f.write("[\n")
+        for ev in out:
+            f.write(json.dumps(ev) + ",\n")
+        f.write("{}]\n")
+    return out_path
+
+
+def _phase_sums(dump):
+    wire = readback = input_w = step_s = 0.0
+    steps = 0
+    for ev in dump.get("events", ()):
+        kind = ev.get("ev")
+        if kind == "wire_end":
+            wire += float(ev.get("span", 0) or 0)
+            readback += float(ev.get("wait", 0) or 0)
+        elif kind == "input_wait":
+            input_w += float(ev.get("wait", 0) or 0)
+        elif kind == "step":
+            step_s += float(ev.get("dt", 0) or 0)
+            steps += 1
+    return {"wire_s": wire, "readback_s": readback, "input_s": input_w,
+            "step_s": step_s, "steps": steps}
+
+
+def _median(xs):
+    xs = sorted(xs)
+    n = len(xs)
+    if not n:
+        return 0.0
+    return xs[n // 2] if n % 2 else (xs[n // 2 - 1] + xs[n // 2]) / 2
+
+
+def critical_path_report(dumps):
+    """Per-rank phase attribution + skew from a set of flight dumps."""
+    ranks = []
+    for path, dump in dumps:
+        p = _phase_sums(dump)
+        steps = p["steps"]
+        mean_step = p["step_s"] / steps if steps else 0.0
+        compute = max(p["step_s"] - p["wire_s"] - p["readback_s"]
+                      - p["input_s"], 0.0)
+        ranks.append({
+            "rank": dump.get("rank", 0),
+            "dump": path,
+            "reason": dump.get("reason", ""),
+            "last_decision_index": dump.get("last_decision_index", -1),
+            "steps": steps,
+            "mean_step_ms": round(mean_step * 1e3, 3),
+            "phase_ms_per_step": {
+                "compute": round(compute / steps * 1e3, 3) if steps else 0,
+                "wire": round(p["wire_s"] / steps * 1e3, 3) if steps else 0,
+                "readback": round(p["readback_s"] / steps * 1e3, 3)
+                if steps else 0,
+                "input": round(p["input_s"] / steps * 1e3, 3)
+                if steps else 0,
+            },
+            "totals_s": {k: round(v, 6) for k, v in p.items()
+                         if k != "steps"},
+        })
+    means = [r["mean_step_ms"] for r in ranks if r["steps"]]
+    med = _median(means)
+    skew = (max(means) / med) if means and med > 0 else 0.0
+    ranking = sorted((r for r in ranks if r["steps"]),
+                     key=lambda r: r["mean_step_ms"], reverse=True)
+    return {"ranks": sorted(ranks, key=lambda r: r["rank"]),
+            "step_time_skew": round(skew, 4),
+            "slowest_ranks": [r["rank"] for r in ranking],
+            "n_dumps": len(dumps)}
+
+
+def print_report(report, desync=None):
+    print(f"flight dumps merged: {report['n_dumps']}")
+    if desync:
+        for st in desync.get("stalled", ()):
+            print(f"DESYNC: {st['name']!r} stalled {st['age_seconds']}s "
+                  f"— entered: {st['entered']}  MISSING: {st['missing']} "
+                  f"(decision index {st.get('decision_index')})")
+    for r in report["ranks"]:
+        ph = r["phase_ms_per_step"]
+        print(f"rank {r['rank']}: steps={r['steps']} "
+              f"mean_step={r['mean_step_ms']}ms  "
+              f"compute={ph['compute']}ms wire={ph['wire']}ms "
+              f"readback={ph['readback']}ms input={ph['input']}ms  "
+              f"decision_index={r['last_decision_index']} "
+              f"[{r['reason']}]")
+    if report["slowest_ranks"]:
+        print(f"slowest ranks: {report['slowest_ranks']}  "
+              f"step-time skew (max/median): {report['step_time_skew']}")
+
+
+def print_xla_report(xla):
+    """Per-phase device-time breakdown for a --xla-trace capture."""
+    s = xla["summary"]
+    steps = max(int(xla["meta"].get("steps", 1) or 1), 1)
+    lanes = max(int(s.get("lanes", 1) or 1), 1)
+    print(f"xla device trace: {xla['dir']}  steps={steps} lanes={lanes} "
+          f"events={s.get('events', 0)} "
+          f"device_total={round(s['total_s'], 6)}s"
+          + ("" if xla["aligned"] else "  (no sidecar — not clock-aligned)"))
+    per = {p: round(v / steps / lanes * 1e3, 3)
+           for p, v in s.get("phases", {}).items()}
+    print("  device ms/step/lane: " + "  ".join(
+        f"{p}={per[p]}" for p in ("forward", "backward", "exchange",
+                                  "optimizer", "guard", "other")
+        if p in per))
+    stages = s.get("stages") or {}
+    if any(stages.values()):
+        print("  staged exchange: " + "  ".join(
+            f"{k}={round(v / steps / lanes * 1e3, 3)}ms"
+            for k, v in stages.items()))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        prog="python -m horovod_tpu_torch.diag", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("paths", nargs="+",
+                    help="flight-rank*.json files or directories")
+    ap.add_argument("--trace", metavar="OUT",
+                    help="write a merged clock-aligned Chrome trace here")
+    ap.add_argument("--json", metavar="OUT",
+                    help="write the critical-path report as JSON here")
+    ap.add_argument("--xla-trace", metavar="DIR",
+                    help="an xla-trace-<seq>/ capture directory "
+                         "(hvd.trace_steps / HOROVOD_XPROF_STEPS) to "
+                         "phase-report and splice into the merged trace")
+    args = ap.parse_args(argv)
+
+    xla = load_xla_trace(args.xla_trace) if args.xla_trace else None
+    dumps = load_dumps(args.paths)
+    if not dumps and xla is None:
+        print("error: no readable flight dumps found", file=sys.stderr)
+        return 2
+
+    desync = None
+    for p in args.paths:
+        cand = os.path.join(p, "desync-report.json") if os.path.isdir(p) \
+            else None
+        if cand and os.path.exists(cand):
+            try:
+                with open(cand) as fh:
+                    desync = json.load(fh)
+            except (OSError, ValueError):
+                pass
+
+    report = critical_path_report(dumps)
+    if desync:
+        report["desync"] = desync
+    if xla:
+        report["xla"] = {"dir": xla["dir"],
+                         "steps": xla["meta"].get("steps"),
+                         "lanes": xla["summary"].get("lanes"),
+                         "phases": xla["summary"].get("phases"),
+                         "stages": xla["summary"].get("stages"),
+                         "total_s": xla["summary"].get("total_s"),
+                         "aligned": xla["aligned"]}
+    print_report(report, desync)
+    if xla:
+        print_xla_report(xla)
+    if args.trace:
+        write_trace(dumps, args.trace, xla=xla)
+        print(f"merged trace: {args.trace}")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(report, f, indent=2)
+        print(f"report JSON: {args.json}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

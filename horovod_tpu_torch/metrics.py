@@ -1,21 +1,36 @@
-"""Process-wide metrics registry: labeled counters, gauges, histograms.
+"""Process-wide metrics registry: labeled counters, gauges, histograms,
+and the export sinks.
 
 Counterpart of horovod_tpu/metrics.py, carrying the registry core with
 its collect hooks, the serving families (``hvd_serve_*``, program
-caches included), the compiled hot loop's cache and fallback families
-(``hvd_step_*``), the runtime lifecycle families, the per-collective
-mirror of stats.py, the ZeRO and staged-exchange families
-(``hvd_zero_*``, ``hvd_wire_stage_*``, ``hvd_spec_leaves``), the
-model-parallel degree (``hvd_model_parallel``) and the expert-parallel
-MoE families (``hvd_moe_*``, fed by
-:func:`record_moe_step`), under the JAX package's names and help texts.
-``hvd_moe_alltoall_hidden_frac`` and ``hvd_wire_stage_seconds`` are
-registered and left unset: they read a phase trace (item 16). The
-exporters (JSONL, Prometheus, timeline counters) come with the
-observability slice (ROADMAP.md, Queue 1 item 16).
+caches included), the compiled hot loop's families (``hvd_step_*``:
+cache, fallbacks, FLOPs and MFU), the training loop's telemetry
+(``hvd_steps_total``, ``hvd_step_seconds``, ``hvd_examples_per_sec``,
+the skew gauges), the runtime lifecycle and device-memory families
+(``hvd_device_*``, read from ``torch.cuda.memory_stats``), the
+per-collective mirror of stats.py, the ZeRO and staged-exchange
+families (``hvd_zero_*``, ``hvd_wire_stage_*``, ``hvd_spec_leaves``),
+the model-parallel degree (``hvd_model_parallel``), the
+expert-parallel MoE families (``hvd_moe_*``, fed by
+:func:`record_moe_step`), the overlap fractions a phase trace reads
+(``hvd_moe_alltoall_hidden_frac``, ``hvd_exchange_hidden_frac``) and
+the diagnostics families (``hvd_diag_*``, ``hvd_xla_*``,
+``hvd_perf_regressions_total``; diag/), under the JAX package's names
+and help texts. The ``xla`` in a name is kept so a dashboard finds the
+same series: in the port the trace is ``torch.profiler``'s.
+
+The sinks (:class:`MetricsExporters`): a JSONL log of snapshots and a
+Prometheus textfile under ``HOROVOD_METRICS_DIR``, and an HTTP scrape
+endpoint on ``HOROVOD_METRICS_PORT``, every ``HOROVOD_METRICS_INTERVAL``
+seconds, in the JAX package's formats. Its third sink, counter events
+spliced into the live timeline, waits for the timeline (ROADMAP.md,
+Queue 1 item 10): the ``timeline`` argument must be None.
 """
 
+import json
+import os
 import threading
+import time
 
 from .utils.logging import get_logger
 
@@ -258,7 +273,27 @@ def registry():
 
 
 def snapshot():
+    """``hvd.metrics_snapshot()``: the full current snapshot."""
     return _registry.snapshot()
+
+
+def compact_snapshot():
+    """Snapshot restricted to families with at least one non-zero series;
+    histograms reduce to ``{count, sum}``. This is what the benches
+    embed in their one-line JSON, without a thousand zero rows."""
+    out = {}
+    for name, fam in _registry.snapshot().items():
+        vals = {}
+        for key, v in fam["values"].items():
+            if isinstance(v, dict):
+                if v["count"]:
+                    vals[key] = {"count": v["count"],
+                                 "sum": round(v["sum"], 6)}
+            elif v:
+                vals[key] = v
+        if vals:
+            out[name] = vals
+    return out
 
 
 # Inference serving (serve/)
@@ -358,6 +393,17 @@ STEP_FALLBACK_TOTAL = _registry.counter(
     "compiled_train_step calls that ran the eager/legacy step instead, "
     "by reason (disabled | host_mode | shape_churn).",
     labelnames=("reason",))
+STEP_FLOPS_TOTAL = _registry.counter(
+    "hvd_step_flops_total",
+    "Cumulative whole-program FLOPs executed by the compiled hot loop, "
+    "from XLA cost_analysis on each step-program signature (all chips; "
+    "divide by hvd_ranks for per-chip work).")
+STEP_MFU = _registry.gauge(
+    "hvd_step_mfu",
+    "Model FLOPs utilization of the most recent compiled step: "
+    "per-chip cost_analysis FLOPs / (step wall time x peak chip FLOPs). "
+    "Peak comes from the device kind or HOROVOD_PEAK_FLOPS; 0 when "
+    "neither is known (e.g. CPU without the override).")
 
 # Runtime lifecycle (runtime.py)
 RUNTIME_INITS = _registry.counter(
@@ -368,6 +414,33 @@ RUNTIME_UP = _registry.gauge(
     "hvd_up", "1 while the runtime is initialized, else 0.")
 RUNTIME_RANKS = _registry.gauge(
     "hvd_ranks", "Total ranks (chips) in the current job.")
+DEVICE_BYTES_IN_USE = _registry.gauge(
+    "hvd_device_bytes_in_use", "Device memory in use "
+    "(jax.Device.memory_stats, backends that report it).",
+    labelnames=("device",))
+DEVICE_PEAK_BYTES = _registry.gauge(
+    "hvd_device_peak_bytes_in_use", "Peak device memory in use.",
+    labelnames=("device",))
+DEVICE_BYTES_LIMIT = _registry.gauge(
+    "hvd_device_bytes_limit", "Device memory capacity.",
+    labelnames=("device",))
+
+# Training loop (callbacks.TelemetryCallback)
+STEPS_TOTAL = _registry.counter(
+    "hvd_steps_total", "Training steps observed by TelemetryCallback.")
+STEP_SECONDS = _registry.histogram(
+    "hvd_step_seconds", "Per-step wall time.")
+EXAMPLES_PER_SEC = _registry.gauge(
+    "hvd_examples_per_sec", "Examples/sec from the most recent step.")
+STEP_SKEW = _registry.gauge(
+    "hvd_step_time_skew", "Straggler skew: max/median of per-rank step "
+    "times at the last skew sample.")
+STEP_SKEW_MAX = _registry.gauge(
+    "hvd_step_seconds_max", "Slowest rank's step time at the last skew "
+    "sample.")
+STEP_SKEW_MEDIAN = _registry.gauge(
+    "hvd_step_seconds_median", "Median rank step time at the last skew "
+    "sample.")
 
 # Per-collective mirror of stats.py (fork parity registry; values reset
 # with each session's stats object, hence gauges).
@@ -454,6 +527,55 @@ MOE_ALLTOALL_HIDDEN_FRAC = _registry.gauge(
     "expert FFN compute in the most recent trace capture (hvd_dispatch/"
     "hvd_combine vs hvd_expert scopes) — the chunked-pipeline win the "
     "CI moe-smoke gate asserts >= 0.3.")
+EXCHANGE_HIDDEN_FRAC = _registry.gauge(
+    "hvd_exchange_hidden_frac",
+    "Fraction of gradient-exchange device time overlapped with forward/"
+    "backward/optimizer compute in the most recent trace capture "
+    "(hvd_exchange intervals vs the compute-phase union) — the bucketed "
+    "backward/exchange overlap win (HOROVOD_EXCHANGE_BUCKETS) the CI "
+    "overlap-smoke gate asserts >= 0.3.")
+
+# Flight recorder + hang diagnosis (diag/)
+DIAG_EVENTS = _registry.gauge(
+    "hvd_diag_events_total",
+    "Lifecycle events recorded by the flight recorder since install "
+    "(the ring holds the most recent HOROVOD_FLIGHT_BUFFER of them).")
+DIAG_DUMPS = _registry.counter(
+    "hvd_diag_dumps_total",
+    "Durable flight-recorder dumps written (stall, abort, or manual).")
+DIAG_STALLS = _registry.counter(
+    "hvd_diag_stalls_detected_total",
+    "Collectives the hang watchdog found in-flight past "
+    "HOROVOD_STALL_TIMEOUT_SECONDS.")
+DIAG_DESYNC_MISSING = _registry.gauge(
+    "hvd_diag_desync_missing_ranks",
+    "Participants missing from the most recent stalled collective "
+    "(set by process 0's desync report; 0 = no live desync).")
+DIAG_PHASE_SECONDS = _registry.gauge(
+    "hvd_diag_phase_seconds",
+    "Cumulative per-phase attribution from the flight recorder's ring "
+    "(wire / readback / input; the critical-path report's raw data).",
+    labelnames=("phase",))
+
+# Phase tracing + perf sentry (diag/xla_trace.py, diag/sentry.py)
+XLA_TRACE_CAPTURES = _registry.counter(
+    "hvd_xla_trace_captures_total",
+    "Device-trace capture windows completed by hvd.trace_steps / "
+    "HOROVOD_XPROF_STEPS (each writes a parsed xla-trace-meta.json "
+    "under HOROVOD_DIAG_DIR).")
+XLA_PHASE_SECONDS = _registry.gauge(
+    "hvd_xla_phase_seconds",
+    "Per-phase device seconds from the most recent trace capture "
+    "(phase = forward | backward | exchange | optimizer | guard | "
+    "dispatch | expert | combine | other — the last three are the MoE "
+    "sub-phases: dispatch/combine alltoall wire time and expert FFN "
+    "compute), summed over the window across device lanes.",
+    labelnames=("phase",))
+PERF_REGRESSIONS = _registry.counter(
+    "hvd_perf_regressions_total",
+    "Step-time or MFU regressions flagged by the perf sentry "
+    "(HOROVOD_PERF_SENTRY=1) against the per-signature EMA baseline, "
+    "by kind (step_time | mfu).", labelnames=("kind",))
 
 
 def record_moe_step(routed, dropped, load_balance_loss, chunks):
@@ -464,3 +586,180 @@ def record_moe_step(routed, dropped, load_balance_loss, chunks):
     MOE_DROPPED_TOKENS.inc(float(dropped))
     MOE_LOAD_BALANCE_LOSS.set(float(load_balance_loss))
     MOE_CHUNKS.set(int(chunks))
+
+
+# ------------------------------------------------------------- rendering
+
+def render_prometheus(snap):
+    """Render a snapshot in the Prometheus text exposition format."""
+    lines = []
+    for name, fam in snap.items():
+        if fam["help"]:
+            lines.append(f"# HELP {name} {fam['help']}")
+        lines.append(f"# TYPE {name} {fam['type']}")
+        for key, v in fam["values"].items():
+            if isinstance(v, dict):  # histogram
+                for bound, cum in v["buckets"].items():
+                    sep = "," if key else ""
+                    lines.append(
+                        f'{name}_bucket{{{key}{sep}le="{bound}"}} {cum}')
+                suffix = f"{{{key}}}" if key else ""
+                lines.append(f"{name}_sum{suffix} {v['sum']}")
+                lines.append(f"{name}_count{suffix} {v['count']}")
+            else:
+                suffix = f"{{{key}}}" if key else ""
+                lines.append(f"{name}{suffix} {v}")
+    return "\n".join(lines) + "\n"
+
+
+# ------------------------------------------------------------- exporters
+
+class MetricsExporters:
+    """Export sinks + the low-rate background thread driving them.
+
+    Sinks (all optional, per config):
+    - ``metrics_dir``: ``metrics-<pid>.jsonl`` (one snapshot per line) and
+      ``metrics-<pid>.prom`` (atomic-rename textfile, node-exporter
+      textfile-collector convention);
+    - ``metrics_port >= 0``: HTTP scrape endpoint serving ``/metrics``
+      (port 0 binds an ephemeral port, exposed as ``http_port``).
+
+    The JAX package's third sink, counter events spliced into the live
+    timeline, waits for the timeline (ROADMAP.md, Queue 1 item 10):
+    ``timeline`` must be None.
+
+    ``close()`` performs one final export (so short jobs always land a
+    snapshot), then stops the thread and the HTTP server. Everything is
+    daemonized and join-bounded: shutdown can never hang on an
+    exporter.
+    """
+
+    def __init__(self, config, timeline=None, process_index=0):
+        if timeline is not None:
+            raise NotImplementedError(
+                "the metrics exporters' timeline sink needs the timeline "
+                "(ROADMAP.md, Queue 1 item 10), which is not ported yet")
+        self._interval = max(float(config.metrics_interval), 0.1)
+        self._stop = threading.Event()
+        self._lock = threading.Lock()  # serializes ticks vs close
+        self._thread = None
+        self._server = None
+        self._server_thread = None
+        self._jsonl = None
+        self._prom_path = None
+        self.http_port = None
+
+        if config.metrics_dir:
+            os.makedirs(config.metrics_dir, exist_ok=True)
+            self._jsonl = open(
+                os.path.join(config.metrics_dir,
+                             f"metrics-{process_index}.jsonl"), "a")
+            self._prom_path = os.path.join(
+                config.metrics_dir, f"metrics-{process_index}.prom")
+        if config.metrics_port is not None and config.metrics_port >= 0:
+            self._start_http(config.metrics_port,
+                             getattr(config, "metrics_bind", "127.0.0.1"))
+        if self._jsonl or self._prom_path:
+            self._thread = threading.Thread(
+                target=self._loop, name="hvd-tpu-metrics", daemon=True)
+            self._thread.start()
+
+    @property
+    def active(self):
+        return bool(self._thread or self._server)
+
+    def _start_http(self, port, bind="127.0.0.1"):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(handler):  # noqa: N805 — handler self
+                if handler.path.split("?")[0] not in ("/", "/metrics"):
+                    handler.send_error(404)
+                    return
+                body = render_prometheus(_registry.snapshot()).encode()
+                handler.send_response(200)
+                handler.send_header("Content-Type",
+                                    "text/plain; version=0.0.4")
+                handler.send_header("Content-Length", str(len(body)))
+                handler.end_headers()
+                handler.wfile.write(body)
+
+            def log_message(handler, *a):  # noqa: N805 — silence stderr
+                pass
+
+        try:
+            self._server = ThreadingHTTPServer((bind, port), Handler)
+        except OSError as e:
+            _logger.warning("metrics HTTP endpoint on %s:%d unavailable: "
+                            "%s", bind, port, e)
+            return
+        self._server.daemon_threads = True
+        self.http_port = self._server.server_address[1]
+        self._server_thread = threading.Thread(
+            target=self._server.serve_forever, name="hvd-tpu-metrics-http",
+            daemon=True)
+        self._server_thread.start()
+        _logger.info("metrics scrape endpoint on :%d/metrics",
+                     self.http_port)
+
+    def _loop(self):
+        while not self._stop.wait(self._interval):
+            self.tick()
+
+    def tick(self):
+        """One export round over every configured sink (best-effort)."""
+        snap = _registry.snapshot()
+        with self._lock:
+            if self._jsonl is not None and not self._jsonl.closed:
+                try:
+                    self._jsonl.write(json.dumps(
+                        {"ts": time.time(),
+                         "metrics": {n: f["values"]
+                                     for n, f in snap.items()}}) + "\n")
+                    self._jsonl.flush()
+                except OSError as e:
+                    _logger.warning("metrics JSONL write failed: %s", e)
+            if self._prom_path is not None:
+                try:
+                    tmp = self._prom_path + ".tmp"
+                    with open(tmp, "w") as f:
+                        f.write(render_prometheus(snap))
+                    os.replace(tmp, self._prom_path)
+                except OSError as e:
+                    _logger.warning("metrics textfile write failed: %s", e)
+
+    def close(self):
+        """Final export, then stop every thread/server. Idempotent."""
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+        if self._jsonl or self._prom_path:
+            try:
+                self.tick()
+            except Exception:  # noqa: BLE001 — a last export is best-effort
+                _logger.debug("final metrics export failed", exc_info=True)
+        with self._lock:
+            if self._jsonl is not None:
+                self._jsonl.close()
+                self._jsonl = None
+        if self._server is not None:
+            self._server.shutdown()
+            self._server.server_close()
+            self._server = None
+            if self._server_thread is not None:
+                self._server_thread.join(timeout=5)
+                self._server_thread = None
+
+
+def start_exporters(config, timeline=None, process_index=0):
+    """Build exporters for the session, or None when nothing is configured
+    (no metrics dir or port) — the common test path keeps zero extra
+    threads. The constructor's sink-enable logic is the single source of
+    truth; an exporter with no active sinks is simply discarded."""
+    exp = MetricsExporters(config, timeline=timeline,
+                           process_index=process_index)
+    if not exp.active:
+        exp.close()
+        return None
+    return exp

@@ -48,6 +48,12 @@ Numerics follow JAX's promotion as the dense block does: the router in
 f32; the expert products ``(E, C, d) dtype x w1.to(dtype)`` summed in
 f32, tanh GELU, cast to dtype, ``x w2.to(dtype)`` summed in f32, cast to
 dtype (:func:`_einsum_f32`); the combine in f32.
+
+For the phase trace (diag/xla_trace.py) the dispatch and combine
+all-to-alls run under ``hvd_dispatch`` and ``hvd_combine`` and the
+expert FFN under ``hvd_expert``, as the JAX layer's named scopes. The
+ranges enclose the forward's launches: the backward's run on autograd's
+thread under the step's ``hvd_backward``.
 """
 
 import dataclasses
@@ -56,6 +62,7 @@ from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from ..ops.collectives import alltoall, alltoall_chunked
 from ..utils.devices import resolve_device
@@ -227,11 +234,13 @@ def _aux_loss(probs, expert, kept):
 
 
 def _ffn(params, z, cfg):
-    """The experts' FFN on ``z`` (E_loc, rows, d) in ``cfg.dtype``."""
-    h = _einsum_f32("ecd,edf->ecf", z, params["w1"].to(cfg.dtype))
-    h = F.gelu(h, approximate="tanh").to(cfg.dtype)
-    out = _einsum_f32("ecf,efd->ecd", h, params["w2"].to(cfg.dtype))
-    return out.to(cfg.dtype)
+    """The experts' FFN on ``z`` (E_loc, rows, d) in ``cfg.dtype``: the
+    phase trace's ``hvd_expert``."""
+    with record_function("hvd_expert"):
+        h = _einsum_f32("ecd,edf->ecf", z, params["w1"].to(cfg.dtype))
+        h = F.gelu(h, approximate="tanh").to(cfg.dtype)
+        out = _einsum_f32("ecf,efd->ecd", h, params["w2"].to(cfg.dtype))
+        return out.to(cfg.dtype)
 
 
 def moe_layer(params, x, cfg, ep_group=None, chunks=1, with_stats=False,
@@ -270,10 +279,16 @@ def moe_layer(params, x, cfg, ep_group=None, chunks=1, with_stats=False,
     x_pad = torch.cat([x_flat, x_flat.new_zeros(1, d)])
     expert_in = x_pad[r.slot_token].to(cfg.dtype)                # (E, C, d)
     if ep_group is not None:
-        pieces = alltoall_chunked(expert_in, chunks, group=ep_group,
-                                  split_axis=0, concat_axis=1, chunk_axis=1)
-        outs = [alltoall(_ffn(params, piece, cfg), group=ep_group,
-                         split_axis=1, concat_axis=0) for piece in pieces]
+        with record_function("hvd_dispatch"):
+            pieces = alltoall_chunked(expert_in, chunks, group=ep_group,
+                                      split_axis=0, concat_axis=1,
+                                      chunk_axis=1)
+        outs = []
+        for piece in pieces:
+            piece = _ffn(params, piece, cfg)
+            with record_function("hvd_combine"):
+                outs.append(alltoall(piece, group=ep_group, split_axis=1,
+                                     concat_axis=0))
         n_chunks = len(outs)
         expert_out = outs[0] if n_chunks == 1 else torch.cat(outs, dim=1)
     else:

@@ -35,9 +35,11 @@ from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from .. import runtime
-from ..stats import record_jit_traced
+from ..diag import recorder as _recorder
+from ..stats import record_jit_traced, tracing
 from .compression import Compression, Int8Compressor
 
 
@@ -56,49 +58,88 @@ class Exchange:
     the copy out, as the reference's timeline counts its fusion-buffer
     copies in the op.
 
+    ``name`` (default ``op``) names it in the flight recorder
+    (diag/recorder.py), which gets the JAX engine's events: ``enqueue``
+    here, ``dispatch`` at each launch and ``wire_end`` (``span``: the
+    time above; ``wait``: the host's time blocked in :meth:`wait`) when
+    it is done, on a card when stats.py resolves its end event. With the
+    hang watchdog on, the exchange is watched from its first launch
+    until the device has finished it (:meth:`in_flight`).
+
     Inside a CUDA graph capture (ops/step_program.py) the exchange takes
     no events, which would become graph nodes with no time to read: it
     records as ``<op>_jit`` once, at the capture
-    (stats.record_jit_traced)."""
+    (stats.record_jit_traced), and nothing in the flight recorder."""
 
-    def __init__(self, op):
+    def __init__(self, op, name=None):
         st = runtime.live_state()
-        self._op, self._stats = op, st.stats
+        self.op, self.name = op, name or op
+        self._stats = st.stats
         self._cuda = st.device.type == "cuda"
         self._captured = (self._cuda
                           and torch.cuda.is_current_stream_capturing())
+        self._flight = None if self._captured else _recorder.get()
         if not self._cuda:
             self._t0 = time.perf_counter()
         elif not self._captured:
             self._start = torch.cuda.Event(enable_timing=True)
             self._start.record()
-        self._works, self._nbytes = [], 0
+        self._works, self._nbytes, self._wait = [], 0, 0.0
+        self._end = None
+        self.t_dispatch = None
+        if self._flight is not None:
+            self._flight.record("enqueue", self.name, op)
 
     def launch(self, fn, nbytes):
         """Start one collective of ``nbytes`` wire bytes: ``fn`` returns
         its async work."""
         self._works.append(fn())
         self._nbytes += nbytes
+        if self.t_dispatch is None and not self._captured:
+            self.t_dispatch = time.perf_counter()
+            wd = _recorder.watchdog()
+            if wd is not None:
+                wd.track(self)
+        if self._flight is not None:
+            self._flight.record("dispatch", self.name, self.op, nbytes)
         return self
+
+    def in_flight(self):
+        """True while a launched collective, or on a card the exchange's
+        end event, has not completed on the device. Polls only."""
+        if any(not work.is_completed() for work in self._works):
+            return True
+        return self._end is not None and not self._end.query()
 
     def wait(self):
         """Wait for every launched collective (on a card: order the
         caller's stream after them)."""
+        t0 = time.perf_counter()
         for work in self._works:
             work.wait()
+        self._wait += time.perf_counter() - t0
 
     def done(self):
         """Stop the clock and record the execution."""
         if self._captured:
-            record_jit_traced(f"{self._op}_jit", self._nbytes)
+            record_jit_traced(f"{self.op}_jit", self._nbytes)
         elif self._cuda:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record()
-            self._stats.record_events(self._op, self._nbytes, self._start,
-                                      end)
+            self._end = torch.cuda.Event(enable_timing=True)
+            self._end.record()
+            self._stats.record_events(self.op, self._nbytes, self._start,
+                                      self._end, self._on_wire_end)
         else:
-            self._stats.record(self._op, self._nbytes,
-                               time.perf_counter() - self._t0)
+            span = time.perf_counter() - self._t0
+            self._stats.record(self.op, self._nbytes, span)
+            self._on_wire_end(span)
+
+    def _on_wire_end(self, span):
+        if self._flight is not None:
+            self._flight.record(
+                "wire_end", self.name, self.op, self._nbytes,
+                extra={"span": span, "wait": self._wait,
+                       "hidden": max(span - self._wait, 0.0),
+                       "n": len(self._works)})
 
     def finish(self):
         self.wait()
@@ -113,12 +154,13 @@ def _on_device(tensor):
     return tensor.to(dev).contiguous()
 
 
-def start_allreduce(buf, exchange=None, group=None):
+def start_allreduce(buf, exchange=None, group=None, name=None):
     """Launch an in-place sum of ``buf`` (on the runtime's device,
     contiguous) over the ranks of ``group`` (None: every rank), as part
-    of ``exchange`` (default: a new one); returns the exchange."""
+    of ``exchange`` (default: a new one, named ``name``); returns the
+    exchange."""
     if exchange is None:
-        exchange = Exchange("allreduce")
+        exchange = Exchange("allreduce", name)
     return exchange.launch(
         lambda: dist.all_reduce(buf, group=group, async_op=True),
         _nbytes(buf))
@@ -130,13 +172,14 @@ def _average(summed, n):
     return summed.div_(n, rounding_mode="trunc")
 
 
-def allreduce(tensor, average=True, compression=Compression.none):
+def allreduce(tensor, average=True, compression=Compression.none, name=None):
     """Sum or average ``tensor`` over every rank; returns a new tensor on
     the runtime's device. ``compression`` narrows the wire (fp16/bf16)
-    and restores the dtype after the sum."""
+    and restores the dtype after the sum. ``name`` names the exchange in
+    the flight recorder."""
     wire, ctx = compression.compress(tensor)
     buf = _on_device(wire).clone()
-    start_allreduce(buf).finish()
+    start_allreduce(buf, name=name).finish()
     out = compression.decompress(buf, ctx)
     return _average(out, runtime.size()) if average else out
 
@@ -161,14 +204,15 @@ def unflatten(flat, like):
     return out
 
 
-def grouped_allreduce(tensors, average=True, compression=Compression.none):
+def grouped_allreduce(tensors, average=True, compression=Compression.none,
+                      name=None):
     """Allreduce a list of tensors as one group: one fused all-reduce per
     dtype over the concatenated tensors (the reference's tensor fusion).
     Returns the reduced tensors in order."""
     compressed = [compression.compress(_on_device(t)) for t in tensors]
     wires = [w for w, _ in compressed]
     groups = flatten_by_dtype(wires)
-    exchange = Exchange("allreduce")
+    exchange = Exchange("allreduce", name)
     for _, _, flat in groups:
         start_allreduce(flat, exchange)
     exchange.finish()
@@ -181,22 +225,22 @@ def grouped_allreduce(tensors, average=True, compression=Compression.none):
     return out
 
 
-def allgather(tensor):
+def allgather(tensor, name=None):
     """Every rank's ``tensor`` concatenated along dim 0, in rank order
     (equal shapes on every rank)."""
     buf = _on_device(tensor)
     parts = [torch.empty_like(buf) for _ in range(runtime.size())]
-    Exchange("allgather").launch(
+    Exchange("allgather", name).launch(
         lambda: dist.all_gather(parts, buf, async_op=True),
         _nbytes(buf)).finish()
     return torch.cat(parts, dim=0)
 
 
-def broadcast_(tensor, root_rank):
+def broadcast_(tensor, root_rank, name=None):
     """Overwrite ``tensor`` in place with ``root_rank``'s value; returns
     it. A tensor off the runtime's device travels through a copy."""
     buf = _on_device(tensor)
-    Exchange("broadcast").launch(
+    Exchange("broadcast", name).launch(
         lambda: dist.broadcast(buf, src=root_rank, async_op=True),
         _nbytes(buf)).finish()
     if buf.data_ptr() != tensor.data_ptr():
@@ -204,10 +248,10 @@ def broadcast_(tensor, root_rank):
     return tensor
 
 
-def broadcast(tensor, root_rank):
+def broadcast(tensor, root_rank, name=None):
     """``root_rank``'s value of ``tensor`` on every rank, as a new tensor
     on the runtime's device."""
-    return broadcast_(_on_device(tensor).clone(), root_rank)
+    return broadcast_(_on_device(tensor).clone(), root_rank, name)
 
 
 def _alltoall_raw(tensor, group, split_axis, concat_axis):
@@ -683,6 +727,8 @@ def _record_stage(stage, wire_bytes, raw_bytes):
     """Per-stage wire accounting (hvd_wire_stage_bytes_total / _raw_),
     once a call, so wire/raw is the exact compression factor."""
     from .. import metrics
+    if not tracing():
+        return
     metrics.WIRE_STAGE_BYTES.labels(stage=stage).inc(int(wire_bytes))
     metrics.WIRE_STAGE_RAW_BYTES.labels(stage=stage).inc(int(raw_bytes))
 
@@ -721,13 +767,15 @@ def dcn_staged_psum_scatter(flat, axis=None, local=None, dcn_compression="",
         # a single full-precision stage: the whole exchange is ICI
         _record_stage("ici", _nbytes(flat), _nbytes(flat))
         record_jit_traced("reducescatter_jit", _nbytes(flat))
-        return _scatter(flat, ax.group, n), None
+        with record_function("hvd_ici"):
+            return _scatter(flat, ax.group, n), None
     ici, dcn = _stage_groups(ax, local)
     hosts = n // local
     if local > 1:
         _record_stage("ici", _nbytes(flat), _nbytes(flat))
         record_jit_traced("reducescatter_jit", _nbytes(flat))
-        chunk = _scatter(flat, ici, local)
+        with record_function("hvd_ici"):
+            chunk = _scatter(flat, ici, local)
     else:
         chunk = flat
     raw = _nbytes(chunk)
@@ -735,23 +783,28 @@ def dcn_staged_psum_scatter(flat, axis=None, local=None, dcn_compression="",
     if comp == "none":
         _record_stage("dcn", raw, raw)
         record_jit_traced("reducescatter_jit", raw)
-        return _scatter(chunk, dcn, hosts), None
+        with record_function("hvd_dcn"):
+            return _scatter(chunk, dcn, hosts), None
     e = chunk if residual is None else chunk + residual.to(chunk.dtype)
     if comp == "bf16":
         wire = e.to(torch.bfloat16)
         new_residual = e - wire.to(e.dtype)
         _record_stage("dcn", elems * 2, raw)
         record_jit_traced("reducescatter_jit", elems * 2)
-        return _scatter(wire, dcn, hosts).to(e.dtype), new_residual
+        with record_function("hvd_dcn"):
+            stripe = _scatter(wire, dcn, hosts)
+        return stripe.to(e.dtype), new_residual
     if comp == "int8":
         amax = e.abs().max().reshape(1)
-        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=dcn)
+        with record_function("hvd_dcn"):
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=dcn)
         scale = Int8Compressor.scale_for(amax[0])
         codes = Int8Compressor.quantize(e, scale)
         new_residual = e - (codes * scale).to(e.dtype)
         _record_stage("dcn", elems, raw)
         record_jit_traced("reducescatter_jit", elems)
-        summed = _scatter(codes.to(torch.int32), dcn, hosts)
+        with record_function("hvd_dcn"):
+            summed = _scatter(codes.to(torch.int32), dcn, hosts)
         return (summed.to(scale.dtype) * scale).to(e.dtype), new_residual
     raise ValueError(
         f"unknown DCN compression {dcn_compression!r} (expected '', "
@@ -774,7 +827,8 @@ def dcn_staged_all_gather(stripe, axis=None, local=None, dcn_compression="",
     if local >= n or n % local:
         _record_stage("ici", _nbytes(stripe), _nbytes(stripe))
         record_jit_traced("allgather_jit", _nbytes(stripe))
-        return _gather(stripe, ax.group, n, out)
+        with record_function("hvd_ici"):
+            return _gather(stripe, ax.group, n, out)
     ici, dcn = _stage_groups(ax, local)
     comp = dcn_compression or "none"
     raw = _nbytes(stripe)
@@ -786,11 +840,13 @@ def dcn_staged_all_gather(stripe, axis=None, local=None, dcn_compression="",
         wire = stripe.to(torch.bfloat16)
         _record_stage("dcn", stripe.shape[0] * 2, raw)
         record_jit_traced("allgather_jit", stripe.shape[0] * 2)
-    chunk = _gather(wire, dcn, n // local).to(stripe.dtype)
+    with record_function("hvd_dcn"):
+        chunk = _gather(wire, dcn, n // local).to(stripe.dtype)
     if local > 1:
         _record_stage("ici", _nbytes(chunk), _nbytes(chunk))
         record_jit_traced("allgather_jit", _nbytes(chunk))
-        chunk = _gather(chunk, ici, local)
+        with record_function("hvd_ici"):
+            chunk = _gather(chunk, ici, local)
     if out is not None:
         return out.copy_(chunk)
     return chunk

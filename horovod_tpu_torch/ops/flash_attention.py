@@ -44,7 +44,11 @@ no host code, so a captured program takes its capture's counts back
 (:func:`count_replay`). The tensor-core route computes the scores as
 ``(q.k^T) * scale`` from the unscaled bf16 q and rounds P to bf16
 before ``P.V`` (P and dS before the backward's second products), as
-SDPA does; the forward's ``l`` sums the f32 p. Both routes keep the
+SDPA does; the forward's ``l`` sums the f32 p. Inside
+:func:`count_flops` every launch also adds its FLOPs (4, 6 and 8 x D a
+live (query, key) pair for the forward, dq and dkv kernels): a ctypes
+launch is invisible to ``torch.utils.flop_counter.FlopCounterMode``,
+which counts the rest of a compiled step's work. Both routes keep the
 masked scores at ``NEG_INF`` (-1e30) in natural-log units, so a row with
 no live key ends with lse <= -1e29, as the ring's merge needs.
 
@@ -64,6 +68,7 @@ ones dense.
 it as plain XLA with no Pallas kernel.
 """
 
+import contextlib
 import ctypes
 
 import torch
@@ -137,6 +142,43 @@ def uncount_capture(before):
     for c, n in captured.items():
         globals()[c] -= n
     return captured
+
+
+_flops = None  # [FLOPs so far] inside count_flops(), else None
+
+
+@contextlib.contextmanager
+def count_flops():
+    """Count the FLOPs of every kernel launched in the block, on any
+    thread (autograd's device thread runs the backward): yields a
+    one-element list holding the running total."""
+    global _flops
+    prev, _flops = _flops, [0]
+    try:
+        yield _flops
+    finally:
+        _flops = prev
+
+
+def _live_pairs(s, causal, window, off=None):
+    """(query, key) pairs a tile's mask keeps in one (b, h) row."""
+    if off is None and not causal:
+        return s * s
+    lo, hi = band_key_span(s, 0 if off is None else off, window)
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def _launch_flops(name, sizes, tail):
+    """FLOPs of one launch of ``name``: per live pair 4 x D (forward),
+    6 x D (dq: s, dp, dS.K) or 8 x D (dkv: s, dp, P^T.dO, dS^T.Q)."""
+    b, s, h, _, d = sizes
+    _, mode, win = tail
+    band = name.startswith("flash_band")
+    pairs = _live_pairs(s, bool(mode) or band, win or None,
+                        int(mode) if band else None)
+    per_pair = 8 if name.endswith("dkv") else 6 if name.endswith("dq") \
+        else 4
+    return per_pair * d * pairs * b * h
 
 
 def count_replay(captured):
@@ -577,6 +619,8 @@ def _launch(name, ops, outs, sizes, strides, tail):
           *_ptrs(ops), *_ptrs(outs), _DTYPES[q.dtype], *sizes, *strides,
           *tail, _stream(q))
     globals()[_COUNTERS[name][tc]] += 1
+    if _flops is not None:
+        _flops[0] += _launch_flops(name, sizes, tail)
 
 
 def _device_of(q):

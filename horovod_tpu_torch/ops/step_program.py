@@ -24,6 +24,18 @@ captured are recorded once, as ``allreduce_jit``, and again on every
 replay only under ``HOROVOD_PROFILER_JIT_CALLBACKS=1`` (stats.py), as
 the JAX package records a jitted collective once per trace.
 
+The step's regions run under the phase trace's ranges (``hvd_forward``,
+``hvd_backward``, ``hvd_exchange``, ``hvd_optimizer``;
+diag/xla_trace.py), which a replay cannot show: while a trace runs, a
+program replays under ``hvd_graph:<key>``, and the first time a window
+replays it without a phase map it captures its function once more
+under ``hvd_recapture:<key>`` (nothing executes; the graph is dropped,
+and the launch counts, the ``_jit`` records and the tensors the step
+rebinds are put back as they were), the join's map of each node to its
+phase. A step counts its FLOPs once, on its signature's warm-up call
+(``torch.utils.flop_counter.FlopCounterMode``, plus the hand kernels'
+own counts: ops/flash_attention.py ``count_flops``), for MFU.
+
 On the CPU nothing is captured (gloo is not capturable and the CPU has no
 graphs): a program is its step function run as it is, under the same
 signatures, cache counters and fallback reasons, as the JAX package
@@ -31,14 +43,19 @@ compiles for the CPU. On a card a capture that fails raises; nothing
 runs eagerly in its place.
 """
 
+import contextlib
+import hashlib
 import itertools
 import weakref
 
 import torch
+from torch.profiler import record_function
 
 from .. import metrics, runtime
 from ..config import Config, step_program_enabled
-from ..stats import replay_jit
+from ..diag import xla_trace
+from ..stats import replay_jit, untraced
+from ..utils.logging import get_logger
 from . import flash_attention as fa
 from .collectives import exchange_bucket_plan, grouped_allreduce
 
@@ -47,6 +64,8 @@ __all__ = ["CompiledTrainStep", "StepProgram", "compiled_train_step",
 
 _token_registry = weakref.WeakKeyDictionary()
 _token_counter = itertools.count()
+_program_counter = itertools.count()
+_logger = get_logger()
 
 
 def obj_token(obj):
@@ -60,6 +79,53 @@ def obj_token(obj):
         return tok
     except TypeError:  # not weakly referenceable
         return id(obj)
+
+
+def _callable_digest(fn):
+    """Content digest of a callable: code bytes of the function, nested
+    code constants, and closure cells holding callables or simple
+    scalars. Two structurally identical loss functions digest equal (so
+    a re-created loop re-hits the sentry's baseline); a changed
+    hyperparameter in a closure changes the digest."""
+    h = hashlib.sha1()
+    seen = set()
+
+    def feed(obj):
+        code = getattr(obj, "__code__", None)
+        if code is None or id(code) in seen:
+            h.update(type(obj).__name__.encode())
+            return
+        seen.add(id(code))
+        h.update(code.co_name.encode())
+        h.update(code.co_code)
+        for const in code.co_consts:
+            if hasattr(const, "co_code"):
+                h.update(const.co_name.encode())
+                h.update(const.co_code)
+        for cell in getattr(obj, "__closure__", None) or ():
+            try:
+                v = cell.cell_contents
+            except ValueError:
+                continue
+            if callable(v):
+                feed(v)
+            elif isinstance(v, (bool, int, float, str, bytes, type(None))):
+                h.update(repr(v).encode())
+    feed(fn)
+    return h.hexdigest()[:12]
+
+
+@contextlib.contextmanager
+def _flop_counter():
+    """Count the FLOPs of the block: ``FlopCounterMode``'s for the torch
+    ops plus the hand kernels' own (invisible to it: ctypes launches).
+    Yields a one-element list filled with the total at exit."""
+    from torch.utils.flop_counter import FlopCounterMode
+    total = [0]
+    with fa.count_flops() as kernels, \
+            FlopCounterMode(display=False) as counter:
+        yield total
+    total[0] = counter.get_total_flops() + kernels[0]
 
 
 class StepProgram:
@@ -76,9 +142,15 @@ class StepProgram:
     capture, a static tensor. Programs sharing a pool replay one at a
     time on one stream and treat what they allocated in it as scratch:
     the next replay of any of them may overwrite this output, so a
-    caller that keeps it copies it first."""
+    caller that keeps it copies it first.
 
-    def __init__(self, fn, device, pool=None, inputs=()):
+    ``count_flops`` counts the FLOPs of the first call (the warm-up on a
+    card) into :attr:`flops`. ``state()`` returns the tensors whose
+    ``.data`` and ``.grad`` the function rebinds (a step's parameters),
+    which the phase map's re-capture puts back (module docstring)."""
+
+    def __init__(self, fn, device, pool=None, inputs=(), count_flops=False,
+                 state=None):
         self._fn = fn
         self.inputs = list(inputs)  # the static tensors a caller fills
         self._device = torch.device(device)
@@ -87,6 +159,10 @@ class StepProgram:
         self._out = None
         self.launches = {}     # kernel launches of one replay, by counter
         self.collectives = []  # (op, nbytes) a replay records
+        self.flops = None if count_flops else 0
+        self._state = state
+        # the phase trace's name for this program's map (no "/")
+        self.phase_key = f"p{next(_program_counter)}"
         cfg = Config.from_env()
         self._capture = (self._device.type == "cuda"
                          and step_program_enabled(cfg))
@@ -96,23 +172,66 @@ class StepProgram:
     def captured(self):
         return self._graph is not None
 
+    def _first_run(self):
+        """``fn()``, its FLOPs counted when they are wanted and unknown."""
+        if self.flops is not None:
+            return self._fn()
+        with _flop_counter() as total:
+            out = self._fn()
+        self.flops = total[0]
+        return out
+
     def __call__(self):
         if not self._capture:
-            return self._fn()
+            return self._first_run()
         if self._graph is None:
             return self._warm_up_and_capture()
-        self._graph.replay()
+        tracer = xla_trace.get()
+        if tracer is not None and tracer.active:
+            if tracer.wants_phase_map(self.phase_key):
+                self._map_phases(tracer)
+            with record_function(xla_trace.GRAPH_PREFIX + self.phase_key):
+                self._graph.replay()
+        else:
+            self._graph.replay()
         fa.count_replay(self.launches)
         if self._callbacks:
             replay_jit(self.collectives)
         return self._out
+
+    def _map_phases(self, tracer):
+        """Capture ``fn`` once more under the running trace, inside
+        ``hvd_recapture:<key>``, for the phase map (module docstring).
+        Nothing executes and the graph is dropped; the launch counts,
+        the ``_jit`` records and the rebound tensors stay as they were."""
+        saved = [(t, t.data, t.grad) for t in
+                 (self._state() if self._state is not None else ())]
+        launches0 = fa.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with untraced(), record_function(
+                    xla_trace.RECAPTURE_PREFIX + self.phase_key):
+                with torch.cuda.graph(graph, pool=self._pool,
+                                      capture_error_mode="thread_local"):
+                    self._fn()
+        except Exception:  # noqa: BLE001 - tracing must never kill a step
+            # without a map the window's replays stay unmatched (counted)
+            _logger.warning("phase map re-capture of %s failed",
+                            self.phase_key, exc_info=True)
+        finally:
+            fa.uncount_capture(launches0)
+            for t, data, grad in saved:
+                t.data = data
+                t.grad = grad
+            del graph
+        tracer.register_phase_map(self.phase_key)
 
     def _warm_up_and_capture(self):
         current = torch.cuda.current_stream(self._device)
         side = torch.cuda.Stream(self._device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            out = self._fn()
+            out = self._first_run()
         current.wait_stream(side)
         stats = (runtime.live_state().stats if runtime.is_initialized()
                  else None)
@@ -249,6 +368,14 @@ class CompiledTrainStep:
         self.cache_misses = 0
         self.compiled_steps = 0
         self.fallback_steps = 0
+        # whole-program FLOPs of the last step (every rank's), for MFU
+        self.flops_per_step = 0.0
+
+    @property
+    def perf_signature(self):
+        """Stable short workload id for the perf-sentry baseline (the
+        model-digest component; the caller appends batch/world/zero)."""
+        return f"{_callable_digest(self._loss_fn)[:12]}|{self._exchange}"
 
     @property
     def cache_hit_rate(self):
@@ -312,11 +439,15 @@ class CompiledTrainStep:
         self._optimizer.zero_grad(set_to_none=True)
         if self._resident:
             self._optimizer.materialize()
-        loss = self._loss_fn(*batch)
-        loss.backward()
+        with record_function("hvd_forward"):
+            loss = self._loss_fn(*batch)
+        with record_function("hvd_backward"):
+            loss.backward()
         if self._exchange == "psum":
-            self._psum(buckets)
-        self._optimizer.step()
+            with record_function("hvd_exchange"):
+                self._psum(buckets)
+        with record_function("hvd_optimizer"):
+            self._optimizer.step()
         return loss.detach()
 
     def _signature(self, device, batch, buckets):
@@ -346,7 +477,14 @@ class CompiledTrainStep:
         ref = weakref.ref(self)
         weakref.finalize(self, st.programs.discard, sig)
         return StepProgram(lambda: ref()._step(inputs, buckets), device,
-                           pool, inputs)
+                           pool, inputs, count_flops=True,
+                           state=lambda: ref()._rebound())
+
+    def _rebound(self):
+        """The tensors a step rebinds (``.grad``, and ``.data`` under
+        zero3): the parameters and a ZeRO optimizer's stripe."""
+        stripe = getattr(self._optimizer, "stripe", None)
+        return self._params + ([stripe] if stripe is not None else [])
 
     def __call__(self, *batch):
         st = runtime.live_state()
@@ -378,9 +516,15 @@ class CompiledTrainStep:
         for dst, src in zip(prog.inputs, batch):
             dst.copy_(src)
         captured = prog.captured
+        tracer = xla_trace.get()
+        if tracer is not None:
+            tracer.tick(owner=self)
         loss = prog()
         metrics.STEP_COMPILED_TOTAL.inc()
         self.compiled_steps += 1
+        if prog.flops:
+            self.flops_per_step = float(prog.flops) * st.size
+            metrics.STEP_FLOPS_TOTAL.inc(self.flops_per_step)
         # a replay's loss is the graph's static output: keep a copy
         return loss.clone() if captured else loss
 

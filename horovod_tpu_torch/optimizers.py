@@ -58,6 +58,7 @@ from typing import Any, NamedTuple
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from . import config as config_mod
 from . import metrics, runtime
@@ -174,23 +175,27 @@ class _DistributedOptimizer(torch.optim.Optimizer):
 
     def _launch(self, b):
         """Flatten bucket ``b``'s gradients (one buffer per exchange group
-        and dtype, after compression) and start their all-reduce. The
-        exchange's clock runs from before the copy in to after the copy
-        out (:meth:`synchronize`)."""
-        exchange = Exchange("allreduce")
-        params = self._buckets[b]
-        compressed = [self._compression.compress(p.grad) for p in params]
-        by_group = {}
-        for i, p in enumerate(params):
-            by_group.setdefault(self._group_of[p], []).append(i)
-        groups = []
-        for (pg, denom), members in by_group.items():
-            for _, idx, flat in flatten_by_dtype(
-                    [compressed[i][0] for i in members]):
-                groups.append(([members[i] for i in idx], flat, denom))
-                if pg is None or dist.get_world_size(pg) > 1:
-                    start_allreduce(flat, exchange, pg)
-        self._inflight[b] = (exchange, groups, compressed)
+        and dtype, after compression) and start their all-reduce, as the
+        exchange ``<optimizer>.grads.bucket<b>`` (the phase trace's
+        ``hvd_exchange``). The exchange's clock runs from before the copy
+        in to after the copy out (:meth:`synchronize`)."""
+        with record_function("hvd_exchange"):
+            exchange = Exchange("allreduce",
+                                f"{type(self).__name__}.grads.bucket{b}")
+            params = self._buckets[b]
+            compressed = [self._compression.compress(p.grad)
+                          for p in params]
+            by_group = {}
+            for i, p in enumerate(params):
+                by_group.setdefault(self._group_of[p], []).append(i)
+            groups = []
+            for (pg, denom), members in by_group.items():
+                for _, idx, flat in flatten_by_dtype(
+                        [compressed[i][0] for i in members]):
+                    groups.append(([members[i] for i in idx], flat, denom))
+                    if pg is None or dist.get_world_size(pg) > 1:
+                        start_allreduce(flat, exchange, pg)
+            self._inflight[b] = (exchange, groups, compressed)
 
     def synchronize(self):
         """Finish every bucket's exchange so gradients can be inspected
@@ -198,6 +203,10 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         hooks did not all fire this pass is launched here; a parameter
         whose grad is still None gets a zero grad first, so every rank
         submits the same buffers."""
+        with record_function("hvd_exchange"):
+            self._synchronize()
+
+    def _synchronize(self):
         for b, params in enumerate(self._buckets):
             if b in self._inflight:
                 continue
@@ -796,6 +805,10 @@ class _ShardedOptimizer(torch.optim.Optimizer):
         dropped once sent (the full gradient does not outlive the
         exchange); at stage 0 the stripe is gathered back into the
         gradients. A parameter whose grad is None sends zeros."""
+        with record_function("hvd_exchange"):
+            self._synchronize()
+
+    def _synchronize(self):
         n, params = self._n, self._params
         leaves = [(p.grad if p.grad is not None else torch.zeros_like(p))
                   .reshape(-1).to(self._acc) for p in params]
@@ -850,12 +863,15 @@ class _ShardedOptimizer(torch.optim.Optimizer):
             old = stripe.clone() if lossy else None
             loss = super(self.__class__, self).step(closure)
             if lossy:
-                flat = self._core.gather(stripe - old, self._padded, self._n)
+                with record_function("hvd_exchange"):
+                    flat = self._core.gather(stripe - old, self._padded,
+                                             self._n)
                 for p, u in zip(self._params, unflatten(flat, self._params)):
                     p.add_(u.to(p.dtype))
             elif not self._resident:
-                flat = self._core.gather(stripe, self._padded, self._n,
-                                         lossless=True)
+                with record_function("hvd_exchange"):
+                    flat = self._core.gather(stripe, self._padded, self._n,
+                                             lossless=True)
                 for p, part in zip(self._params,
                                    unflatten(flat, self._params)):
                     p.copy_(part)

@@ -26,8 +26,18 @@ process with one card, as in the reference Horovod and in
 process's place among them, and ``local_rank()`` picks its card.
 
 Knobs that would start subsystems the port does not have yet (the
-timeline, the guard, autotune, the metrics exporters) make ``init()``
-raise rather than run without them.
+timeline, the guard, autotune) make ``init()`` raise rather than run
+without them.
+
+``init()`` also installs the diagnostics (diag/): the flight recorder
+(``HOROVOD_FLIGHT_BUFFER``), the phase tracer (``HOROVOD_XPROF_STEPS``),
+the perf sentry (``HOROVOD_PERF_SENTRY``), the hang watchdog
+(``HOROVOD_STALL_TIMEOUT_SECONDS``, its beacons through the session's
+store under ``hvd/<session>``) and the metrics exporters
+(``HOROVOD_METRICS_DIR`` / ``HOROVOD_METRICS_PORT``), with a collect
+hook reading the card's memory (``torch.cuda.memory_stats``) into the
+``hvd_device_*`` gauges; ``shutdown()`` takes them down again. Each is
+off, and holds no thread or state, unless its knob asks for it.
 
 With ``HOROVOD_EXPERT_PARALLEL`` above 1, ``init()`` also builds the
 2-D (data, expert) mesh of expert-parallel MoE (:func:`expert_mesh`;
@@ -68,8 +78,6 @@ _MISSING = (
      "10)"),
     ("guard", "HOROVOD_GUARD", "the step-integrity guard (ROADMAP.md, "
      "Queue 1 item 15)"),
-    ("metrics_dir", "HOROVOD_METRICS_DIR", "the metrics exporters "
-     "(ROADMAP.md, Queue 1 item 16)"),
 )
 
 
@@ -156,6 +164,8 @@ class _State:
         self.local_size = 1
         self.cross_rank = 0
         self.cross_size = 1
+        self.session = 0
+        self.metrics_exporters = None
         self.lock = threading.RLock()
 
 
@@ -168,10 +178,74 @@ def _refuse_missing_subsystems(cfg):
         if getattr(cfg, attr):
             raise NotImplementedError(
                 f"{knob} is set, but {what} is not ported yet")
-    if cfg.metrics_port >= 0:
-        raise NotImplementedError(
-            "HOROVOD_METRICS_PORT is set, but the metrics exporters "
-            "(ROADMAP.md, Queue 1 item 16) are not ported yet")
+
+
+_mem_sampled_t = float("-inf")
+
+
+def _collect_device_memory():
+    """Low-rate device-memory gauges from ``torch.cuda.memory_stats``
+    (the CPU publishes nothing). Runs as a metrics collect hook, so the
+    exporter thread's tick cadence is the sampling clock; throttled to
+    the configured interval."""
+    global _mem_sampled_t
+    import time as _time
+
+    from . import metrics
+    dev, cfg = _state.device, _state.config
+    if dev is None or dev.type != "cuda":
+        return
+    interval = cfg.metrics_interval if cfg is not None else 10.0
+    now = _time.perf_counter()
+    if now - _mem_sampled_t < interval:
+        return
+    _mem_sampled_t = now
+    st = torch.cuda.memory_stats(dev)
+    label = str(dev.index)
+    metrics.DEVICE_BYTES_IN_USE.labels(device=label).set(
+        st.get("allocated_bytes.all.current", 0))
+    metrics.DEVICE_PEAK_BYTES.labels(device=label).set(
+        st.get("allocated_bytes.all.peak", 0))
+    metrics.DEVICE_BYTES_LIMIT.labels(device=label).set(
+        torch.cuda.get_device_properties(dev).total_memory)
+
+
+def _install_diagnostics(cfg, rank, size, store):
+    """The flight recorder, the phase tracer, the perf sentry, the hang
+    watchdog and the metrics exporters of a new session (each None
+    unless its knob opts in), as the JAX package's ``init()`` installs
+    them."""
+    from . import diag, metrics
+    from .diag import sentry as _sentry
+    from .diag import xla_trace as _xla_trace
+    diag.install(cfg, rank=rank, process_index=rank)
+    _xla_trace.install(cfg, rank=rank, size=size)
+    _sentry.install(cfg, rank=rank)
+    if store is None and dist.is_initialized():
+        store = dist.distributed_c10d._get_default_store()
+    diag.start_watchdog(cfg, store=store, rank=rank, size=size,
+                        namespace=f"hvd/{_state.session}")
+    metrics.registry().set_collect_hook("device_memory",
+                                        _collect_device_memory)
+    _state.metrics_exporters = metrics.start_exporters(cfg,
+                                                       process_index=rank)
+
+
+def _uninstall_diagnostics():
+    """Take the session's diagnostics down after its watchdog: the
+    exporters after their final export, the tracer (stopping a capture
+    still running), the sentry (persisting its baselines) and the
+    recorder."""
+    from . import diag, metrics
+    from .diag import sentry as _sentry
+    from .diag import xla_trace as _xla_trace
+    if _state.metrics_exporters is not None:
+        _state.metrics_exporters.close()
+        _state.metrics_exporters = None
+    metrics.registry().remove_collect_hook("device_memory")
+    _xla_trace.uninstall()
+    _sentry.uninstall()
+    diag.uninstall()
 
 
 def _env_int(name, default):
@@ -273,7 +347,9 @@ def init(comm=None, *, device="cuda"):
         _state.cross_size = _env_int("HOROVOD_TPU_CROSS_SIZE", size)
         _state.stats = CollectiveStats()
         _state.programs = ProgramCache()
+        _state.session += 1
         register_metrics(_state.stats)
+        _install_diagnostics(cfg, rank, size, store)
         metrics.RUNTIME_INITS.inc()
         metrics.RUNTIME_UP.set(1)
         metrics.RUNTIME_RANKS.set(size)
@@ -301,6 +377,12 @@ def shutdown():
         if not _state.initialized or _state.shutdown:
             return
         from . import metrics
+        from .diag import recorder as _recorder
+        # Watchdog first: a beacon/stall scan must not race the teardown
+        # it observes.
+        _recorder.stop_watchdog()
+        # Lifecycle gauges flip BEFORE the exporters' final export, so a
+        # cleanly shut-down job's textfile reports hvd_up 0.
         metrics.RUNTIME_SHUTDOWNS.inc()
         metrics.RUNTIME_UP.set(0)
         if _state.rank == 0 and not _state.config.profiler_disable:
@@ -308,6 +390,7 @@ def shutdown():
                 _state.stats.write_to_file(_state.config.profiler_path)
             except OSError as e:
                 _logger.warning("could not write profiler dump: %s", e)
+        _uninstall_diagnostics()
         metrics.registry().remove_collect_hook("collective_stats")
         # The programs go first: a captured graph holds the collectives
         # of the group destroyed next.

@@ -53,6 +53,7 @@ import weakref
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from .. import metrics, runtime
 from ..config import next_power_of_two
@@ -85,7 +86,14 @@ def _prefill_core(params, k_pool, v_pool, tokens, lengths, page_tables,
                   cfg, page_size, moe_full, tp):
     """Forward trunk + paged K/V capture + last-position logits; MoE
     layers at full capacity when ``moe_full``; sharded over the model
-    group ``tp`` (None: unsharded)."""
+    group ``tp`` (None: unsharded). The phase trace's ``hvd_prefill``."""
+    with record_function("hvd_prefill"):
+        return _prefill(params, k_pool, v_pool, tokens, lengths,
+                        page_tables, cfg, page_size, moe_full, tp)
+
+
+def _prefill(params, k_pool, v_pool, tokens, lengths, page_tables, cfg,
+             page_size, moe_full, tp):
     axes = tfm.ShardAxes(tp=tp)
     x = tfm.embed_tokens(params, tokens, cfg, axes)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -108,7 +116,15 @@ def _decode_core(params, k_pool, v_pool, tokens, lengths, page_tables,
                  cfg, page_size, moe_full, tp):
     """One token for every row: scatter the new K/V row at position
     ``lengths`` (in place) and attend over ``lengths + 1`` visible
-    positions; sharded over the model group ``tp`` (None: unsharded)."""
+    positions; sharded over the model group ``tp`` (None: unsharded).
+    The phase trace's ``hvd_decode``."""
+    with record_function("hvd_decode"):
+        return _decode(params, k_pool, v_pool, tokens, lengths,
+                       page_tables, cfg, page_size, moe_full, tp)
+
+
+def _decode(params, k_pool, v_pool, tokens, lengths, page_tables, cfg,
+            page_size, moe_full, tp):
     axes = tfm.ShardAxes(tp=tp)
     b = tokens.shape[0]
     x = tfm._embed_rows(params, tokens[:, None], tp)
@@ -368,9 +384,12 @@ class ServeEngine:
         return logits
 
     def _observe_sentry(self, signature, dt):
-        """The perf-regression sentry's hook, under the JAX engine's key
-        strings; a no-op until the sentry is ported (ROADMAP.md, Queue 1
-        item 16)."""
+        """Feed the perf-regression sentry (diag/sentry.py) — decode
+        signatures get the same EMA-baseline watch as train steps."""
+        from ..diag import sentry as _sentry
+        s = _sentry.get()
+        if s is not None:
+            s.observe(signature, dt)
 
     # ------------------------------------------------------ pool admin
 

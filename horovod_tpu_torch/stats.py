@@ -14,8 +14,10 @@ the host's. On a card the wait only orders streams, so the time is
 taken between two CUDA events on the caller's stream, one recorded just
 before the launch and one just after the wait, and is read when the
 second event has completed: :meth:`CollectiveStats.record_events` queues
-it, and every read resolves the queue first. The step never blocks on
-the clock. The ctypes ``NativeCollectiveStats`` comes with the native
+it and folds what has completed without waiting (:meth:`poll`; the
+flight recorder's ``wire_end`` is recorded then), and every read
+resolves the queue first. The step never blocks on the clock. The
+ctypes ``NativeCollectiveStats`` comes with the native
 control plane (ROADMAP.md, Queue 1 item 10).
 
 A collective captured into a CUDA graph (ops/step_program.py) has no
@@ -24,13 +26,18 @@ recorded as ``<op>_jit`` once, when the program is captured
 (:func:`record_jit_traced`), as the JAX package records a jitted
 collective once per trace; the program records it again on every
 replay only under ``HOROVOD_PROFILER_JIT_CALLBACKS=1``
-(:func:`replay_jit`).
+(:func:`replay_jit`). A capture that only maps a program's phases for
+a trace (diag/xla_trace.py) records nothing: it runs under
+:func:`untraced`.
 """
 
+import contextlib
 import os
 import threading
 import time
 from collections import defaultdict
+
+_untraced = 0  # > 0 inside untraced(), on every thread
 
 
 class _OpStats:
@@ -55,7 +62,8 @@ class CollectiveStats:
     def __init__(self):
         self._lock = threading.Lock()
         self._ops = {op: _OpStats() for op in self.OPS}
-        self._pending = []  # (op, nbytes, start event, end event)
+        # (op, nbytes, start event, end event, on_resolve)
+        self._pending = []
 
     def record(self, op, nbytes, elapsed_s):
         with self._lock:
@@ -69,20 +77,49 @@ class CollectiveStats:
         s.size_count[int(nbytes)] += 1
         s.size_time_us[int(nbytes)] += us
 
-    def record_events(self, op, nbytes, start, end):
+    def record_events(self, op, nbytes, start, end, on_resolve=None):
         """Queue one execution timed by two CUDA events on one stream;
-        it counts once ``end`` has completed (see the module note)."""
+        it counts once ``end`` has completed (see the module note), and
+        then ``on_resolve(seconds)`` runs (the flight recorder's
+        ``wire_end``). Executions already completed are folded now,
+        without waiting."""
         with self._lock:
-            self._pending.append((op, nbytes, start, end))
+            self._pending.append((op, nbytes, start, end, on_resolve))
+        self.poll()
+
+    def _fold(self, entry):
+        op, nbytes, start, end, on_resolve = entry
+        seconds = start.elapsed_time(end) / 1e3
+        self._record(op, nbytes, seconds)
+        return on_resolve, seconds
+
+    def _callbacks(self, done):
+        for on_resolve, seconds in done:
+            if on_resolve is not None:
+                on_resolve(seconds)
+
+    def poll(self):
+        """Fold the queued executions whose end event has completed;
+        never waits."""
+        with self._lock:
+            ready, waiting = [], []
+            for entry in self._pending:
+                (ready if entry[3].query() else waiting).append(entry)
+            if not ready:
+                return
+            self._pending = waiting
+            done = [self._fold(e) for e in ready]
+        self._callbacks(done)
 
     def resolve(self):
         """Fold every queued execution into the counters, waiting for
         events that have not completed yet."""
         with self._lock:
             pending, self._pending = self._pending, []
-            for op, nbytes, start, end in pending:
-                end.synchronize()
-                self._record(op, nbytes, start.elapsed_time(end) / 1e3)
+            for entry in pending:
+                entry[3].synchronize()
+            done = [self._fold(e) for e in pending]
+        self._callbacks(done)
 
     class _Timer:
         def __init__(self, stats, op, nbytes):
@@ -160,7 +197,27 @@ def record_jit_traced(op, nbytes):
     ``*_jit`` row): once per capture. Its replays record through
     :func:`replay_jit`, and only under HOROVOD_PROFILER_JIT_CALLBACKS=1,
     which the program reads when it is captured."""
-    record_jit(op, nbytes)
+    if not _untraced:
+        record_jit(op, nbytes)
+
+
+def tracing():
+    """False inside :func:`untraced`: a capture there is not a program
+    of its own, and what it traces must not count."""
+    return not _untraced
+
+
+@contextlib.contextmanager
+def untraced():
+    """Run a capture whose collectives and wire bytes are not recorded
+    (the phase map's re-capture of a program, ops/step_program.py):
+    process-wide, since the gradient hooks run on autograd's thread."""
+    global _untraced
+    _untraced += 1
+    try:
+        yield
+    finally:
+        _untraced -= 1
 
 
 def replay_jit(records):

@@ -87,8 +87,22 @@ def test_resnet_bench_smoke_json_contract():
         assert got[key] == {"skipped": f"not ported: ROADMAP item {item}"}
     assert set(resnet_bench.NOT_PORTED) >= {
         "eager_exchange", "control_plane"}
+    # the control plane waits for the eager engine (item 10)
+    assert resnet_bench.NOT_PORTED["control_plane"] == 10
     assert not set(resnet_bench.NOT_PORTED) & {
-        "compiled_step", "serve", "moe", "zero_profile", "mesh3d"}
+        "compiled_step", "serve", "moe", "zero_profile", "mesh3d",
+        "flight_step_phase_breakdown", "flight_overhead_frac",
+        "trace_overhead_frac", "step_phase_breakdown"}
+    # the eager loop's flight attribution (the CPU's loop has no wire
+    # time of its own worth a phase: compute carries the call)
+    flight = got["flight_step_phase_breakdown"]
+    assert set(flight) == {"compute_ms", "wire_ms", "readback_ms",
+                           "input_ms"}
+    assert flight["compute_ms"] > 0 and flight["wire_ms"] >= 0
+    assert 0 <= got["flight_overhead_frac"] < 0.01
+    assert 0 <= got["trace_overhead_frac"] < 0.01
+    assert got["step_phase_breakdown"] == \
+        got["compiled_step"]["step_phase_breakdown"]
     # bench.py's mesh3d row needs 8 ranks: at one, its reason
     assert got["mesh3d"] == {
         "skipped": "needs a device count divisible by 8 and the "
@@ -109,8 +123,28 @@ def test_resnet_bench_smoke_json_contract():
     for key, item in resnet_bench.COMPILED_NOT_PORTED.items():
         assert compiled[key] == {
             "skipped": f"not ported: ROADMAP item {item}"}
-    assert {"overlap_ab", "step_phase_breakdown"} <= set(
-        resnet_bench.COMPILED_NOT_PORTED)
+    assert set(resnet_bench.COMPILED_NOT_PORTED) == {"guard_overhead_frac"}
+    # the phase trace of 4 steps: the step's regions, the tiers (no
+    # staged exchange at one rank) and the overlap rows
+    phases = compiled["step_phase_breakdown"]
+    for phase in ("forward", "backward", "exchange", "optimizer"):
+        assert phases[phase] > 0, phase
+    assert compiled["wire_stage_ms"] == {"ici": 0.0, "dcn": 0.0}
+    assert "xla-trace-" in compiled["xla_trace_dir"]
+    assert 0.0 <= compiled["exchange_hidden_frac"] <= 1.0
+    assert compiled["exchange_buckets"] == resnet_bench.EXCHANGE_BUCKETS
+    ab = compiled["overlap_ab"]
+    assert (ab["buckets_base"], ab["buckets_tuned"]) == (
+        1, resnet_bench.EXCHANGE_BUCKETS)
+    assert ab["step_ms_base"] > 0 and ab["step_ms_tuned"] > 0
+    assert ab["hidden_frac_tuned"] == compiled["exchange_hidden_frac"]
+    micro = compiled["overlap_microbench"]
+    assert (micro["depth"], micro["width"]) == (8, 256)
+    for side in ("base", "tuned"):
+        assert micro[f"step_ms_{side}"] > 0
+        assert micro[f"exchange_ms_{side}"] > 0
+        assert 0.0 <= micro[f"hidden_frac_{side}"] <= 1.0
+    assert 0 <= compiled["trace_overhead_frac"] < 0.01
     # no skipped row names a finished item (11: the ZeRO ladder; 6:
     # tensor parallelism)
     assert not {6, 11} & (set(resnet_bench.NOT_PORTED.values()) | set(
@@ -221,7 +255,9 @@ def test_serve_defaults_are_the_reference_flags():
 def _assert_moe_row(moe, expert_parallel, steps):
     """bench_transformer.py's moe sub-dict: the layer trained through the
     compiled step (every timed step a cache hit), the routing counts of
-    one evaluation, and the trace's keys as skipped rows (item 16)."""
+    one evaluation, and the trace's keys: the phase breakdown of 4 traced
+    steps, and no all-to-all time at one rank (None, as the reference's
+    parser reads a capture without one)."""
     assert moe["tokens_per_sec_per_chip"] > 0
     assert moe["expert_parallel"] == expert_parallel
     assert moe["step_program_cache_hit_rate"] == 1.0
@@ -234,9 +270,14 @@ def _assert_moe_row(moe, expert_parallel, steps):
     assert moe["load_balance_loss"] > 0
     assert (moe["num_experts"], moe["top_k"], moe["capacity_factor"],
             moe["d_model"], moe["d_ff"]) == (8, 2, 2.0, 256, 1024)
-    for key in ("alltoall_ms_per_step", "alltoall_hidden_frac",
-                "step_phase_breakdown", "xla_trace_dir"):
-        assert moe[key] == {"skipped": "not ported: ROADMAP item 16"}, key
+    assert expert_parallel == 1
+    assert moe["alltoall_ms_per_step"] is None
+    assert moe["alltoall_hidden_frac"] is None
+    phases = moe["step_phase_breakdown"]
+    # the expert FFN's forward under hvd_expert; no wire at one rank
+    assert phases["expert"] > 0 and phases["backward"] > 0
+    assert phases["dispatch"] == phases["combine"] == 0.0
+    assert "xla-trace-" in moe["xla_trace_dir"]
 
 
 def test_transformer_moe_json_contract():

@@ -319,3 +319,40 @@ def test_a_capture_after_every_graph_was_dropped(card):
     assert step.cache_misses == 1
     for a, b in zip(got.parameters(), want.parameters()):
         assert torch.equal(a, b)
+
+
+def test_a_traced_replay_attributes_the_flash_kernels(card, tmp_path):
+    """The phase trace of replayed compiled steps (diag/xla_trace.py):
+    the program re-captures once for its phase map, every replayed
+    kernel is matched, the flash kernels land in forward and backward
+    alone, ``other`` stays under 5% of the device time, and the traced
+    replays launch what untraced ones do."""
+    cfg = tfm.TransformerConfig(loss_chunk=64, **SMALL)
+    lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
+                           device=card)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(lm.parameters(), capturable=True, **ADAMW),
+        named_parameters=lm.named_parameters())
+    step = hvd.compiled_train_step(lm.loss, opt)
+    tokens, targets = _batches(card, 1)[0]
+    step(tokens, targets)
+    step(tokens, targets)
+    before = fa.launch_counts()
+    step(tokens, targets)
+    plain = {k: fa.launch_counts()[k] - n for k, n in before.items()}
+    tracer = hvd.trace_steps(2, out_dir=str(tmp_path))
+    before = fa.launch_counts()
+    for _ in range(3):
+        step(tokens, targets)
+    torch.cuda.synchronize()
+    traced = {k: (fa.launch_counts()[k] - n) / 3 for k, n in before.items()}
+    assert traced == plain
+    s = tracer.last_summary
+    assert s["unmatched"] == 0 and s["graph_events"] > 0
+    assert s["phases"]["other"] < 0.05 * s["total_s"]
+    for name, phase in (("flash_fwd_wgmma_kernel", "forward"),
+                        ("flash_bwd_dq_wgmma_kernel", "backward"),
+                        ("flash_bwd_dkv_wgmma_kernel", "backward")):
+        hits = [by for k, by in s["kernels"].items() if name in k]
+        assert hits and all(set(by) == {phase} for by in hits), name
+    assert step.flops_per_step > 0

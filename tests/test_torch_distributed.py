@@ -549,7 +549,6 @@ def test_deleted_optimizer_and_model_are_freed(monkeypatch):
     ("HOROVOD_TIMELINE", "/tmp/t.json", "item 10"),
     ("HOROVOD_GUARD", "1", "item 15"),
     ("HOROVOD_AUTOTUNE", "1", "item 10"),
-    ("HOROVOD_METRICS_DIR", "/tmp/m", "item 16"),
 ])
 def test_init_refuses_knobs_of_missing_subsystems(monkeypatch, knob, value,
                                                   item):

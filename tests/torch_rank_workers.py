@@ -5,6 +5,8 @@ imports this module. Each function returns numpy arrays and plain
 values, which the test compares with the JAX package in its own
 process."""
 
+import json
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -863,3 +865,71 @@ def pipelines(inp):
     hvd.shutdown()
     return out
 
+
+
+def stall_desync(diag_dir):
+    """The hang watchdog over gloo ranks (HOROVOD_STALL_TIMEOUT_SECONDS
+    0.5): rank 1 enters the named all-reduce ``diag.stall`` 2 s after
+    rank 0, then both finish it. Returns the sum, whether rank 0's
+    watchdog wrote its dump and desync report, and their contents."""
+    import os
+    import time
+
+    hvd.init(device="cpu")
+    try:
+        r = hvd.rank()
+        if r == 1:
+            time.sleep(2.0)
+        out = hvd.allreduce(torch.full((4,), float(r + 1)), average=False,
+                            name="diag.stall")
+        dump = os.path.join(diag_dir, f"flight-rank{r}.json")
+        report = os.path.join(diag_dir, "desync-report.json")
+        return {"sum": out.numpy().copy(),
+                "dump": (json.load(open(dump)) if os.path.exists(dump)
+                         else None),
+                "report": (json.load(open(report))
+                           if r == 0 and os.path.exists(report) else None)}
+    finally:
+        hvd.shutdown()
+
+
+def telemetry_skew(delay):
+    """TelemetryCallback's straggler skew over gloo ranks: rank r's step
+    sleeps ``delay * (r + 1)``; the skew sample (every step) allgathers
+    the step times. Returns the skew gauges."""
+    import time
+
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.callbacks import TelemetryCallback
+    hvd.init(device="cpu")
+    try:
+        cb = TelemetryCallback(batch_size=4, skew_interval=1)
+        for i in range(2):
+            cb.on_batch_begin(i)
+            time.sleep(delay * (hvd.rank() + 1))
+            cb.on_batch_end(i)
+        return {"skew": metrics.STEP_SKEW.value(),
+                "max": metrics.STEP_SKEW_MAX.value(),
+                "median": metrics.STEP_SKEW_MEDIAN.value(),
+                "steps": cb._steps,
+                "examples": metrics.EXAMPLES_PER_SEC.value()}
+    finally:
+        hvd.shutdown()
+
+
+def moe_bench_trace():
+    """bench.transformer's MoE scenario over an expert group of 2 gloo
+    ranks, chunks 2, at a small width: its ``moe`` row, whose trace keys
+    read the all-to-all."""
+    import os
+
+    from horovod_tpu_torch.bench import transformer as tfm_bench
+    os.environ["HOROVOD_PROFILER_DISABLE"] = "1"
+    try:
+        return tfm_bench.run_moe_benchmark(tfm_bench.parse_args(
+            ["--moe", "--expert-parallel", "2", "--moe-chunks", "2",
+             "--moe-d-model", "64", "--moe-d-ff", "128", "--moe-batch",
+             "8", "--moe-seq", "16", "--iters", "1", "--device", "cpu"]))[
+                 "moe"]
+    finally:
+        hvd.shutdown()
