@@ -7,7 +7,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 1. device: a CUDA card is required; its name and power limit are
    printed as ``nvidia-smi`` reports them;
 2. build: every CUDA source of the port is compiled from the checkout
-   (one nvcc per source, all at once) into build/horovod_tpu_torch/;
+   (one nvcc per source, all at once) into build/horovod_tpu_torch/,
+   and beside them the eager engine's native control plane
+   (``horovod_tpu_torch/csrc``, g++);
    each kernel's registers, spills and shared memory (nvcc's -Xptxas -v)
    and the count of HGMMA (wgmma) instructions in its SASS (cuobjdump
    -sass, where the toolkit has it; a tensor-core kernel without one
@@ -75,6 +77,44 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    checked for no fallback and their cache hit rates) and ``python -m
    horovod_tpu_torch.bench.transformer --iters 2``, each line checked for
    its metric, a positive value and a numeric MFU.
+
+The eager engine (ops/engine.py) has two phases of its own, after the
+train phase (6), and a bench line after the bench phase:
+
+- eager engine (main path eager_engine): the flagship at 4 x 4096 as a
+  Horovod user writes the loop: each gradient handed to
+  ``hvd.allreduce_async_`` from its hook as autograd produces it, every
+  handle synchronized, then AdamW's step; 3 + 4 steps beside the same
+  model under the bucketed ``DistributedOptimizer`` in the same session.
+  The parameters after every step are bitwise equal to the bucketed
+  run's (one rank: the average is a copy and a division by 1); the
+  fused all-reduces of a step are exactly what the planner
+  (:func:`plan_fusion_plain`, csrc/fusion.cc in plain Python) gives for
+  the hooks' order at the 64 MiB threshold; the response cache answers
+  at least EAGER_HIT_RATE_MIN of the negotiations from step 2 on;
+  ``profiler.txt`` holds exactly those all-reduces by message size (and
+  the bucketed one); ``HOROVOD_TIMELINE``'s file holds one negotiate
+  and one op span per tensor a step; every flash launch takes the
+  tensor-core route; and a profiled exchange of every gradient, in a
+  session of its own, copies nothing from the card to the host. It
+  prints the step time and the exchange's wall time (first hook to last
+  synchronize), each beside the bucketed figure; the span of the
+  engine's stream in the step (copy-in and unfuse events, a stream that
+  shares the SMs with the backward: not a device time), beside the
+  bucketed exchange's span on the caller's stream; and the device time
+  of the exchange's kernels, summed by torch.profiler over that
+  profiled exchange of every gradient;
+- eager 2 ranks: two processes on this card over gloo
+  (``chip_smoke.py --eager-rank R PORT OUT``; gloo moves card tensors
+  through the host, so not a speed figure): 24 names of f32, bf16 and
+  i32 in opposite orders equal to the host's sums and means, an
+  allgather of dim-0 sizes 3 and 5, a broadcast from root 1, a shape
+  mismatch raising MismatchError with the reference's message on both
+  ranks, the coordinator's bypass within 10 identical cycles, and a
+  stall (rank 1 withholds a name, stall check 1 s, shutdown 3 s) that
+  logs "Stalled ranks:" and raises StalledTensorError;
+- eager bench: ``python -m horovod_tpu_torch.bench.eager`` at one rank,
+  its JSON line checked for ``eager_allreduce_mbytes_sec``.
 
 The hot loop's CUDA graphs (ops/step_program.py) have two phases of
 their own, each after the eager phase it mirrors; the eager serve phase
@@ -251,7 +291,8 @@ launches its capture recorded; a TP path's launches are one rank's.
 
 Each main path runs with the kernel launch counts zeroed just before it
 and read just after. The first line is the card's name and power limit
-as ``nvidia-smi`` gives them; the run's wall time is printed before the
+as ``nvidia-smi`` gives them; the run's wall time and a line of the
+eager phases' figures (``{"eager_engine": ...}``) are printed before the
 last two lines, which are
 ``{"kernels": [...]}``, one entry per kernel, and the result,
 ``{"ok": true, "device": {...}}``.
@@ -2987,6 +3028,492 @@ def phase_tp(where):
     return res["launches"]["tp_serve"], res["launches"]["tp_train"]
 
 
+# ------------------------------------------------------------ eager engine
+
+EAGER_WARMUP, EAGER_TIMED = 3, 4
+# The share of a steady step's negotiations the response cache answers.
+EAGER_HIT_RATE_MIN = 0.9
+EAGER_RANKS, EAGER_TIMEOUT_S = 2, 300
+EAGER_STALL_ENV = {"HOROVOD_STALL_CHECK_TIME_SECONDS": "1",
+                   "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS": "3"}
+
+
+def _align(n, unit=64):
+    return -(-n // unit) * unit
+
+
+def plan_fusion_plain(nbytes, threshold, unit=64):
+    """csrc/fusion.cc's PlanFusion for one dtype, in plain Python: each
+    unassigned entry opens a group and takes every later one that still
+    fits (sizes aligned to the 64-byte atomic unit against the
+    threshold). Returns each group's payload bytes, in group order."""
+    taken = [False] * len(nbytes)
+    groups = []
+    for i, nb in enumerate(nbytes):
+        if taken[i]:
+            continue
+        taken[i] = True
+        used, payload = _align(nb, unit), nb
+        for j in range(i + 1, len(nbytes)):
+            if not taken[j] and used + _align(nbytes[j], unit) <= threshold:
+                taken[j] = True
+                used += _align(nbytes[j], unit)
+                payload += nbytes[j]
+        groups.append(payload)
+    return groups
+
+
+def predict_buckets(order_bytes, threshold):
+    """The fused all-reduces of one step whose f32 gradients reach the
+    engine in this order: a cycle runs at the enqueue that brings the
+    pending bytes to the threshold, and one more at the first
+    synchronize; each cycle fuses what is pending as the planner does."""
+    pending, out = [], []
+    for nb in order_bytes:
+        pending.append(nb)
+        if sum(pending) >= threshold:
+            out += plan_fusion_plain(pending, threshold)
+            pending = []
+    if pending:
+        out += plan_fusion_plain(pending, threshold)
+    return out
+
+
+def read_profiler(path, ops=("allreduce", "allreduce cached")):
+    """{message size: calls} summed over the ``ops`` sections of a
+    profiler.txt dump."""
+    hist, section = {}, None
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line.startswith("Counter "):
+                section = line[len("Counter "):].rsplit(",", 1)[0]
+                continue
+            if section in ops and line and line[0].isdigit():
+                size, count = (int(v) for v in line.split(",")[:2])
+                hist[size] = hist.get(size, 0) + count
+    return hist
+
+
+def timeline_spans(path):
+    """{tensor name: {span name: opened}} of a timeline file."""
+    with open(path) as f:
+        events = [e for e in json.load(f) if e]
+    names = {e["pid"]: e["args"]["name"] for e in events
+             if e.get("ph") == "M" and e.get("name") == "process_name"}
+    out = {}
+    for e in events:
+        if e.get("ph") == "B" and e.get("pid") in names:
+            spans = out.setdefault(names[e["pid"]], {})
+            spans[e["name"]] = spans.get(e["name"], 0) + 1
+    return out
+
+
+def phase_eager_engine(hvd, fa, tfm, card, where):
+    """Main path eager_engine: the flagship at 4 x 4096 trained as a
+    Horovod user writes the loop, each gradient handed to
+    ``hvd.allreduce_async_`` from its hook as autograd produces it,
+    every handle synchronized, then ``opt.step()`` (AdamW), beside the
+    same model under the bucketed ``DistributedOptimizer`` in the same
+    session, step for step. Gates: parameters bitwise equal after every
+    step; the fused all-reduces a step exactly what the planner gives for
+    the hooks' order; the response cache's hit rate from step 2 on;
+    ``profiler.txt`` (written at shutdown) holding exactly those
+    all-reduces by message size, and the bucketed ones; the timeline
+    holding one negotiate and one op span per tensor a step; every flash
+    launch on the tensor-core route; and, in a session of its own, no
+    device-to-host copy in a profiled exchange of every gradient.
+    Returns the engine steps' {kernel: launches}."""
+    tmp = tempfile.mkdtemp()
+    dump = os.path.join(tmp, "profiler.txt")
+    trace = os.path.join(tmp, "timeline.json")
+    os.environ.update(HOROVOD_PROFILER_PATH=dump, HOROVOD_TIMELINE=trace)
+    os.environ.pop("HOROVOD_PROFILER_DISABLE", None)
+    hvd.init(device=card)
+    engine = hvd.runtime.engine()
+    threshold = engine.config.fusion_threshold
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
+                                loss_chunk=LOSS_CHUNK, **FLAGSHIP)
+    lm_e = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
+                             device=card)
+    lm_b = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
+                             device=card)
+    opt_e = torch.optim.AdamW(lm_e.parameters(), **ADAMW)
+    opt_b = hvd.DistributedOptimizer(
+        torch.optim.AdamW(lm_b.parameters(), **ADAMW),
+        named_parameters=lm_b.named_parameters())
+    names = {p: n for n, p in lm_e.named_parameters()}
+    grad_bytes = sum(p.numel() * p.element_size() for p in lm_e.parameters())
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                               (TRAIN_BATCH, TRAIN_SEQ))
+    targets = torch.from_numpy(np.roll(tokens, -1, axis=1)).to(card)
+    tokens = torch.from_numpy(tokens).to(card)
+
+    pending = []   # (parameter, handle) of the step, in hook order
+    first = []     # event at the step's first hook
+
+    def hook(p):
+        if not first:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            first.append(ev)
+        pending.append((p, hvd.allreduce_async_(p.grad, name=names[p])))
+
+    hooks = [p.register_post_accumulate_grad_hook(hook)
+             for p in lm_e.parameters()]
+
+    def engine_step():
+        pending.clear()
+        first.clear()
+        opt_e.zero_grad(set_to_none=True)
+        loss = lm_e.loss(tokens, targets)
+        loss.backward()
+        order = [names[p] for p, _ in pending]
+        for p, h in pending:
+            out = hvd.synchronize(h)
+            check(out is p.grad and out.is_cuda,
+                  f"{names[p]}: the in-place result is not the card "
+                  f"gradient")
+        last = torch.cuda.Event(enable_timing=True)
+        last.record()
+        opt_e.step()
+        return loss.detach(), order, first[0], last
+
+    steps = EAGER_WARMUP + EAGER_TIMED
+    stats = hvd.runtime.live_state().stats
+    cache = engine.response_cache
+    launches = dict.fromkeys(COUNTERS, 0)
+    rows = []
+    orders = []
+    engine.bucket_spans.clear()
+    for i in range(steps):
+        if i == 1:
+            hits0, misses0 = cache.hits, cache.misses
+        calls0 = stats.counter("allreduce") + stats.counter("allreduce_cached")
+        zero_launches(fa)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        loss_e, order, ev_first, ev_last = engine_step()
+        e1.record()
+        torch.cuda.synchronize()
+        for name, n in read_launches(fa).items():
+            launches[name] += n
+        engine_calls = (stats.counter("allreduce")
+                        + stats.counter("allreduce_cached") - calls0)
+        spans = list(engine.bucket_spans)
+        engine.bucket_spans.clear()
+        exch_stream = sum(a.elapsed_time(b) + c.elapsed_time(d)
+                          for a, b, c, d in spans)
+        b0 = torch.cuda.Event(enable_timing=True)
+        b1 = torch.cuda.Event(enable_timing=True)
+        bt0 = stats.total_time_us("allreduce")
+        b0.record()
+        opt_b.zero_grad(set_to_none=True)
+        loss_b = lm_b.loss(tokens, targets)
+        loss_b.backward()
+        opt_b.step()
+        b1.record()
+        torch.cuda.synchronize()
+        check(torch.equal(loss_e, loss_b),
+              f"step {i}: engine loss {loss_e.item()} != bucketed "
+              f"{loss_b.item()}")
+        same = all(torch.equal(a, b) for a, b in zip(lm_e.parameters(),
+                                                     lm_b.parameters()))
+        check(same, f"step {i}: parameters differ from the bucketed "
+                    f"DistributedOptimizer's")
+        orders.append(order)
+        rows.append({"step_ms": e0.elapsed_time(e1),
+                     "bucketed_ms": b0.elapsed_time(b1),
+                     "exchange_wall_ms": ev_first.elapsed_time(ev_last),
+                     "exchange_stream_ms": exch_stream,
+                     "buckets": engine_calls, "spans": len(spans),
+                     "bucketed_exchange_ms": (stats.total_time_us("allreduce")
+                                              - bt0) / 1e3,
+                     "loss": loss_e.item()})
+    hits, misses = cache.hits - hits0, cache.misses - misses0
+    for h in hooks:
+        h.remove()
+    check(all(o == orders[0] for o in orders),
+          "the hooks' submission order changed between steps")
+    sizes = {n: p.numel() * p.element_size()
+             for p, n in names.items()}
+    predicted = predict_buckets([sizes[n] for n in orders[0]], threshold)
+    for i, r in enumerate(rows):
+        check(r["buckets"] == len(predicted),
+              f"step {i}: {r['buckets']} fused all-reduces, "
+              f"{len(predicted)} planned")
+        check(r["spans"] == len(predicted),
+              f"step {i}: {r['spans']} engine buckets, {len(predicted)} "
+              f"planned")
+    rate = hits / max(hits + misses, 1)
+    check(rate >= EAGER_HIT_RATE_MIN,
+          f"response cache hit rate {rate:.4f} from step 2 on")
+    for name, n in launches.items():
+        want = 0 if name in WGMMA else steps * cfg.n_layers
+        if name.startswith("flash_band"):
+            want = 0
+        check(n == want, f"{name} launched {n} times in {steps} engine "
+                         f"steps, {want} expected")
+    timed = rows[EAGER_WARMUP:]
+    med = {k: float(np.median([r[k] for r in timed]))
+           for k in ("step_ms", "bucketed_ms", "exchange_wall_ms",
+                     "exchange_stream_ms", "bucketed_exchange_ms")}
+    print(f"eager engine [{where}]: flagship 4 x {TRAIN_SEQ}, "
+          f"{len(predicted)} fused all-reduces a step at threshold "
+          f"{threshold} (planned: {predicted}); cache hit rate {rate:.4f} "
+          f"({hits} hits, {misses} misses, steps 2-{steps}); losses "
+          f"{' '.join(f'{r['loss']:.4f}' for r in rows)}", flush=True)
+    print(f"eager engine [{where}]: step {med['step_ms']:.1f} ms beside the "
+          f"bucketed optimizer's {med['bucketed_ms']:.1f} ms (medians of "
+          f"{EAGER_TIMED}; engine {' '.join(f'{r['step_ms']:.1f}' for r in timed)}"
+          f"; bucketed {' '.join(f'{r['bucketed_ms']:.1f}' for r in timed)}); "
+          f"exchange wall (first hook to last synchronize) "
+          f"{med['exchange_wall_ms']:.2f} ms; the engine stream's span "
+          f"(copy-in and unfuse events, beside the backward) "
+          f"{med['exchange_stream_ms']:.2f} ms, the bucketed exchange's "
+          f"span on the caller's stream "
+          f"{med['bucketed_exchange_ms']:.2f} ms", flush=True)
+    del opt_e, opt_b, lm_b
+    gc.collect()
+    hvd.shutdown()
+    got = read_profiler(dump)
+    want = {}
+    for nb in predicted:
+        want[nb] = want.get(nb, 0) + steps
+    want[grad_bytes] = want.get(grad_bytes, 0) + steps
+    check(got == want, f"profiler.txt all-reduces {got}, expected {want}")
+    spans = timeline_spans(trace)
+    for name in orders[0]:
+        s = spans.get(name, {})
+        check(s.get("NEGOTIATE_ALLREDUCE") == steps
+              and s.get("ALLREDUCE") == steps,
+              f"timeline spans of {name}: {s}, {steps} of each expected")
+    print(f"eager engine: profiler.txt {sum(got.values())} all-reduces in "
+          f"{len(got)} sizes as planned; timeline {len(spans)} tensors, one "
+          f"negotiate and one op span each a step", flush=True)
+    for k in ("HOROVOD_PROFILER_PATH", "HOROVOD_TIMELINE"):
+        os.environ.pop(k, None)
+    dtoh, exch_dev = eager_no_host_copy(hvd, lm_e, names, card)
+    del lm_e
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {**med, "exchange_device_ms": exch_dev,
+                      "buckets": len(predicted), "hit_rate": rate,
+                      "dtoh": dtoh}
+
+
+def eager_no_host_copy(hvd, lm, names, card):
+    """Every gradient of ``lm`` through ``allreduce_async_`` and
+    ``synchronize`` in a ``torch.profiler`` window, in a session of its
+    own: the window must show device work and no device-to-host copy.
+    Returns the host copies (0) and the device time of the exchange's
+    kernels and copies in the window, ms (the engine's copy-in, NCCL and
+    unfuse, the self time of every device event, as :func:`device_ms`
+    sums it; every thread's launches, the completion thread's
+    included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    hvd.init(device=card)
+    params = [p for p in lm.parameters() if p.grad is not None]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        handles = [hvd.allreduce_async_(p.grad, name=names[p])
+                   for p in params]
+        for h in handles:
+            hvd.synchronize(h)
+        torch.cuda.synchronize()
+    hvd.shutdown()
+    evs = prof.events()
+    device = [e for e in evs if e.device_type == torch.autograd.DeviceType.CUDA]
+    dtoh = [e.name for e in evs if "DtoH" in e.name
+            or "Device -> Pageable" in e.name or "Device -> Pinned" in e.name]
+    check(device, "the profiled exchange shows no device work")
+    check(not dtoh, f"the exchange copied to the host: {dtoh[:4]}")
+    dev_ms = sum(getattr(r, "self_device_time_total", 0)
+                 for r in prof.key_averages()
+                 if r.device_type == DeviceType.CUDA) / 1e3
+    check(dev_ms > 0, "the profiled exchange shows no device time")
+    print(f"eager engine: {len(params)} card gradients exchanged with "
+          f"{len(device)} device events and no device-to-host copy; the "
+          f"exchange's device time {dev_ms:.3f} ms (torch.profiler, the "
+          f"kernels and copies of one exchange of every gradient)",
+          flush=True)
+    return len(dtoh), dev_ms
+
+
+def eager_worker(rank, port, out_path):
+    """One rank of the two-rank eager phase (``chip_smoke.py --eager-rank
+    R PORT OUT``): joins a gloo group, ``hvd.init()`` keeps it, then the
+    negotiation checks of :func:`phase_eager_engine_2ranks`. Writes its
+    results to ``out_path`` + rank."""
+    import logging
+
+    import torch.distributed as dist
+    card = torch.device("cuda", 0)
+    torch.cuda.set_device(card)
+    os.environ.update(HOROVOD_PROFILER_DISABLE="1", **EAGER_STALL_ENV)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=EAGER_RANKS)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.utils.logging import get_logger
+    hvd.init(device=card)
+    res = {"rank": rank}
+    warnings = []
+
+    class _Catch(logging.Handler):
+        def emit(self, record):
+            warnings.append(record.getMessage())
+
+    get_logger().addHandler(_Catch())
+
+    # 24 names, mixed dtypes and shapes, submitted in opposite orders
+    dtypes = (torch.float32, torch.bfloat16, torch.int32)
+    specs = [(f"eager.{i}", dtypes[i % 3], (i % 5 + 1, 3 + i % 4),
+              i % 2 == 0) for i in range(24)]
+
+    def value(i, r, dtype, shape):
+        g = torch.Generator().manual_seed(100 * i + r)
+        x = torch.randint(-8, 9, shape, generator=g)
+        return x.to(dtype)
+
+    order = specs if rank == 0 else specs[::-1]
+    handles = {}
+    for name, dtype, shape, average in order:
+        i = int(name.split(".")[1])
+        handles[name] = hvd.allreduce_async(
+            value(i, rank, dtype, shape).to(card), average=average,
+            name=name)
+    ok = True
+    for name, dtype, shape, average in specs:
+        i = int(name.split(".")[1])
+        got = hvd.synchronize(handles[name])
+        total = sum(value(i, r, torch.float64, shape)
+                    for r in range(EAGER_RANKS))
+        want = total / EAGER_RANKS if average else total
+        if not dtype.is_floating_point and average:
+            want = torch.floor(want)
+        ok &= (got.is_cuda and got.dtype == dtype
+               and torch.equal(got.cpu().double(), want.to(dtype).double()))
+    res["allreduce_ok"] = bool(ok)
+    g = hvd.allgather(torch.full((3 if rank == 0 else 5, 2), float(rank),
+                                 device=card), name="eager.gather")
+    res["allgather"] = g.cpu().tolist()
+    b = hvd.broadcast(torch.full((4,), float(rank + 10), device=card),
+                      root_rank=1, name="eager.bcast")
+    res["broadcast"] = b.cpu().tolist()
+    try:
+        hvd.allreduce(torch.ones(2 + rank, device=card), name="eager.mismatch")
+        res["mismatch"] = None
+    except hvd.MismatchError as e:
+        res["mismatch"] = str(e)
+    coord = hvd.runtime.engine().coordinator
+    for step in range(10):
+        hs = [hvd.allreduce_async(torch.full((64,), float(step), device=card),
+                                  name=f"eager.steady.{j}")
+              for j in range(8)]
+        for h in hs:
+            hvd.synchronize(h)
+    res["fast_lane_cycles"] = coord.fast_lane_cycles
+    res["token_publishes"] = coord.token_publishes
+    # the stall: rank 1 withholds one name
+    t0 = time.perf_counter()
+    h = hvd.allreduce_async(torch.ones(4, device=card), name="eager.both")
+    if rank == 0:
+        hs = hvd.allreduce_async(torch.ones(4, device=card),
+                                 name="eager.withheld")
+    hvd.synchronize(h)
+    res["stalled"] = None
+    if rank == 0:
+        try:
+            hvd.synchronize(hs)
+        except hvd.StalledTensorError as e:
+            res["stalled"] = str(e)
+    res["stall_s"] = time.perf_counter() - t0
+    dist.barrier()
+    res["stall_warning"] = any("Stalled ranks:" in w for w in warnings)
+    res["warnings"] = [w for w in warnings if "Stalled ranks:" in w][:1]
+    hvd.shutdown()
+    with open(f"{out_path}{rank}", "w") as f:
+        json.dump(res, f)
+
+
+def phase_eager_engine_2ranks(where):
+    """The engine's negotiation across two processes on this card over
+    gloo (:func:`eager_worker`; NCCL refuses two ranks on one card):
+    24 names of mixed dtypes and shapes submitted in opposite orders,
+    each result equal to the sum or mean computed on the host; an
+    allgather of dim-0 sizes 3 and 5; a broadcast from root 1; a shape
+    mismatch raising MismatchError with the reference's message on both
+    ranks; the coordinator's steady-state bypass within 10 identical
+    cycles; a stall (rank 1 withholds one name) that logs "Stalled
+    ranks:" and raises StalledTensorError on rank 0. A negotiation
+    check, not a speed figure: gloo moves card tensors through the
+    host."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out = os.path.join(tempfile.mkdtemp(), "eager")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--eager-rank", str(r), str(port), out])
+             for r in range(EAGER_RANKS)]
+    try:
+        codes = [p.wait(timeout=EAGER_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(codes == [0] * EAGER_RANKS, f"eager ranks exited with {codes}")
+    res = []
+    for r in range(EAGER_RANKS):
+        with open(f"{out}{r}") as f:
+            res.append(json.load(f))
+    want_gather = [[0.0, 0.0]] * 3 + [[1.0, 1.0]] * 5
+    mismatch = ("Mismatched allreduce tensor shapes: One rank sent a tensor "
+                "of shape [2], but another rank sent a tensor of shape [3].")
+    for r in res:
+        check(r["allreduce_ok"], f"rank {r['rank']}: a sum or mean differs "
+                                 f"from the host's")
+        check(r["allgather"] == want_gather,
+              f"rank {r['rank']}: allgather {r['allgather']}")
+        check(r["broadcast"] == [11.0] * 4,
+              f"rank {r['rank']}: broadcast {r['broadcast']}")
+        check(r["mismatch"] == mismatch,
+              f"rank {r['rank']}: mismatch message {r['mismatch']!r}")
+        check(r["fast_lane_cycles"] > 0,
+              f"rank {r['rank']}: no bypass cycle in 10 identical cycles "
+              f"({r['fast_lane_cycles']} fast-lane, {r['token_publishes']} "
+              f"token publishes)")
+    check(res[0]["stall_warning"], "rank 0 logged no 'Stalled ranks:'")
+    check(res[0]["stalled"] is not None and res[0]["stalled"].startswith(
+        "One or more rank is stalled for longer than 3 seconds"),
+        f"rank 0's stall: {res[0]['stalled']!r}")
+    wall = time.perf_counter() - t0
+    print(f"eager 2 ranks [{where}]: gloo through the host, not a speed "
+          f"figure; 24 mixed-dtype names in opposite orders, allgather 3+5, "
+          f"broadcast from 1, the mismatch and the stall as the reference "
+          f"words them; bypass cycles {[r['fast_lane_cycles'] for r in res]}"
+          f" of 10, stall raised after {res[0]['stall_s']:.1f} s; phase "
+          f"{wall:.1f} s", flush=True)
+    return {"wall_s": wall, "fast_lane": [r["fast_lane_cycles"] for r in res]}
+
+
+def phase_eager_bench(where):
+    """``python -m horovod_tpu_torch.bench.eager`` once at one rank on
+    this card: its JSON line, checked for the metric and a positive
+    value."""
+    line = _bench_line(["horovod_tpu_torch.bench.eager"],
+                       dict(os.environ), 600)
+    check(line.get("metric") == "eager_allreduce_mbytes_sec"
+          and line.get("value", 0) > 0, f"eager bench line {line}")
+    print(f"eager bench [{where}]: {json.dumps(line)}", flush=True)
+    return line
+
+
 def moe_stats(tfm, moe, metrics, params, tokens, cfg, full_capacity):
     """One evaluation of the model on ``tokens`` whose MoE layers run
     with ``with_stats`` (the other layers as the model runs them), each
@@ -3465,8 +3992,15 @@ def main():
     from horovod_tpu_torch.serve.engine import ServeEngine
 
     t0 = time.perf_counter()
-    logs = _build.build()
-    print(f"build: {sorted(logs) or 'up to date'} in "
+    # the eager engine's native control plane (g++) builds beside nvcc
+    from concurrent.futures import ThreadPoolExecutor
+
+    from horovod_tpu_torch import native
+    with ThreadPoolExecutor(1) as pool:
+        control = pool.submit(native.build)
+        logs = _build.build()
+        control = control.result()
+    print(f"build: {sorted(logs) or 'up to date'} and {control.name} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         kernel_usage(fa, _build, name, log)
@@ -3497,6 +4031,10 @@ def main():
     del lm
     torch.cuda.empty_cache()
     train_launches, _ = phase_train(hvd, fa, tfm, card, where)
+    t0 = time.perf_counter()
+    eager_launches, eager_row = phase_eager_engine(hvd, fa, tfm, card, where)
+    print(f"eager engine phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    eager_row["two_ranks"] = phase_eager_engine_2ranks(where)
     t0 = time.perf_counter()
     compiled_train_launches, params, _, stage0 = phase_compiled_train(
         hvd, fa, tfm, card, where)
@@ -3574,12 +4112,14 @@ def main():
     t0 = time.perf_counter()
     phase_resnet(hvd, card, where)
     phase_bench(where)
+    eager_row["bench"] = phase_eager_bench(where)
     print(f"resnet and bench phases: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
     entries = [entry, bwd_entries["flash_bwd_dq"],
                bwd_entries["flash_bwd_dkv"], *band_entries]
     paths = {"serve": serve_launches, "train": train_launches,
+             "eager_engine": eager_launches,
              "sp_train": sp_launches,
              "compiled_serve": compiled_serve_launches,
              "compiled_train": compiled_train_launches,
@@ -3603,6 +4143,9 @@ def main():
         check(e["launches"] > 0, f"{e['name']} never ran on a main path")
     print(f"chip_smoke: wall time {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    # the eager phases' figures, repeated here where the tail of a long
+    # run's output still holds them
+    print(json.dumps({"eager_engine": eager_row, "card": where}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3613,5 +4156,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-rank"]:
         tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--eager-rank"]:
+        eager_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         sys.exit(0)
     sys.exit(main())

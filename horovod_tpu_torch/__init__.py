@@ -26,6 +26,17 @@ Entry points run on ``torch.device("cuda")`` unless the caller passes
 ``device="cpu"``, where each kernel's plain PyTorch version runs
 instead.
 
+The top-level ``allreduce``, ``allgather``, ``broadcast`` and
+``alltoall``, their ``_async`` and in-place (``_``) forms, ``poll`` and
+``synchronize`` go through the eager engine (ops/engine.py): named,
+negotiated across ranks, fused, cached and stall-checked, as in the
+reference; the synchronous forms are autograd functions
+(:class:`HorovodAllreduce`, :class:`HorovodAllgather`,
+:class:`HorovodBroadcast`). ``horovod_tpu_torch.ops.collectives`` stays
+the direct path the optimizer, ZeRO, tensor, expert and sequence
+parallelism run on, as ``horovod_tpu.ops`` is the jit path beside the
+JAX package's eager API.
+
 Diagnostics (diag/): ``hvd.trace_steps(n)`` (or ``HOROVOD_XPROF_STEPS``)
 captures the next n steps with ``torch.profiler`` and attributes their
 device time to the step's phases, replayed CUDA graphs included; the
@@ -37,10 +48,15 @@ exporters follow their knobs (``HOROVOD_FLIGHT_BUFFER``,
 telemetry.
 """
 
+import torch
+
 from . import callbacks, diag, metrics, models, serve
-from .exceptions import HorovodError, NotInitializedError, ShutDownError
-from .ops.collectives import (allgather, allreduce, alltoall,
-                              alltoall_chunked, broadcast,
+from .exceptions import (CoordinatorError, DuplicateNameError, HorovodError,
+                         MismatchError, NotInitializedError, ShutDownError,
+                         StalledTensorError)
+from .negotiation import ALLGATHER, ALLREDUCE, ALLTOALL, BROADCAST
+from .ops import collectives as _collectives
+from .ops.collectives import (alltoall_chunked,
                               bucketed_reducescatter_allgather,
                               exchange_bucket_plan, grouped_allreduce,
                               hierarchical_allreduce, reducescatter)
@@ -56,12 +72,210 @@ from .runtime import (AXIS, cross_rank, cross_size, expert_mesh,
 
 __version__ = "0.2.0"
 
+# Auto-generated names for unnamed ops, parity with the reference's
+# "allreduce.noname.%d" counters (torch/mpi_ops_v2.cc:58-62). Every rank
+# names its unnamed ops in the order it submits them.
+_noname_counters = {}
+# (engine, handle) -> the tensor an in-place form writes its result into
+_outputs = {}
+
+
+def _auto_name(op):
+    n = _noname_counters.get(op, 0)
+    _noname_counters[op] = n + 1
+    return f"{op}.noname.{n + 1}"
+
+
+def _engine():
+    from .runtime import engine
+    return engine()
+
+
+def _first(result):
+    """Engine results are ``{rank: tensor}`` (one rank a process)."""
+    if isinstance(result, dict):
+        return result[min(result)]
+    return result
+
+
+def _inplace(handle, tensor):
+    _outputs[(id(_engine()), handle)] = tensor
+    return handle
+
+
+# ---------------------------------------------------------------- eager ops
+
+def allreduce_async(tensor, average=True, name=None,
+                    compression=Compression.none, rank=None, to_host=True):
+    """Asynchronous allreduce; returns a handle for poll()/synchronize()
+    (reference: torch/mpi_ops.py:85-120). ``compression`` narrows the
+    wire dtype. ``to_host`` is the JAX package's flag, accepted and
+    ignored: the result always lies on the input's device
+    (ops/engine.py)."""
+    del to_host
+    if name is None:
+        name = _auto_name("allreduce")
+    comp = None if compression is Compression.none else compression
+    return _engine().enqueue(ALLREDUCE, tensor, name, rank=rank,
+                             average=average, compression=comp)
+
+
+class HorovodAllreduce(torch.autograd.Function):
+    """Autograd allreduce: the backward of a (linear) allreduce is the
+    same allreduce of the incoming gradient
+    (reference: torch/mpi_ops.py:110-121)."""
+
+    @staticmethod
+    def forward(ctx, tensor, average, name, compression):
+        ctx.average = average
+        return synchronize(allreduce_async(tensor, average=average,
+                                           name=name,
+                                           compression=compression))
+
+    @staticmethod
+    def backward(ctx, grad_output):
+        return allreduce(grad_output, average=ctx.average), None, None, None
+
+
+def allreduce(tensor, average=True, name=None, compression=Compression.none):
+    """Average (default) or sum of ``tensor`` over all ranks, on its
+    device (reference: torch/mpi_ops.py:122-154); gradients flow if the
+    input requires them."""
+    return HorovodAllreduce.apply(tensor, average, name, compression)
+
+
+def allreduce_async_(tensor, average=True, name=None, rank=None):
+    """In-place async allreduce: ``synchronize`` writes the result into
+    ``tensor`` (reference: torch/mpi_ops.py:157-176)."""
+    if name is None:
+        name = _auto_name("allreduce")
+    return _inplace(_engine().enqueue(ALLREDUCE, tensor, name, rank=rank,
+                                      average=average, inplace=True),
+                    tensor)
+
+
+def allreduce_(tensor, average=True, name=None):
+    """(reference: torch/mpi_ops.py:179-197)"""
+    return synchronize(allreduce_async_(tensor, average=average, name=name))
+
+
+def allgather_async(tensor, name=None, rank=None):
+    """Asynchronous allgather (reference: torch/mpi_ops.py:200-231)."""
+    if name is None:
+        name = _auto_name("allgather")
+    return _engine().enqueue(ALLGATHER, tensor, name, rank=rank)
+
+
+class HorovodAllgather(torch.autograd.Function):
+    """Autograd allgather: backward sums every rank's gradient and takes
+    this rank's dim-0 slice (reference: torch/mpi_ops.py:236-254)."""
+
+    @staticmethod
+    def forward(ctx, tensor, name):
+        ctx.dim = tensor.shape[0]
+        return synchronize(allgather_async(tensor, name=name))
+
+    @staticmethod
+    def backward(ctx, grad_output):
+        grad_reduced = allreduce(grad_output, average=False)
+        dims = allgather(torch.tensor([ctx.dim], dtype=torch.int32))
+        r = rank()
+        offset = int(dims[:r].sum()) if r else 0
+        return grad_reduced.narrow(0, offset, ctx.dim), None
+
+
+def allgather(tensor, name=None):
+    """Every rank's tensor concatenated along dim 0, which may differ
+    across ranks (reference: torch/mpi_ops.py:233-262)."""
+    return HorovodAllgather.apply(tensor, name)
+
+
+def broadcast_async(tensor, root_rank, name=None, rank=None):
+    """Asynchronous broadcast (reference: torch/mpi_ops.py:282-315)."""
+    if name is None:
+        name = _auto_name("broadcast")
+    return _engine().enqueue(BROADCAST, tensor, name, rank=rank,
+                             root_rank=root_rank)
+
+
+class HorovodBroadcast(torch.autograd.Function):
+    """Autograd broadcast: backward reduces every rank's gradient to the
+    root; non-root ranks get zero (reference: torch/mpi_ops.py:322-337)."""
+
+    @staticmethod
+    def forward(ctx, tensor, root_rank, name):
+        ctx.root_rank = root_rank
+        return synchronize(broadcast_async(tensor, root_rank, name=name))
+
+    @staticmethod
+    def backward(ctx, grad_output):
+        grad_reduced = allreduce(grad_output, average=False)
+        if rank() != ctx.root_rank:
+            grad_reduced = grad_reduced * 0
+        return grad_reduced, None, None
+
+
+def broadcast(tensor, root_rank, name=None):
+    """Every rank receives root_rank's tensor
+    (reference: torch/mpi_ops.py:317-347)."""
+    return HorovodBroadcast.apply(tensor, root_rank, name)
+
+
+def broadcast_async_(tensor, root_rank, name=None, rank=None):
+    """In-place async broadcast (reference: torch/mpi_ops.py:350-379)."""
+    if name is None:
+        name = _auto_name("broadcast")
+    return _inplace(_engine().enqueue(BROADCAST, tensor, name, rank=rank,
+                                      root_rank=root_rank), tensor)
+
+
+def broadcast_(tensor, root_rank, name=None):
+    """(reference: torch/mpi_ops.py:382-401)"""
+    return synchronize(broadcast_async_(tensor, root_rank, name=name))
+
+
+def alltoall(tensor, name=None, split_axis=0, concat_axis=0, group=None):
+    """Scatter equal dim-0 slices to every rank and gather the slices
+    received, in rank order, through the engine (named and negotiated).
+    Other axes or a sub-group take the direct, differentiable collective
+    (ops/collectives.py ``alltoall``) that expert parallelism runs on."""
+    if split_axis != 0 or concat_axis != 0 or group is not None:
+        return _collectives.alltoall(tensor, group=group,
+                                     split_axis=split_axis,
+                                     concat_axis=concat_axis)
+    if name is None:
+        name = _auto_name("alltoall")
+    return synchronize(_engine().enqueue(ALLTOALL, tensor, name))
+
+
+def poll(handle):
+    """True once the async op completed (reference: torch/mpi_ops.py:404-419)."""
+    return _engine().poll(handle)
+
+
+def synchronize(handle):
+    """Wait for an async op; returns its output, written into the input
+    for the in-place forms (reference: torch/mpi_ops.py:422-438)."""
+    eng = _engine()
+    target = _outputs.pop((id(eng), handle), None)
+    out = _first(eng.synchronize(handle))
+    if target is None:
+        return out
+    if out.data_ptr() != target.data_ptr():
+        target.copy_(out)
+    return target
+
+
 __all__ = [
-    "AXIS", "CompiledTrainStep", "Compression", "DistributedOptimizer",
-    "HorovodError",
-    "NotInitializedError", "ShutDownError", "__version__", "allgather",
-    "allreduce", "alltoall", "alltoall_chunked", "broadcast",
-    "broadcast_optimizer_state", "broadcast_parameters",
+    "AXIS", "CompiledTrainStep", "Compression", "CoordinatorError",
+    "DistributedOptimizer", "DuplicateNameError", "HorovodAllgather",
+    "HorovodAllreduce", "HorovodBroadcast", "HorovodError", "MismatchError",
+    "NotInitializedError", "ShutDownError", "StalledTensorError",
+    "__version__", "allgather", "allgather_async", "allreduce",
+    "allreduce_", "allreduce_async", "allreduce_async_", "alltoall",
+    "alltoall_chunked", "broadcast", "broadcast_", "broadcast_async",
+    "broadcast_async_", "broadcast_optimizer_state", "broadcast_parameters",
+    "poll", "synchronize",
     "bucketed_reducescatter_allgather", "compiled_train_step", "cross_rank",
     "cross_size", "expert_mesh", "expert_parallel_size",
     "exchange_bucket_plan", "grouped_allreduce", "hierarchical_allreduce",

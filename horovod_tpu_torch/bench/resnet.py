@@ -31,8 +31,12 @@ One JSON line carries the reference's keys for what it measures, the
 flagship transformer's row (``bench.transformer`` at 4 iterations, on a
 card), and ``{"skipped": "not ported: ROADMAP item N"}`` for each profile
 whose subsystem the port does not have yet (:data:`NOT_PORTED`: the
-eager engine's dispatch and exchange profiles and the control plane,
-item 10; the input pipeline, item 14; the guard, item 15).
+control plane's simulated ranks, item 10; the input pipeline, item 14;
+the guard, item 15). ``dispatch`` is bench.py's per-call cost of a null
+device op (enqueue, a blocking and a deferred readback, both together);
+``eager_exchange`` its steady-state exchange through the eager engine
+(ops/engine.py): the wire-layout cache's hit rate and the synchronize
+wait a step.
 
 The eager loop's diagnostics, bench.py's: ``flight_step_phase_breakdown``
 (the flight recorder's wire, readback and input time over the timed
@@ -97,11 +101,9 @@ CI_TARGET_PCT = 3.0
 NUM_CLASSES = 1000
 
 # The reference's profiles whose subsystems are not ported, by the
-# ROADMAP.md Queue 1 item that brings each: the eager engine and the
-# control plane (tree fan-in, graduation, simrank) with the native
-# engine (10), the input pipeline (14), the guard (15).
+# ROADMAP.md Queue 1 item that brings each: the control plane's
+# simulated-rank harness (10), the input pipeline (14), the guard (15).
 NOT_PORTED = {
-    "dispatch": 10, "eager_exchange": 10,
     "input_pipeline": 14, "guard_overhead_frac": 15,
     "control_plane": 10,
 }
@@ -683,6 +685,8 @@ def run_benchmark(proto, device):
          "--device", device.type]))["moe"]
     zero = _zero_profile(runtime.device())
     mesh3d = _mesh3d_row(device)
+    dispatch = _dispatch_profile(runtime.device())
+    exchange = _eager_exchange_profile(runtime.device())
     result = {
         "metric": "resnet50_img_sec_per_chip",
         "value": round(mean, 2),
@@ -707,11 +711,97 @@ def run_benchmark(proto, device):
         "flight_step_phase_breakdown": flight_phases,
         "flight_overhead_frac": flight_overhead,
         "trace_overhead_frac": compiled["trace_overhead_frac"],
+        "dispatch": dispatch,
+        "eager_exchange": exchange,
         "card": card,
     }
     for key, item in NOT_PORTED.items():
         result[key] = _skipped(item)
     return result
+
+
+def _dispatch_profile(device):
+    """bench.py's per-call cost of a null device op (``x + 1`` on a 0-d
+    tensor), min of 5 each: ``enqueue_ms`` the call returning without a
+    readback; ``readback_sync_ms`` reading a completed fresh result with
+    no copy started before; ``readback_ms`` the same read when the copy
+    to the host was started at dispatch (``non_blocking``) and has
+    landed; ``full_ms`` call and read together; ``overlap_efficiency``
+    1 - deferred / blocking readback (1.0 below the 0.05 ms noise
+    floor)."""
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    x = torch.zeros((), device=device)
+    float(x + 1.0)  # warm-up
+    enq = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        y = x + 1.0
+        enq.append(time.perf_counter() - t0)
+    sync()
+    zs = [x + float(i) for i in range(5)]
+    sync()
+    rb = []
+    for z in zs:
+        t0 = time.perf_counter()
+        float(z)
+        rb.append(time.perf_counter() - t0)
+    full = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        float(x + 1.0)
+        full.append(time.perf_counter() - t0)
+    host = [(x + float(i + 50)).to("cpu", non_blocking=True)
+            for i in range(5)]
+    sync()
+    deferred = []
+    for h in host:
+        t0 = time.perf_counter()
+        float(h)
+        deferred.append(time.perf_counter() - t0)
+    del y
+    sync_ms, deferred_ms = min(rb) * 1e3, min(deferred) * 1e3
+    overlap = (max(0.0, min(1.0, 1.0 - deferred_ms / sync_ms))
+               if sync_ms > 0.05 else 1.0)
+    return {"enqueue_ms": min(enq) * 1e3, "readback_ms": deferred_ms,
+            "readback_sync_ms": sync_ms, "full_ms": min(full[1:]) * 1e3,
+            "overlap_efficiency": overlap}
+
+
+def _eager_exchange_profile(device):
+    """bench.py's steady-state eager gradient exchange through the engine
+    (ops/engine.py): the same three tensors every step, as a training
+    loop's gradient set. ``wire_cache_hit_rate`` is the engine's
+    wire-layout cache over the run (one entry a bucket signature: >= 0.9
+    once warm); ``eager_sync_wait_ms`` the mean wait of a step's
+    synchronize calls after the first step; ``device_resident_results``
+    whether every result lies on the inputs' device."""
+    import horovod_tpu_torch as hvd
+    eng = runtime.engine()
+    steps = 12 if os.environ.get("HOROVOD_BENCH_SMOKE") == "1" else 24
+    shapes = [(1024,), (64, 32), (256,)]
+    base_h, base_m = eng.wire_cache.hits, eng.wire_cache.misses
+    waits, on_device = [], True
+    for s in range(steps):
+        handles = [hvd.allreduce_async(
+            torch.full(shape, float(s + i), device=device),
+            name=f"bench.exchange.{i}")
+            for i, shape in enumerate(shapes)]
+        t0 = time.perf_counter()
+        results = [hvd.synchronize(h) for h in handles]
+        waits.append(time.perf_counter() - t0)
+        on_device = on_device and all(r.device == device for r in results)
+    hits = eng.wire_cache.hits - base_h
+    misses = eng.wire_cache.misses - base_m
+    steady = waits[1:] or waits
+    return {"wire_cache_hit_rate": hits / max(hits + misses, 1),
+            "wire_cache_hits": hits, "wire_cache_misses": misses,
+            "eager_sync_wait_ms": float(np.mean(steady)) * 1e3,
+            "device_resident_results": bool(on_device), "steps": steps}
 
 
 def main(argv=None):

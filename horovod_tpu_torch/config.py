@@ -12,14 +12,21 @@ expert-parallel and model-parallel degrees and the MoE all-to-all chunks
 loop's switches (``HOROVOD_STEP_PROGRAM``,
 ``HOROVOD_STEP_PROGRAM_CHURN_LIMIT``, ``HOROVOD_DEVICE_RESIDENT``), the
 profiler dump and its per-replay
-records (``HOROVOD_PROFILER_JIT_CALLBACKS``), the MFU peak, the knobs of
-subsystems the port does not have yet (``init()`` refuses them), and
+records (``HOROVOD_PROFILER_JIT_CALLBACKS``), the MFU peak, the eager
+engine's and its coordinator's knobs (fusion threshold, cycle time,
+response cache, timeline, stall checks, overlap pipeline, padding, wire
+profile, the control plane's tree, graduation and bypass, the KV
+client's retries), the knobs of subsystems the port does not have yet
+(``init()`` refuses them), :data:`FUSION_BUFFER_ATOMIC_UNIT` and
 :func:`next_power_of_two` (the shape bins). Names, defaults and clamps
 are the JAX package's.
 """
 
 import dataclasses
 import os
+
+# Fusion-buffer alignment unit, bytes (reference: operations.h:30).
+FUSION_BUFFER_ATOMIC_UNIT = 64
 
 
 def _env_int(name, default):
@@ -105,9 +112,51 @@ class Config:
     profiler_jit_callbacks: bool = False
     # Knobs of subsystems the port does not have yet; init() refuses a
     # set one rather than ignore it.
-    timeline: str = ""
     guard: bool = False
     autotune: bool = False
+    # The eager engine (ops/engine.py). Tensor fusion threshold in bytes
+    # (reference: operations.cc:1176-1186), coordination cycle time in ms
+    # (operations.cc:1196-1203), response cache capacity
+    # (global_state.h:169).
+    fusion_threshold: int = 64 * 1024 * 1024
+    cycle_time_ms: float = 5.0
+    cache_capacity: int = 1024
+    # Timeline output path ('' disables) and its cycle markers
+    # (reference: operations.cc:1164-1171, timeline.h:97).
+    timeline: str = ""
+    timeline_mark_cycles: bool = False
+    # Stall checks (reference: global_state.h:70-78).
+    stall_check_disable: bool = False
+    stall_check_time_seconds: float = 60.0
+    stall_shutdown_time_seconds: float = 0.0
+    # Two-level allreduce of the eager engine over (cross, local) groups
+    # of dcn_local_size ranks (0: the launcher's HOROVOD_TPU_LOCAL_SIZE).
+    hierarchical_allreduce: bool = False
+    # Full request lists every cycle instead of the coordinator's
+    # epoch-token bypass (measurement knob), and no control-plane ticker.
+    coordinator_bypass_disable: bool = False
+    ticker_disable: bool = False
+    # Pod-scale control plane (controlplane/): tree fan-in group size
+    # (< 2 off) and static-schedule graduation after this many identical
+    # rounds (0 off), with the graduated processes' log refresh bound.
+    coord_tree_fanout: int = 0
+    coord_graduate_after: int = 0
+    coord_graduate_refresh_seconds: float = 2.0
+    # Fused buckets dispatched but not yet completed at once (0: each
+    # bucket completes inline).
+    pipeline_depth: int = 2
+    # Elastic training (init() refuses it until it is ported).
+    elastic: bool = False
+    # The fork's padding experiment: fused element counts rounded up to
+    # a power of two (reference fork: ops/mpi_operations.cc:24-63).
+    padding_algo: int = 0
+    # The fork's wire profiler: hvd_wire_seconds by power-of-two size
+    # bin, dumped to profiler.csv at shutdown.
+    wire_profile: bool = False
+    wire_profile_path: str = "profiler.csv"
+    # Control-plane KV client (utils/kvstore.py) connection retries.
+    kv_retries: int = 2
+    kv_retry_base_seconds: float = 0.05
     # Runtime metrics exporters (metrics.py). metrics_dir enables the JSONL
     # + Prometheus-textfile sinks; metrics_port >= 0 enables the HTTP scrape
     # endpoint (0 binds an ephemeral port); metrics_interval is the export
@@ -146,7 +195,8 @@ class Config:
     perf_sentry: bool = False
     perf_sentry_threshold: float = 0.25
     # Two-stage exchange: the DCN hop's wire ("", "bf16" or "int8") and
-    # the ICI group size (ranks a host; 0 = the launcher's local size).
+    # the ICI group size (ranks a host; 0 = the launcher's local size),
+    # also the eager engine's local tier under hierarchical allreduce.
     dcn_compression: str = ""
     dcn_local_size: int = 0
     # Per-chip peak FLOP/s for MFU (0 = look the card up in hardware.py).
@@ -188,7 +238,40 @@ class Config:
         c.profiler_disable = _env_flag("HOROVOD_PROFILER_DISABLE")
         c.profiler_jit_callbacks = _env_flag(
             "HOROVOD_PROFILER_JIT_CALLBACKS")
+        c.fusion_threshold = _env_int("HOROVOD_FUSION_THRESHOLD",
+                                      c.fusion_threshold)
+        c.cycle_time_ms = _env_float("HOROVOD_CYCLE_TIME", c.cycle_time_ms)
+        c.cache_capacity = _env_int("HOROVOD_CACHE_CAPACITY",
+                                    c.cache_capacity)
         c.timeline = os.environ.get("HOROVOD_TIMELINE", "")
+        c.timeline_mark_cycles = _env_flag("HOROVOD_TIMELINE_MARK_CYCLES")
+        c.stall_check_disable = _env_flag("HOROVOD_STALL_CHECK_DISABLE")
+        c.stall_check_time_seconds = _env_float(
+            "HOROVOD_STALL_CHECK_TIME_SECONDS", c.stall_check_time_seconds)
+        c.stall_shutdown_time_seconds = _env_float(
+            "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS",
+            c.stall_shutdown_time_seconds)
+        c.hierarchical_allreduce = _env_flag("HOROVOD_HIERARCHICAL_ALLREDUCE")
+        c.coordinator_bypass_disable = _env_flag(
+            "HOROVOD_COORDINATOR_BYPASS_DISABLE")
+        c.ticker_disable = _env_flag("HOROVOD_TPU_TICKER_DISABLE")
+        c.coord_tree_fanout = max(_env_int("HOROVOD_COORD_TREE_FANOUT",
+                                           c.coord_tree_fanout), 0)
+        c.coord_graduate_after = max(_env_int("HOROVOD_COORD_GRADUATE_AFTER",
+                                              c.coord_graduate_after), 0)
+        c.coord_graduate_refresh_seconds = max(_env_float(
+            "HOROVOD_COORD_GRADUATE_REFRESH_SECONDS",
+            c.coord_graduate_refresh_seconds), 0.05)
+        c.pipeline_depth = max(_env_int("HOROVOD_PIPELINE_DEPTH",
+                                        c.pipeline_depth), 0)
+        c.elastic = _env_flag("HOROVOD_ELASTIC")
+        c.padding_algo = _env_int("PADDING_ALGO", 0)
+        c.wire_profile = _env_flag("HOROVOD_WIRE_PROFILE")
+        c.wire_profile_path = os.environ.get("HOROVOD_WIRE_PROFILE_PATH",
+                                             c.wire_profile_path)
+        c.kv_retries = max(_env_int("HOROVOD_KV_RETRIES", c.kv_retries), 0)
+        c.kv_retry_base_seconds = _env_float(
+            "HOROVOD_KV_RETRY_BASE_SECONDS", c.kv_retry_base_seconds)
         c.guard = _env_flag("HOROVOD_GUARD")
         c.autotune = _env_flag("HOROVOD_AUTOTUNE")
         c.metrics_dir = os.environ.get("HOROVOD_METRICS_DIR", "")
@@ -215,13 +298,15 @@ class Config:
                                         c.dcn_local_size), 0)
         c.peak_flops = max(_env_float("HOROVOD_PEAK_FLOPS", c.peak_flops),
                            0.0)
-        # The profiler.txt dump defaults into HOROVOD_METRICS_DIR, else
-        # HOROVOD_DIAG_DIR, when no explicit path overrides it.
-        if "HOROVOD_PROFILER_PATH" not in os.environ:
-            if c.metrics_dir:
-                c.profiler_path = os.path.join(c.metrics_dir, "profiler.txt")
-            elif c.diag_dir:
-                c.profiler_path = os.path.join(c.diag_dir, "profiler.txt")
+        # The profiler.txt and profiler.csv dumps default into
+        # HOROVOD_METRICS_DIR, else HOROVOD_DIAG_DIR, when no explicit
+        # path overrides them.
+        home = c.metrics_dir or c.diag_dir
+        if home:
+            if "HOROVOD_PROFILER_PATH" not in os.environ:
+                c.profiler_path = os.path.join(home, "profiler.txt")
+            if "HOROVOD_WIRE_PROFILE_PATH" not in os.environ:
+                c.wire_profile_path = os.path.join(home, "profiler.csv")
         return c
 
 

@@ -1,0 +1,1648 @@
+"""Cross-rank eager coordination over the session's key-value store.
+
+Counterpart of horovod_tpu/coordinator.py, whose protocol this is, line
+for line. Reference equivalent: the rank-0 coordinator protocol in
+``RunLoopOnce`` (horovod/common/operations.cc:1434-1843): every cycle,
+workers send their pending-request lists to rank 0 (MPI_Gather +
+MPI_Gatherv of serialized RequestLists), rank 0 decides which tensors
+are globally ready, validates them (``ConstructResponse``), and
+broadcasts a ResponseList all workers then execute in identical order.
+
+Here a rank is a process, and the transport is the key-value store the
+session's process group was built on (a ``torch.distributed`` store
+behind :class:`horovod_tpu_torch.utils.store_kv.StoreKV`, which gives it
+the four calls the protocol makes: set bytes, blocking get with a
+deadline, try-get, delete). Each process publishes its pending set
+under a versioned key whenever its engine runs a cycle; process 0
+aggregates whatever is published, decides, and appends to a
+monotonically numbered decision log. Every process applies decisions
+strictly in order, so the collectives launch in identical order
+everywhere: the order NCCL requires of every rank. Requests ride the
+request-list format (wire.py); decisions are JSON. The reference's
+elastic liveness detector (``live``/``bye`` keys, the lost-worker scan,
+the abort decisions) comes with elastic training (ROADMAP.md, Queue 1
+item 15); ``init()`` refuses ``HOROVOD_ELASTIC`` until then.
+
+Stall detection parity (operations.cc:815-896): the coordinator tracks when
+each pending tensor first appeared; names stuck waiting for a subset of ranks
+longer than the warning threshold produce the reference's "Stalled ranks:"
+message inside the decision log, and past the shutdown threshold an ERROR
+decision that fails the waiting handles. Fast-lane awareness (round-4
+verdict #2): before warning, the coordinator reads each suspect process's
+heartbeat — a missing rank whose owner is provably fast-laning a set
+containing the stalled name is exempt (the reference's bypass keeps every
+rank visible every cycle via the bit-vector allreduce,
+response_cache.cc:304-390; the heartbeat restores that visibility here).
+
+Steady-state bypass (reference: the ResponseCache bit-vector sync,
+response_cache.cc:304-390, and the coordinator's cache-bypass fast path
+``RunBypass``, operations.cc:1356-1403): training loops submit the same named
+tensors with the same metadata every step, and the reference collapses that
+steady state into one bit-AND allreduce instead of a full gather/validate/
+broadcast round. The KV-store analog here is the *epoch token*: each process
+fingerprints its pending set (names + ranks + metadata, submission order;
+seqs excluded); once the coordinator has seen a full publish with that
+fingerprint it registers it as an epoch and announces the (fp -> id) mapping
+in the decision log. From then on, identical cycles publish a ~40-byte token
+(epoch id + base seq) instead of the serialized RequestList, and the
+coordinator reconstructs the requests from its registry and replays the
+memoized per-name decision without re-running ``construct_response``.
+
+Scale shape (round-4 verdict #1): the reference's control plane costs one
+MPI_Gather + one MPI_Bcast per cycle (operations.cc:1754-1801). The KV
+analog here: process 0 reads all nproc request blobs as ONE concurrent
+batch (thread-pool fan-out, ~one RPC latency per round), idle publishes
+are deduplicated (an unchanged empty blob is never re-written), and the
+engine's ticker backs off multiplicatively (up to ~1 s) whenever a round
+observes no work — an idle job quiesces to approximately zero KV traffic.
+
+Fast-lane consensus is log-driven (advisor r4): the coordinator attaches
+``{"pid", "fp"}`` hints to complete clean decisions naming the pending-set
+fingerprints they answer, and every process learns (pid-filtered) the
+fp→decision-epoch association while applying that decision — at the same
+applied index everywhere. No process can become a coordinator-free learner
+while a peer still publishes and waits: either both learned from the same
+log record, or neither did. While fast-laning, a process publishes a
+throttled heartbeat naming the fingerprint it is executing so the stall
+detector can tell silent-but-working from dead (see below).
+
+Decision-side replay (the other half of the bypass; reference ``RunBypass``
+skips the response broadcast entirely, operations.cc:1356-1403): steady
+state would otherwise still serialize every ready tensor's full response
+entry into the decision log each cycle. Instead the coordinator
+fingerprints each decision's tensors list; the first occurrence ships full
+entries tagged ``deid`` (every process registers them in a local decision
+registry), and repeats ship ``{"replay": deid}`` (~30 bytes) that each
+process resolves locally. Registry eviction is deterministic — both sides
+evict LRU at the same capacity, driven by the same log order — so a replay
+id is always resolvable.
+
+Bounded control-plane state (the reference's negotiation is transient —
+gather + bcast, nothing persists, operations.cc:1746-1801): each process
+acks its applied decision index under a per-pid key every ``_ACK_EVERY``
+decisions, and process 0 periodically deletes decision keys below the
+minimum ack — a long-running job keeps O(capacity) KV keys, not O(steps).
+
+Transport failures are first-class: ordinary blocking-get timeouts are the
+idle control plane, but ``_TRANSPORT_FAIL_LIMIT`` consecutive non-timeout
+KV errors raise :class:`~horovod_tpu_torch.exceptions.CoordinatorError` naming
+the coordination service — a crashed/partitioned KV service must not
+present as a peer stall (round-3 verdict finding).
+
+Control-plane profiling: every KV publish records into the ``gather`` stats
+slot and every decision fetch into ``gatherv`` (count + bytes + time,
+including empty fetches with nbytes=0 — blocking-timeout waits are the
+dominant idle latency and belong in the profile) — the fork times its
+coordination-plane MPI_Gather/Gatherv the same way (operations.cc:1593-1648),
+and these are the two slots its profiler.txt reserves for the control
+plane. Transport errors count under ``coordinator_transport_error``.
+"""
+
+import concurrent.futures
+import hashlib
+import itertools
+import json
+import re
+import threading
+import time
+from collections import OrderedDict
+
+from . import diag, metrics, wire
+from .controlplane import aggregate as _tree
+from .controlplane.schedule import ScheduleManager
+from .exceptions import CoordinatorError
+from .negotiation import construct_response
+from .utils.logging import get_logger
+
+_logger = get_logger()
+
+_PREFIX = "hvdtpu"
+
+# Epoch-token blob prefix, distinct from the wire format's b"HVTP" magic.
+_EPOCH_MAGIC = b"HVTE"
+
+# Per-process cap on registered epochs. Distinct fingerprints accumulate one
+# per distinct steady-state pending set; eviction is announced through the
+# decision log so the owning process falls back to full publishes for that
+# set (the reference's cache has the same capacity + evict semantics,
+# response_cache.h:44, default capacity in global_state.h:169). This is a
+# FLOOR: the effective capacity scales with world size (4 per participant)
+# — the simrank harness showed a fixed 256-slot registry thrashing at 1024
+# participants, every round evicting a live epoch and forcing perpetual
+# full publishes (docs/controlplane.md).
+_EPOCH_CAPACITY = 256
+
+_RESP_MEMO_CAPACITY = 4096
+
+# Decision-replay registry capacity (coordinator memo and per-process
+# registry evict LRU in lockstep — both are driven by the decision log's
+# order, so their contents agree at every applied index).
+_DEC_MEMO_CAPACITY = 512
+
+# Processes ack their applied decision index at this granularity; process 0
+# compacts the log below the minimum ack at the same cadence. Compaction lag
+# is bounded by nproc * _ACK_EVERY decisions — boundedness, not latency, is
+# the goal.
+_ACK_EVERY = 32
+
+# Consecutive non-timeout KV transport failures before CoordinatorError.
+_TRANSPORT_FAIL_LIMIT = 8
+
+# Local-replay fast lane: after this many consecutive coordinator-free
+# cycles, force one cycle through the coordinator (liveness for stall
+# detection, shutdown notices, compaction acks). Bounds how long a
+# steady-state process can run before hearing about a peer's exit.
+_FAST_LANE_REFRESH = 16
+
+
+def kv_has_try_get(client):
+    """True when the client has a non-blocking read."""
+    return getattr(client, "key_value_try_get_bytes", None) is not None
+
+
+def kv_try_get_bytes(client, key):
+    """Non-blocking KV read: the value, or None when the key is unset."""
+    return client.key_value_try_get_bytes(key)
+
+
+def _fingerprint(items):
+    """Stable digest of a pending set: (name, rank, metadata) in submission
+    order. Seqs are deliberately excluded — they advance every step while
+    the steady-state set stays identical. Full digest (advisor r3: a
+    truncated digest invites silent collision replays; the fingerprint only
+    travels in announcements and registry keys, so the cost is nil)."""
+    h = hashlib.sha1()
+    for req, _seq, name in items:
+        h.update(repr((name, req.rank, req.cache_key())).encode())
+    return h.hexdigest()
+
+
+# KV clients surface status codes as uppercase tokens at the head of the
+# message ("NOT_FOUND: ...", "DEADLINE_EXCEEDED: ..."; the store adapter,
+# utils/store_kv.py, words its expiry so). Word-boundary anchored so a genuine failure
+# whose prose merely contains "not found"/"deadline exceeded" is not
+# misclassified as an idle timeout (advisor r4).
+_STATUS_TOKEN_RE = re.compile(r"\b(NOT_FOUND|DEADLINE_EXCEEDED)\b")
+
+# Any OTHER gRPC status token marks a genuine transport failure and vetoes
+# everything below — a wrapped error like "UNAVAILABLE: ... (last observed
+# status: DEADLINE_EXCEEDED)" is a dead service, not an idle poll.
+# Uppercase-only, like the timeout tokens: ordinary lowercase prose words
+# ("request cancelled", "unknown key") must not veto a message whose
+# actual status IS a timeout — an idle job's polls repeat the same message
+# every cycle, which is exactly the consecutive-hit pattern that would
+# trip _TRANSPORT_FAIL_LIMIT and kill a healthy job.
+_STATUS_FAILURE_RE = re.compile(
+    r"\b(UNAVAILABLE|UNIMPLEMENTED|INTERNAL|CANCELLED|UNKNOWN|ABORTED|"
+    r"FAILED_PRECONDITION|RESOURCE_EXHAUSTED|DATA_LOSS|UNAUTHENTICATED|"
+    r"PERMISSION_DENIED|INVALID_ARGUMENT|OUT_OF_RANGE)\b")
+
+# Narrow lowercase connection-failure prose: words that name a dead/absent
+# service and essentially never appear in a protocol-normal timeout
+# message. These beat the timeout-prose fallback so an all-prose transport
+# error like "transport unavailable: deadline exceeded after 3 reconnects"
+# still feeds the failure counter.
+_FAILURE_PROSE_RE = re.compile(
+    r"\b(unavailable|unimplemented|failed to connect|connection refused|"
+    r"connection reset)\b")
+
+# Lowercase prose fallback (advisor r5): a transport that renders the two
+# protocol-normal outcomes as prose ("key ... not found", "deadline
+# exceeded while waiting") must not count toward _TRANSPORT_FAIL_LIMIT and
+# kill an idle job with CoordinatorError. Deliberately narrow — the
+# missing-key form requires the word "key" in front, so unrelated
+# not-found prose (a missing RPC method, a resolver miss) still feeds the
+# failure counter rather than being retried as a timeout forever.
+_STATUS_PROSE_RE = re.compile(
+    r"key\b[^\n]*\bnot found\b|\bdeadline exceeded\b", re.IGNORECASE)
+
+
+def _is_timeout_error(exc):
+    """Blocking-get deadline / missing-key outcomes are protocol-normal;
+    everything else is a transport-level failure. Layered classification:
+    an explicit non-timeout gRPC status token always wins, then the
+    timeout tokens, then connection-failure prose, then timeout prose —
+    anything unrecognized counts as a failure (the safe default: eight
+    consecutive unrecognized errors SHOULD surface loudly)."""
+    msg = str(exc)
+    if _STATUS_FAILURE_RE.search(msg):
+        return False
+    if _STATUS_TOKEN_RE.search(msg):
+        return True
+    if _FAILURE_PROSE_RE.search(msg):
+        return False
+    return bool(_STATUS_PROSE_RE.search(msg))
+
+# Session epoch: init()/shutdown() are collective operations (every process
+# calls them in the same order — the same contract the reference's
+# horovod_init/horovod_shutdown C API has), so a process-local constructor
+# count agrees across processes without communication. Namespacing the KV
+# keys by it means a re-init after shutdown() never reads the previous
+# session's stale request blobs or its SHUT_DOWN decision.
+_EPOCH = itertools.count()
+
+
+class _KVFailure:
+    """Non-timeout transport error carried out of a fan-out worker so the
+    calling thread classifies it (CoordinatorError must raise on the
+    application/ticker thread, never inside the pool)."""
+
+    __slots__ = ("exc",)
+
+    def __init__(self, exc):
+        self.exc = exc
+
+
+class MultiHostCoordinator:
+    """One instance per process; process 0 additionally aggregates."""
+
+    # Shared-state discipline, enforced by hvdlint HVD002: application
+    # threads and the engine ticker mutate this state concurrently, so
+    # every access holds the coordinator lock. Whole coordinate() rounds
+    # additionally serialize on _coordinate_mutex (lock order: engine
+    # lock -> _coordinate_mutex -> _lock, never the reverse). Methods
+    # named *_locked are caller-holds-the-lock by convention.
+    _GUARDED_BY = {
+        "_decided": "_lock",
+        "_applied": "_lock",
+        "_next_decision": "_lock",
+        "_epochs": "_lock",
+        "_resp_memo": "_lock",
+        "_fast_assoc": "_lock",
+        "_hb_seen": "_coordinate_mutex",
+        "_rank_owner": "_lock",
+        "_transport_failures": "_lock",
+        "_graduated_local": "_lock",
+        "_agg_last": "_lock",
+        "_static_mode": "_lock",
+    }
+
+    def __init__(self, config, num_ranks, stats=None, client=None, process_index=None, process_count=None,
+                 namespace=None):
+        """``client`` is the session's KV store (utils/store_kv.py);
+        ``process_index`` and ``process_count`` are this process's rank
+        and the world size; ``namespace`` prefixes every key (default: a
+        per-process session counter)."""
+        if client is None or process_index is None or process_count is None:
+            raise ValueError("the coordinator needs the session's KV store, "
+                             "its process index and the process count")
+        self._client = client
+        self._ns = namespace or f"{_PREFIX}/{next(_EPOCH)}"
+        self.config = config
+        self.num_ranks = num_ranks
+        self.stats = stats
+        self.pid = int(process_index)
+        self.nproc = int(process_count)
+        self._applied = 0         # next decision id to apply
+        self._decided = set()     # coordinator: decided (pid, seq) pairs
+        self._first_seen = {}     # coordinator: name -> publish time
+        self._stall_warned = set()
+        self._next_decision = 0   # coordinator: next decision id to publish
+        self._shutdown_decided = False
+        self._session_cleanup_pending = False
+        # process side: epochs the coordinator has registered for us
+        self._known_epochs = {}   # fp -> epoch id
+        self._epoch_fp_by_id = {}  # epoch id -> fp (for eviction notices)
+        # coordinator side: epoch registry + response memo
+        self._epochs = OrderedDict()  # (pid, id) -> [(name, RequestMeta)]
+        self._epoch_ids = {}          # (pid, fp) -> id
+        self._epoch_key_by_id = {}    # id -> (pid, fp) reverse index (O(1)
+        #                               eviction; advisor r3 flagged the
+        #                               full-dict rebuild per evicted epoch)
+        self._next_epoch_id = 0
+        self._epoch_announce = []     # announcements riding the next decision
+        self._epoch_drop = []         # eviction notices riding the next decision
+        self._resp_memo = OrderedDict()  # (name, metas) -> decision entry
+        # decision-side replay: coordinator memo (tensors-fp -> deid) and
+        # process registry (deid -> entries) evict LRU in lockstep — both
+        # driven by the log order (module docstring).
+        self._dec_fp_memo = OrderedDict()
+        self._next_deid = 0
+        self._dec_registry = OrderedDict()
+        # local-replay fast lane (the full RunBypass analog; see
+        # fast_replay_entries). Associations are LOG-DRIVEN: the
+        # coordinator attaches {"pid", "fp"} hints to complete clean
+        # decisions and every process learns them at the same applied
+        # index (advisor r4: fetch-timing-driven learning could teach one
+        # process but not its peer, deadlocking the peer against a
+        # coordinator-free learner).
+        self._fast_assoc = OrderedDict()  # pending-set fp -> deid
+        self._fast_cycles = 0             # consecutive coordinator-free
+        # coordinator side: (pid, fp) -> deid already taught, so steady
+        # state does not re-ship hints every cycle
+        self._fast_taught = {}
+        # fast-lane heartbeat: value is {"c": counter, "fp": set-fp} so
+        # the stall detector can prove which set a silent process is
+        # executing locally (round-4 verdict #2)
+        self._hb_counter = 0
+        self._hb_published_t = float("-inf")
+        # coordinator round cadence: receipt-clock interval between the
+        # last two coordinate() rounds; sizes the provisional heartbeat
+        # credit in _fast_lane_covers_locked (advisor r5 — a suspect-armed round
+        # delayed past the fixed 2.5-throttle window must not turn a
+        # healthy fast-laner into a stall warning)
+        self._last_round_t = None
+        self._round_interval = 0.0
+        # coordinator: pid -> (blob, walltime-of-last-change, confirmed);
+        # confirmed=False until the value is SEEN to change, which gets
+        # only a short provisional credit in _fast_lane_covers_locked
+        self._hb_seen = {}
+        self._stall_suspect = False   # coordinator: read hb keys next round
+        self._rank_owner = {}         # coordinator: rank -> publishing pid
+        self._published_empty = False  # idle publishes are skipped (r4 #1)
+        # Steady-state counters: epoch-token publishes (the bypass) and
+        # coordinator-free fast-lane cycles of this process.
+        self.token_publishes = 0
+        self.fast_lane_cycles = 0
+        # --- pod-scale control plane (controlplane/; docs/controlplane.md)
+        # Tree fan-in: last packed aggregate blob, to dedupe rewrites (an
+        # idle group costs its head reads but the store zero writes).
+        self._agg_last = None
+        # Static-schedule graduation, process side: fp -> deid learned
+        # from {"grad"} decision hints. No local size cap for the same
+        # reason _fast_assoc has none — lifetime is log-driven (demote
+        # decisions, epoch drops), bounded by this process's live epochs.
+        self._graduated_local = {}
+        self._sched_fetch_t = time.perf_counter()
+        # Static-mode doorbell: ring wake/{ns} on the next publish after
+        # leaving a schedule, so a root running wake-probe-only rounds
+        # notices the fresh submission (values are "{pid}:{counter}" —
+        # unique per ring, so interleaved rings never alias).
+        self._wake_pending = False
+        self._wake_counter = 0
+        # Coordinator side (pid 0): graduation streaks + graduated set,
+        # and the static-round state. _static_mode guarded by _lock; the
+        # wake probe value only moves inside coordinate()'s mutex.
+        self._sched = (ScheduleManager(config.coord_graduate_after)
+                       if config.coord_graduate_after > 0 and self.pid == 0
+                       else None)
+        self._static_mode = False
+        self._wake_seen = None
+        # Effective epoch-registry capacity: scales with world size (the
+        # fixed floor thrashes at pod scale — see _EPOCH_CAPACITY).
+        self._epoch_capacity = max(_EPOCH_CAPACITY, 4 * self.nproc)
+        # compaction bookkeeping
+        self._ack_published = 0       # process: last applied index acked
+        self._compacted_below = 0     # coordinator: dec keys < this deleted
+        self._last_compact_check = 0
+        # transport health
+        self._transport_failures = 0  # consecutive
+        self.transport_error_count = 0
+        # Concurrent KV fan-out pool (lazily built): the reference gathers
+        # every worker's RequestList in ONE MPI_Gatherv
+        # (operations.cc:1754-1801); the KV analog is one batch of
+        # parallel RPCs, never nproc serial round-trips (round-4 verdict
+        # #1 — serial sweeps fail the 256-host north star).
+        self._pool = None
+        self._closed = False  # close() called; no new pool may be built
+        # Serializes coordinator state between application threads and
+        # the engine's control-plane ticker. The ticker deliberately
+        # calls in WITHOUT the engine lock (its KV round must not block
+        # enqueue/synchronize), so this lock is what keeps publish/
+        # coordinate/fetch mutations consistent. Reentrant: the transport
+        # counter helpers take it and are called from paths already
+        # holding it. Lock order is always engine lock -> coordinate
+        # mutex -> this lock; never the reverse.
+        self._lock = threading.RLock()
+        # Serializes whole coordinate() rounds (snapshot + decide):
+        # concurrent rounds could process their snapshots out of order,
+        # corrupting _decided and duplicating decisions.
+        self._coordinate_mutex = threading.Lock()
+        # Sticky shutdown: once announced, a concurrent ticker publish
+        # must not overwrite the request blob with the bit cleared
+        # before the coordinator reads it.
+        self._shutdown_announced = False
+        # ... and once the shutdown blob is confirmed written, later
+        # publishes dedupe: a re-publish after the coordinator's session
+        # cleanup would re-create the just-deleted req key and leak it
+        # (review finding on the advisor-r5 hygiene fix).
+        self._published_shutdown = False
+        # Set when this process consumes the global SHUT_DOWN decision:
+        # from then on its own announce is redundant (the echo is already
+        # everyone's last word), so publishes stop and close() may safely
+        # reclaim the req key itself.
+        self._shutdown_echo_seen = False
+        # Control-plane health for hvd.metrics_snapshot(); removed in
+        # close() so the registry never holds a dead coordinator.
+        metrics.registry().set_collect_hook("coordinator",
+                                            self._collect_metrics)
+
+    def _collect_metrics(self):
+        if self._hb_published_t > float("-inf"):
+            metrics.COORD_HEARTBEAT_AGE.set(
+                time.perf_counter() - self._hb_published_t)
+
+    def _pid_list(self):
+        """Process ids in this session. Resolved at call time (not
+        construction) so tests that rewrite ``nproc`` after construction
+        keep working."""
+        return list(range(self.nproc))
+
+    def _record(self, op, nbytes, t0):
+        if self.stats is not None:
+            self.stats.record(op, nbytes, time.perf_counter() - t0)
+
+    def _transport_ok(self):
+        with self._lock:
+            self._transport_failures = 0
+
+    def _transport_failure(self, what, exc):
+        """Count a non-timeout KV failure; past the limit, raise the
+        distinct service-unreachable error instead of letting the stall
+        deadline misdiagnose it (round-3 verdict: a dead coordination
+        service presented as a peer stall). Locked: callers in the KV
+        loops run outside the state lock, and an unguarded read-modify-
+        write would let a concurrent reset resurrect a stale count."""
+        with self._lock:
+            self._transport_failures += 1
+            failures = self._transport_failures
+            self.transport_error_count += 1
+        metrics.COORD_TRANSPORT_FAILURES.inc()
+        if self.stats is not None:
+            self.stats.record("coordinator_transport_error", 0, 0.0)
+        _logger.debug("coordination-service %s transport failure %d/%d: %r",
+                      what, failures, _TRANSPORT_FAIL_LIMIT, exc)
+        if failures >= _TRANSPORT_FAIL_LIMIT:
+            raise CoordinatorError(
+                f"coordination service unreachable: "
+                f"{failures} consecutive {what} transport "
+                f"failures against the session's key-value store "
+                f"(last: {exc!r}). The coordinator process has likely "
+                f"crashed or the network is partitioned; this is NOT a "
+                f"peer stall.")
+
+    # -------------------------------------------------------- process side
+
+    def publish(self, pending, shutdown=False):
+        """Publish this process's full pending set.
+
+        pending: list of (seq, name, RequestMeta). seq is a process-local
+        monotonically increasing submission id so the coordinator can tell a
+        fresh submission of a name from one it already decided.
+
+        ``shutdown=True`` sets the wire shutdown bit — the reference's
+        graceful-exit protocol, where an exiting rank piggybacks
+        ``shutdown=true`` on its RequestList and the coordinator echoes it to
+        everyone (operations.cc:1664-1667,1882-1886).
+
+        Steady state: when the pending set matches a coordinator-registered
+        epoch and the seqs are one consecutive run, a compact epoch token
+        goes on the wire instead of the full RequestList (module docstring;
+        reference RunBypass, operations.cc:1356-1403).
+        """
+        with self._lock:
+            t0 = time.perf_counter()
+            # Sticky: a ticker publish racing an announced shutdown must
+            # not clear the bit before the coordinator reads it.
+            if shutdown:
+                self._shutdown_announced = True
+            shutdown = shutdown or self._shutdown_announced
+            if shutdown and (self._published_shutdown
+                             or self._shutdown_echo_seen):
+                # The announced blob is already in the store — or the
+                # global echo already went out, making this announce
+                # redundant; rewriting the blob after the coordinator's
+                # post-echo cleanup would leak the key (and the bit
+                # cannot be un-announced anyway).
+                return
+            if not pending and not shutdown:
+                # Idle: the KV store already holds this process's empty
+                # blob — re-publishing it every ticker interval is pure
+                # control-plane noise (round-4 verdict #1: an idle job
+                # should issue ~0 KV traffic after quiesce). The flag is
+                # set only AFTER a successful write (below), so a failed
+                # first idle publish retries next cycle instead of
+                # leaving the stale non-empty blob in the store forever.
+                if self._published_empty:
+                    return
+            else:
+                self._published_empty = False
+            if (pending and not shutdown and self._known_epochs
+                    and not self.config.coordinator_bypass_disable):
+                items = [(m, seq, name) for seq, name, m in pending]
+                fp = _fingerprint(items)
+                eid = self._known_epochs.get(fp)
+                seqs = [seq for seq, _, _ in pending]
+                if (eid is not None
+                        and seqs == list(range(seqs[0],
+                                               seqs[0] + len(seqs)))):
+                    blob = _EPOCH_MAGIC + json.dumps(
+                        {"e": eid, "s0": seqs[0], "n": len(seqs)}).encode()
+                    ok = self._set_req(blob)
+                    self.token_publishes += 1
+                    self._record("gather", len(blob), t0)
+                    if ok:
+                        self._ring_wake_locked()
+                    return
+            reqs = [m for _, _, m in pending]
+            names = [f"{seq}|{name}" for seq, name, _ in pending]
+            blob = wire.serialize_request_list(reqs, names,
+                                               shutdown=shutdown)
+            ok = self._set_req(blob)
+            if ok and not pending and not shutdown:
+                self._published_empty = True
+            if ok and shutdown:
+                self._published_shutdown = True
+            self._record("gather", len(blob), t0)
+            if ok:
+                self._ring_wake_locked()
+
+    def _ring_wake_locked(self):
+        """Ring the static-mode doorbell AFTER a confirmed publish: a
+        root that has collapsed to wake-probe-only rounds (every
+        participant graduated) re-reads the request keys only when this
+        value changes. Ordering matters — the request blob must land
+        before the ring, or the root's woken sweep could find nothing,
+        re-enter static mode, and never hear the bell again. Rung while
+        this process holds any graduated schedule (a publish then means
+        churn: some OTHER set went live) or right after losing one
+        (_wake_pending). Ring values never repeat across processes, so
+        concurrent rings cannot alias back to the root's last-seen
+        value."""
+        if self.config.coord_graduate_after <= 0:
+            return
+        if not (self._graduated_local or self._wake_pending):
+            return
+        self._wake_counter += 1
+        val = f"{self.pid}:{self._wake_counter}".encode()
+        metrics.COORD_KV_OPS.labels(op="publish").inc()
+        try:
+            self._client.key_value_set_bytes(
+                f"{self._ns}/wake", val, allow_overwrite=True)
+        except Exception:  # noqa: BLE001 — the next publish re-rings
+            return
+        self._wake_pending = False
+
+    def _set_req(self, blob):
+        """Publish this process's request blob; a failed publish is a
+        missed cycle (the protocol tolerates it — the next cycle
+        re-publishes the still-pending set), but repeated failures raise
+        CoordinatorError via the transport counter. Returns True on a
+        confirmed write."""
+        metrics.COORD_KV_OPS.labels(op="publish").inc()
+        try:
+            self._client.key_value_set_bytes(
+                f"{self._ns}/req/{self.pid}", blob, allow_overwrite=True)
+        except Exception as e:  # noqa: BLE001 — classified below
+            if _is_timeout_error(e):
+                return False
+            self._transport_failure("publish", e)
+            return False
+        self._transport_ok()
+        return True
+
+    def publish_shutdown(self):
+        """Announce this process's exit (empty pending set + shutdown bit)."""
+        self.publish([], shutdown=True)
+
+    def _tree_layout(self):
+        """Tree fan-in groups (controlplane/aggregate.py) for the current
+        participant list, or None in star mode. The tree engages only
+        when it actually shrinks the root's read set — a world that fits
+        one group IS the star."""
+        fanout = self.config.coord_tree_fanout
+        if fanout < 2:
+            return None
+        pids = self._pid_list()
+        if len(pids) <= fanout:
+            return None
+        return _tree.tree_groups(pids, fanout)
+
+    def aggregate_round(self):
+        """Tree fan-in sweep (docs/controlplane.md): when this process
+        heads a non-root group, read the group's ``req/{pid}`` blobs and
+        batch them into ONE packed ``agg/{pid}`` write, rewritten only when
+        something changed. The engine's ticker and application cycles
+        both call this right after publish, so the root's next round
+        reads current data one hop behind. No-op for the root, non-head
+        members, and star mode. Returns True when the sweep observed a
+        change (the ticker's busy signal)."""
+        groups = self._tree_layout()
+        if groups is None:
+            return False
+        kids = None
+        for g in groups[1:]:
+            if g[0] == self.pid:
+                kids = list(g)
+                break
+        if kids is None:
+            return False
+        blobs = self._kv_multiget([f"{self._ns}/req/{p}" for p in kids],
+                                  "aggregate read")
+        entries = [(_tree.KIND_REQ, p, bytes(b))
+                   for p, b in zip(kids, blobs) if b]
+        blob = _tree.pack_entries(entries)
+        with self._lock:
+            if blob == self._agg_last:
+                return False
+            self._agg_last = blob
+        metrics.COORD_KV_OPS.labels(op="publish").inc()
+        try:
+            self._client.key_value_set_bytes(
+                f"{self._ns}/agg/{self.pid}", blob, allow_overwrite=True)
+        except Exception as e:  # noqa: BLE001 — classified below
+            if not _is_timeout_error(e):
+                self._transport_failure("aggregate publish", e)
+            with self._lock:
+                self._agg_last = None  # force a rewrite next sweep
+            return True
+        self._transport_ok()
+        metrics.CTRL_AGG_ROUNDS.inc()
+        metrics.CTRL_AGG_BATCHED.labels(kind=_tree.KIND_REQ).inc(
+            len(entries))
+        return True
+
+    def close(self):
+        """Release the KV fan-out pool (engine.shutdown calls this; the
+        session-epoch design supports init/shutdown/re-init cycles, and
+        each cycle must not leak another pool of worker threads). Rounds
+        still in flight fall back to serial reads (_kv_multiget checks
+        the flag) rather than re-creating a pool.
+
+        Also best-effort deletes this process's hb/ack keys (and its req
+        key when no shutdown bit rides it, or when the global echo has
+        already been consumed and the bit is redundant): a long-lived job
+        cycling init/shutdown must not accrete per-session KV keys forever
+        (advisor r5; the decision log already compacts the same way). A
+        req blob carrying a not-yet-echoed shutdown bit is left for
+        process 0 to read — the coordinator deletes every req/hb/ack key
+        itself when it echoes the global SHUT_DOWN decision, and process
+        0's own close() runs one last sweep to catch announces that
+        landed after its final round."""
+        metrics.registry().remove_collect_hook("coordinator")
+        with self._lock:
+            self._closed = True
+            pool, self._pool = self._pool, None
+            announced = self._shutdown_announced
+            echoed = self._shutdown_echo_seen
+            final_sweep = self.pid == 0 and self._shutdown_decided
+        if pool is not None:
+            pool.shutdown(wait=False)
+        keys = [f"{self._ns}/hb/{self.pid}", f"{self._ns}/ack/{self.pid}",
+                f"{self._ns}/agg/{self.pid}"]
+        if not announced or echoed:
+            keys.append(f"{self._ns}/req/{self.pid}")
+        for key in keys:
+            try:
+                self._client.key_value_delete(key)
+            except Exception:  # noqa: BLE001 — hygiene only
+                pass
+        if final_sweep:
+            self._cleanup_session_keys()
+
+    def fetch_decisions(self, timeout_ms=100):
+        """Decisions not yet applied, in order. Blocks up to timeout for the
+        first missing one (so synchronize loops make progress without
+        spinning). Epoch announcements/evictions addressed to this process
+        are consumed here — they are coordinator-protocol metadata, not
+        engine decisions — and replay decisions resolve their tensors from
+        the local decision registry (module docstring).
+
+        Locking: the KV reads (including the up-to-timeout blocking get)
+        run OUTSIDE the coordinator lock — on process 0 a fetch must not
+        lock out the ticker's ``coordinate()``, which may be the only
+        thing that can produce the decision being waited for. Callers are
+        serialized by the engine lock, so ``_applied`` has exactly one
+        writer; only state mutations take the coordinator lock."""
+        with self._lock:
+            # Consuming the log is what makes a cycle "slow": reset the
+            # fast-lane refresh counter HERE, not in publish — the ticker
+            # publishes during compute gaps but never fetches, and a
+            # publish-side reset would defer decision consumption
+            # (shutdown notices, compaction acks) indefinitely.
+            self._fast_cycles = 0
+            # Any log check satisfies the graduated-schedule refresh
+            # contract (fast_replay_entries polls on this stamp).
+            self._sched_fetch_t = time.perf_counter()
+        out = []
+        t0 = time.perf_counter()
+        nbytes = 0
+        while True:
+            key = f"{self._ns}/dec/{self._applied}"  # hvdlint: disable=HVD002 -- single-writer read: callers serialize on the engine lock (docstring); mutations below do hold _lock
+            metrics.COORD_KV_OPS.labels(op="fetch").inc()
+            try:
+                if out:
+                    blob = kv_try_get_bytes(self._client, key)
+                else:
+                    blob = self._client.blocking_key_value_get_bytes(
+                        key, timeout_ms)
+            except Exception as e:  # noqa: BLE001 — classified below
+                if not _is_timeout_error(e):
+                    self._transport_failure("decision fetch", e)
+                break
+            self._transport_ok()
+            if blob is None:
+                break
+            nbytes += len(blob)
+            decision = json.loads(bytes(blob).decode())
+            with self._lock:
+                for ann in decision.get("epochs", ()):
+                    if ann["pid"] == self.pid:
+                        self._known_epochs[ann["fp"]] = ann["id"]
+                        self._epoch_fp_by_id[ann["id"]] = ann["fp"]
+                for ann in decision.get("epoch_drop", ()):
+                    if ann["pid"] == self.pid:
+                        fp = self._epoch_fp_by_id.pop(ann["id"], None)
+                        self._known_epochs.pop(fp, None)
+                        self._fast_assoc.pop(fp, None)
+                        if (fp is not None and
+                                self._graduated_local.pop(fp, None)
+                                is not None):
+                            self._wake_pending = True
+                self._resolve_replay_locked(decision)
+                # Log-driven fast-lane learning (advisor r4): the
+                # coordinator tags a complete clean decision with the
+                # pending-set fingerprints it answered; every process
+                # learns its own hints here, strictly in log order, so
+                # all processes enter (and leave, via epoch_drop) the
+                # fast lane at the same applied index. No fetch-timing
+                # condition: a hint in a multi-decision fetch or one
+                # raced by a ticker publish teaches just the same.
+                # No local size cap on _fast_assoc: its lifetime is
+                # log-driven end to end — entries die on epoch_drop
+                # (announced in this same log) or on deid-registry
+                # lockstep eviction — so it is bounded by this process's
+                # live epochs (<= _EPOCH_CAPACITY). A local
+                # insertion-order cap would evict fingerprints the
+                # coordinator still believes taught (its ship-once map
+                # prunes on the same two log events), permanently locking
+                # this process out of the lane for that set.
+                deid = decision.get("deid", decision.get("replay"))
+                if deid is not None:
+                    for hint in decision.get("fast", ()):
+                        if hint["pid"] == self.pid:
+                            self._fast_assoc[hint["fp"]] = deid
+                    # Static-schedule graduation (controlplane/schedule.py):
+                    # learned at the same applied index everywhere, like
+                    # the fast lane, so no process schedules a set a peer
+                    # is still negotiating.
+                    for hint in decision.get("grad", ()):
+                        if hint["pid"] == self.pid:
+                            self._graduated_local[hint["fp"]] = deid
+                if (self._graduated_local
+                        and (decision.get("warning")
+                             or decision.get("shutdown"))):
+                    # Instant demotion: a stall warning or a shutdown
+                    # invalidates the steady state the schedules encoded.
+                    # The next publish rings the static root's doorbell.
+                    self._graduated_local.clear()
+                    self._wake_pending = True
+                if decision.get("shutdown"):
+                    self._shutdown_echo_seen = True
+                self._applied += 1
+                fr = diag.get()
+                if fr is not None:
+                    # Progress mark for the hang watchdog's beacons and the
+                    # desync report: the decision index this process last
+                    # applied (a desynchronized rank shows a stale one).
+                    fr.last_decision_index = self._applied
+                    fr.record("decision",
+                              extra={"di": self._applied - 1,
+                                     "n": len(decision.get("tensors", ()))})
+            out.append(decision)
+        # Empty fetches record too (nbytes=0): blocking-timeout waits are
+        # the dominant idle control-plane latency (advisor r3).
+        self._record("gatherv", nbytes, t0)
+        if out:
+            metrics.COORD_DECISIONS.inc(len(out))
+        self._maybe_ack()
+        return out
+
+    def fast_replay_entries(self, pending):
+        """Local-replay fast lane — the complete ``RunBypass`` analog
+        (operations.cc:1356-1403: in validated steady state each rank
+        replays its own cache with no coordinator round). When the
+        pending set matches a learned (fingerprint -> decision-epoch)
+        association, return that decision's entries for direct execution
+        — NO publish/coordinate/fetch. Every _FAST_LANE_REFRESH cycles
+        (or on any mismatch) returns None so the cycle goes through the
+        coordinator: that bounds how stale stall detection, shutdown
+        notices and compaction acks can get. Consistency: every process
+        resolves the SAME decision-epoch registry (built from the shared
+        log), so local execution order is identical everywhere; a process
+        that falls out of steady state publishes normally, and the
+        coordinator's stall detector covers genuine divergence.
+
+        Disabled under autotune: tuned parameters apply at decision
+        indices, and fusion plans must change on every process at the
+        same cycle — coordinator-free cycles would tear that ordering.
+
+        Stall-detector note: while a process fast-lanes, its published
+        request blob goes stale, so the coordinator may briefly see only
+        its peers' fresh submissions. With very long steps (refresh
+        interval x step time > HOROVOD_STALL_CHECK_TIME_SECONDS) this can
+        log a spurious stall WARNING — warnings only; the shutdown
+        deadline rides synchronize waits, which fast-laning processes
+        resolve locally.
+
+        Failure semantics — identical to the reference's bypass: a
+        cache-hit cycle there goes straight to the MPI/NCCL op without
+        negotiation, so a peer that died since the last negotiated cycle
+        surfaces as a transport-level failure or hang inside the
+        collective, not as a negotiation stall (operations.cc:1356-1403
+        skips the coordinator entirely). Here likewise: in fast-lane
+        steady state a dead peer surfaces at the gloo/NCCL layer; the
+        negotiation-level stall/shutdown diagnostics re-engage at the
+        next coordinator round (every _FAST_LANE_REFRESH cycles or on any
+        pending-set change).
+        """
+        with self._lock:
+            entries, fp, scheduled = self._fast_lane_lookup_locked(
+                pending, invalidate=True)
+            refresh_due = (
+                scheduled
+                and time.perf_counter() - self._sched_fetch_t
+                > self.config.coord_graduate_refresh_seconds)
+        if refresh_due:
+            # Graduated-schedule refresh: demotion (a stall warning, a
+            # shutdown) rides the decision log, and a scheduled
+            # process never publishes — so it must CHECK the log at a
+            # bounded cadence. Outside _lock (fetch takes it), then
+            # re-resolve: the fetch may just have demoted this set.
+            self.fetch_decisions(timeout_ms=1)
+            with self._lock:
+                entries, fp, scheduled = self._fast_lane_lookup_locked(
+                    pending, invalidate=True)
+        with self._lock:
+            if entries is None:
+                return None
+            self._fast_cycles += 1
+            hb_blob = self._heartbeat_payload(fp)
+            out = [dict(e) for e in entries]
+        if scheduled:
+            metrics.CTRL_SCHEDULE_HITS.inc()
+        metrics.COORD_FAST_LANE.inc()
+        self.fast_lane_cycles += 1
+        # KV I/O outside the state lock (module lock discipline: a slow
+        # coordination service must never block publishes/fetches/rounds).
+        if hb_blob is not None:
+            metrics.COORD_KV_OPS.labels(op="heartbeat").inc()
+            try:
+                self._client.key_value_set_bytes(
+                    f"{self._ns}/hb/{self.pid}", hb_blob,
+                    allow_overwrite=True)
+            except Exception:  # noqa: BLE001 — best-effort
+                pass
+        return out
+
+    def fast_lane_would_hit(self, pending):
+        """Read-only probe: would ``fast_replay_entries`` resolve this
+        pending set locally? The engine's ticker uses it to go QUIET
+        during fast-lane steady state — publishing a set the application
+        will execute locally only manufactures orphan decisions nobody
+        fetches promptly (and a backlog of those is what could later be
+        mis-applied to a changed pending set)."""
+        with self._lock:
+            return self._fast_lane_lookup_locked(pending, invalidate=False)[0] \
+                is not None
+
+    def _fast_lane_lookup_locked(self, pending, invalidate):
+        """Shared match predicate for the fast lane AND the graduated
+        static schedule (one source of truth — the ticker's quiet-mode
+        contract is 'probe result == what the application's
+        fast_replay_entries will do'). Caller holds the lock. Returns
+        ``(entries, fp, scheduled)``; ``scheduled`` marks a graduated
+        hit, which bypasses the ``_FAST_LANE_REFRESH`` forced round (the
+        log-check duty moves to the time-based refresh in
+        fast_replay_entries: demotion decisions reach a scheduled process
+        within one refresh window, the documented graduation trade,
+        docs/controlplane.md). ``invalidate`` drops broken associations
+        (the mutating path); the probe leaves state untouched. NOTE: no
+        registry move_to_end here — recency is driven by decision-log
+        events only, keeping LRU eviction in lockstep with the
+        coordinator's memo."""
+        if not pending or self.config.autotune:
+            # Autotune disables both lanes: tuned parameters apply at
+            # decision indices, and fusion plans must change on every
+            # process at the same cycle.
+            return None, None, False
+        graduated = (bool(self._graduated_local)
+                     and self.config.coord_graduate_after > 0)
+        lane = (not self.config.coordinator_bypass_disable
+                and bool(self._fast_assoc)
+                and self._fast_cycles < _FAST_LANE_REFRESH)
+        if not graduated and not lane:
+            return None, None, False
+        seqs = [seq for seq, _, _ in pending]
+        if seqs != list(range(seqs[0], seqs[0] + len(seqs))):
+            return None, None, False
+        items = [(m, seq, name) for seq, name, m in pending]
+        fp = _fingerprint(items)
+        scheduled = False
+        deid = None
+        if graduated:
+            deid = self._graduated_local.get(fp)
+            scheduled = deid is not None
+        if deid is None:
+            if not lane:
+                return None, None, False
+            deid = self._fast_assoc.get(fp)
+        if deid is None:
+            return None, None, False
+        entries = self._dec_registry.get(deid)
+        if entries is None:
+            if invalidate:
+                self._drop_lane_locked(fp)
+            return None, None, False
+        names = {name for _, name, _ in pending}
+        if ({e["name"] for e in entries} != names
+                or any(e["error"] for e in entries)):
+            if invalidate:
+                self._drop_lane_locked(fp)
+            return None, None, False
+        return entries, fp, scheduled
+
+    def _drop_lane_locked(self, fp):
+        """Invalidate a broken association in both lanes; losing a
+        graduated schedule arms the static root's doorbell (the next
+        publish rings it)."""
+        self._fast_assoc.pop(fp, None)
+        if self._graduated_local.pop(fp, None) is not None:
+            self._wake_pending = True
+
+    def _hb_throttle(self):
+        return min(1.0, max(self.config.stall_check_time_seconds / 4.0,
+                            0.05))
+
+    def _heartbeat_payload(self, fp):
+        """Fast-lane liveness beacon (round-4 verdict #2): a coordinator-
+        free process's request blob goes stale, so without this the stall
+        detector could warn about a healthy process in exactly its
+        optimized steady state. The heartbeat names the set fingerprint
+        being executed locally, letting the coordinator exempt precisely
+        the names this process is provably still working on — a generic
+        alive bit would also mask genuine only-a-subset-submitted stalls.
+        Time-throttled and best-effort (a missed beat only risks one
+        spurious warning). Returns the blob to publish (caller writes it
+        OUTSIDE the state lock) or None when throttled/disabled.
+        Reference property matched: the bypass bitvector sync keeps every
+        rank visible every cycle (response_cache.cc:304-390)."""
+        if self.config.stall_check_disable:
+            return None
+        now = time.perf_counter()
+        if now - self._hb_published_t < self._hb_throttle():
+            return None
+        self._hb_published_t = now
+        self._hb_counter += 1
+        return json.dumps({"c": self._hb_counter, "fp": fp}).encode()
+
+    def _resolve_replay_locked(self, decision):
+        """Process side of decision replay: register full decisions tagged
+        ``deid``; resolve ``replay`` ids from the registry (deterministic
+        lockstep with the coordinator memo — an unresolvable id means the
+        protocol invariant broke, which must fail loud, not deadlock)."""
+        deid = decision.get("deid")
+        if deid is not None and decision.get("tensors"):
+            self._dec_registry[deid] = [dict(t)
+                                        for t in decision["tensors"]]
+            while len(self._dec_registry) > _DEC_MEMO_CAPACITY:
+                self._dec_registry.popitem(last=False)
+            return
+        rid = decision.get("replay")
+        if rid is not None:
+            entries = self._dec_registry.get(rid)
+            if entries is None:
+                raise CoordinatorError(
+                    f"decision {self._applied} replays unknown decision-"
+                    f"epoch {rid}: the replay registry diverged from the "
+                    f"coordinator's memo (protocol bug — please report)")
+            self._dec_registry.move_to_end(rid)
+            decision["tensors"] = [dict(t) for t in entries]
+
+    def _maybe_ack(self):
+        """Ack the applied decision index (throttled) so process 0 can
+        compact the log below the global minimum. Best-effort: a missed
+        ack only delays compaction."""
+        with self._lock:
+            applied = self._applied
+        if applied - self._ack_published < _ACK_EVERY:
+            return
+        try:
+            self._client.key_value_set_bytes(
+                f"{self._ns}/ack/{self.pid}",
+                str(applied).encode(), allow_overwrite=True)
+            self._ack_published = applied
+        except Exception:  # noqa: BLE001 — best-effort
+            pass
+
+    # ---------------------------------------------------- coordinator side
+
+    def _kv_multiget(self, keys, what, best_effort=False):
+        """Read many KV keys as ONE concurrent batch. The reference
+        aggregates every worker's RequestList in a single
+        MPI_Gather(len) + MPI_Gatherv(bytes) — O(log n) wall time in
+        process count (operations.cc:1754-1801). A KV store has no
+        gatherv, but fanning the reads out over a thread pool makes a
+        round cost ~one RPC latency instead of nproc of them (round-4
+        verdict #1: serial sweeps were the one component failing the
+        256-host north star). Timeout-like misses return None; genuine
+        transport errors feed the failure counter (raising
+        CoordinatorError past the limit, on the calling thread).
+        ``best_effort`` suppresses the failure counting entirely — for
+        reads (compaction acks) whose loss only delays housekeeping."""
+        metrics.COORD_KV_OPS.labels(op="multiget").inc(len(keys))
+        # Snapshot the pool into a local and create it only under the
+        # lock: a close() racing this round (ticker vs engine shutdown)
+        # must neither crash the in-flight batch nor let it re-create a
+        # pool nobody would release. Post-close rounds read serially.
+        pool = None
+        if len(keys) > 1 and not self._closed \
+                and kv_has_try_get(self._client):
+            pool = self._pool
+            if pool is None:
+                with self._lock:
+                    if self._pool is None and not self._closed:
+                        self._pool = \
+                            concurrent.futures.ThreadPoolExecutor(
+                                max_workers=min(64, max(4, self.nproc)),
+                                thread_name_prefix="hvd-tpu-kv")
+                    pool = self._pool
+        if pool is None:
+            results = [self._try_get(k) for k in keys]
+        else:
+            try:
+                results = list(pool.map(self._try_get, keys))
+            except RuntimeError:  # pool shut down between check and map
+                results = [self._try_get(k) for k in keys]
+        out = []
+        first_failure = None
+        for r in results:
+            if isinstance(r, _KVFailure):
+                if first_failure is None:
+                    first_failure = r.exc
+                out.append(None)
+            else:
+                out.append(r)
+        if first_failure is not None and not best_effort:
+            # One batch = one failure event toward the consecutive limit:
+            # a single service blip fails every read in the batch at once,
+            # and counting each would cross _TRANSPORT_FAIL_LIMIT inside
+            # one round. CoordinatorError still raises (on this thread)
+            # after LIMIT consecutive bad rounds.
+            self._transport_failure(what, first_failure)
+        return out
+
+    def _try_get(self, key):
+        try:
+            blob = kv_try_get_bytes(self._client, key)
+        except Exception as e:  # noqa: BLE001 — classified by caller
+            if _is_timeout_error(e):
+                return None
+            return _KVFailure(e)
+        return blob
+
+    def coordinate(self):
+        """Process 0 only: aggregate published pending sets and append any
+        new decisions (ready tensors, mismatch errors, stall warnings).
+        Returns True when the round observed work (fresh submissions, a
+        decision appended, or a shutdown) — the engine ticker uses this to
+        back off multiplicatively when the job is idle (round-4 verdict
+        #1: the always-on ~5 ms ticker made an idle 256-host job hammer
+        the KV service).
+
+        The KV reads run OUTSIDE the coordinator lock as one concurrent
+        batch (_kv_multiget); only the decision-making over the snapshot
+        takes the lock. When the previous round left a stall suspicion,
+        the batch also reads every process's fast-lane heartbeat so the
+        stall check can tell silent-but-working from dead."""
+        if self.pid != 0:
+            return False
+        # Whole-round mutex: a ticker round and an app round processing
+        # their snapshots out of order would corrupt _decided ("&= live"
+        # against a stale view) and append duplicate decisions.
+        with self._coordinate_mutex:
+            t0 = time.perf_counter()
+            # Receipt-clock round cadence, sizing the provisional
+            # heartbeat credit in _fast_lane_covers_locked (advisor r5).
+            if self._last_round_t is not None:
+                self._round_interval = t0 - self._last_round_t
+            self._last_round_t = t0
+            metrics.COORD_ROUNDS.inc()
+            # Graduated static round (docs/controlplane.md): when every
+            # participant runs on a fixed schedule, nobody is publishing
+            # and nobody is waiting on a decision — the only thing worth
+            # reading is the wake doorbell. O(1) root KV reads per round.
+            with self._lock:
+                static = self._static_mode
+            if static:
+                probe = self._try_get(f"{self._ns}/wake")
+                if not isinstance(probe, _KVFailure):
+                    val = bytes(probe) if probe else None
+                    with self._lock:
+                        unchanged = val == self._wake_seen
+                        if not unchanged:
+                            self._wake_seen = val
+                            self._static_mode = False
+                    if unchanged:
+                        metrics.CTRL_STATIC_ROUNDS.inc()
+                        metrics.CTRL_ROOT_READS.set(1)
+                        metrics.COORD_ROUND_SECONDS.observe(
+                            time.perf_counter() - t0)
+                        return False
+                else:
+                    # A failed probe falls back to a full sweep: safety
+                    # over economy.
+                    with self._lock:
+                        self._static_mode = False
+            pids = self._pid_list()
+            groups = self._tree_layout()
+            suspect = self._stall_suspect
+            # The round's read set, assembled as named segments so the
+            # result maps below never rely on positional arithmetic.
+            keys = []
+            segs = {}
+
+            def _seg(name, ks):
+                segs[name] = (len(keys), len(ks))
+                keys.extend(ks)
+
+            if groups is None:
+                direct = list(pids)
+                heads = []
+            else:
+                # Tree mode: this process's own group reads direct; every
+                # other group arrives as ONE packed agg blob from its
+                # head — O(fanout + world/fanout) keys, not O(world).
+                direct = list(groups[0])
+                heads = [g[0] for g in groups[1:]]
+                _seg("agg", [f"{self._ns}/agg/{h}" for h in heads])
+            _seg("req", [f"{self._ns}/req/{p}" for p in direct])
+            if suspect:
+                # Stall suspicion is rare; heartbeats read direct for
+                # every pid regardless of topology (a fast-laning member
+                # of a foreign group writes hb itself, not via its head).
+                _seg("hb", [f"{self._ns}/hb/{p}" for p in pids])
+            if self._sched is not None:
+                # Keep the doorbell's last-seen value current on every
+                # full sweep, so entering static mode observes rings that
+                # raced this round.
+                _seg("wake", [f"{self._ns}/wake"])
+            blobs = self._kv_multiget(keys, "pending-set read")
+            metrics.CTRL_ROOT_READS.set(len(keys))
+
+            def _blobs(name):
+                off, k = segs.get(name, (0, 0))
+                return blobs[off:off + k]
+
+            req_map = dict(zip(direct, _blobs("req")))
+            for h, ab in zip(heads, _blobs("agg")):
+                if not ab:
+                    continue
+                try:
+                    records = _tree.unpack_entries(ab)
+                except ValueError:
+                    _logger.warning(
+                        "coordinator: malformed aggregate blob from "
+                        "process %d head; its group is skipped this "
+                        "round", h)
+                    continue
+                for kind, p, b in records:
+                    if kind == _tree.KIND_REQ:
+                        req_map[p] = b
+            if suspect:
+                now = time.perf_counter()
+                for p, hb in zip(pids, _blobs("hb")):
+                    self._note_heartbeat_locked(p, hb, now)
+            wake_probe = _blobs("wake")
+            with self._lock:
+                if wake_probe and not isinstance(wake_probe[0], _KVFailure):
+                    self._wake_seen = (bytes(wake_probe[0])
+                                       if wake_probe[0] else None)
+                activity = self._coordinate_locked(
+                    [(p, req_map.get(p)) for p in pids],
+                    liveness_fresh=suspect)
+                if self._sched is not None:
+                    # Static mode only before shutdown.
+                    self._static_mode = (not self._shutdown_decided
+                                         and self._sched.all_graduated(pids))
+            # Outside the state lock: compaction is nproc more KV reads
+            # and must not block application publishes/fetches.
+            if self._session_cleanup_pending:
+                self._session_cleanup_pending = False
+                self._cleanup_session_keys()
+            self._maybe_compact()
+            metrics.COORD_ROUND_SECONDS.observe(time.perf_counter() - t0)
+            return activity
+
+    def _cleanup_session_keys(self):
+        """Best-effort deletion of every process's req/hb/ack keys once the
+        global SHUT_DOWN decision is in the log (advisor r5: per-session
+        keys must not accrete across init/shutdown cycles of a long-lived
+        job; the decision log already compacts with key_value_delete)."""
+        for p in self._pid_list():
+            for kind in ("req", "hb", "ack", "agg"):
+                try:
+                    self._client.key_value_delete(f"{self._ns}/{kind}/{p}")
+                except Exception:  # noqa: BLE001 — hygiene only
+                    pass
+        try:
+            self._client.key_value_delete(f"{self._ns}/wake")
+        except Exception:  # noqa: BLE001 — hygiene only
+            pass
+
+    def _note_heartbeat_locked(self, p, blob, now):
+        """Record when a process's heartbeat value last CHANGED (receipt
+        clock — peers' clocks are never compared). A blob seen for the
+        first time is provisional: a long-dead process's final beat must
+        not read as fresh just because we only now started looking."""
+        if not blob:
+            return
+        blob = bytes(blob)
+        prev = self._hb_seen.get(p)
+        if prev is None:
+            self._hb_seen[p] = (blob, now, False)
+        elif prev[0] != blob:
+            self._hb_seen[p] = (blob, now, True)
+
+    def _fast_lane_covers_locked(self, p, name, now):
+        """True when process p's recent heartbeat proves it is fast-laning
+        a set that CONTAINS this name — the only case a stale request blob
+        is healthy. The fp->names resolution rides the epoch registry, so
+        a process fast-laning some other set (genuine divergence) stays
+        warnable. A provisional (never-seen-to-change) beat gets only a
+        few throttle periods of credit — scaled up to two coordinate-round
+        intervals when rounds run slower than the throttle (advisor r5: a
+        suspect-armed round delayed by a GC pause or slow KV batch must
+        not let the credit lapse before the detector even looks again) —
+        so a healthy laner re-beats within the window, while a corpse's
+        final beat expires quickly instead of buying a whole extra stall
+        window."""
+        if p is None:
+            return False
+        rec = self._hb_seen.get(p)
+        if rec is None:
+            return False
+        blob, t, confirmed = rec
+        # Capped at the confirmed-beat window: a single huge inter-round
+        # gap (suspended coordinator) must not hand a possibly-dead
+        # process MORE suppression credit than a provably-live one gets.
+        window = (self.config.stall_check_time_seconds if confirmed
+                  else min(max(2.5 * self._hb_throttle(),
+                               2.0 * self._round_interval),
+                           self.config.stall_check_time_seconds))
+        if now - t > window:
+            return False
+        try:
+            fp = json.loads(blob.decode())["fp"]
+        except (ValueError, KeyError):
+            return False
+        eid = self._epoch_ids.get((p, fp))
+        if eid is None:
+            return False
+        return any(n == name for n, _ in self._epochs.get((p, eid), ()))
+
+    def _coordinate_locked(self, pid_blobs, liveness_fresh=False):
+        by_name = {}
+        seqs_by_name = {}
+        live = set()
+        shutdown_seen = False
+        # Per-process view of this round's publishes, for the fast-lane
+        # teaching hints: fp of each full set + its names + its seq keys.
+        proc_fp = {}
+        proc_names = {}
+        proc_keys = {}
+        fresh_pids = set()
+        self._stall_suspect = False
+        for p, blob in pid_blobs:
+            if not blob:
+                continue
+            blob = bytes(blob)
+            if blob[:4] == _EPOCH_MAGIC:
+                tok = json.loads(blob[4:].decode())
+                reg = self._epochs.get((p, tok["e"]))
+                if reg is None or len(reg) != tok["n"]:
+                    # evicted between announce and use — or a token whose
+                    # item count contradicts the registry (fingerprint
+                    # collision guard, advisor r3): tell p to forget and
+                    # fall back to a full publish
+                    self._epoch_drop.append({"pid": p, "id": tok["e"]})
+                    dead_key = self._epoch_key_by_id.get(tok["e"])
+                    if dead_key is not None:
+                        self._fast_taught.pop(dead_key, None)
+                        if self._sched is not None:
+                            self._sched.demote_fp(dead_key[0], dead_key[1],
+                                                  "token mismatch")
+                    continue
+                self._epochs.move_to_end((p, tok["e"]))
+                items = [(meta, tok["s0"] + i, name)
+                         for i, (name, meta) in enumerate(reg)]
+                key = self._epoch_key_by_id.get(tok["e"])
+                if key is not None:
+                    proc_fp[p] = key[1]
+            else:
+                reqs, tagged, shut = wire.parse_request_list(blob)
+                shutdown_seen = shutdown_seen or shut
+                items = []
+                for req, tag in zip(reqs, tagged):
+                    seq_s, _, name = tag.partition("|")
+                    items.append((req, int(seq_s), name))
+                if items and not shut:
+                    fp = _fingerprint(items)
+                    proc_fp[p] = fp
+                    self._maybe_register_epoch_locked(p, items, fp)
+            if p in proc_fp:
+                proc_names[p] = {name for _, _, name in items}
+                proc_keys[p] = [(p, seq) for _, seq, _ in items]
+            for req, seq, name in items:
+                key = (p, seq)
+                live.add(key)
+                self._rank_owner[req.rank] = p
+                if key in self._decided:
+                    continue
+                # An UNDECIDED key distinguishes a fresh submission from
+                # the stale blob a graduated (or fast-laning) process
+                # left in the store — only fresh ones demote a schedule.
+                fresh_pids.add(p)
+                by_name.setdefault(name, []).append(req)
+                seqs_by_name.setdefault(name, []).append(key)
+        # prune decided pairs that no longer appear anywhere
+        self._decided &= live
+        if self._sched is not None:
+            for p in fresh_pids:
+                # A graduated pid publishing anything new is off its
+                # schedule (shape churn / registry loss): demote it so
+                # the static gate re-opens only after it re-graduates.
+                self._sched.note_submission(p, proc_fp.get(p))
+
+        now = time.perf_counter()
+        ready, stalled = [], {}
+        for name, reqs in by_name.items():
+            self._first_seen.setdefault(name, now)
+            have = {r.rank for r in reqs}
+            if len(have) == self.num_ranks:
+                ready.append((name, reqs))
+                self._first_seen.pop(name, None)
+                self._stall_warned.discard(name)
+            elif (not self.config.stall_check_disable
+                  and now - self._first_seen[name]
+                  > self.config.stall_check_time_seconds
+                  and name not in self._stall_warned):
+                # Overdue. Before warning, prove the missing ranks are not
+                # merely fast-laning this very set with a stale request
+                # blob (round-4 verdict #2: the detector cried wolf in
+                # exactly the optimized steady state). Heartbeats are read
+                # on the round AFTER suspicion arises, so the first
+                # overdue round only arms the read.
+                self._stall_suspect = True
+                if not liveness_fresh:
+                    continue
+                missing = [r for r in range(self.num_ranks)
+                           if r not in have]
+                blocked = [r for r in missing if not self._fast_lane_covers_locked(
+                    self._rank_owner.get(r), name, now)]
+                if not blocked:
+                    # every missing rank is provably executing this name
+                    # locally; keep first_seen so a later genuine stall
+                    # (heartbeat stops) still warns
+                    continue
+                self._stall_warned.add(name)
+                # A stalled name's memoized decision must not be replayed
+                # if it later resolves with different metadata (reference:
+                # InvalidateStalledCachedTensors, operations.cc:899-913).
+                for k in [k for k in self._resp_memo if k[0] == name]:
+                    del self._resp_memo[k]
+                for r in blocked:
+                    stalled.setdefault(r, []).append(name)
+
+        if shutdown_seen:
+            # Graceful-exit echo: any rank's shutdown bit becomes a global
+            # SHUT_DOWN decision every process applies to its pending
+            # handles, instead of each peer waiting out the stall deadline
+            # (reference: operations.cc:1664-1667,1700,1882-1886).
+            if not self._shutdown_decided:
+                self._shutdown_decided = True
+                self._append_decision_locked({"tensors": [], "warning": None,
+                                       "shutdown": True})
+            # Session over: every blob has been read and the echo is the
+            # log's last word — reclaim the per-process req/hb/ack keys
+            # (advisor r5: they otherwise accrete one set per
+            # init/shutdown cycle). Re-armed on EVERY round that still
+            # observes a shutdown blob, so a peer whose announce landed
+            # after the first cleanup still gets its key reclaimed.
+            # Deletion happens outside the state lock, back in
+            # coordinate().
+            self._session_cleanup_pending = True
+            return True
+
+        decision = {"tensors": [], "warning": None}
+        for name, reqs in sorted(ready):
+            reqs = sorted(reqs, key=lambda r: r.rank)
+            # Memoize validation by full metadata: in steady state every
+            # step re-submits identical requests, so ConstructResponse runs
+            # once per distinct set, not once per cycle (the re-validation
+            # the reference's cache bypass skips, response_cache.cc:304-390).
+            mkey = (name, tuple((r.rank, r.cache_key()) for r in reqs))
+            entry = self._resp_memo.get(mkey)
+            if entry is None:
+                resp = construct_response(name, reqs, self.num_ranks)
+                entry = {
+                    "name": name,
+                    "op": resp.op,
+                    "error": resp.error,
+                    "sizes": resp.tensor_sizes,
+                    "root": resp.root_rank,
+                    # dtype/shape echo: lets the engine's staleness guard
+                    # reject a backlogged decision against a same-op
+                    # re-submission with different metadata (advisor r4).
+                    # For allgather only the trailing dims agree across
+                    # ranks; the guard compares shape[1:] there.
+                    "dtype": reqs[0].dtype,
+                    "shape": list(reqs[0].shape),
+                }
+                self._resp_memo[mkey] = entry
+                while len(self._resp_memo) > _RESP_MEMO_CAPACITY:
+                    self._resp_memo.popitem(last=False)
+            else:
+                self._resp_memo.move_to_end(mkey)
+            decision["tensors"].append(dict(entry))
+            for key in seqs_by_name[name]:
+                self._decided.add(key)
+        if stalled:
+            msg = ["One or more tensors were submitted to be reduced, "
+                   "gathered or broadcasted by subset of ranks and are "
+                   "waiting for remainder of ranks for more than "
+                   f"{int(self.config.stall_check_time_seconds)} seconds. "
+                   "This may indicate that different ranks are trying to "
+                   "submit different tensors or that only subset of ranks "
+                   "is submitting tensors, which will cause deadlock. "
+                   "\nStalled ranks:"]
+            for r in sorted(stalled):
+                names = stalled[r]
+                shown = ", ".join(names[:6])
+                if len(names) > 6:
+                    shown += " ..."
+                msg.append(f"\n{r}: [{shown}]")
+            decision["warning"] = "".join(msg)
+
+        if self._epoch_announce:
+            decision["epochs"] = self._epoch_announce
+            self._epoch_announce = []
+        if self._epoch_drop:
+            decision["epoch_drop"] = self._epoch_drop
+            self._epoch_drop = []
+        appended = False
+        if (decision["tensors"] or decision["warning"]
+                or decision.get("epochs") or decision.get("epoch_drop")):
+            # Snapshot teachability BEFORE memoization replaces the
+            # tensors list with a replay id.
+            decided_names = {t["name"] for t in decision["tensors"]}
+            complete = (bool(decided_names) and not decision["warning"]
+                        and not any(t["error"]
+                                    for t in decision["tensors"])
+                        and not self.config.autotune)
+            clean = (complete
+                     and not self.config.coordinator_bypass_disable)
+            self._memoize_decision(decision)
+            if clean:
+                self._teach_fast_lane_locked(decision, decided_names,
+                                      proc_fp, proc_names, proc_keys)
+            if complete and self._sched is not None:
+                # Graduation rides the SAME complete-clean-answer
+                # condition as fast-lane teaching, but is gated on its
+                # own knob — it must work with the bypass disabled too
+                # (the simrank harness measures graduation against full
+                # per-round negotiation).
+                self._graduate_locked(decision, decided_names, proc_fp,
+                                      proc_names, proc_keys)
+            self._append_decision_locked(decision)
+            appended = True
+        return appended or bool(by_name)
+
+    def _graduate_locked(self, decision, decided_names, proc_fp,
+                         proc_names, proc_keys):
+        """Advance per-(pid, fp) streaks for every process this decision
+        fully answers; sets that repeated the same decision epoch
+        ``coord_graduate_after`` consecutive times graduate, announced as
+        ``{"grad": [{"pid", "fp"}]}`` hints riding the decision
+        (controlplane/schedule.py)."""
+        deid = decision.get("deid", decision.get("replay"))
+        if deid is None:
+            return
+        hints = []
+        for p, fp in proc_fp.items():
+            if (proc_names.get(p) == decided_names
+                    and all(k in self._decided for k in proc_keys[p])
+                    and self._sched.observe_answer(p, fp, deid)):
+                hints.append({"pid": p, "fp": fp})
+        if hints:
+            decision["grad"] = hints
+
+    def _teach_fast_lane_locked(self, decision, decided_names, proc_fp,
+                         proc_names, proc_keys):
+        """Attach {"pid", "fp"} hints to a complete clean decision for
+        every process whose entire pending set it answers — the log-driven
+        half of the fast lane (advisor r4). Hints ship once per (process,
+        fingerprint, deid): steady-state replay decisions stay ~30 bytes.
+        A deid evicted from the memo gets a fresh id on its next
+        occurrence, which re-teaches automatically because the taught deid
+        no longer matches."""
+        deid = decision.get("deid", decision.get("replay"))
+        if deid is None:
+            return
+        hints = []
+        for p, fp in proc_fp.items():
+            if (proc_names.get(p) == decided_names
+                    and all(k in self._decided for k in proc_keys[p])
+                    and self._fast_taught.get((p, fp)) != deid):
+                self._fast_taught[(p, fp)] = deid
+                hints.append({"pid": p, "fp": fp})
+        if hints:
+            decision["fast"] = hints
+
+    def _memoize_decision(self, decision):
+        """Coordinator side of decision replay: a repeated tensors list
+        ships as ``{"replay": deid}`` instead of the full entries — the
+        decision-log analog of RunBypass skipping the response broadcast
+        (operations.cc:1356-1403). Warnings/epoch announcements ride
+        alongside either form untouched."""
+        tensors = decision["tensors"]
+        if not tensors:
+            return
+        fp = hashlib.sha1(repr(tensors).encode()).hexdigest()
+        deid = self._dec_fp_memo.get(fp)
+        if deid is not None:
+            self._dec_fp_memo.move_to_end(fp)
+            del decision["tensors"]
+            decision["replay"] = deid
+            return
+        deid = self._next_deid
+        self._next_deid += 1
+        self._dec_fp_memo[fp] = deid
+        decision["deid"] = deid
+        while len(self._dec_fp_memo) > _DEC_MEMO_CAPACITY:
+            _, dead = self._dec_fp_memo.popitem(last=False)
+            # Taught associations pointing at the evicted deid are dead on
+            # the process side too (lockstep registries); forgetting them
+            # here re-arms teaching for the replacement deid.
+            for k in [k for k, v in self._fast_taught.items()
+                      if v == dead]:
+                del self._fast_taught[k]
+
+    def _maybe_compact(self):
+        """Delete decision keys every process has acked past — bounded
+        control-plane state (module docstring). Runs every _ACK_EVERY
+        appended decisions; wholly best-effort; ack reads go out as one
+        concurrent batch (round-4 verdict #1)."""
+        with self._lock:
+            next_decision = self._next_decision
+        if next_decision - self._last_compact_check < _ACK_EVERY:
+            return
+        self._last_compact_check = next_decision
+        try:
+            # Read failures surface as None blobs (best_effort: a blip
+            # only delays compaction, it must never fail the job).
+            blobs = self._kv_multiget(
+                [f"{self._ns}/ack/{p}" for p in self._pid_list()],
+                "ack read", best_effort=True)
+        except Exception:  # noqa: BLE001 — best-effort
+            return
+        if any(not b for b in blobs):
+            return  # a process has never acked: nothing provably applied
+        floor = min(int(bytes(b).decode()) for b in blobs)
+        for did in range(self._compacted_below, floor):
+            try:
+                self._client.key_value_delete(f"{self._ns}/dec/{did}")
+            except Exception:  # noqa: BLE001 — already gone is fine
+                pass
+        self._compacted_below = max(self._compacted_below, floor)
+
+    def _maybe_register_epoch_locked(self, p, items, fp=None):
+        """Register a full publish's fingerprint as an epoch and queue the
+        announcement; evict LRU past capacity (with a drop notice so the
+        owner stops sending its token)."""
+        if fp is None:
+            fp = _fingerprint(items)
+        if (p, fp) in self._epoch_ids:
+            return
+        eid = self._next_epoch_id
+        self._next_epoch_id += 1
+        self._epochs[(p, eid)] = [(name, req) for req, _seq, name in items]
+        self._epoch_ids[(p, fp)] = eid
+        self._epoch_key_by_id[eid] = (p, fp)
+        self._epoch_announce.append({"pid": p, "id": eid, "fp": fp})
+        while len(self._epochs) > self._epoch_capacity:
+            (old_p, old_id), _ = self._epochs.popitem(last=False)
+            key = self._epoch_key_by_id.pop(old_id, None)
+            if key is not None:
+                self._epoch_ids.pop(key, None)
+                self._fast_taught.pop(key, None)
+                if self._sched is not None:
+                    # An evicted epoch's graduated schedule dies with it
+                    # (the owner's epoch_drop notice demotes it locally
+                    # at the same log index).
+                    self._sched.demote_fp(key[0], key[1], "epoch evicted")
+            self._epoch_drop.append({"pid": old_p, "id": old_id})
+
+    def _append_decision_locked(self, decision):
+        if (self._sched is not None
+                and (decision.get("warning") or decision.get("shutdown"))):
+            # Coordinator-side instant demotion, mirroring the process
+            # side in fetch_decisions: any disruptive decision voids
+            # every graduated schedule and re-opens full sweeps.
+            self._sched.demote_all("disruptive decision")
+            self._static_mode = False
+        did = self._next_decision
+        self._next_decision += 1
+        self._client.key_value_set_bytes(
+            f"{self._ns}/dec/{did}",
+            json.dumps(decision).encode(), allow_overwrite=True)

@@ -15,16 +15,18 @@ expert-parallel MoE families (``hvd_moe_*``, fed by
 :func:`record_moe_step`), the overlap fractions a phase trace reads
 (``hvd_moe_alltoall_hidden_frac``, ``hvd_exchange_hidden_frac``) and
 the diagnostics families (``hvd_diag_*``, ``hvd_xla_*``,
-``hvd_perf_regressions_total``; diag/), under the JAX package's names
+``hvd_perf_regressions_total``; diag/), the eager engine's and its
+coordinator's families (``hvd_engine_*``, ``hvd_coordinator_*``,
+``hvd_ctrl_*``, ``hvd_kv_retries_total``) and the fork's wire profiler
+(``hvd_wire_seconds``, dumped by :func:`dump_wire_profile`), under the JAX package's names
 and help texts. The ``xla`` in a name is kept so a dashboard finds the
 same series: in the port the trace is ``torch.profiler``'s.
 
 The sinks (:class:`MetricsExporters`): a JSONL log of snapshots and a
 Prometheus textfile under ``HOROVOD_METRICS_DIR``, and an HTTP scrape
 endpoint on ``HOROVOD_METRICS_PORT``, every ``HOROVOD_METRICS_INTERVAL``
-seconds, in the JAX package's formats. Its third sink, counter events
-spliced into the live timeline, waits for the timeline (ROADMAP.md,
-Queue 1 item 10): the ``timeline`` argument must be None.
+seconds, in the JAX package's formats, and counter events spliced
+into the live timeline.
 """
 
 import json
@@ -39,6 +41,8 @@ _logger = get_logger("horovod_tpu_torch.metrics")
 # Latency histogram bounds, seconds.
 LATENCY_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
                    0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
+# Fill-ratio histogram bounds.
+RATIO_BUCKETS = (0.1, 0.25, 0.5, 0.75, 0.9, 1.0, 1.5, 2.0, 4.0)
 
 
 def _label_key(labelnames, labelvalues):
@@ -203,6 +207,23 @@ class Histogram(_Family):
 
     def value(self):
         return self._default_child().value()
+
+    def time(self):
+        """Context manager observing the elapsed wall time in seconds."""
+        return _HistTimer(self._default_child())
+
+
+class _HistTimer:
+    def __init__(self, child):
+        self._child = child
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self._child.observe(time.perf_counter() - self._t0)
+        return False
 
 
 class MetricsRegistry:
@@ -371,6 +392,128 @@ SERVE_EVICTIONS = _registry.counter(
     "finished (token budget), eos (stop token), cancelled (client "
     "gone); every eviction returns its pages to the free list.",
     labelnames=("reason",))
+
+# Engine (ops/engine.py)
+ENGINE_CYCLES = _registry.counter(
+    "hvd_engine_cycles_total", "Coordinator cycles run by the eager engine.")
+ENGINE_CYCLE_SECONDS = _registry.histogram(
+    "hvd_engine_cycle_seconds", "Wall time of one engine cycle "
+    "(negotiate + validate + fuse + execute).")
+ENGINE_FUSION_FILL = _registry.histogram(
+    "hvd_engine_fusion_fill_ratio", "Fused wire-buffer bytes / "
+    "HOROVOD_FUSION_THRESHOLD per fused allreduce batch.",
+    buckets=RATIO_BUCKETS)
+ENGINE_QUEUE_DEPTH = _registry.gauge(
+    "hvd_engine_queue_depth", "Named tensors pending negotiation.")
+ENGINE_PENDING_BYTES = _registry.gauge(
+    "hvd_engine_pending_bytes", "Bytes awaiting negotiation/fusion.")
+ENGINE_CACHE_HITS = _registry.gauge(
+    "hvd_engine_response_cache_hits", "Response-cache hits (cumulative for "
+    "the live engine; the fork's BcastState cached counters).")
+ENGINE_CACHE_MISSES = _registry.gauge(
+    "hvd_engine_response_cache_misses", "Response-cache misses (cumulative "
+    "for the live engine).")
+ENGINE_STALL_WARNINGS = _registry.counter(
+    "hvd_engine_stall_warnings_total",
+    "Stall warnings issued (CheckForStalledTensors analog).")
+# Paper-parity wire profiler (the fork's map_allreduce/time_map_allreduce,
+# global_state.h:113-141): wire-op latency by power-of-two message-size
+# bin. Dumped as profiler.csv at shutdown when HOROVOD_WIRE_PROFILE=1.
+WIRE_SECONDS = _registry.histogram(
+    "hvd_wire_seconds",
+    "Wire-op latency (dispatch to result available) by collective and "
+    "power-of-two message-size bin (the fork's time_map_allreduce).",
+    labelnames=("op", "size_bin"))
+# Signature-keyed wire-program cache (ops/engine.py WireProgramCache):
+# wire buffers keyed on (op, wire dtype, padded length). Steady state
+# should be ~all hits; a growing miss count means bucket shapes churn.
+ENGINE_WIRE_CACHE_HITS = _registry.gauge(
+    "hvd_engine_wire_cache_hits",
+    "Wire-program cache hits (cumulative for the live engine).")
+ENGINE_WIRE_CACHE_MISSES = _registry.gauge(
+    "hvd_engine_wire_cache_misses",
+    "Wire-program cache misses — each one is a compiled executable "
+    "(cumulative for the live engine).")
+
+# Overlap pipeline (ops/engine.py async dispatch; docs/performance.md).
+ENGINE_BUCKET_FLUSHES = _registry.counter(
+    "hvd_engine_bucket_flushes_total",
+    "Fused wire buckets dispatched (one per fused allreduce batch).")
+ENGINE_INFLIGHT_DEPTH = _registry.gauge(
+    "hvd_engine_inflight_depth",
+    "Wire buckets currently dispatched but not yet read back.")
+ENGINE_INFLIGHT_DEPTH_HIST = _registry.histogram(
+    "hvd_engine_inflight_depth_observed",
+    "In-flight depth observed at each bucket dispatch.",
+    buckets=(0.0, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 16.0))
+ENGINE_READBACK_WAIT_SECONDS = _registry.histogram(
+    "hvd_engine_readback_wait_seconds",
+    "Time a completer actually blocked fetching a fused bucket's result "
+    "(the exposed, non-overlapped part of the comm).")
+ENGINE_COMM_HIDDEN_RATIO = _registry.histogram(
+    "hvd_engine_comm_hidden_ratio",
+    "Per-bucket fraction of dispatch-to-ready wall time that elapsed "
+    "before anyone blocked on the result (comm hidden behind compute).",
+    buckets=(0.1, 0.25, 0.5, 0.75, 0.9, 0.95, 0.99, 1.0))
+
+# Multi-host coordinator (coordinator.py)
+COORD_ROUNDS = _registry.counter(
+    "hvd_coordinator_rounds_total",
+    "Coordination rounds run by process 0.")
+COORD_ROUND_SECONDS = _registry.histogram(
+    "hvd_coordinator_round_seconds",
+    "Wall time of one coordination round (KV fan-out + decide).")
+COORD_KV_OPS = _registry.counter(
+    "hvd_coordinator_kv_ops_total",
+    "KV-store operations issued, by op.", labelnames=("op",))
+COORD_TRANSPORT_FAILURES = _registry.counter(
+    "hvd_coordinator_transport_failures_total",
+    "Non-timeout KV transport failures (CoordinatorError feeder).")
+COORD_FAST_LANE = _registry.counter(
+    "hvd_coordinator_fast_lane_cycles_total",
+    "Coordinator-free local-replay cycles (RunBypass analog).")
+COORD_DECISIONS = _registry.counter(
+    "hvd_coordinator_decisions_applied_total",
+    "Decision-log records applied by this process.")
+COORD_HEARTBEAT_AGE = _registry.gauge(
+    "hvd_coordinator_heartbeat_age_seconds",
+    "Seconds since this process last published a fast-lane heartbeat.")
+
+# Pod-scale control plane (controlplane/ + coordinator.py tree/graduation;
+# docs/controlplane.md)
+CTRL_AGG_ROUNDS = _registry.counter(
+    "hvd_ctrl_agg_rounds_total",
+    "Aggregation sweeps run by this process as a tree aggregator "
+    "(one batched KV write per sweep that changed anything).")
+CTRL_AGG_BATCHED = _registry.counter(
+    "hvd_ctrl_agg_batched_total",
+    "Child records folded into aggregator blobs, by kind (req).",
+    labelnames=("kind",))
+CTRL_ROOT_READS = _registry.gauge(
+    "hvd_ctrl_root_reads_per_round",
+    "KV keys the coordinator root read in the last coordination round "
+    "(O(fanout) under tree aggregation, 1 in graduated static rounds).")
+CTRL_GRADUATED_SETS = _registry.gauge(
+    "hvd_ctrl_graduated_sets",
+    "Steady-state submission sets currently graduated to the "
+    "negotiation-free static schedule.")
+CTRL_SCHEDULE_TRANSITIONS = _registry.counter(
+    "hvd_ctrl_schedule_transitions_total",
+    "Static-schedule membership changes, by kind (graduate/demote).",
+    labelnames=("kind",))
+CTRL_SCHEDULE_HITS = _registry.counter(
+    "hvd_ctrl_schedule_hits_total",
+    "Cycles served from the graduated static schedule with no "
+    "coordinator round-trip at all.")
+CTRL_STATIC_ROUNDS = _registry.counter(
+    "hvd_ctrl_static_rounds_total",
+    "Coordinator rounds short-circuited to the single wake-key probe "
+    "because every participant is graduated.")
+
+KV_RETRIES = _registry.counter(
+    "hvd_kv_retries_total",
+    "Control-plane KV connection attempts retried after a transient "
+    "error, with jittered backoff (HOROVOD_KV_RETRIES).")
 
 # Compiled step program (ops/step_program.py): on a card each program
 # is a captured CUDA graph, where the JAX package compiles an XLA one.
@@ -588,6 +731,43 @@ def record_moe_step(routed, dropped, load_balance_loss, chunks):
     MOE_CHUNKS.set(int(chunks))
 
 
+def wire_profile_rows():
+    """``hvd_wire_seconds`` flattened to ``(op, size_bin_bytes, count,
+    total_seconds)`` rows, sorted by (op, size bin) — the fork's
+    per-message-size table (map_allreduce/time_map_allreduce)."""
+    import re
+    fam = _registry._families.get("hvd_wire_seconds")
+    if fam is None:
+        return []
+    rows = []
+    for key, v in fam.collect().items():
+        labels = dict(re.findall(r'(\w+)="([^"]*)"', key))
+        try:
+            size_bin = int(labels.get("size_bin", "0") or 0)
+        except ValueError:
+            size_bin = 0
+        rows.append((labels.get("op", ""), size_bin,
+                     int(v["count"]), float(v["sum"])))
+    return sorted(rows)
+
+
+def dump_wire_profile(path):
+    """Write the per-message-size wire latency table as CSV (fork parity:
+    the profiler.txt message-size histograms, operations.cc:219-317 —
+    here one row per (op, power-of-two size bin)). Called by
+    runtime.shutdown() on rank 0 when HOROVOD_WIRE_PROFILE=1."""
+    rows = wire_profile_rows()
+    parent = os.path.dirname(path)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+    with open(path, "w") as f:
+        f.write("op,size_bin_bytes,count,mean_us,total_us\n")
+        for op, size_bin, count, total_s in rows:
+            total_us = int(total_s * 1e6)
+            f.write(f"{op},{size_bin},{count},"
+                    f"{total_us // max(count, 1)},{total_us}\n")
+
+
 # ------------------------------------------------------------- rendering
 
 def render_prometheus(snap):
@@ -624,9 +804,8 @@ class MetricsExporters:
     - ``metrics_port >= 0``: HTTP scrape endpoint serving ``/metrics``
       (port 0 binds an ephemeral port, exposed as ``http_port``).
 
-    The JAX package's third sink, counter events spliced into the live
-    timeline, waits for the timeline (ROADMAP.md, Queue 1 item 10):
-    ``timeline`` must be None.
+    - ``timeline``: Chrome-trace ``"C"`` counter events for every
+      counter and gauge, spliced into the live timeline each tick.
 
     ``close()`` performs one final export (so short jobs always land a
     snapshot), then stops the thread and the HTTP server. Everything is
@@ -635,10 +814,6 @@ class MetricsExporters:
     """
 
     def __init__(self, config, timeline=None, process_index=0):
-        if timeline is not None:
-            raise NotImplementedError(
-                "the metrics exporters' timeline sink needs the timeline "
-                "(ROADMAP.md, Queue 1 item 10), which is not ported yet")
         self._interval = max(float(config.metrics_interval), 0.1)
         self._stop = threading.Event()
         self._lock = threading.Lock()  # serializes ticks vs close
@@ -647,6 +822,7 @@ class MetricsExporters:
         self._server_thread = None
         self._jsonl = None
         self._prom_path = None
+        self._timeline = None
         self.http_port = None
 
         if config.metrics_dir:
@@ -656,10 +832,12 @@ class MetricsExporters:
                              f"metrics-{process_index}.jsonl"), "a")
             self._prom_path = os.path.join(
                 config.metrics_dir, f"metrics-{process_index}.prom")
+        if timeline is not None and getattr(timeline, "enabled", False):
+            self._timeline = timeline
         if config.metrics_port is not None and config.metrics_port >= 0:
             self._start_http(config.metrics_port,
                              getattr(config, "metrics_bind", "127.0.0.1"))
-        if self._jsonl or self._prom_path:
+        if self._jsonl or self._prom_path or self._timeline:
             self._thread = threading.Thread(
                 target=self._loop, name="hvd-tpu-metrics", daemon=True)
             self._thread.start()
@@ -727,6 +905,14 @@ class MetricsExporters:
                     os.replace(tmp, self._prom_path)
                 except OSError as e:
                     _logger.warning("metrics textfile write failed: %s", e)
+            tl = self._timeline
+            if tl is not None and getattr(tl, "enabled", False):
+                for name, fam in snap.items():
+                    if fam["type"] == "histogram":
+                        continue
+                    for key, v in fam["values"].items():
+                        series = f"{name}{{{key}}}" if key else name
+                        tl.counter(series, v)
 
     def close(self):
         """Final export, then stop every thread/server. Idempotent."""
@@ -734,7 +920,7 @@ class MetricsExporters:
         if self._thread is not None:
             self._thread.join(timeout=5)
             self._thread = None
-        if self._jsonl or self._prom_path:
+        if self._jsonl or self._prom_path or self._timeline:
             try:
                 self.tick()
             except Exception:  # noqa: BLE001 — a last export is best-effort
@@ -743,6 +929,7 @@ class MetricsExporters:
             if self._jsonl is not None:
                 self._jsonl.close()
                 self._jsonl = None
+            self._timeline = None
         if self._server is not None:
             self._server.shutdown()
             self._server.server_close()
@@ -754,7 +941,7 @@ class MetricsExporters:
 
 def start_exporters(config, timeline=None, process_index=0):
     """Build exporters for the session, or None when nothing is configured
-    (no metrics dir or port) — the common test path keeps zero extra
+    (no metrics dir or port, no enabled timeline to splice into) — the common test path keeps zero extra
     threads. The constructor's sink-enable logic is the single source of
     truth; an exporter with no active sinks is simply discarded."""
     exp = MetricsExporters(config, timeline=timeline,

@@ -3,7 +3,8 @@
 Counterpart of horovod_tpu/ops/collectives.py, carrying what the
 training, MoE and ZeRO slices need: :func:`allreduce` (average or sum),
 :func:`grouped_allreduce` (one flat buffer per dtype),
-:func:`allgather` (equal shapes), :func:`broadcast`, the bucket
+:func:`allgather` (dim 0 may differ by rank), :func:`unfuse_segments`
+(the fused row's per-tensor results), :func:`broadcast`, the bucket
 scheduler :func:`exchange_bucket_plan`, copied from the JAX package, the
 expert-parallel exchange :func:`alltoall` / :func:`alltoall_chunked`
 (differentiable, over a sub-group), :func:`reducescatter`,
@@ -225,15 +226,57 @@ def grouped_allreduce(tensors, average=True, compression=Compression.none,
     return out
 
 
-def allgather(tensor, name=None):
-    """Every rank's ``tensor`` concatenated along dim 0, in rank order
-    (equal shapes on every rank)."""
+def allgather(tensor, name=None, sizes=None):
+    """Every rank's ``tensor`` concatenated along dim 0, in rank order.
+    Ranks may contribute different dim-0 sizes, the other dims equal
+    (the reference's MPI_Allgatherv, collective_operations.cc:68-135):
+    ``sizes`` lists them by rank when the caller knows them, else one
+    small all-gather learns them first. Each rank's block is padded to
+    the largest for the one wire all-gather and sliced back out."""
     buf = _on_device(tensor)
-    parts = [torch.empty_like(buf) for _ in range(runtime.size())]
+    n = runtime.size()
+    if sizes is None:
+        dim0 = torch.tensor([buf.shape[0]], dtype=torch.int64,
+                            device=buf.device)
+        got = [torch.empty_like(dim0) for _ in range(n)]
+        dist.all_gather(got, dim0)
+        sizes = [int(d) for d in torch.cat(got).tolist()]
+    top = max(sizes)
+    if buf.shape[0] != top:
+        pad = buf.new_zeros((top - buf.shape[0],) + tuple(buf.shape[1:]))
+        buf = torch.cat([buf, pad])
+    parts = [torch.empty_like(buf) for _ in range(n)]
     Exchange("allgather", name).launch(
         lambda: dist.all_gather(parts, buf, async_op=True),
         _nbytes(buf)).finish()
-    return torch.cat(parts, dim=0)
+    return torch.cat([p[:d] for p, d in zip(parts, sizes)], dim=0)
+
+
+def unfuse_segments(row, segs, world_size, inplace=False):
+    """Per-tensor results sliced out of a fused flat row (the engine's
+    ``MemcpyOutFusionBuffer``; the JAX package's in-graph
+    ``unfuse_segments``). ``segs`` is a tuple of ``(offset, count,
+    shape, dtype, average, postscale)`` records: each segment is cast
+    from the wire dtype back to its dtype (the decompress), averaged
+    over ``world_size`` (a float divide, an integer floor divide) and
+    scaled. ``inplace=True`` averages a segment whose dtype is the
+    row's in the row itself and returns views of it, with no copy."""
+    outs = []
+    for off, cnt, shape, dtype, average, postscale in segs:
+        out = row[off:off + cnt]
+        if out.dtype != dtype:
+            out = out.to(dtype)
+        elif not inplace:
+            out = out.clone()
+        if average:
+            if out.is_floating_point() or out.is_complex():
+                out.div_(world_size)
+            else:
+                out = torch.div(out, world_size, rounding_mode="floor")
+        if postscale is not None:
+            out = (out * postscale).to(dtype)
+        outs.append(out.view(shape))
+    return tuple(outs)
 
 
 def broadcast_(tensor, root_rank, name=None):

@@ -254,11 +254,12 @@ class StepProgram:
 
 def engine_cached_program(signature, build):
     """``(program, was_hit)`` from the session's signature-keyed program
-    cache (runtime.ProgramCache): the cache tier's entry for callers
-    outside the train step. The serve engine and ``generate`` route
-    their programs here, so they share its hit and miss counts, its
-    graph memory pool and its cold start at ``shutdown()``."""
-    return runtime.live_state().programs.get(signature, build)
+    cache (runtime.ProgramCache, the eager engine's step-program tier):
+    the cache tier's entry for callers outside the train step. The serve
+    engine and ``generate`` route their programs here, so they share its
+    hit and miss counts, its graph memory pool and its cold start at
+    ``shutdown()``."""
+    return runtime.live_state().engine.step_program(signature, build)[:2]
 
 
 def _hyperparameters(optimizer):
@@ -505,14 +506,14 @@ class CompiledTrainStep:
             if len(self._signatures) >= cfg.step_program_churn_limit:
                 return self._fallback("shape_churn", batch, buckets)
             self._signatures.add(sig)
-        prog, was_hit = st.programs.get(
+        prog, was_hit, hits, misses = st.engine.step_program(
             sig, lambda: self._build(st, sig, batch, buckets))
         if was_hit:
             self.cache_hits += 1
         else:
             self.cache_misses += 1
-        metrics.STEP_PROGRAM_CACHE_HITS.set(st.programs.hits)
-        metrics.STEP_PROGRAM_CACHE_MISSES.set(st.programs.misses)
+        metrics.STEP_PROGRAM_CACHE_HITS.set(hits)
+        metrics.STEP_PROGRAM_CACHE_MISSES.set(misses)
         for dst, src in zip(prog.inputs, batch):
             dst.copy_(src)
         captured = prog.captured

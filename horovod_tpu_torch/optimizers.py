@@ -119,6 +119,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         # the world (None) for the rest.
         self.expert_keys = spec.expert_keys
         self._spec = spec
+        self._named_parameters = named_parameters
         lspecs = spec.leaf_specs(_names_of(params, named_parameters),
                                  gauge=mode == "spec")
         self._group_of = {p: (spec.group_for(ls.reduce),
@@ -140,6 +141,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             if opt is not None:
                 opt._hook(p)
 
+        self._hook_fn = hook
         self._hook_handles = [p.register_post_accumulate_grad_hook(hook)
                               for p in params]
 
@@ -206,7 +208,30 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         with record_function("hvd_exchange"):
             self._synchronize()
 
+    def _adopt_late_params(self):
+        """Parameters whose ``requires_grad`` turned on after construction
+        join the exchange here, hooked from the next backward on, as one
+        more bucket (the reference re-walks grad_fn every backward,
+        torch/__init__.py:94-129; its test_dynamic_requires_grad)."""
+        late = [p for group in self.param_groups for p in group["params"]
+                if p.requires_grad and p not in self._allreduce_delay]
+        if not late:
+            return
+        lspecs = self._spec.leaf_specs(
+            _names_of(late, self._named_parameters), gauge=False)
+        b = len(self._buckets)
+        for p, ls in zip(late, lspecs):
+            self._group_of[p] = (self._spec.group_for(ls.reduce),
+                                 self._spec.size_of(ls.denom))
+            self._allreduce_delay[p] = self.backward_passes_per_step
+            self._bucket_of[p] = b
+            self._hook_handles.append(
+                p.register_post_accumulate_grad_hook(self._hook_fn))
+        self._buckets.append(late)
+        self._ready.append(0)
+
     def _synchronize(self):
+        self._adopt_late_params()
         for b, params in enumerate(self._buckets):
             if b in self._inflight:
                 continue

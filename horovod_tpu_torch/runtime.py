@@ -8,7 +8,13 @@ on:
   ``HOROVOD_TPU_NUM_PROCESSES``, ``HOROVOD_TPU_PROCESS_ID``,
   ``HOROVOD_TPU_LOCAL_RANK``, ``HOROVOD_TPU_LOCAL_SIZE``), each process
   joins a ``TCPStore`` at the coordinator address, which process 0
-  hosts;
+  hosts. The store outlives the session: a later ``init()`` in the
+  same process joins the same store (the JAX package keeps one
+  process-0-hosted KV service for all sessions the same way,
+  utils/compat.py), and each session's process group keys its
+  rendezvous under a prefix of its own, ``hvd/<session>/pg/``. A store
+  that closed and came back at one address across a re-init could be
+  reached by a peer as it closed (``Broken pipe``);
 - without them, the process forms a one-rank group on an in-memory
   ``HashStore``, and nothing listens on a network port.
 
@@ -25,8 +31,18 @@ process with one card, as in the reference Horovod and in
 ``torch.distributed``: ``size()`` counts processes, ``rank()`` is this
 process's place among them, and ``local_rank()`` picks its card.
 
+``init()`` builds the eager engine (ops/engine.py) that the top-level
+``allreduce``/``allgather``/``broadcast``/``alltoall`` and their async
+forms go through, with the session's native collective stats and, under
+``HOROVOD_TIMELINE``, the timeline; ``shutdown()`` drains the engine,
+then rank 0 writes ``profiler.txt`` (and ``profiler.csv`` under
+``HOROVOD_WIRE_PROFILE``) and the timeline is closed, the other ranks'
+events spliced into rank 0's file. With several ranks the engine's
+coordinator keys its traffic under ``hvd/<session>/coord`` in the
+session's store.
+
 Knobs that would start subsystems the port does not have yet (the
-timeline, the guard, autotune) make ``init()`` raise rather than run
+guard, autotune, elastic training) make ``init()`` raise rather than run
 without them.
 
 ``init()`` also installs the diagnostics (diag/): the flight recorder
@@ -49,9 +65,10 @@ use and kept for the session (:func:`cached_groups`).
 
 Each session owns a :class:`ProgramCache`: the signature-keyed step
 programs of ops/step_program.py (on a card, captured CUDA graphs sharing
-one memory pool). ``shutdown()`` drops it and the next ``init()`` starts
-an empty one, as an elastic re-init over a new membership cold-starts
-the JAX engine's step-program tier.
+one memory pool), the engine's step-program tier
+(``EagerEngine.step_program``). ``shutdown()`` drops it and the next
+``init()`` starts an empty one, as an elastic re-init over a new
+membership cold-starts the JAX engine's step-program tier.
 """
 
 import atexit
@@ -72,21 +89,20 @@ AXIS = "hvd"  # global mesh axis name for the data-parallel collective dimension
 
 # What init() refuses, with the ROADMAP.md item that brings it.
 _MISSING = (
-    ("timeline", "HOROVOD_TIMELINE", "the timeline (ROADMAP.md, Queue 1 "
-     "item 10)"),
     ("autotune", "HOROVOD_AUTOTUNE", "autotune (ROADMAP.md, Queue 1 item "
      "10)"),
     ("guard", "HOROVOD_GUARD", "the step-integrity guard (ROADMAP.md, "
      "Queue 1 item 15)"),
+    ("elastic", "HOROVOD_ELASTIC", "elastic training (ROADMAP.md, Queue 1 "
+     "item 15)"),
 )
 
 
 class ProgramCache:
     """One session's step programs, keyed by signature, LRU-bounded,
-    with hit and miss counts: the counterpart of the JAX engine's
-    step-program tier (``EagerEngine.step_program`` over a
-    ``WireProgramCache``), whose engine is not ported yet (ROADMAP.md,
-    Queue 1 item 10). On a card every program it builds captures into
+    with hit and miss counts: the eager engine's step-program tier
+    (``EagerEngine.step_program``; the JAX engine keeps it in a
+    ``WireProgramCache``). On a card every program it builds captures into
     one CUDA graph memory pool (:meth:`graph_pool`): programs replay one
     at a time on one stream, so they may share what each frees."""
 
@@ -153,6 +169,8 @@ class _State:
         self.stats = None
         self.programs = None
         self.store = None
+        self.engine = None
+        self.timeline = None
         self.owns_group = False
         self.mesh = None
         self.expert_mesh = None
@@ -210,7 +228,7 @@ def _collect_device_memory():
         torch.cuda.get_device_properties(dev).total_memory)
 
 
-def _install_diagnostics(cfg, rank, size, store):
+def _install_diagnostics(cfg, rank, size, store, timeline=None):
     """The flight recorder, the phase tracer, the perf sentry, the hang
     watchdog and the metrics exporters of a new session (each None
     unless its knob opts in), as the JAX package's ``init()`` installs
@@ -228,6 +246,7 @@ def _install_diagnostics(cfg, rank, size, store):
     metrics.registry().set_collect_hook("device_memory",
                                         _collect_device_memory)
     _state.metrics_exporters = metrics.start_exporters(cfg,
+                                                       timeline=timeline,
                                                        process_index=rank)
 
 
@@ -253,17 +272,27 @@ def _env_int(name, default):
     return int(v) if v else default
 
 
+# (host, port, size, rank) -> TCPStore: one store per coordinator
+# address for the process's life, shared by every session.
+_stores = {}
+
+
 def _join_group():
-    """(store, rank, size) of this process's group; the store is kept so
-    a TCPStore server lives as long as the session."""
+    """(store, rank, size) of this process's group. A TCPStore is made
+    once per coordinator address and kept for the process's life, so
+    process 0's server outlives every session (module docstring)."""
     coord = os.environ.get("HOROVOD_TPU_COORDINATOR")
     if not coord:
         return dist.HashStore(), 0, 1
     size = int(os.environ["HOROVOD_TPU_NUM_PROCESSES"])
     rank = int(os.environ["HOROVOD_TPU_PROCESS_ID"])
     host, port = coord.rsplit(":", 1)
-    store = dist.TCPStore(host, int(port), size, is_master=rank == 0,
-                          timeout=datetime.timedelta(seconds=300))
+    key = (host, int(port), size, rank)
+    store = _stores.get(key)
+    if store is None:
+        store = _stores[key] = dist.TCPStore(
+            host, int(port), size, is_master=rank == 0,
+            timeout=datetime.timedelta(seconds=300))
     return store, rank, size
 
 
@@ -306,6 +335,8 @@ def init(comm=None, *, device="cuda"):
                 "item 2)")
         cfg = config_mod.Config.from_env()
         _refuse_missing_subsystems(cfg)
+        from . import native
+        native.get_lib()  # a failed build raises before any group exists
         local_rank = _env_int("HOROVOD_TPU_LOCAL_RANK", 0)
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
@@ -314,17 +345,20 @@ def init(comm=None, *, device="cuda"):
         if device.type == "cuda":
             torch.cuda.set_device(device)
 
+        session = _state.session + 1
         owns_group = not dist.is_initialized()
         if owns_group:
             store, rank, size = _join_group()
             dist.init_process_group(
-                "nccl" if device.type == "cuda" else "gloo", store=store,
+                "nccl" if device.type == "cuda" else "gloo",
+                store=dist.PrefixStore(f"hvd/{session}/pg/", store),
                 rank=rank, world_size=size)
         else:
             store, rank, size = None, dist.get_rank(), dist.get_world_size()
 
         from . import metrics
-        from .stats import CollectiveStats, register_metrics
+        from .stats import create_stats, register_metrics
+        from .timeline import create_timeline
         try:
             exp_mesh, mdl_mesh = _meshes(cfg, device.type, size)
         except Exception:
@@ -345,11 +379,25 @@ def init(comm=None, *, device="cuda"):
         _state.local_size = _env_int("HOROVOD_TPU_LOCAL_SIZE", 1)
         _state.cross_rank = _env_int("HOROVOD_TPU_CROSS_RANK", rank)
         _state.cross_size = _env_int("HOROVOD_TPU_CROSS_SIZE", size)
-        _state.stats = CollectiveStats()
+        _state.stats = create_stats()
         _state.programs = ProgramCache()
-        _state.session += 1
+        _state.session = session
+        # One trace for the job, written by rank 0: the other ranks
+        # collect their events and ship them at shutdown
+        # (reference: timeline.h:46-74).
+        _state.timeline = create_timeline(
+            cfg.timeline, enabled=bool(cfg.timeline),
+            mark_cycles=cfg.timeline_mark_cycles,
+            collect=size > 1 and rank != 0, multihost=size > 1)
         register_metrics(_state.stats)
-        _install_diagnostics(cfg, rank, size, store)
+        # The flight recorder before the engine, which caches diag.get().
+        _install_diagnostics(cfg, rank, size, store, _state.timeline)
+        from .ops.engine import EagerEngine
+        _state.engine = EagerEngine(
+            device, rank, size, cfg, _state.stats, _state.timeline,
+            store=store, programs=_state.programs,
+            local_size=cfg.dcn_local_size or _state.local_size,
+            namespace=f"hvd/{session}/coord")
         metrics.RUNTIME_INITS.inc()
         metrics.RUNTIME_UP.set(1)
         metrics.RUNTIME_RANKS.set(size)
@@ -370,9 +418,13 @@ def _shutdown_atexit():
 
 
 def shutdown():
-    """Shut down: rank 0 writes the per-collective counters and time
-    histograms to ``profiler.txt`` (``HOROVOD_PROFILER_PATH``; off with
-    ``HOROVOD_PROFILER_DISABLE``), then the process group is destroyed."""
+    """Shut down: the engine drains (its launched buckets complete, its
+    queued handles fail with ShutDownError), rank 0 writes the
+    per-collective counters and time histograms to ``profiler.txt``
+    (``HOROVOD_PROFILER_PATH``; off with ``HOROVOD_PROFILER_DISABLE``)
+    and, under ``HOROVOD_WIRE_PROFILE``, the wire profile to
+    ``profiler.csv``; the timeline closes, and the process group is
+    destroyed."""
     with _state.lock:
         if not _state.initialized or _state.shutdown:
             return
@@ -381,15 +433,28 @@ def shutdown():
         # Watchdog first: a beacon/stall scan must not race the teardown
         # it observes.
         _recorder.stop_watchdog()
+        _state.engine.shutdown()
         # Lifecycle gauges flip BEFORE the exporters' final export, so a
         # cleanly shut-down job's textfile reports hvd_up 0.
         metrics.RUNTIME_SHUTDOWNS.inc()
         metrics.RUNTIME_UP.set(0)
+        # The exporters close before the timeline: their final tick
+        # splices the closing counter values in while it is open.
+        if _state.metrics_exporters is not None:
+            _state.metrics_exporters.close()
+            _state.metrics_exporters = None
+        _exchange_timeline()
         if _state.rank == 0 and not _state.config.profiler_disable:
             try:
                 _state.stats.write_to_file(_state.config.profiler_path)
             except OSError as e:
                 _logger.warning("could not write profiler dump: %s", e)
+        if _state.rank == 0 and _state.config.wire_profile:
+            try:
+                metrics.dump_wire_profile(_state.config.wire_profile_path)
+            except OSError as e:
+                _logger.warning("could not write wire profile CSV: %s", e)
+        _state.timeline.close()
         _uninstall_diagnostics()
         metrics.registry().remove_collect_hook("collective_stats")
         # The programs go first: a captured graph holds the collectives
@@ -398,12 +463,57 @@ def shutdown():
         if _state.owns_group:
             dist.destroy_process_group()
         _state.store = None
+        _state.engine = None
+        _state.timeline = None
         _state.mesh = None
         _state.expert_mesh = None
         _state.model_mesh = None
         _state.groups = {}
         _state.shutdown = True
         _state.initialized = False
+
+
+def _exchange_timeline():
+    """One trace for a job of several ranks: at shutdown the other ranks
+    publish their collected events through the session's store, and
+    rank 0 splices them into its file before closing it (reference:
+    rank 0 writes one file covering every rank's tensors,
+    timeline.h:46-74)."""
+    import json as _json
+    tl = _state.timeline
+    coord = _state.engine.coordinator if _state.engine else None
+    if not tl.enabled or coord is None:
+        return
+    ns = f"hvd/{_state.session}/tl"
+    client = coord._client
+    try:
+        if tl.collected is not None:
+            tl.drain()
+            client.key_value_set_bytes(
+                f"{ns}/{_state.rank}",
+                _json.dumps({"epoch": tl.epoch,
+                             "events": tl.collected}).encode(),
+                allow_overwrite=True)
+        elif _state.rank == 0:
+            for p in range(1, _state.size):
+                try:
+                    blob = client.blocking_key_value_get_bytes(f"{ns}/{p}",
+                                                               5000)
+                except Exception:  # noqa: BLE001 — peer may have died
+                    _logger.warning("timeline merge: no events from rank "
+                                    "%d (exited without shutdown?)", p)
+                    tl.merge_remote([], tl.epoch, label=f"p{p}")
+                    continue
+                payload = _json.loads(bytes(blob).decode())
+                tl.merge_remote(payload["events"], payload["epoch"],
+                                label=f"p{p}")
+    except Exception:  # noqa: BLE001 — never block shutdown on a trace
+        _logger.warning("timeline exchange failed", exc_info=True)
+
+
+def engine():
+    """The session's eager engine (ops/engine.py)."""
+    return live_state().engine
 
 
 def is_initialized():

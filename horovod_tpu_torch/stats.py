@@ -16,9 +16,17 @@ before the launch and one just after the wait, and is read when the
 second event has completed: :meth:`CollectiveStats.record_events` queues
 it and folds what has completed without waiting (:meth:`poll`; the
 flight recorder's ``wire_end`` is recorded then), and every read
-resolves the queue first. The step never blocks on the clock. The
-ctypes ``NativeCollectiveStats`` comes with the native
-control plane (ROADMAP.md, Queue 1 item 10).
+resolves the queue first. The step never blocks on the clock.
+
+A session's registry is :class:`NativeCollectiveStats` (:func:`create_stats`):
+the same queue of events in front of the native registry
+(csrc/stats.cc), which also dumps ``profiler.txt``. The pure-Python
+:class:`CollectiveStats` is its mirror, with the same dump. Besides the
+collectives, the rows ``gather`` and ``gatherv`` count the eager
+engine's control plane, as the fork times its coordination
+MPI_Gather/Gatherv (operations.cc:1593-1648): every request publish of
+the coordinator (coordinator.py) records into ``gather`` and every
+decision fetch into ``gatherv``, empty fetches included.
 
 A collective captured into a CUDA graph (ops/step_program.py) has no
 host time of its own: its events would become graph nodes. It is
@@ -32,6 +40,7 @@ a trace (diag/xla_trace.py) records nothing: it runs under
 """
 
 import contextlib
+import ctypes
 import os
 import threading
 import time
@@ -182,6 +191,72 @@ class CollectiveStats:
             os.makedirs(parent, exist_ok=True)
         with open(path, "w") as f:
             f.write("\n".join(lines) + "\n")
+
+
+class NativeCollectiveStats(CollectiveStats):
+    """The registry over ctypes (csrc/stats.cc), behind the same queue of
+    CUDA events as :class:`CollectiveStats`, with the same dump."""
+
+    def __init__(self, lib):
+        super().__init__()
+        self._lib = lib
+        self._h = lib.hvd_stats_new()
+        self._ops = None  # the counters live in the native registry
+
+    def _record(self, op, nbytes, elapsed_s):
+        self._lib.hvd_stats_record(self._h, op.encode(), int(nbytes),
+                                   int(elapsed_s * 1e6))
+
+    def _native_histogram(self, op):
+        cap = 256
+        while True:
+            sizes = (ctypes.c_int64 * cap)()
+            counts = (ctypes.c_int64 * cap)()
+            times = (ctypes.c_int64 * cap)()
+            n = self._lib.hvd_stats_histogram(self._h, op.encode(), sizes,
+                                              counts, times, cap)
+            if n <= cap:
+                return {int(sizes[i]): (int(counts[i]), int(times[i]))
+                        for i in range(n)}
+            cap = n
+
+    def jit_records(self):
+        with self._lock:
+            return {(op, sz): n for op in self.OPS if op.endswith("_jit")
+                    for sz, (n, _) in self._native_histogram(op).items()}
+
+    def counter(self, op):
+        self.resolve()
+        return int(self._lib.hvd_stats_counter(self._h, op.encode()))
+
+    def total_time_us(self, op):
+        self.resolve()
+        return int(self._lib.hvd_stats_total_time_us(self._h, op.encode()))
+
+    def histogram(self, op):
+        self.resolve()
+        with self._lock:
+            return self._native_histogram(op)
+
+    def write_to_file(self, path):
+        self.resolve()
+        parent = os.path.dirname(path)
+        if parent:
+            os.makedirs(parent, exist_ok=True)
+        if self._lib.hvd_stats_write_file(self._h, str(path).encode()) != 0:
+            raise OSError(f"native stats dump to {path} failed")
+
+    def __del__(self):
+        h, self._h = getattr(self, "_h", None), None
+        if h:
+            self._lib.hvd_stats_free(h)
+
+
+def create_stats():
+    """The session's registry: native (csrc/stats.cc; a failed build
+    raises)."""
+    from . import native
+    return NativeCollectiveStats(native.get_lib())
 
 
 def record_jit(op, nbytes):

@@ -85,10 +85,11 @@ def test_resnet_bench_smoke_json_contract():
     assert "CUDA card" in got["transformer"]["skipped"]
     for key, item in resnet_bench.NOT_PORTED.items():
         assert got[key] == {"skipped": f"not ported: ROADMAP item {item}"}
-    assert set(resnet_bench.NOT_PORTED) >= {
-        "eager_exchange", "control_plane"}
-    # the control plane waits for the eager engine (item 10)
+    assert set(resnet_bench.NOT_PORTED) >= {"control_plane"}
+    # the control plane's simulated ranks wait in item 10; the eager
+    # engine's rows are filled
     assert resnet_bench.NOT_PORTED["control_plane"] == 10
+    assert not set(resnet_bench.NOT_PORTED) & {"dispatch", "eager_exchange"}
     assert not set(resnet_bench.NOT_PORTED) & {
         "compiled_step", "serve", "moe", "zero_profile", "mesh3d",
         "flight_step_phase_breakdown", "flight_overhead_frac",
@@ -150,6 +151,42 @@ def test_resnet_bench_smoke_json_contract():
     assert not {6, 11} & (set(resnet_bench.NOT_PORTED.values()) | set(
         resnet_bench.COMPILED_NOT_PORTED.values()))
     _assert_serve_row(got["serve"], streams=8, prompt_len=16, new_tokens=32)
+
+
+def test_resnet_bench_fills_the_eager_engine_rows():
+    """bench.py's ``dispatch`` and ``eager_exchange`` profiles, through
+    the port's eager engine on the CPU: every key, the wire-layout cache
+    warm after the first step, the results on the device."""
+    got = _resnet_smoke()
+    d = got["dispatch"]
+    assert set(d) == {"enqueue_ms", "readback_ms", "readback_sync_ms",
+                      "full_ms", "overlap_efficiency"}
+    assert all(v >= 0 for v in d.values())
+    assert 0.0 <= d["overlap_efficiency"] <= 1.0
+    x = got["eager_exchange"]
+    assert set(x) == {"wire_cache_hit_rate", "wire_cache_hits",
+                      "wire_cache_misses", "eager_sync_wait_ms",
+                      "device_resident_results", "steps"}
+    assert x["steps"] == 12  # the smoke shrink
+    assert x["wire_cache_misses"] == 1  # one bucket signature, once
+    assert x["wire_cache_hit_rate"] >= 0.9
+    assert x["device_resident_results"] is True
+    assert x["eager_sync_wait_ms"] >= 0
+
+
+def test_eager_bench_json_contract():
+    """bench/eager.py's line on the CPU, under bench_eager.py's metric."""
+    got = _run("horovod_tpu_torch.bench.eager",
+               ["--device", "cpu", "--tensors", "16", "--repeats", "1"])
+    assert got["metric"] == "eager_allreduce_mbytes_sec"
+    assert got["unit"] == "MB/s" and got["value"] > 0
+    assert set(got["configs"]) == {"fused_cached", "fused_nocache",
+                                   "unfused_cached", "unfused_nocache",
+                                   "broadcast"}
+    assert all(v > 0 for v in got["configs"].values())
+    assert got["vs_baseline"] == pytest.approx(
+        got["configs"]["fused_cached"] / got["configs"]["unfused_nocache"])
+    assert got["card"] is None and got["device"] == "cpu"
 
 
 def test_resnet_bench_fills_the_zero_profile_row():

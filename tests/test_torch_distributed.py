@@ -546,12 +546,24 @@ def test_deleted_optimizer_and_model_are_freed(monkeypatch):
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("HOROVOD_TIMELINE", "/tmp/t.json", "item 10"),
+    # ported with the eager engine: init runs and writes the trace
+    ("HOROVOD_TIMELINE", "timeline.json", None),
     ("HOROVOD_GUARD", "1", "item 15"),
     ("HOROVOD_AUTOTUNE", "1", "item 10"),
+    ("HOROVOD_ELASTIC", "1", "item 15"),
 ])
-def test_init_refuses_knobs_of_missing_subsystems(monkeypatch, knob, value,
-                                                  item):
+def test_init_refuses_knobs_of_missing_subsystems(monkeypatch, tmp_path,
+                                                  knob, value, item):
+    if item is None:
+        path = tmp_path / value
+        monkeypatch.setenv(knob, str(path))
+        hvd.init(device="cpu")
+        try:
+            hvd.allreduce(torch.ones(2), name="timeline.probe")
+        finally:
+            hvd.shutdown()
+        assert "NEGOTIATE_ALLREDUCE" in path.read_text()
+        return
     monkeypatch.setenv(knob, value)
     with pytest.raises(NotImplementedError, match=item):
         hvd.init(device="cpu")

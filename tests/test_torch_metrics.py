@@ -108,8 +108,23 @@ def test_jsonl_and_textfile_round_trip(tmp_path):
             name_part, _, value = line.rpartition(" ")
             assert name_part and float(value) is not None
     assert metrics.start_exporters(Config()) is None  # nothing configured
-    with pytest.raises(NotImplementedError, match="item 10"):
-        metrics.MetricsExporters(Config(), timeline=object())
+
+    # the timeline sink: every counter and gauge spliced in as a "C"
+    # sample each tick, the closing values included
+    class _Sink:
+        enabled = True
+
+        def __init__(self):
+            self.samples = []
+
+        def counter(self, name, value):
+            self.samples.append((name, value))
+
+    sink = _Sink()
+    exp = metrics.start_exporters(Config(), timeline=sink)
+    exp.close()
+    assert ("hvd_step_time_skew", 1.5) in sink.samples
+    assert not any(n.startswith("hvd_step_seconds") for n, _ in sink.samples)
 
 
 def test_http_scrape_endpoint(tmp_path):
