@@ -277,6 +277,48 @@ step's ``step_phase_breakdown``, ``wire_stage_ms``,
 all-to-all keys None at ``--expert-parallel 1`` beside their phase
 breakdown.
 
+Fault tolerance has three phases of its own, after the zero train phase:
+
+- guard (main path guard): the flagship at 4 x 4096, AdamW with its rate
+  a card tensor, through ``compiled_train_step`` and the eager
+  ``DistributedOptimizer``, 1 + 4 steps each without the guard and
+  under ``HOROVOD_GUARD=1`` in one run, host ms a step between
+  synchronisations (median of 4) and ``guard_overhead_frac`` each, the
+  health rows a step. Gates: the guarded parameters after 5 healthy
+  steps bitwise equal to the unguarded ones (both paths); a NaN seeded
+  through ``HOROVOD_GUARD_INJECT`` at call 5 skipped with every
+  parameter and AdamW tensor bitwise unchanged and ``parameter_digest``
+  the same bits across it; the next bad step backs the rate off in place
+  and the following replay's update is AdamW's at the new rate
+  (GUARD_LR_REL) and not the old one; three bad steps roll back to the
+  State commit bitwise, into the same storage; the State commit's time
+  (5.8 GB) is printed. The guarded calls run one program, whose
+  backward starts from a device seed of 1.0, or NaN where the chaos spec
+  fires: the program a user's ``HOROVOD_GUARD=1`` runs;
+- elastic state (main path elastic_state): one rank under
+  ``HOROVOD_ELASTIC=1`` trains the flagship through the compiled step
+  under ``hvd.elastic.run``, fed by ``DistributedDataset`` (seeded token
+  samples through pinned memory), a ``State`` commit every 2 steps
+  (times printed); a ``CheckpointManager`` saves two commits and
+  restores the newest bitwise (times printed); a flipped byte fails the
+  sidecar, ``latest_valid_step`` falls back and an explicit restore
+  raises; the input wait share of the steps is printed, and so is any
+  recovery's exception (the gate is that none happens);
+- elastic ranks (main path elastic_ranks; parity, not a speed): three
+  processes on this card over a gloo group of their own, which
+  ``hvd.init()`` adopts (``chip_smoke.py --elastic-rank R PORT OUT MODE
+  DEVICE``), a narrow transformer (d_model 256, 2 layers,
+  flash attention at D 64) under ``hvd.elastic.run``: rank 2 SIGKILLed
+  before its step-2 exchange, then in a second run sent SIGTERM before
+  step 1 (the preemption grace: exit 79, a grace file, a planned
+  departure recovered faster than the settle window); the survivors
+  re-rendezvous, ``init(comm=[0, 1])``, restore and finish with every
+  sample exactly once and equal parameters; the recovery wall time of
+  each run and the exception each survivor recovered from are printed.
+
+Their figures are repeated in a ``{"fault_tolerance": ...}`` line before
+the kernels line.
+
 The kernels phases also run the CUDA-core loop at head dims 256 and 320
 (the latter in 256-column pieces) against the plain versions and time
 it (off every main path).
@@ -292,8 +334,9 @@ launches its capture recorded; a TP path's launches are one rank's.
 Each main path runs with the kernel launch counts zeroed just before it
 and read just after. The first line is the card's name and power limit
 as ``nvidia-smi`` gives them; the run's wall time and a line of the
-eager phases' figures (``{"eager_engine": ...}``) are printed before the
-last two lines, which are
+eager phases' figures (``{"eager_engine": ...}``) and of the
+fault-tolerance phases (``{"fault_tolerance": ...}``) are printed before
+the last two lines, which are
 ``{"kernels": [...]}``, one entry per kernel, and the result,
 ``{"ok": true, "device": {...}}``.
 """
@@ -3028,6 +3071,605 @@ def phase_tp(where):
     return res["launches"]["tp_serve"], res["launches"]["tp_train"]
 
 
+# ------------------------------------------------------- fault tolerance
+
+# The guard phase (main path guard): the flagship at 4 x 4096, AdamW
+# with its learning rate a card tensor (a replay reads it), through the
+# compiled step and the eager DistributedOptimizer, unguarded and under
+# HOROVOD_GUARD=1. The guarded compiled run's calls: 0-4 healthy (as the
+# unguarded run's 5), 5-6 a NaN seeded into the backward (skip, then the
+# back-off at the next call), 7 healthy at half the rate, 8-10 NaN (the
+# third bad step rolls back to the State commit taken after call 4). The
+# second spec counts only the calls the first one does not fire at.
+GUARD_STEPS = WARMUP_STEPS + TIMED_STEPS
+GUARD_INJECT = "nan,name=hvd.step,step=5,count=2;nan,name=hvd.step,step=6,count=3"
+GUARD_ENV = {"HOROVOD_GUARD": "1", "HOROVOD_GUARD_LR_BACKOFF_STEPS": "2",
+             "HOROVOD_GUARD_BAD_STEPS": "3",
+             "HOROVOD_GUARD_LR_BACKOFF_FACTOR": "0.5",
+             "HOROVOD_GUARD_INJECT": GUARD_INJECT}
+# The back-off check: the replay's update of the smallest parameter
+# against AdamW at the backed-off rate on the step's own gradient (the
+# same foreach kernels, one tensor), relative.
+GUARD_LR_REL = 1e-6
+# Elastic state (main path elastic_state): a State commit every
+# ELASTIC_COMMIT_EVERY steps of the flagship under elastic.run, fed by
+# DistributedDataset; ELASTIC_STATE_STEPS steps in all.
+ELASTIC_STATE_STEPS, ELASTIC_COMMIT_EVERY = 6, 2
+# Elastic ranks (main path elastic_ranks): three processes over gloo on
+# this card, a narrow transformer (flash attention, D 64: the tensor
+# cores), 48 samples of 257 tokens, 2 a rank a step.
+ELASTIC_RANKS, ELASTIC_SAMPLES, ELASTIC_BATCH, ELASTIC_SEQ = 3, 48, 2, 256
+ELASTIC_MODEL = dict(vocab_size=4096, d_model=256, n_heads=4, n_kv_heads=2,
+                     n_layers=2, d_ff=1024, max_seq=ELASTIC_SEQ,
+                     positional="rope")
+ELASTIC_ENV = {"HOROVOD_ELASTIC": "1", "HOROVOD_ELASTIC_TIMEOUT_SECONDS": "20",
+               "HOROVOD_ELASTIC_SETTLE_SECONDS": "2",
+               "HOROVOD_PROFILER_DISABLE": "1"}
+ELASTIC_TIMEOUT_S = 240
+
+
+def _adamw_tensor_lr(params, card):
+    """AdamW as the train phases build it, its rate a tensor on the
+    card (capturable there)."""
+    kw = dict(ADAMW, lr=torch.tensor(ADAMW["lr"], device=card))
+    return torch.optim.AdamW(params, capturable=card.type == "cuda", **kw)
+
+
+def _sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _sync_ms(fn):
+    """Host ms of ``fn()`` between two synchronisations (what a step
+    costs the loop, its host waits included)."""
+    _sync()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _device_clone(lm, opt):
+    """Card copies of every parameter and AdamW state tensor."""
+    return [t.detach().clone() for t in _gated_tensors(lm, opt)]
+
+
+def _gated_tensors(lm, opt):
+    return [p for p in lm.parameters()] + [
+        v for p in lm.parameters() for _, v in sorted(opt.state[p].items())
+        if torch.is_tensor(v)]
+
+
+def _guard_run(hvd, tfm, card, cfg, tokens, targets, compiled, calls):
+    """``calls`` steps of the flagship (seed 0) through the compiled step
+    or the eager DistributedOptimizer; returns (model, optimizer, step,
+    host ms a call)."""
+    lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
+                           device=card)
+    opt = hvd.DistributedOptimizer(_adamw_tensor_lr(lm.parameters(), card),
+                                   named_parameters=lm.named_parameters())
+    step = None
+    if compiled:
+        step = hvd.compiled_train_step(lm.loss, opt)
+        call = lambda: step(tokens, targets)  # noqa: E731
+    else:
+        def call():
+            opt.zero_grad(set_to_none=True)
+            loss = lm.loss(tokens, targets)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+    ms = [_sync_ms(call)[1] for _ in range(calls)]
+    return lm, opt, step, ms
+
+
+def phase_guard(hvd, fa, tfm, card, where, model=FLAGSHIP,
+                shape=(TRAIN_BATCH, TRAIN_SEQ)):
+    """Main path guard (see GUARD_STEPS): unguarded, then under
+    HOROVOD_GUARD=1, the flagship's compiled and eager steps, 1 + 4 each,
+    host ms a step (between synchronisations) median of the last 4,
+    ``guard_overhead_frac`` each. Gates: the guarded parameters after 5
+    healthy steps equal the unguarded ones bitwise (compiled and eager);
+    the seeded NaN's step leaves every parameter and AdamW tensor bitwise
+    as it was, and ``parameter_digest`` reads the same bits across that
+    replay; the next bad step backs the rate off (the tensor halves in
+    place) and the following replay's update is AdamW's at the new rate
+    within GUARD_LR_REL (and not at the old one); the third bad step
+    rolls back to the State commit bitwise, into the same storage. Every
+    flash launch of the guarded runs takes the tensor-core route.
+    Returns ({kernel: launches} of the guarded runs, the phase's row)."""
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
+                                loss_chunk=LOSS_CHUNK, **model)
+    rng = np.random.default_rng(1)
+    tok = rng.integers(0, cfg.vocab_size, shape)
+    targets = torch.from_numpy(np.roll(tok, -1, axis=1)).to(card)
+    tokens = torch.from_numpy(tok).to(card)
+    row = {}
+    hvd.init(device=card)
+    want = {}
+    for compiled in (True, False):
+        lm, opt, step, ms = _guard_run(hvd, tfm, card, cfg, tokens, targets,
+                                       compiled, GUARD_STEPS)
+        kind = "compiled" if compiled else "eager"
+        want[kind] = [p.detach().cpu() for p in lm.parameters()]
+        row[f"{kind}_plain_ms"] = float(np.median(ms[WARMUP_STEPS:]))
+        del lm, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    hvd.shutdown()
+    os.environ.update(GUARD_ENV)
+    # the rollback's post-mortem (the flight recorder's dump)
+    os.environ["HOROVOD_DIAG_DIR"] = tempfile.mkdtemp()
+    try:
+        hvd.init(device=card)
+        mon = hvd.guard.get()
+        check(mon is not None, "HOROVOD_GUARD=1 installed no monitor")
+        zero_launches(fa)
+        lm, opt, step, ms = _guard_run(hvd, tfm, card, cfg, tokens,
+                                       targets, True, GUARD_STEPS)
+        row["compiled_guard_ms"] = float(np.median(ms[WARMUP_STEPS:]))
+        got = [p.detach().cpu() for p in lm.parameters()]
+        differ = sum(not torch.equal(a, b)
+                     for a, b in zip(got, want["compiled"]))
+        check(differ == 0, f"guarded compiled step: {differ} parameters "
+                           f"differ from the unguarded step's after "
+                           f"{GUARD_STEPS} healthy steps")
+        rows = int(opt.guard_health.shape[0])
+        check(step.cache_misses == 1 and step.fallback_steps == 0,
+              f"guarded step: {step.cache_misses} misses, "
+              f"{step.fallback_steps} fallbacks")
+        # the State commit the rollback returns to (5.8 GB to pinned
+        # host memory: parameters and both moments)
+        state = hvd.elastic.State(model=lm, optimizer=opt)
+        mon.attach_state(state)
+        mon.attach_optimizer(opt)
+        _, row["commit_ms"] = _sync_ms(state.commit)
+        committed = _device_clone(lm, opt)
+        storage = [t.data_ptr() for t in _gated_tensors(lm, opt)]
+        digest0 = hvd.guard.parameter_digest(lm)
+        before = _device_clone(lm, opt)
+        step(tokens, targets)                      # call 5: NaN, skipped
+        _sync()
+        same = all(torch.equal(a, b) for a, b in
+                   zip(before, _gated_tensors(lm, opt)))
+        digest1 = hvd.guard.parameter_digest(lm)
+        check(same, "the skipped step changed a parameter or AdamW tensor")
+        check(digest0.tobytes() == digest1.tobytes(),
+              f"parameter_digest moved across a skipped replay: {digest0} "
+              f"-> {digest1}")
+        check(hvd.guard.parameter_digest(lm).tobytes() == digest1.tobytes(),
+              "parameter_digest differs between two reads")
+        del before
+        step(tokens, targets)                      # call 6: NaN, back-off
+        verdict = step._flush_guard(mon)
+        check(verdict["action"] == "skip" and "lr_backoff" in verdict,
+              f"the second bad step's verdict: {verdict}")
+        lr = opt.param_groups[0]["lr"]
+        half = float(np.float32(ADAMW["lr"])) * 0.5
+        check(float(lr) == half, f"the rate read {float(lr)}, not {half}")
+        small = min(lm.parameters(), key=lambda p: p.numel())
+        held = (small.detach().clone(),
+                {k: v.clone() for k, v in opt.state[small].items()})
+        step(tokens, targets)                      # call 7: healthy, lr/2
+        _sync()
+        rels = {}
+        for rate in (half, ADAMW["lr"]):
+            q = torch.nn.Parameter(held[0].clone())
+            ref = _adamw_tensor_lr([q], card)
+            ref.param_groups[0]["lr"].fill_(rate)
+            q.grad = small.grad.detach().clone()
+            ref.state[q] = {k: v.clone() for k, v in held[1].items()}
+            ref.step()
+            rels[rate] = float((q.detach() - small.detach()).norm()
+                               / (small.detach() - held[0]).norm())
+        check(rels[half] <= GUARD_LR_REL < rels[ADAMW["lr"]],
+              f"the replay after the back-off: relative distance "
+              f"{rels[half]:.3g} from AdamW at the new rate, "
+              f"{rels[ADAMW['lr']]:.3g} at the old")
+        for _ in range(3):
+            step(tokens, targets)                  # calls 8-10: NaN
+        verdict = step.finish()
+        _sync()
+        check(verdict["action"] == "rollback",
+              f"the third bad step's verdict: {verdict}")
+        now = _gated_tensors(lm, opt)
+        check([t.data_ptr() for t in now] == storage,
+              "the rollback moved a tensor's storage")
+        check(all(torch.equal(a, b) for a, b in zip(committed, now)),
+              "the rollback is not the commit bitwise")
+        del committed, state
+        launches = read_launches(fa)
+        skipped = hvd.metrics.GUARD_SKIPPED_STEPS.value()
+        del lm, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        lm, opt, _, ms = _guard_run(hvd, tfm, card, cfg, tokens, targets,
+                                    False, GUARD_STEPS)
+        row["eager_guard_ms"] = float(np.median(ms[WARMUP_STEPS:]))
+        got = [p.detach().cpu() for p in lm.parameters()]
+        differ = sum(not torch.equal(a, b)
+                     for a, b in zip(got, want["eager"]))
+        check(differ == 0, f"guarded eager step: {differ} parameters differ "
+                           f"from the unguarded step's")
+        eager_launches = read_launches(fa)
+        del lm, opt, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        hvd.shutdown()
+        for k in (*GUARD_ENV, "HOROVOD_DIAG_DIR"):
+            os.environ.pop(k, None)
+    for k, v in eager_launches.items():
+        check(not k.endswith("_wgmma") or v >= launches[k],
+              "launch counters went backwards")
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(eager_launches[k] == 0, f"{k}: the guard runs took the loop")
+    steps_run = GUARD_STEPS + 6 + GUARD_STEPS
+    check(eager_launches["flash_fwd_wgmma"] == steps_run * cfg.n_layers,
+          f"flash_fwd_wgmma {eager_launches['flash_fwd_wgmma']} launches "
+          f"over {steps_run} steps")
+    for kind in ("compiled", "eager"):
+        row[f"{kind}_guard_overhead_frac"] = (
+            row[f"{kind}_guard_ms"] / row[f"{kind}_plain_ms"] - 1.0)
+    row.update(health_rows=rows, skipped_steps=skipped,
+               lr_rel=rels[half])
+    print(f"guard 4 x 4096 [{where}]: compiled {row['compiled_plain_ms']:.1f}"
+          f" -> guarded {row['compiled_guard_ms']:.1f} ms a step "
+          f"(guard_overhead_frac {row['compiled_guard_overhead_frac']:.4f});"
+          f" eager {row['eager_plain_ms']:.1f} -> {row['eager_guard_ms']:.1f}"
+          f" ms ({row['eager_guard_overhead_frac']:.4f}); host ms a step "
+          f"between synchronisations, median of {TIMED_STEPS}; {rows} health "
+          f"rows a step; State commit {row['commit_ms']:.1f} ms; healthy "
+          f"guarded parameters bitwise equal to unguarded; NaN skipped with "
+          f"parameters and AdamW state bitwise unchanged; back-off read by "
+          f"the replay (rel {rels[half]:.2g}); rollback bitwise to the "
+          f"commit", flush=True)
+    return eager_launches, row
+
+
+@contextlib.contextmanager
+def recovery_log():
+    """The elastic runner's recoveries while the block runs: for each,
+    the warning with the exception it recovered from and its cause,
+    traceback included (a list, filled as they happen)."""
+    import logging
+    from horovod_tpu_torch.utils.logging import get_logger
+    seen = []
+
+    class _Keep(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith("elastic: recovery"):
+                seen.append(logging.Formatter().format(record))
+
+    keep = _Keep(logging.WARNING)
+    get_logger().addHandler(keep)
+    try:
+        yield seen
+    finally:
+        get_logger().removeHandler(keep)
+
+
+def _token_samples(n, seq, vocab, seed):
+    """``n`` seeded samples of ``seq + 1`` tokens: the input and its
+    targets, shifted by one."""
+    return np.random.default_rng(seed).integers(
+        0, vocab, (n, seq + 1)).astype(np.int64)
+
+
+def _split_tokens(batch):
+    return batch["t"][:, :-1], batch["t"][:, 1:]
+
+
+def phase_elastic_state(hvd, fa, tfm, card, where, model=FLAGSHIP,
+                        shape=(TRAIN_BATCH, TRAIN_SEQ)):
+    """Main path elastic_state: one rank (HOROVOD_ELASTIC=1) trains the
+    flagship at 4 x 4096 under ``hvd.elastic.run`` through the compiled
+    step, fed by ``DistributedDataset`` (seeded token samples, pinned
+    memory, a side stream, prefetch 2), an ``elastic.State`` commit every
+    ELASTIC_COMMIT_EVERY steps (time printed: 5.8 GB of parameters and
+    AdamW moments to pinned memory). Then a CheckpointManager saves two
+    commits (time each, sidecar digest included) and restores the newest
+    (time), bitwise equal to the commit; a flipped byte in its file fails
+    the sidecar, ``latest_valid_step`` falls back to the older step and
+    an explicit restore of it raises CheckpointCorruptError. Prints the
+    input wait share of the steps. Returns ({kernel: launches}, row)."""
+    from horovod_tpu_torch.exceptions import CheckpointCorruptError
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
+                                loss_chunk=LOSS_CHUNK, **model)
+    batch, seq = shape
+    os.environ["HOROVOD_ELASTIC"] = "1"
+    row = {}
+    root = tempfile.mkdtemp(dir=os.environ.get("TMPDIR"))
+    try:
+        hvd.init(device=card)
+        lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
+                               device=card)
+        opt = hvd.DistributedOptimizer(_adamw_tensor_lr(lm.parameters(), card),
+                                       named_parameters=lm.named_parameters())
+        step = hvd.compiled_train_step(lm.loss, opt)
+        ds = hvd.data.DistributedDataset(
+            {"t": _token_samples(ELASTIC_STATE_STEPS * batch, seq,
+                                 cfg.vocab_size, 2)},
+            batch, seed=3, prefetch=2, device=card)
+        state = hvd.elastic.State(model=lm, optimizer=opt, step=0)
+        hvd.data.attach_to_state(state, ds)
+        commit_ms, step_ms, losses = [], [], []
+        zero_launches(fa)
+        ds.take_wait()
+
+        calls = []
+
+        @hvd.elastic.run
+        def train(state):
+            calls.append(state.step)
+            for batch in ds:
+                t0 = time.perf_counter()
+                losses.append(step(*_split_tokens(batch)))
+                _sync()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                state.step += 1
+                if state.step % ELASTIC_COMMIT_EVERY == 0:
+                    commit_ms.append(_sync_ms(state.commit)[1])
+
+        t_loop = time.perf_counter()
+        with recovery_log() as recovered:
+            train(state)
+        loop_s = time.perf_counter() - t_loop
+        for text in recovered:
+            print(f"elastic state [{where}]: {text}", flush=True)
+        wait_s = ds.take_wait()
+        launches = read_launches(fa)
+        losses = [float(x) for x in losses]
+        check(len(losses) == ELASTIC_STATE_STEPS and all(
+            np.isfinite(losses)), f"elastic state losses {losses}")
+        check(state.step == ELASTIC_STATE_STEPS and state.commits == len(
+            commit_ms), f"step {state.step}, {state.commits} commits")
+        check(calls == [0], f"one rank recovered from nothing: the "
+                            f"training function ran from steps {calls}")
+        row["input_wait_share"] = wait_s / loop_s
+        # the first two commits allocate the two pinned buffer sets
+        row["commit_ms"] = commit_ms
+        row["step_ms"] = float(np.median(step_ms[WARMUP_STEPS:]))
+        snap = state.committed
+        mgr = hvd.checkpoint.CheckpointManager(os.path.join(root, "ckpt"))
+        saves = []
+        for s in (1, 2):
+            t0 = time.perf_counter()
+            check(mgr.save(s, snap), f"checkpoint step {s} not written")
+            saves.append((time.perf_counter() - t0) * 1e3)
+        row["save_ms"] = saves
+        nbytes = sum(os.path.getsize(os.path.join(dp, f))
+                     for dp, _, fs in os.walk(os.path.join(root, "ckpt", "2"))
+                     for f in fs)
+        t0 = time.perf_counter()
+        back = mgr.restore()
+        row["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        from torch.utils import _pytree as pytree
+        a, b = pytree.tree_leaves(back), pytree.tree_leaves(snap)
+        check(len(a) == len(b) and all(
+            (torch.equal(x, y) if torch.is_tensor(x) else x == y)
+            for x, y in zip(a, b)), "the checkpoint restore is not bitwise")
+        del back, a, b
+        path = os.path.join(root, "ckpt", "2", "state-0.pt")
+        with open(path, "r+b") as f:
+            f.seek(os.path.getsize(path) // 2)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([byte[0] ^ 0x01]))
+        fails = hvd.metrics.CHECKPOINT_INTEGRITY_FAILURES.value()
+        latest = mgr.latest_valid_step()
+        check(latest == 1 and hvd.metrics.CHECKPOINT_INTEGRITY_FAILURES
+              .value() == fails + 1, f"latest_valid_step {latest}, not 1, "
+              f"after a flipped byte in step 2")
+        try:
+            mgr.restore(2)
+            check(False, "the corrupted step restored")
+        except CheckpointCorruptError:
+            pass
+        row["checkpoint_gb"] = nbytes / 1e9
+        del lm, opt, step, state, snap, ds
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        hvd.shutdown()
+        os.environ.pop("HOROVOD_ELASTIC", None)
+        shutil.rmtree(root, ignore_errors=True)
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(launches[k] == 0, f"{k}: the elastic run took the loop")
+    check(launches["flash_fwd_wgmma"] == ELASTIC_STATE_STEPS * cfg.n_layers,
+          f"flash_fwd_wgmma: {launches['flash_fwd_wgmma']} launches")
+    print(f"elastic state 4 x 4096 [{where}]: {ELASTIC_STATE_STEPS} steps "
+          f"under elastic.run, step {row['step_ms']:.1f} ms (host, median); "
+          f"input wait share {row['input_wait_share']:.5f}; State commits "
+          f"{' / '.join(f'{t:.0f}' for t in commit_ms)} ms (the first two "
+          f"allocate the pinned buffers, the third reuses them); "
+          f"checkpoint {row['checkpoint_gb']:.2f} GB: save "
+          f"{' / '.join(f'{t:.0f}' for t in saves)} ms (sidecar digest "
+          f"included), restore {row['restore_ms']:.0f} ms (digest "
+          f"verified), bitwise; a flipped byte failed the sidecar and "
+          f"latest_valid_step fell back to step 1", flush=True)
+    return launches, row
+
+
+def elastic_worker(rank, port, out_dir, mode, device="cuda"):
+    """One rank of the elastic-ranks phase (``chip_smoke.py
+    --elastic-rank R PORT OUT MODE``): the launcher's variables, a gloo
+    group on this card over the job's store with the elastic timeout
+    (``hvd.init()`` adopts it; NCCL refuses three ranks on one card, and
+    the survivors' group takes its backend), the narrow
+    transformer under ``hvd.elastic.run`` fed by DistributedDataset. Rank
+    2 leaves at a known step: ``kill`` SIGKILLs itself before its step-2
+    exchange, ``term`` sends itself SIGTERM before step 1 (the
+    preemption grace: it finishes the step, commits, leaves). Each rank
+    logs a batch's sample ids once its exchange went through, and writes
+    its record to OUT/rank<R>.json. ``device`` is the phase's (a
+    rehearsal on the CPU passes ``cpu``)."""
+    import signal
+    os.environ.update(ELASTIC_ENV, HOROVOD_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                      HOROVOD_TPU_NUM_PROCESSES=str(ELASTIC_RANKS),
+                      HOROVOD_TPU_PROCESS_ID=str(rank),
+                      HOROVOD_TPU_LOCAL_RANK="0",
+                      HOROVOD_TPU_LOCAL_SIZE="1")
+    if mode == "term":
+        os.environ.update(HOROVOD_ELASTIC_GRACE_SECONDS="60",
+                          HOROVOD_ELASTIC_GRACE_DIR=os.path.join(out_dir,
+                                                                 "grace"))
+    card = torch.device(device)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import flash_attention as fa
+    import datetime
+
+    import torch.distributed as dist
+    dist.init_process_group(
+        "gloo", store=dist.PrefixStore("smoke/pg/", hvd.runtime.job_store()),
+        rank=rank, world_size=ELASTIC_RANKS,
+        timeout=datetime.timedelta(
+            seconds=float(ELASTIC_ENV["HOROVOD_ELASTIC_TIMEOUT_SECONDS"])))
+    hvd.init(device=card)
+    card = hvd.runtime.device()
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
+                                **ELASTIC_MODEL)
+    lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
+                           device=card)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(lm.parameters(), **ADAMW),
+        named_parameters=lm.named_parameters())
+    ds = hvd.data.DistributedDataset(
+        {"t": _token_samples(ELASTIC_SAMPLES, ELASTIC_SEQ, cfg.vocab_size, 4),
+         "i": np.arange(ELASTIC_SAMPLES)}, ELASTIC_BATCH, seed=5,
+        device=card)
+    state = hvd.elastic.State(model=lm, optimizer=opt, step=0)
+    hvd.data.attach_to_state(state, ds)
+    state.commit()
+    zero_launches(fa)
+    victim, at_step = ELASTIC_RANKS - 1, 2 if mode == "kill" else 1
+    rec = {"rank": rank, "sizes": [], "recovery_s": None, "ids": [],
+           "losses": []}
+    mark = [None]
+
+    @hvd.elastic.run
+    def train(state):
+        if mark[0] is not None:
+            rec["recovery_s"] = time.perf_counter() - mark[0]
+        rec["sizes"].append(hvd.size())
+        for batch in ds:
+            if rank == victim and state.step == at_step:
+                os.kill(os.getpid(), signal.SIGKILL if mode == "kill"
+                        else signal.SIGTERM)
+            opt.zero_grad(set_to_none=True)
+            loss = lm.loss(*_split_tokens(batch))
+            loss.backward()
+            mark[0] = time.perf_counter()
+            opt.step()
+            rec["ids"] += batch["i"].tolist()
+            rec["losses"].append(float(loss))
+            with open(os.path.join(out_dir, f"ids{rank}.json"), "w") as f:
+                json.dump(rec["ids"], f)
+            state.step += 1
+            state.commit()
+
+    with recovery_log() as recovered:
+        train(state)
+    # the exception each recovery caught and its cause, last line each
+    rec["recovered"] = [[line for line in text.splitlines() if line][-1]
+                        for text in recovered]
+    rec["step"] = state.step
+    rec["launches"] = read_launches(fa)
+    rec["digest"] = hvd.guard.parameter_digest(lm).tolist()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    hvd.shutdown()
+
+
+def phase_elastic_ranks(where, device="cuda"):
+    """Main path elastic_ranks, parity only (gloo moves card tensors
+    through the host): :func:`elastic_worker` on three processes of this
+    card, twice. ``kill``: rank 2 SIGKILLs itself before its step-2
+    exchange; ranks 0 and 1 raise WorkerLostError, re-rendezvous,
+    ``init(comm=[0, 1])``, restore the commit and finish the epoch.
+    ``term``: rank 2 gets SIGTERM before step 1, finishes it, commits,
+    writes its grace file, announces its departure and exits 79; the
+    survivors recover without waiting out the liveness timeout. Gates:
+    the exit codes, every sample exactly once across the membership
+    change, the survivors' parameters bitwise equal (their digests),
+    finite losses, every flash launch on the tensor-core route. Prints
+    each run's recovery wall time (the failed exchange to the resumed
+    loop). Returns ({kernel: launches} summed over the survivors of
+    both runs, row)."""
+    import socket
+    from horovod_tpu_torch.elastic import EX_PREEMPTED
+    total = {}
+    row = {}
+    for mode, code in (("kill", -9), ("term", EX_PREEMPTED)):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        out = tempfile.mkdtemp()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--elastic-rank",
+             str(r), str(port), out, mode, device])
+            for r in range(ELASTIC_RANKS)]
+        try:
+            codes = [p.wait(timeout=ELASTIC_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        want = [0] * (ELASTIC_RANKS - 1) + [code]
+        check(codes == want, f"elastic {mode}: ranks exited with {codes}, "
+                             f"{want} expected")
+        recs = []
+        for r in range(ELASTIC_RANKS - 1):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+        ids = []
+        for r in range(ELASTIC_RANKS):
+            with open(os.path.join(out, f"ids{r}.json")) as f:
+                ids += json.load(f)
+        check(sorted(ids) == list(range(ELASTIC_SAMPLES)),
+              f"elastic {mode}: {len(ids)} samples consumed, not each of "
+              f"{ELASTIC_SAMPLES} once")
+        check(all(r["sizes"] == [ELASTIC_RANKS, ELASTIC_RANKS - 1]
+                  for r in recs), f"elastic {mode}: sizes "
+                                  f"{[r['sizes'] for r in recs]}")
+        check(recs[0]["digest"] == recs[1]["digest"],
+              f"elastic {mode}: the survivors' parameters differ")
+        check(all(np.isfinite(r["losses"]).all() for r in recs),
+              f"elastic {mode}: a loss is not finite")
+        if mode == "term":
+            check(os.path.exists(os.path.join(out, "grace", "grace-2.pt")),
+                  "the departing rank wrote no grace file")
+        for r in recs:
+            for k, v in r["launches"].items():
+                total[k] = total.get(k, 0) + v
+        for r in recs:
+            print(f"elastic ranks {mode} [{where}]: rank {r['rank']} "
+                  f"recovered from {r['recovered']}", flush=True)
+        recovery = max(r["recovery_s"] for r in recs)
+        row[f"{mode}_recovery_s"] = recovery
+        row[f"{mode}_wall_s"] = time.perf_counter() - t0
+        print(f"elastic ranks {mode} [{where}]: 3 ranks over gloo on one "
+              f"card, rank 2 {'SIGKILLed at step 2' if mode == 'kill' else 'SIGTERMed at step 1 (grace)'};"
+              f" recovery {recovery:.2f} s (failed exchange to the resumed "
+              f"loop), every one of {ELASTIC_SAMPLES} samples once, "
+              f"survivors bitwise equal; run {row[f'{mode}_wall_s']:.1f} s",
+              flush=True)
+        shutil.rmtree(out, ignore_errors=True)
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(total.get(k, 0) == 0, f"{k}: the elastic ranks took the loop")
+    check(total["flash_fwd_wgmma"] > 0, "the elastic ranks launched no "
+                                        "flash kernel")
+    check(row["term_recovery_s"] < float(
+        ELASTIC_ENV["HOROVOD_ELASTIC_SETTLE_SECONDS"]),
+        f"the planned departure took {row['term_recovery_s']:.2f} s: it "
+        f"waited for the settle window or the liveness timeout")
+    return total, row
+
+
 # ------------------------------------------------------------ eager engine
 
 EAGER_WARMUP, EAGER_TIMED = 3, 4
@@ -4054,6 +4696,19 @@ def main():
     gc.collect()
     print(f"zero train phase: {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    guard_launches, fault_row = phase_guard(hvd, fa, tfm, card, where)
+    print(f"guard phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    elastic_state_launches, fault_row["elastic_state"] = \
+        phase_elastic_state(hvd, fa, tfm, card, where)
+    print(f"elastic state phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    elastic_ranks_launches, fault_row["elastic_ranks"] = \
+        phase_elastic_ranks(where)
+    print(f"elastic ranks phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     tp_serve_launches, tp_train_launches = phase_tp(where)
     # flagship-moe's weights, drawn once on the host (seed 0) for every
     # MoE phase
@@ -4131,7 +4786,9 @@ def main():
              "sp_compiled": compiled_sp["ring"],
              "ulysses_compiled": compiled_sp["ulysses"],
              "pp_gpipe": pp_gpipe, "pp_1f1b": pp_1f1b,
-             "trace": trace_launches}
+             "trace": trace_launches, "guard": guard_launches,
+             "elastic_state": elastic_state_launches,
+             "elastic_ranks": elastic_ranks_launches}
     for e in entries:
         # a kernel's launches are its tensor-core route's: the main paths
         # launch its loop never (checked in phase_serve and phase_train)
@@ -4146,6 +4803,7 @@ def main():
     # the eager phases' figures, repeated here where the tail of a long
     # run's output still holds them
     print(json.dumps({"eager_engine": eager_row, "card": where}))
+    print(json.dumps({"fault_tolerance": fault_row, "card": where}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4159,5 +4817,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--eager-rank"]:
         eager_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--elastic-rank"]:
+        elastic_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                       sys.argv[5], sys.argv[6])
         sys.exit(0)
     sys.exit(main())

@@ -46,14 +46,27 @@ exporters follow their knobs (``HOROVOD_FLIGHT_BUFFER``,
 ``HOROVOD_METRICS_DIR`` / ``HOROVOD_METRICS_PORT``), and
 ``callbacks.TelemetryCallback`` gives a training loop its step
 telemetry.
+
+Fault tolerance: ``guard`` (``HOROVOD_GUARD``: health rows on the
+reduced gradients, the skip / learning-rate back-off / rollback ladder,
+inside the compiled step's CUDA graph too; the divergence probe; the
+``HOROVOD_GUARD_INJECT`` chaos grammar), ``elastic`` (``elastic.run``,
+``elastic.State``, the rendezvous over the job's store, the preemption
+grace, the supervisor's and autoscaler's policies), ``checkpoint``
+(``CheckpointManager`` with sidecar digests) and ``data``
+(``DistributedDataset``: seeded sharding, pinned-memory prefetch, a
+position that re-shards over the survivors of an elastic recovery).
+``init(comm=[...])`` runs a job on a subset of the launched ranks.
 """
 
 import torch
 
 from . import callbacks, diag, metrics, models, serve
-from .exceptions import (CoordinatorError, DuplicateNameError, HorovodError,
+from .exceptions import (CheckpointCorruptError, CoordinatorError,
+                         DuplicateNameError, HorovodError, HostsUpdatedError,
                          MismatchError, NotInitializedError, ShutDownError,
-                         StalledTensorError)
+                         StalledTensorError, TransientCollectiveError,
+                         WorkerLostError)
 from .negotiation import ALLGATHER, ALLREDUCE, ALLTOALL, BROADCAST
 from .ops import collectives as _collectives
 from .ops.collectives import (alltoall_chunked,
@@ -64,7 +77,8 @@ from .ops.compression import Compression
 from .diag.xla_trace import trace_steps
 from .ops.step_program import CompiledTrainStep, compiled_train_step
 from .optimizers import (DistributedOptimizer, broadcast_optimizer_state,
-                         broadcast_parameters)
+                         broadcast_parameters, guarded_apply_updates,
+                         resize_lr_factor)
 from .runtime import (AXIS, cross_rank, cross_size, expert_mesh,
                       expert_parallel_size, init, is_initialized, local_rank,
                       local_size, mesh, model_mesh, model_parallel_size,
@@ -282,4 +296,11 @@ __all__ = [
     "init", "is_initialized", "local_rank", "local_size", "mesh",
     "model_mesh", "model_parallel_size", "models", "rank", "reducescatter",
     "serve", "shutdown", "size", "trace_steps",
+    "CheckpointCorruptError", "HostsUpdatedError",
+    "TransientCollectiveError", "WorkerLostError", "callbacks",
+    "checkpoint", "data", "elastic", "guard", "guarded_apply_updates",
+    "resize_lr_factor",
 ]
+
+# The fault-tolerance modules, after the API they use.
+from . import checkpoint, data, elastic, guard  # noqa: E402,F401

@@ -31,8 +31,15 @@ One JSON line carries the reference's keys for what it measures, the
 flagship transformer's row (``bench.transformer`` at 4 iterations, on a
 card), and ``{"skipped": "not ported: ROADMAP item N"}`` for each profile
 whose subsystem the port does not have yet (:data:`NOT_PORTED`: the
-control plane's simulated ranks, item 10; the input pipeline, item 14;
-the guard, item 15). ``dispatch`` is bench.py's per-call cost of a null
+control plane's simulated ranks, item 10). ``input_pipeline`` is
+bench.py's: the exposed input wait a batch through
+``hvd.data.DistributedDataset`` (a fixed production cost a batch against
+a fixed consume cost, batches staged on the run's device), prefetched
+(``HOROVOD_DATA_PREFETCH``, default 2) and synchronous;
+``guard_overhead_frac`` (eager loop and compiled profile) is bench.py's
+measured host cost of the guard's deferred fold and ladder a step
+(``note_device_health`` + ``end_step`` on a throwaway monitor, 8 rows in
+pinned memory on a card) times the loop's steps over its wall time. ``dispatch`` is bench.py's per-call cost of a null
 device op (enqueue, a blocking and a deferred readback, both together);
 ``eager_exchange`` its steady-state exchange through the eager engine
 (ops/engine.py): the wire-layout cache's hit rate and the synchronize
@@ -62,7 +69,7 @@ EXCHANGE_BUCKETS and at 1 bucket, each side's hidden fraction traced;
 1024, 32 rows a rank; width 256 in the smoke shrink); and
 ``trace_overhead_frac`` is the idle tracer's cost over the profile's
 loop: a tick a step (a replay runs no host code, so none of the phase
-ranges). ``guard_overhead_frac`` stays a skipped row (item 15).
+ranges).
 ``zero_profile`` is bench.py's ZeRO and DCN-compression profile
 (:func:`_zero_profile`). ``serve`` is ``bench.transformer --serve``'s
 sub-dict, and ``moe``
@@ -102,13 +109,14 @@ NUM_CLASSES = 1000
 
 # The reference's profiles whose subsystems are not ported, by the
 # ROADMAP.md Queue 1 item that brings each: the control plane's
-# simulated-rank harness (10), the input pipeline (14), the guard (15).
-NOT_PORTED = {
-    "input_pipeline": 14, "guard_overhead_frac": 15,
-    "control_plane": 10,
-}
+# simulated-rank harness (10).
+NOT_PORTED = {"control_plane": 10}
 # bench.py's compiled-step profile parts whose subsystems are not ported.
-COMPILED_NOT_PORTED = {"guard_overhead_frac": 15}
+COMPILED_NOT_PORTED = {}
+# bench.py's input-pipeline profile: the prefetch depth it measures
+# beside the synchronous path (HOROVOD_DATA_PREFETCH's default).
+DATA_PREFETCH = max(int(os.environ.get("HOROVOD_DATA_PREFETCH", "2") or 2),
+                    1)
 # bench.py's tuned bucket count of the bucketed backward/exchange
 # overlap (HOROVOD_EXCHANGE_BUCKETS, default 8), A/B'd against 1.
 EXCHANGE_BUCKETS = max(
@@ -305,6 +313,70 @@ def trace_attribution(loop_wall, iters, ranges=RANGES_PER_STEP):
     return round(min(cost_per_step * iters / loop_wall, 1.0), 6)
 
 
+def guard_attribution(loop_wall, iters, device):
+    """bench.py's ``guard_overhead_frac``: the guard's host work a step
+    (the deferred fold of one step's health rows and the ladder:
+    ``note_device_health`` + ``end_step``) timed on a throwaway monitor
+    with 8 rows (in pinned memory behind a recorded event on a card, as
+    the compiled step hands them over), times the loop's steps, over
+    its wall time. The rows' device work is part of the step itself."""
+    if loop_wall <= 0 or iters <= 0:
+        return 0.0
+    from ..guard import GuardMonitor
+    mon = GuardMonitor(config_mod.Config())
+    cuda = device.type == "cuda"
+    health = torch.ones((8, 2), pin_memory=cuda)
+    names = [f"bench.guard.{i}" for i in range(8)]
+    n_probe = 500
+    t0 = time.perf_counter()
+    for _ in range(n_probe):
+        ready = None
+        if cuda:
+            ready = torch.cuda.Event()
+            ready.record()
+        mon.note_device_health(names, health, ready)
+        mon.end_step()
+    cost_per_step = (time.perf_counter() - t0) / n_probe
+    return round(min(cost_per_step * iters / loop_wall, 1.0), 6)
+
+
+def _input_pipeline_profile(depth, device):
+    """bench.py's exposed input wait through ``hvd.data.
+    DistributedDataset`` at one prefetch depth: the source charges a
+    fixed production cost a batch (a sleep standing in for decode and
+    storage), the loop a fixed consume cost (the step); with prefetch
+    the production rides behind the consume window. Batches land on
+    ``device`` (pinned memory and a side stream on a card).
+    ``data_wait_ms`` is the steady-state mean exposed wait a batch."""
+    from ..data import DistributedDataset
+    n_batches = 6 if os.environ.get("HOROVOD_BENCH_SMOKE") == "1" else 20
+    batch = 8
+    produce_s = 0.004
+    consume_s = 0.004
+
+    def fetch(idx):
+        time.sleep(produce_s)
+        return np.asarray(idx, np.float32)
+
+    ds = DistributedDataset(fetch, batch, num_samples=n_batches * batch,
+                            seed=0, rank=0, size=1, prefetch=depth,
+                            device=device)
+    ds.take_wait()
+    waits = []
+    t0 = time.perf_counter()
+    for _ in ds:
+        time.sleep(consume_s)
+        waits.append(ds.take_wait())
+    elapsed = time.perf_counter() - t0
+    ds.close()
+    # the first batch has no consume window to hide behind
+    steady = waits[1:] or waits
+    return {"prefetch_depth": depth,
+            "data_wait_ms": round(float(np.mean(steady)) * 1e3, 3),
+            "batches": len(waits),
+            "batches_per_sec": round(len(waits) / elapsed, 2)}
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -430,6 +502,8 @@ def _compiled_step_profile(run, proto, device):
     out.update(_compiled_trace_rows(step, run, proto, device, loss_fn))
     out["trace_overhead_frac"] = trace_attribution(loop_wall, iters,
                                                    ranges=0)
+    out["guard_overhead_frac"] = guard_attribution(loop_wall, iters,
+                                                   device)
     for key, item in COMPILED_NOT_PORTED.items():
         out[key] = _skipped(item)
     return out
@@ -649,6 +723,7 @@ def run_benchmark(proto, device):
     loop_wall = time.perf_counter() - t_loop0
     flight_phases, flight_overhead = flight_attribution(
         flight, phase0, events0, loop_wall, len(samples))
+    guard_overhead = guard_attribution(loop_wall, len(samples), device)
     ci_pct = sem / mean * 100.0 if mean else 0.0
     block_rate = run.block_timed(proto.num_iters)
     compiled = _compiled_step_profile(run, proto, device)
@@ -713,6 +788,10 @@ def run_benchmark(proto, device):
         "trace_overhead_frac": compiled["trace_overhead_frac"],
         "dispatch": dispatch,
         "eager_exchange": exchange,
+        "guard_overhead_frac": guard_overhead,
+        "input_pipeline": {
+            "prefetch": _input_pipeline_profile(DATA_PREFETCH, device),
+            "sync": _input_pipeline_profile(0, device)},
         "card": card,
     }
     for key, item in NOT_PORTED.items():

@@ -1,14 +1,21 @@
-"""Training-loop callbacks: the step telemetry.
+"""Training-loop callbacks: telemetry, metric averaging, LR schedules,
+warmup, elastic commits and the guard.
 
-Counterpart of horovod_tpu/callbacks.py, carrying its callback protocol
-(:class:`Callback`) and :class:`TelemetryCallback`: the step marks in
-the flight recorder, the step and examples/s gauges, the straggler skew
+Counterpart of horovod_tpu/callbacks.py (reference: the Keras
+callbacks of horovod/_keras/callbacks.py): the callback protocol
+(:class:`Callback`); :class:`TelemetryCallback` (the step marks in the
+flight recorder, the step and examples/s gauges, the straggler skew
 over ``allgather`` every ``skew_interval`` steps, MFU, the perf
-sentry's feed, the eager loop's tick of an armed phase trace and the
-flight recorder's phase gauges (``hvd_diag_phase_seconds``). The
-autoscaler signal goes through elastic/policy.py's ``write_signal``. The
-other callbacks (broadcast, metric averaging, learning-rate schedules,
-elastic commits) come with ROADMAP.md, Queue 1 item 15.
+sentry's feed, the eager loop's tick of an armed phase trace, the flight
+recorder's phase gauges and the autoscaler signal through
+elastic/policy.py's ``write_signal``); :class:`BroadcastGlobalVariablesCallback`,
+:class:`MetricAverageCallback`, :class:`ElasticStateCallback`,
+:class:`GuardCallback`, :class:`LearningRateRescaleCallback`,
+:class:`LearningRateScheduleCallback` and
+:class:`LearningRateWarmupCallback`. The learning-rate callbacks work on
+a torch optimizer's ``param_groups`` or any object with an ``lr``
+attribute; a tensor ``lr`` is filled in place, so a captured step
+(ops/step_program.py) reads the new rate on its next replay.
 """
 
 import time
@@ -48,6 +55,83 @@ class Callback:
 
     def on_epoch_end(self, epoch, logs=None):
         pass
+
+
+class _AttrBackend:
+    """get/set hyperparameters on optimizer-like objects: plain
+    attribute holders and torch optimizers (param_groups). A value held
+    as a tensor is filled in place (a captured CUDA graph reads that
+    storage), any other is replaced."""
+
+    def __init__(self, optimizer):
+        self.opt = optimizer
+
+    def _groups(self, name):
+        groups = getattr(self.opt, "param_groups", None)
+        if groups is not None and groups and name in groups[0]:
+            return groups
+        return None
+
+    def has(self, name):
+        return self._groups(name) is not None or hasattr(self.opt, name)
+
+    def get(self, name):
+        groups = self._groups(name)
+        value = (groups[0][name] if groups is not None
+                 else getattr(self.opt, name))
+        return float(value) if torch.is_tensor(value) else value
+
+    def set(self, name, value):
+        groups = self._groups(name)
+        holders = groups if groups is not None else [None]
+        for g in holders:
+            old = g[name] if g is not None else getattr(self.opt, name)
+            if torch.is_tensor(old):
+                with torch.no_grad():
+                    old.fill_(value)
+            elif g is not None:
+                g[name] = value
+            else:
+                setattr(self.opt, name, value)
+
+
+class BroadcastGlobalVariablesCallback(Callback):
+    """Broadcast initial state from root_rank at train begin
+    (reference: _keras/callbacks.py:20-31). ``get_state()`` returns a
+    module, a state_dict or (name, tensor) pairs, broadcast in place;
+    ``set_state(state)`` is called after, when given."""
+
+    def __init__(self, root_rank=0, get_state=None, set_state=None):
+        self.root_rank = root_rank
+        self._get_state = get_state
+        self._set_state = set_state
+
+    def on_train_begin(self, logs=None):
+        if self._get_state is None:
+            return
+        from .optimizers import broadcast_parameters
+        state = self._get_state()
+        params = (state.state_dict() if isinstance(state, torch.nn.Module)
+                  else state)
+        broadcast_parameters(params, root_rank=self.root_rank)
+        if self._set_state is not None:
+            self._set_state(state)
+
+
+class MetricAverageCallback(Callback):
+    """Allreduce-average the epoch's metrics across ranks so logs agree on
+    every worker (reference: _keras/callbacks.py:33-67)."""
+
+    def on_epoch_end(self, epoch, logs=None):
+        from . import allreduce
+        logs = logs if logs is not None else {}
+        reduced = {}
+        for metric, value in sorted(logs.items()):
+            if isinstance(value, (int, float, np.floating, np.integer)):
+                reduced[metric] = float(allreduce(
+                    torch.tensor(float(value), dtype=torch.float64),
+                    average=True, name=f"metric.{metric}"))
+        logs.update(reduced)
 
 
 class TelemetryCallback(Callback):
@@ -259,3 +343,238 @@ class TelemetryCallback(Callback):
                                   cs.cache_hit_rate if cs else None,
                               "compiled_fallbacks":
                                   cs.fallback_steps if cs else None})
+
+
+class ElasticStateCallback(Callback):
+    """Commit elastic training state at a fixed batch cadence
+    (:meth:`horovod_tpu_torch.elastic.State.commit`), bounding how much
+    work a worker-failure rollback can lose to ``commit_every`` batches
+    (upstream analog: Elastic Horovod's ``CommitStateCallback``). An
+    end-of-epoch commit always happens."""
+
+    def __init__(self, state, commit_every=10):
+        self.state = state
+        self.commit_every = max(int(commit_every), 1)
+        self._batches = 0
+
+    def on_batch_end(self, batch, logs=None):
+        self._batches += 1
+        if self._batches % self.commit_every == 0:
+            self.state.commit()
+
+    def on_epoch_end(self, epoch, logs=None):
+        self.state.commit()
+
+
+class GuardCallback(Callback):
+    """Wire the step-integrity guard into a callback-driven loop: at
+    train begin it attaches the rollback target (an
+    :class:`~horovod_tpu_torch.elastic.State`) and the LR-backoff
+    optimizer to the installed monitor; at batch end it runs the
+    divergence probe at its cadence through ``get_params`` /
+    ``set_params`` (the repaired parameters are written in place and
+    handed to ``set_params``), and surfaces the last verdict as
+    ``logs["guard_skipped"]``. It never calls ``end_step()``: the step's
+    apply point does (the DistributedOptimizer, the compiled step or
+    :func:`~horovod_tpu_torch.optimizers.guarded_apply_updates`). No-op
+    without the guard. ``striped=True``: ZeRO-3's resident stripe,
+    detection only."""
+
+    def __init__(self, state=None, optimizer=None, get_params=None,
+                 set_params=None, striped=False):
+        self.state = state
+        self.optimizer = optimizer
+        self._get_params = get_params
+        self._set_params = set_params
+        self.striped = striped
+
+    @staticmethod
+    def _monitor():
+        from . import guard
+        return guard.get()
+
+    def on_train_begin(self, logs=None):
+        monitor = self._monitor()
+        if monitor is None:
+            return
+        if self.state is not None:
+            monitor.attach_state(self.state)
+        if self.optimizer is not None:
+            monitor.attach_optimizer(self.optimizer)
+
+    def on_batch_end(self, batch, logs=None):
+        monitor = self._monitor()
+        if monitor is None:
+            return
+        if self._get_params is not None:
+            repaired = monitor.check_divergence(self._get_params(),
+                                                striped=self.striped)
+            if repaired is not None and self._set_params is not None:
+                self._set_params(repaired)
+        if logs is not None and monitor.last_verdict is not None:
+            logs["guard_skipped"] = not monitor.last_verdict["ok"]
+
+
+class LearningRateRescaleCallback(Callback):
+    """Rescale the learning rate when the elastic world resizes: at
+    train begin the anchor ``(lr, size())``; when ``size()`` changes, the
+    target ``anchor_lr * resize_lr_factor(anchor_size, size, mode)``
+    (``"linear"`` or ``"sqrt"``), reached linearly over ``ramp_steps``
+    batches (0 = at once), with momentum correction as
+    :class:`LearningRateScheduleCallback`."""
+
+    def __init__(self, optimizer, mode="linear", ramp_steps=0,
+                 momentum_correction=True):
+        self.backend = _AttrBackend(optimizer)
+        self.mode = mode
+        self.ramp_steps = max(int(ramp_steps), 0)
+        self.momentum_correction = momentum_correction
+        self.anchor_lr = None
+        self.anchor_size = None
+        self._seen_size = None
+        self._ramp = None  # (from_lr, to_lr, step, total)
+        self.restore_momentum = None
+
+    def on_train_begin(self, logs=None):
+        from .optimizers import resize_lr_factor  # anchor validation
+        resize_lr_factor(1, 1, self.mode)
+        self.anchor_lr = self.backend.get("lr")
+        self.anchor_size = size() if is_initialized() else 1
+        self._seen_size = self.anchor_size
+
+    def _set_lr(self, new_lr):
+        old_lr = self.backend.get("lr")
+        self.backend.set("lr", new_lr)
+        if (self.backend.has("momentum") and self.momentum_correction
+                and old_lr):
+            self.restore_momentum = self.backend.get("momentum")
+            self.backend.set("momentum",
+                             self.restore_momentum * new_lr / old_lr)
+
+    def on_batch_begin(self, batch, logs=None):
+        if self.anchor_lr is None or not is_initialized():
+            return
+        from .optimizers import resize_lr_factor
+        current = size()
+        if current != self._seen_size:
+            target = self.anchor_lr * resize_lr_factor(
+                self.anchor_size, current, self.mode)
+            self._seen_size = current
+            if self.ramp_steps:
+                self._ramp = (self.backend.get("lr"), target, 0,
+                              self.ramp_steps)
+            else:
+                self._set_lr(target)
+        if self._ramp is not None:
+            frm, to, step, total = self._ramp
+            step += 1
+            self._set_lr(frm + (to - frm) * step / total)
+            self._ramp = (frm, to, step, total) if step < total else None
+
+    def on_batch_end(self, batch, logs=None):
+        if self.restore_momentum:
+            self.backend.set("momentum", self.restore_momentum)
+            self.restore_momentum = None
+
+    def on_epoch_end(self, epoch, logs=None):
+        if logs is not None:
+            logs["lr"] = self.backend.get("lr")
+
+
+class LearningRateScheduleCallback(Callback):
+    """lr = initial_lr * multiplier(epoch), with momentum correction
+    (reference: _keras/callbacks.py:70-146)."""
+
+    def __init__(self, optimizer, multiplier, start_epoch=0, end_epoch=None,
+                 staircase=True, momentum_correction=True,
+                 steps_per_epoch=None):
+        self.backend = _AttrBackend(optimizer)
+        self.start_epoch = start_epoch
+        self.end_epoch = end_epoch
+        self.staircase = staircase
+        self.momentum_correction = momentum_correction
+        self.initial_lr = None
+        self.restore_momentum = None
+        self.steps_per_epoch = steps_per_epoch
+        self.current_epoch = None
+        if not callable(multiplier):
+            self.staircase = True
+            self.multiplier = lambda epoch: multiplier
+        else:
+            self.multiplier = multiplier
+
+    def _autodetect_steps_per_epoch(self):
+        if self.params and self.params.get("steps"):
+            return self.params["steps"]
+        if (self.params and self.params.get("samples")
+                and self.params.get("batch_size")):
+            return self.params["samples"] // self.params["batch_size"]
+        raise ValueError(
+            "Could not autodetect the number of steps per epoch. Please "
+            "specify the steps_per_epoch parameter to the %s()."
+            % self.__class__.__name__)
+
+    def _adjust_learning_rate(self, epoch):
+        old_lr = self.backend.get("lr")
+        new_lr = self.initial_lr * self.multiplier(epoch)
+        self.backend.set("lr", new_lr)
+        if self.backend.has("momentum") and self.momentum_correction:
+            # Momentum correction (Goyal et al.): scale m by new_lr/old_lr
+            # while lr is in flux so effective update velocity is preserved.
+            self.restore_momentum = self.backend.get("momentum")
+            self.backend.set("momentum",
+                             self.restore_momentum * new_lr / old_lr)
+
+    def _restore_momentum_if_needed(self):
+        if self.restore_momentum:
+            self.backend.set("momentum", self.restore_momentum)
+            self.restore_momentum = None
+
+    def on_train_begin(self, logs=None):
+        self.initial_lr = self.backend.get("lr")
+        if not self.staircase and not self.steps_per_epoch:
+            self.steps_per_epoch = self._autodetect_steps_per_epoch()
+
+    def on_epoch_begin(self, epoch, logs=None):
+        self.current_epoch = epoch
+
+    def on_batch_begin(self, batch, logs=None):
+        if (self.current_epoch < self.start_epoch
+                or (self.end_epoch is not None
+                    and self.current_epoch >= self.end_epoch)):
+            return
+        if self.staircase and batch == 0:
+            self._adjust_learning_rate(self.current_epoch)
+        elif not self.staircase:
+            epoch = self.current_epoch + float(batch) / self.steps_per_epoch
+            self._adjust_learning_rate(epoch)
+
+    def on_batch_end(self, batch, logs=None):
+        self._restore_momentum_if_needed()
+
+    def on_epoch_end(self, epoch, logs=None):
+        if logs is not None:
+            logs["lr"] = self.backend.get("lr")
+
+
+class LearningRateWarmupCallback(LearningRateScheduleCallback):
+    """Linear warmup lr/size -> lr over warmup_epochs
+    (reference: _keras/callbacks.py:149-168; Goyal et al. gradual warmup)."""
+
+    def __init__(self, optimizer, warmup_epochs=5, momentum_correction=True,
+                 steps_per_epoch=None, verbose=0):
+        def multiplier(epoch):
+            epoch += 1.0 / self.steps_per_epoch
+            return 1.0 / size() * (epoch * (size() - 1) / warmup_epochs + 1)
+
+        super().__init__(optimizer, multiplier, start_epoch=0,
+                         end_epoch=warmup_epochs, staircase=False,
+                         momentum_correction=momentum_correction,
+                         steps_per_epoch=steps_per_epoch)
+        self.verbose = verbose
+
+    def on_epoch_end(self, epoch, logs=None):
+        super().on_epoch_end(epoch, logs)
+        if epoch == self.end_epoch - 1 and self.verbose > 0:
+            print("\nEpoch %d: finished gradual learning rate warmup to %g."
+                  % (epoch + 1, self.backend.get("lr")))

@@ -16,8 +16,10 @@ records (``HOROVOD_PROFILER_JIT_CALLBACKS``), the MFU peak, the eager
 engine's and its coordinator's knobs (fusion threshold, cycle time,
 response cache, timeline, stall checks, overlap pipeline, padding, wire
 profile, the control plane's tree, graduation and bypass, the KV
-client's retries), the knobs of subsystems the port does not have yet
-(``init()`` refuses them), :data:`FUSION_BUFFER_ATOMIC_UNIT` and
+client's retries), the step-integrity guard's (``HOROVOD_GUARD*``),
+elastic training's (``HOROVOD_ELASTIC*``) and the input pipeline's
+(``HOROVOD_DATA_PREFETCH``), autotune's (``init()`` refuses it: not
+ported yet), :data:`FUSION_BUFFER_ATOMIC_UNIT` and
 :func:`next_power_of_two` (the shape bins). Names, defaults and clamps
 are the JAX package's.
 """
@@ -110,10 +112,28 @@ class Config:
     # Record a captured program's collectives (as ``<op>_jit``) on every
     # replay, not only once when the program is captured.
     profiler_jit_callbacks: bool = False
-    # Knobs of subsystems the port does not have yet; init() refuses a
-    # set one rather than ignore it.
-    guard: bool = False
+    # Autotune is not ported yet; init() refuses it rather than ignore it.
     autotune: bool = False
+    # Step-integrity guard (guard/). Off by default, and then nothing
+    # changes: no health rows, no gate, the plain programs. With it on,
+    # every bad step is skipped; after guard_lr_backoff_steps
+    # consecutive bad steps the learning rate is multiplied by
+    # guard_lr_backoff_factor; after guard_bad_step_limit consecutive bad
+    # steps training rolls back to the last elastic.State commit.
+    guard: bool = False
+    guard_bad_step_limit: int = 3
+    guard_lr_backoff_steps: int = 2
+    guard_lr_backoff_factor: float = 0.5
+    # Cross-replica divergence probe cadence in steps (0 = off).
+    guard_divergence_interval: int = 0
+    # Bounded retry of a transient collective failure (0 = none).
+    guard_retry: int = 0
+    guard_retry_deadline_seconds: float = 30.0
+    guard_retry_base_seconds: float = 0.05
+    # Deterministic chaos injection (guard/inject.py); '' = none.
+    guard_inject: str = ""
+    # Input pipeline (data/loader.py): batches staged ahead (0 = inline).
+    data_prefetch: int = 2
     # The eager engine (ops/engine.py). Tensor fusion threshold in bytes
     # (reference: operations.cc:1176-1186), coordination cycle time in ms
     # (operations.cc:1196-1203), response cache capacity
@@ -145,8 +165,15 @@ class Config:
     # Fused buckets dispatched but not yet completed at once (0: each
     # bucket completes inline).
     pipeline_depth: int = 2
-    # Elastic training (init() refuses it until it is ported).
+    # Elastic training (elastic/): liveness beacons and the lost-worker
+    # scan, the process group's timeout (elastic_timeout_seconds: a
+    # collective with a dead peer fails within it as WorkerLostError),
+    # the rendezvous settle window, and the SIGTERM preemption grace.
     elastic: bool = False
+    elastic_timeout_seconds: float = 10.0
+    elastic_settle_seconds: float = 1.0
+    elastic_grace_seconds: float = 0.0
+    elastic_grace_dir: str = ""
     # The fork's padding experiment: fused element counts rounded up to
     # a power of two (reference fork: ops/mpi_operations.cc:24-63).
     padding_algo: int = 0
@@ -265,6 +292,16 @@ class Config:
         c.pipeline_depth = max(_env_int("HOROVOD_PIPELINE_DEPTH",
                                         c.pipeline_depth), 0)
         c.elastic = _env_flag("HOROVOD_ELASTIC")
+        c.elastic_timeout_seconds = _env_float(
+            "HOROVOD_ELASTIC_TIMEOUT_SECONDS", c.elastic_timeout_seconds)
+        c.elastic_settle_seconds = _env_float(
+            "HOROVOD_ELASTIC_SETTLE_SECONDS", c.elastic_settle_seconds)
+        c.elastic_grace_seconds = _env_float(
+            "HOROVOD_ELASTIC_GRACE_SECONDS", c.elastic_grace_seconds)
+        c.elastic_grace_dir = os.environ.get("HOROVOD_ELASTIC_GRACE_DIR",
+                                             c.elastic_grace_dir)
+        c.data_prefetch = max(_env_int("HOROVOD_DATA_PREFETCH",
+                                       c.data_prefetch), 0)
         c.padding_algo = _env_int("PADDING_ALGO", 0)
         c.wire_profile = _env_flag("HOROVOD_WIRE_PROFILE")
         c.wire_profile_path = os.environ.get("HOROVOD_WIRE_PROFILE_PATH",
@@ -273,6 +310,24 @@ class Config:
         c.kv_retry_base_seconds = _env_float(
             "HOROVOD_KV_RETRY_BASE_SECONDS", c.kv_retry_base_seconds)
         c.guard = _env_flag("HOROVOD_GUARD")
+        c.guard_bad_step_limit = max(_env_int(
+            "HOROVOD_GUARD_BAD_STEPS", c.guard_bad_step_limit), 1)
+        c.guard_lr_backoff_steps = max(_env_int(
+            "HOROVOD_GUARD_LR_BACKOFF_STEPS", c.guard_lr_backoff_steps), 1)
+        c.guard_lr_backoff_factor = _env_float(
+            "HOROVOD_GUARD_LR_BACKOFF_FACTOR", c.guard_lr_backoff_factor)
+        c.guard_divergence_interval = max(_env_int(
+            "HOROVOD_GUARD_DIVERGENCE_INTERVAL",
+            c.guard_divergence_interval), 0)
+        c.guard_retry = max(_env_int("HOROVOD_GUARD_RETRY",
+                                     c.guard_retry), 0)
+        c.guard_retry_deadline_seconds = _env_float(
+            "HOROVOD_GUARD_RETRY_DEADLINE_SECONDS",
+            c.guard_retry_deadline_seconds)
+        c.guard_retry_base_seconds = _env_float(
+            "HOROVOD_GUARD_RETRY_BASE_SECONDS", c.guard_retry_base_seconds)
+        c.guard_inject = os.environ.get("HOROVOD_GUARD_INJECT",
+                                        c.guard_inject)
         c.autotune = _env_flag("HOROVOD_AUTOTUNE")
         c.metrics_dir = os.environ.get("HOROVOD_METRICS_DIR", "")
         c.metrics_port = _env_int("HOROVOD_METRICS_PORT", c.metrics_port)

@@ -422,6 +422,15 @@ class MultiHostCoordinator:
         # everyone's last word), so publishes stop and close() may safely
         # reclaim the req key itself.
         self._shutdown_echo_seen = False
+        # Elastic failure detection (HOROVOD_ELASTIC): this process's
+        # liveness counter, and on process 0 the receipt clock of each
+        # peer's counter, the processes declared lost or departed, and
+        # the abort epoch (one abort decision per failure event).
+        self._live_counter = 0
+        self._live_published_t = float("-inf")
+        self._live_seen = {}
+        self._lost_pids = set()
+        self._abort_epoch = 0
         # Control-plane health for hvd.metrics_snapshot(); removed in
         # close() so the registry never holds a dead coordinator.
         metrics.registry().set_collect_hook("coordinator",
@@ -652,6 +661,133 @@ class MultiHostCoordinator:
             len(entries))
         return True
 
+    # ------------------------------------------------------------ elastic
+
+    def _live_throttle(self):
+        return min(1.0, max(self.config.elastic_timeout_seconds / 4.0, 0.05))
+
+    def publish_liveness(self):
+        """Elastic liveness beacon (``HOROVOD_ELASTIC``): a counter under
+        ``live/{pid}`` that advances at most every quarter of the elastic
+        timeout (at most every second). The engine's ticker calls it
+        every tick, so a process that computes without submitting still
+        shows it is alive; one that died stops advancing it."""
+        if not self.config.elastic:
+            return
+        now = time.perf_counter()
+        with self._lock:
+            if now - self._live_published_t < self._live_throttle():
+                return
+            self._live_published_t = now
+            self._live_counter += 1
+            blob = str(self._live_counter).encode()
+        metrics.COORD_KV_OPS.labels(op="liveness").inc()
+        try:
+            self._client.key_value_set_bytes(f"{self._ns}/live/{self.pid}",
+                                             blob, allow_overwrite=True)
+        except Exception as e:  # noqa: BLE001 — classified below
+            if not _is_timeout_error(e):
+                self._transport_failure("liveness publish", e)
+
+    def elastic_round(self):
+        """Process 0: read every process's liveness counter and goodbye
+        key. Goodbyes (``bye/{pid}``) become one planned-departure abort;
+        a counter that has not changed for longer than
+        ``HOROVOD_ELASTIC_TIMEOUT_SECONDS`` (by this process's receipt
+        clock; a process never seen gets the timeout from the first
+        round) declares that process lost, once, in one worker-lost
+        abort. Returns True when an abort was appended."""
+        if self.pid != 0 or not self.config.elastic:
+            return False
+        pids = [p for p in self._pid_list() if p != self.pid]
+        if not pids:
+            return False
+        keys = ([f"{self._ns}/bye/{p}" for p in pids]
+                + [f"{self._ns}/live/{p}" for p in pids])
+        blobs = self._kv_multiget(keys, "liveness read", best_effort=True)
+        now = time.perf_counter()
+        byes = [p for p, b in zip(pids, blobs[:len(pids)]) if b]
+        appended = False
+        with self._lock:
+            fresh = [p for p in byes if p not in self._lost_pids]
+            if fresh:
+                self._lost_pids.update(fresh)
+                self._abort_epoch += 1
+                _logger.warning(
+                    "elastic: worker process(es) %s announced a planned "
+                    "departure; interrupting collectives (recovery epoch "
+                    "%d)", fresh, self._abort_epoch)
+                self._append_decision_locked({"tensors": [], "abort": {
+                    "kind": "planned_departure", "lost_pids": fresh,
+                    "epoch": self._abort_epoch}})
+                appended = True
+            timeout = self.config.elastic_timeout_seconds
+            lost = []
+            for p, blob in zip(pids, blobs[len(pids):]):
+                if p in self._lost_pids:
+                    continue
+                value = bytes(blob) if blob else None
+                seen = self._live_seen.get(p)
+                if seen is None or seen[0] != value:
+                    self._live_seen[p] = (value, now)
+                elif now - seen[1] > timeout:
+                    lost.append(p)
+            if lost:
+                self._lost_pids.update(lost)
+                self._abort_epoch += 1
+                _logger.warning(
+                    "elastic: worker process(es) %s lost — no liveness "
+                    "heartbeat for more than %.1fs; aborting in-flight "
+                    "collectives (recovery epoch %d)", lost, timeout,
+                    self._abort_epoch)
+                self._append_decision_locked({"tensors": [], "abort": {
+                    "kind": "worker_lost", "lost_pids": lost,
+                    "epoch": self._abort_epoch}})
+                appended = True
+        return appended
+
+    def announce_departure(self):
+        """Planned departure (the preemption grace): write ``bye/{pid}``.
+        Process 0's next elastic round turns it into a planned-departure
+        abort, and a peer whose collective with this process fails reads
+        it (``departed()``) and raises HostsUpdatedError instead of
+        WorkerLostError, with no liveness timeout waited."""
+        try:
+            self._client.key_value_set_bytes(f"{self._ns}/bye/{self.pid}",
+                                             b"1", allow_overwrite=True)
+        except Exception:  # noqa: BLE001 — liveness timeout is the backstop
+            _logger.debug("departure announce failed", exc_info=True)
+
+    def departed(self):
+        """Process ids whose goodbye key is set, sorted."""
+        pids = [p for p in self._pid_list() if p != self.pid]
+        blobs = self._kv_multiget([f"{self._ns}/bye/{p}" for p in pids],
+                                  "goodbye read", best_effort=True)
+        return sorted(p for p, b in zip(pids, blobs) if b)
+
+    def announce_hosts_updated(self):
+        """Process 0 only: append a cooperative membership-change abort;
+        every process's next engine cycle raises HostsUpdatedError."""
+        if self.pid != 0:
+            raise ValueError(
+                "announce_hosts_updated is a coordinator (process 0) "
+                "operation")
+        with self._lock:
+            self._abort_epoch += 1
+            self._append_decision_locked({"tensors": [], "abort": {
+                "kind": "hosts_updated", "lost_pids": [],
+                "epoch": self._abort_epoch}})
+
+    def append_guard(self, verdict):
+        """Process 0: record a non-apply guard verdict in the decision
+        log (the audit lane: every process applies it at the same index
+        and compares it with its own ladder's)."""
+        if self.pid != 0:
+            return
+        with self._lock:
+            self._append_decision_locked({"tensors": [],
+                                          "guard": dict(verdict)})
+
     def close(self):
         """Release the KV fan-out pool (engine.shutdown calls this; the
         session-epoch design supports init/shutdown/re-init cycles, and
@@ -781,7 +917,8 @@ class MultiHostCoordinator:
                             self._graduated_local[hint["fp"]] = deid
                 if (self._graduated_local
                         and (decision.get("warning")
-                             or decision.get("shutdown"))):
+                             or decision.get("shutdown")
+                             or decision.get("abort"))):
                     # Instant demotion: a stall warning or a shutdown
                     # invalidates the steady state the schedules encoded.
                     # The next publish rings the static root's doorbell.
@@ -1635,7 +1772,8 @@ class MultiHostCoordinator:
 
     def _append_decision_locked(self, decision):
         if (self._sched is not None
-                and (decision.get("warning") or decision.get("shutdown"))):
+                and (decision.get("warning") or decision.get("shutdown")
+                     or decision.get("abort"))):
             # Coordinator-side instant demotion, mirroring the process
             # side in fetch_decisions: any disruptive decision voids
             # every graduated schedule and re-opens full sweeps.

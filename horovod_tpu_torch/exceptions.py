@@ -1,7 +1,8 @@
 """Error types of the port, with the JAX package's wording.
 
 Counterpart of horovod_tpu/exceptions.py, carrying what the training
-slice and the eager engine raise. The messages are the reference's, word for word, because
+slice, the eager engine, the guard, checkpoints and elastic training
+raise. The messages are the reference's, word for word, because
 users and tests match on them.
 """
 
@@ -65,3 +66,73 @@ class CoordinatorError(HorovodError):
     (coordinator.py::MultiHostCoordinator._transport_failure).
     """
 
+
+
+class TransientCollectiveError(HorovodError):
+    """A wire/dispatch failure believed to be transient (an injected
+    chaos fault, or a runtime error the bounded retry policy is allowed
+    to absorb). With ``HOROVOD_GUARD_RETRY > 0`` the engine retries the
+    dispatch with exponential backoff before escalating; with the
+    default (0) it propagates like any other dispatch failure.
+    """
+
+
+class CheckpointCorruptError(HorovodError):
+    """A checkpoint's sidecar content digest failed verification at
+    restore: the bytes on disk are not the bytes that were saved.
+    ``CheckpointManager.restore()`` raises this only when an EXPLICIT
+    step was requested; latest-step restores skip the corrupt candidate
+    and fall back to the next-newest valid checkpoint instead.
+    """
+
+
+class WorkerLostError(HorovodError):
+    """A peer worker process was lost: the elastic failure detector saw
+    no liveness heartbeat from it within HOROVOD_ELASTIC_TIMEOUT_SECONDS,
+    or a collective with it failed (its connection closed, or the
+    process group's timeout, which is that same knob, expired). In-flight
+    collectives fail with this instead of hanging; catching it (usually
+    through :func:`horovod_tpu_torch.elastic.run`) and re-rendezvousing
+    with the survivors is the recovery path.
+    """
+
+    def __init__(self, lost_pids=(), epoch=0, message=None):
+        self.lost_pids = tuple(lost_pids)
+        self.epoch = int(epoch)
+        if message is None:
+            who = ", ".join(str(p) for p in self.lost_pids) or "unknown"
+            message = (
+                f"Worker process(es) [{who}] declared lost: no liveness "
+                f"heartbeat within the elastic timeout. In-flight "
+                f"collectives were aborted; re-rendezvous with the "
+                f"surviving workers (horovod_tpu.elastic.run) or restart "
+                f"the job to continue.")
+        super().__init__(message)
+
+
+class HostsUpdatedError(HorovodError):
+    """Worker membership is changing (a planned departure, or a
+    cooperative hosts-updated interrupt) and collectives must
+    re-rendezvous before continuing. Unlike :class:`WorkerLostError`
+    nothing failed.
+    """
+
+    def __init__(self, epoch=0, message=None, lost_pids=()):
+        self.lost_pids = tuple(lost_pids)
+        self.epoch = int(epoch)
+        if message is None:
+            if self.lost_pids:
+                who = ", ".join(str(p) for p in self.lost_pids)
+                message = (
+                    f"Worker process(es) [{who}] announced a planned "
+                    f"departure (preemption grace); collectives were "
+                    f"interrupted so the survivors re-shard at this step "
+                    f"boundary (horovod_tpu.elastic.run resumes "
+                    f"training automatically).")
+            else:
+                message = (
+                    "Worker membership updated; collectives were "
+                    "interrupted for re-rendezvous (horovod_tpu.elastic."
+                    "run resumes training automatically after rebuilding "
+                    "the mesh).")
+        super().__init__(message)

@@ -720,6 +720,118 @@ PERF_REGRESSIONS = _registry.counter(
     "(HOROVOD_PERF_SENTRY=1) against the per-signature EMA baseline, "
     "by kind (step_time | mfu).", labelnames=("kind",))
 
+# Elastic fault tolerance (elastic/). workers_lost counts
+# peers this process saw declared lost (via the coordinator's ABORT
+# decision); recovery_seconds' count is the number of completed recoveries.
+ELASTIC_WORKERS_LOST = _registry.counter(
+    "hvd_elastic_workers_lost_total",
+    "Worker processes declared lost by the elastic failure detector.")
+ELASTIC_RENDEZVOUS_ROUNDS = _registry.counter(
+    "hvd_elastic_rendezvous_rounds_total",
+    "Membership re-rendezvous rounds this process completed.")
+ELASTIC_RECOVERY_SECONDS = _registry.histogram(
+    "hvd_elastic_recovery_seconds",
+    "Wall time from collective abort to training resumption "
+    "(rendezvous + mesh rebuild + state rollback).",
+    buckets=(0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0, 300.0))
+ELASTIC_PREEMPTIONS = _registry.counter(
+    "hvd_elastic_preemptions_total",
+    "SIGTERM preemptions this worker handled through the grace path "
+    "(commit + planned departure within HOROVOD_ELASTIC_GRACE_SECONDS).")
+ELASTIC_RESIZES = _registry.counter(
+    "hvd_elastic_resizes_total",
+    "Completed elastic world resizes observed by this process, by "
+    "direction (down = in-job shrink after a planned departure; up = "
+    "relaunched into a grown gang).", labelnames=("direction",))
+ELASTIC_GRACE_COMMIT_SECONDS = _registry.histogram(
+    "hvd_elastic_grace_commit_seconds",
+    "SIGTERM receipt to grace snapshot landed — must stay below the "
+    "grace window or the watchdog force-exit path is doing the saves.",
+    buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0))
+ELASTIC_WORLD_SIZE = _registry.gauge(
+    "hvd_elastic_world_size",
+    "Worker processes in the current session (set at init and after "
+    "every elastic recovery; the autoscaler's resize observable).")
+
+# Input-data subsystem (data/). Input-wait is the data
+# analog of hvd_engine_readback_wait_seconds: time the training loop
+# BLOCKED on the next batch. Compare hvd_data_stall_ratio against
+# hvd_engine_comm_hidden_ratio to attribute slow steps to input vs
+# communication (docs/observability.md, docs/troubleshooting.md).
+DATA_BATCHES = _registry.counter(
+    "hvd_data_batches_total",
+    "Batches yielded by DistributedDataset iterators in this process.")
+DATA_SAMPLES = _registry.counter(
+    "hvd_data_samples_total",
+    "Samples yielded by DistributedDataset iterators (pad duplicates "
+    "included).")
+DATA_EPOCHS = _registry.counter(
+    "hvd_data_epochs_total", "Epochs fully consumed by this process.")
+DATA_RESHARDS = _registry.counter(
+    "hvd_data_reshards_total",
+    "Mid-epoch re-shards of the unconsumed remainder after an elastic "
+    "membership change.")
+DATA_WAIT_SECONDS = _registry.histogram(
+    "hvd_data_input_wait_seconds",
+    "Time the training loop blocked waiting for the next batch (the "
+    "exposed, non-overlapped part of the input pipeline).")
+DATA_PREFETCH_DEPTH = _registry.gauge(
+    "hvd_data_prefetch_depth",
+    "Prefetch queue depth in effect for the most recent epoch "
+    "(HOROVOD_DATA_PREFETCH or the autotuner's choice; 0 = synchronous).")
+DATA_PREFETCH_OCCUPANCY = _registry.histogram(
+    "hvd_data_prefetch_occupancy",
+    "Prefetch-queue occupancy observed at each batch get (persistently "
+    "0 = producer-bound input, the loop is waiting on data).",
+    buckets=(0.0, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 16.0))
+DATA_STALL_RATIO = _registry.gauge(
+    "hvd_data_stall_ratio",
+    "Input-wait share of the last step's wall time "
+    "(TelemetryCallback(dataset=...)); near 0 = input fully hidden.")
+
+# Step-integrity guard (guard/)
+GUARD_CHECKED_BUCKETS = _registry.counter(
+    "hvd_guard_checked_buckets_total",
+    "Fused wire buckets whose reduced contents passed through the "
+    "in-graph/host gradient-health check.")
+GUARD_BAD_STEPS = _registry.counter(
+    "hvd_guard_bad_steps_total",
+    "Steps whose reduced gradients failed the health check (non-finite "
+    "bucket on the reduced wire buffer).")
+GUARD_SKIPPED_STEPS = _registry.counter(
+    "hvd_guard_skipped_steps_total",
+    "Steps the guard's policy ladder skipped (parameters untouched).")
+GUARD_LR_BACKOFFS = _registry.counter(
+    "hvd_guard_lr_backoffs_total",
+    "Learning-rate backoffs applied after consecutive bad steps "
+    "(HOROVOD_GUARD_LR_BACKOFF_STEPS/FACTOR).")
+GUARD_ROLLBACKS = _registry.counter(
+    "hvd_guard_rollbacks_total",
+    "Rollbacks to the last elastic.State commit after "
+    "HOROVOD_GUARD_BAD_STEPS consecutive bad steps.")
+GUARD_DIVERGENCE = _registry.counter(
+    "hvd_guard_divergence_total",
+    "Cross-replica parameter-digest mismatches detected by the "
+    "divergence probe.")
+GUARD_REPAIRS = _registry.counter(
+    "hvd_guard_divergence_repairs_total",
+    "Divergence repairs performed (majority parameters re-broadcast).")
+GUARD_RETRIES = _registry.counter(
+    "hvd_guard_retries_total",
+    "Transient wire/dispatch failures absorbed by the bounded "
+    "collective retry (HOROVOD_GUARD_RETRY) before success.")
+GUARD_INJECTIONS = _registry.counter(
+    "hvd_guard_injections_total",
+    "Chaos-harness fault injections fired, by kind "
+    "(guard/inject.py; HOROVOD_GUARD_INJECT).", labelnames=("kind",))
+
+# Checkpoint integrity (checkpoint.py)
+CHECKPOINT_INTEGRITY_FAILURES = _registry.counter(
+    "hvd_checkpoint_integrity_failures_total",
+    "Checkpoints (or grace snapshots) whose content digest failed "
+    "verification at restore; restore falls back to the next-newest "
+    "valid candidate.")
+
 
 def record_moe_step(routed, dropped, load_balance_loss, chunks):
     """Host-side per-step MoE accounting (bench loops / callbacks):

@@ -11,9 +11,10 @@ expert-parallel exchange :func:`alltoall` / :func:`alltoall_chunked`
 :func:`bucketed_reducescatter_allgather`, :func:`hierarchical_allreduce`
 the DCN-staged exchange of the ZeRO ladder
 (:func:`dcn_staged_psum_scatter`, :func:`dcn_staged_all_gather`,
-:func:`dcn_sigma`), and the model axis's collectives of tensor
+:func:`dcn_sigma`), the model axis's collectives of tensor
 parallelism (:func:`_psum`, :func:`_pmax`, :func:`_gather_vocab`,
-:func:`_axis_index`). Each function runs on ``torch.distributed`` and
+:func:`_axis_index`), and the guard's health rows
+(:func:`segment_health`, :func:`tree_health`). Each function runs on ``torch.distributed`` and
 records every execution in the session's stats (stats.py): op, wire
 bytes, time from launch to completion; the collectives the JAX package
 only ever runs inside a jitted program (the all-to-all, the
@@ -31,6 +32,7 @@ group; ``None`` is the world (the JAX package's ``"hvd"`` axis on the
 1-D mesh).
 """
 
+import contextlib
 import time
 from typing import NamedTuple
 
@@ -40,6 +42,7 @@ from torch.profiler import record_function
 
 from .. import runtime
 from ..diag import recorder as _recorder
+from ..exceptions import HorovodError, HostsUpdatedError, WorkerLostError
 from ..stats import record_jit_traced, tracing
 from .compression import Compression, Int8Compressor
 
@@ -94,7 +97,8 @@ class Exchange:
     def launch(self, fn, nbytes):
         """Start one collective of ``nbytes`` wire bytes: ``fn`` returns
         its async work."""
-        self._works.append(fn())
+        with peer_errors():
+            self._works.append(fn())
         self._nbytes += nbytes
         if self.t_dispatch is None and not self._captured:
             self.t_dispatch = time.perf_counter()
@@ -116,8 +120,9 @@ class Exchange:
         """Wait for every launched collective (on a card: order the
         caller's stream after them)."""
         t0 = time.perf_counter()
-        for work in self._works:
-            work.wait()
+        with peer_errors():
+            for work in self._works:
+                work.wait()
         self._wait += time.perf_counter() - t0
 
     def done(self):
@@ -146,6 +151,97 @@ class Exchange:
         self.wait()
         self.done()
         return self
+
+
+# What gloo's transport says when a peer is gone: the connection closed
+# or reset under a read, a broken pipe under a write, or the group's own
+# timeout (``HOROVOD_ELASTIC_TIMEOUT_SECONDS``) expiring on a send or
+# receive. Nothing else: a CUDA fault, an NCCL error or a shape mismatch
+# is not a lost peer, and is raised as it is.
+_PEER_GONE = ("Connection closed by peer", "Connection reset by peer",
+              "Broken pipe", "Timed out waiting")
+
+
+def peer_error(err):
+    """The error a collective's backend error ``err`` stands for: under
+    ``HOROVOD_ELASTIC``, when gloo says a peer is gone (``_PEER_GONE``),
+    :class:`WorkerLostError`, or :class:`HostsUpdatedError` when the
+    peers that left announced a planned departure in the session's
+    store; elastic.run recovers from either. Any other error, or any
+    error without elastic training, ``err`` itself."""
+    if isinstance(err, HorovodError) or not isinstance(err, RuntimeError):
+        return err
+    st = runtime._state
+    if st.config is None or not st.config.elastic:
+        return err
+    if not any(m in str(err) for m in _PEER_GONE):
+        return err
+    departed = runtime.departed_ranks()
+    if departed:
+        exc = HostsUpdatedError(lost_pids=departed)
+    else:
+        exc = WorkerLostError(message=(
+            f"a collective failed with a peer ({err}); the peer is "
+            f"treated as lost. Re-rendezvous with the surviving workers "
+            f"(horovod_tpu_torch.elastic.run) or restart the job to "
+            f"continue."))
+    exc.__cause__ = err
+    return exc
+
+
+@contextlib.contextmanager
+def peer_errors():
+    """Raise :func:`peer_error`'s translation of a backend error."""
+    try:
+        yield
+    except RuntimeError as err:
+        translated = peer_error(err)
+        if translated is err:
+            raise
+        raise translated from err
+
+
+def segment_health(row, segs):
+    """The guard's gradient-health digest of a fused, REDUCED row: one
+    ``[finite, l2]`` float32 row per segment (``segs`` as
+    :func:`unfuse_segments` takes them). ``finite`` is 1.0 iff every
+    element of the segment is finite; ``l2`` is the L2 norm over the
+    finite elements only. The reduced row is bit-identical on every
+    rank, so is the verdict. Plain torch ops: one extra pass over the
+    row with temporaries; they capture into a CUDA graph as they are."""
+    rows = []
+    for off, cnt, *_ in segs:
+        seg = row[off:off + cnt].float()
+        finite = torch.isfinite(seg)
+        all_finite = finite.all().float()
+        l2 = torch.sqrt(torch.where(finite, seg * seg, 0.0).sum())
+        rows.append(torch.stack([all_finite, l2]))
+    if not rows:
+        return torch.zeros((0, 2), dtype=torch.float32, device=row.device)
+    return torch.stack(rows)
+
+
+def tree_health(leaves):
+    """Per-leaf ``[finite, l2]`` float32 health rows for tensors already
+    exchanged (bit-identical across ranks): the :func:`segment_health`
+    analog where no fused row exists."""
+    rows = []
+    device = None
+    for leaf in leaves:
+        x = leaf.reshape(-1).float()
+        device = x.device
+        finite = torch.isfinite(x)
+        rows.append(torch.stack([finite.all().float(), torch.sqrt(
+            torch.where(finite, x * x, 0.0).sum())]))
+    if not rows:
+        return torch.zeros((0, 2), dtype=torch.float32, device=device)
+    return torch.stack(rows)
+
+
+def health_ok(health):
+    """0-d bool tensor on the rows' device: every row finite (the gate's
+    predicate, evaluated where the rows are, with no host read)."""
+    return torch.all((health[:, 0] >= 0.5) & torch.isfinite(health[:, 1]))
 
 
 def _on_device(tensor):

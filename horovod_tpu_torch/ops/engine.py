@@ -78,17 +78,19 @@ from collections import OrderedDict, deque
 import torch
 import torch.distributed as dist
 
-from .. import diag, metrics
+from .. import diag, guard, metrics
 from .. import timeline as tl
 from ..config import next_power_of_two
 from ..diag import recorder as _recorder
-from ..exceptions import (DuplicateNameError, HorovodError, MismatchError,
-                          ShutDownError, StalledTensorError)
+from ..exceptions import (DuplicateNameError, HorovodError, HostsUpdatedError,
+                          MismatchError, ShutDownError, StalledTensorError,
+                          TransientCollectiveError, WorkerLostError)
 from ..negotiation import (ALLGATHER, ALLREDUCE, ALLTOALL, BROADCAST,
                            RequestMeta, construct_response)
 from ..stats import untraced
 from ..utils.logging import get_logger
-from .collectives import hierarchical_allreduce, unfuse_segments
+from .collectives import (hierarchical_allreduce, peer_error,
+                          segment_health, unfuse_segments)
 
 _logger = get_logger()
 
@@ -463,6 +465,17 @@ class EagerEngine:
         # Flight recorder (diag/): installed by runtime.init before the
         # engine exists; cached so hot paths pay one attribute load.
         self._flight = diag.get()
+        # Step-integrity guard and chaos injector (guard/), installed by
+        # runtime.init before the engine: None by default, and every hook
+        # below is then one attribute load and a skipped branch.
+        self._guard = guard.get()
+        self._inject = guard.inject.get()
+        if self._guard is not None and self._coord is not None:
+            # non-apply verdicts go into the decision log (the audit lane)
+            self._guard.decision_sink = self.publish_guard
+        # An elastic abort (a lost worker, a planned departure, a
+        # hosts-updated interrupt) fails this session for good.
+        self._elastic_abort = None
         metrics.registry().set_collect_hook("engine", self._collect_metrics)
 
     def _collect_metrics(self):
@@ -535,6 +548,8 @@ class EagerEngine:
         lets a batch of this one request reduce the tensor itself."""
         if not torch.is_tensor(tensor):
             tensor = torch.as_tensor(tensor)
+        if self._inject is not None:
+            tensor = self._inject.on_enqueue(name, tensor)
         ready = None
         if tensor.is_cuda:
             if torch.cuda.is_current_stream_capturing():
@@ -545,6 +560,8 @@ class EagerEngine:
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(tensor.device))
         with self._lock:
+            if self._elastic_abort is not None:
+                raise self._elastic_abort
             if self._shutdown:
                 raise ShutDownError()
             if rank is not None and rank != self.rank:
@@ -695,6 +712,12 @@ class EagerEngine:
         while not self._ticker_stop.wait(min(interval * backoff, 1.0)
                                          if interval < 1.0 else interval):
             interval = _interval()
+            if self.config.elastic and self._elastic_abort is None:
+                try:
+                    self._coord.publish_liveness()
+                    self._coord.elastic_round()
+                except Exception:  # noqa: BLE001 — app threads surface it
+                    _logger.debug("liveness round failed", exc_info=True)
             if time.perf_counter() - self._last_cycle < interval:
                 backoff = 1.0
                 continue
@@ -844,7 +867,7 @@ class EagerEngine:
             with self._stream_ctx():
                 rec.work.wait()
         except Exception as e:  # noqa: BLE001 — surfaces on the handles
-            err = e
+            err = peer_error(e)
         wait = time.perf_counter() - t_block
         metrics.ENGINE_READBACK_WAIT_SECONDS.observe(wait)
         with self._cv:
@@ -1006,6 +1029,13 @@ class EagerEngine:
             if decision.get("warning"):
                 _logger.warning(decision["warning"])
                 metrics.ENGINE_STALL_WARNINGS.inc()
+            if decision.get("guard") and self._guard is not None:
+                # Audit lane: every process sees the same verdict at the
+                # same index; the monitor screams if its ladder disagreed.
+                self._guard.apply_decision(decision["guard"])
+            if decision.get("abort"):
+                self._apply_abort_locked(decision["abort"])
+                return
             if decision.get("shutdown"):
                 # A peer exited cooperatively after draining its own
                 # launched collectives: ours complete as usual, and every
@@ -1020,6 +1050,95 @@ class EagerEngine:
                 decision["tensors"])
             if entries:
                 self._execute(entries)
+
+    def _apply_abort_locked(self, info):
+        """Elastic abort (a lost worker, a planned departure, or a
+        hosts-updated interrupt): every handle not completed yet fails
+        with :class:`WorkerLostError` / :class:`HostsUpdatedError`, the
+        pending table is dropped whole (its submissions belong to the
+        dead membership and re-submit after recovery), and the caches
+        keyed by the old membership die with it: the response cache, the
+        wire layouts and the session's step programs (their graphs hold
+        the old group's collectives). Later submissions raise the same
+        error; recovery builds a new session (elastic/runner.py)."""
+        kind = info.get("kind")
+        if kind == "hosts_updated":
+            exc = HostsUpdatedError(epoch=info.get("epoch", 0))
+        elif kind == "planned_departure":
+            exc = HostsUpdatedError(epoch=info.get("epoch", 0),
+                                    lost_pids=info.get("lost_pids", ()))
+        else:
+            lost = list(info.get("lost_pids", ()))
+            exc = WorkerLostError(lost_pids=lost,
+                                  epoch=info.get("epoch", 0))
+            metrics.ELASTIC_WORKERS_LOST.inc(max(len(lost), 1))
+        self._elastic_abort = exc
+        self._response_cache.clear()
+        self._wire_cache.invalidate()
+        if self._step_cache is not None:
+            self._step_cache.clear()
+        for h, v in list(self._handles.items()):
+            if isinstance(v, str):
+                self._handles[h] = exc
+        for name in self._table:
+            self.timeline.end(name)
+        self._table.clear()
+        self._first_seen.clear()
+        self._pending_bytes = 0
+        fr = self._flight
+        if fr is not None:
+            fr.record("elastic_abort", extra=dict(info))
+        diag.dump_post_mortem("elastic_abort", extra={"abort": dict(info)})
+        self._cv.notify_all()
+
+    def publish_guard(self, verdict):
+        """Guard decision-log hook: record a non-apply step verdict in
+        the coordinator's log (advisory; ranks act on their own,
+        bit-identical verdicts)."""
+        self._coord.append_guard(verdict)
+
+    def _guarded_wire(self, dispatch, op):
+        """Run one wire dispatch under the guard's chaos injection and
+        bounded retry. Retryable: :class:`TransientCollectiveError` and a
+        raw backend ``RuntimeError``/``OSError`` of the dispatch itself;
+        every other error propagates at once. Exponential backoff from
+        ``HOROVOD_GUARD_RETRY_BASE_SECONDS`` under
+        ``HOROVOD_GUARD_RETRY_DEADLINE_SECONDS``. With no injector and no
+        retries this is ``dispatch()``."""
+        if self._inject is None and self.config.guard_retry <= 0:
+            return dispatch()
+        retries = self.config.guard_retry
+        deadline = time.monotonic() + self.config.guard_retry_deadline_seconds
+        base = self.config.guard_retry_base_seconds
+        attempt = 0
+        while True:
+            try:
+                if self._inject is not None:
+                    # per attempt: a count=1 fault costs exactly one retry
+                    self._inject.on_dispatch(op)
+                return dispatch()
+            except HorovodError as err:
+                if not isinstance(err, TransientCollectiveError):
+                    raise
+                last = err
+            except (RuntimeError, OSError) as err:
+                last = err
+            attempt += 1
+            now = time.monotonic()
+            if retries <= 0 or attempt > retries or now >= deadline:
+                raise last
+            delay = min(base * (2 ** (attempt - 1)),
+                        max(deadline - now, 0.0))
+            metrics.GUARD_RETRIES.inc()
+            fr = self._flight
+            if fr is not None:
+                fr.record("guard_retry", "", op,
+                          extra={"attempt": attempt, "delay_s": delay,
+                                 "error": str(last)[:200]})
+            _logger.warning(
+                "guard: transient %s dispatch failure (attempt %d/%d), "
+                "retrying in %.3fs: %s", op, attempt, retries, delay, last)
+            time.sleep(delay)
 
     def _entries_from_decision_locked(self, tensors):
         """Turn decided per-name records into executable entries (shared
@@ -1254,13 +1373,20 @@ class EagerEngine:
                           _dtype_name(wire_dtype),
                           extra={"n": len(slim),
                                  "names": [n for n, _, _ in slim[:16]]})
+            if self._inject is not None:
+                corrupted = self._inject.on_rows(
+                    buf, tuple(n for n, _, _ in slim))
+                if corrupted is not buf:
+                    buf.copy_(corrupted)
             start = self._clock_start()
             fill = None if fill_start is None else (fill_start, start)
             if self._hier is not None:
-                self._hier_allreduce(buf)
+                self._guarded_wire(lambda: self._hier_allreduce(buf),
+                                   "allreduce")
                 work = _DONE
             else:
-                work = dist.all_reduce(buf, async_op=True)
+                work = self._guarded_wire(
+                    lambda: dist.all_reduce(buf, async_op=True), "allreduce")
 
         def finish(wait):
             self._clock_stop(op_stat, nbytes, start,
@@ -1298,6 +1424,16 @@ class EagerEngine:
             _, _, shape, average, postscale, _ = reqs[0]
             segs.append((offsets[i], offsets[i + 1] - offsets[i], shape,
                          dtype, average, postscale))
+        if self._guard is not None:
+            # health of the REDUCED bucket, before the average: identical
+            # on every rank; read by the monitor at its end_step
+            health = segment_health(buf, segs)
+            ready = None
+            if self._cuda:
+                ready = torch.cuda.Event()
+                ready.record(self._stream)
+            self._guard.note_device_health([n for n, _, _ in batch], health,
+                                           ready)
         outs = unfuse_segments(buf, segs, self.num_ranks, inplace=True)
         for (name, _, reqs), out in zip(batch, outs):
             for r, handle, *_, dev in reqs:

@@ -36,6 +36,24 @@ phase. A step counts its FLOPs once, on its signature's warm-up call
 (``torch.utils.flop_counter.FlopCounterMode``, plus the hand kernels'
 own counts: ops/flash_attention.py ``count_flops``), for MFU.
 
+Under ``HOROVOD_GUARD`` a step is built as a separate program (its
+signature says ``"health"``; without the guard the plain program is
+the one it always was): after the exchange it computes the guard's
+health rows on the reduced gradients (ops/collectives.py), holds the
+parameters and every tensor of the optimizer's state (AdamW's step
+count and both moments), runs the update, and puts the held values back
+where the rows are not all finite (``torch.where`` on a 0-d device
+predicate: the bits of a skipped step are the old ones, those of a
+healthy step the update's, and the replay reads no value on the host).
+The rows go to pinned memory by a non-blocking copy behind an event,
+and the monitor folds them at the next call or at :meth:`finish`
+(``GuardMonitor.consume_deferred``), where the ladder's back-off (a
+tensor learning rate filled in place) and rollback (``State.restore``
+copying into the same tensors) act before the next replay. The
+guarded backward starts from a 0-d device seed, filled before each call
+with 1.0 (the bits of ``loss.backward()``) or, when a ``nan`` chaos spec
+naming the step fires, with NaN: one program for both.
+
 On the CPU nothing is captured (gloo is not capturable and the CPU has no
 graphs): a program is its step function run as it is, under the same
 signatures, cache counters and fallback reasons, as the JAX package
@@ -51,13 +69,14 @@ import weakref
 import torch
 from torch.profiler import record_function
 
-from .. import metrics, runtime
+from .. import guard, metrics, runtime
 from ..config import Config, step_program_enabled
 from ..diag import xla_trace
 from ..stats import replay_jit, untraced
 from ..utils.logging import get_logger
 from . import flash_attention as fa
-from .collectives import exchange_bucket_plan, grouped_allreduce
+from .collectives import (exchange_bucket_plan, grouped_allreduce,
+                          health_ok, tree_health)
 
 __all__ = ["CompiledTrainStep", "StepProgram", "compiled_train_step",
            "engine_cached_program"]
@@ -150,8 +169,11 @@ class StepProgram:
     which the phase map's re-capture puts back (module docstring)."""
 
     def __init__(self, fn, device, pool=None, inputs=(), count_flops=False,
-                 state=None):
+                 state=None, ready=None):
         self._fn = fn
+        # ready(): whether the warm-up left what a capture needs (a
+        # guarded step's optimizer state); until then each call warms up
+        self._ready = ready
         self.inputs = list(inputs)  # the static tensors a caller fills
         self._device = torch.device(device)
         self._pool = pool
@@ -233,13 +255,16 @@ class StepProgram:
         with torch.cuda.stream(side):
             out = self._first_run()
         current.wait_stream(side)
+        if self._ready is not None and not self._ready():
+            return out
         stats = (runtime.live_state().stats if runtime.is_initialized()
                  else None)
         jit0 = stats.jit_records() if stats is not None else {}
         launches0 = fa.launch_counts()
         graph = torch.cuda.CUDAGraph()
         # thread_local: NCCL's watchdog and the serve loop's neighbours
-        # may call the CUDA API from other threads meanwhile.
+        # may call the CUDA API from other threads meanwhile, and so may
+        # the input pipeline's producer (data/loader.py).
         with torch.cuda.graph(graph, pool=self._pool,
                               capture_error_mode="thread_local"):
             self._out = self._fn()
@@ -323,7 +348,14 @@ class CompiledTrainStep:
     graph's pool, as XLA keeps it among the program's temporaries) and
     leaves them as they were gathered, one update behind:
     :meth:`unshard_params` reads the trained parameters,
-    :meth:`shard_params` loads new ones. The guard raises here.
+    :meth:`shard_params` loads new ones.
+
+    Under ``HOROVOD_GUARD`` (module docstring) the step gates its update
+    on the card: a ``DistributedOptimizer`` at ``zero_stage=0`` (its
+    health rows from its synchronize) or a plain optimizer (rows over
+    the averaged gradients); a ZeRO optimizer refuses the guard at its
+    construction. The previous step's verdict is folded at the top of
+    each call and by :meth:`finish`.
 
     Fallback (``hvd_step_fallback_total`` by reason): the eager step
     runs instead under ``HOROVOD_STEP_PROGRAM=0`` (``disabled``),
@@ -332,10 +364,6 @@ class CompiledTrainStep:
 
     def __init__(self, loss_fn, optimizer, *, name="hvd.step",
                  exchange_buckets=None):
-        if Config.from_env().guard:
-            raise NotImplementedError(
-                "HOROVOD_GUARD is set, but the step-integrity guard "
-                "(ROADMAP.md, Queue 1 item 15) is not ported yet")
         tag = getattr(optimizer, "_hvd_exchange", None)
         wrapped = tag in ("hooks", "zero1", "zero2", "zero3", "spec",
                           "inline")
@@ -371,6 +399,14 @@ class CompiledTrainStep:
         self.fallback_steps = 0
         # whole-program FLOPs of the last step (every rank's), for MFU
         self.flops_per_step = 0.0
+        # The guard: the hooks' optimizer (its health rows) or a plain
+        # one (rows over the averaged gradients) gates on the card
+        self._guardable = tag == "hooks" or not wrapped
+        self._guard_pending = None   # (names, rows, ready event)
+        self._pinned = None          # the rows' pinned host buffer
+        self._held = ([], [])        # (tensors gated, their held copies)
+        self._seed = None            # guarded backward's seed (0-d)
+        self._state_changed = False
 
     @property
     def perf_signature(self):
@@ -385,10 +421,18 @@ class CompiledTrainStep:
         return self.cache_hits / total if total else 0.0
 
     def finish(self):
-        """Call once after the loop. The JAX package returns the guard's
-        deferred verdict here; the guard is not ported (ROADMAP.md,
-        Queue 1 item 15), so there is none: returns None."""
-        return None
+        """Call once after the loop: folds the last step's deferred guard
+        verdict. Returns the verdict dict, or None with no guard or no
+        step pending."""
+        return self._flush_guard(guard.get())
+
+    def _flush_guard(self, monitor):
+        """Fold the PREVIOUS step's health rows and run its ladder (one
+        step deferred: the rows' copy landed long before)."""
+        pend, self._guard_pending = self._guard_pending, None
+        if pend is None or monitor is None:
+            return None
+        return monitor.consume_deferred(*pend)
 
     # ------------------------------------------------------------ the step
 
@@ -451,14 +495,82 @@ class CompiledTrainStep:
             self._optimizer.step()
         return loss.detach()
 
-    def _signature(self, device, batch, buckets):
-        return ("step_program", self._exchange, buckets,
+    def _gated(self):
+        """The tensors a guarded update may change: the parameters and
+        every tensor of their optimizer state."""
+        state = self._optimizer.state
+        return [p for p in self._params] + [
+            v for p in self._params for _, v in sorted(
+                state.get(p, {}).items()) if torch.is_tensor(v)]
+
+    def _hold(self, live):
+        """Copies of ``live``, into buffers kept across steps (a captured
+        step writes and reads the same ones every replay)."""
+        keys, held = self._held
+        if [id(t) for t in live] != keys:
+            held = [torch.empty_like(t) for t in live]
+            self._held = ([id(t) for t in live], held)
+        with torch.no_grad():
+            torch._foreach_copy_(held, live)
+        return held
+
+    def _guarded_step(self, batch, buckets):
+        """One step with the guard's gate (module docstring): returns the
+        loss and the health rows, both on the device."""
+        opt = self._optimizer
+        opt.zero_grad(set_to_none=True)
+        with record_function("hvd_forward"):
+            loss = self._loss_fn(*batch)
+        with record_function("hvd_backward"):
+            loss.backward(self._seed.to(loss.dtype))
+        with record_function("hvd_exchange"):
+            if self._exchange == "psum":
+                self._psum(buckets)
+                health = tree_health([p.grad for p in self._params])
+            else:
+                opt.synchronize()
+                health = opt.guard_health
+        state = opt.state
+        had = {p: set(state.get(p, {})) for p in self._params}
+        with record_function("hvd_guard"):
+            ok = health_ok(health)
+            live = self._gated()
+            held = self._hold(live)
+        with record_function("hvd_optimizer"):
+            if self._exchange == "psum":
+                opt.step()
+            else:
+                opt.inner_step()
+        with record_function("hvd_guard"), torch.no_grad():
+            for t, h in zip(live, held):
+                torch.where(ok, t, h, out=t)
+        fresh = [p for p in self._params
+                 if set(state.get(p, {})) != had[p]]
+        self._state_changed = bool(fresh)
+        if fresh:
+            if self._capturing():
+                raise RuntimeError(
+                    "a guarded step created optimizer state inside a "
+                    "capture; the warm-up must create it first")
+            if not bool(ok):
+                # a skipped first step leaves no state behind either
+                for p in fresh:
+                    state.pop(p, None)
+        return loss.detach(), health
+
+    def _capturing(self):
+        return (self._params and self._params[0].is_cuda
+                and torch.cuda.is_current_stream_capturing())
+
+    def _signature(self, device, batch, buckets, health=False):
+        return ("step_program", "health" if health else "plain",
+                self._exchange, buckets,
                 obj_token(self._optimizer), obj_token(self._loss_fn),
                 self._layout, _hyperparameters(self._optimizer),
                 tuple((tuple(x.shape), str(x.dtype), str(x.device))
                       for x in batch), str(device))
 
-    def _build(self, st, sig, batch, buckets):
+    def _build(self, st, sig, batch, buckets, health=False):
         device = st.device
         if device.type == "cuda":
             for g in self._optimizer.param_groups:
@@ -477,6 +589,11 @@ class CompiledTrainStep:
         # hold no device buffers either).
         ref = weakref.ref(self)
         weakref.finalize(self, st.programs.discard, sig)
+        if health:
+            return StepProgram(lambda: ref()._guarded_step(inputs, buckets),
+                               device, pool, inputs, count_flops=True,
+                               state=lambda: ref()._rebound(),
+                               ready=lambda: not ref()._state_changed)
         return StepProgram(lambda: ref()._step(inputs, buckets), device,
                            pool, inputs, count_flops=True,
                            state=lambda: ref()._rebound())
@@ -498,16 +615,26 @@ class CompiledTrainStep:
         buckets = self._bucket_count(cfg)
         if self._resident and not self._optimizer._resident:
             self._optimizer.shard()
+        monitor = guard.get()
+        health = monitor is not None
+        if health:
+            if not self._guardable:
+                raise NotImplementedError(
+                    f"HOROVOD_GUARD is set, but the guard's gate for "
+                    f"exchange mode {self._exchange!r} is not ported yet "
+                    f"(ROADMAP.md, Queue 1 item 15's leftovers)")
+            self._flush_guard(monitor)
+            self._fill_seed(st.device)
         if not step_program_enabled(cfg):
             reason = "disabled" if cfg.step_program == 0 else "host_mode"
-            return self._fallback(reason, batch, buckets)
-        sig = self._signature(st.device, batch, buckets)
+            return self._fallback(reason, batch, buckets, health)
+        sig = self._signature(st.device, batch, buckets, health)
         if sig not in self._signatures:
             if len(self._signatures) >= cfg.step_program_churn_limit:
-                return self._fallback("shape_churn", batch, buckets)
+                return self._fallback("shape_churn", batch, buckets, health)
             self._signatures.add(sig)
         prog, was_hit, hits, misses = st.engine.step_program(
-            sig, lambda: self._build(st, sig, batch, buckets))
+            sig, lambda: self._build(st, sig, batch, buckets, health))
         if was_hit:
             self.cache_hits += 1
         else:
@@ -526,12 +653,42 @@ class CompiledTrainStep:
         if prog.flops:
             self.flops_per_step = float(prog.flops) * st.size
             metrics.STEP_FLOPS_TOTAL.inc(self.flops_per_step)
+        if health:
+            loss = self._defer_health(*loss)
         # a replay's loss is the graph's static output: keep a copy
         return loss.clone() if captured else loss
 
-    def _fallback(self, reason, batch, buckets):
+    def _fill_seed(self, device):
+        """Set the guarded backward's seed for this call: NaN when a
+        ``nan`` chaos spec naming the step fires, else 1.0."""
+        inject = guard.inject.get()
+        nan = inject is not None and inject.on_step_nan(self.name)
+        if self._seed is None or self._seed.device != device:
+            self._seed = torch.empty((), device=device)
+        self._seed.fill_(float("nan") if nan else 1.0)
+
+    def _defer_health(self, loss, rows):
+        """Hand this step's health rows to the next call: on a card a
+        non-blocking copy into pinned memory behind an event (no host
+        synchronisation here), on the CPU the rows themselves."""
+        names = tuple(f"{self.name}.seg.{i}" for i in range(rows.shape[0]))
+        ready = None
+        if rows.is_cuda:
+            if self._pinned is None or self._pinned.shape != rows.shape:
+                self._pinned = torch.empty(rows.shape, dtype=rows.dtype,
+                                           pin_memory=True)
+            self._pinned.copy_(rows, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+            rows = self._pinned
+        self._guard_pending = (names, rows, ready)
+        return loss
+
+    def _fallback(self, reason, batch, buckets, health=False):
         metrics.STEP_FALLBACK_TOTAL.labels(reason=reason).inc()
         self.fallback_steps += 1
+        if health:
+            return self._defer_health(*self._guarded_step(batch, buckets))
         return self._step(batch, buckets)
 
 

@@ -40,6 +40,20 @@ exchange runs in :meth:`synchronize` once every gradient has landed
 one rank its scatter and gather are copies and its division is by 1, so
 a ZeRO step gives stage 0's bits with an elementwise optimizer.
 
+Under ``HOROVOD_GUARD`` the zero-stage-0 optimizer computes the guard's
+health rows (ops/collectives.py ``segment_health``: one ``[finite, l2]``
+row a parameter, on each REDUCED flat buffer before its division) in
+:meth:`synchronize`, and :meth:`step` hands them to the monitor and
+applies the update only on its "apply" verdict (a skip leaves the
+parameters and the optimizer's state untouched); the compiled step
+gates the same rows on the card instead (ops/step_program.py).
+:func:`guarded_apply_updates` is the one-line apply point for a loop
+whose gradients went through the eager engine. A ZeRO optimizer
+refuses the guard (the stripe's gate is ROADMAP.md's item 15 leftover).
+The ``nan`` chaos spec poisons a bucket's flat buffer before its
+all-reduce (name ``<optimizer class>.grads.bucket<b>``) on an eager
+step.
+
 ``model_keys`` name the tensor-parallel parameters (Megatron's heads,
 FFN halves and vocabulary stripes, each rank its own shard; the exact
 names come from ``models.transformer.model_parallel_keys``) over the
@@ -61,14 +75,14 @@ import torch.distributed as dist
 from torch.profiler import record_function
 
 from . import config as config_mod
-from . import metrics, runtime
+from . import guard, metrics, runtime
 from .ops.collectives import (Exchange, _all_gather, _nbytes,
                               _reduce_scatter, _rs_bucket_bytes, broadcast_,
                               dcn_sigma, dcn_staged_all_gather,
                               dcn_staged_psum_scatter, exchange_bucket_plan,
                               flatten_by_dtype, mesh_axes,
-                              normalize_dcn_local_size, start_allreduce,
-                              unflatten, world_axis)
+                              normalize_dcn_local_size, segment_health,
+                              start_allreduce, unflatten, world_axis)
 from .ops.compression import (BF16Compressor, Compression, Int8Compressor,
                               NoneCompressor)
 from .stats import record_jit_traced
@@ -129,6 +143,12 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self.plan_exchange(exchange_buckets)
         self._inflight = {}  # bucket -> (exchange, [(indices, flat)], ctxs)
         self._synchronized = False
+        # the guard's health rows of the last synchronize, one a
+        # parameter in exchange order, on the reduced buffers (None
+        # without the guard)
+        self.guard_health = None
+        self.guard_names = []
+        self._guard_names = {id(p): n for n, p in named_parameters}
         # The hooks hold the optimizer weakly. A bound method would tie
         # each parameter to the optimizer in a cycle that the garbage
         # collector does not free (it runs through the parameter's hook
@@ -191,9 +211,18 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             for i, p in enumerate(params):
                 by_group.setdefault(self._group_of[p], []).append(i)
             groups = []
+            inject = guard.inject.get()
+            capturing = (torch.cuda.is_available()
+                         and torch.cuda.is_current_stream_capturing())
             for (pg, denom), members in by_group.items():
                 for _, idx, flat in flatten_by_dtype(
                         [compressed[i][0] for i in members]):
+                    if inject is not None and not capturing:
+                        # chaos 'nan' on this rank's bucket (an eager
+                        # step: a capture's host code runs once)
+                        poisoned = inject.on_enqueue(exchange.name, flat)
+                        if poisoned is not flat:
+                            flat.copy_(poisoned)
                     groups.append(([members[i] for i in idx], flat, denom))
                     if pg is None or dist.get_world_size(pg) > 1:
                         start_allreduce(flat, exchange, pg)
@@ -230,7 +259,25 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._buckets.append(late)
         self._ready.append(0)
 
+    def reset_exchange(self):
+        """Forget an exchange a failed collective cut short: the buckets
+        in flight, the hooks' counts and the ready marks. Elastic
+        recovery (``elastic.State.restore``) calls it before the next
+        step runs over the new membership."""
+        self._inflight.clear()
+        for p in self._allreduce_delay:
+            self._allreduce_delay[p] = self.backward_passes_per_step
+        self._ready = [0] * len(self._buckets)
+        self._synchronized = False
+
     def _synchronize(self):
+        try:
+            self._synchronize_buckets()
+        except BaseException:
+            self.reset_exchange()
+            raise
+
+    def _synchronize_buckets(self):
         self._adopt_late_params()
         for b, params in enumerate(self._buckets):
             if b in self._inflight:
@@ -239,10 +286,19 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 if p.grad is None:
                     p.grad = torch.zeros_like(p.data)
             self._launch(b)
+        health = {} if guard.get() is not None else None
         for b, (exchange, groups, compressed) in self._inflight.items():
             params = self._buckets[b]
             exchange.wait()
             for idx, flat, denom in groups:
+                if health is not None:
+                    segs, off = [], 0
+                    for i in idx:
+                        n = params[i].numel()
+                        segs.append((off, n))
+                        off += n
+                    for i, row in zip(idx, segment_health(flat, segs)):
+                        health[params[i]] = row
                 flat = self._compression.decompress(
                     flat, compressed[idx[0]][1])
                 flat.div_(denom)
@@ -255,8 +311,17 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._ready = [0] * len(self._buckets)
         self._inflight.clear()
         self._synchronized = True
+        if health is not None:
+            self.guard_health = torch.stack(
+                [health[p] for p in self._allreduce_delay])
+            self.guard_names = [self._guard_names.get(id(p), f"param.{i}")
+                                for i, p in enumerate(self._allreduce_delay)]
 
     def step(self, closure=None, synchronize=True):
+        """Synchronize (unless told not to) and step the wrapped
+        optimizer. Under the guard the step's verdict decides first: the
+        health rows go to the monitor, and a skip returns None with the
+        parameters and the optimizer's state untouched."""
         if synchronize:
             if self._synchronized:
                 warnings.warn(
@@ -267,7 +332,57 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                     "optimizer.synchronize() in your code.")
             self.synchronize()
         self._synchronized = False
+        monitor = guard.get()
+        if monitor is not None:
+            if self.guard_health is not None:
+                monitor.note_device_health(self.guard_names,
+                                           self.guard_health)
+            if not monitor.end_step()["ok"]:
+                return None
+        return self.inner_step(closure)
+
+    def inner_step(self, closure=None):
+        """The wrapped optimizer's own step, with no exchange and no
+        verdict (the compiled step gates it on the card)."""
         return super(self.__class__, self).step(closure)
+
+
+def guarded_apply_updates(optimizer, closure=None):
+    """Apply ``optimizer``'s update under the step-integrity guard: the
+    one-line apply point of a loop whose gradients went through the
+    eager engine (``hvd.allreduce_async_`` from hooks, then
+    ``synchronize``). Calls ``GuardMonitor.end_step()`` (so this must be
+    the step's single apply point) and on a bad verdict returns False
+    with the parameters and the optimizer's state untouched (every rank
+    skips the same steps: the verdict comes from the reduced, rank-
+    identical buffers). Without the guard it is ``optimizer.step()`` and
+    True. The torch form of the JAX package's
+    ``guarded_apply_updates(params, opt_state, grads, tx)``."""
+    monitor = guard.get()
+    if monitor is not None and not monitor.end_step()["ok"]:
+        return False
+    optimizer.step(closure)
+    return True
+
+
+def resize_lr_factor(old_size, new_size, mode="linear"):
+    """Learning-rate multiplier for an elastic world resize from
+    ``old_size`` to ``new_size`` workers: ``"linear"`` keeps the
+    per-sample step size (Goyal et al. 2017), ``"sqrt"`` the
+    gradient-noise scale (Krizhevsky 2014).
+    :class:`~horovod_tpu_torch.callbacks.LearningRateRescaleCallback`
+    applies it on every elastic resize."""
+    old_size, new_size = int(old_size), int(new_size)
+    if old_size <= 0 or new_size <= 0:
+        raise ValueError(
+            f"resize_lr_factor needs positive world sizes, got "
+            f"{old_size} -> {new_size}")
+    if mode == "linear":
+        return new_size / old_size
+    if mode == "sqrt":
+        return (new_size / old_size) ** 0.5
+    raise ValueError(f"unknown LR rescale mode {mode!r} "
+                     f"(expected 'linear' or 'sqrt')")
 
 
 def _names_of(params, named_parameters):
@@ -749,6 +864,12 @@ class _ShardedOptimizer(torch.optim.Optimizer):
 
     def __init__(self, groups, params, names, core, spec, zero_stage,
                  backward_passes_per_step):
+        if config_mod.Config.from_env().guard:
+            raise NotImplementedError(
+                "HOROVOD_GUARD is set, but the guard's gate over a ZeRO "
+                "stripe (or a staged DCN exchange) is not ported yet "
+                "(ROADMAP.md, Queue 1 item 15's leftovers); the guard "
+                "runs with DistributedOptimizer at zero_stage=0")
         super(self.__class__, self).__init__(groups)
         self.backward_passes_per_step = backward_passes_per_step
         self.expert_keys = () if spec is None else spec.expert_keys

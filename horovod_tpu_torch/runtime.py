@@ -23,7 +23,8 @@ The backend is NCCL on ``device="cuda"`` (the default) and gloo on
 group (``torch.distributed.init_process_group``) keeps it: ``init()``
 takes its backend, rank and size, and ``shutdown()`` leaves it to its
 owner. That is how two ranks share one card, over gloo, where NCCL
-refuses them.
+refuses them. Elastic recovery replaces such a group, which has lost a
+member, by the survivors' own, of the same backend.
 
 Rank model. In the JAX package a rank is a mesh position, and one process
 can own eight of them (all of its host's chips). Here a rank is one
@@ -41,9 +42,23 @@ events spliced into rank 0's file. With several ranks the engine's
 coordinator keys its traffic under ``hvd/<session>/coord`` in the
 session's store.
 
-Knobs that would start subsystems the port does not have yet (the
-guard, autotune, elastic training) make ``init()`` raise rather than run
-without them.
+``HOROVOD_AUTOTUNE``, whose subsystem the port does not have yet, makes
+``init()`` raise rather than run without it. ``init()`` installs the
+step-integrity guard and its chaos injector (guard/; ``HOROVOD_GUARD``,
+``HOROVOD_GUARD_INJECT``) before the engine; under ``HOROVOD_ELASTIC``
+the process group it builds times a collective out after
+``HOROVOD_ELASTIC_TIMEOUT_SECONDS`` (a dead peer then fails the
+collective as :class:`~horovod_tpu_torch.exceptions.WorkerLostError`
+instead of hanging for torch's default 30 minutes), and the engine's
+ticker publishes liveness beacons.
+
+``init(comm=[world ranks])`` runs the job on a subset of the launched
+processes, renumbered 0..n-1 in the list's order: each member joins a
+new default group over the session's store, under the session's own
+prefix. This is how elastic recovery re-inits over the survivors
+(elastic/runner.py): the dead process never joins, and the store, hosted
+by process 0, outlives the old group (its loss ends the job, as in the
+reference).
 
 ``init()`` also installs the diagnostics (diag/): the flight recorder
 (``HOROVOD_FLIGHT_BUFFER``), the phase tracer (``HOROVOD_XPROF_STEPS``),
@@ -81,7 +96,7 @@ import torch
 import torch.distributed as dist
 
 from . import config as config_mod
-from .exceptions import NotInitializedError, ShutDownError
+from .exceptions import HorovodError, NotInitializedError, ShutDownError
 from .utils.devices import resolve_device
 from .utils.logging import get_logger
 
@@ -91,10 +106,6 @@ AXIS = "hvd"  # global mesh axis name for the data-parallel collective dimension
 _MISSING = (
     ("autotune", "HOROVOD_AUTOTUNE", "autotune (ROADMAP.md, Queue 1 item "
      "10)"),
-    ("guard", "HOROVOD_GUARD", "the step-integrity guard (ROADMAP.md, "
-     "Queue 1 item 15)"),
-    ("elastic", "HOROVOD_ELASTIC", "elastic training (ROADMAP.md, Queue 1 "
-     "item 15)"),
 )
 
 
@@ -172,6 +183,7 @@ class _State:
         self.engine = None
         self.timeline = None
         self.owns_group = False
+        self.backend = None
         self.mesh = None
         self.expert_mesh = None
         self.model_mesh = None
@@ -183,6 +195,8 @@ class _State:
         self.cross_rank = 0
         self.cross_size = 1
         self.session = 0
+        self.world_rank = 0
+        self.members = [0]
         self.metrics_exporters = None
         self.lock = threading.RLock()
 
@@ -278,9 +292,10 @@ _stores = {}
 
 
 def _join_group():
-    """(store, rank, size) of this process's group. A TCPStore is made
-    once per coordinator address and kept for the process's life, so
-    process 0's server outlives every session (module docstring)."""
+    """(store, rank, size) of this process's group: its launcher rank
+    and the launched world. A TCPStore is made once per coordinator
+    address and kept for the process's life, so process 0's server
+    outlives every session (module docstring)."""
     coord = os.environ.get("HOROVOD_TPU_COORDINATOR")
     if not coord:
         return dist.HashStore(), 0, 1
@@ -294,6 +309,18 @@ def _join_group():
             host, int(port), size, is_master=rank == 0,
             timeout=datetime.timedelta(seconds=300))
     return store, rank, size
+
+
+def job_store():
+    """The job's key-value store, for the process's life: process 0's
+    TCPStore at the coordinator address, or one in-memory store when the
+    process runs alone. Elastic rendezvous runs on it between sessions."""
+    if os.environ.get("HOROVOD_TPU_COORDINATOR"):
+        return _join_group()[0]
+    store = _stores.get("local")
+    if store is None:
+        store = _stores["local"] = dist.HashStore()
+    return store
 
 
 def _meshes(cfg, device_type, size):
@@ -316,23 +343,52 @@ def _meshes(cfg, device_type, size):
     return exp_mesh, mdl_mesh
 
 
+def _check_comm(comm, world):
+    """The list of world ranks ``comm`` names, checked as the JAX
+    package checks it."""
+    if not (isinstance(comm, (list, tuple, range))
+            and all(isinstance(r, int) and not isinstance(r, bool)
+                    for r in comm)):
+        raise ValueError(
+            "horovod_tpu_torch has no MPI: init(comm=...) takes a list of "
+            "world ranks, e.g. comm=[0, 2, 5] — not an MPI communicator "
+            "object.")
+    ranks = [int(r) for r in comm]
+    if not ranks:
+        raise ValueError("comm names no rank")
+    if len(set(ranks)) != len(ranks):
+        raise ValueError(f"comm has duplicate ranks: {ranks}")
+    bad = [r for r in ranks if not 0 <= r < world]
+    if bad:
+        raise ValueError(f"comm ranks {bad} out of range [0, {world})")
+    return ranks
+
+
 def init(comm=None, *, device="cuda"):
     """Initialize the runtime: the process group, the rank topology and
     the collective stats. Idempotent; a second ``init()`` after
     ``shutdown()`` starts a new session.
 
     Args:
-      comm: the JAX package's rank-subset job; not ported yet.
+      comm: a rank-subset job (reference: ``hvd.init(comm=...)``,
+        common/basics.py:29-55): a list of world ranks (the launched
+        processes' ranks) to run on. The members renumber 0..n-1 in the
+        list's order; a process outside the list takes no part and
+        ``init()`` raises there (it must submit no collectives).
       device: ``"cuda"`` (default; NCCL, the card ``local_rank()``) or
         ``"cpu"`` (gloo, the plain versions of the kernels).
     """
+    _init(comm, device)
+
+
+def _init(comm, device, backend=None):
+    """:func:`init`, the group's backend given: elastic recovery's
+    re-init over the survivors (elastic/runner.py) builds their group
+    with the dead session's backend, as a caller's own group (gloo on a
+    card) had it. ``None``: NCCL on a card, gloo on the CPU."""
     with _state.lock:
         if _state.initialized and not _state.shutdown:
             return
-        if comm is not None:
-            raise NotImplementedError(
-                "init(comm=...) is not ported yet (ROADMAP.md, Queue 1 "
-                "item 2)")
         cfg = config_mod.Config.from_env()
         _refuse_missing_subsystems(cfg)
         from . import native
@@ -347,14 +403,38 @@ def init(comm=None, *, device="cuda"):
 
         session = _state.session + 1
         owns_group = not dist.is_initialized()
+        world_rank = None
         if owns_group:
             store, rank, size = _join_group()
+            world_rank = rank
+            if comm is not None:
+                ranks = _check_comm(comm, size)
+                if rank not in ranks:
+                    raise HorovodError(
+                        f"this process (world rank {rank}) is not in "
+                        f"comm={ranks}: it takes no part in the job and "
+                        f"must submit no collectives")
+                rank, size = ranks.index(rank), len(ranks)
+                members = ranks
+            else:
+                members = list(range(size))
+            kwargs = {}
+            if cfg.elastic:
+                kwargs["timeout"] = datetime.timedelta(
+                    seconds=cfg.elastic_timeout_seconds)
+            if backend is None:
+                backend = "nccl" if device.type == "cuda" else "gloo"
             dist.init_process_group(
-                "nccl" if device.type == "cuda" else "gloo",
+                backend,
                 store=dist.PrefixStore(f"hvd/{session}/pg/", store),
-                rank=rank, world_size=size)
+                rank=rank, world_size=size, **kwargs)
         else:
+            if comm is not None:
+                raise ValueError(
+                    "init(comm=...) builds its own group; this process "
+                    "already joined a default process group")
             store, rank, size = None, dist.get_rank(), dist.get_world_size()
+            members = list(range(size))
 
         from . import metrics
         from .stats import create_stats, register_metrics
@@ -390,8 +470,14 @@ def init(comm=None, *, device="cuda"):
             mark_cycles=cfg.timeline_mark_cycles,
             collect=size > 1 and rank != 0, multihost=size > 1)
         register_metrics(_state.stats)
-        # The flight recorder before the engine, which caches diag.get().
+        _state.backend = dist.get_backend()
+        _state.world_rank = world_rank if world_rank is not None else rank
+        _state.members = members
+        # The flight recorder and the guard before the engine, which
+        # caches diag.get(), guard.get() and guard.inject.get().
         _install_diagnostics(cfg, rank, size, store, _state.timeline)
+        from . import guard
+        guard.install(cfg, process_index=rank)
         from .ops.engine import EagerEngine
         _state.engine = EagerEngine(
             device, rank, size, cfg, _state.stats, _state.timeline,
@@ -401,6 +487,7 @@ def init(comm=None, *, device="cuda"):
         metrics.RUNTIME_INITS.inc()
         metrics.RUNTIME_UP.set(1)
         metrics.RUNTIME_RANKS.set(size)
+        metrics.ELASTIC_WORLD_SIZE.set(size)
         metrics.MODEL_PARALLEL.set(cfg.model_parallel if mdl_mesh else 1)
         _state.shutdown = False
         _state.initialized = True
@@ -456,6 +543,8 @@ def shutdown():
                 _logger.warning("could not write wire profile CSV: %s", e)
         _state.timeline.close()
         _uninstall_diagnostics()
+        from . import guard
+        guard.uninstall()
         metrics.registry().remove_collect_hook("collective_stats")
         # The programs go first: a captured graph holds the collectives
         # of the group destroyed next.
@@ -509,6 +598,34 @@ def _exchange_timeline():
                                 label=f"p{p}")
     except Exception:  # noqa: BLE001 — never block shutdown on a trace
         _logger.warning("timeline exchange failed", exc_info=True)
+
+
+def departed_ranks():
+    """Ranks of this session that announced a planned departure (the
+    preemption grace writes ``bye/<rank>`` through the coordinator),
+    sorted; empty at one rank or when the store cannot be read."""
+    engine = _state.engine
+    coord = engine.coordinator if engine is not None else None
+    if coord is None:
+        return []
+    try:
+        return coord.departed()
+    except Exception:  # noqa: BLE001 — the store may be gone with rank 0
+        return []
+
+
+def world_rank():
+    """This process's rank among the launched processes (the rank an
+    ``init(comm=...)`` list names); ``rank()`` is its place in the
+    session."""
+    _check_init()
+    return _state.world_rank
+
+
+def members():
+    """The world ranks of this session's processes, in rank order."""
+    _check_init()
+    return list(_state.members)
 
 
 def engine():

@@ -124,7 +124,16 @@ def test_resnet_bench_smoke_json_contract():
     for key, item in resnet_bench.COMPILED_NOT_PORTED.items():
         assert compiled[key] == {
             "skipped": f"not ported: ROADMAP item {item}"}
-    assert set(resnet_bench.COMPILED_NOT_PORTED) == {"guard_overhead_frac"}
+    # the guard is ported (item 15): its row is measured, on both loops
+    assert not resnet_bench.COMPILED_NOT_PORTED
+    assert 0 <= compiled["guard_overhead_frac"] < 0.02
+    assert 0 <= got["guard_overhead_frac"] < 0.02
+    # the input pipeline (item 14): prefetch hides the production cost
+    pipe = got["input_pipeline"]
+    assert pipe["prefetch"]["prefetch_depth"] == resnet_bench.DATA_PREFETCH
+    assert pipe["sync"]["prefetch_depth"] == 0
+    assert pipe["sync"]["data_wait_ms"] > pipe["prefetch"]["data_wait_ms"]
+    assert pipe["sync"]["batches"] == pipe["prefetch"]["batches"] == 6
     # the phase trace of 4 steps: the step's regions, the tiers (no
     # staged exchange at one rank) and the overlap rows
     phases = compiled["step_phase_breakdown"]

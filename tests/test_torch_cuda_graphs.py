@@ -321,6 +321,85 @@ def test_a_capture_after_every_graph_was_dropped(card):
         assert torch.equal(a, b)
 
 
+def test_guarded_step_replayed_equals_the_plain_step(card, monkeypatch):
+    """HOROVOD_GUARD=1 with no chaos spec, as a user runs it: the guarded
+    program (health rows, the held copies and the gate, the backward
+    from its device seed of 1.0) replayed on healthy batches leaves the
+    parameters bitwise where the plain program's replays leave them, and
+    every verdict applies."""
+    batches = _batches(card, 4)
+    want, _ = _train(card, True, batches)
+    hvd.shutdown()
+    monkeypatch.setenv("HOROVOD_GUARD", "1")
+    hvd.init(device="cuda")
+    skipped = hvd.metrics.GUARD_SKIPPED_STEPS.value()
+    got, step = _train(card, True, batches)
+    assert step.finish()["action"] == "apply"
+    assert hvd.metrics.GUARD_SKIPPED_STEPS.value() == skipped
+    assert step.cache_misses == 1 and step.fallback_steps == 0
+    (sig,) = step._signatures
+    assert sig[1] == "health"
+    for a, b in zip(got.parameters(), want.parameters()):
+        assert torch.equal(a, b)
+
+
+def test_the_loader_stages_batches_while_steps_capture(card):
+    """The input pipeline's producer gathers, pins and copies batches on
+    its own thread while compiled steps warm up and capture their graphs
+    on this one. Each batch is a new size (32 KB to 64 MB: every pin is a
+    fresh pinned allocation and every copy a fresh card allocation) and
+    each step a new program, so the producer's allocations meet the
+    captures; no capture or batch fails, every batch lands with its
+    bytes, and each replay's loss equals the eager loss of the same
+    model on the same batch."""
+    import threading
+    import time
+    sizes = [1 << (10 + k % 12) for k in range(24)]
+    made = iter(sizes)
+    lock = threading.Lock()
+
+    def fetch(idx):
+        with lock:
+            n = next(made)
+        rows = np.asarray(idx, dtype=np.float32)[:, None]
+        time.sleep(0.002 * (n.bit_length() % 5))
+        return {"x": np.repeat(rows, n, axis=1)}
+
+    ds = hvd.data.DistributedDataset(fetch, 8, num_samples=8 * len(sizes),
+                                     shuffle=False, prefetch=2, device=card)
+    for k, batch in enumerate(ds):
+        x = batch["x"]
+        want = torch.arange(8 * k, 8 * k + 8, dtype=torch.float32,
+                            device=card)[:, None].expand(8, sizes[k])
+        assert torch.equal(x, want)
+        gen = torch.Generator().manual_seed(k)
+        w = torch.randn(16, 4, generator=gen).to(card)
+        losses = []
+        for compiled in (True, False):
+            p = torch.nn.Parameter(w.clone())
+            opt = hvd.DistributedOptimizer(
+                torch.optim.AdamW([p], capturable=True, **ADAMW),
+                named_parameters=[("w", p)])
+
+            def loss(x, p=p):
+                return torch.tanh(x[:, :16] / 64 @ p).square().mean()
+
+            if compiled:
+                step = hvd.compiled_train_step(loss, opt)
+                for _ in range(3):
+                    out = step(x)
+                assert step.cache_misses == 1 and step.fallback_steps == 0
+            else:
+                for _ in range(3):
+                    opt.zero_grad(set_to_none=True)
+                    out = loss(x)
+                    out.backward()
+                    opt.step()
+            losses.append(out.detach())
+        torch.cuda.synchronize()
+        assert torch.equal(losses[0], losses[1])
+
+
 def test_a_traced_replay_attributes_the_flash_kernels(card, tmp_path):
     """The phase trace of replayed compiled steps (diag/xla_trace.py):
     the program re-captures once for its phase map, every replayed

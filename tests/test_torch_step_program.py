@@ -345,11 +345,21 @@ def test_a_dropped_step_leaves_the_program_cache():
 
 
 def test_guard_raises_naming_its_item(monkeypatch):
+    """The guard is ported (item 15): a guarded step builds and runs its
+    own program; what it does not carry yet, its gate over a ZeRO
+    stripe, raises naming the item."""
+    monkeypatch.setenv("HOROVOD_GUARD", "1")
     _init()
     model = _MLP()
-    monkeypatch.setenv("HOROVOD_GUARD", "1")
+    step = hvd.compiled_train_step(model.loss, _sgd(model))
+    _run_port(step, steps=2)
+    (sig,) = step._signatures
+    assert sig[1] == "health"
+    assert step.finish()["ok"]
     with pytest.raises(NotImplementedError, match="item 15"):
-        hvd.compiled_train_step(model.loss, _sgd(model))
+        hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1),
+            named_parameters=model.named_parameters(), zero_stage=1)
 
 
 def test_rejects_multi_step_accumulation():

@@ -14,6 +14,7 @@ and spawning already costs seconds. ``launch_ranks`` is the lower level:
 
 import os
 import pickle
+import random
 import socket
 import subprocess
 import sys
@@ -43,15 +44,33 @@ with open(os.path.join(sys.argv[3], f"rank{rank}.pkl"), "wb") as f:
 
 
 def free_port():
+    """A free port below the kernel's ephemeral range (32768 and up on
+    Linux), for a job's TCPStore. A port the kernel handed out to probe
+    (bind to 0) is free again once the probe closes, and another job's
+    gloo pairs, which listen on ephemeral ports, could take it before the
+    store binds it; below the range only another job's store competes,
+    and a random pick makes that rare."""
+    rng = random.Random()
+    for _ in range(100):
+        port = rng.randrange(20000, 32000)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
 
-def launch_ranks(n, argv, env=None, timeout=120):
+def launch_ranks(n, argv, env=None, timeout=120, exits=None):
     """Run ``python *argv`` as ranks 0..n-1 of one job (from the repo
     root) and wait for all of them; returns their logs. Raises with
-    every log when one fails, and kills the rest when one hangs."""
+    every log when one fails, and kills the rest when one hangs.
+    ``exits`` maps a rank to the return code it must end with instead
+    of 0 (a rank a test kills: ``-signal.SIGKILL``)."""
+    exits = exits or {}
     port = free_port()
     procs = []
     for r in range(n):
@@ -73,22 +92,30 @@ def launch_ranks(n, argv, env=None, timeout=120):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    if any(p.returncode != 0 for p in procs):
-        raise RuntimeError("a rank failed:\n" + "\n".join(logs))
+    if any(p.returncode != exits.get(r, 0) for r, p in enumerate(procs)):
+        raise RuntimeError(
+            f"a rank failed (return codes "
+            f"{[p.returncode for p in procs]}, expected {exits or 0}):\n"
+            + "\n".join(logs))
     return logs
 
 
-def spawn_ranks(n, fn, *args, env=None, timeout=120):
+def spawn_ranks(n, fn, *args, env=None, timeout=120, exits=None):
     """``[fn(*args) on rank r for r in range(n)]``, each rank a process
-    (module docstring). ``args`` and the return values travel pickled."""
+    (module docstring). ``args`` and the return values travel pickled.
+    A rank listed in ``exits`` (see :func:`launch_ranks`) returns None."""
     with tempfile.TemporaryDirectory(prefix="torch-ranks-") as out:
         call = os.path.join(out, "call.pkl")
         with open(call, "wb") as f:
             pickle.dump((fn.__module__, fn.__name__, args), f)
         launch_ranks(n, ["-c", _BOOT, str(TESTS), call, out], env=env,
-                     timeout=timeout)
+                     timeout=timeout, exits=exits)
         results = []
         for r in range(n):
-            with open(os.path.join(out, f"rank{r}.pkl"), "rb") as f:
+            path = os.path.join(out, f"rank{r}.pkl")
+            if r in (exits or {}) and not os.path.exists(path):
+                results.append(None)
+                continue
+            with open(path, "rb") as f:
                 results.append(pickle.load(f))
         return results
