@@ -44,8 +44,9 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from chip_smoke import MOE_MODEL_FULL as MOE_MODEL
 from chip_smoke import (ADAMW, FLAGSHIP, LOSS_CHUNK, MOE_EXPERT_KEYS,
-                        MOE_MODEL, N_REQUESTS, NEW_TOKENS, PAGE_SIZE,
+                        N_REQUESTS, NEW_TOKENS, PAGE_SIZE,
                         RESNET_BATCH, RESNET_SIZE, SP_BATCH, SP_MODEL,
                         SP_RING, SP_SEQ, TRAIN_BATCH, TRAIN_SEQ, prompts)
 

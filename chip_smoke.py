@@ -137,8 +137,9 @@ their own, each after the eager phase it mirrors; the eager serve phase
 
 Mixture-of-Experts has three phases of its own, after the compiled
 train phase, on flagship-moe (``MOE_MODEL``: the flagship with an MoE
-FFN in layers 1, 3, 5 and 7, 8 experts, top-2, capacity factor 1.25;
-1426 M parameters, drawn once on the host from seed 0):
+FFN in layers 1 and 3 of 4 (the flagship's depth cut in half), 8
+experts, top-2, capacity factor 1.25; 780 M parameters, drawn once on
+the host from seed 0):
 
 - moe parity: the MoE layer at full width (d 2048, ff 8192, 4 x 4096
   tokens, f32, a router skewed so that capacity drops happen) in index
@@ -273,7 +274,7 @@ The bench phase checks bench.resnet's trace rows too: the compiled
 step's ``step_phase_breakdown``, ``wire_stage_ms``,
 ``exchange_hidden_frac``, ``overlap_ab`` and ``overlap_microbench``,
 ``flight_step_phase_breakdown`` and both overhead fractions filled,
-``control_plane`` a skipped row naming item 10, and the MoE rows'
+``control_plane`` filled, and the MoE rows'
 all-to-all keys None at ``--expert-parallel 1`` beside their phase
 breakdown.
 
@@ -319,6 +320,53 @@ Fault tolerance has three phases of its own, after the zero train phase:
 Their figures are repeated in a ``{"fault_tolerance": ...}`` line before
 the kernels line.
 
+The autotuner and the launcher have three phases of their own,
+after the eager 2-rank phase, and the control plane's rows after the
+bench phase:
+
+- autotune (main path autotune): the flagship at 4 x 4096 as the eager
+  engine phase trains it, under ``HOROVOD_AUTOTUNE=1`` (one warm-up
+  sample, a window of 59 collectives: one step's at threshold 0), 12
+  steps. Gates: one log row a sample, at least 4; every applied
+  (fusion, cycle, padding, depth) in the reference's domain; every
+  cycle's buckets what :func:`plan_fusion_plain` gives at the threshold
+  in force, and a step the threshold held through what
+  :func:`predict_buckets` gives for the hooks' order; the losses of the
+  eager phase's 7 steps equal bitwise; the step programs' misses within
+  the distinct plans (the engine captures none) and the wire layouts'
+  within the distinct bucket signatures. Prints the step median before
+  and after the first apply, each sample's score, the misses and the
+  peak memory;
+- launcher (main path launcher): ``python -m horovod_tpu_torch.run -np 1
+  --max-restarts 1`` on ``chip_smoke.py --launched-worker MARKER OUT``:
+  the first generation trains the flagship one step and exits 1, the
+  gang restart's second trains 2 steps from seed 0 on the train phase's
+  batch; exit 0, two generations, the losses the train phase's first
+  two bitwise; the time from the launch to the first step and the
+  restart time printed;
+- launcher ranks (main path launcher_ranks; parity, not a speed): (a)
+  ``-np 2`` with ``HOROVOD_LAUNCH_RPC=1`` (the driver and task
+  services) and ``HOROVOD_AUTOTUNE=1`` on ``chip_smoke.py
+  --launched-rank OUT``, the narrow transformer over gloo on this card:
+  equal applied autotune lists at equal decision indices, equal
+  parameters, each rank's output streamed with its prefix; (b) the churn
+  soak's short mode (tests/torch_soak_churn.py) through
+  ``launch_elastic(autoscale=True)``, after the timed phases (its
+  workers share the card): 2 -> 3 through the grace drain, one worker SIGTERMed, 3 -> 2 in the job,
+  every sample exactly once, 2 generations, exit 0; each recovery's
+  wall time printed;
+- control plane: bench.resnet's ``control_plane`` row at worlds 8, 64
+  and 256, fanout 32, the star and the tree at CONTROL_ROUNDS rounds a
+  world (simrank on the host, in a process of its own, after the soak,
+  with nothing else running), and ``bench.eager --multihost 2`` on this
+  card
+  (``eager_multihost_cycle_ms``, bypass on and off, over gloo: a
+  control-plane time).
+
+Their figures are repeated in an ``{"autotune_launcher": ...}`` line
+before the kernels line. The bench phase checks that bench.resnet's
+``control_plane`` row is filled (its smoke curve).
+
 The kernels phases also run the CUDA-core loop at head dims 256 and 320
 (the latter in 256-column pieces) against the plain versions and time
 it (off every main path).
@@ -334,8 +382,10 @@ launches its capture recorded; a TP path's launches are one rank's.
 Each main path runs with the kernel launch counts zeroed just before it
 and read just after. The first line is the card's name and power limit
 as ``nvidia-smi`` gives them; the run's wall time and a line of the
-eager phases' figures (``{"eager_engine": ...}``) and of the
-fault-tolerance phases (``{"fault_tolerance": ...}``) are printed before
+eager phases' figures (``{"eager_engine": ...}``), of the
+fault-tolerance phases (``{"fault_tolerance": ...}``) and of the
+autotune and launcher phases (``{"autotune_launcher": ...}``) are
+printed before
 the last two lines, which are
 ``{"kernels": [...]}``, one entry per kernel, and the result,
 ``{"ok": true, "device": {...}}``.
@@ -355,6 +405,8 @@ import time
 
 import numpy as np
 import torch
+
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, FLOP/s of
 # the bf16 tensor cores and of f32 outside them.
@@ -384,8 +436,14 @@ SP_MODEL = dict(FLAGSHIP, max_seq=SP_SEQ, attention_window=SP_WINDOW)
 # GShard and Switch place them, and tests/test_moe.py:201), 8 experts and
 # top-2 routing (bench_transformer.py's --moe defaults, Mixtral's), the
 # MoEConfig capacity factor 1.25; the expert stacks are the expert keys.
-MOE_MODEL = dict(FLAGSHIP, moe_layers=(1, 3, 5, 7), moe_num_experts=8,
-                 moe_top_k=2)
+# The MoE phases cut its depth to 4 of the flagship's 8 layers (widths as
+# they are) to keep the whole run inside its 1200 s limit: whole, the
+# run's earlier phases took up to 943 s on an H100, and the autotune,
+# launcher, soak and control-plane phases add about 250 s. chip_profile.py
+# profiles it whole.
+MOE_MODEL_FULL = dict(FLAGSHIP, moe_layers=(1, 3, 5, 7), moe_num_experts=8,
+                      moe_top_k=2)
+MOE_MODEL = dict(MOE_MODEL_FULL, n_layers=4, moe_layers=(1, 3))
 MOE_EXPERT_KEYS = ("moe.w1", "moe.w2")
 
 # Kernel vs plain version: f32 outputs differ by summation order only;
@@ -1903,7 +1961,8 @@ def phase_train(hvd, fa, tfm, card, where, ring=None, sp_impl="ring"):
           f"profiler dump {dump}: {counter!r}")
     print(f"{label} shutdown: profiler dump {counter.strip()}", flush=True)
     torch.cuda.empty_cache()
-    return launches, {"step_ms": median, "tok_s": tok_s, "peak": peak}
+    return launches, {"step_ms": median, "tok_s": tok_s, "peak": peak,
+                      "losses": losses}
 
 
 COMPILED_STEPS, REPLAYS = 3, 4
@@ -3765,7 +3824,9 @@ def phase_eager_engine(hvd, fa, tfm, card, where):
     holding one negotiate and one op span per tensor a step; every flash
     launch on the tensor-core route; and, in a session of its own, no
     device-to-host copy in a profiled exchange of every gradient.
-    Returns the engine steps' {kernel: launches}."""
+    Returns the engine steps' {kernel: launches} and its figures (the
+    engine steps' losses and the peak memory of the two models' steps
+    among them)."""
     tmp = tempfile.mkdtemp()
     dump = os.path.join(tmp, "profiler.txt")
     trace = os.path.join(tmp, "timeline.json")
@@ -3824,6 +3885,8 @@ def phase_eager_engine(hvd, fa, tfm, card, where):
     steps = EAGER_WARMUP + EAGER_TIMED
     stats = hvd.runtime.live_state().stats
     cache = engine.response_cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     launches = dict.fromkeys(COUNTERS, 0)
     rows = []
     orders = []
@@ -3874,6 +3937,7 @@ def phase_eager_engine(hvd, fa, tfm, card, where):
                                               - bt0) / 1e3,
                      "loss": loss_e.item()})
     hits, misses = cache.hits - hits0, cache.misses - misses0
+    peak = torch.cuda.max_memory_allocated()
     for h in hooks:
         h.remove()
     check(all(o == orders[0] for o in orders),
@@ -3942,7 +4006,8 @@ def phase_eager_engine(hvd, fa, tfm, card, where):
     torch.cuda.empty_cache()
     return launches, {**med, "exchange_device_ms": exch_dev,
                       "buckets": len(predicted), "hit_rate": rate,
-                      "dtoh": dtoh}
+                      "dtoh": dtoh, "peak": peak,
+                      "losses": [r["loss"] for r in rows]}
 
 
 def eager_no_host_copy(hvd, lm, names, card):
@@ -4569,8 +4634,8 @@ def phase_bench(where):
     check(isinstance(flight, dict) and flight["compute_ms"] > 0
           and 0 <= res["flight_overhead_frac"] < TRACE_OVERHEAD_MAX
           and 0 <= res["trace_overhead_frac"] < TRACE_OVERHEAD_MAX
-          and res["control_plane"] == {
-              "skipped": "not ported: ROADMAP item 10"},
+          and res["control_plane"]["acceptance"]["decisions_bit_identical"]
+          and res["control_plane"]["acceptance"]["graduated_o1_reads_ok"],
           f"bench flight rows {flight}, {res['flight_overhead_frac']}, "
           f"{res['trace_overhead_frac']}, {res['control_plane']}")
     phases, ab = compiled["step_phase_breakdown"], compiled["overlap_ab"]
@@ -4613,6 +4678,643 @@ def phase_bench(where):
           f"{moe['moe']['drop_fraction']}, resnet's row "
           f"{res['moe']['tokens_per_sec_per_chip']}); zero_profile "
           f"{json.dumps(zero)}", flush=True)
+
+
+# ------------------------------------------------- autotune and launcher
+# The autotuner (autotune.py) on the eager engine, and the launcher
+# (run/): the flagship tuned at one rank, the flagship through a gang
+# restart, two launched ranks tuned in lockstep over gloo, the churn
+# soak, and the control plane's bench rows.
+AUTOTUNE_STEPS = 12
+AUTOTUNE_FUSION_MAX = 64 * 1024 * 1024
+AUTOTUNE_CYCLE = (1.0, 25.0)
+LAUNCH_TIMEOUT_S = 600
+LAUNCH_RANKS, LAUNCH_STEPS = 2, 8
+# The control-plane curve's star and tree rounds a world (bench.py's 30
+# and 20): a round of world 256 takes its 256 simulated members about
+# 1.5 s of host time, and the curve runs alone, after the timed phases,
+# inside the run's 1200 s.
+CONTROL_ROUNDS = 6
+
+
+def _autotune_domain(tuner, fusion, cycle, padding, depth):
+    return (0 <= fusion <= AUTOTUNE_FUSION_MAX
+            and AUTOTUNE_CYCLE[0] <= cycle <= AUTOTUNE_CYCLE[1]
+            and padding in tuner.COMBOS and depth in tuner._depths)
+
+
+def phase_autotune(hvd, fa, tfm, card, where, eager_row):
+    """Main path autotune: the flagship at 4 x 4096 as
+    :func:`phase_eager_engine` trains it (each gradient to
+    ``hvd.allreduce_async_`` from its hook, AdamW), under
+    ``HOROVOD_AUTOTUNE=1`` with one warm-up sample and a window of one
+    step's collectives at threshold 0 (one a gradient). Gates: the log
+    holds one row a sample, at least 4; every applied (fusion, cycle,
+    padding, depth) lies in the reference's domain; every cycle fuses
+    what :func:`plan_fusion_plain` gives for its gradients at the
+    threshold in force, the step's fused all-reduces are those cycles'
+    and, in a step the threshold held through, what
+    :func:`predict_buckets` gives for the hooks' order; the losses of
+    the eager phase's steps equal its losses bitwise (one rank: the
+    bucketing cannot change the sum); the program misses stay within
+    the distinct plans (the engine runs no captured program) and the
+    wire layout misses within the distinct bucket signatures; every
+    bucket feeds the tuner its exposed time (the consumer stream's stall
+    at the hand-over, 0 or more), all but the last step's by the next
+    step. Returns ({kernel: launches}, its figures)."""
+    log = os.path.join(tempfile.mkdtemp(), "autotune.csv")
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
+                                loss_chunk=LOSS_CHUNK, **FLAGSHIP)
+    lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
+                           device=card)
+    params = list(lm.parameters())
+    env = {"HOROVOD_AUTOTUNE": "1", "HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "1",
+           "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": str(len(params)),
+           "HOROVOD_AUTOTUNE_LOG": log, "HOROVOD_PROFILER_DISABLE": "1"}
+    os.environ.update(env)
+    hvd.init(device=card)
+    state = hvd.runtime.live_state()
+    engine, tuner = state.engine, state.autotuner
+    check(tuner is not None and engine.autotuner is tuner,
+          "HOROVOD_AUTOTUNE=1: process 0 holds no tuner, or the engine "
+          "does not feed it")
+    opt = torch.optim.AdamW(params, **ADAMW)
+    names = {p: n for n, p in lm.named_parameters()}
+    sizes = {n: p.numel() * p.element_size() for p, n in names.items()}
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                               (TRAIN_BATCH, TRAIN_SEQ))
+    targets = torch.from_numpy(np.roll(tokens, -1, axis=1)).to(card)
+    tokens = torch.from_numpy(tokens).to(card)
+    step_now = [0]
+    cycles = []    # (step, threshold, padding, [bytes], [group payloads], sigs)
+    applied = []   # (step, fusion, cycle, padding, depth)
+    samples = []   # (step, wire layout misses so far)
+    plan, apply_, finish = (engine._plan_fusion, tuner._apply,
+                            tuner._finish_sample)
+
+    def recording_plan(allreduces):
+        out = plan(allreduces)
+        cycles.append((step_now[0], int(engine.config.fusion_threshold),
+                       int(engine.config.padding_algo),
+                       [e.nbytes for e, _, _ in allreduces],
+                       [sum(e.nbytes for e, _ in b) for b, _ in out],
+                       [tuple(e.name for e, _ in b) for b, _ in out]))
+        return out
+
+    def recording_apply(fusion, cycle, combo=None, depth=None):
+        apply_(fusion, cycle, combo, depth)
+        applied.append((step_now[0], int(fusion), float(cycle),
+                        tuner._combo, tuner._depth))
+
+    def recording_finish():
+        finish()
+        samples.append((step_now[0], engine.wire_cache.misses))
+
+    exposures = []  # (step, exposed s): one a bucket, from the hand-over
+    overlap = tuner.record_overlap
+
+    def recording_overlap(hidden, exposed):
+        exposures.append((step_now[0], exposed))
+        overlap(hidden, exposed)
+
+    engine._plan_fusion = recording_plan
+    tuner._apply = recording_apply
+    tuner._finish_sample = recording_finish
+    tuner.record_overlap = recording_overlap
+    pending, order = [], []
+
+    def hook(p):
+        order.append(names[p])
+        pending.append(hvd.allreduce_async_(p.grad, name=names[p]))
+
+    hooks = [p.register_post_accumulate_grad_hook(hook) for p in params]
+    stats = state.stats
+    programs0 = state.programs.misses
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(fa)
+    rows = []
+    for i in range(AUTOTUNE_STEPS):
+        step_now[0] = i
+        thr0 = engine.config.fusion_threshold
+        calls0 = stats.counter("allreduce") + stats.counter("allreduce_cached")
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        pending.clear()
+        order.clear()
+        opt.zero_grad(set_to_none=True)
+        loss = lm.loss(tokens, targets)
+        loss.backward()
+        for h in pending:
+            hvd.synchronize(h)
+        opt.step()
+        e1.record()
+        torch.cuda.synchronize()
+        rows.append({"step_ms": e0.elapsed_time(e1), "loss": loss.item(),
+                     "order": list(order),
+                     "thr0": thr0, "thr1": engine.config.fusion_threshold,
+                     "buckets": stats.counter("allreduce")
+                     + stats.counter("allreduce_cached") - calls0})
+    launches = read_launches(fa)
+    peak = torch.cuda.max_memory_allocated()
+    for h in hooks:
+        h.remove()
+    engine._plan_fusion = plan
+    program_misses = state.programs.misses - programs0
+    wire_misses = engine.wire_cache.misses
+    with open(log) as f:
+        header, *log_rows = [line.rstrip("\n").split(",") for line in f]
+    check(len(log_rows) == tuner._samples >= 4,
+          f"autotune log {len(log_rows)} rows for {tuner._samples} samples "
+          f"(4 or more expected)")
+    for r in log_rows:
+        check(_autotune_domain(tuner, float(r[1]), float(r[2]), int(r[3]),
+                               int(r[4])),
+              f"autotune log row outside the domain: {r}")
+    check(applied, "the tuner applied nothing")
+    for _, fusion, cycle, pad, depth in applied:
+        check(_autotune_domain(tuner, fusion, cycle, pad, depth),
+              f"applied {fusion, cycle, pad, depth} outside the domain")
+    for step, thr, pad, nbytes, groups, _ in cycles:
+        want = plan_fusion_plain(nbytes, thr)
+        check(groups == want, f"step {step}: a cycle at threshold {thr} "
+                              f"fused {groups}, the planner gives {want}")
+    held = 0
+    for i, r in enumerate(rows):
+        mine = [c for c in cycles if c[0] == i]
+        check(r["buckets"] == sum(len(c[4]) for c in mine),
+              f"step {i}: {r['buckets']} fused all-reduces, its cycles "
+              f"planned {sum(len(c[4]) for c in mine)}")
+        if r["thr0"] == r["thr1"] and all(c[1] == r["thr0"] for c in mine):
+            held += 1
+            want = predict_buckets([sizes[n] for n in r["order"]], r["thr0"])
+            check(r["buckets"] == len(want),
+                  f"step {i}: {r['buckets']} fused all-reduces at threshold "
+                  f"{r['thr0']}, {len(want)} planned for the hooks' order")
+    plans = {(c[1], c[2]) for c in cycles}
+    sigs = {(c[2], s) for c in cycles for s in c[5]}
+    check(program_misses <= len(plans),
+          f"{program_misses} program misses for {len(plans)} plans")
+    check(wire_misses <= len(sigs),
+          f"{wire_misses} wire layout misses for {len(sigs)} distinct "
+          f"bucket signatures")
+    # every bucket's exposure is fed at its first hand-over, once its
+    # events complete: by the next step's for all but the last step's
+    buckets = [r["buckets"] for r in rows]
+    check(sum(buckets[:-1]) <= len(exposures) <= sum(buckets)
+          and all(e >= 0 for _, e in exposures),
+          f"{len(exposures)} exposure records for {buckets} buckets")
+    exposed_ms = [1e3 * sum(e for s, e in exposures if s == i)
+                  for i in range(AUTOTUNE_STEPS - 1)]
+    hidden_fracs = [float(r[header.index("comm_hidden_frac")])
+                    for r in log_rows]
+    want_losses = eager_row["losses"]
+    got_losses = [r["loss"] for r in rows[:len(want_losses)]]
+    check(got_losses == want_losses,
+          f"tuned losses {got_losses} != the eager engine's {want_losses}")
+    for name, n in launches.items():
+        want = 0 if name in WGMMA or name.startswith("flash_band") \
+            else AUTOTUNE_STEPS * cfg.n_layers
+        check(n == want, f"{name} launched {n} times in {AUTOTUNE_STEPS} "
+                         f"tuned steps, {want} expected")
+    first = applied[0][0]
+    before = [r["step_ms"] for r in rows[1:first]] or [rows[0]["step_ms"]]
+    after = [r["step_ms"] for r in rows[first + 1:]] or [rows[-1]["step_ms"]]
+    med_before, med_after = float(np.median(before)), float(np.median(after))
+    scores = [float(r[-1]) for r in log_rows]
+    print(f"autotune [{where}]: flagship {TRAIN_BATCH} x {TRAIN_SEQ}, window "
+          f"{len(params)} collectives, {tuner._samples} samples after 1 "
+          f"warm-up, {len(applied)} applied (fusion, cycle ms, padding, "
+          f"depth): {[a[1:] for a in applied]}; first applied in step "
+          f"{first}", flush=True)
+    print(f"autotune [{where}]: step {med_before:.1f} ms before the first "
+          f"apply (median of steps 1-{first - 1 if first > 1 else 0}), "
+          f"{med_after:.1f} ms after (median of steps {first + 1}-"
+          f"{AUTOTUNE_STEPS - 1}); buckets a step "
+          f"{[r['buckets'] for r in rows]} ({held} steps at one threshold "
+          f"held to the hooks' plan); exposed wire time a step (the "
+          f"consumer stream's stall at the hand-over) "
+          f"{[round(e, 3) for e in exposed_ms]} ms; samples' hidden "
+          f"fractions {hidden_fracs}; scores (overlap-adjusted B/s) "
+          f"{[round(s, 1) for s in scores]}; program misses "
+          f"{program_misses} for {len(plans)} plans, wire layout misses "
+          f"{wire_misses} for {len(sigs)} bucket signatures (by sample "
+          f"{[m for _, m in samples]}); peak memory {peak / 2 ** 30:.2f} "
+          f"GiB beside the eager phase's {eager_row['peak'] / 2 ** 30:.2f} "
+          f"GiB (two models there); losses equal the eager phase's "
+          f"{len(want_losses)} bitwise", flush=True)
+    del opt, lm, params
+    gc.collect()
+    hvd.shutdown()
+    for k in env:
+        os.environ.pop(k, None)
+    torch.cuda.empty_cache()
+    return launches, {"samples": tuner._samples, "applied": len(applied),
+                      "step_ms_before": med_before,
+                      "step_ms_after": med_after, "scores": scores,
+                      "exposed_ms": exposed_ms,
+                      "hidden_fracs": hidden_fracs,
+                      "program_misses": program_misses,
+                      "wire_misses": wire_misses, "peak": peak,
+                      "buckets": [r["buckets"] for r in rows]}
+
+
+def launched_worker(marker, out_dir):
+    """One generation of the launcher phase (``python -m
+    horovod_tpu_torch.run -np 1 --max-restarts 1 python chip_smoke.py
+    --launched-worker MARKER OUT``): ``hvd.init()`` from the launcher's
+    variables (NCCL on ``cuda:<local rank>``), the flagship as
+    :func:`phase_train` builds and trains it. Without MARKER (the first
+    generation) it trains one step, writes MARKER and exits 1; with it,
+    2 steps. Writes OUT/gen<1|2>.json: losses, launches, wall times."""
+    first = not os.path.exists(marker)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import flash_attention as fa
+    hvd.init()
+    card = hvd.runtime.device()
+    rec = {"size": hvd.size(), "rank": hvd.rank(), "device": str(card),
+           "backend": hvd.runtime.live_state().backend,
+           "restarts": os.environ.get("HOROVOD_TPU_ELASTIC_RESTARTS")}
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
+                                loss_chunk=LOSS_CHUNK, **FLAGSHIP)
+    lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
+                           device=card)
+    hvd.broadcast_parameters(lm.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(lm.parameters(), **ADAMW),
+        named_parameters=lm.named_parameters())
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                               (TRAIN_BATCH, TRAIN_SEQ))
+    targets = torch.from_numpy(np.roll(tokens, -1, axis=1)).to(card)
+    tokens = torch.from_numpy(tokens).to(card)
+    zero_launches(fa)
+    losses = []
+    for i in range(1 if first else 2):
+        opt.zero_grad(set_to_none=True)
+        loss = lm.loss(tokens, targets)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+        if i == 0:
+            rec["first_step_wall"] = time.time()
+    rec.update(losses=losses, launches=read_launches(fa))
+    print(f"launched generation {1 if first else 2}: losses {losses}",
+          flush=True)
+    path = os.path.join(out_dir, f"gen{1 if first else 2}.json")
+    if first:
+        with open(marker, "w") as f:
+            f.write("failed once\n")
+        rec["exit_wall"] = time.time()
+        with open(path, "w") as f:
+            json.dump(rec, f)
+        sys.exit(1)
+    hvd.shutdown()
+    with open(path, "w") as f:
+        json.dump(rec, f)
+
+
+def phase_launcher(fa, where, train_losses):
+    """Main path launcher: ``python -m horovod_tpu_torch.run -np 1
+    --max-restarts 1`` on :func:`launched_worker`. The first generation
+    trains the flagship one step and fails; the launcher's gang restart
+    brings up the second, which trains 2 steps from seed 0 on the train
+    phase's batch. Gates: exit 0, two generations, the second's losses
+    equal the train phase's first two bitwise, every flash launch on the
+    tensor cores. Prints the time from the launch to the first step's
+    end and the restart time (the first generation's exit to the
+    second's first step). Returns ({kernel: launches} of both
+    generations, its figures)."""
+    out = tempfile.mkdtemp()
+    marker = os.path.join(out, "gen1-failed")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HOROVOD_AUTOTUNE", "HOROVOD_PROFILER_PATH",
+                                "HOROVOD_TIMELINE"))}
+    env["HOROVOD_PROFILER_DISABLE"] = "1"
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "1",
+           "--max-restarts", "1", sys.executable, os.path.abspath(__file__),
+           "--launched-worker", marker, out]
+    t0 = time.time()
+    p = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                       timeout=LAUNCH_TIMEOUT_S, cwd=REPO_DIR)
+    wall = time.time() - t0
+    check(p.returncode == 0, f"the launcher exited {p.returncode}: "
+                             f"{p.stderr[-3000:]}")
+    check("restarting (attempt 2/2)" in p.stderr,
+          f"no gang restart in the launcher's output: {p.stderr[-2000:]}")
+    gens = []
+    for g in (1, 2):
+        with open(os.path.join(out, f"gen{g}.json")) as f:
+            gens.append(json.load(f))
+    for g in gens:
+        check((g["size"], g["rank"], g["backend"]) == (1, 0, "nccl")
+              and g["device"] == "cuda:0",
+              f"a launched generation ran as {g}")
+    check(gens[1]["losses"] == train_losses[:2],
+          f"the restarted generation's losses {gens[1]['losses']} != the "
+          f"train phase's {train_losses[:2]}")
+    check(gens[0]["losses"] == train_losses[:1],
+          f"the first generation's loss {gens[0]['losses']} != the train "
+          f"phase's {train_losses[:1]}")
+    launches = {k: gens[0]["launches"][k] + gens[1]["launches"][k]
+                for k in gens[0]["launches"]}
+    n_layers = FLAGSHIP["n_layers"]
+    for name, n in launches.items():
+        want = 0 if name in WGMMA or name.startswith("flash_band") \
+            else 3 * n_layers
+        check(n == want, f"{name} launched {n} times in the launched "
+                         f"generations' 3 steps, {want} expected")
+    to_first = gens[0]["first_step_wall"] - t0
+    restart = gens[1]["first_step_wall"] - gens[0]["exit_wall"]
+    print(f"launcher [{where}]: python -m horovod_tpu_torch.run -np 1 "
+          f"--max-restarts 1, the flagship at {TRAIN_BATCH} x {TRAIN_SEQ}: generation 1 "
+          f"trained 1 step and failed, the gang restart's generation 2 "
+          f"trained 2 (losses {gens[1]['losses']}, the train phase's "
+          f"bitwise); launch to the first step's end {to_first:.1f} s, "
+          f"restart (exit to the next first step's end) {restart:.1f} s, "
+          f"the whole launch {wall:.1f} s", flush=True)
+    return launches, {"launch_to_first_step_s": to_first,
+                      "restart_s": restart, "wall_s": wall}
+
+
+def launched_rank(out_dir):
+    """One rank of the launcher ranks phase (``python -m
+    horovod_tpu_torch.run -np 2`` with ``HOROVOD_LAUNCH_RPC=1`` and
+    ``HOROVOD_AUTOTUNE=1`` on ``chip_smoke.py --launched-rank OUT``): a
+    gloo group of its own on this card over the job's store
+    (``hvd.init()`` adopts it; NCCL refuses two ranks on one card), the
+    narrow transformer (flash attention at D 64), each gradient to
+    ``hvd.allreduce_async_`` from its hook, AdamW, LAUNCH_STEPS steps on
+    rank-specific batches. Records the applied autotune decisions, the
+    indices of the autotune decisions in this rank's decision stream,
+    a digest of the parameters and the launches in OUT/rank<R>.json."""
+    import datetime
+    import hashlib
+
+    import torch.distributed as dist
+    rank = int(os.environ["HOROVOD_TPU_PROCESS_ID"])
+    size = int(os.environ["HOROVOD_TPU_NUM_PROCESSES"])
+    card = torch.device("cuda", 0)
+    torch.cuda.set_device(card)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import flash_attention as fa
+    dist.init_process_group(
+        "gloo", store=dist.PrefixStore("smoke/launch/pg/",
+                                       hvd.runtime.job_store()),
+        rank=rank, world_size=size, timeout=datetime.timedelta(seconds=120))
+    hvd.init(device=card)
+    state = hvd.runtime.live_state()
+    engine = state.engine
+    stream = []
+    fetch = engine.coordinator.fetch_decisions
+
+    def logged_fetch(*a, **kw):
+        got = fetch(*a, **kw)
+        stream.extend(bool(d.get("autotune")) for d in got)
+        return got
+
+    engine.coordinator.fetch_decisions = logged_fetch
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
+                                **ELASTIC_MODEL)
+    lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
+                           device=card)
+    params = list(lm.parameters())
+    opt = torch.optim.AdamW(params, **ADAMW)
+    names = {p: n for n, p in lm.named_parameters()}
+    pending = []
+    hooks = [p.register_post_accumulate_grad_hook(
+        lambda p: pending.append(hvd.allreduce_async_(p.grad,
+                                                      name=names[p])))
+        for p in params]
+    data = torch.from_numpy(_token_samples(
+        LAUNCH_RANKS * LAUNCH_STEPS * ELASTIC_BATCH, ELASTIC_SEQ,
+        cfg.vocab_size, 6)).to(card)
+    zero_launches(fa)
+    losses = []
+    for s in range(LAUNCH_STEPS):
+        i = (s * LAUNCH_RANKS + rank) * ELASTIC_BATCH
+        batch = data[i:i + ELASTIC_BATCH]
+        pending.clear()
+        opt.zero_grad(set_to_none=True)
+        loss = lm.loss(batch[:, :-1], batch[:, 1:])
+        loss.backward()
+        for h in pending:
+            hvd.synchronize(h)
+        opt.step()
+        losses.append(loss.item())
+    launches = read_launches(fa)
+    for h in hooks:
+        h.remove()
+    if state.autotuner is not None:
+        state.autotuner.active = False
+    # a collective after the tuner stopped: every decision process 0
+    # published before it precedes it in the log, so each rank has
+    # applied all of them once it completes
+    hvd.allreduce(torch.zeros(1, device=card), name="launch.barrier")
+    digest = hashlib.sha256()
+    for p in params:
+        digest.update(p.detach().float().cpu().numpy().tobytes())
+    rec = {"rank": rank, "tuner": state.autotuner is not None,
+           "applied": [list(a) for a in engine.applied_autotune],
+           "indices": [i for i, a in enumerate(stream) if a],
+           "digest": digest.hexdigest(), "losses": losses,
+           "launches": launches, "grads": len(params)}
+    print(f"launched rank {rank}: {len(rec['applied'])} autotune decisions "
+          f"applied at stream indices {rec['indices']}; digest "
+          f"{rec['digest'][:16]}", flush=True)
+    hvd.shutdown()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def phase_launcher_ranks(where):
+    """Main path launcher_ranks (parity, not a speed: gloo on one card).
+    (a) ``python -m horovod_tpu_torch.run -np 2`` with
+    ``HOROVOD_LAUNCH_RPC=1`` (through the driver and task services) and
+    ``HOROVOD_AUTOTUNE=1`` on :func:`launched_rank`: both ranks' applied
+    autotune lists equal and applied at the same indices of their
+    decision streams, only process 0 tuning, parameter digests equal,
+    each rank's output streamed back with its prefix. (b), the churn
+    soak, runs later (:func:`phase_churn_soak`). Returns ({kernel:
+    launches} of (a)'s ranks, its figures)."""
+    out = tempfile.mkdtemp()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HOROVOD_AUTOTUNE", "HOROVOD_PROFILER_PATH",
+                                "HOROVOD_TIMELINE"))}
+    n_grads = 3 + 7 * ELASTIC_MODEL["n_layers"]
+    # a sample a fused collective: the narrow model's step is one to
+    # three buckets on the card
+    env.update(HOROVOD_LAUNCH_RPC="1", HOROVOD_AUTOTUNE="1",
+               HOROVOD_AUTOTUNE_WARMUP_SAMPLES="0",
+               HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE="1",
+               HOROVOD_PROFILER_DISABLE="1")
+    t0 = time.time()
+    p = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.run", "-np",
+         str(LAUNCH_RANKS), sys.executable, os.path.abspath(__file__),
+         "--launched-rank", out],
+        env=env, capture_output=True, text=True, timeout=LAUNCH_TIMEOUT_S,
+        cwd=REPO_DIR)
+    wall_a = time.time() - t0
+    check(p.returncode == 0, f"the launched ranks exited {p.returncode}: "
+                             f"{p.stdout[-2000:]} {p.stderr[-2000:]}")
+    for r in range(LAUNCH_RANKS):
+        check(f"[{r}]<stdout>: launched rank {r}:" in p.stdout,
+              f"rank {r}'s output did not stream back with its prefix")
+    recs = []
+    for r in range(LAUNCH_RANKS):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    check([r["tuner"] for r in recs] == [True] + [False] * (LAUNCH_RANKS - 1),
+          f"tuners {[r['tuner'] for r in recs]}: only process 0 tunes")
+    check(recs[0]["grads"] == n_grads, f"{recs[0]['grads']} gradients, "
+                                       f"{n_grads} expected")
+    check(recs[0]["applied"], "no autotune decision was applied")
+    for r in recs[1:]:
+        check(r["applied"] == recs[0]["applied"]
+              and r["indices"] == recs[0]["indices"],
+              f"rank {r['rank']} applied {r['applied']} at {r['indices']}, "
+              f"rank 0 {recs[0]['applied']} at {recs[0]['indices']}")
+        check(r["digest"] == recs[0]["digest"],
+              f"rank {r['rank']}'s parameters differ from rank 0's")
+    launches = {k: sum(r["launches"][k] for r in recs)
+                for k in recs[0]["launches"]}
+    for name, n in launches.items():
+        want = 0 if name in WGMMA or name.startswith("flash_band") \
+            else LAUNCH_RANKS * LAUNCH_STEPS * ELASTIC_MODEL["n_layers"]
+        check(n == want, f"{name} launched {n} times in the launched "
+                         f"ranks' steps, {want} expected")
+    print(f"launcher ranks [{where}]: -np {LAUNCH_RANKS} through the "
+          f"driver and task services (gloo on one card, not a speed "
+          f"figure): {len(recs[0]['applied'])} autotune decisions "
+          f"{recs[0]['applied']} applied at decision indices "
+          f"{recs[0]['indices']} on every rank, parameters equal; "
+          f"{wall_a:.1f} s", flush=True)
+    return launches, {"wall_a_s": wall_a}
+
+
+def phase_churn_soak(where):
+    """Main path launcher_ranks, part (b): the churn soak's short mode
+    (tests/torch_soak_churn.py) through ``launch_elastic(autoscale=True)``
+    with its scripted policy, its workers on this card over gloo, after
+    the timed phases: 2 -> 3 through the grace drain, one worker
+    SIGTERMed, 3 -> 2 with an in-job re-shard; every sample exactly
+    once (pads as the soak's replay predicts them), 2 generations, the
+    resize in the summary, exit 0. Prints each recovery's wall time."""
+    sys.path.insert(0, os.path.join(REPO_DIR, "tests"))
+    from torch_soak_churn import run_soak
+    t0 = time.time()
+    soak = run_soak(tempfile.mkdtemp(), short=True, device="cuda")
+    summary = {k: v for k, v in soak.items() if k != "workers"}
+    check(soak["ok"] and soak["exit_code"] == 0,
+          f"churn soak: {json.dumps(summary)[:3000]}")
+    check(soak["launcher"]["generations"] == 2
+          and [r["direction"] for r in soak["launcher"]["resizes"]] == ["up"],
+          f"churn soak summary {soak['launcher']}")
+    check(all(w["device"] == "cuda:0" for w in soak["workers"]),
+          f"soak workers on {[w['device'] for w in soak['workers']]}")
+    recoveries = [s for w in soak["workers"]
+                  for s in w["recovery_wall_seconds"]]
+    print(f"launcher ranks [{where}]: churn soak (short) through "
+          f"launch_elastic(autoscale=True): 2 -> 3 through the grace "
+          f"drain, one SIGTERMed, 3 -> 2 "
+          f"in the job; {soak['samples_total']} samples each exactly once "
+          f"({max(w['pad_duplicates'] for w in soak['workers'])} pad "
+          f"repeats, as the replay predicts); recovery wall "
+          f"{[round(s, 3) for s in recoveries]} s (survivors' last step "
+          f"start to the resumed loop), hvd_elastic_recovery_seconds sums "
+          f"{[round(w['recovery_seconds_sum'], 3) for w in soak['workers']]}"
+          f"; {soak['elapsed_seconds']:.1f} s ({time.time() - t0:.1f} s "
+          f"with its set-up)", flush=True)
+    return {"soak_wall_s": soak["elapsed_seconds"], "recovery_s": recoveries,
+            "preemptions": soak["preemptions"]}
+
+
+def phase_control_plane(where):
+    """The control plane's bench rows, after the timed phases, with the
+    host to themselves. ``control_plane``: simrank's curve (bench.resnet's
+    row: worlds 8, 64 and 256, fanout 32) in a process of its own, the
+    star and the tree cut to CONTROL_ROUNDS rounds a world: rounds a
+    second of the root's ``coordinate()`` and end to end for star, tree
+    and graduated, the tree's speedup over the star, root reads a round;
+    gated on bit-identical decisions, O(1) static rounds and demotion on
+    a membership change. ``eager_multihost_cycle_ms``: ``python -m
+    horovod_tpu_torch.bench.eager --multihost 2`` on this card, the
+    bypass on and off (gloo: a control-plane time, not an NCCL one)."""
+    path = os.path.join(tempfile.mkdtemp(), "control_plane.json")
+    code = ("import json, sys\n"
+            "from horovod_tpu_torch.controlplane import simrank\n"
+            "row = simrank.scaling_curve(worlds=(8, 64, 256), fanout=32, "
+            f"rounds={CONTROL_ROUNDS})\n"
+            "with open(sys.argv[1], 'w') as f:\n"
+            "    json.dump(row, f)\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, path], cwd=REPO_DIR,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=LAUNCH_TIMEOUT_S)
+    log = proc.stdout
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the control-plane curve exited "
+                                f"{proc.returncode}: {log[-3000:]}")
+    with open(path) as f:
+        ctrl = json.load(f)
+    acc = ctrl["acceptance"]
+    check(acc["decisions_bit_identical"] and acc["graduated_o1_reads_ok"]
+          and acc["demotion_on_membership_change"],
+          f"control plane acceptance {acc}")
+    for cell in ctrl["cells"]:
+        check(all(cell[m]["decision_streams_identical"]
+                  for m in ("star", "tree", "graduated")),
+              f"world {cell['world']}: decision streams differ")
+        print(f"control plane world {cell['world']} fanout "
+              f"{ctrl['fanout']} (host, no device): coordinate() rounds/s "
+              + ", ".join(f"{m} {cell[m]['coordinator_rounds_per_sec']:.1f}"
+                          for m in ("star", "tree", "graduated"))
+              + "; end to end "
+              + ", ".join(f"{m} {cell[m]['end_to_end_rounds_per_sec']:.2f}"
+                          for m in ("star", "tree", "graduated"))
+              + f"; tree speedup {cell['tree_speedup_over_star']}; root "
+              f"reads a round (mean) "
+              + ", ".join(f"{m} {cell[m]['root_reads_per_round']['mean']:.1f}"
+                          for m in ("star", "tree", "graduated")),
+              flush=True)
+    print(f"control plane curve: {wall:.1f} s (star and tree "
+          f"{CONTROL_ROUNDS} rounds a world); acceptance {acc}", flush=True)
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "horovod_tpu_torch.bench.eager",
+                        "--multihost", "2", "--device", "cuda"],
+                       env=dict(os.environ, HOROVOD_PROFILER_DISABLE="1"),
+                       capture_output=True, text=True,
+                       timeout=LAUNCH_TIMEOUT_S, cwd=REPO_DIR)
+    check(p.returncode == 0, f"bench.eager --multihost 2 exited "
+                             f"{p.returncode}: {p.stderr[-3000:]}")
+    line = next((ln.split(": ", 1)[1] for ln in p.stdout.splitlines()
+                 if ln.startswith("[0]<stdout>: {")), None)
+    check(line is not None, f"no multihost line: {p.stdout[-2000:]}")
+    mh = json.loads(line)
+    check(mh["metric"] == "eager_multihost_cycle_ms" and mh["value"] > 0
+          and mh["processes"] == 2 and mh["backend"] == "gloo",
+          f"multihost line {mh}")
+    print(f"eager multihost [{where}]: {json.dumps(mh)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return {"control_plane": {
+        "worlds": ctrl["worlds"], "fanout": ctrl["fanout"],
+        "cells": [{"world": c["world"],
+                   "tree_speedup_over_star": c["tree_speedup_over_star"],
+                   **{m: {"coordinator_rounds_per_sec":
+                          c[m]["coordinator_rounds_per_sec"],
+                          "end_to_end_rounds_per_sec":
+                          c[m]["end_to_end_rounds_per_sec"],
+                          "root_reads_per_round":
+                          c[m]["root_reads_per_round"]}
+                      for m in ("star", "tree", "graduated")}}
+                  for c in ctrl["cells"]],
+        "acceptance": acc, "wall_s": wall},
+        "eager_multihost": mh}
 
 
 def main():
@@ -4672,11 +5374,25 @@ def main():
           flush=True)
     del lm
     torch.cuda.empty_cache()
-    train_launches, _ = phase_train(hvd, fa, tfm, card, where)
+    train_launches, train_row = phase_train(hvd, fa, tfm, card, where)
     t0 = time.perf_counter()
     eager_launches, eager_row = phase_eager_engine(hvd, fa, tfm, card, where)
     print(f"eager engine phase: {time.perf_counter() - t0:.1f} s", flush=True)
     eager_row["two_ranks"] = phase_eager_engine_2ranks(where)
+    t0 = time.perf_counter()
+    autotune_launches, launch_row = phase_autotune(hvd, fa, tfm, card, where,
+                                                   eager_row)
+    launch_row = {"autotune": launch_row}
+    print(f"autotune phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launcher_launches, launch_row["launcher"] = phase_launcher(
+        fa, where, train_row["losses"])
+    print(f"launcher phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launcher_ranks_launches, launch_row["launcher_ranks"] = \
+        phase_launcher_ranks(where)
+    print(f"launcher ranks phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     t0 = time.perf_counter()
     compiled_train_launches, params, _, stage0 = phase_compiled_train(
         hvd, fa, tfm, card, where)
@@ -4770,6 +5486,14 @@ def main():
     eager_row["bench"] = phase_eager_bench(where)
     print(f"resnet and bench phases: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    # the host-bound phases last, alone: nothing timed runs beside them
+    t0 = time.perf_counter()
+    launch_row["launcher_ranks"].update(phase_churn_soak(where))
+    print(f"churn soak phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launch_row.update(phase_control_plane(where))
+    print(f"control plane phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     entries = [entry, bwd_entries["flash_bwd_dq"],
                bwd_entries["flash_bwd_dkv"], *band_entries]
@@ -4788,7 +5512,9 @@ def main():
              "pp_gpipe": pp_gpipe, "pp_1f1b": pp_1f1b,
              "trace": trace_launches, "guard": guard_launches,
              "elastic_state": elastic_state_launches,
-             "elastic_ranks": elastic_ranks_launches}
+             "elastic_ranks": elastic_ranks_launches,
+             "autotune": autotune_launches, "launcher": launcher_launches,
+             "launcher_ranks": launcher_ranks_launches}
     for e in entries:
         # a kernel's launches are its tensor-core route's: the main paths
         # launch its loop never (checked in phase_serve and phase_train)
@@ -4804,6 +5530,7 @@ def main():
     # run's output still holds them
     print(json.dumps({"eager_engine": eager_row, "card": where}))
     print(json.dumps({"fault_tolerance": fault_row, "card": where}))
+    print(json.dumps({"autotune_launcher": launch_row, "card": where}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4817,6 +5544,12 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--eager-rank"]:
         eager_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--launched-worker"]:
+        launched_worker(sys.argv[2], sys.argv[3])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--launched-rank"]:
+        launched_rank(sys.argv[2])
         sys.exit(0)
     if sys.argv[1:2] == ["--elastic-rank"]:
         elastic_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],

@@ -57,6 +57,13 @@ grace, the supervisor's and autoscaler's policies), ``checkpoint``
 (``DistributedDataset``: seeded sharding, pinned-memory prefetch, a
 position that re-shards over the survivors of an elastic recovery).
 ``init(comm=[...])`` runs a job on a subset of the launched ranks.
+
+Launching and tuning, as in the JAX package, are subpackages imported by
+name: ``python -m horovod_tpu_torch.run -np N cmd`` (``run``: gang
+restart, elastic supervision with autoscale, the RPC driver and task
+services), ``autotune`` (``HOROVOD_AUTOTUNE``: the eager engine's fusion
+threshold, cycle time, padding and depth, tuned on process 0) and
+``controlplane.simrank`` (simulated ranks against the coordinator).
 """
 
 import torch

@@ -30,8 +30,11 @@ the protocol's. ``--device cpu`` runs the plain versions, for the tests.
 One JSON line carries the reference's keys for what it measures, the
 flagship transformer's row (``bench.transformer`` at 4 iterations, on a
 card), and ``{"skipped": "not ported: ROADMAP item N"}`` for each profile
-whose subsystem the port does not have yet (:data:`NOT_PORTED`: the
-control plane's simulated ranks, item 10). ``input_pipeline`` is
+whose subsystem the port does not have yet (:data:`NOT_PORTED`, empty
+at present). ``control_plane`` is bench.py's scaling row: the
+simulated-rank harness (controlplane/simrank.py) at worlds 8, 64 and 256,
+fanout 32, on the host (world 8, fanout 4, in the smoke run).
+``input_pipeline`` is
 bench.py's: the exposed input wait a batch through
 ``hvd.data.DistributedDataset`` (a fixed production cost a batch against
 a fixed consume cost, batches staged on the run's device), prefetched
@@ -108,9 +111,8 @@ CI_TARGET_PCT = 3.0
 NUM_CLASSES = 1000
 
 # The reference's profiles whose subsystems are not ported, by the
-# ROADMAP.md Queue 1 item that brings each: the control plane's
-# simulated-rank harness (10).
-NOT_PORTED = {"control_plane": 10}
+# ROADMAP.md Queue 1 item that brings each: none at present.
+NOT_PORTED = {}
 # bench.py's compiled-step profile parts whose subsystems are not ported.
 COMPILED_NOT_PORTED = {}
 # bench.py's input-pipeline profile: the prefetch depth it measures
@@ -793,10 +795,25 @@ def run_benchmark(proto, device):
             "prefetch": _input_pipeline_profile(DATA_PREFETCH, device),
             "sync": _input_pipeline_profile(0, device)},
         "card": card,
+        "control_plane": control_plane_row(),
     }
     for key, item in NOT_PORTED.items():
         result[key] = _skipped(item)
     return result
+
+
+def control_plane_row(smoke=None):
+    """bench.py's pod-scale control-plane row: a shrunken simrank curve
+    (real coordinators over a live in-process KV server, no device), so
+    the bench tracks negotiation rounds a second, the tree's speedup
+    over the star, and the graduated static round's O(1) root reads
+    beside the training numbers."""
+    from ..controlplane import simrank
+    if smoke is None:
+        smoke = os.environ.get("HOROVOD_BENCH_SMOKE", "") not in (
+            "", "0", "false", "False")
+    return simrank.scaling_curve(worlds=(8,) if smoke else (8, 64, 256),
+                                 fanout=4 if smoke else 32)
 
 
 def _dispatch_profile(device):

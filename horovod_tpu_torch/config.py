@@ -18,10 +18,12 @@ response cache, timeline, stall checks, overlap pipeline, padding, wire
 profile, the control plane's tree, graduation and bypass, the KV
 client's retries), the step-integrity guard's (``HOROVOD_GUARD*``),
 elastic training's (``HOROVOD_ELASTIC*``) and the input pipeline's
-(``HOROVOD_DATA_PREFETCH``), autotune's (``init()`` refuses it: not
-ported yet), :data:`FUSION_BUFFER_ATOMIC_UNIT` and
+(``HOROVOD_DATA_PREFETCH``), autotune's (``HOROVOD_AUTOTUNE*``), the
+launcher's (``HOROVOD_START_TIMEOUT``, ``HOROVOD_LAUNCH_RPC``),
+:data:`FUSION_BUFFER_ATOMIC_UNIT` and
 :func:`next_power_of_two` (the shape bins). Names, defaults and clamps
-are the JAX package's.
+are the JAX package's; its ``autotune_gaussian_process_noise``, which
+nothing there reads either, is left out.
 """
 
 import dataclasses
@@ -112,8 +114,17 @@ class Config:
     # Record a captured program's collectives (as ``<op>_jit``) on every
     # replay, not only once when the program is captured.
     profiler_jit_callbacks: bool = False
-    # Autotune is not ported yet; init() refuses it rather than ignore it.
+    # Autotune (autotune.py; reference: operations.cc:1228-1244).
     autotune: bool = False
+    autotune_log: str = ""
+    autotune_warmup_samples: int = 3
+    autotune_steps_per_sample: int = 10
+    autotune_bayes_opt_max_samples: int = 20
+    # Launcher (run/): seconds each worker gets to reach its first
+    # rendezvous before the job is declared failed, and the opt-in that
+    # forces the RPC driver/task-service launch path for local hosts.
+    start_timeout: int = 30
+    launch_rpc: bool = False
     # Step-integrity guard (guard/). Off by default, and then nothing
     # changes: no health rows, no gate, the plain programs. With it on,
     # every bad step is skipped; after guard_lr_backoff_steps
@@ -329,6 +340,14 @@ class Config:
         c.guard_inject = os.environ.get("HOROVOD_GUARD_INJECT",
                                         c.guard_inject)
         c.autotune = _env_flag("HOROVOD_AUTOTUNE")
+        c.autotune_log = os.environ.get("HOROVOD_AUTOTUNE_LOG", "")
+        c.autotune_warmup_samples = _env_int("HOROVOD_AUTOTUNE_WARMUP_SAMPLES",
+                                             c.autotune_warmup_samples)
+        c.autotune_steps_per_sample = _env_int(
+            "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE", c.autotune_steps_per_sample)
+        c.start_timeout = max(_env_int("HOROVOD_START_TIMEOUT",
+                                       c.start_timeout), 1)
+        c.launch_rpc = _env_flag("HOROVOD_LAUNCH_RPC")
         c.metrics_dir = os.environ.get("HOROVOD_METRICS_DIR", "")
         c.metrics_port = _env_int("HOROVOD_METRICS_PORT", c.metrics_port)
         c.metrics_bind = os.environ.get("HOROVOD_METRICS_BIND",

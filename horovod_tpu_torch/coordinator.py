@@ -18,10 +18,12 @@ aggregates whatever is published, decides, and appends to a
 monotonically numbered decision log. Every process applies decisions
 strictly in order, so the collectives launch in identical order
 everywhere: the order NCCL requires of every rank. Requests ride the
-request-list format (wire.py); decisions are JSON. The reference's
-elastic liveness detector (``live``/``bye`` keys, the lost-worker scan,
-the abort decisions) comes with elastic training (ROADMAP.md, Queue 1
-item 15); ``init()`` refuses ``HOROVOD_ELASTIC`` until then.
+request-list format (wire.py); decisions are JSON. Under
+``HOROVOD_ELASTIC`` process 0's elastic round reads every process's
+liveness counter and goodbye key (``live``/``bye``) and turns a lost or
+departing worker into one abort decision; in tree mode a head whose
+aggregate blob stops moving has its group read directly (the stale-head
+fallback, controlplane/aggregate.py).
 
 Stall detection parity (operations.cc:815-896): the coordinator tracks when
 each pending tensor first appeared; names stuck waiting for a subset of ranks
@@ -358,6 +360,12 @@ class MultiHostCoordinator:
         # Tree fan-in: last packed aggregate blob, to dedupe rewrites (an
         # idle group costs its head reads but the store zero writes).
         self._agg_last = None
+        # Stale-head fallback (root, elastic tree mode): receipt clock
+        # over agg/{head} blobs + last round's stale set, for the
+        # once-per-transition logs. Built lazily on the first elastic
+        # tree round (the window derives from config at that point).
+        self._head_clock = None
+        self._stale_heads = set()
         # Static-schedule graduation, process side: fp -> deid learned
         # from {"grad"} decision hints. No local size cap for the same
         # reason _fast_assoc has none — lifetime is log-driven (demote
@@ -619,9 +627,11 @@ class MultiHostCoordinator:
 
     def aggregate_round(self):
         """Tree fan-in sweep (docs/controlplane.md): when this process
-        heads a non-root group, read the group's ``req/{pid}`` blobs and
-        batch them into ONE packed ``agg/{pid}`` write, rewritten only when
-        something changed. The engine's ticker and application cycles
+        heads a non-root group, read the group's ``req/{pid}`` blobs —
+        and under elastic its ``live``/``bye`` blobs, which keep a healthy
+        head's value moving for the root's receipt clock — and batch them
+        into ONE packed ``agg/{pid}`` write, rewritten only when something
+        changed. The engine's ticker and application cycles
         both call this right after publish, so the root's next round
         reads current data one hop behind. No-op for the root, non-head
         members, and star mode. Returns True when the sweep observed a
@@ -636,10 +646,23 @@ class MultiHostCoordinator:
                 break
         if kids is None:
             return False
-        blobs = self._kv_multiget([f"{self._ns}/req/{p}" for p in kids],
-                                  "aggregate read")
-        entries = [(_tree.KIND_REQ, p, bytes(b))
-                   for p, b in zip(kids, blobs) if b]
+        keys = [f"{self._ns}/req/{p}" for p in kids]
+        elastic = self.config.elastic
+        if elastic:
+            keys += [f"{self._ns}/live/{p}" for p in kids]
+            keys += [f"{self._ns}/bye/{p}" for p in kids]
+        blobs = self._kv_multiget(keys, "aggregate read")
+        n = len(kids)
+        kinds = [(_tree.KIND_REQ, 0)]
+        if elastic:
+            kinds += [(_tree.KIND_LIVE, n), (_tree.KIND_BYE, 2 * n)]
+        entries = []
+        counts = {}
+        for kind, off in kinds:
+            for p, b in zip(kids, blobs[off:off + n]):
+                if b:
+                    entries.append((kind, p, bytes(b)))
+                    counts[kind] = counts.get(kind, 0) + 1
         blob = _tree.pack_entries(entries)
         with self._lock:
             if blob == self._agg_last:
@@ -657,8 +680,8 @@ class MultiHostCoordinator:
             return True
         self._transport_ok()
         metrics.CTRL_AGG_ROUNDS.inc()
-        metrics.CTRL_AGG_BATCHED.labels(kind=_tree.KIND_REQ).inc(
-            len(entries))
+        for kind, c in counts.items():
+            metrics.CTRL_AGG_BATCHED.labels(kind=kind).inc(c)
         return True
 
     # ------------------------------------------------------------ elastic
@@ -712,6 +735,7 @@ class MultiHostCoordinator:
             fresh = [p for p in byes if p not in self._lost_pids]
             if fresh:
                 self._lost_pids.update(fresh)
+                self._forget_heads_locked(fresh)
                 self._abort_epoch += 1
                 _logger.warning(
                     "elastic: worker process(es) %s announced a planned "
@@ -734,6 +758,7 @@ class MultiHostCoordinator:
                     lost.append(p)
             if lost:
                 self._lost_pids.update(lost)
+                self._forget_heads_locked(lost)
                 self._abort_epoch += 1
                 _logger.warning(
                     "elastic: worker process(es) %s lost — no liveness "
@@ -745,6 +770,13 @@ class MultiHostCoordinator:
                     "epoch": self._abort_epoch}})
                 appended = True
         return appended
+
+    def _forget_heads_locked(self, pids):
+        """Drop lost or departed pids from the head receipt clock: a
+        rejoining pid starts with fresh credit."""
+        if self._head_clock is not None:
+            for p in pids:
+                self._head_clock.forget(p)
 
     def announce_departure(self):
         """Planned departure (the preemption grace): write ``bye/{pid}``.
@@ -777,6 +809,25 @@ class MultiHostCoordinator:
             self._append_decision_locked({"tensors": [], "abort": {
                 "kind": "hosts_updated", "lost_pids": [],
                 "epoch": self._abort_epoch}})
+
+    def append_autotune(self, fusion, cycle, padding, depth=None):
+        """Publish tuned parameters as a decision every process applies at
+        the same decision index — the reference's ``SyncParams`` (rank 0
+        tunes, MPI_Bcast of the winning parameter struct, atomic apply;
+        parameter_manager.cc:223-262). Ordering through the decision log is
+        what keeps fusion plans — and therefore wire program shapes —
+        identical across processes. ``depth`` (overlap-pipeline in-flight
+        depth) rides along when tuned; ``None`` omits it so old decisions
+        stay byte-identical."""
+        if self.pid != 0:
+            return
+        autotune = {"fusion": int(fusion), "cycle": float(cycle),
+                    "padding": int(padding)}
+        if depth is not None:
+            autotune["depth"] = int(depth)
+        with self._lock:
+            self._append_decision_locked({
+                "tensors": [], "warning": None, "autotune": autotune})
 
     def append_guard(self, verdict):
         """Process 0: record a non-apply guard verdict in the decision
@@ -1284,6 +1335,32 @@ class MultiHostCoordinator:
             pids = self._pid_list()
             groups = self._tree_layout()
             suspect = self._stall_suspect
+            elastic = self.config.elastic
+            # Stale-head fallback: computed ONCE here, before the read set
+            # is assembled, and reused for the unpack skip below — the
+            # same frozen set drives both, so a head going stale
+            # mid-round cannot leave its group half direct, half
+            # aggregated. Elastic only: the staleness window clocks the
+            # liveness cadence riding the agg blobs.
+            stale = set()
+            if groups is not None and elastic:
+                if self._head_clock is None:
+                    self._head_clock = _tree.HeadReceiptClock(
+                        0.5 * self.config.elastic_timeout_seconds)
+                stale = self._head_clock.stale(
+                    [g[0] for g in groups[1:]], time.perf_counter())
+                for h in sorted(stale - self._stale_heads):
+                    _logger.warning(
+                        "coordinator: aggregator head %d stale — its agg "
+                        "blob has not changed within %.1fs; reading its "
+                        "group's keys directly until it recovers", h,
+                        self._head_clock.stale_after)
+                for h in sorted(self._stale_heads - stale):
+                    _logger.info(
+                        "coordinator: aggregator head %d recovered; "
+                        "resuming tree reads for its group", h)
+                self._stale_heads = stale
+                metrics.CTRL_STALE_HEADS.set(len(stale))
             # The round's read set, assembled as named segments so the
             # result maps below never rely on positional arithmetic.
             keys = []
@@ -1302,6 +1379,11 @@ class MultiHostCoordinator:
                 # head — O(fanout + world/fanout) keys, not O(world).
                 direct = list(groups[0])
                 heads = [g[0] for g in groups[1:]]
+                if stale:
+                    # Stale groups read direct, head included; their agg
+                    # keys are STILL read (free recovery detection — the
+                    # clock needs to see the blob move again).
+                    direct += _tree.fallback_members(groups, stale)
                 _seg("agg", [f"{self._ns}/agg/{h}" for h in heads])
             _seg("req", [f"{self._ns}/req/{p}" for p in direct])
             if suspect:
@@ -1323,6 +1405,13 @@ class MultiHostCoordinator:
 
             req_map = dict(zip(direct, _blobs("req")))
             for h, ab in zip(heads, _blobs("agg")):
+                if self._head_clock is not None and ab:
+                    self._head_clock.note(h, ab, time.perf_counter())
+                if h in stale:
+                    # This group arrived via the direct fallback reads;
+                    # unpacking the frozen blob would overwrite fresh
+                    # requests with stale ones.
+                    continue
                 if not ab:
                     continue
                 try:
@@ -1349,8 +1438,10 @@ class MultiHostCoordinator:
                     [(p, req_map.get(p)) for p in pids],
                     liveness_fresh=suspect)
                 if self._sched is not None:
-                    # Static mode only before shutdown.
-                    self._static_mode = (not self._shutdown_decided
+                    # Static mode only outside elastic (the head clock
+                    # needs full rounds) and before shutdown.
+                    self._static_mode = (not elastic
+                                         and not self._shutdown_decided
                                          and self._sched.all_graduated(pids))
             # Outside the state lock: compaction is nproc more KV reads
             # and must not block application publishes/fetches.

@@ -15,6 +15,7 @@
 #include <vector>
 
 #include "fusion.h"
+#include "gaussian_process.h"
 #include "response_cache.h"
 #include "stats.h"
 #include "timeline.h"
@@ -103,6 +104,23 @@ void hvd_timeline_close(void* t) {
   auto* tw = static_cast<TimelineWriter*>(t);
   tw->Close();
   delete tw;
+}
+
+// ------------------------------------------------------------ bayes opt
+void* hvd_bo_new(int dim, const double* lo, const double* hi, double xi,
+                 uint64_t seed) {
+  return new BayesianOptimization(std::vector<double>(lo, lo + dim),
+                                  std::vector<double>(hi, hi + dim), xi,
+                                  seed);
+}
+void hvd_bo_free(void* b) { delete static_cast<BayesianOptimization*>(b); }
+void hvd_bo_add_sample(void* b, const double* x, int dim, double y) {
+  static_cast<BayesianOptimization*>(b)->AddSample(
+      std::vector<double>(x, x + dim), y);
+}
+void hvd_bo_suggest(void* b, double* x_out, int dim) {
+  std::vector<double> s = static_cast<BayesianOptimization*>(b)->Suggest();
+  std::memcpy(x_out, s.data(), dim * sizeof(double));
 }
 
 }  // extern "C"

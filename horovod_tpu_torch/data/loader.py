@@ -30,8 +30,10 @@ concerns every example used to hand-roll:
 
 Telemetry: the ``hvd_data_*`` families (batches, samples, epochs,
 re-shards, the input-wait histogram, the prefetch depth and queue
-occupancy). The autotuner's prefetch hook reads ``None`` until autotune
-is ported (ROADMAP.md, Queue 1 item 10).
+occupancy). Under ``HOROVOD_AUTOTUNE`` the loader feeds the session's
+tuner the depth each epoch runs at and every input wait, and the tuner's
+prefetch hill-climb changes ``data_prefetch``, which the next epoch
+reads.
 
 Usage::
 
@@ -202,8 +204,11 @@ class DistributedDataset:
         return _env_prefetch()
 
     def _autotuner(self):
-        """The autotuner's prefetch hook: None until autotune is ported
-        (ROADMAP.md, Queue 1 item 10)."""
+        """The session's autotuner (autotune.py), or None: no session, no
+        ``HOROVOD_AUTOTUNE``, or a process that is not process 0."""
+        from .. import runtime
+        if runtime.is_initialized():
+            return runtime.live_state().autotuner
         return None
 
     # ----------------------------------------------------------- position
@@ -267,6 +272,12 @@ class DistributedDataset:
     def _iterate_epoch(self):
         depth = self._resolve_prefetch()
         metrics.DATA_PREFETCH_DEPTH.set(depth)
+        tuner = self._autotuner()
+        if tuner is not None:
+            # the depth this epoch actually runs at: the tuner must not
+            # step again off measurements taken before its last change
+            # landed (a depth applies at an epoch's start)
+            tuner.record_prefetch_depth(depth)
         steps_left = self.steps_remaining
         if depth > 0 and steps_left > 0:
             self._start_producer(depth)
@@ -277,7 +288,7 @@ class DistributedDataset:
             else:
                 batch = self._land(self._produce(self._plan, self._step,
                                                  None))
-            self._record_wait(time.perf_counter() - t0)
+            self._record_wait(time.perf_counter() - t0, tuner)
             self._step += 1
             self._state.segments[-1][1] = self._step
             metrics.DATA_BATCHES.inc()
@@ -328,12 +339,14 @@ class DistributedDataset:
             t.record_stream(current)
         return item.batch
 
-    def _record_wait(self, wait):
+    def _record_wait(self, wait, tuner=None):
         metrics.DATA_WAIT_SECONDS.observe(wait)
         self._wait_accum += wait
         fr = diag.get()
         if fr is not None:
             fr.record("input_wait", extra={"wait": wait})
+        if tuner is not None:
+            tuner.record_input_wait(wait)
 
     def take_wait(self):
         """Input-wait seconds accumulated since the last call: how long

@@ -80,8 +80,8 @@ class FlightRecorder:
         self.digest = digest
         self.diag_dir = diag_dir or ""
         # Progress marks for the watchdog beacons: plain attribute stores
-        # (GIL-atomic). The port has no negotiation yet (ROADMAP.md, Queue
-        # 1 item 10), so they keep their initial values.
+        # (GIL-atomic), set by the coordinator as it applies decisions and
+        # by the engine's multi-process cycle.
         self.last_decision_index = -1
         self.last_cycle_wall = 0.0
         self._dump_lock = threading.Lock()

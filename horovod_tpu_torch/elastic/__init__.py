@@ -18,7 +18,7 @@ Horovod"). A dead worker becomes a bounded-time recovery, in layers:
    agreement over the job's store, after which :func:`run` re-inits over
    the survivors (``hvd.init(comm=...)``);
 4. **supervision** (:mod:`supervisor`): exit classification and restart
-   backoff, for the launcher (ROADMAP.md, Queue 1 item 17);
+   backoff, for the launcher (run/run.py);
 5. **policy** (:mod:`policy`): the autoscaler's signals and decisions,
    paired with the SIGTERM preemption grace of :mod:`runner`
    (``HOROVOD_ELASTIC_GRACE_SECONDS``).

@@ -5,7 +5,7 @@ export.
 Counterpart of horovod_tpu/elastic/policy.py, copied (plain Python):
 the signal files, their reading, compaction and fold, and the policy's
 decisions are the JAX package's for the same inputs. The launcher that
-acts on them is ROADMAP.md, Queue 1 item 17.
+acts on them is run/run.py (``launch_elastic(autoscale=True)``).
 
 No 0.16 reference analog — the reference's world size is fixed at
 mpirun time, and even v0.20 Elastic Horovod only *reacts* to external

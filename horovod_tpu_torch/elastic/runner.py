@@ -15,8 +15,8 @@ last commit in place and broadcasts it, and calls the training function
 again.
 
 Scope: in-job recovery shrinks the job; growing it is the launcher's
-(ROADMAP.md, Queue 1 item 17). Process 0 hosts the store; its loss ends
-the job, as the reference's driver does.
+(run/run.py: a gang restart through the grace drain). Process 0 hosts
+the store; its loss ends the job, as the reference's driver does.
 """
 
 import atexit
@@ -270,6 +270,7 @@ def run(fn):
             try:
                 return fn(state, *args, **kwargs)
             except (WorkerLostError, HostsUpdatedError) as exc:
+                _depart_if_preempted()
                 _recover(state, exc)
             except PreemptedExit:
                 _exit_preempted(0.3)
@@ -277,8 +278,26 @@ def run(fn):
                 exc = peer_error(err)
                 if not isinstance(exc, (WorkerLostError, HostsUpdatedError)):
                     raise
+                _depart_if_preempted()
                 _recover(state, exc)
     return wrapper
+
+
+def _depart_if_preempted():
+    """A worker already told to leave (SIGTERM under the grace) whose
+    collective failed before its next commit leaves now, from its last
+    commit, instead of recovering: under a gang drain every worker is
+    signalled at once, and the first to depart (rank 0 among them, whose
+    store the recovery would need) fails its peers' exchange."""
+    if not _preempt["flag"]:
+        return
+    with _preempt["lock"]:
+        if _preempt["departing"]:
+            return
+        _preempt["departing"] = True
+    _logger.warning("elastic: a collective failed after SIGTERM; departing "
+                    "from the last commit instead of recovering")
+    _depart_and_exit(0.0, forced=True)
 
 
 def _maybe_install_grace(state):

@@ -2,7 +2,7 @@
 backoff, for the launcher's ``--elastic`` mode.
 
 Counterpart of horovod_tpu/elastic/supervisor.py, copied (plain
-Python). The launcher that uses it is ROADMAP.md, Queue 1 item 17.
+Python). The launcher that uses it is run/run.py (``launch_elastic``).
 
 Upstream analog: Elastic Horovod's driver, which distinguishes hosts
 that *failed* (blacklist + replace) from workers that merely died

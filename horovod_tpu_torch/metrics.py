@@ -487,12 +487,18 @@ CTRL_AGG_ROUNDS = _registry.counter(
     "(one batched KV write per sweep that changed anything).")
 CTRL_AGG_BATCHED = _registry.counter(
     "hvd_ctrl_agg_batched_total",
-    "Child records folded into aggregator blobs, by kind (req).",
+    "Child records folded into aggregator blobs, by kind "
+    "(req/live/bye).",
     labelnames=("kind",))
 CTRL_ROOT_READS = _registry.gauge(
     "hvd_ctrl_root_reads_per_round",
     "KV keys the coordinator root read in the last coordination round "
     "(O(fanout) under tree aggregation, 1 in graduated static rounds).")
+CTRL_STALE_HEADS = _registry.gauge(
+    "hvd_ctrl_stale_agg_heads",
+    "Aggregator heads the root currently considers stale (elastic tree "
+    "mode): their agg blob stopped changing, so their groups are read "
+    "directly until the blob moves again.")
 CTRL_GRADUATED_SETS = _registry.gauge(
     "hvd_ctrl_graduated_sets",
     "Steady-state submission sets currently graduated to the "
@@ -726,6 +732,10 @@ PERF_REGRESSIONS = _registry.counter(
 ELASTIC_WORKERS_LOST = _registry.counter(
     "hvd_elastic_workers_lost_total",
     "Worker processes declared lost by the elastic failure detector.")
+ELASTIC_RESTARTS = _registry.counter(
+    "hvd_elastic_worker_restarts_total",
+    "Times the elastic supervisor restarted this worker's slot "
+    "(stamped into the respawned worker's environment by the launcher).")
 ELASTIC_RENDEZVOUS_ROUNDS = _registry.counter(
     "hvd_elastic_rendezvous_rounds_total",
     "Membership re-rendezvous rounds this process completed.")

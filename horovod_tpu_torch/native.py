@@ -2,11 +2,12 @@
 
 Counterpart of horovod_tpu/native.py. The library carries the control
 plane of the eager engine: the collective stats, the response cache,
-the fusion planner and the timeline writer. Its sources are the port's
-own copy, ``horovod_tpu_torch/csrc/*.cc``, of the JAX package's parts
-that the engine calls; the autotune part (``gaussian_process``) comes
-with autotune, and the native message format and half converters with
-a runtime caller (the coordinator serializes with wire.py). At first use they
+the fusion planner, the timeline writer and the autotuner's Bayesian
+optimizer (``gaussian_process``, the ``hvd_bo_*`` entries). Its sources
+are the port's own copy, ``horovod_tpu_torch/csrc/*.cc``, of the JAX
+package's parts that the port calls; the native message format and half
+converters wait for a runtime caller (the coordinator serializes with
+wire.py). At first use they
 compile with ``g++`` into one shared library in
 ``build/horovod_tpu_torch/``, named by a hash of every source, header
 and flag, as ops/_build.py names the CUDA libraries, so an edited
@@ -133,6 +134,16 @@ def _declare(lib):
     lib.hvd_timeline_close.argtypes = [c.c_void_p]
     lib.hvd_timeline_counter.argtypes = [c.c_void_p, c.c_char_p, c.c_int64,
                                          c.c_double]
+
+    lib.hvd_bo_new.argtypes = [c.c_int, c.POINTER(c.c_double),
+                               c.POINTER(c.c_double), c.c_double,
+                               c.c_uint64]
+    lib.hvd_bo_new.restype = c.c_void_p
+    lib.hvd_bo_free.argtypes = [c.c_void_p]
+    lib.hvd_bo_add_sample.argtypes = [c.c_void_p, c.POINTER(c.c_double),
+                                      c.c_int, c.c_double]
+    lib.hvd_bo_suggest.argtypes = [c.c_void_p, c.POINTER(c.c_double),
+                                   c.c_int]
 
     return lib
 

@@ -11,6 +11,7 @@ the multi-host coordinator (coordinator.py).
 """
 
 import dataclasses
+import hashlib
 from typing import List, Optional, Tuple
 
 ALLREDUCE = "ALLREDUCE"
@@ -46,6 +47,28 @@ class NegotiatedResponse:
 def shape_str(shape):
     """Reference TensorShape::DebugString format '[d1, d2]'."""
     return "[" + ", ".join(str(d) for d in shape) + "]"
+
+
+def participant_digest(reqs_by_rank):
+    """Order-insensitive digest of one negotiation round's inputs.
+
+    ``reqs_by_rank`` maps rank -> iterable of :class:`RequestMeta` (or
+    of (name, RequestMeta) pairs). Two rounds that saw the same requests
+    from the same ranks digest identically no matter what order the
+    coordinator read or aggregated them in — the invariant the
+    control-plane scale harness (controlplane/simrank.py) and the
+    interleaving property tests assert to prove star, tree, and
+    graduated rounds negotiate over identical inputs.
+    """
+    lines = []
+    for rank in sorted(reqs_by_rank):
+        for item in reqs_by_rank[rank]:
+            name, req = item if isinstance(item, tuple) else ("", item)
+            lines.append((int(rank), str(name), req.cache_key()))
+    h = hashlib.sha256()
+    for line in sorted(lines):
+        h.update(repr(line).encode())
+    return h.hexdigest()
 
 
 def construct_response(name, reqs: List[RequestMeta], num_ranks,

@@ -430,6 +430,11 @@ class EagerEngine:
         # not the device time of the copies. Readers pop them.
         self.bucket_spans = deque(maxlen=4096)
         self._events = {}        # handle -> CUDA event its result waits on
+        # On a card, the tuner's exposed wire time: the end events of the
+        # fused buckets not yet handed over, and (consumer event, bucket
+        # event) pairs waiting to complete (:meth:`_feed_exposure`).
+        self._exposure_due = set()
+        self._exposure = []
         self._next_handle = 0
         self._pending_bytes = 0
         self._next_seq = 0
@@ -476,6 +481,13 @@ class EagerEngine:
         # An elastic abort (a lost worker, a planned departure, a
         # hosts-updated interrupt) fails this session for good.
         self._elastic_abort = None
+        # Autotune (autotune.py): the session's ParameterManager on
+        # process 0 (runtime.init sets it), fed by every completed
+        # bucket; above one rank its changes come back through the
+        # decision log, and this records each one applied, in order
+        # (equal on every rank: the point of routing through the log).
+        self.autotuner = None
+        self.applied_autotune = []
         metrics.registry().set_collect_hook("engine", self._collect_metrics)
 
     def _collect_metrics(self):
@@ -687,14 +699,41 @@ class EagerEngine:
 
     def _hand_over(self, result, event):
         """The result for the caller: ``{rank: tensor}``, with the
-        caller's stream ordered after the engine's work on it."""
+        caller's stream ordered after the engine's work on it. The first
+        hand-over of a fused bucket the tuner scores records an event on
+        the caller's stream before its wait (:meth:`_feed_exposure`).
+        Caller holds the engine lock."""
         if event is not None:
             caller = torch.cuda.current_stream(self.device)
+            if event in self._exposure_due:
+                self._exposure_due.discard(event)
+                reached = torch.cuda.Event(enable_timing=True)
+                reached.record(caller)
+                self._exposure.append((reached, event))
             caller.wait_event(event)
             for t in result.values():
                 if t.is_cuda:
                     t.record_stream(caller)
+        if self._exposure:
+            self._feed_exposure()
         return result
+
+    def _feed_exposure(self):
+        """Feed the tuner a card's exposed wire time (the reference's
+        blocking readback wait, which a stream wait does not give the
+        host): how long each consumer stream stalled at a bucket's
+        hand-over, from its event before the wait to the bucket's end
+        event, 0 when the bucket ended first. Folds the pairs whose
+        events have both completed; never waits. Caller holds the engine
+        lock."""
+        waiting = []
+        for reached, done in self._exposure:
+            if not (reached.query() and done.query()):
+                waiting.append((reached, done))
+            elif self.autotuner is not None:
+                exposed = max(reached.elapsed_time(done), 0.0) / 1e3
+                self.autotuner.record_overlap(0.0, exposed)
+        self._exposure = waiting
 
     def _ticker_loop(self):
         """Control-plane cadence: publish the pending snapshot and (on
@@ -848,6 +887,12 @@ class EagerEngine:
         def on_resolve(span):
             waited = span if wait is None else wait
             self._observe_wire(op, nbytes, span)
+            # on a card the host's wait does not block: the exposed time
+            # is the consumer stream's, fed at the hand-over
+            if op == "allreduce" and self.autotuner is not None \
+                    and not self._cuda:
+                self.autotuner.record_overlap(max(span - waited, 0.0),
+                                              waited)
             fr = self._flight
             if fr is not None:
                 fr.record("wire_end", name, op, nbytes,
@@ -1029,6 +1074,8 @@ class EagerEngine:
             if decision.get("warning"):
                 _logger.warning(decision["warning"])
                 metrics.ENGINE_STALL_WARNINGS.inc()
+            if decision.get("autotune"):
+                self._apply_autotune_locked(decision["autotune"])
             if decision.get("guard") and self._guard is not None:
                 # Audit lane: every process sees the same verdict at the
                 # same index; the monitor screams if its ladder disagreed.
@@ -1090,6 +1137,30 @@ class EagerEngine:
             fr.record("elastic_abort", extra=dict(info))
         diag.dump_post_mortem("elastic_abort", extra={"abort": dict(info)})
         self._cv.notify_all()
+
+    def _apply_autotune_locked(self, at):
+        """SyncParams apply point (parameter_manager.cc:223-262): every
+        process, the tuning process 0 included, changes its knobs here,
+        at the same decision index, so every later decision's fusion
+        plan (and so the buckets each rank sends) is the same on every
+        rank."""
+        self.config.fusion_threshold = int(at["fusion"])
+        self.config.cycle_time_ms = float(at["cycle"])
+        self.config.padding_algo = int(at["padding"])
+        if at.get("depth") is not None:
+            # in-flight depth is host-local (completion cadence, not the
+            # buckets), synced anyway so every process runs the tuned
+            # pipeline
+            self.config.pipeline_depth = int(at["depth"])
+        self.applied_autotune.append(
+            (int(at["fusion"]), float(at["cycle"]), int(at["padding"]),
+             None if at.get("depth") is None else int(at["depth"])))
+
+    def publish_autotune(self, fusion, cycle, padding, depth=None):
+        """Multi-process ParameterManager hook: route tuned parameters
+        through the decision log instead of changing the config here
+        (reference: SyncParams, parameter_manager.cc:223-262)."""
+        self._coord.append_autotune(fusion, cycle, padding, depth)
 
     def publish_guard(self, verdict):
         """Guard decision-log hook: record a non-apply step verdict in
@@ -1300,6 +1371,12 @@ class EagerEngine:
         size_bin = next_power_of_two(max(int(nbytes), 1))
         metrics.WIRE_SECONDS.labels(op=op, size_bin=str(size_bin)) \
             .observe(seconds)
+        if self.autotuner is not None:
+            # the largest-message guard's feed: on a card the span runs
+            # from the event after the copy-in (the engine's stream past
+            # its wait on the producers) to the event after the
+            # collective's wait, never the wait behind the backward
+            self.autotuner.record_wire(nbytes, seconds)
 
     def _layout(self, batch, wire_dtype):
         """(offsets, counts, total) of a batch's fused buffer, through the
@@ -1396,6 +1473,13 @@ class EagerEngine:
             done = self._scatter_fused_results(slim, offsets, buf)
             if done is not None:
                 self.bucket_spans.append(fill + (unfuse, done))
+                if self.autotuner is not None:
+                    self._exposure_due.add(done)
+            if self.autotuner is not None:
+                # one fused collective is one sample step (the
+                # reference's Update): its unpadded bytes
+                self.autotuner.record_bytes(
+                    offsets[-1] * wire_dtype.itemsize)
 
         self._launched_locked(_InFlight(
             [n for n, _, _ in slim],

@@ -102,11 +102,9 @@ from .utils.logging import get_logger
 
 AXIS = "hvd"  # global mesh axis name for the data-parallel collective dimension
 
-# What init() refuses, with the ROADMAP.md item that brings it.
-_MISSING = (
-    ("autotune", "HOROVOD_AUTOTUNE", "autotune (ROADMAP.md, Queue 1 item "
-     "10)"),
-)
+# What init() refuses, with the ROADMAP.md item that brings it: nothing
+# at present (every knob of the config is honoured).
+_MISSING = ()
 
 
 class ProgramCache:
@@ -153,12 +151,16 @@ class ProgramCache:
         graph of one fill, held for the session, keeps the pool in use:
         the graphs that share it may all leave with the steps that
         dropped them, and the allocator refuses a capture into a pool no
-        graph uses any more."""
+        graph uses any more. It captures in ``thread_local`` mode, as
+        the programs do: another thread's CUDA calls (the input
+        pipeline's producer pinning and copying a batch) must not
+        invalidate it."""
         with self._lock:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
                 self._anchor = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(self._anchor, pool=self._pool):
+                with torch.cuda.graph(self._anchor, pool=self._pool,
+                                      capture_error_mode="thread_local"):
                     torch.zeros((), device="cuda")
             return self._pool
 
@@ -181,6 +183,7 @@ class _State:
         self.programs = None
         self.store = None
         self.engine = None
+        self.autotuner = None
         self.timeline = None
         self.owns_group = False
         self.backend = None
@@ -484,6 +487,24 @@ def _init(comm, device, backend=None):
             store=store, programs=_state.programs,
             local_size=cfg.dcn_local_size or _state.local_size,
             namespace=f"hvd/{session}/coord")
+        _state.autotuner = None
+        if cfg.autotune:
+            # Only process 0 tunes; above one rank its changes ride the
+            # coordinator's decision log, and every process applies them
+            # at the same decision index (reference SyncParams,
+            # parameter_manager.cc:223-262). The other processes apply
+            # incoming autotune decisions in the engine and never tune.
+            if size > 1 and rank != 0:
+                _logger.info("autotune: process %d defers to process 0's "
+                             "synced parameters", rank)
+            else:
+                from .autotune import ParameterManager
+                _state.autotuner = ParameterManager(cfg)
+                if size > 1:
+                    _state.autotuner.sync_publish = \
+                        _state.engine.publish_autotune
+                _state.engine.autotuner = _state.autotuner
+        _record_elastic_launch_stamps()
         metrics.RUNTIME_INITS.inc()
         metrics.RUNTIME_UP.set(1)
         metrics.RUNTIME_RANKS.set(size)
@@ -494,6 +515,31 @@ def _init(comm, device, backend=None):
         _logger.info("Started horovod_tpu_torch with %d ranks on %s (%s)",
                      size, device, dist.get_backend())
         atexit.register(_shutdown_atexit)
+
+
+_elastic_stamps_recorded = False
+
+
+def _record_elastic_launch_stamps():
+    """Surface the elastic launcher's stamps in THIS worker's metrics
+    registry (the launcher's own registry is never exported): how many
+    times it respawned this slot (``HOROVOD_TPU_ELASTIC_RESTARTS``), and
+    the direction of the gang resize that relaunched it
+    (``HOROVOD_TPU_ELASTIC_RESIZED``; a grown world arrives only by gang
+    restart, so the relaunched workers are the processes left to count
+    it). Once per process: re-inits within one life (elastic recovery)
+    are neither."""
+    global _elastic_stamps_recorded
+    if _elastic_stamps_recorded:
+        return
+    _elastic_stamps_recorded = True
+    from . import metrics
+    n = _env_int("HOROVOD_TPU_ELASTIC_RESTARTS", 0)
+    if n > 0:
+        metrics.ELASTIC_RESTARTS.inc(n)
+    resized = os.environ.get("HOROVOD_TPU_ELASTIC_RESIZED", "")
+    if resized in ("up", "down"):
+        metrics.ELASTIC_RESIZES.labels(direction=resized).inc()
 
 
 def _shutdown_atexit():
@@ -553,6 +599,7 @@ def shutdown():
             dist.destroy_process_group()
         _state.store = None
         _state.engine = None
+        _state.autotuner = None
         _state.timeline = None
         _state.mesh = None
         _state.expert_mesh = None

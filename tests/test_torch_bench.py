@@ -85,10 +85,17 @@ def test_resnet_bench_smoke_json_contract():
     assert "CUDA card" in got["transformer"]["skipped"]
     for key, item in resnet_bench.NOT_PORTED.items():
         assert got[key] == {"skipped": f"not ported: ROADMAP item {item}"}
-    assert set(resnet_bench.NOT_PORTED) >= {"control_plane"}
-    # the control plane's simulated ranks wait in item 10; the eager
-    # engine's rows are filled
-    assert resnet_bench.NOT_PORTED["control_plane"] == 10
+    # every profile is filled, the control plane's simulated ranks too
+    assert not resnet_bench.NOT_PORTED
+    ctrl = got["control_plane"]
+    assert ctrl["worlds"] == [8] and ctrl["fanout"] == 4
+    for cell in ctrl["cells"]:
+        for mode in ("star", "tree", "graduated"):
+            assert cell[mode]["coordinator_rounds_per_sec"] > 0
+            assert cell[mode]["decision_streams_identical"]
+    assert ctrl["acceptance"]["graduated_o1_reads_ok"]
+    assert ctrl["acceptance"]["decisions_bit_identical"]
+    assert ctrl["acceptance"]["demotion_on_membership_change"]
     assert not set(resnet_bench.NOT_PORTED) & {"dispatch", "eager_exchange"}
     assert not set(resnet_bench.NOT_PORTED) & {
         "compiled_step", "serve", "moe", "zero_profile", "mesh3d",

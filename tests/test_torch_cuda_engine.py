@@ -6,8 +6,11 @@ being written on its producer's stream when it is submitted is read by
 the engine's copy only after the producer's event; results stay on the
 card, and a profiled exchange copies nothing to the host; a batch of one
 in-place tensor at the threshold is reduced in place; the engine refuses
-a CUDA graph capture.
+a CUDA graph capture; the autotuner's exposed wire time is the
+consumer stream's stall at the hand-over.
 """
+
+import time
 
 import pytest
 import torch
@@ -81,3 +84,46 @@ def test_the_engine_refuses_a_graph_capture(card):
         with pytest.raises(hvd.HorovodError, match="captured"):
             with torch.cuda.graph(graph, stream=s):
                 hvd.allreduce_async(x, name="cap")
+
+
+def test_the_tuners_exposed_time_is_the_consumer_streams_stall(
+        card, monkeypatch):
+    """The host's wait on a collective does not block on a card, so the
+    engine feeds the tuner how long the consumer's stream stalled at the
+    bucket's hand-over: about the engine stream's delay when the bucket
+    ends late, little when the consumer computes past the bucket."""
+    hvd.shutdown()
+    monkeypatch.setenv("HOROVOD_AUTOTUNE", "1")
+    monkeypatch.setenv("HOROVOD_AUTOTUNE_WARMUP_SAMPLES", "0")
+    hvd.init()
+    state = hvd.runtime.live_state()
+    engine, tuner = state.engine, state.autotuner
+    fed = []
+    monkeypatch.setattr(tuner, "record_overlap",
+                        lambda hidden, exposed: fed.append(exposed))
+    x = torch.ones(1 << 20, device=card)
+    # NCCL sets its communicator up at the first collective, and the
+    # host waits for the card there
+    hvd.synchronize(hvd.allreduce_async(x, name="exposed.warm-up"))
+
+    def exposed(engine_late):
+        torch.cuda.synchronize()
+        fed.clear()
+        if engine_late:
+            with torch.cuda.stream(engine._stream):
+                torch.cuda._sleep(100_000_000)
+        h = hvd.allreduce_async(x, name=f"exposed.{engine_late}")
+        if not engine_late:
+            torch.cuda._sleep(100_000_000)  # computes past the bucket
+        t0 = time.perf_counter()
+        hvd.synchronize(h)
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        with engine._cv:
+            engine._feed_exposure()
+        assert len(fed) == 1 and not engine._exposure
+        return fed[0], host
+
+    late, early = exposed(True), exposed(False)
+    # (exposed s, the host's time in synchronize) of each case
+    assert late[0] >= 0.02 and 0.0 <= early[0] < 0.5 * late[0], (late, early)

@@ -400,6 +400,42 @@ def test_the_loader_stages_batches_while_steps_capture(card):
         assert torch.equal(losses[0], losses[1])
 
 
+def test_the_pool_anchor_captures_while_another_thread_pins(card):
+    """The session's graph pool is made by capturing a one-fill anchor
+    graph at the first program's build, which may come while the input
+    pipeline's producer pins and copies on its own thread. A capture in
+    the default (global) mode is invalidated by such calls from any
+    thread; the anchor captures thread-local, as the programs do. Twenty
+    fresh pools, each captured while another thread pins host buffers
+    and copies them to the card, all succeed."""
+    import threading
+    stop = threading.Event()
+    errors = []
+
+    def stage():
+        n = 1 << 16
+        try:
+            while not stop.is_set():
+                host = torch.empty(n, pin_memory=True)
+                host.to(card, non_blocking=True)
+                n = n * 2 if n < 1 << 24 else 1 << 16
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    programs = hvd.runtime.live_state().programs
+    t = threading.Thread(target=stage, daemon=True)
+    t.start()
+    try:
+        for _ in range(20):
+            programs.clear()
+            assert programs.graph_pool() is not None
+    finally:
+        stop.set()
+        t.join(timeout=30)
+    torch.cuda.synchronize()
+    assert not errors, errors
+
+
 def test_a_traced_replay_attributes_the_flash_kernels(card, tmp_path):
     """The phase trace of replayed compiled steps (diag/xla_trace.py):
     the program re-captures once for its phase map, every replayed

@@ -547,7 +547,8 @@ def test_deleted_optimizer_and_model_are_freed(monkeypatch):
 
 # The knob and the ROADMAP.md item that ported its subsystem (None: the
 # eager engine's) or, for one still refused, will port it.
-_PORTED = {"HOROVOD_TIMELINE", "HOROVOD_GUARD", "HOROVOD_ELASTIC"}
+_PORTED = {"HOROVOD_TIMELINE", "HOROVOD_GUARD", "HOROVOD_ELASTIC",
+           "HOROVOD_AUTOTUNE"}
 
 
 @pytest.mark.parametrize("knob,value,item", [
@@ -579,11 +580,17 @@ def test_init_refuses_knobs_of_missing_subsystems(monkeypatch, tmp_path,
             assert (hvd.size(), hvd.rank()) == (1, 0)
             if knob == "HOROVOD_GUARD":
                 assert hvd.guard.get() is not None
+            elif knob == "HOROVOD_AUTOTUNE":
+                # process 0 holds the tuner, and the engine feeds it
+                state = hvd.runtime.live_state()
+                assert state.autotuner is not None
+                assert state.engine.autotuner is state.autotuner
             else:
                 assert hvd.runtime.live_state().config.elastic
         finally:
             hvd.shutdown()
         assert hvd.guard.get() is None
+        assert not hvd.runtime._MISSING
         return
     with pytest.raises(NotImplementedError, match=item):
         hvd.init(device="cpu")
