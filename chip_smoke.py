@@ -278,7 +278,19 @@ step's ``step_phase_breakdown``, ``wire_stage_ms``,
 all-to-all keys None at ``--expert-parallel 1`` beside their phase
 breakdown.
 
-Fault tolerance has three phases of its own, after the zero train phase:
+Fault tolerance has four phases of its own, after the zero train phase:
+
+- zero guard (main path zero_guard): the flagship at 4 x 4096 through
+  the compiled ``DistributedOptimizer(AdamW, zero_stage=s)`` step under
+  ``HOROVOD_GUARD=1`` for s in 1, 2, 3, one rank, 1 + 4 healthy calls
+  and one whose backward a chaos spec seeds with NaN. Gates: the stripe
+  (and below zero3 every parameter) after the healthy calls bitwise the
+  unguarded zero train run's after as many steps; the NaN call skipped
+  with the stripe, AdamW's state and the parameters bitwise kept; one
+  health row a step; every flash launch on the tensor-core route.
+  Prints ``guard_overhead_frac`` a stage against the zero train phase's
+  replays. A spec or a staged DCN exchange needs two ranks, which NCCL
+  refuses on one card: their guard is checked on the CPU over gloo;
 
 - guard (main path guard): the flagship at 4 x 4096, AdamW with its rate
   a card tensor, through ``compiled_train_step`` and the eager
@@ -320,9 +332,19 @@ Fault tolerance has three phases of its own, after the zero train phase:
 Their figures are repeated in a ``{"fault_tolerance": ...}`` line before
 the kernels line.
 
-The autotuner and the launcher have three phases of their own,
-after the eager 2-rank phase, and the control plane's rows after the
-bench phase:
+The autotuner and the launchers have four phases of their own, after
+the eager 2-rank phase (Spark's after the elastic ranks phase), and the
+control plane's rows after the bench phase:
+
+- spark (main path spark; parity, not a speed): ``spark.run`` with the
+  local backend, two task processes on this card over a gloo group of
+  their own (``chip_smoke.spark_rank``, imported by name), each
+  training the narrow transformer 2 steps on one seeded batch; the
+  results come back through the driver service. Gates: ranks in order,
+  both ranks' parameters bitwise equal to each other and to the same
+  steps run in this process at one rank, equal losses, every flash
+  launch on the tensor-core route; the wall time of ``spark.run`` is
+  printed;
 
 - autotune (main path autotune): the flagship at 4 x 4096 as the eager
   engine phase trains it, under ``HOROVOD_AUTOTUNE=1`` (one warm-up
@@ -2601,8 +2623,11 @@ def phase_zero_train(hvd, fa, tfm, metrics, card, where, stage0):
     stages run in one session: a dropped step's program leaves the
     session's cache with its model and optimizer, so each stage's peak
     must lie within ZERO_PEAK_SLACK_GIB of the peak it reached in a
-    session of its own (ZERO_SESSION_PEAK_GIB). Returns {kernel:
-    launches} of the compiled steps, summed over the stages."""
+    session of its own (ZERO_SESSION_PEAK_GIB). Returns ({kernel:
+    launches} of the compiled steps, summed over the stages, and for
+    :func:`phase_zero_guard` the weights, the batch and each stage's
+    stripe (and parameters below stage 3) after GUARD_STEPS steps and
+    its replay median)."""
     print("zero train: no staged step on this card: two DCN stages need "
           "two ranks at least and NCCL refuses two ranks on one card, so "
           "the staged exchange and its bf16/int8 hops are checked on the "
@@ -2635,6 +2660,7 @@ def phase_zero_train(hvd, fa, tfm, metrics, card, where, stage0):
 
     hvd.init(device=card)
     stats = hvd.runtime.live_state().stats
+    plain = {"init": init, "tokens": tokens, "targets": targets}
     for stage in ZERO_STAGES:
         t0 = time.perf_counter()
         lm, opt = build(stage)
@@ -2680,8 +2706,16 @@ def phase_zero_train(hvd, fa, tfm, metrics, card, where, stage0):
         rs0, ag0 = (stats.counter("reducescatter_jit"),
                     stats.counter("allgather_jit"))
         launches0 = read_launches(fa)
-        replays = [timed(lambda: step(tokens, targets))
-                   for _ in range(REPLAYS)]
+        replays = []
+        for i in range(REPLAYS):
+            replays.append(timed(lambda: step(tokens, targets)))
+            if COMPILED_STEPS + i + 1 == GUARD_STEPS:
+                # the state after 1 + 4 steps, which the guarded stage
+                # must reach bit for bit (phase_zero_guard); host copies,
+                # so the peak below does not move
+                plain[stage] = {"stripe": opt.stripe.detach().cpu(),
+                                "params": None if stage == 3 else
+                                [p.detach().cpu() for p in lm.parameters()]}
         torch.cuda.synchronize()
         launches = read_launches(fa)
         for k, v in launches.items():
@@ -2693,6 +2727,7 @@ def phase_zero_train(hvd, fa, tfm, metrics, card, where, stage0):
         losses += [x[0].item() for x in replays]
         replay_ms = [a.elapsed_time(b) for _, (a, b) in replays]
         median = float(np.median(replay_ms))
+        plain[stage]["step_ms"] = median
         peak = torch.cuda.max_memory_allocated()
         gauges = metrics.ZERO_STRIPE_BYTES.collect()
         stripe = opt.stripe.numel()
@@ -2760,7 +2795,135 @@ def phase_zero_train(hvd, fa, tfm, metrics, card, where, stage0):
     hvd.shutdown()
     del init
     os.environ.pop("HOROVOD_PROFILER_JIT_CALLBACKS")
-    return total
+    return total, plain
+
+
+# The guard over a ZeRO stripe (main path zero_guard): each stage's
+# compiled step under HOROVOD_GUARD=1, 1 + 4 healthy calls, then one
+# whose backward the chaos spec seeds with NaN.
+ZERO_GUARD_INJECT = "nan,name=zero.guard,step=5"
+
+
+def _zero_gated(lm, opt, stage):
+    """Card copies of what a skipped ZeRO step must keep: the stripe,
+    AdamW's state over it, and the parameters unless the stripe is
+    resident (zero3 gathers them anew each step)."""
+    out = [opt.stripe.detach().clone()] + [
+        v.clone() for _, v in sorted(opt.state[opt.stripe].items())]
+    if stage != 3:
+        out += [p.detach().clone() for p in lm.parameters()]
+    return out
+
+
+def phase_zero_guard(hvd, fa, tfm, card, where, plain):
+    """Main path zero_guard: the flagship at 4 x 4096 through the
+    compiled ``DistributedOptimizer(AdamW, zero_stage=s)`` step under
+    HOROVOD_GUARD=1 for s in 1, 2, 3, one rank, from the zero train
+    phase's weights and batch (``plain``): 1 + 4 healthy calls, then a
+    call whose backward the chaos spec seeds with NaN. Gates: after the
+    healthy calls the stripe (and, below zero3, every parameter) equals
+    the unguarded run's after as many steps bit for bit (at one rank
+    that run equals stage 0's, checked in the zero train phase); the NaN
+    call is skipped with the stripe, AdamW's state and the parameters
+    bitwise unchanged; one health row a step; 1 cache miss, 0
+    fallbacks; every flash launch on the tensor-core route. Prints
+    ``guard_overhead_frac`` a stage: the replay median (CUDA events
+    around the call, as the zero train phase times the unguarded
+    replays; the guarded call reads the previous step's row first)
+    against the unguarded one. Returns ({kernel: launches}, row)."""
+    print("zero guard: no guarded spec or staged DCN step on this card: "
+          "they need two ranks at least and NCCL refuses two ranks on one "
+          "card, so the guard over a sharding spec and over the staged "
+          "exchange is checked on the CPU over gloo only "
+          "(tests/test_torch_zero_guard.py)", flush=True)
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
+                                loss_chunk=LOSS_CHUNK, **FLAGSHIP)
+    tokens, targets = plain["tokens"], plain["targets"]
+    row = {}
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        return start, end
+
+    os.environ.update(HOROVOD_GUARD="1", HOROVOD_GUARD_INJECT=ZERO_GUARD_INJECT)
+    try:
+        hvd.init(device=card)
+        zero_launches(fa)
+        for stage in ZERO_STAGES:
+            t0 = time.perf_counter()
+            lm = tfm.TransformerLM(cfg, to_card(plain["init"], card),
+                                   device=card)
+            opt = hvd.DistributedOptimizer(
+                torch.optim.AdamW(lm.parameters(), capturable=True,
+                                  **ADAMW),
+                named_parameters=lm.named_parameters(), zero_stage=stage)
+            step = hvd.compiled_train_step(lm.loss, opt,
+                                           name=f"zero.guard.{stage}")
+            if stage == 3:
+                step.shard_params()
+            runs = [timed(lambda: step(tokens, targets))
+                    for _ in range(GUARD_STEPS)]
+            torch.cuda.synchronize()
+            ms = [a.elapsed_time(b) for a, b in runs[WARMUP_STEPS:]]
+            median = float(np.median(ms))
+            want = plain[stage]
+            stripe_same = torch.equal(opt.stripe.detach().cpu(),
+                                      want["stripe"])
+            differ = 0 if want["params"] is None else sum(
+                not torch.equal(p.detach().cpu(), w)
+                for p, w in zip(lm.parameters(), want["params"]))
+            check(stripe_same and differ == 0,
+                  f"zero{stage} guard: after {GUARD_STEPS} healthy steps "
+                  f"the stripe equals the unguarded run's: {stripe_same}; "
+                  f"{differ} parameters differ")
+            check(opt.guard_health.shape == (1, 2),
+                  f"zero{stage} guard: rows {tuple(opt.guard_health.shape)}")
+            before = _zero_gated(lm, opt, stage)
+            step(tokens, targets)                  # the NaN call
+            torch.cuda.synchronize()
+            kept = all(torch.equal(a, b) for a, b in
+                       zip(before, _zero_gated(lm, opt, stage)))
+            del before
+            verdict = step.finish()
+            check(kept, f"zero{stage} guard: the skipped step changed the "
+                        "stripe, AdamW's state or a parameter")
+            check(verdict["action"] == "skip",
+                  f"zero{stage} guard: the NaN step's verdict {verdict}")
+            check((step.cache_misses, step.fallback_steps) == (1, 0),
+                  f"zero{stage} guard: {step.cache_misses} misses, "
+                  f"{step.fallback_steps} fallbacks")
+            frac = median / want["step_ms"] - 1.0
+            row[f"zero{stage}"] = {"guard_ms": median,
+                                   "plain_ms": want["step_ms"],
+                                   "guard_overhead_frac": frac}
+            print(f"zero{stage} guard 4 x 4096 [{where}]: step {median:.1f} "
+                  f"ms (replay, median of {TIMED_STEPS}; "
+                  f"{' '.join(f'{t:.1f}' for t in ms)}) against "
+                  f"{want['step_ms']:.1f} unguarded: guard_overhead_frac "
+                  f"{frac:.4f} (stage 0: 0.0165-0.0221); healthy stripe "
+                  f"bitwise the unguarded one's; NaN skipped with the "
+                  f"stripe, AdamW's state and the parameters bitwise kept; "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            del step, opt, lm
+            gc.collect()
+            torch.cuda.empty_cache()
+        launches = read_launches(fa)
+    finally:
+        hvd.shutdown()
+        for k in ("HOROVOD_GUARD", "HOROVOD_GUARD_INJECT"):
+            os.environ.pop(k, None)
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(launches[k] == 0, f"{k}: the zero guard runs took the loop")
+    calls = len(ZERO_STAGES) * (GUARD_STEPS + 1)
+    for k in ("flash_fwd_wgmma", "flash_bwd_dq_wgmma",
+              "flash_bwd_dkv_wgmma"):
+        check(launches[k] == calls * cfg.n_layers,
+              f"{k}: {launches[k]} launches over {calls} guarded calls")
+    return launches, row
 
 
 # Tensor parallelism on one card: two processes, one model group, joined
@@ -3737,6 +3900,123 @@ EAGER_HIT_RATE_MIN = 0.9
 EAGER_RANKS, EAGER_TIMEOUT_S = 2, 300
 EAGER_STALL_ENV = {"HOROVOD_STALL_CHECK_TIME_SECONDS": "1",
                    "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS": "3"}
+
+
+# The Spark launcher (main path spark): spark.run's local backend, one
+# task process a rank over gloo on this card (NCCL refuses two ranks on
+# one card), the elastic ranks' narrow transformer, 2 steps.
+SPARK_RANKS, SPARK_STEPS, SPARK_START_S = 2, 2, 300
+
+
+def _spark_train(hvd, tfm, card, steps):
+    """``steps`` AdamW steps of the narrow transformer (seed 0) through
+    ``DistributedOptimizer`` on one seeded batch, the same on every
+    rank (the average of equal gradients is their bits); returns (model,
+    losses)."""
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
+                                **ELASTIC_MODEL)
+    lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
+                           device=card)
+    hvd.broadcast_parameters(lm.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(lm.parameters(), **ADAMW),
+        named_parameters=lm.named_parameters())
+    batch = {"t": torch.from_numpy(_token_samples(
+        ELASTIC_BATCH, ELASTIC_SEQ, cfg.vocab_size, 6)).to(card)}
+    losses = []
+    for _ in range(steps):
+        opt.zero_grad(set_to_none=True)
+        loss = lm.loss(*_split_tokens(batch))
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    return lm, losses
+
+
+def _param_hashes(lm):
+    """sha256 of each parameter's bytes, by name."""
+    import hashlib
+    return {n: hashlib.sha256(p.detach().cpu().numpy().tobytes()).hexdigest()
+            for n, p in lm.named_parameters()}
+
+
+def spark_rank(steps, device="cuda"):
+    """What a Spark task runs (``horovod_tpu_torch.spark.run``): the
+    launcher's variables the task set, a gloo group over the job's store
+    (``hvd.init()`` adopts it), the narrow model's ``steps`` steps on the
+    card (``device``: a rehearsal on the CPU passes ``cpu``); returns its
+    parameters' hashes, losses and kernel launches."""
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import flash_attention as fa
+    rank, size = int(os.environ["HOROVOD_RANK"]), int(os.environ["HOROVOD_SIZE"])
+    # every task shares the one card: its local rank names no card here
+    card = torch.device("cuda", 0) if device == "cuda" else torch.device(
+        device)
+    dist.init_process_group(
+        "gloo", store=dist.PrefixStore("smoke/spark/", hvd.runtime.job_store()),
+        rank=rank, world_size=size)
+    hvd.init(device=card)
+    zero_launches(fa)
+    lm, losses = _spark_train(hvd, tfm, hvd.runtime.device(), steps)
+    out = {"rank": hvd.rank(), "size": hvd.size(), "losses": losses,
+           "hashes": _param_hashes(lm), "launches": read_launches(fa)}
+    hvd.shutdown()
+    return out
+
+
+def phase_spark(hvd, fa, tfm, card, where):
+    """Main path spark (parity, not a speed: gloo moves card tensors
+    through the host): ``spark.run(spark_rank, backend="local",
+    num_proc=2)``, each task a process that inits the port on this card
+    and trains the narrow transformer 2 steps; the results come back
+    through the driver service in rank order. Gates: ranks 0 and 1 in
+    order, size 2, both ranks' parameters bitwise equal to each other and
+    to the same 2 steps run in this process at one rank, equal losses,
+    every flash launch on the tensor-core route. Prints the wall time of
+    ``spark.run``. Returns ({kernel: launches} summed over the ranks,
+    row)."""
+    import chip_smoke as module  # the task imports the function by name
+    from horovod_tpu_torch import spark
+    env = {"PYTHONPATH": os.pathsep.join(
+        [REPO_DIR] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    t0 = time.perf_counter()
+    results = spark.run(module.spark_rank, args=(SPARK_STEPS, card.type),
+                        num_proc=SPARK_RANKS, backend="local",
+                        start_timeout=SPARK_START_S, env=env)
+    wall = time.perf_counter() - t0
+    hvd.init(device=card)
+    try:
+        lm, losses = _spark_train(hvd, tfm, card, SPARK_STEPS)
+        want = _param_hashes(lm)
+        del lm
+    finally:
+        hvd.shutdown()
+    check([r["rank"] for r in results] == list(range(SPARK_RANKS))
+          and all(r["size"] == SPARK_RANKS for r in results),
+          f"spark: ranks {[(r['rank'], r['size']) for r in results]}")
+    for r in results:
+        differ = [n for n in want if r["hashes"][n] != want[n]]
+        check(not differ, f"spark rank {r['rank']}: {len(differ)} "
+                          f"parameters differ from the in-process run")
+        check(r["losses"] == losses,
+              f"spark rank {r['rank']}: losses {r['losses']} vs {losses}")
+    launches = {k: sum(r["launches"][k] for r in results)
+                for k in results[0]["launches"]}
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(launches[k] == 0, f"{k}: the spark ranks took the loop")
+    want_n = SPARK_RANKS * SPARK_STEPS * ELASTIC_MODEL["n_layers"]
+    check(launches["flash_fwd_wgmma"] == want_n,
+          f"spark: {launches['flash_fwd_wgmma']} forward launches, "
+          f"{want_n} expected")
+    print(f"spark [{where}]: spark.run(local, num_proc={SPARK_RANKS}) of "
+          f"{SPARK_STEPS} steps {wall:.1f} s wall; losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}; both ranks' parameters "
+          f"bitwise equal to each other and to the in-process run",
+          flush=True)
+    return launches, {"wall_s": wall, "losses": losses}
 
 
 def _align(n, unit=64):
@@ -5406,14 +5686,22 @@ def main():
     del params
     print(f"trace phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    zero_launches_by_stage = phase_zero_train(hvd, fa, tfm, metrics, card,
-                                              where, stage0)
+    zero_launches_by_stage, zero_plain = phase_zero_train(
+        hvd, fa, tfm, metrics, card, where, stage0)
     del stage0
     gc.collect()
     print(f"zero train phase: {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    zero_guard_launches, zero_guard_row = phase_zero_guard(
+        hvd, fa, tfm, card, where, zero_plain)
+    del zero_plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"zero guard phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     guard_launches, fault_row = phase_guard(hvd, fa, tfm, card, where)
+    fault_row["zero_guard"] = zero_guard_row
     print(f"guard phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     elastic_state_launches, fault_row["elastic_state"] = \
@@ -5425,6 +5713,10 @@ def main():
         phase_elastic_ranks(where)
     print(f"elastic ranks phase: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    spark_launches, launch_row["spark"] = phase_spark(hvd, fa, tfm, card,
+                                                      where)
+    print(f"spark phase: {time.perf_counter() - t0:.1f} s", flush=True)
     tp_serve_launches, tp_train_launches = phase_tp(where)
     # flagship-moe's weights, drawn once on the host (seed 0) for every
     # MoE phase
@@ -5514,7 +5806,8 @@ def main():
              "elastic_state": elastic_state_launches,
              "elastic_ranks": elastic_ranks_launches,
              "autotune": autotune_launches, "launcher": launcher_launches,
-             "launcher_ranks": launcher_ranks_launches}
+             "launcher_ranks": launcher_ranks_launches,
+             "zero_guard": zero_guard_launches, "spark": spark_launches}
     for e in entries:
         # a kernel's launches are its tensor-core route's: the main paths
         # launch its loop never (checked in phase_serve and phase_train)

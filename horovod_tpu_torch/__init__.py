@@ -63,7 +63,12 @@ name: ``python -m horovod_tpu_torch.run -np N cmd`` (``run``: gang
 restart, elastic supervision with autoscale, the RPC driver and task
 services), ``autotune`` (``HOROVOD_AUTOTUNE``: the eager engine's fusion
 threshold, cycle time, padding and depth, tuned on process 0) and
-``controlplane.simrank`` (simulated ranks against the coordinator).
+``controlplane.simrank`` (simulated ranks against the coordinator). So
+are ``spark`` (``spark.run(fn, num_proc=N)``: one Spark task, or local
+process, a rank) and the framework bindings ``tensorflow`` (with
+``tensorflow.keras``), ``keras`` and ``mxnet``, which exchange through
+the eager engine; importing this package imports none of them, nor
+TensorFlow or MXNet.
 """
 
 import torch
@@ -80,7 +85,8 @@ from .ops.collectives import (alltoall_chunked,
                               bucketed_reducescatter_allgather,
                               exchange_bucket_plan, grouped_allreduce,
                               hierarchical_allreduce, reducescatter)
-from .ops.compression import Compression
+from .ops.compression import (Compression, Compressor, FP16Compressor,
+                               NoneCompressor)
 from .diag.xla_trace import trace_steps
 from .ops.step_program import CompiledTrainStep, compiled_train_step
 from .optimizers import (DistributedOptimizer, broadcast_optimizer_state,
@@ -89,9 +95,18 @@ from .optimizers import (DistributedOptimizer, broadcast_optimizer_state,
 from .runtime import (AXIS, cross_rank, cross_size, expert_mesh,
                       expert_parallel_size, init, is_initialized, local_rank,
                       local_size, mesh, model_mesh, model_parallel_size,
-                      rank, shutdown, size)
+                      mpi_threads_supported, rank, shutdown, size)
 
 __version__ = "0.2.0"
+
+
+def metrics_snapshot():
+    """The process's metric families as a dict (metrics.py
+    ``snapshot``): the engine, coordinator, collective, step and guard
+    counters. Works before ``init()`` too: the families exist at import
+    and read zero."""
+    return metrics.snapshot()
+
 
 # Auto-generated names for unnamed ops, parity with the reference's
 # "allreduce.noname.%d" counters (torch/mpi_ops_v2.cc:58-62). Every rank
@@ -288,7 +303,8 @@ def synchronize(handle):
 
 
 __all__ = [
-    "AXIS", "CompiledTrainStep", "Compression", "CoordinatorError",
+    "AXIS", "CompiledTrainStep", "Compression", "Compressor",
+    "CoordinatorError", "FP16Compressor", "NoneCompressor",
     "DistributedOptimizer", "DuplicateNameError", "HorovodAllgather",
     "HorovodAllreduce", "HorovodBroadcast", "HorovodError", "MismatchError",
     "NotInitializedError", "ShutDownError", "StalledTensorError",
@@ -301,7 +317,8 @@ __all__ = [
     "cross_size", "expert_mesh", "expert_parallel_size",
     "exchange_bucket_plan", "grouped_allreduce", "hierarchical_allreduce",
     "init", "is_initialized", "local_rank", "local_size", "mesh",
-    "model_mesh", "model_parallel_size", "models", "rank", "reducescatter",
+    "metrics_snapshot", "model_mesh", "model_parallel_size", "models",
+    "mpi_threads_supported", "rank", "reducescatter",
     "serve", "shutdown", "size", "trace_steps",
     "CheckpointCorruptError", "HostsUpdatedError",
     "TransientCollectiveError", "WorkerLostError", "callbacks",

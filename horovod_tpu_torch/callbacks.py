@@ -378,10 +378,12 @@ class GuardCallback(Callback):
     apply point does (the DistributedOptimizer, the compiled step or
     :func:`~horovod_tpu_torch.optimizers.guarded_apply_updates`). No-op
     without the guard. ``striped=True``: ZeRO-3's resident stripe,
-    detection only."""
+    detection only; left None, the probe is striped when ``optimizer``
+    is a ZeRO optimizer whose stripe is resident (a compiled zero3
+    step), and then probes that stripe unless ``get_params`` is given."""
 
     def __init__(self, state=None, optimizer=None, get_params=None,
-                 set_params=None, striped=False):
+                 set_params=None, striped=None):
         self.state = state
         self.optimizer = optimizer
         self._get_params = get_params
@@ -406,9 +408,14 @@ class GuardCallback(Callback):
         monitor = self._monitor()
         if monitor is None:
             return
-        if self._get_params is not None:
-            repaired = monitor.check_divergence(self._get_params(),
-                                                striped=self.striped)
+        resident = getattr(self.optimizer, "_resident", False)
+        striped = resident if self.striped is None else self.striped
+        get_params = self._get_params
+        if get_params is None and resident:
+            get_params = lambda: self.optimizer.stripe.detach()  # noqa: E731
+        if get_params is not None:
+            repaired = monitor.check_divergence(get_params(),
+                                                striped=striped)
             if repaired is not None and self._set_params is not None:
                 self._set_params(repaired)
         if logs is not None and monitor.last_verdict is not None:

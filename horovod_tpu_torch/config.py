@@ -19,11 +19,17 @@ profile, the control plane's tree, graduation and bypass, the KV
 client's retries), the step-integrity guard's (``HOROVOD_GUARD*``),
 elastic training's (``HOROVOD_ELASTIC*``) and the input pipeline's
 (``HOROVOD_DATA_PREFETCH``), autotune's (``HOROVOD_AUTOTUNE*``), the
-launcher's (``HOROVOD_START_TIMEOUT``, ``HOROVOD_LAUNCH_RPC``),
+launcher's (``HOROVOD_START_TIMEOUT``, ``HOROVOD_LAUNCH_RPC``,
+``HOROVOD_ELASTIC_DRAIN_SECONDS``), the Spark driver's
+(``HOROVOD_SPARK_START_TIMEOUT``),
 :data:`FUSION_BUFFER_ATOMIC_UNIT` and
 :func:`next_power_of_two` (the shape bins). Names, defaults and clamps
-are the JAX package's; its ``autotune_gaussian_process_noise``, which
-nothing there reads either, is left out.
+are the JAX package's. Four of its fields are left out: the engine's
+local tier is ``dcn_local_size`` (``HOROVOD_TPU_LOCAL_SIZE`` is the
+launcher's variable here), ``autotune_gaussian_process_noise`` is read
+by nothing there either, and ``log_level`` and ``log_hide_time`` are
+read from the environment by utils/logging.py. ``fusion_donate`` is
+read and ignored: torch donates no buffer to a program.
 """
 
 import dataclasses
@@ -125,6 +131,13 @@ class Config:
     # forces the RPC driver/task-service launch path for local hosts.
     start_timeout: int = 30
     launch_rpc: bool = False
+    # SIGTERM -> SIGKILL escalation of the launcher's and task services'
+    # teardown, and the supervisor's allowance past the grace window
+    # (run/ reads it from the job's environment, which may differ from
+    # this process's).
+    elastic_drain_seconds: float = 3.0
+    # Spark driver: seconds to wait for every task to register.
+    spark_start_timeout: int = 600
     # Step-integrity guard (guard/). Off by default, and then nothing
     # changes: no health rows, no gate, the plain programs. With it on,
     # every bad step is skipped; after guard_lr_backoff_steps
@@ -160,9 +173,14 @@ class Config:
     stall_check_disable: bool = False
     stall_check_time_seconds: float = 60.0
     stall_shutdown_time_seconds: float = 0.0
-    # Two-level allreduce of the eager engine over (cross, local) groups
-    # of dcn_local_size ranks (0: the launcher's HOROVOD_TPU_LOCAL_SIZE).
+    # Two-level allreduce and allgather of the eager engine over
+    # (cross, local) groups of dcn_local_size ranks (0: the launcher's
+    # HOROVOD_TPU_LOCAL_SIZE).
     hierarchical_allreduce: bool = False
+    hierarchical_allgather: bool = False
+    # The JAX package's XLA buffer donation of the fusion buffer: read
+    # and ignored (a torch collective writes its buffer in place).
+    fusion_donate: int = -1
     # Full request lists every cycle instead of the coordinator's
     # epoch-token bypass (measurement knob), and no control-plane ticker.
     coordinator_bypass_disable: bool = False
@@ -290,6 +308,8 @@ class Config:
             "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS",
             c.stall_shutdown_time_seconds)
         c.hierarchical_allreduce = _env_flag("HOROVOD_HIERARCHICAL_ALLREDUCE")
+        c.hierarchical_allgather = _env_flag("HOROVOD_HIERARCHICAL_ALLGATHER")
+        c.fusion_donate = _env_int("HOROVOD_FUSION_DONATE", c.fusion_donate)
         c.coordinator_bypass_disable = _env_flag(
             "HOROVOD_COORDINATOR_BYPASS_DISABLE")
         c.ticker_disable = _env_flag("HOROVOD_TPU_TICKER_DISABLE")
@@ -348,6 +368,10 @@ class Config:
         c.start_timeout = max(_env_int("HOROVOD_START_TIMEOUT",
                                        c.start_timeout), 1)
         c.launch_rpc = _env_flag("HOROVOD_LAUNCH_RPC")
+        c.elastic_drain_seconds = _env_float(
+            "HOROVOD_ELASTIC_DRAIN_SECONDS", c.elastic_drain_seconds)
+        c.spark_start_timeout = max(_env_int(
+            "HOROVOD_SPARK_START_TIMEOUT", c.spark_start_timeout), 1)
         c.metrics_dir = os.environ.get("HOROVOD_METRICS_DIR", "")
         c.metrics_port = _env_int("HOROVOD_METRICS_PORT", c.metrics_port)
         c.metrics_bind = os.environ.get("HOROVOD_METRICS_BIND",

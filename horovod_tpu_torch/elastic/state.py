@@ -5,8 +5,9 @@ Counterpart of horovod_tpu/elastic/state.py (upstream analog: Elastic
 Horovod's ``TorchState``). Fields are declared as constructor kwargs:
 tensors, ``nn.Module``s (their ``state_dict`` tensors),
 ``torch.optim.Optimizer``s (each parameter's state: AdamW's step count
-and moments; the param groups' hyperparameters are not part of a
-commit, so a guard's learning-rate back-off survives a rollback), nested
+and moments; a ZeRO optimizer's stripe and DCN residual too; the param
+groups' hyperparameters are not part of a commit, so a guard's
+learning-rate back-off survives a rollback), nested
 dicts/lists/tuples of them, and Python scalars.
 
 - ``commit()`` snapshots every tensor to host memory, as the reference
@@ -70,15 +71,13 @@ def _snap(value, prev):
         return {k: _snap(v, prev.get(k))
                 for k, v in value.state_dict().items()}
     if isinstance(value, torch.optim.Optimizer):
-        prev = prev if isinstance(prev, list) else []
-        out = []
-        for i, p in enumerate(_optimizer_params(value)):
-            old = prev[i] if i < len(prev) else None
-            st = value.state.get(p, {})
-            out.append(None if not st else
-                       {k: _snap(v, old.get(k) if old else None)
-                        for k, v in st.items()})
-        return out
+        extra = _extra_of(value)
+        if extra is not None:
+            prev = prev if isinstance(prev, dict) else {}
+            return {"state": _snap_state(value, prev.get("state")),
+                    "extra": {k: _snap(v, prev.get("extra", {}).get(k))
+                              for k, v in extra.items()}}
+        return _snap_state(value, prev)
     if isinstance(value, dict):
         prev = prev if isinstance(prev, dict) else {}
         return {k: _snap(v, prev.get(k)) for k, v in value.items()}
@@ -90,6 +89,26 @@ def _snap(value, prev):
     if isinstance(value, _SCALARS):
         return value
     raise TypeError(f"elastic.State cannot snapshot a {type(value)!r}")
+
+
+def _extra_of(opt):
+    """A ZeRO optimizer's tensors beyond its state (the stripe, the DCN
+    residual: ``_ShardedOptimizer.elastic_tensors``), or None."""
+    fn = getattr(opt, "elastic_tensors", None)
+    return fn() if fn is not None else None
+
+
+def _snap_state(opt, prev):
+    """Each parameter's optimizer state, in parameter order."""
+    prev = prev if isinstance(prev, list) else []
+    out = []
+    for i, p in enumerate(_optimizer_params(opt)):
+        old = prev[i] if i < len(prev) else None
+        st = opt.state.get(p, {})
+        out.append(None if not st else
+                   {k: _snap(v, old.get(k) if old else None)
+                    for k, v in st.items()})
+    return out
 
 
 def _put(live, snap):
@@ -110,6 +129,12 @@ def _put(live, snap):
     if isinstance(live, torch.optim.Optimizer):
         if hasattr(live, "reset_exchange"):
             live.reset_exchange()  # a DistributedOptimizer's cut exchange
+        if isinstance(snap, dict):
+            # a ZeRO optimizer: the stripe and the residual, in place
+            extra = _extra_of(live) or {}
+            for k, v in snap["extra"].items():
+                _put(extra[k], v)
+            snap = snap["state"]
         for p, st in zip(_optimizer_params(live), snap):
             if st is None:
                 live.state.pop(p, None)
@@ -158,9 +183,12 @@ def _tensors_of(value):
     if isinstance(value, torch.nn.Module):
         return list(value.state_dict().values())
     if isinstance(value, torch.optim.Optimizer):
+        # a ZeRO optimizer's state over its stripe is this rank's own:
+        # only its step counts are everyone's
+        own = getattr(value, "_hvd_sharded_state", False)
         return [v for p in _optimizer_params(value)
                 for _, v in sorted(value.state.get(p, {}).items())
-                if torch.is_tensor(v)]
+                if torch.is_tensor(v) and not (own and v.dim() > 0)]
     if isinstance(value, dict):
         return [t for k in sorted(value, key=str)
                 for t in _tensors_of(value[k])]
@@ -333,8 +361,9 @@ class State:
         """Roll back to the last commit, in place. A fresh process (no
         in-memory commit) restores the newest grace snapshot if a
         draining gang left one, else the newest valid durable
-        checkpoint; with neither, the initial fields stand. Reset
-        callbacks run afterwards."""
+        checkpoint; with neither, the initial fields stand. A ZeRO
+        optimizer's stripe, state and DCN residual come back with the
+        commit. Reset callbacks run afterwards."""
         grace = None
         if self._committed is None and self._grace_dir:
             grace = self._latest_grace(self._grace_dir)
@@ -350,6 +379,16 @@ class State:
                 self._commits = max(self._commits, int(latest))
         for fn in self._reset_callbacks:
             fn()
+
+    def zero_residuals(self):
+        """Zero the DCN error-feedback residual of every ZeRO optimizer
+        field, after a rollback the guard or the divergence probe
+        ordered: the compression error of the abandoned steps must not
+        feed the next exchange (the JAX package's chaos run zeroes the
+        restored ``ZeroShardState.residual`` likewise)."""
+        for v in self._fields.values():
+            if hasattr(v, "zero_residual"):
+                v.zero_residual()
 
     def sync(self, root_rank=0):
         """Broadcast the fields from ``root_rank`` (tensors in place, the

@@ -205,6 +205,9 @@ class GuardMonitor:
         diag.dump_post_mortem("guard_rollback", extra={"verdict": verdict},
                               force=True)
         self._state.restore()
+        zero = getattr(self._state, "zero_residuals", None)
+        if zero is not None:
+            zero()
         verdict["rolled_back_to_commit"] = int(
             getattr(self._state, "_commits", 0))
 

@@ -14,14 +14,16 @@ the DCN-staged exchange of the ZeRO ladder
 :func:`dcn_sigma`), the model axis's collectives of tensor
 parallelism (:func:`_psum`, :func:`_pmax`, :func:`_gather_vocab`,
 :func:`_axis_index`), and the guard's health rows
-(:func:`segment_health`, :func:`tree_health`). Each function runs on ``torch.distributed`` and
-records every execution in the session's stats (stats.py): op, wire
-bytes, time from launch to completion; the collectives the JAX package
-only ever runs inside a jitted program (the all-to-all, the
-reduce-scatter family, the staged exchange) record as ``<op>_jit`` with
-no time, once a call, with the JAX package's byte counts. The remaining
-collectives wait for ROADMAP.md, Queue 1 item 3 (each marked there with
-the item that needs it).
+(:func:`segment_health`, :func:`tree_health`, and
+:func:`reduced_health` for leaves that differ across ranks: a sharded
+leaf's, or a ZeRO stripe's). Each function runs on
+``torch.distributed`` and records every execution in the session's
+stats (stats.py): op, wire bytes, time from launch to completion; the
+collectives the JAX package only ever runs inside a jitted program (the
+all-to-all, the reduce-scatter family, the staged exchange) record as
+``<op>_jit`` with no time, once a call, with the JAX package's byte
+counts. Every public function of horovod_tpu/ops/collectives.py has a
+counterpart here; its ``rank_index`` is :func:`_axis_index`.
 
 In the JAX package these run inside a mapped program over a mesh axis;
 here each rank is a process and calls them eagerly, in the same order on
@@ -236,6 +238,45 @@ def tree_health(leaves):
     if not rows:
         return torch.zeros((0, 2), dtype=torch.float32, device=device)
     return torch.stack(rows)
+
+
+def health_stats(leaves):
+    """``(2, L)`` float32: each leaf's count of non-finite elements and
+    the sum of squares of its finite ones, the sums
+    :func:`reduced_health` adds up over ranks."""
+    bads, sqs = [], []
+    for leaf in leaves:
+        x = leaf.reshape(-1).float()
+        finite = torch.isfinite(x)
+        bads.append((~finite).sum().float())
+        sqs.append(torch.where(finite, x * x, 0.0).sum())
+    return torch.stack([torch.stack(bads), torch.stack(sqs)])
+
+
+def reduced_health(leaves, axes=()):
+    """Per-leaf ``[finite, l2]`` rows of leaves whose values differ
+    across the ranks of ``axes`` (a tuple of :class:`Axis`): the
+    :func:`health_stats` of each rank, all-reduced over each axis's
+    group in turn, then ``[count == 0, sqrt(sum of squares)]``. The rows
+    are the same on every rank of the axes, so every rank gates alike.
+    The JAX package's rows for expert- or model-sharded leaves
+    (``lax.psum`` of the stats over the leaves' missing axes,
+    horovod_tpu/ops/step_program.py:459-482, :520-546) and for a
+    resident stripe (psummed over every mesh axis, :493-511). With no
+    axis of more than one rank these are :func:`tree_health`'s rows."""
+    if not leaves:
+        return torch.zeros((0, 2), dtype=torch.float32)
+    return health_rows(health_stats(leaves), axes)
+
+
+def health_rows(stats, axes=()):
+    """``[count == 0, sqrt(sum of squares)]`` rows of :func:`health_stats`
+    columns, each summed over the groups of ``axes`` first."""
+    for ax in axes:
+        if ax.size > 1:
+            dist.all_reduce(stats, group=ax.group)
+    return torch.stack([(stats[0] == 0).float(), torch.sqrt(stats[1])],
+                       dim=1)
 
 
 def health_ok(health):

@@ -77,6 +77,7 @@ from collections import OrderedDict, deque
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from .. import diag, guard, metrics
 from .. import timeline as tl
@@ -443,11 +444,16 @@ class EagerEngine:
         self._response_cache = NativeResponseCache(self._native_lib,
                                                    config.cache_capacity)
         self._local_ranks = [self.rank]
-        # Two-level allreduce over (cross, local) groups of
-        # ``local_size`` ranks (reference: NCCLHierarchicalAllreduce).
+        # Two-level allreduce and allgather over (cross, local) groups
+        # of ``local_size`` ranks (reference: NCCLHierarchicalAllreduce,
+        # MPIHierarchicalAllgather), each under its own flag.
         self._hier = None
-        if config.hierarchical_allreduce:
+        if config.hierarchical_allreduce or config.hierarchical_allgather:
             self._init_hierarchical(local_size)
+        self._hier_ar = (self._hier if config.hierarchical_allreduce
+                         else None)
+        self._hier_ag = (self._hier if config.hierarchical_allgather
+                         else None)
         self._multihost = self.num_ranks > 1
         self._coord = None
         self._ticker = None
@@ -512,15 +518,15 @@ class EagerEngine:
         return prog, hit, self._step_cache.hits, self._step_cache.misses
 
     def _init_hierarchical(self, local):
-        """The (cross, local) mesh hierarchical allreduces run over, or a
-        loud warning when the topology has no two tiers (a user setting
-        HOROVOD_HIERARCHICAL_ALLREDUCE must never get silent flat
-        behavior)."""
+        """The (cross, local) mesh hierarchical collectives run over, or
+        a loud warning when the topology has no two tiers (a user setting
+        HOROVOD_HIERARCHICAL_ALLREDUCE or _ALLGATHER must never get
+        silent flat behavior)."""
         from ..parallel.mesh import hierarchical_axes, hierarchical_mesh
         if (local <= 1 or local >= self.num_ranks
                 or self.num_ranks % local != 0):
             _logger.warning(
-                "HOROVOD_HIERARCHICAL_ALLREDUCE requested but the "
+                "HOROVOD_HIERARCHICAL_ALLREDUCE/ALLGATHER requested but the "
                 "topology has no two-level structure (local_size=%d of %d "
                 "ranks); falling back to flat collectives. Set "
                 "HOROVOD_DCN_LOCAL_SIZE to define the local tier.",
@@ -1360,7 +1366,7 @@ class EagerEngine:
         total = sum(counts)
         if self.config.padding_algo == 1:
             total = next_power_of_two(total)
-        if self._hier is not None:
+        if self._hier_ar is not None:
             local = self.hier_local_size
             total = ((total + local - 1) // local) * local
         return total
@@ -1457,7 +1463,7 @@ class EagerEngine:
                     buf.copy_(corrupted)
             start = self._clock_start()
             fill = None if fill_start is None else (fill_start, start)
-            if self._hier is not None:
+            if self._hier_ar is not None:
                 self._guarded_wire(lambda: self._hier_allreduce(buf),
                                    "allreduce")
                 work = _DONE
@@ -1489,10 +1495,24 @@ class EagerEngine:
         """The two-level sum of ``buf`` in place (ops/collectives.py
         ``hierarchical_allreduce``, its own stats record suppressed: the
         engine records the bucket)."""
-        mesh, (ici, dcn) = self._hier
+        mesh, (ici, dcn) = self._hier_ar
         with untraced():
             buf.copy_(hierarchical_allreduce(buf, ici, dcn, average=False,
                                              mesh=mesh))
+
+    def _hier_allgather(self, gather, out, block):
+        """The two-stage allgather of ``block`` into ``out``: within the
+        local tier first, then across hosts, whose blocks arrive in
+        (cross, local) order, the global rank order (the JAX package's
+        ``_jit_allgather_rows_hier``). Returns the cross stage's Work."""
+        mesh = self._hier_ag[0]
+        local = self.hier_local_size
+        host = block.new_empty((local * block.shape[0],) + block.shape[1:])
+        with record_function("hvd_ici"):
+            gather(host, block, group=mesh.get_group("local"))
+        with record_function("hvd_dcn"):
+            return gather(out, host, group=mesh.get_group("cross"),
+                          async_op=True)
 
     def _scatter_fused_results(self, batch, offsets, buf):
         """Unfuse a completed bucket into per-handle results (reference:
@@ -1605,6 +1625,8 @@ class EagerEngine:
             # all_gather_into_tensor)
             fn = getattr(dist, "all_gather_single", None) \
                 or dist.all_gather_into_tensor
+            if self._hier_ag is not None:
+                return self._hier_allgather(fn, gathered, block)
             return fn(gathered, block, async_op=True)
 
         def finish():

@@ -39,12 +39,14 @@ own counts: ops/flash_attention.py ``count_flops``), for MFU.
 Under ``HOROVOD_GUARD`` a step is built as a separate program (its
 signature says ``"health"``; without the guard the plain program is
 the one it always was): after the exchange it computes the guard's
-health rows on the reduced gradients (ops/collectives.py), holds the
-parameters and every tensor of the optimizer's state (AdamW's step
-count and both moments), runs the update, and puts the held values back
-where the rows are not all finite (``torch.where`` on a 0-d device
-predicate: the bits of a skipped step are the old ones, those of a
-healthy step the update's, and the replay reads no value on the host).
+health rows on the reduced gradients (ops/collectives.py; a ZeRO
+optimizer's one row over its gradient stripe), holds the parameters,
+a ZeRO optimizer's stripe and every tensor of the optimizer's state
+(AdamW's step count and both moments), and, before the exchange, the
+DCN residual, runs the update, and puts the held values back where the
+rows are not all finite (``torch.where`` on a 0-d device predicate: the
+bits of a skipped step are the old ones, those of a healthy step the
+update's, and the replay reads no value on the host).
 The rows go to pinned memory by a non-blocking copy behind an event,
 and the monitor folds them at the next call or at :meth:`finish`
 (``GuardMonitor.consume_deferred``), where the ladder's back-off (a
@@ -351,11 +353,15 @@ class CompiledTrainStep:
     :meth:`shard_params` loads new ones.
 
     Under ``HOROVOD_GUARD`` (module docstring) the step gates its update
-    on the card: a ``DistributedOptimizer`` at ``zero_stage=0`` (its
-    health rows from its synchronize) or a plain optimizer (rows over
-    the averaged gradients); a ZeRO optimizer refuses the guard at its
-    construction. The previous step's verdict is folded at the top of
-    each call and by :meth:`finish`.
+    on the card: a ``DistributedOptimizer`` (its health rows from its
+    synchronize, in any layout) or a plain optimizer (rows over the
+    averaged gradients). The gate holds a ZeRO optimizer's stripe and
+    its state, the parameters unless the stripe is resident, and the
+    DCN residual as it was before the exchange. The previous step's
+    verdict is folded at the top of each call and by :meth:`finish`. A
+    chaos ``corrupt`` spec naming the step perturbs this rank's
+    parameters (or resident stripe) by a finite amount before the call,
+    for the divergence probe to find.
 
     Fallback (``hvd_step_fallback_total`` by reason): the eager step
     runs instead under ``HOROVOD_STEP_PROGRAM=0`` (``disabled``),
@@ -399,12 +405,12 @@ class CompiledTrainStep:
         self.fallback_steps = 0
         # whole-program FLOPs of the last step (every rank's), for MFU
         self.flops_per_step = 0.0
-        # The guard: the hooks' optimizer (its health rows) or a plain
-        # one (rows over the averaged gradients) gates on the card
-        self._guardable = tag == "hooks" or not wrapped
+        # The guard: a DistributedOptimizer's health rows (any layout) or
+        # a plain optimizer's (over the averaged gradients) gate on the
+        # card
         self._guard_pending = None   # (names, rows, ready event)
         self._pinned = None          # the rows' pinned host buffer
-        self._held = ([], [])        # (tensors gated, their held copies)
+        self._held = {}              # slot -> (ids gated, held copies)
         self._seed = None            # guarded backward's seed (0-d)
         self._state_changed = False
 
@@ -495,23 +501,35 @@ class CompiledTrainStep:
             self._optimizer.step()
         return loss.detach()
 
-    def _gated(self):
-        """The tensors a guarded update may change: the parameters and
-        every tensor of their optimizer state."""
-        state = self._optimizer.state
-        return [p for p in self._params] + [
-            v for p in self._params for _, v in sorted(
-                state.get(p, {}).items()) if torch.is_tensor(v)]
+    def _owners(self):
+        """The tensors the optimizer steps, whose state a guarded update
+        may change: a ZeRO optimizer's stripe, else the parameters."""
+        stripe = getattr(self._optimizer, "stripe", None)
+        return [stripe] if stripe is not None else self._params
 
-    def _hold(self, live):
+    def _gated(self):
+        """The tensors a guarded update may change: the parameters (not a
+        resident stripe's, which each step gathers anew), a ZeRO
+        optimizer's stripe, and every tensor of the optimizer's state.
+        The DCN residual, which the exchange changes, is held apart."""
+        state = self._optimizer.state
+        owners = self._owners()
+        live = [] if self._resident else list(self._params)
+        if owners is not self._params:
+            live += owners
+        return live + [v for p in owners for _, v in sorted(
+            state.get(p, {}).items()) if torch.is_tensor(v)]
+
+    def _hold(self, slot, live):
         """Copies of ``live``, into buffers kept across steps (a captured
         step writes and reads the same ones every replay)."""
-        keys, held = self._held
+        keys, held = self._held.get(slot, ([], []))
         if [id(t) for t in live] != keys:
             held = [torch.empty_like(t) for t in live]
-            self._held = ([id(t) for t in live], held)
-        with torch.no_grad():
-            torch._foreach_copy_(held, live)
+            self._held[slot] = ([id(t) for t in live], held)
+        if live:
+            with torch.no_grad():
+                torch._foreach_copy_(held, live)
         return held
 
     def _guarded_step(self, batch, buckets):
@@ -519,10 +537,16 @@ class CompiledTrainStep:
         loss and the health rows, both on the device."""
         opt = self._optimizer
         opt.zero_grad(set_to_none=True)
+        if self._resident:
+            opt.materialize()
         with record_function("hvd_forward"):
             loss = self._loss_fn(*batch)
         with record_function("hvd_backward"):
             loss.backward(self._seed.to(loss.dtype))
+        residual = getattr(opt, "_residual", None)
+        carry = [] if residual is None else [residual]
+        with record_function("hvd_guard"):
+            carry_held = self._hold("residual", carry)
         with record_function("hvd_exchange"):
             if self._exchange == "psum":
                 self._psum(buckets)
@@ -531,20 +555,21 @@ class CompiledTrainStep:
                 opt.synchronize()
                 health = opt.guard_health
         state = opt.state
-        had = {p: set(state.get(p, {})) for p in self._params}
+        owners = self._owners()
+        had = {p: set(state.get(p, {})) for p in owners}
         with record_function("hvd_guard"):
             ok = health_ok(health)
             live = self._gated()
-            held = self._hold(live)
+            held = self._hold("update", live)
         with record_function("hvd_optimizer"):
             if self._exchange == "psum":
                 opt.step()
             else:
                 opt.inner_step()
         with record_function("hvd_guard"), torch.no_grad():
-            for t, h in zip(live, held):
+            for t, h in zip(live + carry, held + carry_held):
                 torch.where(ok, t, h, out=t)
-        fresh = [p for p in self._params
+        fresh = [p for p in owners
                  if set(state.get(p, {})) != had[p]]
         self._state_changed = bool(fresh)
         if fresh:
@@ -615,14 +640,12 @@ class CompiledTrainStep:
         buckets = self._bucket_count(cfg)
         if self._resident and not self._optimizer._resident:
             self._optimizer.shard()
+        inject = guard.inject.get()
+        if inject is not None and inject.on_step(self.name):
+            self._chaos_perturb()
         monitor = guard.get()
         health = monitor is not None
         if health:
-            if not self._guardable:
-                raise NotImplementedError(
-                    f"HOROVOD_GUARD is set, but the guard's gate for "
-                    f"exchange mode {self._exchange!r} is not ported yet "
-                    f"(ROADMAP.md, Queue 1 item 15's leftovers)")
             self._flush_guard(monitor)
             self._fill_seed(st.device)
         if not step_program_enabled(cfg):
@@ -657,6 +680,20 @@ class CompiledTrainStep:
             loss = self._defer_health(*loss)
         # a replay's loss is the graph's static output: keep a copy
         return loss.clone() if captured else loss
+
+    def _chaos_perturb(self):
+        """The chaos ``corrupt`` spec naming this step: add 1e3 to the
+        first element of this rank's first floating parameter (the
+        stripe, where it is resident), before the program runs. Finite,
+        so the gate lets it through: the divergence probe must catch it
+        (the JAX package's ``_chaos_perturb``)."""
+        stripe = getattr(self._optimizer, "stripe", None)
+        leaves = [stripe] if self._resident else self._params
+        for t in leaves:
+            if t.is_floating_point() and t.numel():
+                with torch.no_grad():
+                    t.view(-1)[0] += 1e3
+                return
 
     def _fill_seed(self, device):
         """Set the guarded backward's seed for this call: NaN when a

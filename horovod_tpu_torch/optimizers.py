@@ -46,10 +46,16 @@ row a parameter, on each REDUCED flat buffer before its division) in
 :meth:`synchronize`, and :meth:`step` hands them to the monitor and
 applies the update only on its "apply" verdict (a skip leaves the
 parameters and the optimizer's state untouched); the compiled step
-gates the same rows on the card instead (ops/step_program.py).
-:func:`guarded_apply_updates` is the one-line apply point for a loop
-whose gradients went through the eager engine. A ZeRO optimizer
-refuses the guard (the stripe's gate is ROADMAP.md's item 15 leftover).
+gates the same rows on the card instead (ops/step_program.py). A leaf
+sharded over expert or model axes differs across them after its
+exchange, so its row sums its non-finite count and sum of squares over
+those axes first (ops/collectives.py ``reduced_health``), and every rank
+takes the same verdict. A ZeRO optimizer's rows come from its
+exchange too (:meth:`_ShardedOptimizer._guard_rows`): one row over the
+gradient stripe at stages 1-3, a row a parameter at stage 0 with
+``dcn_compression``; a skip leaves its stripe, its state and its DCN
+residual as they were. :func:`guarded_apply_updates` is the one-line
+apply point for a loop whose gradients went through the eager engine.
 The ``nan`` chaos spec poisons a bucket's flat buffer before its
 all-reduce (name ``<optimizer class>.grads.bucket<b>``) on an eager
 step.
@@ -80,8 +86,9 @@ from .ops.collectives import (Exchange, _all_gather, _nbytes,
                               _reduce_scatter, _rs_bucket_bytes, broadcast_,
                               dcn_sigma, dcn_staged_all_gather,
                               dcn_staged_psum_scatter, exchange_bucket_plan,
-                              flatten_by_dtype, mesh_axes,
-                              normalize_dcn_local_size, segment_health,
+                              flatten_by_dtype, health_rows, health_stats,
+                              mesh_axes, normalize_dcn_local_size,
+                              reduced_health, segment_health,
                               start_allreduce, unflatten, world_axis)
 from .ops.compression import (BF16Compressor, Compression, Int8Compressor,
                               NoneCompressor)
@@ -139,6 +146,10 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._group_of = {p: (spec.group_for(ls.reduce),
                               spec.size_of(ls.denom))
                           for p, ls in zip(params, lspecs)}
+        # the axes a sharded leaf's reduced gradient still differs along
+        # (those its exchange leaves out), which its health row sums over
+        self._shard_axes = {p: spec.missing_axes(ls.reduce)
+                            for p, ls in zip(params, lspecs)}
         self._allreduce_delay = {p: backward_passes_per_step for p in params}
         self.plan_exchange(exchange_buckets)
         self._inflight = {}  # bucket -> (exchange, [(indices, flat)], ctxs)
@@ -252,6 +263,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         for p, ls in zip(late, lspecs):
             self._group_of[p] = (self._spec.group_for(ls.reduce),
                                  self._spec.size_of(ls.denom))
+            self._shard_axes[p] = self._spec.missing_axes(ls.reduce)
             self._allreduce_delay[p] = self.backward_passes_per_step
             self._bucket_of[p] = b
             self._hook_handles.append(
@@ -292,13 +304,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             exchange.wait()
             for idx, flat, denom in groups:
                 if health is not None:
-                    segs, off = [], 0
-                    for i in idx:
-                        n = params[i].numel()
-                        segs.append((off, n))
-                        off += n
-                    for i, row in zip(idx, segment_health(flat, segs)):
-                        health[params[i]] = row
+                    self._note_health(health, [params[i] for i in idx], flat)
                 flat = self._compression.decompress(
                     flat, compressed[idx[0]][1])
                 flat.div_(denom)
@@ -312,10 +318,45 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._inflight.clear()
         self._synchronized = True
         if health is not None:
-            self.guard_health = torch.stack(
-                [health[p] for p in self._allreduce_delay])
+            self.guard_health = self._health_rows(health)
             self.guard_names = [self._guard_names.get(id(p), f"param.{i}")
                                 for i, p in enumerate(self._allreduce_delay)]
+
+    def _note_health(self, health, params, flat):
+        """The health of each parameter's segment of a reduced flat
+        buffer, before its division: a ``[finite, l2]`` row where the
+        buffer is the same on every rank, else (a sharded leaf) its
+        :func:`health_stats`, summed over its shard axes once every
+        bucket is in (:meth:`_health_rows`)."""
+        segs, off = [], 0
+        for p in params:
+            segs.append((off, p.numel()))
+            off += p.numel()
+        plain = [k for k, p in enumerate(params) if not self._shard_axes[p]]
+        for k, row in zip(plain, segment_health(flat, [segs[k]
+                                                       for k in plain])):
+            health[params[k]] = row
+        for k, p in enumerate(params):
+            if self._shard_axes[p]:
+                o, n = segs[k]
+                health[p] = health_stats([flat[o:o + n]])[:, 0]
+
+    def _health_rows(self, health):
+        """The step's rows in parameter order: the sharded leaves' stats
+        all-reduced over their shard axes (one all-reduce an axis set,
+        in parameter order, the same on every rank) and turned into
+        rows, so every rank takes the same verdict (the JAX package's
+        ``lax.psum`` over the missing axes)."""
+        params = list(self._allreduce_delay)
+        by_axes = {}
+        for p in params:
+            if self._shard_axes[p]:
+                by_axes.setdefault(self._shard_axes[p], []).append(p)
+        for names, members in by_axes.items():
+            rows = health_rows(torch.stack([health[p] for p in members], 1),
+                               (mesh_axes(self._spec._mesh, names),))
+            health.update(zip(members, rows))
+        return torch.stack([health[p] for p in params])
 
     def step(self, closure=None, synchronize=True):
         """Synchronize (unless told not to) and step the wrapped
@@ -525,6 +566,11 @@ class _ShardingSpec:
         if set(axes) == set(self.mesh_axes):
             return None
         return mesh_axes(self._mesh, axes).group
+
+    def missing_axes(self, reduce):
+        """The mesh axes a leaf reduced over ``reduce`` is sharded along
+        (its values differ across them), in mesh order."""
+        return tuple(a for a in self.mesh_axes if a not in reduce)
 
     def size_of(self, axes):
         """The product of the sizes of ``axes``."""
@@ -860,16 +906,13 @@ class _ShardedOptimizer(torch.optim.Optimizer):
 
     In a compiled zero3 step (ops/step_program.py) the stripe is
     resident: :meth:`materialize` gathers it into the parameters at the
-    start of each step, and the step leaves them stale."""
+    start of each step, and the step leaves them stale.
+
+    An ``elastic.State`` commit holds the stripe, its state and the DCN
+    residual (:meth:`elastic_tensors`) beside the model's parameters."""
 
     def __init__(self, groups, params, names, core, spec, zero_stage,
                  backward_passes_per_step):
-        if config_mod.Config.from_env().guard:
-            raise NotImplementedError(
-                "HOROVOD_GUARD is set, but the guard's gate over a ZeRO "
-                "stripe (or a staged DCN exchange) is not ported yet "
-                "(ROADMAP.md, Queue 1 item 15's leftovers); the guard "
-                "runs with DistributedOptimizer at zero_stage=0")
         super(self.__class__, self).__init__(groups)
         self.backward_passes_per_step = backward_passes_per_step
         self.expert_keys = () if spec is None else spec.expert_keys
@@ -895,6 +938,19 @@ class _ShardedOptimizer(torch.optim.Optimizer):
         rlen = core.residual_len(self._total, self._n, self._acc.itemsize)
         self._residual = (params[0].new_zeros(rlen, dtype=self._acc)
                           if rlen else None)
+        # the guard's rows of the last synchronize (None without it) and
+        # the residual as it was before that exchange, put back on a skip
+        self.guard_health = None
+        self.guard_names = []
+        self._residual_held = None
+        self._names = [n or f"param.{i}" for i, n in enumerate(names)]
+        # the axes a leaf's exchanged gradient still differs along (the
+        # spec's non-data axes), which its stage-0 health row sums over
+        self._health_axes = ()
+        if spec is not None and not self._striped:
+            extra = [a for a in spec.mesh_axes if a not in spec.data_axes]
+            if extra:
+                self._health_axes = (mesh_axes(spec._mesh, extra),)
         if self._striped:
             self._stripe_gauges()
 
@@ -956,6 +1012,11 @@ class _ShardedOptimizer(torch.optim.Optimizer):
 
     def _synchronize(self):
         n, params = self._n, self._params
+        guarded = guard.get() is not None
+        if guarded and self._residual is not None:
+            if self._residual_held is None:
+                self._residual_held = torch.empty_like(self._residual)
+            self._residual_held.copy_(self._residual)
         leaves = [(p.grad if p.grad is not None else torch.zeros_like(p))
                   .reshape(-1).to(self._acc) for p in params]
         if self._lspecs is not None:
@@ -981,9 +1042,33 @@ class _ShardedOptimizer(torch.optim.Optimizer):
                     p.grad = part.to(p.dtype)
                 else:
                     p.grad.copy_(part)
+        if guarded:
+            self._guard_rows()
         self._synchronized = True
 
+    def _guard_rows(self):
+        """The guard's rows of this exchange. Stages 1-3: one
+        ``[finite, l2]`` row over the averaged gradient stripe, summed
+        over every rank (the stripes differ by rank; the JAX package's
+        resident stripe row, which reads the update the gradient makes).
+        Stage 0: a row a parameter over its exchanged gradient, summed
+        over the spec's non-data axes where it has any (the JAX
+        package's whole-transform rows)."""
+        if self._striped:
+            self.guard_health = reduced_health([self.stripe.grad],
+                                               (world_axis(),))
+            self.guard_names = [f"{type(self).__name__}.stripe"]
+        else:
+            self.guard_health = reduced_health([p.grad for p in
+                                                self._params],
+                                               self._health_axes)
+            self.guard_names = list(self._names)
+
     def step(self, closure=None, synchronize=True):
+        """Synchronize (unless told not to) and step. Under the guard the
+        step's verdict decides first: a skip returns None with the
+        parameters, the stripe, the base optimizer's state and the DCN
+        residual as they were before the exchange."""
         if synchronize:
             if self._synchronized:
                 warnings.warn(
@@ -994,6 +1079,24 @@ class _ShardedOptimizer(torch.optim.Optimizer):
                     "optimizer.synchronize() in your code.")
             self.synchronize()
         self._synchronized = False
+        monitor = guard.get()
+        if monitor is not None:
+            if self.guard_health is not None:
+                monitor.note_device_health(self.guard_names,
+                                           self.guard_health)
+            verdict = monitor.end_step()
+            if not verdict["ok"]:
+                # a rollback has put the commit's residual back already
+                if self._residual_held is not None and \
+                        "rolled_back_to_commit" not in verdict:
+                    self._residual.copy_(self._residual_held)
+                return None
+        return self.inner_step(closure)
+
+    def inner_step(self, closure=None):
+        """The update with no exchange and no verdict (the compiled step
+        gates it on the card): at stages 1-3 the base step over the
+        stripe and the gather into the parameters."""
         if not self._striped:
             return super(self.__class__, self).step(closure)
         stripe = self.stripe.detach()
@@ -1060,6 +1163,23 @@ class _ShardedOptimizer(torch.optim.Optimizer):
             p.data = part if p.dtype == flat.dtype else part.to(p.dtype)
 
     # ------------------------------------------------------------ state
+
+    def elastic_tensors(self):
+        """What an ``elastic.State`` commit keeps of this optimizer
+        beyond its state: the stripe (the truth between resident steps)
+        and the DCN residual, by name, each restored in place."""
+        out = {}
+        if self._striped:
+            out["stripe"] = self.stripe.data
+        if self._residual is not None:
+            out["dcn_residual"] = self._residual
+        return out
+
+    def zero_residual(self):
+        """Zero the DCN error-feedback carry: after a rollback the error
+        of the abandoned trajectory must not feed the next exchange."""
+        if self._residual is not None:
+            self._residual.zero_()
 
     def state_dict(self):
         sd = super(self.__class__, self).state_dict()

@@ -255,9 +255,8 @@ class TaskService(BasicService):
         # cut short by a hardcoded 3s teardown: workers get drain time
         # to commit before the hard kill.
         if drain_seconds is None:
-            from ..config import _env_float
-            drain_seconds = _env_float("HOROVOD_ELASTIC_DRAIN_SECONDS",
-                                       3.0)
+            from ..config import Config
+            drain_seconds = Config.from_env().elastic_drain_seconds
         self._drain_seconds = max(float(drain_seconds), 0.0)
 
     def _handle(self, req, client_address):

@@ -810,3 +810,11 @@ def cross_size():
     """Number of hosts."""
     _check_init()
     return _state.cross_size
+
+
+def mpi_threads_supported():
+    """The reference's ``hvd.mpi_threads_supported()``: there is no MPI,
+    and the eager engine takes submissions from any thread, which is
+    what callers probe for; True once initialized."""
+    _check_init()
+    return True

@@ -35,6 +35,7 @@ import horovod_tpu as jhvd
 import horovod_tpu.models.transformer as jtfm
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch import metrics
+from horovod_tpu_torch.config import Config
 from horovod_tpu_torch.models import transformer as tfm
 
 ADAM_ATOL = 2e-6
@@ -344,22 +345,40 @@ def test_a_dropped_step_leaves_the_program_cache():
     assert [r() for r in refs] == [None, None]
 
 
-def test_guard_raises_naming_its_item(monkeypatch):
-    """The guard is ported (item 15): a guarded step builds and runs its
-    own program; what it does not carry yet, its gate over a ZeRO
-    stripe, raises naming the item."""
-    monkeypatch.setenv("HOROVOD_GUARD", "1")
-    _init()
-    model = _MLP()
-    step = hvd.compiled_train_step(model.loss, _sgd(model))
-    _run_port(step, steps=2)
-    (sig,) = step._signatures
-    assert sig[1] == "health"
-    assert step.finish()["ok"]
-    with pytest.raises(NotImplementedError, match="item 15"):
-        hvd.DistributedOptimizer(
-            torch.optim.SGD(model.parameters(), lr=0.1),
+def test_guard_gates_a_zero_stripe(monkeypatch):
+    """The guard over a ZeRO stripe (ROADMAP.md item 15's leftover, now
+    ported): a guarded stage-1 step builds its own program, runs, and
+    gates its stripe: a healthy step equals the unguarded one bitwise,
+    and a NaN step leaves the stripe, the parameters and the state as
+    they were."""
+    def run(**env):
+        _init(monkeypatch, **env)
+        model = _MLP()
+        opt = hvd.DistributedOptimizer(
+            torch.optim.Adam(model.parameters(), lr=0.05),
             named_parameters=model.named_parameters(), zero_stage=1)
+        step = hvd.compiled_train_step(model.loss, opt)
+        _run_port(step, steps=2)
+        return model, opt, step
+
+    plain, _, _ = run()
+    model, opt, step = run(HOROVOD_GUARD="1")
+    (sig,) = step._signatures
+    assert sig[1:3] == ("health", "zero1")
+    assert step.finish()["ok"]
+    for k, v in plain.numpy().items():
+        np.testing.assert_array_equal(model.numpy()[k], v, err_msg=k)
+    held = ([opt.stripe.detach().clone()]
+            + [p.detach().clone() for p in model.parameters()]
+            + [v.clone() for v in opt.state[opt.stripe].values()])
+    monkeypatch.setenv("HOROVOD_GUARD_INJECT", "nan,name=hvd.step")
+    hvd.guard.inject.install(Config.from_env())
+    _run_port(step, steps=1)
+    assert step.finish()["action"] == "skip"
+    now = ([opt.stripe.detach()] + list(model.parameters())
+           + list(opt.state[opt.stripe].values()))
+    for a, b in zip(held, now):
+        assert torch.equal(a, b.detach())
 
 
 def test_rejects_multi_step_accumulation():

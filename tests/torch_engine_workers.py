@@ -289,6 +289,30 @@ def hierarchical_session(inp):
     return {"out": out, "sizes": sizes, "local": local}
 
 
+def hierarchical_allgather(inp):
+    """HOROVOD_HIERARCHICAL_ALLGATHER over 4 ranks of local size 2: each
+    ragged gather through the engine's two-stage route, beside the flat
+    gather of ops/collectives.py; which tiers the engine built (the
+    allreduce stays flat without its own flag)."""
+    from horovod_tpu_torch.ops import collectives
+    hvd.init(device="cpu")
+    r = hvd.rank()
+    eng = hvd.runtime.engine()
+    hs = [hvd.allgather_async(torch.from_numpy(blocks[r]), name=f"hag.{i}")
+          for i, blocks in enumerate(inp)]
+    out = [hvd.synchronize(h).numpy().copy() for h in hs]
+    flat = [collectives.allgather(torch.from_numpy(blocks[r])).numpy()
+            for blocks in inp]
+    summed = hvd.allreduce(torch.ones(5), average=False, name="hag.ar")
+    res = {"out": out, "flat": flat, "local": eng.hier_local_size,
+           "allreduce_flat": eng._hier_ar is None,
+           "sum": summed.numpy().copy(),
+           "sizes": sorted(hvd.runtime.live_state().stats.histogram(
+               "allreduce"))}
+    hvd.shutdown()
+    return res
+
+
 def shutdown_propagation():
     """Rank 1 shuts down without joining ``orphan``; rank 0's pending
     handle must fail fast with ShutDownError (the shutdown bit echoed by
