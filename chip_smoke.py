@@ -74,12 +74,16 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    the kernels above;
 11. bench: ``python -m horovod_tpu_torch.bench.resnet`` in its
    ``HOROVOD_BENCH_SMOKE=1`` shrink (its compiled-step and serve rows
-   checked for no fallback and their cache hit rates) and ``python -m
-   horovod_tpu_torch.bench.transformer --iters 2``, each line checked for
-   its metric, a positive value and a numeric MFU.
+   checked for no fallback and their cache hit rates; its flagship row
+   at 1 iteration and 2 of the 8 layers) and ``python -m
+   horovod_tpu_torch.bench.transformer --iters 2 --layers 2`` (the
+   flagship's widths; phase 6 and the compiled train phase time its
+   whole depth), each line checked for its metric, a positive value, a
+   numeric MFU and its depth.
 
-The eager engine (ops/engine.py) has two phases of its own, after the
-train phase (6), and a bench line after the bench phase:
+The eager engine (ops/engine.py) has two phases of its own, the first
+after the train phase (6), the second beside the launcher phase, and a
+bench line after the bench phase:
 
 - eager engine (main path eager_engine): the flagship at 4 x 4096 as a
   Horovod user writes the loop: each gradient handed to
@@ -292,7 +296,8 @@ Fault tolerance has four phases of its own, after the zero train phase:
   replays. A spec or a staged DCN exchange needs two ranks, which NCCL
   refuses on one card: their guard is checked on the CPU over gloo;
 
-- guard (main path guard): the flagship at 4 x 4096, AdamW with its rate
+- guard (main path guard): the flagship cut to 2 layers (``FT_MODEL``)
+  at 4 x 4096, AdamW with its rate
   a card tensor, through ``compiled_train_step`` and the eager
   ``DistributedOptimizer``, 1 + 4 steps each without the guard and
   under ``HOROVOD_GUARD=1`` in one run, host ms a step between
@@ -305,19 +310,22 @@ Fault tolerance has four phases of its own, after the zero train phase:
   and the following replay's update is AdamW's at the new rate
   (GUARD_LR_REL) and not the old one; three bad steps roll back to the
   State commit bitwise, into the same storage; the State commit's time
-  (5.8 GB) is printed. The guarded calls run one program, whose
+  is printed. The guarded calls run one program, whose
   backward starts from a device seed of 1.0, or NaN where the chaos spec
   fires: the program a user's ``HOROVOD_GUARD=1`` runs;
 - elastic state (main path elastic_state): one rank under
-  ``HOROVOD_ELASTIC=1`` trains the flagship through the compiled step
+  ``HOROVOD_ELASTIC=1`` trains the flagship cut to 2 layers
+  (``FT_MODEL``) through the compiled step
   under ``hvd.elastic.run``, fed by ``DistributedDataset`` (seeded token
   samples through pinned memory), a ``State`` commit every 2 steps
-  (times printed); a ``CheckpointManager`` saves two commits and
-  restores the newest bitwise (times printed); a flipped byte fails the
-  sidecar, ``latest_valid_step`` falls back and an explicit restore
-  raises; the input wait share of the steps is printed, and so is any
-  recovery's exception (the gate is that none happens);
-- elastic ranks (main path elastic_ranks; parity, not a speed): three
+  (times printed); a ``CheckpointManager`` saves the commit and
+  restores it bitwise (times printed); on a small checkpoint of two
+  steps a flipped byte fails the sidecar, ``latest_valid_step`` falls
+  back and an explicit restore raises; the input wait share of the steps
+  is printed, and so is any recovery's exception (the gate is that none
+  happens);
+- elastic ranks (main path elastic_ranks; parity, not a speed; the
+  kill run beside the launcher phase, the term run alone): three
   processes on this card over a gloo group of their own, which
   ``hvd.init()`` adopts (``chip_smoke.py --elastic-rank R PORT OUT MODE
   DEVICE``), a narrow transformer (d_model 256, 2 layers,
@@ -333,8 +341,9 @@ Their figures are repeated in a ``{"fault_tolerance": ...}`` line before
 the kernels line.
 
 The autotuner and the launchers have four phases of their own, after
-the eager 2-rank phase (Spark's after the elastic ranks phase), and the
-control plane's rows after the bench phase:
+the eager engine phase (the launched ranks' beside the launcher phase,
+Spark's beside the tp phase), and the control plane's rows after the
+bench phase:
 
 - spark (main path spark; parity, not a speed): ``spark.run`` with the
   local backend, two task processes on this card over a gloo group of
@@ -388,6 +397,41 @@ control plane's rows after the bench phase:
 Their figures are repeated in an ``{"autotune_launcher": ...}`` line
 before the kernels line. The bench phase checks that bench.resnet's
 ``control_plane`` row is filled (its smoke curve).
+
+The port's own examples (examples/torch_port/) have a phase of their
+own, before the tp phase, whose subprocesses run beside it:
+
+- examples (main path examples): first the six kernels against their
+  plain versions at the long-context example's shapes (B 2, a shard of
+  S 512, H 8 / H_kv 8, D 64, bf16, causal, window 1024; the band kernels
+  at offsets 512 and 1024), each on the tensor-core route; then, as
+  subprocesses on this card, ``transformer_long_context.py --attention
+  ring-flash --sp 4 --window 1024`` at its default width (d_model 512, 8
+  heads, 4 layers, seq 2048, vocab 32768, bf16, AdamW 3e-4) for 2 + 3
+  steps (the window, two shards as SP_WINDOW is, sends the ring's
+  visiting tiles through the band kernels: without one they are wholly
+  visible and take the static kernel unmasked),
+  beside the first of two invocations of
+  ``pytorch_imagenet_resnet50.py`` (ResNet-50 at 224 x 224, 1000
+  classes: 2 epochs of 2 steps, then a second invocation to 3 epochs
+  that must print that it resumes from epoch 2). Each exits 0 with a
+  finite, falling loss (the resumed run's first loss below the first
+  run's); the long-context run's kernel launches, its own process's
+  counts, are the path's: each kernel on the tensor-core route at D 64,
+  none on the loop, static and band as many as its ring gives. The
+  subprocesses run while the tp phase runs (parity, not a speed), as
+  does the spark phase (the tp phase's ranks wait in a thread), and the
+  phase prints its own seconds and theirs.
+
+Phases whose figures are parity and exit codes, not speeds, run side by
+side to keep the run inside its 1200 s: the launcher, launched ranks,
+elastic ranks' kill run and eager 2-rank phases together, and the tp,
+spark and examples phases together. Nothing runs beside a timed phase.
+
+Every flagship-sized phase starts from one seed-0 host draw of its
+parameter layout (``seed0_params``: the bits of a fresh
+``TransformerLM(generator=seed 0)``), and the run's child processes (the
+TP ranks, the launcher's generations) load main()'s file of it.
 
 The kernels phases also run the CUDA-core loop at head dims 256 and 320
 (the latter in 256-column pieces) against the plain versions and time
@@ -466,6 +510,13 @@ SP_MODEL = dict(FLAGSHIP, max_seq=SP_SEQ, attention_window=SP_WINDOW)
 MOE_MODEL_FULL = dict(FLAGSHIP, moe_layers=(1, 3, 5, 7), moe_num_experts=8,
                       moe_top_k=2)
 MOE_MODEL = dict(MOE_MODEL_FULL, n_layers=4, moe_layers=(1, 3))
+# The guard and elastic state phases cut the flagship's depth to 2 of
+# its 8 layers (widths as they are): what they check is the mechanism
+# (skips, back-off, rollback, commits, checkpoints), at any depth, and
+# at the flagship's depth their steps and 5.8 GB checkpoint took about
+# 80 s of the run on an H100. The zero guard phase keeps the whole flagship (its
+# stripes are held to the zero train phase's).
+FT_MODEL = dict(FLAGSHIP, n_layers=2)
 MOE_EXPERT_KEYS = ("moe.w1", "moe.w2")
 
 # Kernel vs plain version: f32 outputs differ by summation order only;
@@ -1893,8 +1944,8 @@ def phase_train(hvd, fa, tfm, card, where, ring=None, sp_impl="ring"):
     cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
                                 loss_chunk=LOSS_CHUNK, sp_impl=sp_impl,
                                 **model)
-    lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
-                           device=card, axes=axes)
+    lm = tfm.TransformerLM(cfg, seed0_params(tfm, cfg, card), device=card,
+                           axes=axes)
     hvd.broadcast_parameters(lm.state_dict(), root_rank=0)
     opt = hvd.DistributedOptimizer(
         torch.optim.AdamW(lm.parameters(), **ADAMW),
@@ -1999,6 +2050,47 @@ def to_card(tree, card):
     return tree.to(card, copy=True)
 
 
+# The seed-0 host trees, by parameter layout: tfm.init_params draws on
+# the host from a CPU generator (a flagship draw took ~10 s of the card
+# machine's host), and the phases start from the same tree again and
+# again. main() draws each once, and writes it under the directory in
+# SEED0_ENV for the run's child processes (the TP ranks, the launcher's
+# generations), which load it instead of drawing.
+_SEED0 = {}
+SEED0_ENV = "CHIP_SMOKE_SEED0_DIR"
+_seed0_writer = False  # main() sets it: children only read
+
+
+def seed0_host(tfm, cfg):
+    """``tfm.init_params(cfg, Generator seeded 0, "cpu")``, drawn once a
+    parameter layout (or loaded from the run's file of it); callers only
+    copy it."""
+    import hashlib
+    key = repr((tfm.param_shapes(cfg), cfg.param_dtype, cfg.d_ff,
+                cfg.moe_cfg if cfg.moe_layers else None))
+    if key in _SEED0:
+        return _SEED0[key]
+    path = None
+    if os.environ.get(SEED0_ENV):
+        path = os.path.join(os.environ[SEED0_ENV], hashlib.sha256(
+            key.encode()).hexdigest()[:16] + ".pt")
+    if path is not None and os.path.exists(path):
+        tree = torch.load(path, weights_only=True)
+    else:
+        tree = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        if path is not None and _seed0_writer:
+            torch.save(tree, path + ".tmp")
+            os.replace(path + ".tmp", path)
+    _SEED0[key] = tree
+    return tree
+
+
+def seed0_params(tfm, cfg, card):
+    """A copy on ``card`` of the seed-0 tree of ``cfg``: the bits of
+    ``TransformerLM(cfg, generator=Generator seeded 0, device=card)``."""
+    return to_card(seed0_host(tfm, cfg), card)
+
+
 def phase_compiled_train(hvd, fa, tfm, card, where, model=FLAGSHIP,
                          label="compiled train", expert_keys=None,
                          init=None, shape=(TRAIN_BATCH, TRAIN_SEQ),
@@ -2037,9 +2129,8 @@ def phase_compiled_train(hvd, fa, tfm, card, where, model=FLAGSHIP,
 
     def build():
         lm = tfm.TransformerLM(
-            cfg, None if init is None else to_card(init, card),
-            generator=torch.Generator().manual_seed(0), device=card,
-            axes=axes)
+            cfg, seed0_params(tfm, cfg, card) if init is None
+            else to_card(init, card), device=card, axes=axes)
         opt = hvd.DistributedOptimizer(
             torch.optim.AdamW(lm.parameters(), capturable=True, **ADAMW),
             named_parameters=lm.named_parameters(), expert_keys=expert_keys)
@@ -2258,8 +2349,7 @@ def phase_trace(hvd, fa, tfm, serve, metrics, card, where, untraced):
                                                (TRAIN_BATCH, TRAIN_SEQ))
     targets = torch.from_numpy(np.roll(tokens, -1, axis=1)).to(card)
     tokens = torch.from_numpy(tokens).to(card)
-    lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
-                           device=card)
+    lm = tfm.TransformerLM(cfg, seed0_params(tfm, cfg, card), device=card)
     opt = hvd.DistributedOptimizer(
         torch.optim.AdamW(lm.parameters(), capturable=True, **ADAMW),
         named_parameters=lm.named_parameters())
@@ -2343,9 +2433,10 @@ def phase_trace(hvd, fa, tfm, serve, metrics, card, where, untraced):
     gc.collect()
     torch.cuda.empty_cache()
 
-    lm = tfm.TransformerLM(tfm.TransformerConfig(
-        dtype=torch.bfloat16, attention_impl="flash", **FLAGSHIP),
-        generator=torch.Generator().manual_seed(0), device=card)
+    serve_cfg = tfm.TransformerConfig(dtype=torch.bfloat16,
+                                      attention_impl="flash", **FLAGSHIP)
+    lm = tfm.TransformerLM(serve_cfg, seed0_params(tfm, serve_cfg, card),
+                           device=card)
     with step_program("1"):
         engine = serve.Engine(lm, lm.params, page_size=PAGE_SIZE,
                               max_batch=N_REQUESTS, start=False,
@@ -2514,7 +2605,7 @@ def phase_pipeline(fa, tfm, card, where):
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                            (TRAIN_BATCH, TRAIN_SEQ))).to(card)
     targets = torch.roll(tokens, -1, dims=1)
-    init = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    init = seed0_host(tfm, cfg)
     stats, paths = {}, {}
     for schedule in ("unpipelined", "gpipe", "1f1b"):
         params = to_card(init, card)
@@ -2636,7 +2727,7 @@ def phase_zero_train(hvd, fa, tfm, metrics, card, where, stage0):
     os.environ["HOROVOD_PROFILER_JIT_CALLBACKS"] = "1"
     cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
                                 loss_chunk=LOSS_CHUNK, **FLAGSHIP)
-    init = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    init = seed0_host(tfm, cfg)
     tokens = np.random.default_rng(1).integers(0, cfg.vocab_size,
                                                (TRAIN_BATCH, TRAIN_SEQ))
     targets = torch.from_numpy(np.roll(tokens, -1, axis=1)).to(card)
@@ -3076,7 +3167,7 @@ def tp_worker(rank, port, out_path):
     tp = mesh.get_group("model")
     cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
                                 loss_chunk=LOSS_CHUNK, **FLAGSHIP)
-    full = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    full = seed0_host(tfm, cfg)
     specs = tfm.param_specs(cfg)
     label = "gloo through the host, 2 ranks on one card: not a TP speed " \
             "figure"
@@ -3295,7 +3386,7 @@ def phase_tp(where):
 
 # ------------------------------------------------------- fault tolerance
 
-# The guard phase (main path guard): the flagship at 4 x 4096, AdamW
+# The guard phase (main path guard): FT_MODEL at 4 x 4096, AdamW
 # with its learning rate a card tensor (a replay reads it), through the
 # compiled step and the eager DistributedOptimizer, unguarded and under
 # HOROVOD_GUARD=1. The guarded compiled run's calls: 0-4 healthy (as the
@@ -3314,7 +3405,7 @@ GUARD_ENV = {"HOROVOD_GUARD": "1", "HOROVOD_GUARD_LR_BACKOFF_STEPS": "2",
 # same foreach kernels, one tensor), relative.
 GUARD_LR_REL = 1e-6
 # Elastic state (main path elastic_state): a State commit every
-# ELASTIC_COMMIT_EVERY steps of the flagship under elastic.run, fed by
+# ELASTIC_COMMIT_EVERY steps of FT_MODEL under elastic.run, fed by
 # DistributedDataset; ELASTIC_STATE_STEPS steps in all.
 ELASTIC_STATE_STEPS, ELASTIC_COMMIT_EVERY = 6, 2
 # Elastic ranks (main path elastic_ranks): three processes over gloo on
@@ -3367,8 +3458,7 @@ def _guard_run(hvd, tfm, card, cfg, tokens, targets, compiled, calls):
     """``calls`` steps of the flagship (seed 0) through the compiled step
     or the eager DistributedOptimizer; returns (model, optimizer, step,
     host ms a call)."""
-    lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
-                           device=card)
+    lm = tfm.TransformerLM(cfg, seed0_params(tfm, cfg, card), device=card)
     opt = hvd.DistributedOptimizer(_adamw_tensor_lr(lm.parameters(), card),
                                    named_parameters=lm.named_parameters())
     step = None
@@ -3386,10 +3476,11 @@ def _guard_run(hvd, tfm, card, cfg, tokens, targets, compiled, calls):
     return lm, opt, step, ms
 
 
-def phase_guard(hvd, fa, tfm, card, where, model=FLAGSHIP,
+def phase_guard(hvd, fa, tfm, card, where, model=FT_MODEL,
                 shape=(TRAIN_BATCH, TRAIN_SEQ)):
     """Main path guard (see GUARD_STEPS): unguarded, then under
-    HOROVOD_GUARD=1, the flagship's compiled and eager steps, 1 + 4 each,
+    HOROVOD_GUARD=1, the compiled and eager steps of the flagship cut to
+    FT_MODEL's depth, 1 + 4 each,
     host ms a step (between synchronisations) median of the last 4,
     ``guard_overhead_frac`` each. Gates: the guarded parameters after 5
     healthy steps equal the unguarded ones bitwise (compiled and eager);
@@ -3441,8 +3532,8 @@ def phase_guard(hvd, fa, tfm, card, where, model=FLAGSHIP,
         check(step.cache_misses == 1 and step.fallback_steps == 0,
               f"guarded step: {step.cache_misses} misses, "
               f"{step.fallback_steps} fallbacks")
-        # the State commit the rollback returns to (5.8 GB to pinned
-        # host memory: parameters and both moments)
+        # the State commit the rollback returns to (parameters and both
+        # moments to pinned host memory)
         state = hvd.elastic.State(model=lm, optimizer=opt)
         mon.attach_state(state)
         mon.attach_optimizer(opt)
@@ -3536,7 +3627,8 @@ def phase_guard(hvd, fa, tfm, card, where, model=FLAGSHIP,
             row[f"{kind}_guard_ms"] / row[f"{kind}_plain_ms"] - 1.0)
     row.update(health_rows=rows, skipped_steps=skipped,
                lr_rel=rels[half])
-    print(f"guard 4 x 4096 [{where}]: compiled {row['compiled_plain_ms']:.1f}"
+    print(f"guard {shape[0]} x {shape[1]}, {cfg.n_layers} layers [{where}]: "
+          f"compiled {row['compiled_plain_ms']:.1f}"
           f" -> guarded {row['compiled_guard_ms']:.1f} ms a step "
           f"(guard_overhead_frac {row['compiled_guard_overhead_frac']:.4f});"
           f" eager {row['eager_plain_ms']:.1f} -> {row['eager_guard_ms']:.1f}"
@@ -3583,18 +3675,21 @@ def _split_tokens(batch):
     return batch["t"][:, :-1], batch["t"][:, 1:]
 
 
-def phase_elastic_state(hvd, fa, tfm, card, where, model=FLAGSHIP,
+def phase_elastic_state(hvd, fa, tfm, card, where, model=FT_MODEL,
                         shape=(TRAIN_BATCH, TRAIN_SEQ)):
     """Main path elastic_state: one rank (HOROVOD_ELASTIC=1) trains the
-    flagship at 4 x 4096 under ``hvd.elastic.run`` through the compiled
+    flagship cut to FT_MODEL's depth at 4 x 4096 under ``hvd.elastic.run``
+    through the compiled
     step, fed by ``DistributedDataset`` (seeded token samples, pinned
     memory, a side stream, prefetch 2), an ``elastic.State`` commit every
-    ELASTIC_COMMIT_EVERY steps (time printed: 5.8 GB of parameters and
-    AdamW moments to pinned memory). Then a CheckpointManager saves two
-    commits (time each, sidecar digest included) and restores the newest
-    (time), bitwise equal to the commit; a flipped byte in its file fails
-    the sidecar, ``latest_valid_step`` falls back to the older step and
-    an explicit restore of it raises CheckpointCorruptError. Prints the
+    ELASTIC_COMMIT_EVERY steps (time printed: parameters and AdamW
+    moments to pinned memory). Then a CheckpointManager saves the
+    commit once (time, sidecar digest included) and restores it (time),
+    bitwise equal to the commit. On a small checkpoint of its own (the
+    digest fails alike at any size; the commit's would be hashed twice
+    more, about 30 s), a flipped byte in the newer step's file fails the
+    sidecar, ``latest_valid_step`` falls back to the older step and an
+    explicit restore of it raises CheckpointCorruptError. Prints the
     input wait share of the steps. Returns ({kernel: launches}, row)."""
     from horovod_tpu_torch.exceptions import CheckpointCorruptError
     cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
@@ -3605,7 +3700,7 @@ def phase_elastic_state(hvd, fa, tfm, card, where, model=FLAGSHIP,
     root = tempfile.mkdtemp(dir=os.environ.get("TMPDIR"))
     try:
         hvd.init(device=card)
-        lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
+        lm = tfm.TransformerLM(cfg, seed0_params(tfm, cfg, card),
                                device=card)
         opt = hvd.DistributedOptimizer(_adamw_tensor_lr(lm.parameters(), card),
                                        named_parameters=lm.named_parameters())
@@ -3655,14 +3750,12 @@ def phase_elastic_state(hvd, fa, tfm, card, where, model=FLAGSHIP,
         row["step_ms"] = float(np.median(step_ms[WARMUP_STEPS:]))
         snap = state.committed
         mgr = hvd.checkpoint.CheckpointManager(os.path.join(root, "ckpt"))
-        saves = []
-        for s in (1, 2):
-            t0 = time.perf_counter()
-            check(mgr.save(s, snap), f"checkpoint step {s} not written")
-            saves.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        check(mgr.save(1, snap), "checkpoint step 1 not written")
+        saves = [(time.perf_counter() - t0) * 1e3]
         row["save_ms"] = saves
         nbytes = sum(os.path.getsize(os.path.join(dp, f))
-                     for dp, _, fs in os.walk(os.path.join(root, "ckpt", "2"))
+                     for dp, _, fs in os.walk(os.path.join(root, "ckpt", "1"))
                      for f in fs)
         t0 = time.perf_counter()
         back = mgr.restore()
@@ -3673,19 +3766,24 @@ def phase_elastic_state(hvd, fa, tfm, card, where, model=FLAGSHIP,
             (torch.equal(x, y) if torch.is_tensor(x) else x == y)
             for x, y in zip(a, b)), "the checkpoint restore is not bitwise")
         del back, a, b
-        path = os.path.join(root, "ckpt", "2", "state-0.pt")
+        small = hvd.checkpoint.CheckpointManager(os.path.join(root, "small"))
+        tiny = {"step": 0, "w": torch.arange(1 << 16, dtype=torch.float32)}
+        for s in (1, 2):
+            check(small.save(s, tiny), f"small checkpoint step {s} not "
+                                       f"written")
+        path = os.path.join(root, "small", "2", "state-0.pt")
         with open(path, "r+b") as f:
             f.seek(os.path.getsize(path) // 2)
             byte = f.read(1)
             f.seek(-1, os.SEEK_CUR)
             f.write(bytes([byte[0] ^ 0x01]))
         fails = hvd.metrics.CHECKPOINT_INTEGRITY_FAILURES.value()
-        latest = mgr.latest_valid_step()
+        latest = small.latest_valid_step()
         check(latest == 1 and hvd.metrics.CHECKPOINT_INTEGRITY_FAILURES
               .value() == fails + 1, f"latest_valid_step {latest}, not 1, "
               f"after a flipped byte in step 2")
         try:
-            mgr.restore(2)
+            small.restore(2)
             check(False, "the corrupted step restored")
         except CheckpointCorruptError:
             pass
@@ -3701,7 +3799,8 @@ def phase_elastic_state(hvd, fa, tfm, card, where, model=FLAGSHIP,
         check(launches[k] == 0, f"{k}: the elastic run took the loop")
     check(launches["flash_fwd_wgmma"] == ELASTIC_STATE_STEPS * cfg.n_layers,
           f"flash_fwd_wgmma: {launches['flash_fwd_wgmma']} launches")
-    print(f"elastic state 4 x 4096 [{where}]: {ELASTIC_STATE_STEPS} steps "
+    print(f"elastic state {batch} x {seq}, {cfg.n_layers} layers [{where}]: "
+          f"{ELASTIC_STATE_STEPS} steps "
           f"under elastic.run, step {row['step_ms']:.1f} ms (host, median); "
           f"input wait share {row['input_wait_share']:.5f}; State commits "
           f"{' / '.join(f'{t:.0f}' for t in commit_ms)} ms (the first two "
@@ -3709,8 +3808,9 @@ def phase_elastic_state(hvd, fa, tfm, card, where, model=FLAGSHIP,
           f"checkpoint {row['checkpoint_gb']:.2f} GB: save "
           f"{' / '.join(f'{t:.0f}' for t in saves)} ms (sidecar digest "
           f"included), restore {row['restore_ms']:.0f} ms (digest "
-          f"verified), bitwise; a flipped byte failed the sidecar and "
-          f"latest_valid_step fell back to step 1", flush=True)
+          f"verified), bitwise; on a small checkpoint a flipped byte "
+          f"failed the sidecar and latest_valid_step fell back to step 1",
+          flush=True)
     return launches, row
 
 
@@ -3805,7 +3905,7 @@ def elastic_worker(rank, port, out_dir, mode, device="cuda"):
     hvd.shutdown()
 
 
-def phase_elastic_ranks(where, device="cuda"):
+def phase_elastic_ranks(where, device="cuda", modes=("kill", "term")):
     """Main path elastic_ranks, parity only (gloo moves card tensors
     through the host): :func:`elastic_worker` on three processes of this
     card, twice. ``kill``: rank 2 SIGKILLs itself before its step-2
@@ -3818,13 +3918,18 @@ def phase_elastic_ranks(where, device="cuda"):
     change, the survivors' parameters bitwise equal (their digests),
     finite losses, every flash launch on the tensor-core route. Prints
     each run's recovery wall time (the failed exchange to the resumed
-    loop). Returns ({kernel: launches} summed over the survivors of
-    both runs, row)."""
+    loop). ``modes`` picks the runs (main() runs the kill run beside
+    the launcher phase, the term run, whose recovery is gated on time,
+    alone).
+    Returns ({kernel: launches} summed over the survivors of the runs,
+    row)."""
     import socket
     from horovod_tpu_torch.elastic import EX_PREEMPTED
     total = {}
     row = {}
-    for mode, code in (("kill", -9), ("term", EX_PREEMPTED)):
+    codes = {"kill": -9, "term": EX_PREEMPTED}
+    for mode in modes:
+        code = codes[mode]
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
             port = sock.getsockname()[1]
@@ -3885,10 +3990,11 @@ def phase_elastic_ranks(where, device="cuda"):
         check(total.get(k, 0) == 0, f"{k}: the elastic ranks took the loop")
     check(total["flash_fwd_wgmma"] > 0, "the elastic ranks launched no "
                                         "flash kernel")
-    check(row["term_recovery_s"] < float(
-        ELASTIC_ENV["HOROVOD_ELASTIC_SETTLE_SECONDS"]),
-        f"the planned departure took {row['term_recovery_s']:.2f} s: it "
-        f"waited for the settle window or the liveness timeout")
+    if "term" in modes:
+        check(row["term_recovery_s"] < float(
+            ELASTIC_ENV["HOROVOD_ELASTIC_SETTLE_SECONDS"]),
+            f"the planned departure took {row['term_recovery_s']:.2f} s: "
+            f"it waited for the settle window or the liveness timeout")
     return total, row
 
 
@@ -4117,10 +4223,8 @@ def phase_eager_engine(hvd, fa, tfm, card, where):
     threshold = engine.config.fusion_threshold
     cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
                                 loss_chunk=LOSS_CHUNK, **FLAGSHIP)
-    lm_e = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
-                             device=card)
-    lm_b = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
-                             device=card)
+    lm_e = tfm.TransformerLM(cfg, seed0_params(tfm, cfg, card), device=card)
+    lm_b = tfm.TransformerLM(cfg, seed0_params(tfm, cfg, card), device=card)
     opt_e = torch.optim.AdamW(lm_e.parameters(), **ADAMW)
     opt_b = hvd.DistributedOptimizer(
         torch.optim.AdamW(lm_b.parameters(), **ADAMW),
@@ -4859,6 +4963,10 @@ def phase_resnet(hvd, card, where):
     torch.cuda.empty_cache()
 
 
+# bench.transformer's depth in the bench phase (its widths the flagship's)
+BENCH_LAYERS = 2
+
+
 def _bench_line(args, env, timeout):
     """Run a bench module; its one JSON line (the last of its output)."""
     t0 = time.perf_counter()
@@ -4874,14 +4982,16 @@ def _bench_line(args, env, timeout):
 
 def phase_bench(where):
     """Both bench modules as a user runs them: bench.resnet in its
-    HOROVOD_BENCH_SMOKE shrink (with the flagship's row at 1 iteration),
-    bench.transformer at --iters 2. Each line must name its metric, with
-    a positive value and a numeric MFU on this card."""
+    HOROVOD_BENCH_SMOKE shrink (with the flagship's row at 1 iteration
+    and 2 of its 8 layers), bench.transformer at --iters 2 --layers 2
+    (the flagship's widths; the compiled train and trace phases time its
+    whole depth). Each line must name its metric, with a positive value
+    and a numeric MFU on this card."""
     env = {**os.environ, "HOROVOD_BENCH_SMOKE": "1"}
     res = _bench_line(["horovod_tpu_torch.bench.resnet"], env, 600)
     env.pop("HOROVOD_BENCH_SMOKE")
     tfm = _bench_line(["horovod_tpu_torch.bench.transformer", "--iters",
-                       "2"], env, 600)
+                       "2", "--layers", str(BENCH_LAYERS)], env, 600)
     moe = _bench_line(["horovod_tpu_torch.bench.transformer", "--moe",
                        "--expert-parallel", "1"], env, 300)
     for line, metric in ((res, "resnet50_img_sec_per_chip"),
@@ -4891,7 +5001,10 @@ def phase_bench(where):
         check(line.get("metric") == metric and line["value"] > 0
               and isinstance(line["mfu_pct"], (int, float)),
               f"bench line {line}")
-    check(tfm["attention"] == "flash", f"bench attention {tfm['attention']}")
+    check(tfm["attention"] == "flash" and tfm["layers"] == BENCH_LAYERS
+          and res["transformer"]["layers"] == BENCH_LAYERS,
+          f"bench attention {tfm['attention']}, layers {tfm['layers']} and "
+          f"{res['transformer']['layers']}")
     compiled, srv = res["compiled_step"], res["serve"]
     check(compiled["fallback_steps"] == 0
           and compiled["step_program_cache_hit_rate"] == 1.0
@@ -4973,8 +5086,11 @@ LAUNCH_RANKS, LAUNCH_STEPS = 2, 8
 # The control-plane curve's star and tree rounds a world (bench.py's 30
 # and 20): a round of world 256 takes its 256 simulated members about
 # 1.5 s of host time, and the curve runs alone, after the timed phases,
-# inside the run's 1200 s.
-CONTROL_ROUNDS = 6
+# inside the run's 1200 s: 4 (6 before). At 2 rounds the curve took
+# 27 s less but the star's rate read high (its first rounds are its
+# cheapest) and the tree's speedup at world 256 fell to 3.5, under
+# simrank's acceptance of 4.
+CONTROL_ROUNDS = 4
 
 
 def _autotune_domain(tuner, fusion, cycle, padding, depth):
@@ -5005,8 +5121,7 @@ def phase_autotune(hvd, fa, tfm, card, where, eager_row):
     log = os.path.join(tempfile.mkdtemp(), "autotune.csv")
     cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
                                 loss_chunk=LOSS_CHUNK, **FLAGSHIP)
-    lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
-                           device=card)
+    lm = tfm.TransformerLM(cfg, seed0_params(tfm, cfg, card), device=card)
     params = list(lm.parameters())
     env = {"HOROVOD_AUTOTUNE": "1", "HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "1",
            "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": str(len(params)),
@@ -5219,8 +5334,7 @@ def launched_worker(marker, out_dir):
            "restarts": os.environ.get("HOROVOD_TPU_ELASTIC_RESTARTS")}
     cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
                                 loss_chunk=LOSS_CHUNK, **FLAGSHIP)
-    lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
-                           device=card)
+    lm = tfm.TransformerLM(cfg, seed0_params(tfm, cfg, card), device=card)
     hvd.broadcast_parameters(lm.state_dict(), root_rank=0)
     opt = hvd.DistributedOptimizer(
         torch.optim.AdamW(lm.parameters(), **ADAMW),
@@ -5597,11 +5711,186 @@ def phase_control_plane(where):
         "eager_multihost": mh}
 
 
+# The port's own examples (main path examples): the long-context
+# script at its default width (head dim 64) over a local ring of 4, and
+# the ResNet-50 recipe's resume path.
+EXAMPLES_DIR = os.path.join(REPO_DIR, "examples", "torch_port")
+EXAMPLES_SP, EXAMPLES_STEPS, EXAMPLES_WINDOW = 4, 3, 1024
+EXAMPLES_LC = ("transformer_long_context.py", "--attention", "ring-flash",
+               "--sp", str(EXAMPLES_SP), "--steps", str(EXAMPLES_STEPS),
+               "--window", str(EXAMPLES_WINDOW))
+EXAMPLES_LC_LAYERS, EXAMPLES_LC_SEQ = 4, 2048  # the script's defaults
+# (B, S of a shard, H, H_kv, D, dtype): the script's batch of 2, 8 heads
+# of d_model 512 (D 64), no GQA
+EXAMPLES_SHAPE = (2, EXAMPLES_LC_SEQ // EXAMPLES_SP, 8, 8, 64,
+                  torch.bfloat16)
+EXAMPLES_RESNET = ("pytorch_imagenet_resnet50.py", "--steps-per-epoch", "2")
+EXAMPLES_TIMEOUT_S = 300
+
+
+def _example(args, out_dir, env):
+    """Run one example script on this card to its end (cwd ``out_dir``,
+    environment ``env``); returns (stdout, the JSON summary it ends
+    with) and fails the run unless it exited 0."""
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(EXAMPLES_DIR, args[0]), *args[1:]],
+        cwd=out_dir, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        out = proc.communicate(timeout=EXAMPLES_TIMEOUT_S)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0,
+          f"example {args[0]} exited {proc.returncode}:\n{out[-3000:]}")
+    return out, json.loads(out.strip().splitlines()[-1])
+
+
+def start_examples(fa, card, gen):
+    """Main path examples, first half: the six kernels against their
+    plain versions at the long-context example's shapes, then the two
+    examples started as subprocesses (header), which run on while the
+    caller goes on. Returns the handle :func:`finish_examples` takes."""
+    b, s, h, h_kv, d, dtype = EXAMPLES_SHAPE
+    w = EXAMPLES_WINDOW
+    # the ring's live visiting tiles: ring_attention._ring_steps
+    ring_steps = min(EXAMPLES_SP, max(1, 2 + (w - 2) // s))
+    offsets = [t * s for t in range(1, ring_steps)]
+    q, k, v, do, lse, delta = bwd_inputs(fa, card, gen, b, s, h, h_kv, d,
+                                         dtype, True, w)
+    out, lse_t = fa.flash_attention_with_lse(q, k, v, True, w)
+    texts = [hold_forward(fa, "flash_attention", out, lse_t, (q, k, v),
+                          (True, w), (True, w))]
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, True, w)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, w)
+    for name, got in (("flash_bwd_dq", (dq,)), ("flash_bwd_dkv", (dk, dv))):
+        texts.append(hold_backward(fa, name, got, (q, k, v, do, lse, delta),
+                                   (True, w), (True, w)))
+    for off in offsets:
+        q, k, v, do, lse, delta = band_inputs(fa, card, gen, b, s, h, h_kv,
+                                              d, dtype, off, w)
+        live = live_rows(fa, s, off, w).to(card)
+        out, lse_t = fa.flash_band_fwd(q, k, v, off, w)
+        texts.append(hold_forward(fa, "flash_band_fwd", out, lse_t,
+                                  (q, k, v), (off, w), (True, w, off),
+                                  rows=live))
+        args = (q, k, v, do, lse, delta)
+        dq = fa.flash_band_dq(*args, off, w)
+        dk, dv = fa.flash_band_dkv(*args, off, w)
+        for name, got in (("flash_band_dq", (dq,)),
+                          ("flash_band_dkv", (dk, dv))):
+            texts.append(hold_backward(fa, name, got, args, (off, w),
+                                       (True, w, off)))
+    check(all(tc for _, _, tc, _ in texts),
+          "a kernel left the tensor-core route at D 64")
+    worst = max(err for err, _, _, _ in texts)
+    print(f"examples kernels B={b} S={s} H={h} H_kv={h_kv} D={d} bf16 "
+          f"causal, window {w}, band offsets {offsets} "
+          f"[tensor cores]: worst max|d| {worst:.3g} against the plain "
+          f"versions; " + " | ".join(t for _, _, _, t in texts[:3]),
+          flush=True)
+    del q, k, v, do, lse, delta, out, dq, dk, dv
+    torch.cuda.empty_cache()
+
+    from concurrent.futures import ThreadPoolExecutor
+    out_dir = tempfile.mkdtemp(prefix="hvd-examples-")
+    fmt = os.path.join(out_dir, "ckpt", "checkpoint-{epoch}.pth")
+    # taken now: the phases beside them may change this process's
+    env = dict(os.environ, HOROVOD_PROFILER_DISABLE="1")
+
+    def resume():
+        first = _example(EXAMPLES_RESNET + (
+            "--epochs", "2", "--checkpoint-format", fmt), out_dir, env)
+        return first, _example(EXAMPLES_RESNET + (
+            "--epochs", "3", "--checkpoint-format", fmt), out_dir, env)
+
+    pool = ThreadPoolExecutor(2)
+    return {"pool": pool, "dir": out_dir, "t0": time.perf_counter(),
+            "ring_steps": ring_steps,
+            "lc": pool.submit(_example, EXAMPLES_LC, out_dir, env),
+            "resnet": pool.submit(resume)}
+
+
+def finish_examples(handle, where):
+    """Main path examples, second half: wait for the subprocesses and
+    hold them to the header's gates. Returns ({kernel route: launches}
+    of the long-context run, row)."""
+    try:
+        lc_out, lc_sum = handle["lc"].result()
+        (rn_out, rn_sum), (rn2_out, rn2_sum) = handle["resnet"].result()
+    finally:
+        handle["pool"].shutdown()
+        shutil.rmtree(handle["dir"], ignore_errors=True)
+    wall = time.perf_counter() - handle["t0"]
+
+    def finite(xs):
+        return bool(xs) and all(np.isfinite(xs))
+    losses = lc_sum["losses"]
+    check(finite(losses) and losses[-1] < losses[0],
+          f"long-context example: the loss did not fall: {losses}")
+    check(lc_sum["head_dim"] == EXAMPLES_SHAPE[4],
+          f"long-context head dim {lc_sum['head_dim']}, not "
+          f"{EXAMPLES_SHAPE[4]}")
+    check(finite(rn_sum["losses"])
+          and rn_sum["losses"][-1] < rn_sum["losses"][0],
+          f"ResNet-50 example: the loss did not fall: {rn_sum['losses']}")
+    check("Resuming from epoch 2" in rn2_out and rn2_sum["resumed_from"] == 2
+          and finite(rn2_sum["losses"])
+          and rn2_sum["losses"][0] < rn_sum["losses"][0],
+          f"ResNet-50 example did not resume: {rn2_out[-2000:]}")
+    by_counter = lc_sum["launches"]
+    launches = {n: by_counter[c] for n, c in COUNTERS.items()}
+    steps = 2 + EXAMPLES_STEPS  # the script's two untimed steps first
+    # a layer's tiles: one diagonal a shard, and each shard's live
+    # visiting tiles (shard i visited from shard i - t, t < ring_steps)
+    tiles = {"static": EXAMPLES_SP,
+             "band": sum(EXAMPLES_SP - t
+                         for t in range(1, handle["ring_steps"]))}
+    for name in PREFIXES:
+        check(launches[name] == 0, f"{name}: the example took the loop")
+        want = steps * EXAMPLES_LC_LAYERS * tiles[
+            "band" if name.startswith("flash_band") else "static"]
+        check(launches[WGMMA[name]] == want,
+              f"{name}: {launches[WGMMA[name]]} tensor-core launches in "
+              f"the long-context example, {want} expected")
+    print(f"examples [{where}]: transformer_long_context ring-flash sp "
+          f"{EXAMPLES_SP} window {EXAMPLES_WINDOW} losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}; "
+          f"{lc_sum['tokens_per_sec']:.1f} tokens/s; launches "
+          f"{ {n: c for n, c in launches.items() if c} }; ResNet-50 "
+          f"losses {' '.join(f'{x:.4f}' for x in rn_sum['losses'])}, "
+          f"resumed from epoch 2: "
+          f"{' '.join(f'{x:.4f}' for x in rn2_sum['losses'])}; "
+          f"subprocesses {wall:.1f} s", flush=True)
+    return launches, {"lc_losses": losses,
+                      "lc_tokens_per_sec": lc_sum["tokens_per_sec"],
+                      "resnet_losses": rn_sum["losses"],
+                      "resnet_resumed_losses": rn2_sum["losses"],
+                      "subprocess_s": wall}
+
+
+def phase_examples(fa, card, gen, where):
+    """Main path examples, both halves at once (the card test's and a
+    debugging drive's form)."""
+    return finish_examples(start_examples(fa, card, gen), where)
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 2
+    global _seed0_writer
+    _seed0_writer = True
+    os.environ[SEED0_ENV] = tempfile.mkdtemp(prefix="hvd-seed0-")
+    try:
+        return _main(t_start)
+    finally:
+        shutil.rmtree(os.environ.pop(SEED0_ENV), ignore_errors=True)
+
+
+def _main(t_start):
     where = card_line()
     print(where, flush=True)
     card = torch.device("cuda")
@@ -5630,23 +5919,29 @@ def main():
         kernel_usage(fa, _build, name, log)
 
     gen = torch.Generator(device=card).manual_seed(0)
+    t0 = time.perf_counter()
     entry = phase_kernels(fa, card, gen)
     bwd_entries, train_fwd = phase_backward_kernels(fa, card, gen)
     entry["train_shape"] = train_fwd
     band_entries = phase_band_kernels(fa, card, gen)
     phase_ulysses_kernels(fa, card, gen, {"flash_fwd": entry, **bwd_entries})
+    print(f"kernel phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
 
     cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
                                 **FLAGSHIP)
-    lm = tfm.TransformerLM(cfg, generator=torch.Generator().manual_seed(0),
-                           device=card)
+    lm = tfm.TransformerLM(cfg, seed0_params(tfm, cfg, card), device=card)
     n_params = sum(p.numel() for p in lm.parameters())
     print(f"model: {n_params / 1e6:.1f} M parameters (f32), "
           f"{cfg.n_layers} layers, d_model {cfg.d_model}", flush=True)
     phase_parity(tfm, ServeEngine, lm.params, card)
     phase_train_parity(tfm, card)
+    print(f"parity phases: {time.perf_counter() - t0:.1f} s (the flagship "
+          f"drawn too)", flush=True)
 
+    t0 = time.perf_counter()
     serve_launches = phase_serve(fa, serve, metrics, lm, card, where)
+    print(f"serve phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     compiled_serve_launches = phase_compiled_serve(fa, serve, metrics, tfm,
                                                    lm, card, where)
@@ -5654,25 +5949,41 @@ def main():
           flush=True)
     del lm
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     train_launches, train_row = phase_train(hvd, fa, tfm, card, where)
+    print(f"train phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     eager_launches, eager_row = phase_eager_engine(hvd, fa, tfm, card, where)
     print(f"eager engine phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    eager_row["two_ranks"] = phase_eager_engine_2ranks(where)
     t0 = time.perf_counter()
     autotune_launches, launch_row = phase_autotune(hvd, fa, tfm, card, where,
                                                    eager_row)
     launch_row = {"autotune": launch_row}
     print(f"autotune phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    # Four phases whose figures are parity and exit codes, not speeds, run
+    # side by side: the launcher's generations (the flagship on the card)
+    # here, the launched ranks, and the elastic ranks' kill run followed
+    # by the eager engine's two ranks (narrow or tiny models over gloo),
+    # whose processes wait in threads of this process.
+    from concurrent.futures import ThreadPoolExecutor
+
+    def kill_then_eager2():
+        got = phase_elastic_ranks(where, "cuda", ("kill",))
+        return got, phase_eager_engine_2ranks(where)
+
     t0 = time.perf_counter()
-    launcher_launches, launch_row["launcher"] = phase_launcher(
-        fa, where, train_row["losses"])
-    print(f"launcher phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    launcher_ranks_launches, launch_row["launcher_ranks"] = \
-        phase_launcher_ranks(where)
-    print(f"launcher ranks phase: {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    with ThreadPoolExecutor(2) as pool:
+        ranks = pool.submit(phase_launcher_ranks, where)
+        kill = pool.submit(kill_then_eager2)
+        launcher_launches, launch_row["launcher"] = phase_launcher(
+            fa, where, train_row["losses"])
+        print(f"launcher phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        launcher_ranks_launches, launch_row["launcher_ranks"] = \
+            ranks.result()
+        (kill_launches, kill_row), eager_row["two_ranks"] = kill.result()
+    print(f"launcher, launcher ranks, elastic kill and eager 2 ranks side "
+          f"by side: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     compiled_train_launches, params, _, stage0 = phase_compiled_train(
         hvd, fa, tfm, card, where)
@@ -5708,16 +6019,35 @@ def main():
         phase_elastic_state(hvd, fa, tfm, card, where)
     print(f"elastic state phase: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    # the term run alone: its recovery is timed against the settle window
     t0 = time.perf_counter()
-    elastic_ranks_launches, fault_row["elastic_ranks"] = \
-        phase_elastic_ranks(where)
-    print(f"elastic ranks phase: {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    term_launches, term_row = phase_elastic_ranks(where, modes=("term",))
+    elastic_ranks_launches = {k: kill_launches.get(k, 0) + v
+                              for k, v in term_launches.items()}
+    fault_row["elastic_ranks"] = {**kill_row, **term_row}
+    print(f"elastic ranks phase: {time.perf_counter() - t0:.1f} s (the term "
+          f"run; the kill run beside the launcher phase)", flush=True)
+    # Three phases whose figures are parity, not speed, run side by side:
+    # the examples' subprocesses and the spark phase beside the tp phase
+    # (its ranks in a thread of this process: they only spawn and wait).
     t0 = time.perf_counter()
-    spark_launches, launch_row["spark"] = phase_spark(hvd, fa, tfm, card,
-                                                      where)
-    print(f"spark phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    tp_serve_launches, tp_train_launches = phase_tp(where)
+    examples = start_examples(fa, card, gen)
+    own = time.perf_counter() - t0
+    with ThreadPoolExecutor(1) as pool:
+        tp = pool.submit(phase_tp, where)
+        t1 = time.perf_counter()
+        spark_launches, launch_row["spark"] = phase_spark(hvd, fa, tfm, card,
+                                                          where)
+        print(f"spark phase: {time.perf_counter() - t1:.1f} s (beside the "
+              f"tp phase)", flush=True)
+        tp_serve_launches, tp_train_launches = tp.result()
+    t1 = time.perf_counter()
+    examples_launches, examples_row = finish_examples(examples, where)
+    own += time.perf_counter() - t1
+    print(f"examples phase: {own:.1f} s of its own (the kernel checks and "
+          f"the wait past the tp phase; its subprocesses "
+          f"{examples_row['subprocess_s']:.1f} s beside it); the three "
+          f"side by side: {time.perf_counter() - t0:.1f} s", flush=True)
     # flagship-moe's weights, drawn once on the host (seed 0) for every
     # MoE phase
     t0 = time.perf_counter()
@@ -5736,6 +6066,7 @@ def main():
                                          where, moe_init)
     del moe_init
     print(f"moe phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     phase_sp_parity(tfm, RingAxis, card)
     sp_launches, ring_step = phase_train(hvd, fa, tfm, card, where,
                                          RingAxis.local(SP_RING))
@@ -5747,6 +6078,8 @@ def main():
           f"the ring's {ring_step['step_ms']:.1f} ms "
           f"({ring_step['tok_s']:.1f} tokens/s, peak "
           f"{ring_step['peak'] / 2 ** 30:.2f} GiB)", flush=True)
+    print(f"sp parity and sp train phases: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     t0 = time.perf_counter()
     static = ("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
     band = ("flash_band_fwd_wgmma", "flash_band_dq_wgmma",
@@ -5807,7 +6140,8 @@ def main():
              "elastic_ranks": elastic_ranks_launches,
              "autotune": autotune_launches, "launcher": launcher_launches,
              "launcher_ranks": launcher_ranks_launches,
-             "zero_guard": zero_guard_launches, "spark": spark_launches}
+             "zero_guard": zero_guard_launches, "spark": spark_launches,
+             "examples": examples_launches}
     for e in entries:
         # a kernel's launches are its tensor-core route's: the main paths
         # launch its loop never (checked in phase_serve and phase_train)
@@ -5824,6 +6158,7 @@ def main():
     print(json.dumps({"eager_engine": eager_row, "card": where}))
     print(json.dumps({"fault_tolerance": fault_row, "card": where}))
     print(json.dumps({"autotune_launcher": launch_row, "card": where}))
+    print(json.dumps({"examples": examples_row, "card": where}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

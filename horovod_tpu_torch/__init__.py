@@ -68,7 +68,8 @@ are ``spark`` (``spark.run(fn, num_proc=N)``: one Spark task, or local
 process, a rank) and the framework bindings ``tensorflow`` (with
 ``tensorflow.keras``), ``keras`` and ``mxnet``, which exchange through
 the eager engine; importing this package imports none of them, nor
-TensorFlow or MXNet.
+TensorFlow or MXNet. So is ``analysis``: hvdlint over the port (``python
+-m horovod_tpu_torch.analysis``) and the lock-order witness.
 """
 
 import torch

@@ -190,8 +190,8 @@ def _mh_worker(device, num_tensors, elems, steps):
     refuses), then the phase with the bypass off, then on; process 0
     prints the JSON line."""
     import torch.distributed as dist
-    rank = int(os.environ["HOROVOD_TPU_PROCESS_ID"])
-    size = int(os.environ["HOROVOD_TPU_NUM_PROCESSES"])
+    rank = int(os.environ["HOROVOD_TPU_PROCESS_ID"])  # hvdlint: disable=HVD003 -- launcher-worker protocol var
+    size = int(os.environ["HOROVOD_TPU_NUM_PROCESSES"])  # hvdlint: disable=HVD003 -- launcher-worker protocol var
     if device.startswith("cuda"):
         device = "cuda:0"
     dist.init_process_group(
@@ -201,7 +201,7 @@ def _mh_worker(device, num_tensors, elems, steps):
     os.environ["HOROVOD_COORDINATOR_BYPASS_DISABLE"] = "1"
     lat_off, mbs_off, pub_off = _mh_worker_phase(device, "off", num_tensors,
                                                  elems, steps)
-    os.environ.pop("HOROVOD_COORDINATOR_BYPASS_DISABLE")
+    os.environ.pop("HOROVOD_COORDINATOR_BYPASS_DISABLE")  # hvdlint: disable=HVD003 -- the bench sets and clears the knob around its own phase; init reads it through Config
     lat_on, mbs_on, pub_on = _mh_worker_phase(device, "on", num_tensors,
                                               elems, steps)
     if rank == 0:

@@ -29,7 +29,7 @@ the protocol's. ``--device cpu`` runs the plain versions, for the tests.
 
 One JSON line carries the reference's keys for what it measures, the
 flagship transformer's row (``bench.transformer`` at 4 iterations, on a
-card), and ``{"skipped": "not ported: ROADMAP item N"}`` for each profile
+card; 1 iteration at 2 of its 8 layers in the smoke run), and ``{"skipped": "not ported: ROADMAP item N"}`` for each profile
 whose subsystem the port does not have yet (:data:`NOT_PORTED`, empty
 at present). ``control_plane`` is bench.py's scaling row: the
 simulated-rank harness (controlplane/simrank.py) at worlds 8, 64 and 256,
@@ -117,12 +117,11 @@ NOT_PORTED = {}
 COMPILED_NOT_PORTED = {}
 # bench.py's input-pipeline profile: the prefetch depth it measures
 # beside the synchronous path (HOROVOD_DATA_PREFETCH's default).
-DATA_PREFETCH = max(int(os.environ.get("HOROVOD_DATA_PREFETCH", "2") or 2),
-                    1)
+DATA_PREFETCH = max(config_mod.Config.from_env().data_prefetch, 1)
 # bench.py's tuned bucket count of the bucketed backward/exchange
 # overlap (HOROVOD_EXCHANGE_BUCKETS, default 8), A/B'd against 1.
 EXCHANGE_BUCKETS = max(
-    int(os.environ.get("HOROVOD_EXCHANGE_BUCKETS", "8") or 8), 1)
+    int(os.environ.get("HOROVOD_EXCHANGE_BUCKETS", "8") or 8), 1)  # hvdlint: disable=HVD003 -- bench.py's tuned default (8), not the knob's (1): the bench reads it as bench.py does
 # The record_function ranges one eager step of a one-bucket
 # DistributedOptimizer opens with tracing off (forward, backward, the
 # bucket hook's exchange and its synchronize, optimizer): the port's
@@ -134,6 +133,12 @@ RANGES_PER_STEP = 5
 PIPELINE_DEPTH = 2
 
 
+def smoke():
+    """Whether ``HOROVOD_BENCH_SMOKE`` asks for the bench's shrink."""
+    return os.environ.get("HOROVOD_BENCH_SMOKE", "") not in (  # hvdlint: disable=HVD003 -- the bench harness's own switch (the tests' shrink), not a knob of the library
+        "", "0", "false", "False")
+
+
 @dataclasses.dataclass(frozen=True)
 class Protocol:
     batch_candidates: tuple = (32, 64, 128, 256, 512)
@@ -143,18 +148,18 @@ class Protocol:
     image_size: int = 224
     max_measure_rounds: int = 4
     transformer_iters: int = 4
+    transformer_layers: int = 8
     micro_width: int = 1024
 
     @classmethod
     def from_env(cls):
         """The protocol, or its ``HOROVOD_BENCH_SMOKE=1`` shrink."""
-        smoke = os.environ.get("HOROVOD_BENCH_SMOKE", "") not in (
-            "", "0", "false")
-        if not smoke:
+        if not smoke():
             return cls()
         return cls(batch_candidates=(8,), num_iters=2, sweep_iters=1,
                    batches_per_iter=2, image_size=64, max_measure_rounds=1,
-                   transformer_iters=1, micro_width=256)
+                   transformer_iters=1, transformer_layers=2,
+                   micro_width=256)
 
 
 class _Run:
@@ -351,7 +356,7 @@ def _input_pipeline_profile(depth, device):
     ``device`` (pinned memory and a side stream on a card).
     ``data_wait_ms`` is the steady-state mean exposed wait a batch."""
     from ..data import DistributedDataset
-    n_batches = 6 if os.environ.get("HOROVOD_BENCH_SMOKE") == "1" else 20
+    n_batches = 6 if smoke() else 20
     batch = 8
     produce_s = 0.004
     consume_s = 0.004
@@ -748,7 +753,8 @@ def run_benchmark(proto, device):
         torch.cuda.empty_cache()
         transformer = transformer_bench.run_benchmark(
             transformer_bench.parse_args(
-                ["--iters", str(proto.transformer_iters)]))
+                ["--iters", str(proto.transformer_iters),
+                 "--layers", str(proto.transformer_layers)]))
     else:
         transformer = {"skipped": "runs on a CUDA card: python -m "
                                   "horovod_tpu_torch.bench.transformer"}
@@ -802,18 +808,16 @@ def run_benchmark(proto, device):
     return result
 
 
-def control_plane_row(smoke=None):
+def control_plane_row():
     """bench.py's pod-scale control-plane row: a shrunken simrank curve
     (real coordinators over a live in-process KV server, no device), so
     the bench tracks negotiation rounds a second, the tree's speedup
     over the star, and the graduated static round's O(1) root reads
     beside the training numbers."""
     from ..controlplane import simrank
-    if smoke is None:
-        smoke = os.environ.get("HOROVOD_BENCH_SMOKE", "") not in (
-            "", "0", "false", "False")
-    return simrank.scaling_curve(worlds=(8,) if smoke else (8, 64, 256),
-                                 fanout=4 if smoke else 32)
+    small = smoke()
+    return simrank.scaling_curve(worlds=(8,) if small else (8, 64, 256),
+                                 fanout=4 if small else 32)
 
 
 def _dispatch_profile(device):
@@ -878,7 +882,7 @@ def _eager_exchange_profile(device):
     whether every result lies on the inputs' device."""
     import horovod_tpu_torch as hvd
     eng = runtime.engine()
-    steps = 12 if os.environ.get("HOROVOD_BENCH_SMOKE") == "1" else 24
+    steps = 12 if smoke() else 24
     shapes = [(1024,), (64, 32), (256,)]
     base_h, base_m = eng.wire_cache.hits, eng.wire_cache.misses
     waits, on_device = [], True
@@ -905,7 +909,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the tests)")
     args = ap.parse_args(argv)
-    os.environ.setdefault("HOROVOD_PROFILER_DISABLE", "1")
+    os.environ.setdefault("HOROVOD_PROFILER_DISABLE", "1")  # hvdlint: disable=HVD003 -- sets the knob's default for this process before init, which reads it through Config
     result = run_benchmark(Protocol.from_env(), args.device)
     runtime.shutdown()
     print(json.dumps(result))

@@ -21,15 +21,16 @@ elastic training's (``HOROVOD_ELASTIC*``) and the input pipeline's
 (``HOROVOD_DATA_PREFETCH``), autotune's (``HOROVOD_AUTOTUNE*``), the
 launcher's (``HOROVOD_START_TIMEOUT``, ``HOROVOD_LAUNCH_RPC``,
 ``HOROVOD_ELASTIC_DRAIN_SECONDS``), the Spark driver's
-(``HOROVOD_SPARK_START_TIMEOUT``),
+(``HOROVOD_SPARK_START_TIMEOUT``), the logger's level and time stamps
+(``HOROVOD_LOG_LEVEL``, ``HOROVOD_LOG_HIDE_TIME``, which
+utils/logging.py reads through :meth:`Config.from_env`),
 :data:`FUSION_BUFFER_ATOMIC_UNIT` and
 :func:`next_power_of_two` (the shape bins). Names, defaults and clamps
-are the JAX package's. Four of its fields are left out: the engine's
+are the JAX package's. Two of its fields are left out: the engine's
 local tier is ``dcn_local_size`` (``HOROVOD_TPU_LOCAL_SIZE`` is the
-launcher's variable here), ``autotune_gaussian_process_noise`` is read
-by nothing there either, and ``log_level`` and ``log_hide_time`` are
-read from the environment by utils/logging.py. ``fusion_donate`` is
-read and ignored: torch donates no buffer to a program.
+launcher's variable here), and ``autotune_gaussian_process_noise`` is
+read by nothing there either. ``fusion_donate`` is read and ignored:
+torch donates no buffer to a program.
 """
 
 import dataclasses
@@ -257,6 +258,11 @@ class Config:
     dcn_local_size: int = 0
     # Per-chip peak FLOP/s for MFU (0 = look the card up in hardware.py).
     peak_flops: float = 0.0
+    # Logging (utils/logging.py): level name (trace, debug, info,
+    # warning, error, fatal; case-insensitive) and whether the time
+    # stamp is left out of each line.
+    log_level: str = "WARNING"
+    log_hide_time: bool = False
 
     @classmethod
     def from_env(cls):
@@ -405,6 +411,8 @@ class Config:
                 c.profiler_path = os.path.join(home, "profiler.txt")
             if "HOROVOD_WIRE_PROFILE_PATH" not in os.environ:
                 c.wire_profile_path = os.path.join(home, "profiler.csv")
+        c.log_level = os.environ.get("HOROVOD_LOG_LEVEL", c.log_level)
+        c.log_hide_time = _env_flag("HOROVOD_LOG_HIDE_TIME")
         return c
 
 

@@ -5,17 +5,21 @@
 // (horovod_init/..., EnqueueTensor*) exposed through ctypes in
 // common/basics.py. Here the collectives themselves are XLA programs driven
 // from Python, so the native surface is the control plane: stats, response
-// cache, fusion planning and timeline writing. The request-list format is
-// wire.py's (the coordinator's one serializer); the reference package's
-// native message format and half converters have no caller in this
-// runtime.
+// cache, fusion planning, timeline writing, message wire format, GP/EI
+// autotuning, and bf16 conversion. The port's coordinator serializes with
+// wire.py, whose bytes hvd_request_list_parse reads; torch casts its half
+// types itself, and the converters are the reference's (the fp16 cast
+// repaired: half.h), held to torch's casts by tests/test_torch_native.py.
 
 #include <cstdint>
 #include <cstring>
+#include <string>
 #include <vector>
 
 #include "fusion.h"
 #include "gaussian_process.h"
+#include "half.h"
+#include "message.h"
 #include "response_cache.h"
 #include "stats.h"
 #include "timeline.h"
@@ -78,6 +82,13 @@ int hvd_fusion_plan(const int64_t* nbytes, const int32_t* dtype_id, int n,
   std::memcpy(group_out, groups.data(), n * sizeof(int32_t));
   return ng;
 }
+int64_t hvd_fusion_offsets(const int64_t* nbytes, int n, int64_t* offsets) {
+  std::vector<int64_t> in(nbytes, nbytes + n), out;
+  int64_t total;
+  FusionOffsets(in, &out, &total);
+  std::memcpy(offsets, out.data(), n * sizeof(int64_t));
+  return total;
+}
 
 // --------------------------------------------------------------- timeline
 void* hvd_timeline_new(const char* path, int mark_cycles) {
@@ -106,6 +117,68 @@ void hvd_timeline_close(void* t) {
   delete tw;
 }
 
+// ---------------------------------------------------------------- messages
+// Serializes a request list given parallel arrays. Returns the blob length;
+// call with blob=nullptr to size, then again with a buffer.
+int64_t hvd_request_list_serialize(
+    int n, const int32_t* ranks, const int32_t* op_types,
+    const int32_t* dtypes, const int32_t* root_ranks, const int32_t* devices,
+    const char** names, const int32_t* ndims, const int64_t* dims_flat,
+    int shutdown, char* blob, int64_t blob_cap) {
+  RequestList list;
+  list.shutdown = shutdown != 0;
+  int64_t dpos = 0;
+  for (int i = 0; i < n; ++i) {
+    Request r;
+    r.request_rank = ranks[i];
+    r.request_type = static_cast<RequestType>(op_types[i]);
+    r.tensor_type = static_cast<DataType>(dtypes[i]);
+    r.root_rank = root_ranks[i];
+    r.device = devices[i];
+    r.tensor_name = names[i];
+    r.tensor_shape.assign(dims_flat + dpos, dims_flat + dpos + ndims[i]);
+    dpos += ndims[i];
+    list.requests.push_back(std::move(r));
+  }
+  std::string out = SerializeRequestList(list);
+  if (blob != nullptr && static_cast<int64_t>(out.size()) <= blob_cap)
+    std::memcpy(blob, out.data(), out.size());
+  return static_cast<int64_t>(out.size());
+}
+
+// Parses a blob; returns n requests (<0 on error). Caller passes arrays
+// sized >= max_requests / max_total_dims; names_buf receives
+// NUL-separated names.
+int hvd_request_list_parse(const char* blob, int64_t blob_len,
+                           int max_requests, int64_t max_total_dims,
+                           int32_t* ranks, int32_t* op_types, int32_t* dtypes,
+                           int32_t* root_ranks, int32_t* devices,
+                           int32_t* ndims, int64_t* dims_flat,
+                           char* names_buf, int64_t names_cap,
+                           int* shutdown) {
+  RequestList list;
+  if (!ParseRequestList(std::string(blob, blob_len), &list)) return -1;
+  if (static_cast<int>(list.requests.size()) > max_requests) return -2;
+  int64_t dpos = 0, npos = 0;
+  for (size_t i = 0; i < list.requests.size(); ++i) {
+    const Request& r = list.requests[i];
+    ranks[i] = r.request_rank;
+    op_types[i] = static_cast<int32_t>(r.request_type);
+    dtypes[i] = static_cast<int32_t>(r.tensor_type);
+    root_ranks[i] = r.root_rank;
+    devices[i] = r.device;
+    ndims[i] = static_cast<int32_t>(r.tensor_shape.size());
+    if (dpos + ndims[i] > max_total_dims) return -3;
+    for (int64_t d : r.tensor_shape) dims_flat[dpos++] = d;
+    int64_t len = static_cast<int64_t>(r.tensor_name.size()) + 1;
+    if (npos + len > names_cap) return -4;
+    std::memcpy(names_buf + npos, r.tensor_name.c_str(), len);
+    npos += len;
+  }
+  *shutdown = list.shutdown ? 1 : 0;
+  return static_cast<int>(list.requests.size());
+}
+
 // ------------------------------------------------------------ bayes opt
 void* hvd_bo_new(int dim, const double* lo, const double* hi, double xi,
                  uint64_t seed) {
@@ -121,6 +194,24 @@ void hvd_bo_add_sample(void* b, const double* x, int dim, double y) {
 void hvd_bo_suggest(void* b, double* x_out, int dim) {
   std::vector<double> s = static_cast<BayesianOptimization*>(b)->Suggest();
   std::memcpy(x_out, s.data(), dim * sizeof(double));
+}
+
+// ------------------------------------------------------------------ half
+void hvd_f32_to_bf16(const float* src, uint16_t* dst, int64_t n) {
+  Float32ToBfloat16(src, dst, n);
+}
+void hvd_bf16_to_f32(const uint16_t* src, float* dst, int64_t n) {
+  Bfloat16ToFloat32(src, dst, n);
+}
+void hvd_f32_to_f16(const float* src, uint16_t* dst, int64_t n) {
+  Float32ToFloat16(src, dst, n);
+}
+void hvd_f16_to_f32(const uint16_t* src, float* dst, int64_t n) {
+  Float16ToFloat32(src, dst, n);
+}
+void hvd_bf16_sum(const uint16_t* a, const uint16_t* b, uint16_t* out,
+                  int64_t n) {
+  Bfloat16Sum(a, b, out, n);
 }
 
 }  // extern "C"

@@ -34,4 +34,15 @@ int PlanFusion(const std::vector<FusionEntry>& entries, int64_t threshold,
   return next_group;
 }
 
+void FusionOffsets(const std::vector<int64_t>& nbytes,
+                   std::vector<int64_t>* offsets, int64_t* total) {
+  offsets->resize(nbytes.size());
+  int64_t off = 0;
+  for (size_t i = 0; i < nbytes.size(); ++i) {
+    (*offsets)[i] = off;
+    off += AlignUp(nbytes[i], kFusionBufferAtomicUnit);
+  }
+  *total = off;
+}
+
 }  // namespace hvdtpu

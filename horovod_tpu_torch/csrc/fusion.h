@@ -4,8 +4,8 @@
 // + FusionBufferManager sizing — batch small allreduces into one wire
 // collective under the fusion threshold, with look-ahead past entries of a
 // different wire dtype (the reference's "skipped responses" loop) so a
-// mixed-dtype stream still fuses densely; each member's bytes count aligned
-// up to FUSION_BUFFER_ATOMIC_UNIT (operations.h:30).
+// mixed-dtype stream still fuses densely; offsets are aligned to
+// FUSION_BUFFER_ATOMIC_UNIT (operations.h:30).
 #pragma once
 
 #include <cstdint>
@@ -25,5 +25,10 @@ struct FusionEntry {
 // Returns the number of groups.
 int PlanFusion(const std::vector<FusionEntry>& entries, int64_t threshold,
                std::vector<int32_t>* group_out);
+
+// Byte offsets of each member inside its fused buffer, aligned up to the
+// atomic unit (mirrors the reference's buffer layout math).
+void FusionOffsets(const std::vector<int64_t>& nbytes,
+                   std::vector<int64_t>* offsets, int64_t* total);
 
 }  // namespace hvdtpu

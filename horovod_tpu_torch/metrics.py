@@ -434,6 +434,10 @@ ENGINE_WIRE_CACHE_MISSES = _registry.gauge(
     "hvd_engine_wire_cache_misses",
     "Wire-program cache misses — each one is a compiled executable "
     "(cumulative for the live engine).")
+ENGINE_DEVICE_BUCKETS = _registry.counter(
+    "hvd_engine_device_resident_buckets_total",
+    "Fused allreduce buckets served by the device-resident path "
+    "(results stayed on device; zero host readback).")
 
 # Overlap pipeline (ops/engine.py async dispatch; docs/performance.md).
 ENGINE_BUCKET_FLUSHES = _registry.counter(

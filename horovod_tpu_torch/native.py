@@ -2,12 +2,15 @@
 
 Counterpart of horovod_tpu/native.py. The library carries the control
 plane of the eager engine: the collective stats, the response cache,
-the fusion planner, the timeline writer and the autotuner's Bayesian
-optimizer (``gaussian_process``, the ``hvd_bo_*`` entries). Its sources
-are the port's own copy, ``horovod_tpu_torch/csrc/*.cc``, of the JAX
-package's parts that the port calls; the native message format and half
-converters wait for a runtime caller (the coordinator serializes with
-wire.py). At first use they
+the fusion planner and its offsets, the timeline writer and the
+autotuner's Bayesian optimizer (``gaussian_process``, the ``hvd_bo_*``
+entries), and, as in the JAX package, the native message format
+(``hvd_request_list_serialize`` / ``_parse``, which read and write
+wire.py's bytes; the coordinator serializes with wire.py) and the half
+converters (``hvd_f32_to_bf16`` and friends, ``hvd_bf16_sum``; torch
+casts the runtime's half types itself). Its sources are the port's own
+copy, ``horovod_tpu_torch/csrc/*.cc``, of the JAX package's. At first
+use they
 compile with ``g++`` into one shared library in
 ``build/horovod_tpu_torch/``, named by a hash of every source, header
 and flag, as ops/_build.py names the CUDA libraries, so an edited
@@ -125,6 +128,9 @@ def _declare(lib):
         c.POINTER(c.c_int64), c.POINTER(c.c_int32), c.c_int, c.c_int64,
         c.POINTER(c.c_int32)]
     lib.hvd_fusion_plan.restype = c.c_int
+    lib.hvd_fusion_offsets.argtypes = [c.POINTER(c.c_int64), c.c_int,
+                                       c.POINTER(c.c_int64)]
+    lib.hvd_fusion_offsets.restype = c.c_int64
 
     lib.hvd_timeline_new.argtypes = [c.c_char_p, c.c_int]
     lib.hvd_timeline_new.restype = c.c_void_p
@@ -145,6 +151,24 @@ def _declare(lib):
     lib.hvd_bo_suggest.argtypes = [c.c_void_p, c.POINTER(c.c_double),
                                    c.c_int]
 
+    i32 = c.POINTER(c.c_int32)
+    lib.hvd_request_list_serialize.argtypes = [
+        c.c_int, i32, i32, i32, i32, i32, c.POINTER(c.c_char_p), i32,
+        c.POINTER(c.c_int64), c.c_int, c.c_char_p, c.c_int64]
+    lib.hvd_request_list_serialize.restype = c.c_int64
+    lib.hvd_request_list_parse.argtypes = [
+        c.c_char_p, c.c_int64, c.c_int, c.c_int64, i32, i32, i32, i32, i32,
+        i32, c.POINTER(c.c_int64), c.c_char_p, c.c_int64,
+        c.POINTER(c.c_int)]
+    lib.hvd_request_list_parse.restype = c.c_int
+
+    for fn in (lib.hvd_f32_to_bf16, lib.hvd_f32_to_f16):
+        fn.argtypes = [c.POINTER(c.c_float), c.POINTER(c.c_uint16), c.c_int64]
+    for fn in (lib.hvd_bf16_to_f32, lib.hvd_f16_to_f32):
+        fn.argtypes = [c.POINTER(c.c_uint16), c.POINTER(c.c_float), c.c_int64]
+    lib.hvd_bf16_sum.argtypes = [c.POINTER(c.c_uint16),
+                                 c.POINTER(c.c_uint16),
+                                 c.POINTER(c.c_uint16), c.c_int64]
     return lib
 
 

@@ -1413,6 +1413,9 @@ class EagerEngine:
             metrics.ENGINE_FUSION_FILL.observe(
                 nbytes / self.config.fusion_threshold)
         metrics.ENGINE_BUCKET_FLUSHES.inc()
+        # every fused bucket's result stays on its device (one result
+        # path: to_host is ignored)
+        metrics.ENGINE_DEVICE_BUCKETS.inc()
         reqs = [e.requests[self.rank] for e, _ in batch]
         with self._stream_ctx():
             for req in reqs:
@@ -1476,7 +1479,7 @@ class EagerEngine:
                              self._wire_end("allreduce", slim[0][0], nbytes,
                                             len(slim), wait=wait))
             unfuse = self._clock_start() if self._cuda else None
-            done = self._scatter_fused_results(slim, offsets, buf)
+            done = self._scatter_fused_results_locked(slim, offsets, buf)
             if done is not None:
                 self.bucket_spans.append(fill + (unfuse, done))
                 if self.autotuner is not None:
@@ -1514,7 +1517,7 @@ class EagerEngine:
             return gather(out, host, group=mesh.get_group("cross"),
                           async_op=True)
 
-    def _scatter_fused_results(self, batch, offsets, buf):
+    def _scatter_fused_results_locked(self, batch, offsets, buf):
         """Unfuse a completed bucket into per-handle results (reference:
         MemcpyOutFusionBuffer; ops/collectives.py ``unfuse_segments``):
         views of the bucket, averaged in place, or copies where the dtype
@@ -1595,7 +1598,7 @@ class EagerEngine:
             if self._cuda:
                 event = torch.cuda.Event()
                 event.record(self._stream)
-                self._events[req.handle] = event
+                self._events[req.handle] = event  # hvdlint: disable=HVD002 -- lock IS held: done() runs as rec.finish under 'with self._cv' in _complete_inflight
             self.timeline.end(name)
 
         rec.finish = done

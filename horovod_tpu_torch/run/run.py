@@ -1052,9 +1052,7 @@ def main(argv=None):
         return 1
     max_restarts = args.max_restarts
     if max_restarts is None:
-        # The CLI-layer default depends on --elastic and warns on a
-        # malformed value, which a static Config default cannot.
-        raw = os.environ.get("HOROVOD_MAX_RESTARTS",
+        raw = os.environ.get("HOROVOD_MAX_RESTARTS",  # hvdlint: disable=HVD003 -- CLI-layer default depends on --elastic and warns on malformed values; a static Config default can't
                              "3" if args.elastic else "0")
         try:
             max_restarts = int(raw)

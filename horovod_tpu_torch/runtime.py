@@ -299,11 +299,11 @@ def _join_group():
     and the launched world. A TCPStore is made once per coordinator
     address and kept for the process's life, so process 0's server
     outlives every session (module docstring)."""
-    coord = os.environ.get("HOROVOD_TPU_COORDINATOR")
+    coord = os.environ.get("HOROVOD_TPU_COORDINATOR")  # hvdlint: disable=HVD003 -- launcher-worker protocol var set by run/, not a knob
     if not coord:
         return dist.HashStore(), 0, 1
-    size = int(os.environ["HOROVOD_TPU_NUM_PROCESSES"])
-    rank = int(os.environ["HOROVOD_TPU_PROCESS_ID"])
+    size = int(os.environ["HOROVOD_TPU_NUM_PROCESSES"])  # hvdlint: disable=HVD003 -- launcher-worker protocol var
+    rank = int(os.environ["HOROVOD_TPU_PROCESS_ID"])  # hvdlint: disable=HVD003 -- launcher-worker protocol var
     host, port = coord.rsplit(":", 1)
     key = (host, int(port), size, rank)
     store = _stores.get(key)
@@ -318,7 +318,7 @@ def job_store():
     """The job's key-value store, for the process's life: process 0's
     TCPStore at the coordinator address, or one in-memory store when the
     process runs alone. Elastic rendezvous runs on it between sessions."""
-    if os.environ.get("HOROVOD_TPU_COORDINATOR"):
+    if os.environ.get("HOROVOD_TPU_COORDINATOR"):  # hvdlint: disable=HVD003 -- launcher-worker protocol var set by run/, not a knob
         return _join_group()[0]
     store = _stores.get("local")
     if store is None:
@@ -537,7 +537,7 @@ def _record_elastic_launch_stamps():
     n = _env_int("HOROVOD_TPU_ELASTIC_RESTARTS", 0)
     if n > 0:
         metrics.ELASTIC_RESTARTS.inc(n)
-    resized = os.environ.get("HOROVOD_TPU_ELASTIC_RESIZED", "")
+    resized = os.environ.get("HOROVOD_TPU_ELASTIC_RESIZED", "")  # hvdlint: disable=HVD003 -- supervisor-worker protocol var, stamped per resize
     if resized in ("up", "down"):
         metrics.ELASTIC_RESIZES.labels(direction=resized).inc()
 

@@ -1,9 +1,9 @@
 """Leveled logging controlled by ``HOROVOD_LOG_LEVEL`` and
-``HOROVOD_LOG_HIDE_TIME`` (counterpart of horovod_tpu/utils/logging.py,
-with a TRACE level below DEBUG)."""
+``HOROVOD_LOG_HIDE_TIME``, read through ``Config.from_env()``
+(counterpart of horovod_tpu/utils/logging.py, with a TRACE level below
+DEBUG)."""
 
 import logging
-import os
 
 TRACE = 5
 logging.addLevelName(TRACE, "TRACE")
@@ -21,11 +21,11 @@ _LEVELS = {
 def get_logger(name="horovod_tpu_torch"):
     logger = logging.getLogger(name)
     if not getattr(logger, "_hvd_configured", False):
-        level = os.environ.get("HOROVOD_LOG_LEVEL", "warning").lower()
-        logger.setLevel(_LEVELS.get(level, logging.WARNING))
+        from ..config import Config
+        cfg = Config.from_env()
+        logger.setLevel(_LEVELS.get(cfg.log_level.lower(), logging.WARNING))
         handler = logging.StreamHandler()
-        if os.environ.get("HOROVOD_LOG_HIDE_TIME", "") in ("", "0", "false",
-                                                          "False"):
+        if not cfg.log_hide_time:
             fmt = "[%(asctime)s] [%(levelname)s] %(message)s"
         else:
             fmt = "[%(levelname)s] %(message)s"

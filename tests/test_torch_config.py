@@ -19,10 +19,6 @@ LEFT_OUT = {
     # nothing read it, in the port or in the JAX package; removed when
     # the autotuner was ported
     "autotune_gaussian_process_noise",
-    # utils/logging.py reads HOROVOD_LOG_LEVEL and HOROVOD_LOG_HIDE_TIME
-    # from the environment when it makes the logger
-    "log_level",
-    "log_hide_time",
 }
 
 
@@ -50,6 +46,7 @@ ENVS = [
      "HOROVOD_GUARD": "1", "HOROVOD_GUARD_BAD_STEPS": "0"},
     {"HOROVOD_SPARK_START_TIMEOUT": "42", "HOROVOD_FUSION_DONATE": "1",
      "HOROVOD_DCN_LOCAL_SIZE": "-3", "HOROVOD_START_TIMEOUT": "bogus"},
+    {"HOROVOD_LOG_LEVEL": "debug", "HOROVOD_LOG_HIDE_TIME": "1"},
 ]
 
 

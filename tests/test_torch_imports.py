@@ -1,8 +1,9 @@
 """The port imports no JAX and nothing of the JAX package.
 
-An AST scan of every module of horovod_tpu_torch/ and of the scripts
+An AST scan of every module of horovod_tpu_torch/, of the scripts
 that drive the port on a card that has no JAX (chip_smoke.py,
-chip_profile.py). A scan and not
+chip_profile.py) and of the port's own examples (examples/torch_port/).
+A scan and not
 ``sys.modules``: the test process imports JAX anyway, for the parity
 tests beside this one.
 """
@@ -16,6 +17,8 @@ REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "horovod_tpu_torch"
 FILES = sorted(str(p.relative_to(REPO)) for p in PACKAGE.rglob("*.py"))
 FILES += ["chip_smoke.py", "chip_profile.py"]
+FILES += sorted(str(p.relative_to(REPO))
+                for p in (REPO / "examples" / "torch_port").glob("*.py"))
 BANNED = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
 
 
@@ -50,6 +53,7 @@ def _imports(path, root=REPO):
 
 def test_scan_covers_the_package():
     assert "horovod_tpu_torch/ops/flash_attention.py" in FILES
+    assert "examples/torch_port/transformer_long_context.py" in FILES
     assert (REPO / "chip_smoke.py").exists()
 
 
