@@ -34,7 +34,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    against the same prompts through ``attention_impl="dense"`` at full
    width, and a small f32 model's prefill + decode against its forward;
    then ``loss_fn``'s loss and every parameter gradient through flash
-   against dense, at full width (B 1, S 1024) and on a small f32 model;
+   against dense, at full width (B 1, S 1024) and on a small f32 model
+   (run beside the tp phase, below: parity, not a speed);
 5. serve (main path 1): the flagship transformer of bench_transformer.py
    at full width (8 layers, the bench's own depth; d_model 2048, 16 query
    / 4 KV heads, d_ff 8192, vocab 32768, rope, bf16 activations, f32
@@ -120,6 +121,12 @@ bench line after the bench phase:
 - eager bench: ``python -m horovod_tpu_torch.bench.eager`` at one rank,
   its JSON line checked for ``eager_allreduce_mbytes_sec``.
 
+The bench phase also runs ``horovod_tpu_torch.bench.scaling``'s
+``main()`` at its defaults (the reference's MLP, batch 64 a rank, 8 steps) alone:
+one card gives the size-1 row only (NCCL refuses two ranks on one
+card), so its line must read ``per_n`` ``{"1": 100.0}`` and ``devices``
+1, with a positive size-1 img/s on its ``# n=1`` line and no other row.
+
 The hot loop's CUDA graphs (ops/step_program.py) have two phases of
 their own, each after the eager phase it mirrors; the eager serve phase
 (5) runs with ``HOROVOD_STEP_PROGRAM=0``:
@@ -139,11 +146,12 @@ their own, each after the eager phase it mirrors; the eager serve phase
   tensor-core route and one ``allreduce_jit`` a bucket, and the replay's
   time beside the eager step's.
 
-Mixture-of-Experts has three phases of its own, after the compiled
-train phase, on flagship-moe (``MOE_MODEL``: the flagship with an MoE
-FFN in layers 1 and 3 of 4 (the flagship's depth cut in half), 8
-experts, top-2, capacity factor 1.25; 780 M parameters, drawn once on
-the host from seed 0):
+Mixture-of-Experts has three phases of its own on flagship-moe
+(``MOE_MODEL``: the flagship with an MoE FFN in layers 1 and 3 of 4
+(the flagship's depth cut in half), 8 experts, top-2, capacity factor
+1.25; 780 M parameters, drawn once on the host from seed 0, beside
+nvcc): its parity phase beside the tp phase, the other two after the
+tp phase:
 
 - moe parity: the MoE layer at full width (d 2048, ff 8192, 4 x 4096
   tokens, f32, a router skewed so that capacity drops happen) in index
@@ -216,8 +224,8 @@ off the counted path: the gathered gradients against the unsharded f32
 model's within TP_F32_GRAD_REL, its worst and median relative L2
 printed (how far the bf16 gap is the order of the sums).
 
-Ulysses, the SP step in graphs and the pipeline (PR 11), after the SP
-train phase:
+Ulysses and the SP step in graphs (PR 11), after the SP train phase,
+and the pipeline (PR 11), beside the launcher phase:
 
 - kernels: ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` at
   Ulysses' shard shape (B 2, S 8192, H 4 / H_kv 1, D 128, bf16, causal,
@@ -244,7 +252,8 @@ train phase:
   gradients within TRAIN_GRAD_REL; a small f32 model within
   SMALL_GRAD_ATOL); then 3 AdamW steps each of the unpipelined model,
   GPipe and 1F1B, each loss falling, their step times (a local schedule
-  on one card, not a PP speed) and peaks (1F1B's below GPipe's), and
+  on one card, beside the launcher phase: not a speed) and peaks (1F1B's
+  below GPipe's), and
   each pipelined step's launches exact: 32 ``flash_fwd`` (GPipe) or 64
   (1F1B: the backward phase's recompute) and 32 of each backward kernel.
 
@@ -382,14 +391,15 @@ bench phase:
   equal applied autotune lists at equal decision indices, equal
   parameters, each rank's output streamed with its prefix; (b) the churn
   soak's short mode (tests/torch_soak_churn.py) through
-  ``launch_elastic(autoscale=True)``, after the timed phases (its
-  workers share the card): 2 -> 3 through the grace drain, one worker SIGTERMed, 3 -> 2 in the job,
-  every sample exactly once, 2 generations, exit 0; each recovery's
-  wall time printed;
+  ``launch_elastic(autoscale=True)``, beside the tp phase (its workers
+  share the card): 2 -> 3 through the grace drain, one worker
+  SIGTERMed, 3 -> 2 in the job, every sample exactly once, 2
+  generations, exit 0; each recovery's wall time printed, taken beside
+  the tp phase (not a speed figure);
 - control plane: bench.resnet's ``control_plane`` row at worlds 8, 64
   and 256, fanout 32, the star and the tree at CONTROL_ROUNDS rounds a
-  world (simrank on the host, in a process of its own, after the soak,
-  with nothing else running), and ``bench.eager --multihost 2`` on this
+  world (simrank on the host, in a process of its own, last, with
+  nothing else running), and ``bench.eager --multihost 2`` on this
   card
   (``eager_multihost_cycle_ms``, bypass on and off, over gloo: a
   control-plane time).
@@ -418,15 +428,20 @@ own, before the tp phase, whose subprocesses run beside it:
   finite, falling loss (the resumed run's first loss below the first
   run's); the long-context run's kernel launches, its own process's
   counts, are the path's: each kernel on the tensor-core route at D 64,
-  none on the loop, static and band as many as its ring gives. The
-  subprocesses run while the tp phase runs (parity, not a speed), as
-  does the spark phase (the tp phase's ranks wait in a thread), and the
-  phase prints its own seconds and theirs.
+  none on the loop, static and band as many as its ring gives. Beside
+  them ``mxnet_mnist.py --shim`` runs the MXNet binding over
+  tests/mxnet_mock.py with the engine on this card (the machine has
+  neither MXNet nor TensorFlow): it must exit 0, print ``DONE`` and end
+  with a falling loss. The subprocesses run while the tp phase runs
+  (parity, not a speed), as does the spark phase (the tp phase's ranks
+  wait in a thread), and the phase prints its own seconds and theirs.
 
 Phases whose figures are parity and exit codes, not speeds, run side by
 side to keep the run inside its 1200 s: the launcher, launched ranks,
-elastic ranks' kill run and eager 2-rank phases together, and the tp,
-spark and examples phases together. Nothing runs beside a timed phase.
+elastic ranks' kill run, eager 2-rank and pipeline phases together
+(the pipeline's step times are not speeds), and the tp,
+spark, examples, MoE parity, churn soak and parity phases together.
+Nothing runs beside a timed phase.
 
 Every flagship-sized phase starts from one seed-0 host draw of its
 parameter layout (``seed0_params``: the bits of a fresh
@@ -612,11 +627,24 @@ def _demangle(names):
     return dict(zip(names, out.splitlines()))
 
 
-def kernel_usage(fa, _build, source, log):
+def sass_hgmma(_build, source):
+    """{mangled kernel: HGMMA (wgmma) instructions} in ``source``'s SASS
+    (cuobjdump -sass), or None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(source))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    return {part.split()[0]: part.count("HGMMA")
+            for part in sass.split("Function : ")[1:]}
+
+
+def kernel_usage(fa, source, log, hgmma):
     """Print each kernel of ``source``'s registers, spills and shared
     memory from nvcc's -Xptxas -v ``log``, and the HGMMA (wgmma)
-    instructions in its SASS (cuobjdump -sass, where the toolkit has it).
-    A tensor-core kernel without HGMMA fails the run."""
+    instructions in its SASS (``hgmma``, :func:`sass_hgmma`'s). A
+    tensor-core kernel without HGMMA fails the run."""
     usage, name = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties "
@@ -637,16 +665,6 @@ def kernel_usage(fa, _build, source, log):
             usage[name]["registers"] = int(m[1])
             smem = re.search(r"(\d+) bytes smem", line)
             usage[name]["static_smem"] = int(smem[1]) if smem else 0
-    hgmma = None
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if os.path.exists(tool):
-        sass = subprocess.run([tool, "-sass",
-                               str(_build.library_path(source))],
-                              capture_output=True, text=True, timeout=300,
-                              check=True).stdout
-        hgmma = {}
-        for part in sass.split("Function : ")[1:]:
-            hgmma[part.split()[0]] = part.count("HGMMA")
     readable = _demangle(sorted(usage))
     for mangled in sorted(usage, key=lambda n: readable[n]):
         u, text = usage[mangled], readable[mangled]
@@ -690,22 +708,59 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters):
-    """Device time of one call of ``fn``: the self time of the CUDA
-    kernels it launches, summed by torch.profiler over ``iters`` calls.
-    Where the host's enqueueing is slower than the kernels (a wrapper
-    call at a small shape), ``time_ms`` measures the host instead."""
+def _averaged_device_us(prof):
+    """torch.profiler's device time: the self time of its CUDA rows."""
     from torch.autograd import DeviceType
+    return sum(getattr(r, "self_device_time_total", 0)
+               for r in prof.key_averages() if r.device_type == DeviceType.CUDA)
+
+
+def _raw_device_us(prof):
+    """The same sum as :func:`_averaged_device_us`, read from the raw
+    kineto events (the events ``key_averages()`` keeps: CUDA, not
+    filtered, hidden or async), without building ``key_averages()``'s
+    tree of every CPU op, which took 64 s of an H100 run for the serving
+    rounds' ~10^5 events."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name
+    total = 0
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA or _filter_name(e.name())
+                or getattr(e, "is_hidden_event", lambda: False)()
+                or e.is_async() or e.start_thread_id() != e.end_thread_id()):
+            continue
+        total += e.end_ns() - e.start_ns()
+    return total / 1e3
+
+
+_raw_sum_checked = False
+
+
+def device_ms(fn, iters, warm=True):
+    """Device time of one call of ``fn``: the self time of the CUDA
+    kernels it launches, summed by torch.profiler over ``iters`` calls
+    (:func:`_raw_device_us`, held to ``key_averages()``'s sum on the
+    run's first call). Where the host's enqueueing is slower than the
+    kernels (a wrapper call at a small shape), ``time_ms`` measures the
+    host instead. ``warm``: one untimed call first (a caller whose
+    ``fn`` has just run passes False)."""
+    global _raw_sum_checked
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(r, "self_device_time_total", 0)
-             for r in prof.key_averages() if r.device_type == DeviceType.CUDA)
+    us = _raw_device_us(prof)
+    if not _raw_sum_checked:
+        averaged = _averaged_device_us(prof)
+        check(abs(us - averaged) <= 1e-6 * averaged + 1e-3,
+              f"raw kineto device time {us} us != key_averages' "
+              f"{averaged} us")
+        _raw_sum_checked = True
     return us / iters / 1e3
 
 
@@ -1023,8 +1078,9 @@ def serve_both_engines(fa, serve, metrics, lm, card, where, label):
             timed["launches"] = read_launches(fa)
             hits, misses = (se.decode_hits - c0[0], se.decode_misses - c0[1])
             timed["steady_hit_rate"] = hits / max(hits + misses, 1)
+            # the built and the timed rounds have warmed it
             timed["device_ms"] = device_ms(
-                lambda: serve_round(engine, metrics, vocab), 1)
+                lambda: serve_round(engine, metrics, vocab), 1, warm=False)
             timed["busy"] = timed["device_ms"] / timed["wall_ms"]
             timed["built_outs"] = built["outs"]
             timed["captured"] = [p.captured
@@ -2085,6 +2141,20 @@ def seed0_host(tfm, cfg):
     return tree
 
 
+def seed0_draws(tfm):
+    """The run's host draws of seed 0, made once: the flagship's,
+    FT_MODEL's and SP_MODEL's trees (:func:`seed0_host`, with their files
+    for the child processes) and flagship-moe's, which it returns."""
+    for model in (FLAGSHIP, FT_MODEL, SP_MODEL):
+        seed0_host(tfm, tfm.TransformerConfig(**model))
+    moe_init = tfm.init_params(tfm.TransformerConfig(**MOE_MODEL),
+                               torch.Generator().manual_seed(0), "cpu")
+    print(f"flagship-moe: "
+          f"{sum(t.numel() for t in tfm._leaves(moe_init)) / 1e6:.1f} M "
+          f"parameters drawn", flush=True)
+    return moe_init
+
+
 def seed0_params(tfm, cfg, card):
     """A copy on ``card`` of the seed-0 tree of ``cfg``: the bits of
     ``TransformerLM(cfg, generator=Generator seeded 0, device=card)``."""
@@ -2654,7 +2724,8 @@ def phase_pipeline(fa, tfm, card, where):
         peak = torch.cuda.max_memory_allocated()
         stats[schedule] = (step_ms, peak)
         print(f"pp train {schedule} [{where}] (a local schedule of "
-              f"{PP_STAGES} stages on one card, not a PP speed): 4 x 4096 "
+              f"{PP_STAGES} stages on one card, beside the launcher phase: "
+              f"not a speed): 4 x 4096 "
               f"in {PP_MICROBATCHES} microbatches, steps "
               f"{' '.join(f'{t:.1f}' for t in step_ms)} ms, losses "
               f"{' '.join(f'{x:.4f}' for x in losses)}, peak memory "
@@ -4663,7 +4734,8 @@ def phase_moe_parity(tfm, moe, card, init):
     tokens, f32) on the card: its routing tables rebuilt as dense
     tensors equal ``_top_k_dispatch``'s exactly, and ``moe_layer``
     against ``moe_layer_reference`` (the dense einsums): the same aux and
-    counts, outputs within MOE_LAYER_REL of the largest; both timed.
+    counts, outputs within MOE_LAYER_REL of the largest (untimed: the
+    phase runs beside the tp phase).
     Then flagship-moe cut to 2 layers (the first two of ``init``, a
     host tree: layer 1 MoE), B 1 x MOE_PARITY_SEQ, dense attention and
     full capacity, on the card against the same weights on the CPU:
@@ -4693,15 +4765,12 @@ def phase_moe_parity(tfm, moe, card, init):
     scale = float(y_ref.abs().max())
     counts = [(st[k].item(), st_ref[k].item())
               for k in ("routed_tokens", "dropped_tokens")]
-    ms = time_ms(lambda: moe.moe_layer(params, x, cfg), 3)
-    plain_ms = time_ms(lambda: moe.moe_layer_reference(params, x, cfg), 2)
     print(f"moe parity layer (d {cfg.d_model}, ff {cfg.d_ff}, E "
           f"{cfg.num_experts}, top-{cfg.top_k}, {t} tokens, capacity {cap}, "
           f"f32): tables equal dispatch/combine {same}; routed/dropped "
           f"{counts}; aux {aux.item():.6f} vs {aux_ref.item():.6f}; "
           f"max|dy| {err:.3g} of max|y| {scale:.3g} (tol "
-          f"{MOE_LAYER_REL * scale:.3g}); forward {ms:.2f} ms, dense plain "
-          f"version {plain_ms:.2f} ms", flush=True)
+          f"{MOE_LAYER_REL * scale:.3g})", flush=True)
     check(all(same), "MoE routing tables differ from the dense dispatch")
     check(all(a == b for a, b in counts) and aux.item() == aux_ref.item(),
           "MoE counts or aux differ from the dense plain version")
@@ -4980,13 +5049,47 @@ def _bench_line(args, env, timeout):
     return line
 
 
+def phase_scaling(where):
+    """``horovod_tpu_torch.bench.scaling``'s ``main()`` at its defaults,
+    from this process (one torch import fewer than ``python -m``; its
+    size-1 rank is launched as a user's run launches it): on one card the
+    size-1 row alone, said so on a ``#`` line, and no other row. Returns
+    the line."""
+    import contextlib
+    import io
+
+    from horovod_tpu_torch.bench import scaling
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        scaling.main([])
+    out = buf.getvalue()
+    line = json.loads(out.strip().splitlines()[-1])
+    print(f"bench horovod_tpu_torch.bench.scaling in "
+          f"{time.perf_counter() - t0:.1f} s: {json.dumps(line)}", flush=True)
+    rows = [ln for ln in out.splitlines() if ln.startswith("# n=")]
+    img_sec = float(rows[0].split()[2]) if len(rows) == 1 else 0.0
+    check(line.get("metric") == "weak_scaling_efficiency"
+          and line.get("per_n") == {"1": 100.0} and line.get("devices") == 1
+          and line.get("backend") == "nccl",
+          f"bench.scaling line {line}")
+    check(rows and rows[0].startswith("# n=1:") and len(rows) == 1
+          and img_sec > 0 and "# one rank only" in out,
+          f"bench.scaling rows {rows}")
+    print(f"bench.scaling [{where}]: size 1 {img_sec} img/s "
+          f"(settings {line['settings']}), per_n {line['per_n']}",
+          flush=True)
+    return line
+
+
 def phase_bench(where):
     """Both bench modules as a user runs them: bench.resnet in its
     HOROVOD_BENCH_SMOKE shrink (with the flagship's row at 1 iteration
     and 2 of its 8 layers), bench.transformer at --iters 2 --layers 2
     (the flagship's widths; the compiled train and trace phases time its
     whole depth). Each line must name its metric, with a positive value
-    and a numeric MFU on this card."""
+    and a numeric MFU on this card. Then bench.scaling alone
+    (:func:`phase_scaling`), whose line it returns."""
     env = {**os.environ, "HOROVOD_BENCH_SMOKE": "1"}
     res = _bench_line(["horovod_tpu_torch.bench.resnet"], env, 600)
     env.pop("HOROVOD_BENCH_SMOKE")
@@ -5071,6 +5174,7 @@ def phase_bench(where):
           f"{moe['moe']['drop_fraction']}, resnet's row "
           f"{res['moe']['tokens_per_sec_per_chip']}); zero_profile "
           f"{json.dumps(zero)}", flush=True)
+    return phase_scaling(where)
 
 
 # ------------------------------------------------- autotune and launcher
@@ -5594,8 +5698,8 @@ def phase_launcher_ranks(where):
 def phase_churn_soak(where):
     """Main path launcher_ranks, part (b): the churn soak's short mode
     (tests/torch_soak_churn.py) through ``launch_elastic(autoscale=True)``
-    with its scripted policy, its workers on this card over gloo, after
-    the timed phases: 2 -> 3 through the grace drain, one worker
+    with its scripted policy, its workers on this card over gloo, beside
+    the tp phase (so its recovery times are not speed figures): 2 -> 3 through the grace drain, one worker
     SIGTERMed, 3 -> 2 with an in-job re-shard; every sample exactly
     once (pads as the soak's replay predicts them), 2 generations, the
     resize in the summary, exit 0. Prints each recovery's wall time."""
@@ -5725,6 +5829,8 @@ EXAMPLES_LC_LAYERS, EXAMPLES_LC_SEQ = 4, 2048  # the script's defaults
 EXAMPLES_SHAPE = (2, EXAMPLES_LC_SEQ // EXAMPLES_SP, 8, 8, 64,
                   torch.bfloat16)
 EXAMPLES_RESNET = ("pytorch_imagenet_resnet50.py", "--steps-per-epoch", "2")
+# the MXNet binding over the mock, its engine on the card
+EXAMPLES_MXNET = ("mxnet_mnist.py", "--shim")
 EXAMPLES_TIMEOUT_S = 300
 
 
@@ -5805,11 +5911,12 @@ def start_examples(fa, card, gen):
         return first, _example(EXAMPLES_RESNET + (
             "--epochs", "3", "--checkpoint-format", fmt), out_dir, env)
 
-    pool = ThreadPoolExecutor(2)
+    pool = ThreadPoolExecutor(3)
     return {"pool": pool, "dir": out_dir, "t0": time.perf_counter(),
             "ring_steps": ring_steps,
             "lc": pool.submit(_example, EXAMPLES_LC, out_dir, env),
-            "resnet": pool.submit(resume)}
+            "resnet": pool.submit(resume),
+            "mxnet": pool.submit(_example, EXAMPLES_MXNET, out_dir, env)}
 
 
 def finish_examples(handle, where):
@@ -5819,6 +5926,7 @@ def finish_examples(handle, where):
     try:
         lc_out, lc_sum = handle["lc"].result()
         (rn_out, rn_sum), (rn2_out, rn2_sum) = handle["resnet"].result()
+        mx_out, mx_sum = handle["mxnet"].result()
     finally:
         handle["pool"].shutdown()
         shutil.rmtree(handle["dir"], ignore_errors=True)
@@ -5839,6 +5947,11 @@ def finish_examples(handle, where):
           and finite(rn2_sum["losses"])
           and rn2_sum["losses"][0] < rn_sum["losses"][0],
           f"ResNet-50 example did not resume: {rn2_out[-2000:]}")
+    check("DONE" in mx_out and mx_sum["engine_device"] == "cuda:0"
+          and mx_sum["backend"] == "nccl"
+          and finite(mx_sum["losses"])
+          and mx_sum["losses"][-1] < mx_sum["losses"][0],
+          f"MXNet example on the card: {mx_out[-2000:]}")
     by_counter = lc_sum["launches"]
     launches = {n: by_counter[c] for n, c in COUNTERS.items()}
     steps = 2 + EXAMPLES_STEPS  # the script's two untimed steps first
@@ -5862,11 +5975,14 @@ def finish_examples(handle, where):
           f"losses {' '.join(f'{x:.4f}' for x in rn_sum['losses'])}, "
           f"resumed from epoch 2: "
           f"{' '.join(f'{x:.4f}' for x in rn2_sum['losses'])}; "
+          f"mxnet_mnist --shim losses "
+          f"{' '.join(f'{x:.4f}' for x in mx_sum['losses'])}; "
           f"subprocesses {wall:.1f} s", flush=True)
     return launches, {"lc_losses": losses,
                       "lc_tokens_per_sec": lc_sum["tokens_per_sec"],
                       "resnet_losses": rn_sum["losses"],
                       "resnet_resumed_losses": rn2_sum["losses"],
+                      "mxnet_losses": mx_sum["losses"],
                       "subprocess_s": wall}
 
 
@@ -5909,14 +6025,22 @@ def _main(t_start):
     from concurrent.futures import ThreadPoolExecutor
 
     from horovod_tpu_torch import native
-    with ThreadPoolExecutor(1) as pool:
+    with ThreadPoolExecutor(2) as pool:
         control = pool.submit(native.build)
+        # the host draws of seed 0 the phases copy, beside nvcc
+        draws = pool.submit(seed0_draws, tfm)
         logs = _build.build()
         control = control.result()
+        moe_init = draws.result()
     print(f"build: {sorted(logs) or 'up to date'} and {control.name} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{time.perf_counter() - t0:.1f} s, with the seed-0 draws beside "
+          f"it", flush=True)
+    with ThreadPoolExecutor(max(len(logs), 1)) as pool:
+        # each library's SASS read beside the other's
+        sass = dict(zip(logs, pool.map(
+            lambda name: sass_hgmma(_build, name), logs)))
     for name, log in logs.items():
-        kernel_usage(fa, _build, name, log)
+        kernel_usage(fa, name, log, sass[name])
 
     gen = torch.Generator(device=card).manual_seed(0)
     t0 = time.perf_counter()
@@ -5934,12 +6058,7 @@ def _main(t_start):
     n_params = sum(p.numel() for p in lm.parameters())
     print(f"model: {n_params / 1e6:.1f} M parameters (f32), "
           f"{cfg.n_layers} layers, d_model {cfg.d_model}", flush=True)
-    phase_parity(tfm, ServeEngine, lm.params, card)
-    phase_train_parity(tfm, card)
-    print(f"parity phases: {time.perf_counter() - t0:.1f} s (the flagship "
-          f"drawn too)", flush=True)
 
-    t0 = time.perf_counter()
     serve_launches = phase_serve(fa, serve, metrics, lm, card, where)
     print(f"serve phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -5960,30 +6079,38 @@ def _main(t_start):
                                                    eager_row)
     launch_row = {"autotune": launch_row}
     print(f"autotune phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    # Four phases whose figures are parity and exit codes, not speeds, run
+    # Phases whose figures are parity and exit codes, not speeds, run
     # side by side: the launcher's generations (the flagship on the card)
     # here, the launched ranks, and the elastic ranks' kill run followed
-    # by the eager engine's two ranks (narrow or tiny models over gloo),
-    # whose processes wait in threads of this process.
+    # by the eager engine's two ranks (narrow or tiny models over gloo)
+    # and the pipeline phase (this process's only kernels in the block,
+    # so its launch counts are its own), in threads of this process.
     from concurrent.futures import ThreadPoolExecutor
 
-    def kill_then_eager2():
+    def kill_eager2_pipeline():
         got = phase_elastic_ranks(where, "cuda", ("kill",))
-        return got, phase_eager_engine_2ranks(where)
+        eager2 = phase_eager_engine_2ranks(where)
+        t1 = time.perf_counter()
+        pp = phase_pipeline(fa, tfm, card, where)
+        print(f"pipeline phase: {time.perf_counter() - t1:.1f} s (beside "
+              f"the launcher phase)", flush=True)
+        return got, eager2, pp
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
         ranks = pool.submit(phase_launcher_ranks, where)
-        kill = pool.submit(kill_then_eager2)
+        kill = pool.submit(kill_eager2_pipeline)
         launcher_launches, launch_row["launcher"] = phase_launcher(
             fa, where, train_row["losses"])
         print(f"launcher phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
         launcher_ranks_launches, launch_row["launcher_ranks"] = \
             ranks.result()
-        (kill_launches, kill_row), eager_row["two_ranks"] = kill.result()
-    print(f"launcher, launcher ranks, elastic kill and eager 2 ranks side "
-          f"by side: {time.perf_counter() - t0:.1f} s", flush=True)
+        ((kill_launches, kill_row), eager_row["two_ranks"],
+         (pp_gpipe, pp_1f1b)) = kill.result()
+    print(f"launcher, launcher ranks, elastic kill, eager 2 ranks and "
+          f"pipeline side by side: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     t0 = time.perf_counter()
     compiled_train_launches, params, _, stage0 = phase_compiled_train(
         hvd, fa, tfm, card, where)
@@ -6027,9 +6154,10 @@ def _main(t_start):
     fault_row["elastic_ranks"] = {**kill_row, **term_row}
     print(f"elastic ranks phase: {time.perf_counter() - t0:.1f} s (the term "
           f"run; the kill run beside the launcher phase)", flush=True)
-    # Three phases whose figures are parity, not speed, run side by side:
-    # the examples' subprocesses and the spark phase beside the tp phase
-    # (its ranks in a thread of this process: they only spawn and wait).
+    # Phases whose figures are parity, not speed, run side by side: the
+    # examples' subprocesses, then the spark, MoE parity, churn soak and
+    # flash-vs-dense parity phases in turn, beside the tp phase (its ranks in a thread of this
+    # process: they only spawn and wait).
     t0 = time.perf_counter()
     examples = start_examples(fa, card, gen)
     own = time.perf_counter() - t0
@@ -6040,25 +6168,33 @@ def _main(t_start):
                                                           where)
         print(f"spark phase: {time.perf_counter() - t1:.1f} s (beside the "
               f"tp phase)", flush=True)
+        t1 = time.perf_counter()
+        phase_moe_parity(tfm, moe, card, moe_init)
+        print(f"moe parity phase: {time.perf_counter() - t1:.1f} s (beside "
+              f"the tp phase)", flush=True)
+        t1 = time.perf_counter()
+        launch_row["launcher_ranks"].update(phase_churn_soak(where))
+        print(f"churn soak phase: {time.perf_counter() - t1:.1f} s (beside "
+              f"the tp phase)", flush=True)
+        t1 = time.perf_counter()
+        lm = tfm.TransformerLM(cfg, seed0_params(tfm, cfg, card),
+                               device=card)
+        phase_parity(tfm, ServeEngine, lm.params, card)
+        del lm
+        torch.cuda.empty_cache()
+        phase_train_parity(tfm, card)
+        print(f"parity phases: {time.perf_counter() - t1:.1f} s (beside "
+              f"the tp phase)", flush=True)
         tp_serve_launches, tp_train_launches = tp.result()
     t1 = time.perf_counter()
     examples_launches, examples_row = finish_examples(examples, where)
     own += time.perf_counter() - t1
     print(f"examples phase: {own:.1f} s of its own (the kernel checks and "
           f"the wait past the tp phase; its subprocesses "
-          f"{examples_row['subprocess_s']:.1f} s beside it); the three "
-          f"side by side: {time.perf_counter() - t0:.1f} s", flush=True)
-    # flagship-moe's weights, drawn once on the host (seed 0) for every
-    # MoE phase
+          f"{examples_row['subprocess_s']:.1f} s beside it); the tp block "
+          f"(tp, examples, spark, moe parity, churn soak, parity): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    moe_cfg = tfm.TransformerConfig(dtype=torch.bfloat16, **MOE_MODEL)
-    moe_init = tfm.init_params(moe_cfg, torch.Generator().manual_seed(0),
-                               "cpu")
-    print(f"flagship-moe: {sum(t.numel() for t in tfm._leaves(moe_init)) / 1e6:.1f}"
-          f" M parameters drawn in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    phase_moe_parity(tfm, moe, card, moe_init)
-    print(f"moe parity phase: {time.perf_counter() - t0:.1f} s", flush=True)
     moe_train_launches = phase_moe_train(hvd, fa, tfm, moe, metrics, card,
                                          where, moe_init)
     print(f"moe train phase: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -6103,18 +6239,12 @@ def _main(t_start):
     print(f"compiled sp phases: {time.perf_counter() - t0:.1f} s",
           flush=True)
     t0 = time.perf_counter()
-    pp_gpipe, pp_1f1b = phase_pipeline(fa, tfm, card, where)
-    print(f"pipeline phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
     phase_resnet(hvd, card, where)
-    phase_bench(where)
+    scaling = phase_bench(where)
     eager_row["bench"] = phase_eager_bench(where)
     print(f"resnet and bench phases: {time.perf_counter() - t0:.1f} s",
           flush=True)
-    # the host-bound phases last, alone: nothing timed runs beside them
-    t0 = time.perf_counter()
-    launch_row["launcher_ranks"].update(phase_churn_soak(where))
-    print(f"churn soak phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    # the control plane's host rows last, alone: nothing runs beside them
     t0 = time.perf_counter()
     launch_row.update(phase_control_plane(where))
     print(f"control plane phase: {time.perf_counter() - t0:.1f} s",
@@ -6159,6 +6289,7 @@ def _main(t_start):
     print(json.dumps({"fault_tolerance": fault_row, "card": where}))
     print(json.dumps({"autotune_launcher": launch_row, "card": where}))
     print(json.dumps({"examples": examples_row, "card": where}))
+    print(json.dumps({"scaling": scaling, "card": where}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

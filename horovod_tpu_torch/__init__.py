@@ -74,7 +74,7 @@ TensorFlow or MXNet. So is ``analysis``: hvdlint over the port (``python
 
 import torch
 
-from . import callbacks, diag, metrics, models, serve
+from . import callbacks, diag, metrics, models, serve, timeline
 from .exceptions import (CheckpointCorruptError, CoordinatorError,
                          DuplicateNameError, HorovodError, HostsUpdatedError,
                          MismatchError, NotInitializedError, ShutDownError,
@@ -91,8 +91,8 @@ from .ops.compression import (Compression, Compressor, FP16Compressor,
 from .diag.xla_trace import trace_steps
 from .ops.step_program import CompiledTrainStep, compiled_train_step
 from .optimizers import (DistributedOptimizer, broadcast_optimizer_state,
-                         broadcast_parameters, guarded_apply_updates,
-                         resize_lr_factor)
+                         broadcast_parameters, exchange_gradients,
+                         guarded_apply_updates, resize_lr_factor)
 from .runtime import (AXIS, cross_rank, cross_size, expert_mesh,
                       expert_parallel_size, init, is_initialized, local_rank,
                       local_size, mesh, model_mesh, model_parallel_size,
@@ -315,8 +315,9 @@ __all__ = [
     "broadcast_async_", "broadcast_optimizer_state", "broadcast_parameters",
     "poll", "synchronize",
     "bucketed_reducescatter_allgather", "compiled_train_step", "cross_rank",
-    "cross_size", "expert_mesh", "expert_parallel_size",
-    "exchange_bucket_plan", "grouped_allreduce", "hierarchical_allreduce",
+    "cross_size", "exchange_gradients", "expert_mesh",
+    "expert_parallel_size", "exchange_bucket_plan", "grouped_allreduce",
+    "hierarchical_allreduce",
     "init", "is_initialized", "local_rank", "local_size", "mesh",
     "metrics_snapshot", "model_mesh", "model_parallel_size", "models",
     "mpi_threads_supported", "rank", "reducescatter",
@@ -324,7 +325,7 @@ __all__ = [
     "CheckpointCorruptError", "HostsUpdatedError",
     "TransientCollectiveError", "WorkerLostError", "callbacks",
     "checkpoint", "data", "elastic", "guard", "guarded_apply_updates",
-    "resize_lr_factor",
+    "resize_lr_factor", "timeline",
 ]
 
 # The fault-tolerance modules, after the API they use.

@@ -129,7 +129,10 @@ class Int8Compressor(Compressor):
 
 
 class Compression:
-    """Optional gradient compression algorithm used during allreduce."""
+    """Optional gradient compression algorithm used during allreduce.
+    ``fp16`` is IEEE half, as in the original Horovod; the JAX package's
+    ``fp16`` is its TPU-native bf16 wire (``bf16`` here), and its IEEE
+    half is its ``float16`` (``fp16`` here)."""
 
     none = NoneCompressor
     fp16 = FP16Compressor

@@ -1356,8 +1356,8 @@ class EagerEngine:
         if req.compression is not None:
             probe, _ = req.compression.compress(
                 torch.zeros((), dtype=entry.dtype))
-            return probe.dtype
-        return entry.dtype
+            return _wire(probe.dtype)
+        return _wire(entry.dtype)
 
     def _fused_nelem(self, counts):
         """Total fused element count, honoring the fork's power-of-two
@@ -1615,14 +1615,15 @@ class EagerEngine:
                  else [int(t.shape[0])] * self.num_ranks)
         maxd = max(dims0)
         rest = tuple(t.shape[1:])
+        wire = _wire(t.dtype)
         holder = {}
 
         def launch():
-            block = torch.zeros((maxd,) + rest, dtype=t.dtype,
+            block = torch.zeros((maxd,) + rest, dtype=wire,
                                 device=self.device)
             block[:t.shape[0]].copy_(t)
             gathered = torch.empty((self.num_ranks * maxd,) + rest,
-                                   dtype=t.dtype, device=self.device)
+                                   dtype=wire, device=self.device)
             holder["g"] = gathered
             # this torch's name for the tiled all-gather (2.13 deprecates
             # all_gather_into_tensor)
@@ -1634,7 +1635,8 @@ class EagerEngine:
 
         def finish():
             g = holder["g"].view((self.num_ranks, maxd) + rest)
-            return torch.cat([g[i, :dims0[i]] for i in range(self.num_ranks)])
+            return torch.cat([g[i, :dims0[i]]
+                              for i in range(self.num_ranks)]).to(t.dtype)
 
         nbytes = maxd * math.prod(rest) * t.element_size() \
             * len(self._local_ranks)
@@ -1647,7 +1649,7 @@ class EagerEngine:
         req = entry.requests[self.rank]
         t = req.tensor
         root = req.root_rank
-        wire = torch.uint8 if t.dtype == torch.bool else t.dtype
+        wire = torch.uint8 if t.dtype == torch.bool else _wire(t.dtype)
         holder = {}
 
         def launch():
@@ -1672,13 +1674,13 @@ class EagerEngine:
         holder = {}
 
         def launch():
-            x = t.to(self.device).contiguous()
+            x = t.to(self.device, _wire(t.dtype)).contiguous()
             out = torch.empty_like(x)
             holder["o"] = out
             return dist.all_to_all_single(out, x, async_op=True)
 
         self._single_op(entry, ALLTOALL, None, _nbytes(t), launch,
-                        lambda: holder["o"])
+                        lambda: holder["o"].to(t.dtype))
 
     def _complete_locked(self, handle, rank, result):
         prev = self._handles.get(handle)
@@ -1687,6 +1689,16 @@ class EagerEngine:
         elif isinstance(prev, dict):
             prev[rank] = result
         self._cv.notify_all()
+
+
+# The 16-bit integers travel as int32, exact and back: neither gloo nor
+# NCCL carries them, and a widened sum cast back wraps as their own does.
+_WIDENED = {torch.int16: torch.int32, torch.uint16: torch.int32}
+
+
+def _wire(dtype):
+    """The dtype a collective moves ``dtype``'s values in."""
+    return _WIDENED.get(dtype, dtype)
 
 
 class _NullCtx:

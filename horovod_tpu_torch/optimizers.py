@@ -406,6 +406,62 @@ def guarded_apply_updates(optimizer, closure=None):
     return True
 
 
+def _flatten(tree):
+    """The tensors of a nest of dicts, lists and tuples in the JAX
+    package's leaf order (``jax.tree.flatten``: dict keys sorted), and a
+    function that puts a list of the same length back into its shape."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        parts = [_flatten(tree[k]) for k in keys]
+    elif isinstance(tree, (list, tuple)):
+        keys = None
+        parts = [_flatten(v) for v in tree]
+    else:
+        return [tree], lambda leaves: leaves[0]
+    leaves = [leaf for part, _ in parts for leaf in part]
+    sizes = [len(part) for part, _ in parts]
+
+    def unflatten(flat):
+        out, at = [], 0
+        for (_, rebuild), n in zip(parts, sizes):
+            out.append(rebuild(flat[at:at + n]))
+            at += n
+        if keys is not None:
+            by_key = dict(zip(keys, out))
+            return {k: by_key[k] for k in tree}
+        return type(tree)(out) if isinstance(tree, list) else tuple(out)
+    return leaves, unflatten
+
+
+def exchange_gradients(grads, average=True, compression=Compression.none,
+                       to_host=False, name_prefix="hvd.grads"):
+    """Exchange a nest of gradients (dicts, lists and tuples of tensors)
+    through the eager engine: every tensor is submitted as
+    ``allreduce_async`` named ``f"{name_prefix}.{i}"`` in the JAX
+    package's leaf order (dict keys sorted), so one cycle fuses the whole
+    nest into a few buckets and a repeated call hits the response cache;
+    returns the same structure of averaged (or summed) tensors, each on
+    its input's device. The counterpart of the JAX package's
+    ``exchange_gradients`` for loops that compute gradients outside a
+    compiled step:
+
+        grads = hvd.exchange_gradients(grads)
+        with torch.no_grad():
+            for p, g in zip(params, grads):
+                p -= lr * g
+
+    ``to_host`` is read and changes nothing: the engine has one result
+    path, on the input's device (ops/engine.py)."""
+    import horovod_tpu_torch as hvd
+    leaves, unflatten = _flatten(grads)
+    handles = [hvd.allreduce_async(
+        leaf if torch.is_tensor(leaf) else torch.as_tensor(leaf),
+        average=average, name=f"{name_prefix}.{i}",
+        compression=compression, to_host=to_host)
+        for i, leaf in enumerate(leaves)]
+    return unflatten([hvd.synchronize(h) for h in handles])
+
+
 def resize_lr_factor(old_size, new_size, mode="linear"):
     """Learning-rate multiplier for an elastic world resize from
     ``old_size`` to ``new_size`` workers: ``"linear"`` keeps the

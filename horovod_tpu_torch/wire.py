@@ -80,6 +80,9 @@ def parse_request_list(blob: bytes):
         pos += 4
         shape = struct.unpack_from(f"<{ndim}q", blob, pos) if ndim else ()
         pos += 8 * ndim
+        if op not in TAG_OPS or dtype not in TAG_DTYPES:
+            # the JAX package's parser lets this escape as a KeyError
+            raise ValueError(f"unknown op tag {op} or dtype tag {dtype}")
         reqs.append(RequestMeta(rank=rank, op=TAG_OPS[op],
                                 dtype=TAG_DTYPES[dtype],
                                 shape=tuple(shape), root_rank=root,

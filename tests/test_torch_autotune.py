@@ -449,6 +449,11 @@ def test_two_ranks_apply_the_same_decisions_at_the_same_index():
     assert got[0]["applied"], "process 0 published no autotune decision"
     assert got[0]["applied"] == got[1]["applied"]
     assert got[0]["indices"] == got[1]["indices"]
+    # every bucket is planned under the same threshold on both ranks,
+    # and each applied threshold plans the buckets after its index
+    assert got[0]["plans"] == got[1]["plans"]
+    used = [t for t, _ in got[0]["plans"]]
+    assert set(used[1:]) <= {used[0]} | {a[0] for a in got[0]["applied"]}
     assert got[0]["steps"] == got[1]["steps"]
     assert got[0]["digest"] == got[1]["digest"]
     for fusion, cycle, pad, depth in got[0]["applied"]:

@@ -133,9 +133,15 @@ def test_imagenet_resnet50_resumes(runs):
 
 
 def test_mnist(runs):
+    """Under ``@elastic.run`` with the dataset attached to the state: a
+    falling loss, then a fresh dataset loaded at the committed position
+    (the last epoch, consumed) rolls into the next epoch."""
     proc, = _result(runs, "mnist")
     assert "epoch 1 loss=" in proc.stdout
-    assert _falls(_summary(proc)["losses"])
+    assert ("resume OK: committed position is epoch 1 consumed, step 40"
+            in proc.stdout)
+    out = _summary(proc)
+    assert _falls(out["losses"]) and out["step"] == 40
 
 
 def test_synthetic_benchmark(runs):

@@ -235,6 +235,32 @@ def autograd_session(inp):
     return res
 
 
+def exchange_session(inp):
+    """``hvd.exchange_gradients`` over the ranks: this rank's nest of
+    gradients summed, averaged and averaged over an fp16 wire, then the
+    average again under the same names (the response cache's hits, read
+    before and after the repeat)."""
+    hvd.init(device="cpu")
+    r = hvd.rank()
+    grads = {"w": torch.from_numpy(inp["w"][r]),
+             "layers": [torch.from_numpy(inp["l0"][r]),
+                        (torch.from_numpy(inp["l1"][r]),)]}
+    res = {}
+    for key, kw in (("sum", {"average": False}), ("avg", {}),
+                    ("fp16", {"compression": hvd.Compression.fp16,
+                              "name_prefix": "eg.fp16"})):
+        out = hvd.exchange_gradients(grads, **kw)
+        res[key] = {"w": out["w"].numpy().copy(),
+                    "l0": out["layers"][0].numpy().copy(),
+                    "l1": out["layers"][1][0].numpy().copy()}
+    cache = hvd.runtime.live_state().engine.response_cache
+    hits = cache.hits
+    hvd.exchange_gradients(grads)
+    res["repeat_hits"] = cache.hits - hits
+    hvd.shutdown()
+    return res
+
+
 def optimizer_session(inp, steps):
     """DistributedOptimizer(SGD) over the ranks with the bias frozen at
     construction and unfrozen after the first step (the reference's
@@ -332,3 +358,122 @@ def shutdown_propagation():
     waited = time.perf_counter() - t0
     hvd.shutdown()
     return out, waited
+
+
+# tests/test_torch_matrix.py: the dtype x dims sweeps of
+# tests/test_matrix.py, every case run by each rank in one session.
+MATRIX_SUM_DTYPES = ["uint8", "int8", "uint16", "int16", "int32", "int64",
+                     "float16", "float32", "float64"]
+MATRIX_GATHER_DTYPES = MATRIX_SUM_DTYPES + ["bool"]
+MATRIX_DIMS = [1, 2, 3]
+
+
+def matrix_data(case, r, n):
+    """Rank ``r``'s input of a matrix case ``(op, dtype, dim)``, as
+    tests/test_matrix.py draws it: divergent small integers from
+    ``RandomState(100 + r)`` for the sums (an n-rank int8 sum stays in
+    range), ``r`` for the average, ``r % 2`` for the gather, and the
+    root's ``r + 1`` (True for bool) against zeros for the broadcast
+    (root ``dim % n``)."""
+    op, dtype, dim = case
+    shape = (2,) * dim
+    if op == "sum":
+        return np.random.RandomState(100 + r).randint(
+            0, 16, shape).astype(dtype)
+    if op == "avg":
+        return np.full((3, 2), float(r), dtype)
+    if op == "gather":
+        return (np.ones(shape) * (r % 2)).astype(dtype)
+    if r != dim % n:
+        return np.zeros(shape, dtype)
+    return (np.ones(shape) * (1 if dtype == "bool" else r + 1)).astype(dtype)
+
+
+def matrix_session(cases, fused_dtypes, mixed_dtypes):
+    """Every ``(op, dtype, dim)`` case through the engine, then the
+    fused-many cases (6 tensors of each dtype in flight, the fused
+    buckets they took) and the mixed-dtype group. Returns numpy results
+    keyed by case."""
+    from horovod_tpu_torch import metrics
+    hvd.init(device="cpu")
+    r, n = hvd.rank(), hvd.size()
+    out = {}
+    for case in cases:
+        op, dtype, dim = case
+        t = torch.from_numpy(matrix_data(case, r, n))
+        name = f"mx.{op}.{dtype}.{dim}"
+        if op in ("sum", "avg"):
+            res = hvd.allreduce(t, average=op == "avg", name=name)
+        elif op == "gather":
+            res = hvd.allgather(t, name=name)
+        else:
+            res = hvd.broadcast(t, dim % n, name=name)
+        out[case] = res.numpy().copy()
+    for dtype in fused_dtypes:
+        before = metrics.ENGINE_BUCKET_FLUSHES.value()
+        hs = [hvd.allreduce_async(torch.from_numpy(np.full((4,), i + r,
+                                                           dtype)),
+                                  average=False, name=f"mx.fused.{dtype}.{i}")
+              for i in range(6)]
+        vals = [hvd.synchronize(h).numpy().copy() for h in hs]
+        out[("fused", dtype)] = (
+            vals, metrics.ENGINE_BUCKET_FLUSHES.value() - before)
+    hs = [hvd.allreduce_async(torch.from_numpy(np.full((3,), r + i, dtype)),
+                              average=False, name=f"mx.mix.{i}")
+          for i, dtype in enumerate(mixed_dtypes)]
+    out["mixed"] = [hvd.synchronize(h).numpy().copy() for h in hs]
+    hvd.shutdown()
+    return out
+
+
+def stress_session(n_threads, per_thread, n_async, n_drain):
+    """tests/test_torch_stress.py: ``n_threads`` threads, each
+    synchronous-allreducing ``per_thread`` distinct names at once (after
+    a barrier), then ``n_async`` threads submitting async and
+    ``n_drain`` threads synchronizing the handles another thread made.
+    Rank r contributes ``value * (r + 1)``. Returns the results by
+    (thread, op) and by submitter, and any error."""
+    import concurrent.futures
+    import threading
+
+    hvd.init(device="cpu")
+    r = hvd.rank()
+    results, errors = {}, []
+    barrier = threading.Barrier(n_threads)
+
+    def worker(t):
+        try:
+            barrier.wait(timeout=30)
+            for i in range(per_thread):
+                value = float(t * 100 + i) * (r + 1)
+                out = hvd.allreduce(torch.full((4,), value), average=False,
+                                    name=f"stress.{t}.{i}")
+                results[(t, i)] = out.numpy().copy()
+        except Exception as e:  # reported to the test
+            errors.append((t, repr(e)))
+
+    with concurrent.futures.ThreadPoolExecutor(n_threads) as ex:
+        list(ex.map(worker, range(n_threads)))
+
+    handles = {}
+
+    def submit(t):
+        handles[t] = hvd.allreduce_async(
+            torch.full((3,), float(t) * (r + 1)), average=False,
+            name=f"xsync.{t}")
+
+    threads = [threading.Thread(target=submit, args=(t,))
+               for t in range(n_async)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    drained = {}
+
+    def drain(t):
+        drained[t] = hvd.synchronize(handles[t]).numpy().copy()
+
+    with concurrent.futures.ThreadPoolExecutor(n_drain) as ex:
+        list(ex.map(drain, range(n_async)))
+    hvd.shutdown()
+    return {"sync": results, "async": drained, "errors": errors}

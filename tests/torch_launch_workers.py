@@ -37,9 +37,15 @@ def autotune_session(steps, n_tensors, elems):
     """Rank function: ``HOROVOD_AUTOTUNE=1`` (set by the caller's env),
     ``n_tensors`` all-reduces a step for ``steps`` steps. Returns the
     engine's applied autotune list, the indices (in this rank's fetched
-    decision stream) at which autotune decisions arrived, the bucket
-    count of every step with the threshold it started with, whether this
-    rank holds a tuner, and a digest of the results."""
+    decision stream) at which autotune decisions arrived, every fusion
+    plan the engine made with the threshold it was made under, the
+    bucket count of every step, whether this rank holds a tuner, and a
+    digest of the results.
+
+    The threshold is read where the engine plans, never by the host
+    between steps: a decision fetched after a step's last synchronize
+    lands before the host's next read on one rank and after it on the
+    other, while both plan every bucket under the same threshold."""
     import hashlib
 
     import torch
@@ -51,7 +57,9 @@ def autotune_session(steps, n_tensors, elems):
     engine = state.engine
     coord = engine.coordinator
     stream = []
+    plans = []
     fetch = coord.fetch_decisions
+    plan = engine._plan_fusion
 
     def logged_fetch(*a, **kw):
         out = fetch(*a, **kw)
@@ -59,20 +67,25 @@ def autotune_session(steps, n_tensors, elems):
             stream.append(bool(d.get("autotune")))
         return out
 
+    def logged_plan(allreduces):
+        out = plan(allreduces)
+        plans.append((int(engine.config.fusion_threshold),
+                      [[e.name for e, _ in batch] for batch, _ in out]))
+        return out
+
     coord.fetch_decisions = logged_fetch
+    engine._plan_fusion = logged_plan
     r = hvd.rank()
     digest = hashlib.sha256()
     steps_log = []
     for s in range(steps):
-        threshold = engine.config.fusion_threshold
         flushes = metrics.ENGINE_BUCKET_FLUSHES.value()
         hs = [hvd.allreduce_async(
             torch.full((elems,), float(r + 1 + i)), average=False,
             name=f"at.{s}.{i}") for i in range(n_tensors)]
         for h in hs:
             digest.update(hvd.synchronize(h).numpy().tobytes())
-        steps_log.append((threshold, engine.config.fusion_threshold,
-                          metrics.ENGINE_BUCKET_FLUSHES.value() - flushes))
+        steps_log.append(metrics.ENGINE_BUCKET_FLUSHES.value() - flushes)
     if state.autotuner is not None:
         state.autotuner.active = False
     # a collective after the tuner stopped: every decision process 0
@@ -81,6 +94,7 @@ def autotune_session(steps, n_tensors, elems):
     hvd.allreduce(torch.zeros(1), name="at.barrier")
     out = {"applied": list(engine.applied_autotune),
            "indices": [i for i, a in enumerate(stream) if a],
+           "plans": plans,
            "steps": steps_log,
            "tuner": state.autotuner is not None,
            "digest": digest.hexdigest()}

@@ -933,3 +933,19 @@ def moe_bench_trace():
                  "moe"]
     finally:
         hvd.shutdown()
+
+
+def scaling_steps(batch_per_chip, hidden, depth, snapshots):
+    """bench/scaling.py's harness step on this rank: its parameters (as
+    numpy) after each step count in ``snapshots``."""
+    from horovod_tpu_torch.bench import scaling
+    hvd.init(device="cpu")
+    h = scaling.Harness(batch_per_chip, hidden, depth)
+    out, done = {}, 0
+    for k in snapshots:
+        while done < k:
+            h.step()
+            done += 1
+        out[k] = h.numpy_params()
+    hvd.shutdown()
+    return out
