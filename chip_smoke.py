@@ -165,8 +165,20 @@ tp phase:
   train phase runs the flagship (3 eager steps, 3 compiled steps and 4
   replays, bitwise against eager; the expert stacks' gradients on the
   expert keys), with step time, tokens/s and peak memory; then the
-  ``hvd_moe_*`` counters of one evaluation: dropped = t * k * MoE layers
-  - routed;
+  step traced by phase: MOE_TRACE_STEPS replays (a window again, up to
+  MOE_TRACE_TRIES, while the profiler drops device records),
+  MOE_TRACE_STEPS eager steps and one ``torch.no_grad()`` forward of the
+  batch, each window
+  through the trace phase's ``check_trace`` (its device ms a step by
+  phase; the phases plus ``other`` equal to its device time within
+  TRACE_SUM_REL; a step's flash kernels in forward and backward alone),
+  the replay's phases within TRACE_PHASE_REL of the eager step's, a
+  train step's ``expert`` at least MOE_EXPERT_TRAIN_MIN times the
+  forward's (the MoE ranges cover the backward, as the JAX package's
+  scopes do), the traced steps' launches by route an untraced step's,
+  and the backward markers' idle cost under TRACE_OVERHEAD_MAX of a
+  step; then the ``hvd_moe_*`` counters of one evaluation: dropped =
+  t * k * MoE layers - routed;
 - moe serve (main path 8): the serving workload on flagship-moe through
   the eager and the graph engine (tokens identical, steady decode hit
   rate 1.0, no fallback), MoE layers at full capacity: nothing dropped.
@@ -2164,7 +2176,7 @@ def seed0_params(tfm, cfg, card):
 def phase_compiled_train(hvd, fa, tfm, card, where, model=FLAGSHIP,
                          label="compiled train", expert_keys=None,
                          init=None, shape=(TRAIN_BATCH, TRAIN_SEQ),
-                         axes=None, per_replay=None):
+                         axes=None, per_replay=None, then=None):
     """Main path 6 (``model`` the flagship) or 7 (flagship-moe, with
     ``expert_keys``): the model at batch 4 x 4096 through
     ``compiled_train_step`` over ``DistributedOptimizer(AdamW(...,
@@ -2182,7 +2194,10 @@ def phase_compiled_train(hvd, fa, tfm, card, where, model=FLAGSHIP,
     SP model at ``shape`` 2 x 8192 over ``axes`` (a local axis of 4,
     the ring's or Ulysses', ``model``'s ``sp_impl``), each replay with
     ``per_replay`` launches ({route counter: launches}; default one of
-    each static kernel a layer). Returns ({kernel:
+    each static kernel a layer). ``then(lm, opt, step, tokens, targets,
+    per_replay)``, if given, runs after the checks, on the trained model
+    and its step (``per_replay`` the launches of an untraced replay by
+    route). Returns ({kernel:
     launches} of the compiled steps, the trained parameters, the batch,
     {"params": the parameters after COMPILED_STEPS compiled steps on the
     host, by name, "step_ms", "tok_s", "peak": the replays' median, its
@@ -2311,6 +2326,8 @@ def phase_compiled_train(hvd, fa, tfm, card, where, model=FLAGSHIP,
           == REPLAYS * n_buckets,
           f"all-reduces a replay: {prog.collectives}, {jit_calls} records "
           f"in {REPLAYS} replays of {n_buckets} bucket(s)")
+    if then is not None:
+        then(lm, opt, step, tokens, targets, replay_counts)
     params = lm.params
     del step, prog, opt
     gc.collect()
@@ -4818,17 +4835,164 @@ def phase_moe_parity(tfm, moe, card, init):
     torch.cuda.empty_cache()
 
 
+# flagship-moe's traced steps a window. A train step's expert phase
+# holds the FFN's forward products and their backward (two products for
+# each), a forward alone the first: about 3 times it.
+MOE_TRACE_STEPS, MOE_EXPERT_TRAIN_MIN = 2, 2.5
+# Replay windows traced at most, until one keeps every device record.
+# CUPTI drops records now and then (ROADMAP, item 16's leftovers): a
+# replay short of k events places each event only where the k + 1 nodes
+# it may be share a phase, and flagship-moe's phases change every few
+# nodes, so 29 records lost in one window of a full run put 252 events
+# (208 ms a step) in ``other``.
+MOE_TRACE_TRIES = 3
+
+
+def marker_cost(device, n=2000):
+    """Host seconds the backward markers of one MoE region add to a
+    step when nothing traces (diag/xla_trace.py ``phase_region``): a
+    region's forward and backward on a small tensor with them, less the
+    same with the forward range alone."""
+    from torch.profiler import record_function
+
+    from horovod_tpu_torch.diag.xla_trace import phase_region
+    x = torch.ones(8, device=device, requires_grad=True)
+
+    def unmarked(name, fn, *tensors):
+        with record_function(name):
+            return fn(*tensors)
+
+    def per_call(region):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            region("hvd_expert", lambda t: t * 2.0, x).sum().backward()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n
+
+    per_call(phase_region)  # warm-up
+    return max(per_call(phase_region) - per_call(unmarked), 0.0)
+
+
+def trace_moe_train(hvd, fa, where, lm, opt, step, tokens, targets, plain):
+    """flagship-moe's step by phase (diag/xla_trace.py): MOE_TRACE_STEPS
+    replays of ``step`` (the program re-captures once for its phase
+    map; traced again, up to MOE_TRACE_TRIES windows, while the profiler
+    drops device records, and read from the window that lost the
+    fewest), then one untraced eager step and
+    MOE_TRACE_STEPS traced ones
+    (the trace phase's eager step, its regions under the phase ranges),
+    then one ``torch.no_grad()`` forward of the batch. Each window goes
+    through :func:`check_trace`; the replay's phases above
+    TRACE_PHASE_FLOOR of the step lie within TRACE_PHASE_REL of the eager
+    step's; each train window's ``expert`` is at least
+    MOE_EXPERT_TRAIN_MIN times the forward's; the traced replays launch
+    by route ``plain`` (an untraced replay's) and the traced eager steps
+    the untraced one's; the backward markers' idle cost
+    (:func:`marker_cost`, a region a MoE layer) stays under
+    TRACE_OVERHEAD_MAX of the untraced eager step."""
+    from torch.profiler import record_function
+    diag_dir = tempfile.mkdtemp(prefix="chip-moe-trace-")
+
+    def launches_a_call(fn, calls):
+        before = read_launches(fa)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        after = read_launches(fa)
+        return {k: (after[k] - before[k]) / calls for k in after}
+
+    def eager_step():
+        opt.zero_grad(set_to_none=True)
+        with record_function("hvd_forward"):
+            loss = lm.loss(tokens, targets)
+        with record_function("hvd_backward"):
+            loss.backward()
+        with record_function("hvd_optimizer"):
+            opt.step()
+
+    def ticked():
+        tracer.tick(owner=trace_moe_train)
+        eager_step()
+
+    best = None
+    for window in range(1, MOE_TRACE_TRIES + 1):
+        tracer = hvd.trace_steps(MOE_TRACE_STEPS, out_dir=diag_dir)
+        replayed = launches_a_call(lambda: step(tokens, targets),
+                                   MOE_TRACE_STEPS + 1)
+        graphs = (tracer.last_summary or {}).get("graphs", {})
+        lost = sum(g["lost"] for g in graphs.values())
+        if best is None or lost < best[0]:
+            best = (lost, tracer.last_summary, tracer.last_dir)
+        if not lost:
+            break
+        print(f"moe compiled replay window {window}: the profiler dropped "
+              f"{lost} device records "
+              f"({tracer.last_summary['unmatched']} events unplaced)",
+              flush=True)
+    replay = check_trace("moe compiled replay", best[1], best[2],
+                         MOE_TRACE_STEPS, where, "step")
+    t0 = time.perf_counter()
+    untraced = launches_a_call(eager_step, 1)
+    step_s = time.perf_counter() - t0
+    marker_frac = (marker_cost(lm.params["embed"].device)
+                   * len(MOE_MODEL["moe_layers"]) / step_s)
+    tracer = hvd.trace_steps(MOE_TRACE_STEPS, out_dir=diag_dir)
+    traced = launches_a_call(ticked, MOE_TRACE_STEPS + 1)
+    eager = check_trace("moe eager step", tracer.last_summary,
+                        tracer.last_dir, MOE_TRACE_STEPS, where, "step")
+
+    tracer = hvd.trace_steps(1, out_dir=diag_dir)
+    tracer.tick(owner=trace_moe_train)
+    with torch.no_grad():
+        lm.loss(tokens, targets)
+    tracer.tick(owner=trace_moe_train)
+    alone = check_trace("moe forward only", tracer.last_summary,
+                        tracer.last_dir, 1, where)
+    ratio = {name: ms["expert"] / alone["expert"]
+             for name, ms in (("eager", eager), ("replay", replay))}
+
+    def shown(counts):
+        return {k: v for k, v in counts.items() if v}
+
+    print(f"moe train trace [{where}]: expert a train step over the "
+          f"no_grad forward's ({alone['expert']:.3f} ms): eager "
+          f"{ratio['eager']:.3f}, replay {ratio['replay']:.3f} (at least "
+          f"{MOE_EXPERT_TRAIN_MIN}); launches a traced replay "
+          f"{shown(replayed)} (untraced {shown(plain)}), a traced eager "
+          f"step {shown(traced)} (untraced {shown(untraced)}); the backward "
+          f"markers' idle cost {marker_frac:.6f} of the eager step "
+          f"({step_s * 1e3:.1f} ms)", flush=True)
+    check(marker_frac < TRACE_OVERHEAD_MAX,
+          f"the backward markers cost {marker_frac} of a step")
+    check(replayed == plain, f"traced replays launch {replayed}, untraced "
+                             f"{plain}")
+    check(traced == untraced, f"traced eager steps launch {traced}, "
+                              f"untraced {untraced}")
+    check(min(ratio.values()) >= MOE_EXPERT_TRAIN_MIN,
+          f"expert a train step over a forward's: {ratio}")
+    total = sum(eager.values())
+    for ph, ms in eager.items():
+        if ph != "other" and ms > TRACE_PHASE_FLOOR * total:
+            check(abs(replay[ph] - ms) <= TRACE_PHASE_REL * ms,
+                  f"moe {ph}: replay {replay[ph]:.3f} ms against eager "
+                  f"{ms:.3f} ms a step")
+    shutil.rmtree(diag_dir, ignore_errors=True)
+
+
 def phase_moe_train(hvd, fa, tfm, moe, metrics, card, where, init):
     """Main path 7: flagship-moe at 4 x 4096 through
     :func:`phase_compiled_train` (3 eager steps, then 3 compiled steps
-    and 4 replays, bitwise against eager, expert keys on the exchange);
-    then one evaluation of the trained model on the batch with the MoE
-    layers' counts recorded: the hvd_moe_* counters must give
-    ``dropped == t * k * moe_layers - routed``. Returns {kernel:
-    launches} of the compiled steps."""
+    and 4 replays, bitwise against eager, expert keys on the exchange),
+    then its step traced by phase (:func:`trace_moe_train`); then one
+    evaluation of the trained model on the batch with the MoE layers'
+    counts recorded: the hvd_moe_* counters must give ``dropped == t * k
+    * moe_layers - routed``. Returns {kernel: launches} of the compiled
+    steps."""
     launches, params, tokens, _ = phase_compiled_train(
         hvd, fa, tfm, card, where, model=MOE_MODEL, label="moe train",
-        expert_keys=MOE_EXPERT_KEYS, init=init)
+        expert_keys=MOE_EXPERT_KEYS, init=init,
+        then=lambda *run: trace_moe_train(hvd, fa, where, *run))
     cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
                                 **MOE_MODEL)
     r0 = metrics.MOE_ROUTED_TOKENS.value()

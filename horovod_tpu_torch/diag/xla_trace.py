@@ -14,7 +14,10 @@ trace), not XLA's:
   ``hvd_ici`` / ``hvd_dcn`` inside the staged exchange
   (ops/collectives.py), ``hvd_dispatch`` / ``hvd_expert`` /
   ``hvd_combine`` in the MoE layer (models/moe.py) and ``hvd_prefill``
-  / ``hvd_decode`` in the serve programs (serve/engine.py).
+  / ``hvd_decode`` in the serve programs (serve/engine.py). A region
+  run through :func:`phase_region` opens its range around its own
+  backward too, on autograd's thread, as a JAX named scope stays in
+  the name of its transposed ops (``transpose(jvp(hvd_expert))``).
 - ``hvd.trace_steps(n)`` (or ``HOROVOD_XPROF_STEPS=n``) arms a one-shot
   :class:`StepTracer`. The next ``n`` steps are captured with
   ``torch.profiler`` into ``xla-trace-<seq>/`` under
@@ -39,8 +42,9 @@ trace), not XLA's:
   ranges. Each replay (``hvd_graph:<key>``) then takes its events in
   start order against that launch sequence. CUPTI can drop device
   records under load: a replay short of k events places each event on
-  the nodes it may be (i..i+k), where they share one phase; an event
-  that cannot be placed falls into ``other`` and is counted
+  the nodes it may be (i..i+k, narrowed by the kernel names of a replay
+  of the same program that lost nothing), where they share one phase;
+  an event that cannot be placed falls into ``other`` and is counted
   (``unmatched``), and the dropped ones are counted (``lost``).
 
 The parsed summary plus the wall-clock window is written next to the
@@ -58,6 +62,9 @@ import json
 import os
 import re
 import time
+
+import torch
+from torch.profiler import record_function
 
 from .. import metrics
 from ..utils.logging import get_logger
@@ -457,37 +464,70 @@ def _attributed(events, op_map):
     out = [(ev, paths.get(i)) for i, (ev, _) in enumerate(eager)]
     keys = _scope_paths([(launch["ts"], c) for c, (launch, _) in
                          graphs.items()], graph_ranges)
-    lost = {}
+    lost, replays, names = {}, [], {}
     for c, (launch, evs) in graphs.items():
         key = keys.get(c, "").rsplit("/", 1)[-1][len(GRAPH_PREFIX):]
         seq = op_map.get(key)
         evs.sort(key=lambda e: (e["ts"], e.get("tid")))
+        replays.append((key, seq, evs))
+        if seq is not None and len(evs) == len(seq):
+            names.setdefault(key, [ev.get("name") for ev in evs])
+    for key, seq, evs in replays:
         if seq is not None and len(evs) < len(seq):
             lost[key] = lost.get(key, 0) + len(seq) - len(evs)
-        for ev, path in zip(evs, _place(evs, seq)):
+        for ev, path in zip(evs, _place(evs, seq, names.get(key))):
             ev["_graph"] = key
             out.append((ev, path))
     return out, lost
 
 
-def _place(evs, seq):
+def _place(evs, seq, names=None):
     """The scope path of each of a replay's events (start order) from
     its program's map ``seq``, or _UNMATCHED. A replay can lose events
     (CUPTI drops device records under load: seen on the card, a window's
-    first kernels and whole decode replays), never gain or reorder them
-    on one stream: with k lost, event i is node i..i+k, and it takes the
-    path those nodes share, or stays unmatched where a phase boundary
-    falls among them. With nothing lost that is node i."""
+    first kernels, 29 kernels of a MoE step's replay and whole decode
+    replays), never gain or reorder them on one stream: with k lost,
+    event i is node i..i+k. ``names``, the kernel names of a replay of
+    the same program that lost nothing, narrows that to the nodes a
+    matching of the names allows: from the earliest (each event on the
+    first node of its name after the previous event's) to the latest.
+    The event takes the path its nodes share, or stays unmatched where
+    a phase boundary falls among them. With nothing lost that is node
+    i."""
     if seq is None or len(evs) > len(seq):
         return [_UNMATCHED] * len(evs)
     k = len(seq) - len(evs)
+    first = list(range(len(evs)))
+    last = [i + k for i in first]
+    if k and names is not None:
+        got = [ev.get("name") for ev in evs]
+        early = _earliest(got, names)
+        late = _earliest(got[::-1], names[::-1])
+        if early is not None and late is not None:
+            first = early
+            last = [len(seq) - 1 - j for j in reversed(late)]
     # run_end[j]: the last index of the run of equal paths holding j
     run_end = [0] * len(seq)
     for j in range(len(seq) - 1, -1, -1):
         run_end[j] = (run_end[j + 1] if j + 1 < len(seq)
                       and seq[j + 1] == seq[j] else j)
-    return [(seq[i] or None) if run_end[i] >= i + k else _UNMATCHED
-            for i in range(len(evs))]
+    return [(seq[a] or None) if run_end[a] >= b else _UNMATCHED
+            for a, b in zip(first, last)]
+
+
+def _earliest(got, names):
+    """The first index of ``names`` each of ``got`` can take, in order
+    (a greedy matching of ``got`` as a subsequence), or None where
+    ``got`` is no subsequence of ``names``."""
+    out, j = [], 0
+    for name in got:
+        while j < len(names) and names[j] != name:
+            j += 1
+        if j == len(names):
+            return None
+        out.append(j)
+        j += 1
+    return out
 
 
 def load_meta(trace_dir):
@@ -498,6 +538,74 @@ def load_meta(trace_dir):
             return json.load(f)
     except Exception:  # noqa: BLE001 - absent/corrupt sidecar
         return None
+
+
+# ------------------------------------------------ a region's backward
+
+class _Span:
+    """The range a region's backward runs under. The marker on the
+    region's outputs enters it: its backward runs first, once their
+    gradients arrive. The marker on the region's inputs leaves it: its
+    backward runs last, once theirs exist. Autograd runs the ready node
+    created last first, so the region's own nodes run between the two
+    and nothing created outside it does. A backward that never reaches
+    the inputs' marker leaves the range when it ends."""
+
+    __slots__ = ("name", "range")
+
+    def __init__(self, name):
+        self.name = name
+        self.range = None
+
+    def enter(self):
+        self.range = record_function(self.name).__enter__()
+        torch.autograd.Variable._execution_engine.queue_callback(self.exit)
+
+    def exit(self):
+        rf, self.range = self.range, None
+        if rf is not None:
+            rf.__exit__(None, None, None)
+
+
+class _Marker(torch.autograd.Function):
+    """Identity on its tensors (autograd hands each back as a view);
+    its backward passes their gradients on as they are, after
+    entering or before leaving the span. No gradient is made up for
+    an output the graph did not use."""
+
+    @staticmethod
+    def forward(ctx, span, opens, *tensors):
+        ctx.span, ctx.opens = span, opens
+        ctx.set_materialize_grads(False)
+        ctx.mark_non_differentiable(
+            *[t for t in tensors if not t.requires_grad])
+        return tensors
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if ctx.opens:
+            ctx.span.enter()
+        else:
+            ctx.span.exit()
+        return (None, None, *grads)
+
+
+def phase_region(name, fn, *tensors):
+    """``fn(*tensors)`` under the range ``name``, and its backward under
+    it too: the counterpart of ``jax.named_scope``, whose name stays in
+    the transposed ops' names. ``fn`` returns a tensor or a tuple of
+    them; ``tensors`` are every tensor input whose gradient the region
+    computes (activations and weights). With grad off, or no input
+    needing it, no marker is made and no backward range opens."""
+    with record_function(name):
+        if not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in tensors)):
+            return fn(*tensors)
+        span = _Span(name)
+        out = fn(*_Marker.apply(span, False, *tensors))
+        if isinstance(out, torch.Tensor):
+            return _Marker.apply(span, True, out)[0]
+        return tuple(_Marker.apply(span, True, *out))
 
 
 # ------------------------------------------------------------- the tracer
@@ -586,7 +694,6 @@ class StepTracer:
             self.stop()
 
     def _start(self):
-        import torch
         from torch.profiler import ProfilerActivity, profile, schedule
         # Claim the first unused sequence dir: a tracer recreated after a
         # re-init restarts _seq at 0, and blindly reusing xla-trace-001
@@ -642,7 +749,6 @@ class StepTracer:
         self._active = False
         prof, self._prof = self._prof, None
         try:
-            import torch
             if torch.cuda.is_available() and torch.cuda.is_initialized():
                 torch.cuda.synchronize()
             prof.stop()

@@ -51,9 +51,13 @@ dtype (:func:`_einsum_f32`); the combine in f32.
 
 For the phase trace (diag/xla_trace.py) the dispatch and combine
 all-to-alls run under ``hvd_dispatch`` and ``hvd_combine`` and the
-expert FFN under ``hvd_expert``, as the JAX layer's named scopes. The
-ranges enclose the forward's launches: the backward's run on autograd's
-thread under the step's ``hvd_backward``.
+expert FFN under ``hvd_expert``, as the JAX layer's named scopes. Each
+region runs through ``xla_trace.phase_region``, so its backward (the
+reverse all-to-all; the FFN's dgrad and wgrad products) runs under the
+same range on autograd's thread, as JAX keeps a scope in its transposed
+ops' names. The router, the dispatch gather, the combine's weighted sum
+and the aux loss stay outside every MoE range, forward and backward, as
+outside every JAX scope.
 """
 
 import dataclasses
@@ -62,8 +66,8 @@ from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
+from ..diag.xla_trace import phase_region
 from ..ops.collectives import alltoall, alltoall_chunked
 from ..utils.devices import resolve_device
 
@@ -235,12 +239,14 @@ def _aux_loss(probs, expert, kept):
 
 def _ffn(params, z, cfg):
     """The experts' FFN on ``z`` (E_loc, rows, d) in ``cfg.dtype``: the
-    phase trace's ``hvd_expert``."""
-    with record_function("hvd_expert"):
-        h = _einsum_f32("ecd,edf->ecf", z, params["w1"].to(cfg.dtype))
+    phase trace's ``hvd_expert``, its backward and the weights' casts
+    included."""
+    def ffn(z, w1, w2):
+        h = _einsum_f32("ecd,edf->ecf", z, w1.to(cfg.dtype))
         h = F.gelu(h, approximate="tanh").to(cfg.dtype)
-        out = _einsum_f32("ecf,efd->ecd", h, params["w2"].to(cfg.dtype))
-        return out.to(cfg.dtype)
+        return _einsum_f32("ecf,efd->ecd", h, w2.to(cfg.dtype)).to(cfg.dtype)
+
+    return phase_region("hvd_expert", ffn, z, params["w1"], params["w2"])
 
 
 def moe_layer(params, x, cfg, ep_group=None, chunks=1, with_stats=False,
@@ -279,16 +285,16 @@ def moe_layer(params, x, cfg, ep_group=None, chunks=1, with_stats=False,
     x_pad = torch.cat([x_flat, x_flat.new_zeros(1, d)])
     expert_in = x_pad[r.slot_token].to(cfg.dtype)                # (E, C, d)
     if ep_group is not None:
-        with record_function("hvd_dispatch"):
-            pieces = alltoall_chunked(expert_in, chunks, group=ep_group,
-                                      split_axis=0, concat_axis=1,
-                                      chunk_axis=1)
+        pieces = phase_region(
+            "hvd_dispatch", lambda t: alltoall_chunked(
+                t, chunks, group=ep_group, split_axis=0, concat_axis=1,
+                chunk_axis=1), expert_in)
         outs = []
         for piece in pieces:
             piece = _ffn(params, piece, cfg)
-            with record_function("hvd_combine"):
-                outs.append(alltoall(piece, group=ep_group, split_axis=1,
-                                     concat_axis=0))
+            outs.append(phase_region(
+                "hvd_combine", lambda t: alltoall(
+                    t, group=ep_group, split_axis=1, concat_axis=0), piece))
         n_chunks = len(outs)
         expert_out = outs[0] if n_chunks == 1 else torch.cat(outs, dim=1)
     else:

@@ -20,13 +20,18 @@ row whose f32 value straddles a rounding boundary moves by one bf16 ulp
 largest magnitude.
 """
 
+import collections
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import record_function
 
 from horovod_tpu.models import moe as jax_moe
+from horovod_tpu_torch.diag import xla_trace
 from horovod_tpu_torch.models import moe
 
 F32_ATOL = 2e-5
@@ -367,3 +372,174 @@ def test_expert_parallel_sgd_matches_the_jax_2d_mesh_step(ep_run):
     for r in range(EP):
         assert np.array_equal(res[r][f"eager{EP_STEPS - 1}:w1"],
                               res[r + EP][f"eager{EP_STEPS - 1}:w1"])
+
+
+# The MoE regions' backward ranges (diag/xla_trace.py phase_region):
+# identity markers around each region change no value, and no range
+# opens without a gradient or stays open after a backward.
+
+MARKED_STEPS = 3
+
+
+def _unmarked_region(name, fn, *tensors):
+    """The layer's regions as they ran before their backward had ranges:
+    the forward under the range, no markers."""
+    with record_function(name):
+        return fn(*tensors)
+
+
+@pytest.fixture
+def spans(monkeypatch):
+    """Every backward span the markers make, as made (each counting the
+    times its range was entered)."""
+    made = []
+
+    class Logged(xla_trace._Span):
+        def __init__(self, name):
+            super().__init__(name)
+            self.entered = 0
+            made.append(self)
+
+        def enter(self):
+            super().enter()
+            self.entered += 1
+
+    monkeypatch.setattr(xla_trace, "_Span", Logged)
+    return made
+
+
+def _marked_run(dtype, traced, out_dir):
+    """MARKED_STEPS AdamW steps of a scaled-input MoE layer (E 4, top-2):
+    ([{name: gradient}] a step, [{name: parameter}] after each step,
+    {range name: times recorded} of the trace window over the steps, or
+    None untraced)."""
+    cfg = dataclasses.replace(_small(capacity_factor=1.25),
+                              dtype=DTYPES[dtype][0])
+    params = {k: torch.nn.Parameter(v) for k, v in _small_params(cfg).items()}
+    params["scale"] = torch.nn.Parameter(torch.ones(cfg.d_model))
+    opt = torch.optim.AdamW(params.values(), lr=1e-2)
+    x = torch.from_numpy(_x((2, 12, cfg.d_model), seed=3))
+    target = torch.from_numpy(_x((2, 12, cfg.d_model), seed=4))
+    tr = xla_trace.trace_steps(MARKED_STEPS, out_dir=out_dir) \
+        if traced else None
+    grads, after = [], []
+    try:
+        for _ in range(MARKED_STEPS):
+            if tr is not None:
+                tr.tick()
+            opt.zero_grad(set_to_none=True)
+            y, aux = moe.moe_layer(params, (x * params["scale"]).to(cfg.dtype),
+                                   cfg)
+            (((y.float() - target) ** 2).mean() + 0.01 * aux).backward()
+            grads.append({k: p.grad.clone() for k, p in params.items()})
+            opt.step()
+            after.append({k: p.detach().clone() for k, p in params.items()})
+        ranges = None
+        if tr is not None:
+            tr.tick()
+            assert tr.captures == 1
+            ranges = collections.Counter(
+                ev["name"] for path in xla_trace._iter_trace_files(tr.last_dir)
+                for ev in xla_trace._complete(
+                    xla_trace._load_trace_events(path), ("user_annotation",)))
+    finally:
+        xla_trace.uninstall()
+    return grads, after, ranges
+
+
+@pytest.mark.parametrize("traced", [False, True], ids=["idle", "traced"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_backward_ranges_change_no_gradient_or_step(dtype, traced,
+                                                    monkeypatch, tmp_path):
+    """The layer's gradients and its parameters after each of 3 AdamW
+    steps equal, bit for bit, those of the same layer without the
+    markers, with a trace window over the steps and without one; the
+    traced window records ``hvd_expert`` in each step's forward and
+    backward."""
+    monkeypatch.setattr(moe, "phase_region", _unmarked_region)
+    want = _marked_run(dtype, traced, str(tmp_path / "plain"))
+    monkeypatch.setattr(moe, "phase_region", xla_trace.phase_region)
+    got = _marked_run(dtype, traced, str(tmp_path / "marked"))
+    for i in range(MARKED_STEPS):
+        for which in (0, 1):
+            for k, v in want[which][i].items():
+                assert torch.equal(got[which][i][k], v), (which, i, k)
+    if traced:
+        assert want[2]["hvd_expert"] == MARKED_STEPS
+        assert got[2]["hvd_expert"] == 2 * MARKED_STEPS
+
+
+def test_no_gradient_opens_no_backward_range(spans):
+    """No marker, so no range, under ``torch.no_grad()``,
+    ``torch.inference_mode()`` or when no input needs a gradient."""
+    cfg = _small()
+    params = {k: v.requires_grad_() for k, v in _small_params(cfg).items()}
+    x = torch.randn(2, 8, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    with torch.no_grad():
+        y, _ = moe.moe_layer(params, x, cfg)
+    assert y.grad_fn is None
+    with torch.inference_mode():
+        moe.moe_layer(params, x, cfg)
+    frozen = {k: v.detach() for k, v in params.items()}
+    y, aux = moe.moe_layer(frozen, x, cfg)
+    assert not y.requires_grad and not aux.requires_grad
+    assert spans == []
+
+
+def test_serve_engine_opens_no_backward_range(spans):
+    """An MoE model's serve engine runs under ``inference_mode``: no
+    marker, no range."""
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.serve.engine import ServeEngine
+    from horovod_tpu_torch.serve.scheduler import ContinuousBatcher, Request
+    cfg = tfm.TransformerConfig(vocab_size=64, d_model=32, n_heads=4,
+                                n_layers=2, d_ff=64, max_seq=32,
+                                dtype=torch.float32, moe_layers=(1,),
+                                moe_num_experts=4, moe_top_k=2)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    for leaf in tfm._leaves(params):
+        leaf.requires_grad_()
+    eng = ServeEngine(params, cfg, device="cpu", num_pages=16, page_size=4)
+    bat = ContinuousBatcher(eng, queue_depth=4, max_batch=2)
+    req = Request([3, 5, 7], 4)
+    bat.submit(req)
+    bat.drain()
+    assert len(req.generated) == 4 and spans == []
+
+
+def test_every_backward_range_closes(spans):
+    """Over an expert group (a one-rank world, chunks 2) a backward
+    enters each region's range once and leaves it: dispatch, then each
+    chunk's FFN and combine. A backward that stops inside a region
+    leaves its range when it ends. The markers hand their tensors on
+    as views, never copies."""
+    import horovod_tpu_torch as hvd
+    cfg = _small()
+    params = {k: v.requires_grad_() for k, v in _small_params(cfg).items()}
+    x = torch.randn(2, 8, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1)).requires_grad_()
+    hvd.init(device="cpu")
+    try:
+        y, aux = moe.moe_layer(params, x, cfg,
+                               ep_group=torch.distributed.group.WORLD,
+                               chunks=2)
+        (y.sum() + aux).backward()
+    finally:
+        hvd.shutdown()
+    assert [s.name for s in spans] == ["hvd_dispatch"] + [
+        "hvd_expert", "hvd_combine"] * 2
+    assert all(s.entered == 1 and s.range is None for s in spans)
+
+    inner = []
+
+    def region(t):
+        inner.append(t * 2.0)
+        return inner[-1] * 3.0
+
+    same = xla_trace.phase_region("hvd_expert", lambda t: t, x)
+    assert same.data_ptr() == x.data_ptr() and same.grad_fn is not None
+    out = xla_trace.phase_region("hvd_expert", region, x)
+    (g,) = torch.autograd.grad(out.sum(), inner)
+    assert torch.equal(g, torch.full_like(x, 3.0))
+    assert spans[-1].entered == 1 and spans[-1].range is None

@@ -148,11 +148,13 @@ def _node_time(i, n_nodes):
     return 300.0 * j + 50.0 + 5.0 * (i - first)
 
 
-def _graph_trace(n_nodes, replays):
+def _graph_trace(n_nodes, replays, name="k{}".format):
     """A re-capture of program ``p3`` (``n_nodes`` launches with no device
     event: nothing ran, two of them on autograd's thread) and
-    ``replays``: [(events, key)] graph launches under ``hvd_graph:key``,
-    whose kernels all correlate to their ``cudaGraphLaunch``."""
+    ``replays``: [(nodes, key)] graph launches under ``hvd_graph:key``,
+    whose kernels all correlate to their ``cudaGraphLaunch``: the first
+    ``nodes`` nodes' kernels, or those of the node indices ``nodes``
+    lists, node i's kernel named ``name(i)``."""
     phases = ["hvd_forward", "hvd_backward", "hvd_optimizer"]
     ev = [{"ph": "X", "cat": "user_annotation", "name": "hvd_recapture:p3",
            "ts": 0.0, "dur": 1000.0, "pid": 1, "tid": 1}]
@@ -187,7 +189,7 @@ def _graph_trace(n_nodes, replays):
                    "dur": 0.5, "pid": 1, "tid": 1,
                    "args": {"correlation": 500 + i}})
     t0 = 2000.0
-    for r, (count, key) in enumerate(replays):
+    for r, (nodes, key) in enumerate(replays):
         corr = 900 + r
         ev.append({"ph": "X", "cat": "user_annotation",
                    "name": f"hvd_graph:{key}", "ts": t0, "dur": 50.0,
@@ -195,9 +197,9 @@ def _graph_trace(n_nodes, replays):
         ev.append({"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch",
                    "ts": t0 + 5, "dur": 10.0, "pid": 1, "tid": 1,
                    "args": {"correlation": corr}})
-        for i in range(count):
+        for i in (range(nodes) if isinstance(nodes, int) else nodes):
             ev.append({"ph": "X", "cat": "gpu_memset" if i == 1 else "kernel",
-                       "name": f"k{i}", "ts": t0 + 100 + 10 * i, "dur": 8.0,
+                       "name": name(i), "ts": t0 + 100 + 10 * i, "dur": 8.0,
                        "pid": 0, "tid": 7, "args": {"correlation": corr}})
         t0 += 1000.0
     return ev
@@ -224,9 +226,10 @@ def test_replayed_graph_joins_through_the_phase_map(tmp_path):
 def test_unmatched_replays_fall_into_other_and_are_counted(tmp_path):
     n = 6
     # one replay of a map's length, one short by a node, one of a
-    # program no window mapped
+    # program no window mapped; every kernel has one name, so the names
+    # do not tell which node the short replay lost
     _write(str(tmp_path), _graph_trace(n, [(n, "p3"), (n - 1, "p3"),
-                                           (n, "p8")]))
+                                           (n, "p8")], name=lambda i: "k"))
     s = parse_trace_dir(str(tmp_path))
     # the short replay: event i is node i or i+1, placed where both share
     # a phase (nodes 0-1 forward, 2-3 backward, 4-5 optimizer), so 2 of
@@ -254,6 +257,46 @@ def test_unmatched_replays_fall_into_other_and_are_counted(tmp_path):
     more = parse_trace_dir(str(tmp_path / "more"),
                            {"p8": ["hvd_decode"] * n})
     assert more["unmatched"] == n + 1 and more["phases"]["decode"] == 0.0
+
+
+@pytest.mark.parametrize("kept, unmatched", [
+    (range(11), 0),             # the last node lost
+    (range(4, 12), 0),          # the first four lost (a window's start)
+    ([0, 1, 2, 5, 6, 7, 10, 11], 0),
+    # nodes 3 and 4 share a name and 4 is lost: node 3's event may be
+    # either, across the forward/backward boundary
+    ("pairs", 1),
+])
+def test_a_lossy_replay_is_placed_by_the_names_of_a_whole_one(tmp_path,
+                                                             kept,
+                                                             unmatched):
+    """A replay that lost records takes each event's node from the kernel
+    names of a replay of the same program that lost none: the nodes a
+    matching of the names allows, placed where they share one phase."""
+    n = 12  # nodes 0-3 forward, 4-7 backward, 8-11 optimizer
+    name = "k{}".format
+    if kept == "pairs":
+        name, kept = (lambda i: f"k{(i + 1) // 2}"), [
+            i for i in range(n) if i != 4]
+    kept = list(kept)
+    _write(str(tmp_path), _graph_trace(n, [(kept, "p3"), (n, "p3")],
+                                       name=name))
+    s = parse_trace_dir(str(tmp_path))
+    lost = n - len(kept)
+    assert s["graphs"]["p3"] == {"nodes": n, "events": 2 * n - lost,
+                                 "unmatched": unmatched, "lost": lost}
+    for ph, nodes in (("forward", range(4)), ("backward", range(4, 8)),
+                      ("optimizer", range(8, 12))):
+        placed = sum(i in nodes for i in kept) - (unmatched
+                                                  and ph == "forward")
+        assert s["phases"][ph] == pytest.approx((4 + placed) * 8e-6), ph
+    assert s["phases"]["other"] == pytest.approx(unmatched * 8e-6 + 1e-6)
+    # with no whole replay in the capture, event i is node i..i+lost
+    _write(str(tmp_path / "alone"), _graph_trace(n, [(kept, "p3")],
+                                                 name=name))
+    alone = parse_trace_dir(str(tmp_path / "alone"))
+    want = sum(i // 4 != (i + lost) // 4 for i in range(len(kept)))
+    assert alone["unmatched"] == want > unmatched
 
 
 def test_parse_trace_dir_missing_empty_malformed(tmp_path):
@@ -544,7 +587,11 @@ def test_zero_step_exchanges_inside_the_optimizer(tmp_path):
 def test_moe_bench_reads_the_alltoall_over_two_ranks():
     """The MoE bench at an expert group of 2 gloo ranks: the traced
     steps' dispatch and combine all-to-alls give ``alltoall_ms_per_step``
-    and the share of them the expert FFN hides."""
+    and the share of them the expert FFN hides. Both directions count:
+    each chunk's combine holds its forward and its reverse all-to-all,
+    the dispatch its forward (the bench's tokens are data and carry no
+    gradient back, as in the reference's bench), and no all-to-all runs
+    outside the two."""
     from torch_ranks import spawn_ranks
     from torch_rank_workers import moe_bench_trace
     # the expert mesh at init: the bench's re-init over a new TCPStore at
@@ -559,3 +606,6 @@ def test_moe_bench_reads_the_alltoall_over_two_ranks():
         assert row["alltoall_ms_per_step"] == pytest.approx(
             phases["dispatch"] + phases["combine"], abs=2e-3)
         assert 0.0 <= row["alltoall_hidden_frac"] <= 1.0
+        chunks = row["moe_chunks"]
+        assert row["alltoalls_per_step"] == {"dispatch": chunks,
+                                             "combine": 2 * chunks}

@@ -920,19 +920,26 @@ def telemetry_skew(delay):
 def moe_bench_trace():
     """bench.transformer's MoE scenario over an expert group of 2 gloo
     ranks, chunks 2, at a small width: its ``moe`` row, whose trace keys
-    read the all-to-all."""
+    read the all-to-all, and the traced steps' all-to-alls a step by
+    phase (:func:`host_op_phases`)."""
+    import collections
     import os
 
     from horovod_tpu_torch.bench import transformer as tfm_bench
     os.environ["HOROVOD_PROFILER_DISABLE"] = "1"
     try:
-        return tfm_bench.run_moe_benchmark(tfm_bench.parse_args(
+        row = tfm_bench.run_moe_benchmark(tfm_bench.parse_args(
             ["--moe", "--expert-parallel", "2", "--moe-chunks", "2",
              "--moe-d-model", "64", "--moe-d-ff", "128", "--moe-batch",
              "8", "--moe-seq", "16", "--iters", "1", "--device", "cpu"]))[
                  "moe"]
     finally:
         hvd.shutdown()
+    ops = host_op_phases(row["xla_trace_dir"], ("c10d::alltoall_base_",))
+    row["alltoalls_per_step"] = {
+        phase: n / tfm_bench.TRACE_STEPS for phase, n in
+        collections.Counter(phase for _, phase in ops).items()}
+    return row
 
 
 def scaling_steps(batch_per_chip, hidden, depth, snapshots):
@@ -947,5 +954,73 @@ def scaling_steps(batch_per_chip, hidden, depth, snapshots):
             h.step()
             done += 1
         out[k] = h.numpy_params()
+    hvd.shutdown()
+    return out
+
+
+class _ScaledMoELoss(_MoELoss):
+    """``_MoELoss`` of ``x * scale``, ``scale`` a learned (d,) vector, so
+    that the tokens the layer dispatches carry a gradient back."""
+
+    def __init__(self, params, cfg, group, chunks):
+        super().__init__(params, cfg, group, chunks)
+        self.scale = torch.nn.Parameter(torch.ones(cfg.d_model))
+
+    def loss(self, x, target):
+        return super().loss(x * self.scale, target)
+
+
+def host_op_phases(trace_dir, names):
+    """``[(host op, phase)]`` of a capture's ops named in ``names``, each
+    given the phase of the ``hvd_`` ranges around it, as the tracer's
+    parser joins them (by time, across threads)."""
+    from horovod_tpu_torch.diag import xla_trace
+    out = []
+    for path in xla_trace._iter_trace_files(trace_dir):
+        events = xla_trace._load_trace_events(path)
+        ops = [ev for ev in xla_trace._complete(events, ("cpu_op",))
+               if ev["name"] in names]
+        paths = xla_trace._scope_paths(
+            [(ev["ts"], i) for i, ev in enumerate(ops)],
+            xla_trace._phase_ranges(events))
+        out += [(ev, xla_trace.phase_of_op_name(paths.get(i)))
+                for i, ev in enumerate(ops)]
+    return out
+
+
+def moe_phase_ops(inp, cfg_kw, chunks, names, out_dir):
+    """One traced compiled SGD step of ``_ScaledMoELoss`` over the
+    expert group at each count of ``chunks``: ``{chunks: {(op, phase):
+    n}}`` for the host ops named in ``names`` (:func:`host_op_phases`)."""
+    import collections
+    import os
+
+    from horovod_tpu_torch.diag import xla_trace
+    hvd.init(device="cpu")
+    r = hvd.rank()
+    ep = hvd.expert_parallel_size()
+    group = hvd.expert_mesh().get_group("ep")
+    cfg = moe.MoEConfig(dtype=torch.float32, **cfg_kw)
+    full = {k: torch.from_numpy(inp[k]) for k in ("w_router", "w1", "w2")}
+    x = torch.from_numpy(inp["x"][r])
+    target = torch.from_numpy(inp["target"][r])
+    out = {}
+    for k in chunks:
+        model = _ScaledMoELoss(moe.expert_slice(full, r % ep, ep), cfg,
+                               group, k)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.05),
+            named_parameters=model.named_parameters(),
+            expert_keys=("w1", "w2"))
+        step = hvd.compiled_train_step(model.loss, opt, name=f"moe.{k}")
+        step(x, target)
+        tr = hvd.trace_steps(1, out_dir=os.path.join(out_dir, f"rank{r}",
+                                                     f"c{k}"))
+        for _ in range(2):
+            step(x, target)
+        xla_trace.uninstall()
+        out[k] = collections.Counter(
+            (ev["name"], phase)
+            for ev, phase in host_op_phases(tr.last_dir, names))
     hvd.shutdown()
     return out
