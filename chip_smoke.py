@@ -314,8 +314,15 @@ Fault tolerance has four phases of its own, after the zero train phase:
   with the stripe, AdamW's state and the parameters bitwise kept; one
   health row a step; every flash launch on the tensor-core route.
   Prints ``guard_overhead_frac`` a stage against the zero train phase's
-  replays. A spec or a staged DCN exchange needs two ranks, which NCCL
-  refuses on one card: their guard is checked on the CPU over gloo;
+  replays. Then stages 1 and 3 are traced by phase, 2 replays a window
+  (``trace_zero_guard``): the stripe gather and the scatter in
+  ``exchange``, the guard's stripe row, its hold and its gate in
+  ``guard``, ``other`` under ZERO_TRACE_OTHER_MS a step, phases plus
+  ``other`` within 1% of the device time, and launches by route equal
+  to an untraced replay's (the traced calls stay out of the path's
+  count); each stage's split is printed on its own line. A spec or a
+  staged DCN exchange needs two ranks, which NCCL refuses on one card:
+  their guard is checked on the CPU over gloo;
 
 - guard (main path guard): the flagship cut to 2 layers (``FT_MODEL``)
   at 4 x 4096, AdamW with its rate
@@ -453,7 +460,11 @@ side to keep the run inside its 1200 s: the launcher, launched ranks,
 elastic ranks' kill run, eager 2-rank and pipeline phases together
 (the pipeline's step times are not speeds), and the tp,
 spark, examples, MoE parity, churn soak and parity phases together.
-Nothing runs beside a timed phase.
+Nothing runs beside a timed phase. The bench and control-plane phases'
+processes (bench.resnet, bench.transformer twice, bench.eager and the
+control-plane curve) start at the tp block and import torch,
+torch._dynamo and the package beside it, then wait; each runs its
+module or code only when its phase releases it (``WarmProcess``).
 
 Every flagship-sized phase starts from one seed-0 host draw of its
 parameter layout (``seed0_params``: the bits of a fresh
@@ -2981,6 +2992,73 @@ def phase_zero_train(hvd, fa, tfm, metrics, card, where, stage0):
 # compiled step under HOROVOD_GUARD=1, 1 + 4 healthy calls, then one
 # whose backward the chaos spec seeds with NaN.
 ZERO_GUARD_INJECT = "nan,name=zero.guard,step=5"
+# Then stages 1 and 3 traced by phase (diag/xla_trace.py): the stripe
+# gather that opens a zero3 step reads ``exchange`` and the guard's
+# stripe row ``guard``, as the JAX package's scopes put them
+# (tests/test_torch_trace_parity.py holds the ops to them on the CPU);
+# what stays outside every range, ``other``, is under
+# ZERO_TRACE_OTHER_MS a step. Two replays a window, as the MoE trace: the
+# profiler drops a window's earliest device records now and then (every
+# zero3 window of a card run lost 27-30 of its first replay's), and the
+# parser places a lossy replay by the kernel names of a whole one.
+# Windows traced at most, until one keeps every device record (as
+# MOE_TRACE_TRIES).
+ZERO_TRACE_STAGES, ZERO_TRACE_STEPS = (1, 3), 2
+ZERO_TRACE_OTHER_MS, ZERO_TRACE_TRIES = 0.01, 3
+
+
+def trace_zero_guard(hvd, fa, where, stage, step, tokens, targets):
+    """ZERO_TRACE_STEPS traced replays of the guarded ZeRO ``step`` at
+    ``stage``, after its healthy and NaN calls; traced again, up to
+    ZERO_TRACE_TRIES windows, while the profiler drops device records,
+    and read from the window that lost the fewest. Gates:
+    :func:`check_trace` (phases plus ``other`` within TRACE_SUM_REL of
+    the device time, the flash kernels in forward and backward alone),
+    ``other`` under ZERO_TRACE_OTHER_MS a step, ``exchange`` and
+    ``guard`` above 0, and the traced replays' launches by route equal
+    to an untraced replay's. Returns {kernel: launches} of every call it
+    made, which the path's count leaves out."""
+    diag_dir = tempfile.mkdtemp(prefix="chip-zero-trace-")
+    start = read_launches(fa)
+
+    def launches_a_call(calls):
+        before = read_launches(fa)
+        for _ in range(calls):
+            step(tokens, targets)
+        torch.cuda.synchronize()
+        after = read_launches(fa)
+        return {k: (after[k] - before[k]) / calls for k in after}
+
+    plain = launches_a_call(1)
+    best = None
+    for window in range(1, ZERO_TRACE_TRIES + 1):
+        tracer = hvd.trace_steps(ZERO_TRACE_STEPS, out_dir=diag_dir)
+        traced = launches_a_call(ZERO_TRACE_STEPS + 1)
+        check(traced == plain, f"zero{stage} guard: traced replays launch "
+                               f"{traced}, untraced {plain}")
+        graphs = (tracer.last_summary or {}).get("graphs", {})
+        lost = sum(g["lost"] for g in graphs.values())
+        if best is None or lost < best[0]:
+            best = (lost, tracer.last_summary, tracer.last_dir)
+        if not lost:
+            break
+        print(f"zero{stage} guard replay window {window}: the profiler "
+              f"dropped {lost} device records", flush=True)
+    step.finish()
+    per = check_trace(f"zero{stage} guard replay", best[1], best[2],
+                      ZERO_TRACE_STEPS, where, "step")
+    outside = {k: round(by["other"] * 1e3 / ZERO_TRACE_STEPS, 4)
+               for k, by in best[1]["kernels"].items() if by.get("other")}
+    print(f"zero{stage} guard replay: other's kernels (ms a step) "
+          f"{outside}", flush=True)
+    check(per["other"] < ZERO_TRACE_OTHER_MS,
+          f"zero{stage} guard: other {per['other']:.4f} ms a step")
+    check(per["exchange"] > 0 and per["guard"] > 0,
+          f"zero{stage} guard: exchange {per['exchange']:.4f} ms, guard "
+          f"{per['guard']:.4f} ms a step")
+    shutil.rmtree(diag_dir, ignore_errors=True)
+    end = read_launches(fa)
+    return {k: end[k] - start[k] for k in end}
 
 
 def _zero_gated(lm, opt, stage):
@@ -3009,7 +3087,9 @@ def phase_zero_guard(hvd, fa, tfm, card, where, plain):
     ``guard_overhead_frac`` a stage: the replay median (CUDA events
     around the call, as the zero train phase times the unguarded
     replays; the guarded call reads the previous step's row first)
-    against the unguarded one. Returns ({kernel: launches}, row)."""
+    against the unguarded one. Then stages 1 and 3 are traced by phase
+    (:func:`trace_zero_guard`; its calls are left out of the launches).
+    Returns ({kernel: launches}, row)."""
     print("zero guard: no guarded spec or staged DCN step on this card: "
           "they need two ranks at least and NCCL refuses two ranks on one "
           "card, so the guard over a sharding spec and over the staged "
@@ -3018,7 +3098,7 @@ def phase_zero_guard(hvd, fa, tfm, card, where, plain):
     cfg = tfm.TransformerConfig(dtype=torch.bfloat16, attention_impl="flash",
                                 loss_chunk=LOSS_CHUNK, **FLAGSHIP)
     tokens, targets = plain["tokens"], plain["targets"]
-    row = {}
+    row, traced = {}, {}
 
     def timed(fn):
         start = torch.cuda.Event(enable_timing=True)
@@ -3079,6 +3159,13 @@ def phase_zero_guard(hvd, fa, tfm, card, where, plain):
             row[f"zero{stage}"] = {"guard_ms": median,
                                    "plain_ms": want["step_ms"],
                                    "guard_overhead_frac": frac}
+            if stage in ZERO_TRACE_STAGES:
+                t1 = time.perf_counter()
+                for k, n in trace_zero_guard(hvd, fa, where, stage, step,
+                                             tokens, targets).items():
+                    traced[k] = traced.get(k, 0) + n
+                print(f"zero{stage} guard trace: "
+                      f"{time.perf_counter() - t1:.1f} s", flush=True)
             print(f"zero{stage} guard 4 x 4096 [{where}]: step {median:.1f} "
                   f"ms (replay, median of {TIMED_STEPS}; "
                   f"{' '.join(f'{t:.1f}' for t in ms)}) against "
@@ -3090,7 +3177,8 @@ def phase_zero_guard(hvd, fa, tfm, card, where, plain):
             del step, opt, lm
             gc.collect()
             torch.cuda.empty_cache()
-        launches = read_launches(fa)
+        launches = {k: n - traced.get(k, 0)
+                    for k, n in read_launches(fa).items()}
     finally:
         hvd.shutdown()
         for k in ("HOROVOD_GUARD", "HOROVOD_GUARD_INJECT"):
@@ -4681,12 +4769,11 @@ def phase_eager_engine_2ranks(where):
     return {"wall_s": wall, "fast_lane": [r["fast_lane_cycles"] for r in res]}
 
 
-def phase_eager_bench(where):
+def phase_eager_bench(where, warm):
     """``python -m horovod_tpu_torch.bench.eager`` once at one rank on
-    this card: its JSON line, checked for the metric and a positive
-    value."""
-    line = _bench_line(["horovod_tpu_torch.bench.eager"],
-                       dict(os.environ), 600)
+    this card (``warm``: its process, started ahead): its JSON line,
+    checked for the metric and a positive value."""
+    line = _bench_line(warm, 600)
     check(line.get("metric") == "eager_allreduce_mbytes_sec"
           and line.get("value", 0) > 0, f"eager bench line {line}")
     print(f"eager bench [{where}]: {json.dumps(line)}", flush=True)
@@ -5200,11 +5287,80 @@ def phase_resnet(hvd, card, where):
 BENCH_LAYERS = 2
 
 
-def _bench_line(args, env, timeout):
-    """Run a bench module; its one JSON line (the last of its output)."""
+# The bench and control-plane phases' processes, started ahead
+# (:func:`warm_bench`): each interpreter imports torch, torch._dynamo
+# (which an optimizer's first call imports) and the package while the tp
+# block, which checks parity and times nothing, runs; then it waits.
+# Released in its turn, it runs its module as ``python -m`` does (runpy)
+# or its code, alone on the card and the host as before. Those imports
+# took ~20 s a process of a card host's time on the bench phases' path.
+_WARM_PRELUDE = ("import sys\n"
+                 "import torch\n"
+                 "import torch._dynamo\n"
+                 "import horovod_tpu_torch\n"
+                 "if sys.stdin.readline().strip() != 'go':\n"
+                 "    sys.exit(3)\n")
+_WARM_MODULE = ("import runpy\n"
+                "sys.argv = sys.argv[1:]\n"
+                "runpy.run_module(sys.argv[0], run_name='__main__', "
+                "alter_sys=True)\n")
+_WARMED = []
+
+
+class WarmProcess:
+    """``python -m args`` (or ``python -c code args``) started now and
+    held after its imports until :meth:`run` (header above)."""
+
+    def __init__(self, args, env, code=None, cwd=None):
+        self.args = list(args)
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _WARM_PRELUDE + (code or _WARM_MODULE),
+             *self.args], env=env, cwd=cwd, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        _WARMED.append(self.proc)
+
+    def run(self, timeout):
+        """Release the process and wait for its end: a CompletedProcess."""
+        try:
+            out, err = self.proc.communicate("go\n", timeout=timeout)
+        finally:
+            stop(self.proc)
+        return subprocess.CompletedProcess(self.proc.args,
+                                           self.proc.returncode, out, err)
+
+
+def stop(proc):
+    """Kill ``proc`` if it still runs, and reap it."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def warm_bench():
+    """The bench and control-plane phases' processes, started ahead, by
+    name (:class:`WarmProcess`)."""
+    env = dict(os.environ)
+    return {
+        "resnet": WarmProcess(["horovod_tpu_torch.bench.resnet"],
+                              {**env, "HOROVOD_BENCH_SMOKE": "1"}),
+        "transformer": WarmProcess(
+            ["horovod_tpu_torch.bench.transformer", "--iters", "2",
+             "--layers", str(BENCH_LAYERS)], env),
+        "moe": WarmProcess(["horovod_tpu_torch.bench.transformer", "--moe",
+                            "--expert-parallel", "1"], env),
+        "eager": WarmProcess(["horovod_tpu_torch.bench.eager"], env),
+        "control_plane": WarmProcess(
+            [os.path.join(tempfile.mkdtemp(), "control_plane.json")], env,
+            code=CONTROL_CURVE, cwd=REPO_DIR),
+    }
+
+
+def _bench_line(warm, timeout):
+    """Run a bench module, its :class:`WarmProcess` started ahead; its
+    one JSON line (the last of its output)."""
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", *args], env=env,
-                         capture_output=True, text=True, timeout=timeout)
+    args = warm.args
+    out = warm.run(timeout)
     check(out.returncode == 0,
           f"{' '.join(args)} exited {out.returncode}: {out.stderr[-3000:]}")
     line = json.loads(out.stdout.strip().splitlines()[-1])
@@ -5246,21 +5402,18 @@ def phase_scaling(where):
     return line
 
 
-def phase_bench(where):
+def phase_bench(where, warm):
     """Both bench modules as a user runs them: bench.resnet in its
     HOROVOD_BENCH_SMOKE shrink (with the flagship's row at 1 iteration
     and 2 of its 8 layers), bench.transformer at --iters 2 --layers 2
     (the flagship's widths; the compiled train and trace phases time its
     whole depth). Each line must name its metric, with a positive value
     and a numeric MFU on this card. Then bench.scaling alone
-    (:func:`phase_scaling`), whose line it returns."""
-    env = {**os.environ, "HOROVOD_BENCH_SMOKE": "1"}
-    res = _bench_line(["horovod_tpu_torch.bench.resnet"], env, 600)
-    env.pop("HOROVOD_BENCH_SMOKE")
-    tfm = _bench_line(["horovod_tpu_torch.bench.transformer", "--iters",
-                       "2", "--layers", str(BENCH_LAYERS)], env, 600)
-    moe = _bench_line(["horovod_tpu_torch.bench.transformer", "--moe",
-                       "--expert-parallel", "1"], env, 300)
+    (:func:`phase_scaling`), whose line it returns. ``warm``: the
+    processes :func:`warm_bench` started."""
+    res = _bench_line(warm["resnet"], 600)
+    tfm = _bench_line(warm["transformer"], 600)
+    moe = _bench_line(warm["moe"], 300)
     for line, metric in ((res, "resnet50_img_sec_per_chip"),
                          (res["transformer"],
                           "transformer_tokens_per_sec_per_chip"),
@@ -5359,6 +5512,13 @@ LAUNCH_RANKS, LAUNCH_STEPS = 2, 8
 # cheapest) and the tree's speedup at world 256 fell to 3.5, under
 # simrank's acceptance of 4.
 CONTROL_ROUNDS = 4
+# The curve's process: its row written to the file its argument names.
+CONTROL_CURVE = ("import json, sys\n"
+                 "from horovod_tpu_torch.controlplane import simrank\n"
+                 "row = simrank.scaling_curve(worlds=(8, 64, 256), "
+                 f"fanout=32, rounds={CONTROL_ROUNDS})\n"
+                 "with open(sys.argv[1], 'w') as f:\n"
+                 "    json.dump(row, f)\n")
 
 
 def _autotune_domain(tuner, fusion, cycle, padding, depth):
@@ -5896,10 +6056,11 @@ def phase_churn_soak(where):
             "preemptions": soak["preemptions"]}
 
 
-def phase_control_plane(where):
+def phase_control_plane(where, warm):
     """The control plane's bench rows, after the timed phases, with the
     host to themselves. ``control_plane``: simrank's curve (bench.resnet's
-    row: worlds 8, 64 and 256, fanout 32) in a process of its own, the
+    row: worlds 8, 64 and 256, fanout 32) in a process of its own
+    (``warm``: started ahead, :func:`warm_bench`), the
     star and the tree cut to CONTROL_ROUNDS rounds a world: rounds a
     second of the root's ``coordinate()`` and end to end for star, tree
     and graduated, the tree's speedup over the star, root reads a round;
@@ -5907,18 +6068,10 @@ def phase_control_plane(where):
     a membership change. ``eager_multihost_cycle_ms``: ``python -m
     horovod_tpu_torch.bench.eager --multihost 2`` on this card, the
     bypass on and off (gloo: a control-plane time, not an NCCL one)."""
-    path = os.path.join(tempfile.mkdtemp(), "control_plane.json")
-    code = ("import json, sys\n"
-            "from horovod_tpu_torch.controlplane import simrank\n"
-            "row = simrank.scaling_curve(worlds=(8, 64, 256), fanout=32, "
-            f"rounds={CONTROL_ROUNDS})\n"
-            "with open(sys.argv[1], 'w') as f:\n"
-            "    json.dump(row, f)\n")
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", code, path], cwd=REPO_DIR,
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True, timeout=LAUNCH_TIMEOUT_S)
-    log = proc.stdout
+    path = warm.args[0]
+    proc = warm.run(LAUNCH_TIMEOUT_S)
+    log = proc.stdout + proc.stderr
     wall = time.perf_counter() - t0
     check(proc.returncode == 0, f"the control-plane curve exited "
                                 f"{proc.returncode}: {log[-3000:]}")
@@ -6167,6 +6320,8 @@ def main():
     try:
         return _main(t_start)
     finally:
+        for proc in _WARMED:
+            stop(proc)
         shutil.rmtree(os.environ.pop(SEED0_ENV), ignore_errors=True)
 
 
@@ -6323,6 +6478,8 @@ def _main(t_start):
     # flash-vs-dense parity phases in turn, beside the tp phase (its ranks in a thread of this
     # process: they only spawn and wait).
     t0 = time.perf_counter()
+    # the later bench phases' interpreters import beside this block
+    warm = warm_bench()
     examples = start_examples(fa, card, gen)
     own = time.perf_counter() - t0
     with ThreadPoolExecutor(1) as pool:
@@ -6404,13 +6561,13 @@ def _main(t_start):
           flush=True)
     t0 = time.perf_counter()
     phase_resnet(hvd, card, where)
-    scaling = phase_bench(where)
-    eager_row["bench"] = phase_eager_bench(where)
+    scaling = phase_bench(where, warm)
+    eager_row["bench"] = phase_eager_bench(where, warm["eager"])
     print(f"resnet and bench phases: {time.perf_counter() - t0:.1f} s",
           flush=True)
     # the control plane's host rows last, alone: nothing runs beside them
     t0 = time.perf_counter()
-    launch_row.update(phase_control_plane(where))
+    launch_row.update(phase_control_plane(where, warm["control_plane"]))
     print(f"control plane phase: {time.perf_counter() - t0:.1f} s",
           flush=True)
 

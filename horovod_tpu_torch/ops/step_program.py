@@ -697,24 +697,28 @@ class CompiledTrainStep:
 
     def _fill_seed(self, device):
         """Set the guarded backward's seed for this call: NaN when a
-        ``nan`` chaos spec naming the step fires, else 1.0."""
+        ``nan`` chaos spec naming the step fires, else 1.0. The fill is
+        the guard's work, and the phase trace reads it so."""
         inject = guard.inject.get()
         nan = inject is not None and inject.on_step_nan(self.name)
         if self._seed is None or self._seed.device != device:
             self._seed = torch.empty((), device=device)
-        self._seed.fill_(float("nan") if nan else 1.0)
+        with record_function("hvd_guard"):
+            self._seed.fill_(float("nan") if nan else 1.0)
 
     def _defer_health(self, loss, rows):
         """Hand this step's health rows to the next call: on a card a
         non-blocking copy into pinned memory behind an event (no host
-        synchronisation here), on the CPU the rows themselves."""
+        synchronisation here; the guard's work in the phase trace), on
+        the CPU the rows themselves."""
         names = tuple(f"{self.name}.seg.{i}" for i in range(rows.shape[0]))
         ready = None
         if rows.is_cuda:
             if self._pinned is None or self._pinned.shape != rows.shape:
                 self._pinned = torch.empty(rows.shape, dtype=rows.dtype,
                                            pin_memory=True)
-            self._pinned.copy_(rows, non_blocking=True)
+            with record_function("hvd_guard"):
+                self._pinned.copy_(rows, non_blocking=True)
             ready = torch.cuda.Event()
             ready.record()
             rows = self._pinned

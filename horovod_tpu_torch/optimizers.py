@@ -1099,7 +1099,11 @@ class _ShardedOptimizer(torch.optim.Optimizer):
                 else:
                     p.grad.copy_(part)
         if guarded:
-            self._guard_rows()
+            # the guard's phase inside the exchange's range (the last
+            # hvd_ label wins), where the JAX package computes these
+            # rows: under hvd_guard
+            with record_function("hvd_guard"):
+                self._guard_rows()
         self._synchronized = True
 
     def _guard_rows(self):
@@ -1109,7 +1113,9 @@ class _ShardedOptimizer(torch.optim.Optimizer):
         resident stripe row, which reads the update the gradient makes).
         Stage 0: a row a parameter over its exchanged gradient, summed
         over the spec's non-data axes where it has any (the JAX
-        package's whole-transform rows)."""
+        package's whole-transform rows). Both are the JAX package's
+        ``hvd_guard`` work (horovod_tpu/ops/step_program.py:493-510,
+        :519-545), not its exchange's."""
         if self._striped:
             self.guard_health = reduced_health([self.stripe.grad],
                                                (world_axis(),))
@@ -1211,8 +1217,11 @@ class _ShardedOptimizer(torch.optim.Optimizer):
     def materialize(self):
         """Point the parameters at a gather of the stripe (full width):
         the start of a resident step. Under capture the row lives in the
-        graph's pool, among the step's temporaries."""
-        with torch.no_grad():
+        graph's pool, among the step's temporaries. The gather alone is
+        the step's exchange: the JAX package's casts and unflatten stay
+        outside its ``hvd_exchange`` scope
+        (horovod_tpu/ops/step_program.py:377-384), and so do these."""
+        with torch.no_grad(), record_function("hvd_exchange"):
             flat = self._core.gather(self.stripe.detach(), self._padded,
                                      self._n, lossless=True)
         for p, part in zip(self._params, unflatten(flat, self._params)):

@@ -1,5 +1,6 @@
-"""Phase attribution of an MoE training step: the port's trace against
-the JAX package's compiled step, on the CPU.
+"""Phase attribution of the compiled training step: the port's trace
+against the JAX package's compiled step, on the CPU, for an MoE step and
+for every ZeRO, guard and exchange layout.
 
 The JAX package maps each instruction of a step's optimized HLO to a
 phase by its ``op_name`` (``build_op_phase_map``; the last ``hvd_``
@@ -31,6 +32,51 @@ expert FFN's 4 backward products and every reverse all-to-all in
 6 and ``backward`` 28 to 24; over the group ``dispatch`` and
 ``combine`` held 1 all-to-all to 2 at chunks 1 and 2 to 4 at chunks 2,
 and ``expert`` 2 products to 6 (chunks 1) and 4 to 12 (chunks 2).
+
+Every layout of the compiled step, over 2 ranks: a 1-layer dense
+transformer (d_model 32, f32) drawn from one numpy seed, one AdamW step
+on the same 4 x 16 tokens (2 rows a rank), in each of psum at 1 and 2
+buckets, ZeRO stages 1, 2 and 3, the staged DCN exchange (bf16, one
+rank a host) and a stage-0 spec over (data 1, model 2) naming the FFN's
+weights, each with the guard off and on. Each phase holds as many ops
+of each kind on both sides: products (``dot`` against ``aten::mm`` /
+``aten::bmm``), all-gathers, reduce-scatters and all-reduces (against
+``c10d::_allgather_base_``, ``c10d::_reduce_scatter_base_``,
+``c10d::allreduce_``) and the guard rows' finiteness tests
+(``is-finite`` against ``aten::isfinite``; each row has one, and the
+gate one over the rows).
+
+The reference is read from its step's HLO as lowered, before XLA's
+passes, where each traced op is one instruction under its op_name. The
+optimized HLO, which the JAX trace reads, combines all-reduces: the
+loss's ``pmean`` with the gradient row (one all-reduce at psum 1 and 2),
+and at stage 3 under the guard the loss's with both of the row's psums,
+the combined instruction landing in ``guard``; it also copies an
+elementwise op into each fusion that reads it (17 ``is-finite`` for 10
+rows). So counts are compared on the lowered HLO, and of the optimized
+one each all-reduce must land in a phase where the lowered HLO has one
+(or in ``exchange``, the loss's), its products as the lowered ones. An
+all-reduce over groups of one device (a psum over the spec's data axis
+of 1) moves nothing and is left out: the port issues no collective over
+a group of one rank. The differences ``ROADMAP.md`` pins, held here:
+
+- the port's step returns its rank's loss; the reference's ``pmean``
+  of it (a scalar all-reduce in ``exchange``) is left out;
+- ZeRO 1-2 and the staged DCN exchange run their exchange inside the
+  reference's optimizer transform, under ``hvd_optimizer`` with no
+  ``hvd_exchange`` label, though ``phase_of_op_name`` promises that such
+  collectives count as ``exchange``; the port counts them there;
+- at stages 1-3 the guard's row is one row over the averaged gradient
+  stripe (10 over the updates, one a leaf, in the reference at stages
+  1-2), its count and sum of squares summed over every rank in one
+  all-reduce (the reference's update rows need none at stages 1-2 and
+  psum each sum at stage 3); it lands in ``guard``, as all of the
+  reference's rows there do.
+
+On the parent the stage-3 gather landed outside every range (``None``)
+and the guard's stripe rows, and the staged exchange's rows, in
+``exchange``: ``zero3`` failed plain and guarded, ``zero1``, ``zero2``
+and ``dcn`` guarded.
 """
 
 import collections
@@ -79,9 +125,11 @@ _INSTR_RE = re.compile(r"^\s*(?:ROOT\s+)?%?([\w.\-]+)\s*=.*?\s([a-z][\w\-]*)\(")
 class _HloCatcher:
     """Stands in for the JAX package's tracer: the compiled step hands
     it the optimized HLO of its program (``CompiledTrainStep._analyze``)
-    and no device trace starts."""
+    and no device trace starts. ``lowered`` keeps the program's HLO as
+    lowered, where a test wraps ``_analyze`` to take it."""
 
     text = None
+    lowered = None
 
     def wants_hlo(self):
         return True
@@ -91,16 +139,22 @@ class _HloCatcher:
             self.text = hlo() if callable(hlo) else hlo
 
 
-def _jax_step_hlo(monkeypatch, loss_fn, tx, params, batch, mesh, name):
+def _jax_step_hlo(monkeypatch, loss_fn, tx, params, batch, mesh, name,
+                  catcher=None):
     """The optimized HLO of one step of the JAX package's
-    ``compiled_train_step`` over ``mesh``, run once."""
-    catcher = _HloCatcher()
+    ``compiled_train_step`` over ``mesh``, run once (on the stripe, for
+    the stripe-resident layout). The batch shards over every axis but
+    ``model``, as the step's program takes it."""
+    catcher = _HloCatcher() if catcher is None else catcher
     monkeypatch.setattr(jax_trace, "get", lambda: catcher)
     step = jhvd.compiled_train_step(loss_fn, tx, name=name)
     rep = NamedSharding(mesh, P())
     params = jax.device_put(params, rep)
     state = jax.device_put(step.init(params), rep)
-    data = NamedSharding(mesh, P(tuple(mesh.axis_names)))
+    if step._resident:
+        params = step.shard_params(params)
+    data = NamedSharding(mesh, P(tuple(a for a in mesh.axis_names
+                                       if a != "model")))
     _, _, loss = step(params, state,
                       *(jax.device_put(b, data) for b in batch))
     assert catcher.text
@@ -291,3 +345,172 @@ def test_moe_alltoalls_land_in_dispatch_and_combine(
                 dots[ph] += n
         assert a2a == want_a2a, (rank, a2a, want_a2a)
         assert dict(dots) == want_dots, (rank, dict(dots), want_dots)
+
+
+# ------------------------------------------ the compiled step's layouts
+#
+# A dense transformer over 2 ranks: the JAX package's compiled step over 2
+# of the conftest's virtual devices (at one device XLA keeps no
+# collective), the port's over 2 gloo ranks, the same weights, tokens and
+# AdamW. Each layout runs with the guard off and on.
+
+DENSE = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=1, d_ff=64,
+             max_seq=32)
+DP, DP_ROWS = 2, 4
+# {layout: (the JAX optimizer's kwargs, the port's, the JAX side's env)};
+# the port's ranks run every layout under HOROVOD_MODEL_PARALLEL=2, which
+# only the spec's optimizer reads.
+LAYOUTS = {
+    "psum1": ({}, {"exchange_buckets": 1}, {"HOROVOD_EXCHANGE_BUCKETS": "1"}),
+    "psum2": ({}, {"exchange_buckets": 2}, {"HOROVOD_EXCHANGE_BUCKETS": "2"}),
+    "zero1": ({"zero_stage": 1}, {"zero_stage": 1}, {}),
+    "zero2": ({"zero_stage": 2}, {"zero_stage": 2}, {}),
+    "zero3": ({"zero_stage": 3}, {"zero_stage": 3}, {}),
+    "dcn": ({"dcn_compression": "bf16", "dcn_local_size": 1},
+            {"dcn_compression": "bf16", "dcn_local_size": 1}, {}),
+    "spec": ({"model_keys": ("['layers'][0]['w1']", "['layers'][0]['w2']")},
+             {"model_keys": ("layers.0.w1", "layers.0.w2")},
+             {"HOROVOD_MODEL_PARALLEL": "2"}),
+}
+# The layouts whose exchange the JAX package runs inside its optimizer
+# transform, and those whose guard row is the port's one stripe row.
+WHOLE_TRANSFORM = ("zero1", "zero2", "dcn")
+STRIPED = ("zero1", "zero2", "zero3")
+# what each side's op is a kind of
+JAX_KINDS = {"dot": "product", "all-gather": "all-gather",
+             "reduce-scatter": "reduce-scatter", "all-reduce": "all-reduce",
+             "is-finite": "finite"}
+PORT_KINDS = {"aten::mm": "product", "aten::bmm": "product",
+              "c10d::_allgather_base_": "all-gather",
+              "c10d::_reduce_scatter_base_": "reduce-scatter",
+              "c10d::allreduce_": "all-reduce", "aten::isfinite": "finite"}
+
+_LINE_RE = re.compile(r"^\s*(?:ROOT\s+)?%?([\w.\-]+)\s*=\s*(\S+)\s+"
+                      r"([a-z][\w\-]*)\(")
+_GROUPS_RE = re.compile(r"replica_groups=(\{[{}\d,]*\}|\[\d+,\d+\]<=)")
+
+
+def _one_device_groups(line):
+    """True for a collective whose groups each hold one device."""
+    m = _GROUPS_RE.search(line)
+    if m is None:
+        return False
+    groups = m.group(1)
+    if groups.startswith("["):
+        return groups.split(",")[1].startswith("1]")
+    return all("," not in g for g in re.findall(r"\{([\d,]*)\}", groups))
+
+
+def _jax_kinds(hlo):
+    """``{(kind, phase): n}`` of an HLO text's instructions of the
+    compared kinds, its phase by ``phase_of_op_name``. An all-reduce over
+    groups of one device moves nothing and is left out, and so is the
+    scalar all-reduce of ``exchange``, the loss's ``lax.pmean``."""
+    phases = jax_trace.build_op_phase_map(hlo)
+    out = collections.Counter()
+    for line in hlo.splitlines():
+        m = _LINE_RE.match(line)
+        if m is None or m.group(3) not in JAX_KINDS:
+            continue
+        kind = JAX_KINDS[m.group(3)]
+        phase = jax_trace.phase_of_op_name(phases.get(m.group(1)))
+        if kind == "all-reduce" and (
+                _one_device_groups(line)
+                or (phase == "exchange" and m.group(2).endswith("[]"))):
+            continue
+        out[kind, phase] += 1
+    return out
+
+
+def _jax_layout(monkeypatch, layout, guarded):
+    """``(lowered, optimized)`` HLO texts of the JAX package's compiled
+    AdamW step of the dense transformer in ``layout`` over 2 devices."""
+    from horovod_tpu.ops import step_program as jax_step
+    jkw, _, env = LAYOUTS[layout]
+    for k, v in dict(env, HOROVOD_GUARD="1" if guarded else "0").items():
+        monkeypatch.setenv(k, v)
+    catcher = _HloCatcher()
+    analyze = jax_step.CompiledTrainStep._analyze
+
+    def lowering(self, info, prog, params, opt_state, batch, tracer):
+        catcher.lowered = prog.lower(params, opt_state, *batch).as_text(
+            dialect="hlo", debug_info=True)
+        return analyze(self, info, prog, params, opt_state, batch, tracer)
+
+    monkeypatch.setattr(jax_step.CompiledTrainStep, "_analyze", lowering)
+    jcfg = jtfm.TransformerConfig(dtype=jnp.float32, **DENSE)
+    tokens, targets = _dense_batch()
+    jhvd.shutdown()
+    jhvd.init(num_ranks=DP)
+    try:
+        mesh = jhvd.model_mesh() if layout == "spec" else jhvd.mesh()
+        _jax_step_hlo(
+            monkeypatch, lambda p, t, y: jtfm.loss_fn(p, t, y, jcfg),
+            jhvd.DistributedOptimizer(optax.adamw(1e-3), **jkw),
+            jax.tree.map(jnp.asarray, _jax_draw(jcfg, seed=0)),
+            (tokens, targets), mesh, f"parity.{layout}.{int(guarded)}",
+            catcher)
+    finally:
+        jhvd.shutdown()
+    assert catcher.lowered
+    return catcher.lowered, catcher.text
+
+
+def _dense_batch():
+    tokens = np.random.default_rng(1).integers(0, DENSE["vocab_size"],
+                                               (DP_ROWS, 16))
+    return tokens, np.roll(tokens, -1, axis=1)
+
+
+@pytest.fixture(scope="module")
+def port_layout_ops(tmp_path_factory):
+    """Each gloo rank's ``{layout.guarded: {(op, phase): n}}`` of its
+    traced step (``torch_rank_workers.step_phase_ops``)."""
+    from torch_rank_workers import step_phase_ops
+    from torch_ranks import spawn_ranks
+    jcfg = jtfm.TransformerConfig(dtype=jnp.float32, **DENSE)
+    tokens, targets = _dense_batch()
+    layouts = [(f"{name}.{int(g)}", kw, g)
+               for name, (_, kw, _) in LAYOUTS.items() for g in (0, 1)]
+    return spawn_ranks(
+        DP, step_phase_ops, _jax_draw(jcfg, seed=0), DENSE, tokens,
+        targets, layouts, tuple(PORT_KINDS),
+        str(tmp_path_factory.mktemp("layout-trace")), timeout=180,
+        env={"HOROVOD_MODEL_PARALLEL": "2"})
+
+
+@pytest.mark.parametrize("guarded", [False, True], ids=["plain", "guard"])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_step_layouts_land_in_the_reference_phases(
+        layout, guarded, port_layout_ops, monkeypatch):
+    """Every layout of the compiled step, guard off and on: each phase
+    holds the reference's count of each kind of op, on every rank."""
+    lowered, optimized = _jax_layout(monkeypatch, layout, guarded)
+    ref = _jax_kinds(lowered)
+    opt_kinds = _jax_kinds(optimized)
+    # What the optimized HLO, which the JAX trace reads, combines: its
+    # products are the lowered ones, and each all-reduce it keeps lands
+    # in a phase where the lowered HLO has one.
+    assert {k: n for k, n in opt_kinds.items() if k[0] == "product"} == \
+        {k: n for k, n in ref.items() if k[0] == "product"}
+    assert {ph for k, ph in opt_kinds if k == "all-reduce"} <= \
+        {ph for k, ph in ref if k == "all-reduce"} | {"exchange"}
+    want = collections.Counter(ref)
+    if layout in WHOLE_TRANSFORM:
+        # pinned: the reference's transform exchanges under hvd_optimizer
+        for kind in ("all-gather", "reduce-scatter"):
+            want[kind, "exchange"] += want.pop((kind, "optimizer"))
+    if guarded and layout in STRIPED:
+        # pinned: the reference's rows are its guard's work; the port's
+        # is one row over the gradient stripe (the gate's is-finite
+        # beside it), its two sums in one all-reduce over every rank
+        assert {ph for k, ph in ref if k == "finite"} == {"guard"}
+        assert {ph for k, ph in ref if k == "all-reduce"} <= {"guard"}
+        want["finite", "guard"] = 2
+        want["all-reduce", "guard"] = 1
+    want = {k: n for k, n in want.items() if n}
+    for rank, row in enumerate(port_layout_ops):
+        got = collections.Counter()
+        for (op, phase), n in row[f"{layout}.{int(guarded)}"].items():
+            got[PORT_KINDS[op], phase] += n
+        assert dict(got) == want, (rank, dict(got), want)

@@ -554,10 +554,17 @@ def test_cli_xla_trace_without_flight_dumps(tmp_path, capsys):
     assert "xla device trace" in capsys.readouterr().out
 
 
-def test_zero_step_exchanges_inside_the_optimizer(tmp_path):
-    """A ZeRO step exchanges inside ``optimizer.step()``: its scatter and
-    gather land in ``exchange`` (the last hvd_ label wins), the stripe's
-    update in ``optimizer``."""
+@pytest.mark.parametrize("guarded", [False, True], ids=["plain", "guard"])
+@pytest.mark.parametrize("stage", [1, 2, 3])
+def test_zero_step_exchanges_inside_the_optimizer(stage, guarded, tmp_path,
+                                                  monkeypatch):
+    """A ZeRO step at one rank: the scatter and the stripe's gather land
+    in ``exchange`` (inside ``optimizer.step()`` at stages 1-2, at the
+    top of the resident step at 3), the stripe's update in ``optimizer``,
+    the guard's stripe row and its gate in ``guard``, and no collective
+    outside every ``hvd_`` range."""
+    from torch_rank_workers import host_op_phases
+    monkeypatch.setenv("HOROVOD_GUARD", "1" if guarded else "0")
     hvd.init(device="cpu")
     try:
         cfg = tfm.TransformerConfig(dtype=torch.float32, vocab_size=64,
@@ -567,7 +574,7 @@ def test_zero_step_exchanges_inside_the_optimizer(tmp_path):
                                device="cpu")
         opt = hvd.DistributedOptimizer(
             torch.optim.AdamW(lm.parameters(), lr=1e-3),
-            named_parameters=lm.named_parameters(), zero_stage=1)
+            named_parameters=lm.named_parameters(), zero_stage=stage)
         step = hvd.compiled_train_step(lm.loss, opt)
         tokens = torch.from_numpy(np.random.default_rng(1).integers(
             0, 64, (2, 32)))
@@ -575,13 +582,25 @@ def test_zero_step_exchanges_inside_the_optimizer(tmp_path):
         tr = hvd.trace_steps(1, out_dir=str(tmp_path))
         for _ in range(2):
             step(tokens, torch.roll(tokens, -1, 1))
+        step.finish()
         s = tr.last_summary
         assert s["phases"]["exchange"] > 0 and s["phases"]["optimizer"] > 0
+        assert (s["phases"]["guard"] > 0) == guarded
         # one rank stages nothing: no tier ranges
         assert s["stages"] == {"ici": 0.0, "dcn": 0.0}
     finally:
         xla_trace.uninstall()
         hvd.shutdown()
+    ops = {}
+    for ev, phase in host_op_phases(tr.last_dir, (
+            "c10d::_allgather_base_", "c10d::_reduce_scatter_base_",
+            "c10d::allreduce_", "aten::isfinite")):
+        ops.setdefault(ev["name"], set()).add(phase)
+    assert ops["c10d::_allgather_base_"] == {"exchange"}, ops
+    assert ops["c10d::_reduce_scatter_base_"] == {"exchange"}, ops
+    # a group of one rank sums no row
+    assert "c10d::allreduce_" not in ops, ops
+    assert ops.get("aten::isfinite") == ({"guard"} if guarded else None), ops
 
 
 def test_moe_bench_reads_the_alltoall_over_two_ranks():

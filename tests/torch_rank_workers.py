@@ -1024,3 +1024,50 @@ def moe_phase_ops(inp, cfg_kw, chunks, names, out_dir):
             for ev, phase in host_op_phases(tr.last_dir, names))
     hvd.shutdown()
     return out
+
+
+def step_phase_ops(tree, cfg_kw, tokens, targets, layouts, names, out_dir):
+    """One traced compiled AdamW step of a dense transformer drawn from
+    ``tree`` (numpy leaves, ``params_from_jax``) for each ``(layout,
+    kw, guarded)`` of ``layouts``: ``kw`` goes to the port's
+    ``DistributedOptimizer``, ``guarded`` installs the guard. Each rank
+    trains on its block of the batch rows. Returns ``{layout: {(op,
+    phase): n}}`` for the host ops named in ``names``
+    (:func:`host_op_phases`)."""
+    import collections
+    import os
+
+    from horovod_tpu_torch import guard
+    from horovod_tpu_torch.config import Config
+    from horovod_tpu_torch.diag import xla_trace
+    from horovod_tpu_torch.models import transformer as tfm
+    hvd.init(device="cpu")
+    r, n = hvd.rank(), hvd.size()
+    cfg = tfm.TransformerConfig(dtype=torch.float32, **cfg_kw)
+    rows = len(tokens) // n
+    t = torch.from_numpy(tokens[r * rows:(r + 1) * rows])
+    y = torch.from_numpy(targets[r * rows:(r + 1) * rows])
+    out = {}
+    for layout, kw, guarded in layouts:
+        gcfg = Config.from_env()
+        gcfg.guard = guarded
+        guard.install(gcfg, process_index=r)
+        lm = tfm.TransformerLM(cfg, tfm.params_from_jax(tree, cfg, "cpu"),
+                               device="cpu")
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(lm.parameters(), lr=1e-3),
+            named_parameters=lm.named_parameters(), **kw)
+        step = hvd.compiled_train_step(lm.loss, opt, name=f"phase.{layout}")
+        step(t, y)
+        tr = hvd.trace_steps(1, out_dir=os.path.join(out_dir, f"rank{r}",
+                                                     layout))
+        for _ in range(2):
+            step(t, y)
+        step.finish()
+        xla_trace.uninstall()
+        out[layout] = collections.Counter(
+            (ev["name"], phase)
+            for ev, phase in host_op_phases(tr.last_dir, names))
+    guard.uninstall()
+    hvd.shutdown()
+    return out
